@@ -1,0 +1,630 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py            # one card, about a minute
+    python3 chip_smoke.py --profile  # also a torch.profiler window of serving
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+  build    nvcc builds both CUDA kernels from ollamamq_tpu_torch/csrc.
+  kernels  each kernel against its plain PyTorch version on the card, in
+           bf16 (atol = rtol = 2e-2) and float32 (1e-4), at the
+           llama3.2:1b and llama3:8b attention shapes and the CPU tests'
+           edge cases; every pool slot a kernel must not read holds NaN.
+           Times kernel_ms / plain_ms / sdpa_dense_ms (CUDA events) and
+           bound_ms (bytes the call must move over 3.35 TB/s, or its
+           FLOPs over the dtype's peak, whichever is larger).
+  serve    the port's HTTP server in-process with llama3.2:1b at full
+           width (16 layers, bf16, seeded random weights): requests from
+           3 users over /api/generate, /api/chat, /v1/chat/completions,
+           one sampled; greedy determinism; both kernels' launch counters
+           must rise; one prompt's prefill and decode logits through the
+           kernels against the plain attention path on the same card.
+
+Then the card as nvidia-smi names it, the kernels line, and the last
+line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
+of the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gzip
+import http.client
+import json
+import os
+import shutil
+import subprocess
+import sys
+import threading
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device milliseconds of fn() over `iters` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# -- kernel cases ------------------------------------------------------------
+def _pool(seed, contexts, Hk, hd, ps, MP, dtype):
+    """A paged pool holding `contexts[b]` written positions for sequence b
+    (capped at MP * ps), pages shuffled across the pool; every other slot,
+    the trash page included, holds NaN. Returns (k, v, page_table) on the
+    card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    cap = MP * ps
+    need = [-(-min(c, cap) // ps) for c in contexts]
+    n_pages = sum(need) + 2
+    perm = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
+    k = torch.full((n_pages * ps, Hk, hd), float("nan"))
+    v = torch.full_like(k, float("nan"))
+    pt = torch.zeros((len(contexts), MP), dtype=torch.int32)
+    for b, (c, n) in enumerate(zip(contexts, need)):
+        pages = [perm.pop() for _ in range(n)]
+        pt[b, :n] = torch.tensor(pages, dtype=torch.int32)
+        pos = torch.arange(min(c, cap))
+        slots = pt[b].long()[pos // ps] * ps + pos % ps
+        k[slots] = torch.randn((len(pos), Hk, hd), generator=g)
+        v[slots] = torch.randn((len(pos), Hk, hd), generator=g)
+    return k.to("cuda", dtype), v.to("cuda", dtype), pt.cuda()
+
+
+def decode_case(name, seed, B, H, Hk, hd, ps, MP, seq_lens, dtype):
+    import torch
+
+    k, v, pt = _pool(seed, seq_lens, Hk, hd, ps, MP, dtype)
+    g = torch.Generator().manual_seed(seed + 1)
+    q = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
+    sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
+    return dict(name=name, q=q, k=k, v=v, pt=pt, seq_lens=sl, ps=ps)
+
+
+def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype):
+    """spans: [(q_len, kv_len)] contiguous in stream order; sequences past
+    the spans are padding rows, stream rows past them are covered by no
+    span."""
+    import torch
+
+    contexts = [kv for _, kv in spans] + [0] * (B - len(spans))
+    k, v, pt = _pool(seed, contexts, Hk, hd, ps, MP, dtype)
+    g = torch.Generator().manual_seed(seed + 1)
+    q = torch.randn((T, H, hd), generator=g).to("cuda", dtype)
+    q_start = torch.full((B,), T, dtype=torch.int32)
+    q_len = torch.zeros(B, dtype=torch.int32)
+    kv_len = torch.zeros(B, dtype=torch.int32)
+    off = 0
+    for i, (ql, kv) in enumerate(spans):
+        q_start[i], q_len[i], kv_len[i] = off, ql, kv
+        off += ql
+    assert off <= T, name
+    return dict(name=name, q=q, k=k, v=v, pt=pt, q_start=q_start.cuda(),
+                q_len=q_len.cuda(), kv_len=kv_len.cuda(), ps=ps, T_real=off)
+
+
+def _decode_calls(c):
+    from ollamamq_tpu_torch.ops.attention import paged_decode_attention
+    from ollamamq_tpu_torch.ops.cuda.paged_attention import paged_decode_attention_cuda
+
+    args = (c["q"], c["k"], c["v"], c["pt"], c["seq_lens"], c["ps"])
+    return (lambda: paged_decode_attention_cuda(*args),
+            lambda: paged_decode_attention(*args))
+
+
+def _ragged_calls(c):
+    from ollamamq_tpu_torch.ops.attention import ragged_paged_attention, ragged_tokens
+    from ollamamq_tpu_torch.ops.cuda.ragged_attention import ragged_paged_attention_cuda
+
+    tok_seq, tok_pos = ragged_tokens(c["q_start"], c["q_len"], c["kv_len"],
+                                     c["q"].shape[0])
+    c["tok_pos"] = tok_pos
+    return (lambda: ragged_paged_attention_cuda(
+                c["q"], c["k"], c["v"], c["pt"], c["q_start"], c["q_len"],
+                c["kv_len"], c["ps"]),
+            lambda: ragged_paged_attention(
+                c["q"], c["k"], c["v"], c["pt"], tok_seq, tok_pos,
+                c["kv_len"], c["ps"]))
+
+
+def _visible(c, kind):
+    """Per query row, how many context positions it attends (capped)."""
+    import torch
+
+    cap = c["pt"].shape[1] * c["ps"]
+    if kind == "decode":
+        return c["seq_lens"].clamp(0, cap)
+    n = torch.where(c["tok_pos"] >= 0, c["tok_pos"] + 1, torch.zeros_like(c["tok_pos"]))
+    return n.clamp(0, cap)
+
+
+def bound(c, kind, dtype_name):
+    """(bound_ms, bound_by): the larger of the bytes the call must move
+    (q, out and metadata once; each sequence's visible K/V rows once) over
+    HBM bandwidth and its attention FLOPs (QK and PV, 4 per head-dim
+    element per visible position) over the dtype's peak."""
+    q, k = c["q"], c["k"]
+    isz = q.element_size()
+    N, H, hd = q.shape
+    Hk = k.shape[1]
+    cap = c["pt"].shape[1] * c["ps"]
+    if kind == "decode":
+        kv_rows = int(c["seq_lens"].clamp(0, cap).sum())
+        meta = c["pt"].numel() * 4 + c["seq_lens"].numel() * 4
+    else:
+        kv_rows = int(c["kv_len"].clamp(0, cap).sum())
+        meta = c["pt"].numel() * 4 + 3 * c["kv_len"].numel() * 4
+    nbytes = 2 * q.numel() * isz + 2 * kv_rows * Hk * hd * isz + meta
+    flops = 4.0 * float(_visible(c, kind).sum()) * H * hd
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_dense(c, kind):
+    """F.scaled_dot_product_attention over K/V pre-gathered into dense
+    per-sequence tensors (GQA heads expanded): a yardstick only, the
+    gather is not timed and the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v, pt, ps = c["q"], c["k"], c["v"], c["pt"], c["ps"]
+    H, hd = q.shape[1], q.shape[2]
+    G = H // k.shape[1]
+    cap = pt.shape[1] * ps
+    pos = torch.arange(cap, device="cuda")
+    slots = pt.long()[:, pos // ps] * ps + pos % ps  # [B, cap]
+    kd = torch.nan_to_num(k[slots]).transpose(1, 2).repeat_interleave(G, dim=1)
+    vd = torch.nan_to_num(v[slots]).transpose(1, 2).repeat_interleave(G, dim=1)
+    if kind == "decode":
+        qd = q[:, :, None, :]
+        mask = (pos[None, :] < c["seq_lens"][:, None])[:, None, None, :]
+    else:
+        live = (c["q_len"] > 0).nonzero().flatten()
+        maxq = int(c["q_len"].max())
+        qs, ql, kl = c["q_start"][live], c["q_len"][live], c["kv_len"][live]
+        rows = (qs[:, None] + torch.arange(maxq, device="cuda")[None, :]).clamp_max(q.shape[0] - 1)
+        qd = q[rows.long()].transpose(1, 2)  # [n, H, maxq, hd]
+        kd, vd = kd[live], vd[live]
+        qpos = (kl - ql)[:, None] + torch.arange(maxq, device="cuda")[None, :]
+        mask = (pos[None, None, :] <= qpos[:, :, None]) & (pos[None, None, :] < kl[:, None, None])
+        mask = mask | (pos[None, None, :] == 0)  # keep padded query rows finite
+        mask = mask[:, None]
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
+
+
+def kernel_phase(report) -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    import random
+
+    rnd = random.Random(0)
+    ctx64 = [rnd.randint(1, 512) for _ in range(64)]
+    decode_spans = [(1, rnd.randint(1, 512)) for _ in range(48)]
+    mixed = decode_spans + [(128, 128), (96, 352), (32, 32)]  # 304 rows
+
+    def cases(dtype):
+        main = [
+            ("llama3.2:1b", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, dtype),
+             ragged_case("llama3.2:1b", 2, mixed, 64, 320, 32, 8, 64, 32, 16, dtype)),
+            ("llama3:8b-attn", decode_case("llama3:8b-attn", 3, 64, 32, 8, 128, 32, 16, ctx64, dtype),
+             ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, dtype)),
+        ]
+        edge = [
+            ("decode", decode_case("gqa-a", 5, 3, 8, 4, 32, 8, 6, [20, 9, 37], dtype)),
+            ("decode", decode_case("gqa-b", 6, 3, 8, 4, 32, 8, 6, [1, 48, 16], dtype)),
+            ("decode", decode_case("mqa", 7, 2, 4, 1, 16, 8, 4, [8, 25], dtype)),
+            ("decode", decode_case("group1", 8, 2, 4, 4, 64, 8, 4, [5, 30], dtype)),
+            ("decode", decode_case("past-cap+empty", 9, 3, 8, 2, 32, 8, 4, [40, 0, 33], dtype)),
+            ("ragged", ragged_case("mixed", 10, [(11, 11), (1, 20), (5, 29), (1, 1)], 10, 40, 4, 2, 16, 8, 8, dtype)),
+            ("ragged", ragged_case("decode-tile", 11, [(1, 5 + 3 * i) for i in range(9)], 10, 40, 4, 2, 16, 8, 8, dtype)),
+            ("ragged", ragged_case("long-prefill", 12, [(21, 21), (1, 9), (1, 17), (3, 30)], 10, 40, 4, 2, 16, 8, 8, dtype)),
+            ("ragged", ragged_case("mqa", 13, [(6, 6), (1, 12)], 3, 8, 4, 1, 16, 8, 8, dtype)),
+            ("ragged", ragged_case("group1", 14, [(6, 6), (1, 12)], 3, 8, 4, 4, 16, 8, 8, dtype)),
+            ("ragged", ragged_case("past-cap", 15, [(3, 40), (1, 33)], 4, 6, 8, 2, 32, 8, 4, dtype)),
+        ]
+        return main, edge
+
+    summary = {"paged_decode_attention": {}, "ragged_paged_attention": {}}
+    for dtype in (bf16, f32):
+        dname = str(dtype).replace("torch.", "")
+        tol = TOL[dname]
+        main, edge = cases(dtype)
+        flat = [(n, "decode", d) for n, d, _ in main] + [(n, "ragged", r) for n, _, r in main] \
+            + [(c["name"], kind, c) for kind, c in edge]
+        for shape_name, kind, c in flat:
+            kern, plain = (_decode_calls if kind == "decode" else _ragged_calls)(c)
+            out = kern()
+            ref = plain()
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            ok = bool(torch.isfinite(out).all()) and torch.allclose(
+                out.float(), ref.float(), rtol=tol, atol=tol)
+            if kind == "ragged":
+                pad = c["tok_pos"] < 0
+                ok = ok and bool((out[pad] == 0).all())
+            line = {"phase": "kernels", "kernel": ("paged_decode_attention" if kind == "decode"
+                                                   else "ragged_paged_attention"),
+                    "case": shape_name, "dtype": dname, "tol": tol,
+                    "max_abs_err": err, "ok": ok}
+            if shape_name in ("llama3.2:1b", "llama3:8b-attn") and dtype == bf16:
+                line["kernel_ms"] = cuda_ms(kern, 50)
+                line["plain_ms"] = cuda_ms(plain, 5, warmup=1)
+                line["sdpa_dense_ms"] = cuda_ms(sdpa_dense(c, kind), 50)
+                line["bound_ms"], line["bound_by"] = bound(c, kind, dname)
+                if kind == "ragged":
+                    line["rows"] = int(c["q"].shape[0])
+                    line["rows_in_spans"] = c["T_real"]
+                summary[line["kernel"]][shape_name] = line
+            emit(line)
+            report["kernels"].append(line)
+            if not ok:
+                raise SystemExit(f"kernel mismatch: {line}")
+            del out, ref
+        del main, edge
+        torch.cuda.empty_cache()
+    report["kernel_summary"] = summary
+
+
+# -- serving -----------------------------------------------------------------
+def _post(port, path, body, user, timeout=600):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    c.request("POST", path, json.dumps(body), {"X-User-ID": user,
+                                               "Content-Type": "application/json"})
+    r = c.getresponse()
+    data = r.read()
+    c.close()
+    if r.status != 200:
+        raise RuntimeError(f"{path} as {user}: HTTP {r.status} {data[:300]!r}")
+    return r.getheader("Content-Type"), data
+
+
+def _ollama_result(ctype, data):
+    """(token ids, done_reason) from an Ollama JSON or NDJSON reply."""
+    if ctype == "application/x-ndjson":
+        frames = [json.loads(x) for x in data.decode().splitlines()]
+        ids = [t for f in frames for t in f.get("token_ids", [])]
+        last = frames[-1]
+    else:
+        last = json.loads(data)
+        ids = last["token_ids"]
+    if not last.get("done") or "error" in last:
+        raise RuntimeError(f"stream did not finish cleanly: {last}")
+    return ids, last["done_reason"]
+
+
+def serve_phase(report, profile: bool) -> None:
+    import torch
+
+    from ollamamq_tpu_torch.config import EngineConfig
+    from ollamamq_tpu_torch.engine import kv_cache as kvc
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.models import llama
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model = "llama3.2:1b"
+    ecfg = EngineConfig(model=model, max_slots=8, num_pages=8 * 16 + 8,
+                        page_size=32, max_pages_per_seq=16,
+                        max_batch_tokens=512, token_granule=16,
+                        max_new_tokens=48, decode_steps_per_iter=8,
+                        dtype="bfloat16", seed=0)
+    t0 = time.monotonic()
+    engine = TorchEngine(ecfg)  # the CUDA device: the entry point's default
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rt = engine.runtimes[model]
+    srv = serve_in_thread(engine, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    text = ("The quick brown fox jumps over the lazy dog while the scheduler "
+            "keeps every user's queue fair. ")
+    greedy = {"temperature": 0, "num_predict": 32}
+    jobs = {
+        "alice/generate": ("/api/generate", "alice",
+                           {"model": model, "prompt": text * 2, "stream": False,
+                            "options": greedy}),
+        "bob/chat-stream": ("/api/chat", "bob",
+                            {"model": model, "options": greedy, "messages": [
+                                {"role": "user", "content": text}]}),
+        "carol/openai": ("/v1/chat/completions", "carol",
+                         {"model": model, "max_tokens": 32, "temperature": 0,
+                          "messages": [{"role": "user", "content": text[:60]}]}),
+        "carol/sampled": ("/api/generate", "carol",
+                          {"model": model, "prompt": text * 3, "stream": False,
+                           "options": {"temperature": 0.8, "top_k": 40,
+                                       "top_p": 0.9, "seed": 7,
+                                       "repeat_penalty": 1.1,
+                                       "num_predict": 32}}),
+    }
+    results, errors = {}, []
+
+    def run(name):
+        path, user, body = jobs[name]
+        try:
+            results[name] = _post(port, path, body, user)
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{name}: {e}")
+
+    before = dict(rt.stats())
+    reset_launch_counts()
+    t_serve = time.monotonic()
+    threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    # The same greedy prompt twice more, each alone: identical tokens.
+    repeat = []
+    for _ in range(2):
+        ctype, data = _post(port, "/api/generate", jobs["alice/generate"][2], "alice")
+        repeat.append(_ollama_result(ctype, data)[0])
+    counts = launch_counts()
+    serve_s = time.monotonic() - t_serve
+    after = dict(rt.stats())
+    prof = None
+    if profile:
+        prof = profile_window(port, model, text, rt)
+    stop_server(srv)
+    if errors or len(results) != len(jobs):
+        raise SystemExit(f"serve requests failed: {errors}")
+
+    replies = {}
+    for name, (ctype, data) in results.items():
+        if name == "carol/openai":
+            body = json.loads(data)
+            n = body["usage"]["completion_tokens"]
+            replies[name] = {"tokens": n, "done_reason": body["choices"][0]["finish_reason"]}
+        else:
+            ids, reason = _ollama_result(ctype, data)
+            n = len(ids)
+            replies[name] = {"tokens": n, "done_reason": reason}
+        if n <= 0 or replies[name]["done_reason"] not in ("stop", "length"):
+            raise SystemExit(f"{name}: no tokens or no done reason: {replies[name]}")
+    deterministic = repeat[0] == repeat[1] and len(repeat[0]) > 0
+    ragged = after["ragged_dispatches"] - before["ragged_dispatches"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    tokens = after["tokens_generated"] - before["tokens_generated"]
+    line = {"phase": "serve", "model": model, "layers": rt.cfg.num_layers,
+            "dtype": "bfloat16", "init_s": init_s, "serve_s": serve_s,
+            "requests": len(jobs) + 2, "users": 3, "tokens": tokens,
+            "tokens_per_s": tokens / serve_s, "replies": replies,
+            "greedy_repeat_identical": deterministic,
+            "ragged_dispatches": ragged, "decode_steps": steps,
+            "decode_dispatches": after["decode_dispatches"] - before["decode_dispatches"],
+            "launches": counts,
+            "launches_per_ragged_dispatch": counts["ragged_paged_attention"] / max(1, ragged),
+            "launches_per_decode_step": counts["paged_decode_attention"] / max(1, steps),
+            "param_bytes": rt.param_bytes, "kv_bytes": rt.kv_bytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if prof is not None:
+        line["profile"] = prof
+    emit(line)
+    report["serve"] = line
+    if not deterministic:
+        raise SystemExit(f"greedy repeat differs: {repeat}")
+    if counts["ragged_paged_attention"] <= 0 or counts["paged_decode_attention"] <= 0:
+        raise SystemExit(f"a kernel did not run on the serving path: {counts}")
+
+    # One prompt's prefill and first decode step through the kernels vs
+    # the plain attention path, on the serving weights (outside the
+    # counted window).
+    cfg, ps = rt.cfg, ecfg.page_size
+    n = 77
+    prompt = torch.tensor(rt.tokenizer.encode(text)[:n], dtype=torch.int32, device="cuda")
+    T = 80
+    small = EngineConfig(model=model, num_pages=5, page_size=ps, max_pages_per_seq=4)
+    pt = torch.tensor([[1, 2, 3, 4]], dtype=torch.int32, device="cuda")
+    tokens = torch.zeros(T, dtype=torch.int32, device="cuda")
+    tokens[:n] = prompt
+    tok_pos = torch.full((T,), -1, dtype=torch.int32, device="cuda")
+    tok_pos[:n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    tok_seq = torch.zeros(T, dtype=torch.int32, device="cuda")
+    ws = torch.where(tok_pos >= 0, pt[0, (tok_pos.clamp_min(0) // ps).long()] * ps
+                     + tok_pos.clamp_min(0) % ps, torch.zeros_like(tok_pos))
+    meta = [torch.tensor([v], dtype=torch.int32, device="cuda") for v in (0, n, n)]
+    logits = {}
+    for impl in ("kernel", "plain"):
+        kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda")
+        pre, _, _ = llama.forward_ragged(
+            rt.params, cfg, tokens, tok_seq, tok_pos, ws,
+            torch.tensor([n - 1], device="cuda"), kc, vc, pt, *meta, ps,
+            attn_impl=impl)
+        nxt = pre.argmax(-1).to(torch.int32)
+        dec, _, _ = llama.forward_decode(
+            rt.params, cfg, nxt, torch.tensor([n], dtype=torch.int32, device="cuda"),
+            kc, vc, pt, ps, attn_impl=impl)
+        logits[impl] = (pre, dec)
+        del kc, vc
+    torch.cuda.synchronize()
+    checks = {}
+    for i, what in enumerate(("prefill", "decode")):
+        got, ref = logits["kernel"][i], logits["plain"][i]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        checks[what] = {"max_abs_err": err, "ref_max_abs": scale,
+                        "rel_err": err / scale,
+                        "top1_equal": bool((got.argmax(-1) == ref.argmax(-1)).all()),
+                        "ok": bool(torch.isfinite(got).all()) and err <= TOL["bfloat16"] * scale}
+    line = {"phase": "serve-logits", "model": model, "tokens": n,
+            "tol": f"max |kernel - plain| <= {TOL['bfloat16']} * max |plain|",
+            **checks}
+    emit(line)
+    report["serve_logits"] = line
+    if not all(c["ok"] for c in checks.values()):
+        raise SystemExit(f"kernel path logits disagree with the plain path: {checks}")
+
+
+def profile_window(port, model, text, rt):
+    """torch.profiler over one more 4-user burst: device time by kernel
+    name, the device-busy share of the window's wall time, and the
+    engine dispatches the window ran. The same greedy burst runs twice on
+    the warm engine: unprofiled for its wall time (the profiler slows the
+    host several-fold), then profiled for device time, so the busy share
+    is the profiled device time over the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    body = {"model": model, "prompt": text, "stream": False,
+            "options": {"temperature": 0, "num_predict": 48}}
+    keys = ("ragged_dispatches", "decode_dispatches", "decode_steps", "tokens_generated")
+
+    def burst():
+        errors = []
+
+        def one(user):
+            try:
+                _post(port, "/api/generate", body, user)
+            except Exception as e:  # noqa: BLE001 — reported, then fails the window
+                errors.append(f"{user}: {e}")
+
+        before = rt.stats()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=one, args=(f"p{i}",)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        after = rt.stats()
+        if errors or any(t.is_alive() for t in threads):
+            raise SystemExit(f"profile burst failed: {errors}")
+        return (time.monotonic() - t0) * 1e3, {k: after[k] - before[k] for k in keys}
+
+    wall_ms, counts = burst()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_wall_ms, profiled_counts = burst()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0)
+        if dev_us and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    total_us = sum(r[0] for r in rows)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    trace = os.path.join(OUT_DIR, "serve_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(trace)
+    groups = {"attention kernels": ("paged_decode_kernel", "ragged_paged_kernel"),
+              "gemm": ("gemm", "nvjet", "sm90_xmma", "cutlass"),
+              "copy / cast": ("copy",)}
+    by_group = {g: 0.0 for g in (*groups, "other")}
+    for us, key, _n in rows:
+        g = next((g for g, pats in groups.items() if any(p in key for p in pats)), "other")
+        by_group[g] += us / 1e3
+    # A forward is one decode step or one ragged dispatch. Arrival timing
+    # may split the two bursts' prefills differently, so each burst is
+    # divided by its own count.
+    wall_fwd = wall_ms / (counts["decode_steps"] + counts["ragged_dispatches"])
+    dev_fwd = total_us / 1e3 / (profiled_counts["decode_steps"]
+                                + profiled_counts["ragged_dispatches"])
+    return {"wall_ms": wall_ms, **counts, "profiled_wall_ms": profiled_wall_ms,
+            "profiled_counts": profiled_counts,
+            "device_kernel_ms": total_us / 1e3,
+            "wall_ms_per_forward": wall_fwd,
+            "device_ms_per_forward": dev_fwd,
+            "device_busy_share": dev_fwd / wall_fwd,
+            "device_ms_by_group": by_group,
+            "top": [{"name": k[:90], "ms": us / 1e3, "calls": n}
+                    for us, k, n in rows[:15]]}
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile a serving burst (chiprun_out/chip_smoke/)")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "ollamamq_tpu_torch", "csrc")):
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    from ollamamq_tpu_torch.ops.cuda import build
+
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda,
+              "device": torch.cuda.get_device_name(0), "kernels": []}
+    t0 = time.monotonic()
+    built = build.build()
+    line = {"phase": "build", "seconds": time.monotonic() - t0,
+            "kernels": {n: {"seconds": b["seconds"], "cached": b["cached"],
+                            "ptxas": [ln.strip() for ln in b["log"].splitlines()
+                                      if "registers" in ln]}
+                        for n, b in built.items()}}
+    emit(line)
+    report["build"] = line
+
+    kernel_phase(report)
+    serve_phase(report, args.profile)
+
+    card = card_line()
+    s = report["kernel_summary"]
+    launches = report["serve"]["launches"]
+    errs = {name: max(l["max_abs_err"] for l in report["kernels"]
+                      if l["kernel"] == name and l["case"] == "llama3.2:1b"
+                      and l["dtype"] == "bfloat16")
+            for name in s}
+    kernels = []
+    for name, source, replaces in (
+            ("ragged_paged_attention", "ollamamq_tpu_torch/csrc/ragged_paged_attention.cu",
+             "ollamamq_tpu/ops/pallas/ragged_attention.py:259"),
+            ("paged_decode_attention", "ollamamq_tpu_torch/csrc/paged_decode_attention.cu",
+             "ollamamq_tpu/ops/pallas/paged_attention.py:229")):
+        m = s[name]["llama3.2:1b"]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": errs[name], "ms": m["kernel_ms"],
+                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                        "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]})
+    report["card"] = card
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
