@@ -1,25 +1,41 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about a minute
-    python3 chip_smoke.py --profile  # also a torch.profiler window of serving
+    python3 chip_smoke.py            # one card, about two minutes
+    python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero:
 
-  build    nvcc builds both CUDA kernels from ollamamq_tpu_torch/csrc.
-  kernels  each kernel against its plain PyTorch version on the card, in
+  build    nvcc builds both CUDA sources from ollamamq_tpu_torch/csrc, in
+           parallel, and all four entry points load: ragged and decode
+           attention over a pool in q's dtype and over an int8 pool.
+  kernels  each kernel against its plain PyTorch version on the card, q in
            bf16 (atol = rtol = 2e-2) and float32 (1e-4), at the
            llama3.2:1b and llama3:8b attention shapes and the CPU tests'
-           edge cases; every pool slot a kernel must not read holds NaN.
-           Times kernel_ms / plain_ms / sdpa_dense_ms (CUDA events) and
-           bound_ms (bytes the call must move over 3.35 TB/s, or its
-           FLOPs over the dtype's peak, whichever is larger).
+           edge cases (GQA, MQA, group 1, empty rows, contexts past
+           max_pages). Every pool slot a kernel must not read holds NaN;
+           in an int8 pool (built by the port's kv_quantize) it holds
+           payload 127 and a NaN scale. Times kernel_ms / plain_ms /
+           sdpa_dense_ms (CUDA events; SDPA over dense K/V, dequantized
+           to q's dtype for an int8 pool, a yardstick only) and bound_ms
+           (bytes the call must move over 3.35 TB/s, or its FLOPs over
+           the dtype's peak, whichever is larger).
   serve    the port's HTTP server in-process with llama3.2:1b at full
            width (16 layers, bf16, seeded random weights): requests from
            3 users over /api/generate, /api/chat, /v1/chat/completions,
-           one sampled; greedy determinism; both kernels' launch counters
-           must rise; one prompt's prefill and decode logits through the
-           kernels against the plain attention path on the same card.
+           one sampled; greedy determinism; both bf16-pool kernels' launch
+           counters must rise and the int8 ones stay 0; one prompt's
+           prefill and decode logits through the kernels against the plain
+           attention path on the same card (serve-logits).
+  serve-int8
+           the same engine, jobs and checks with int8 weights and int8 KV
+           pages, after the bf16 engine is freed: both int8 kernels'
+           counters must rise and the bf16 ones stay 0, and the KV pool
+           must shrink to at most (hd + 4) / (2 hd) + 0.01 of bf16's
+           (serve-int8-logits: the same logits check on the int8 path).
+  quant-guardrail
+           greedy token-match rate and logit error of the int8 llama3.2:1b
+           tree against its bf16 source at full width; printed, not gated.
 
 Then the card as nvidia-smi names it, the kernels line, and the last
 line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
@@ -29,9 +45,11 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import gzip
 import http.client
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -43,6 +61,22 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
+# Kernel -> (source, the TPU kernel it replaces, the serve phase whose
+# window counts its launches).
+KERNEL_ROWS = {
+    "ragged_paged_attention": (
+        "ollamamq_tpu_torch/csrc/ragged_paged_attention.cu",
+        "ollamamq_tpu/ops/pallas/ragged_attention.py:259", "serve"),
+    "paged_decode_attention": (
+        "ollamamq_tpu_torch/csrc/paged_decode_attention.cu",
+        "ollamamq_tpu/ops/pallas/paged_attention.py:229", "serve"),
+    "ragged_paged_attention_int8": (
+        "ollamamq_tpu_torch/csrc/ragged_paged_attention.cu",
+        "ollamamq_tpu/ops/pallas/ragged_attention.py:259", "serve_int8"),
+    "paged_decode_attention_int8": (
+        "ollamamq_tpu_torch/csrc/paged_decode_attention.cu",
+        "ollamamq_tpu/ops/pallas/paged_attention.py:229", "serve_int8"),
+}
 
 
 def emit(obj) -> None:
@@ -67,12 +101,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 # -- kernel cases ------------------------------------------------------------
-def _pool(seed, contexts, Hk, hd, ps, MP, dtype):
+def _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8=False):
     """A paged pool holding `contexts[b]` written positions for sequence b
-    (capped at MP * ps), pages shuffled across the pool; every other slot,
-    the trash page included, holds NaN. Returns (k, v, page_table) on the
-    card."""
+    (capped at MP * ps), pages shuffled across the pool. Every other slot,
+    the trash page included, holds NaN; in an int8 pool (rows quantized
+    by the port's kv_quantize) it holds payload 127 and a NaN scale.
+    Returns (k, v, page_table) on the card, k and v tensors in `dtype` or
+    QuantKV pools."""
     import torch
+
+    from ollamamq_tpu_torch.ops.quant import QuantKV, kv_quantize
 
     g = torch.Generator().manual_seed(seed)
     cap = MP * ps
@@ -81,6 +119,7 @@ def _pool(seed, contexts, Hk, hd, ps, MP, dtype):
     perm = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
     k = torch.full((n_pages * ps, Hk, hd), float("nan"))
     v = torch.full_like(k, float("nan"))
+    written = torch.zeros(n_pages * ps, dtype=torch.bool)
     pt = torch.zeros((len(contexts), MP), dtype=torch.int32)
     for b, (c, n) in enumerate(zip(contexts, need)):
         pages = [perm.pop() for _ in range(n)]
@@ -89,27 +128,36 @@ def _pool(seed, contexts, Hk, hd, ps, MP, dtype):
         slots = pt[b].long()[pos // ps] * ps + pos % ps
         k[slots] = torch.randn((len(pos), Hk, hd), generator=g)
         v[slots] = torch.randn((len(pos), Hk, hd), generator=g)
-    return k.to("cuda", dtype), v.to("cuda", dtype), pt.cuda()
+        written[slots] = True
+    if not int8:
+        return k.to("cuda", dtype), v.to("cuda", dtype), pt.cuda()
+    pools = []
+    for rows in (k, v):
+        q, s = kv_quantize(torch.nan_to_num(rows))
+        q[~written] = 127
+        s[~written] = float("nan")
+        pools.append(QuantKV(q.cuda(), s.cuda()))
+    return pools[0], pools[1], pt.cuda()
 
 
-def decode_case(name, seed, B, H, Hk, hd, ps, MP, seq_lens, dtype):
+def decode_case(name, seed, B, H, Hk, hd, ps, MP, seq_lens, dtype, int8=False):
     import torch
 
-    k, v, pt = _pool(seed, seq_lens, Hk, hd, ps, MP, dtype)
+    k, v, pt = _pool(seed, seq_lens, Hk, hd, ps, MP, dtype, int8)
     g = torch.Generator().manual_seed(seed + 1)
     q = torch.randn((B, H, hd), generator=g).to("cuda", dtype)
     sl = torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
     return dict(name=name, q=q, k=k, v=v, pt=pt, seq_lens=sl, ps=ps)
 
 
-def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype):
+def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype, int8=False):
     """spans: [(q_len, kv_len)] contiguous in stream order; sequences past
     the spans are padding rows, stream rows past them are covered by no
     span."""
     import torch
 
     contexts = [kv for _, kv in spans] + [0] * (B - len(spans))
-    k, v, pt = _pool(seed, contexts, Hk, hd, ps, MP, dtype)
+    k, v, pt = _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8)
     g = torch.Generator().manual_seed(seed + 1)
     q = torch.randn((T, H, hd), generator=g).to("cuda", dtype)
     q_start = torch.full((B,), T, dtype=torch.int32)
@@ -124,25 +172,33 @@ def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype):
                 q_len=q_len.cuda(), kv_len=kv_len.cuda(), ps=ps, T_real=off)
 
 
+def _is_int8(c) -> bool:
+    from ollamamq_tpu_torch.ops.quant import QuantKV
+
+    return isinstance(c["k"], QuantKV)
+
+
 def _decode_calls(c):
     from ollamamq_tpu_torch.ops.attention import paged_decode_attention
-    from ollamamq_tpu_torch.ops.cuda.paged_attention import paged_decode_attention_cuda
+    from ollamamq_tpu_torch.ops.cuda import paged_attention as pa
 
+    kern = (pa.paged_decode_attention_int8_cuda if _is_int8(c)
+            else pa.paged_decode_attention_cuda)
     args = (c["q"], c["k"], c["v"], c["pt"], c["seq_lens"], c["ps"])
-    return (lambda: paged_decode_attention_cuda(*args),
-            lambda: paged_decode_attention(*args))
+    return (lambda: kern(*args), lambda: paged_decode_attention(*args))
 
 
 def _ragged_calls(c):
     from ollamamq_tpu_torch.ops.attention import ragged_paged_attention, ragged_tokens
-    from ollamamq_tpu_torch.ops.cuda.ragged_attention import ragged_paged_attention_cuda
+    from ollamamq_tpu_torch.ops.cuda import ragged_attention as ra
 
+    kern = (ra.ragged_paged_attention_int8_cuda if _is_int8(c)
+            else ra.ragged_paged_attention_cuda)
     tok_seq, tok_pos = ragged_tokens(c["q_start"], c["q_len"], c["kv_len"],
                                      c["q"].shape[0])
     c["tok_pos"] = tok_pos
-    return (lambda: ragged_paged_attention_cuda(
-                c["q"], c["k"], c["v"], c["pt"], c["q_start"], c["q_len"],
-                c["kv_len"], c["ps"]),
+    return (lambda: kern(c["q"], c["k"], c["v"], c["pt"], c["q_start"],
+                         c["q_len"], c["kv_len"], c["ps"]),
             lambda: ragged_paged_attention(
                 c["q"], c["k"], c["v"], c["pt"], tok_seq, tok_pos,
                 c["kv_len"], c["ps"]))
@@ -161,13 +217,16 @@ def _visible(c, kind):
 
 def bound(c, kind, dtype_name):
     """(bound_ms, bound_by): the larger of the bytes the call must move
-    (q, out and metadata once; each sequence's visible K/V rows once) over
-    HBM bandwidth and its attention FLOPs (QK and PV, 4 per head-dim
-    element per visible position) over the dtype's peak."""
+    (q, out and metadata once; each sequence's visible K/V rows once: hd
+    elements of the pool's own size per (row, kv head), plus a 4-byte f32
+    scale in an int8 pool) over HBM bandwidth and its attention FLOPs (QK
+    and PV, 4 per head-dim element per visible position) over q's
+    dtype's peak (an int8 pool is dequantized to f32 before the math)."""
     q, k = c["q"], c["k"]
     isz = q.element_size()
     N, H, hd = q.shape
     Hk = k.shape[1]
+    row_head_bytes = hd + 4 if _is_int8(c) else hd * k.element_size()
     cap = c["pt"].shape[1] * c["ps"]
     if kind == "decode":
         kv_rows = int(c["seq_lens"].clamp(0, cap).sum())
@@ -175,7 +234,7 @@ def bound(c, kind, dtype_name):
     else:
         kv_rows = int(c["kv_len"].clamp(0, cap).sum())
         meta = c["pt"].numel() * 4 + 3 * c["kv_len"].numel() * 4
-    nbytes = 2 * q.numel() * isz + 2 * kv_rows * Hk * hd * isz + meta
+    nbytes = 2 * q.numel() * isz + 2 * kv_rows * Hk * row_head_bytes + meta
     flops = 4.0 * float(_visible(c, kind).sum()) * H * hd
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -184,10 +243,13 @@ def bound(c, kind, dtype_name):
 
 def sdpa_dense(c, kind):
     """F.scaled_dot_product_attention over K/V pre-gathered into dense
-    per-sequence tensors (GQA heads expanded): a yardstick only, the
-    gather is not timed and the port never calls it."""
+    per-sequence tensors in q's dtype (GQA heads expanded; an int8 pool
+    dequantized first): a yardstick only, the gather is not timed and the
+    port never calls it."""
     import torch
     import torch.nn.functional as F
+
+    from ollamamq_tpu_torch.ops.quant import kv_gather
 
     q, k, v, pt, ps = c["q"], c["k"], c["v"], c["pt"], c["ps"]
     H, hd = q.shape[1], q.shape[2]
@@ -195,8 +257,12 @@ def sdpa_dense(c, kind):
     cap = pt.shape[1] * ps
     pos = torch.arange(cap, device="cuda")
     slots = pt.long()[:, pos // ps] * ps + pos % ps  # [B, cap]
-    kd = torch.nan_to_num(k[slots]).transpose(1, 2).repeat_interleave(G, dim=1)
-    vd = torch.nan_to_num(v[slots]).transpose(1, 2).repeat_interleave(G, dim=1)
+
+    def dense(pool):
+        rows = torch.nan_to_num(kv_gather(pool, slots)).to(q.dtype)
+        return rows.transpose(1, 2).repeat_interleave(G, dim=1)
+
+    kd, vd = dense(k), dense(v)
     if kind == "decode":
         qd = q[:, :, None, :]
         mask = (pos[None, :] < c["seq_lens"][:, None])[:, None, None, :]
@@ -227,66 +293,69 @@ def kernel_phase(report) -> None:
     decode_spans = [(1, rnd.randint(1, 512)) for _ in range(48)]
     mixed = decode_spans + [(128, 128), (96, 352), (32, 32)]  # 304 rows
 
-    def cases(dtype):
+    def cases(dtype, int8):
+        d = dict(dtype=dtype, int8=int8)
         main = [
-            ("llama3.2:1b", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, dtype),
-             ragged_case("llama3.2:1b", 2, mixed, 64, 320, 32, 8, 64, 32, 16, dtype)),
-            ("llama3:8b-attn", decode_case("llama3:8b-attn", 3, 64, 32, 8, 128, 32, 16, ctx64, dtype),
-             ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, dtype)),
+            ("llama3.2:1b", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, **d),
+             ragged_case("llama3.2:1b", 2, mixed, 64, 320, 32, 8, 64, 32, 16, **d)),
+            ("llama3:8b-attn", decode_case("llama3:8b-attn", 3, 64, 32, 8, 128, 32, 16, ctx64, **d),
+             ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, **d)),
         ]
         edge = [
-            ("decode", decode_case("gqa-a", 5, 3, 8, 4, 32, 8, 6, [20, 9, 37], dtype)),
-            ("decode", decode_case("gqa-b", 6, 3, 8, 4, 32, 8, 6, [1, 48, 16], dtype)),
-            ("decode", decode_case("mqa", 7, 2, 4, 1, 16, 8, 4, [8, 25], dtype)),
-            ("decode", decode_case("group1", 8, 2, 4, 4, 64, 8, 4, [5, 30], dtype)),
-            ("decode", decode_case("past-cap+empty", 9, 3, 8, 2, 32, 8, 4, [40, 0, 33], dtype)),
-            ("ragged", ragged_case("mixed", 10, [(11, 11), (1, 20), (5, 29), (1, 1)], 10, 40, 4, 2, 16, 8, 8, dtype)),
-            ("ragged", ragged_case("decode-tile", 11, [(1, 5 + 3 * i) for i in range(9)], 10, 40, 4, 2, 16, 8, 8, dtype)),
-            ("ragged", ragged_case("long-prefill", 12, [(21, 21), (1, 9), (1, 17), (3, 30)], 10, 40, 4, 2, 16, 8, 8, dtype)),
-            ("ragged", ragged_case("mqa", 13, [(6, 6), (1, 12)], 3, 8, 4, 1, 16, 8, 8, dtype)),
-            ("ragged", ragged_case("group1", 14, [(6, 6), (1, 12)], 3, 8, 4, 4, 16, 8, 8, dtype)),
-            ("ragged", ragged_case("past-cap", 15, [(3, 40), (1, 33)], 4, 6, 8, 2, 32, 8, 4, dtype)),
+            ("decode", decode_case("gqa-a", 5, 3, 8, 4, 32, 8, 6, [20, 9, 37], **d)),
+            ("decode", decode_case("gqa-b", 6, 3, 8, 4, 32, 8, 6, [1, 48, 16], **d)),
+            ("decode", decode_case("mqa", 7, 2, 4, 1, 16, 8, 4, [8, 25], **d)),
+            ("decode", decode_case("group1", 8, 2, 4, 4, 64, 8, 4, [5, 30], **d)),
+            ("decode", decode_case("past-cap+empty", 9, 3, 8, 2, 32, 8, 4, [40, 0, 33], **d)),
+            ("ragged", ragged_case("mixed", 10, [(11, 11), (1, 20), (5, 29), (1, 1)], 10, 40, 4, 2, 16, 8, 8, **d)),
+            ("ragged", ragged_case("decode-tile", 11, [(1, 5 + 3 * i) for i in range(9)], 10, 40, 4, 2, 16, 8, 8, **d)),
+            ("ragged", ragged_case("long-prefill", 12, [(21, 21), (1, 9), (1, 17), (3, 30)], 10, 40, 4, 2, 16, 8, 8, **d)),
+            ("ragged", ragged_case("mqa", 13, [(6, 6), (1, 12)], 3, 8, 4, 1, 16, 8, 8, **d)),
+            ("ragged", ragged_case("group1", 14, [(6, 6), (1, 12)], 3, 8, 4, 4, 16, 8, 8, **d)),
+            ("ragged", ragged_case("past-cap", 15, [(3, 40), (1, 33)], 4, 6, 8, 2, 32, 8, 4, **d)),
         ]
         return main, edge
 
-    summary = {"paged_decode_attention": {}, "ragged_paged_attention": {}}
-    for dtype in (bf16, f32):
-        dname = str(dtype).replace("torch.", "")
-        tol = TOL[dname]
-        main, edge = cases(dtype)
-        flat = [(n, "decode", d) for n, d, _ in main] + [(n, "ragged", r) for n, _, r in main] \
-            + [(c["name"], kind, c) for kind, c in edge]
-        for shape_name, kind, c in flat:
-            kern, plain = (_decode_calls if kind == "decode" else _ragged_calls)(c)
-            out = kern()
-            ref = plain()
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            ok = bool(torch.isfinite(out).all()) and torch.allclose(
-                out.float(), ref.float(), rtol=tol, atol=tol)
-            if kind == "ragged":
-                pad = c["tok_pos"] < 0
-                ok = ok and bool((out[pad] == 0).all())
-            line = {"phase": "kernels", "kernel": ("paged_decode_attention" if kind == "decode"
-                                                   else "ragged_paged_attention"),
-                    "case": shape_name, "dtype": dname, "tol": tol,
-                    "max_abs_err": err, "ok": ok}
-            if shape_name in ("llama3.2:1b", "llama3:8b-attn") and dtype == bf16:
-                line["kernel_ms"] = cuda_ms(kern, 50)
-                line["plain_ms"] = cuda_ms(plain, 5, warmup=1)
-                line["sdpa_dense_ms"] = cuda_ms(sdpa_dense(c, kind), 50)
-                line["bound_ms"], line["bound_by"] = bound(c, kind, dname)
+    summary = {name: {} for name in KERNEL_ROWS}
+    for int8 in (False, True):
+        for dtype in (bf16, f32):
+            dname = str(dtype).replace("torch.", "")
+            tol = TOL[dname]
+            main, edge = cases(dtype, int8)
+            flat = [(n, "decode", d) for n, d, _ in main] + [(n, "ragged", r) for n, _, r in main] \
+                + [(c["name"], kind, c) for kind, c in edge]
+            for shape_name, kind, c in flat:
+                kern, plain = (_decode_calls if kind == "decode" else _ragged_calls)(c)
+                out = kern()
+                ref = plain()
+                torch.cuda.synchronize()
+                err = float((out.float() - ref.float()).abs().max())
+                ok = bool(torch.isfinite(out).all()) and torch.allclose(
+                    out.float(), ref.float(), rtol=tol, atol=tol)
                 if kind == "ragged":
-                    line["rows"] = int(c["q"].shape[0])
-                    line["rows_in_spans"] = c["T_real"]
-                summary[line["kernel"]][shape_name] = line
-            emit(line)
-            report["kernels"].append(line)
-            if not ok:
-                raise SystemExit(f"kernel mismatch: {line}")
-            del out, ref
-        del main, edge
-        torch.cuda.empty_cache()
+                    pad = c["tok_pos"] < 0
+                    ok = ok and bool((out[pad] == 0).all())
+                name = ("paged_decode_attention" if kind == "decode"
+                        else "ragged_paged_attention") + ("_int8" if int8 else "")
+                line = {"phase": "kernels", "kernel": name, "case": shape_name,
+                        "dtype": dname, "pool": "int8" if int8 else dname,
+                        "tol": tol, "max_abs_err": err, "ok": ok}
+                if shape_name in ("llama3.2:1b", "llama3:8b-attn") and dtype == bf16:
+                    line["kernel_ms"] = cuda_ms(kern, 50)
+                    line["plain_ms"] = cuda_ms(plain, 5, warmup=1)
+                    line["sdpa_dense_ms"] = cuda_ms(sdpa_dense(c, kind), 50)
+                    line["bound_ms"], line["bound_by"] = bound(c, kind, dname)
+                    if kind == "ragged":
+                        line["rows"] = int(c["q"].shape[0])
+                        line["rows_in_spans"] = c["T_real"]
+                    summary[name][shape_name] = line
+                emit(line)
+                report["kernels"].append(line)
+                if not ok:
+                    raise SystemExit(f"kernel mismatch: {line}")
+                del out, ref
+            del main, edge
+            torch.cuda.empty_cache()
     report["kernel_summary"] = summary
 
 
@@ -317,7 +386,11 @@ def _ollama_result(ctype, data):
     return ids, last["done_reason"]
 
 
-def serve_phase(report, profile: bool) -> None:
+def serve_phase(report, profile: bool, int8: bool = False) -> None:
+    """Serve llama3.2:1b at full width through the HTTP server and check
+    replies, greedy determinism, which kernels the window launched and
+    the kernel path's logits. int8=True serves int8 weights and int8 KV
+    pages and runs after the bf16 phase, whose engine must be gone."""
     import torch
 
     from ollamamq_tpu_torch.config import EngineConfig
@@ -328,15 +401,24 @@ def serve_phase(report, profile: bool) -> None:
     from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
 
     model = "llama3.2:1b"
+    quant = "int8" if int8 else "bfloat16"
+    phase = "serve-int8" if int8 else "serve"
+    suffix = "_int8" if int8 else ""
     ecfg = EngineConfig(model=model, max_slots=8, num_pages=8 * 16 + 8,
                         page_size=32, max_pages_per_seq=16,
                         max_batch_tokens=512, token_granule=16,
                         max_new_tokens=48, decode_steps_per_iter=8,
-                        dtype="bfloat16", seed=0)
+                        dtype="bfloat16", weights_dtype=quant, kv_dtype=quant,
+                        seed=0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     engine = TorchEngine(ecfg)  # the CUDA device: the entry point's default
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     rt = engine.runtimes[model]
     srv = serve_in_thread(engine, port=0, timeout_s=600)
     port = srv.server_address[1]
@@ -385,6 +467,7 @@ def serve_phase(report, profile: bool) -> None:
     counts = launch_counts()
     serve_s = time.monotonic() - t_serve
     after = dict(rt.stats())
+    window_peak = torch.cuda.max_memory_allocated()
     prof = None
     if profile:
         prof = profile_window(port, model, text, rt)
@@ -408,26 +491,39 @@ def serve_phase(report, profile: bool) -> None:
     ragged = after["ragged_dispatches"] - before["ragged_dispatches"]
     steps = after["decode_steps"] - before["decode_steps"]
     tokens = after["tokens_generated"] - before["tokens_generated"]
-    line = {"phase": "serve", "model": model, "layers": rt.cfg.num_layers,
-            "dtype": "bfloat16", "init_s": init_s, "serve_s": serve_s,
+    own = ("ragged_paged_attention" + suffix, "paged_decode_attention" + suffix)
+    line = {"phase": phase, "model": model, "layers": rt.cfg.num_layers,
+            "dtype": "bfloat16", "weights_dtype": rt.weights_dtype,
+            "kv_dtype": rt.kv_dtype, "init_s": init_s, "serve_s": serve_s,
             "requests": len(jobs) + 2, "users": 3, "tokens": tokens,
             "tokens_per_s": tokens / serve_s, "replies": replies,
             "greedy_repeat_identical": deterministic,
             "ragged_dispatches": ragged, "decode_steps": steps,
             "decode_dispatches": after["decode_dispatches"] - before["decode_dispatches"],
             "launches": counts,
-            "launches_per_ragged_dispatch": counts["ragged_paged_attention"] / max(1, ragged),
-            "launches_per_decode_step": counts["paged_decode_attention"] / max(1, steps),
+            "launches_per_ragged_dispatch": counts[own[0]] / max(1, ragged),
+            "launches_per_decode_step": counts[own[1]] / max(1, steps),
             "param_bytes": rt.param_bytes, "kv_bytes": rt.kv_bytes,
-            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+            "init_max_memory_allocated": init_peak,
+            "max_memory_allocated": window_peak}
+    if int8:
+        hd = rt.cfg.head_dim
+        line["kv_bytes_vs_bf16"] = rt.kv_bytes / report["serve"]["kv_bytes"]
+        line["kv_bytes_vs_bf16_limit"] = (hd + 4) / (2 * hd) + 0.01
+        line["param_bytes_vs_bf16"] = rt.param_bytes / report["serve"]["param_bytes"]
+        line["tokens_per_s_vs_bf16"] = line["tokens_per_s"] / report["serve"]["tokens_per_s"]
     if prof is not None:
         line["profile"] = prof
     emit(line)
-    report["serve"] = line
+    report[phase.replace("-", "_")] = line
     if not deterministic:
         raise SystemExit(f"greedy repeat differs: {repeat}")
-    if counts["ragged_paged_attention"] <= 0 or counts["paged_decode_attention"] <= 0:
-        raise SystemExit(f"a kernel did not run on the serving path: {counts}")
+    # The window ran this phase's two kernels and none of the others.
+    if any(counts[k] <= 0 for k in own) or any(
+            counts[k] != 0 for k in counts if k not in own):
+        raise SystemExit(f"{phase}: the window did not launch exactly {own}: {counts}")
+    if int8 and line["kv_bytes_vs_bf16"] > line["kv_bytes_vs_bf16_limit"]:
+        raise SystemExit(f"int8 KV pool did not shrink enough: {line}")
 
     # One prompt's prefill and first decode step through the kernels vs
     # the plain attention path, on the serving weights (outside the
@@ -448,7 +544,7 @@ def serve_phase(report, profile: bool) -> None:
     meta = [torch.tensor([v], dtype=torch.int32, device="cuda") for v in (0, n, n)]
     logits = {}
     for impl in ("kernel", "plain"):
-        kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda")
+        kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda", kv_dtype=quant)
         pre, _, _ = llama.forward_ragged(
             rt.params, cfg, tokens, tok_seq, tok_pos, ws,
             torch.tensor([n - 1], device="cuda"), kc, vc, pt, *meta, ps,
@@ -469,13 +565,36 @@ def serve_phase(report, profile: bool) -> None:
                         "rel_err": err / scale,
                         "top1_equal": bool((got.argmax(-1) == ref.argmax(-1)).all()),
                         "ok": bool(torch.isfinite(got).all()) and err <= TOL["bfloat16"] * scale}
-    line = {"phase": "serve-logits", "model": model, "tokens": n,
+    line = {"phase": phase + "-logits", "model": model, "tokens": n,
+            "weights_dtype": quant, "kv_dtype": quant,
             "tol": f"max |kernel - plain| <= {TOL['bfloat16']} * max |plain|",
             **checks}
     emit(line)
-    report["serve_logits"] = line
+    report[phase.replace("-", "_") + "_logits"] = line
     if not all(c["ok"] for c in checks.values()):
         raise SystemExit(f"kernel path logits disagree with the plain path: {checks}")
+
+
+def guardrail_phase(report) -> None:
+    """quant_guardrail of the int8 llama3.2:1b tree against its bf16
+    source (seeded random weights) at full width on the card. The bound on
+    random weights is unknown: printed, not gated."""
+    import torch
+
+    from ollamamq_tpu_torch.config import get_model_config
+    from ollamamq_tpu_torch.models import weights
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    out = weights.quant_guardrail(get_model_config("llama3.2:1b"), seed=0,
+                                  dtype=torch.bfloat16, device="cuda")
+    line = {"phase": "quant-guardrail", "model": "llama3.2:1b", "gated": False,
+            "seconds": time.monotonic() - t0, **out}
+    emit(line)
+    report["quant_guardrail"] = line
+    if not all(math.isfinite(out[k]) for k in ("max_logit_err", "rel_logit_err")):
+        raise SystemExit(f"guardrail logits are not finite: {line}")
 
 
 def profile_window(port, model, text, rt):
@@ -527,7 +646,7 @@ def profile_window(port, model, text, rt):
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     os.makedirs(OUT_DIR, exist_ok=True)
-    trace = os.path.join(OUT_DIR, "serve_trace.json")
+    trace = os.path.join(OUT_DIR, f"serve_trace_{rt.weights_dtype}.json")
     prof.export_chrome_trace(trace)
     with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
@@ -566,7 +685,8 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a serving burst (chiprun_out/chip_smoke/)")
+                    help="also profile a serving burst of each serve phase "
+                         "(chiprun_out/chip_smoke/)")
     args = ap.parse_args(argv)
     import torch
 
@@ -584,36 +704,36 @@ def main(argv=None) -> int:
               "device": torch.cuda.get_device_name(0), "kernels": []}
     t0 = time.monotonic()
     built = build.build()
+    for name in build.KERNELS:  # every entry point loads from its library
+        build.kernel_fn(name)
     line = {"phase": "build", "seconds": time.monotonic() - t0,
-            "kernels": {n: {"seconds": b["seconds"], "cached": b["cached"],
-                            "ptxas": [ln.strip() for ln in b["log"].splitlines()
-                                      if "registers" in ln]}
-                        for n, b in built.items()}}
+            "entry_points": list(build.KERNELS),
+            "sources": {src: {"seconds": b["seconds"], "cached": b["cached"],
+                              "entry_points": b["entry_points"],
+                              "ptxas": [ln.strip() for ln in b["log"].splitlines()
+                                        if "registers" in ln]}
+                        for src, b in built.items()}}
     emit(line)
     report["build"] = line
 
     kernel_phase(report)
     serve_phase(report, args.profile)
+    serve_phase(report, args.profile, int8=True)
+    guardrail_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]
-    launches = report["serve"]["launches"]
-    errs = {name: max(l["max_abs_err"] for l in report["kernels"]
-                      if l["kernel"] == name and l["case"] == "llama3.2:1b"
-                      and l["dtype"] == "bfloat16")
-            for name in s}
     kernels = []
-    for name, source, replaces in (
-            ("ragged_paged_attention", "ollamamq_tpu_torch/csrc/ragged_paged_attention.cu",
-             "ollamamq_tpu/ops/pallas/ragged_attention.py:259"),
-            ("paged_decode_attention", "ollamamq_tpu_torch/csrc/paged_decode_attention.cu",
-             "ollamamq_tpu/ops/pallas/paged_attention.py:229")):
+    for name, (source, replaces, serve) in KERNEL_ROWS.items():
         m = s[name]["llama3.2:1b"]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": m["kernel_ms"],
-                        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                        "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": report[serve]["launches"][name],
+               "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
+               "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+               "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}
+        if name.endswith("_int8"):
+            row["variant"] = "quantized=True"
+        kernels.append(row)
     report["card"] = card
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "report.json"), "w") as f:

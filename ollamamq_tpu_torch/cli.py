@@ -2,6 +2,7 @@
 
     python -m ollamamq_tpu_torch.cli --model llama3.2:1b --port 11434
     python -m ollamamq_tpu_torch.cli --model test-tiny --device cpu
+    python -m ollamamq_tpu_torch.cli --weights-dtype int8 --kv-dtype int8
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
 start when no CUDA device is found. Weights are seeded random (--seed).
@@ -12,7 +13,7 @@ from __future__ import annotations
 import argparse
 import logging
 
-from ollamamq_tpu_torch.config import EngineConfig
+from ollamamq_tpu_torch.config import QUANT_DTYPES, EngineConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -25,6 +26,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain attention on the CPU")
     p.add_argument("--dtype", default=d.dtype, choices=("bfloat16", "float32"))
+    p.add_argument("--weights-dtype", default=d.weights_dtype, choices=QUANT_DTYPES,
+                   help="'int8' quantizes the weights per channel at start-up "
+                        "(f32 scales); norms and biases stay in --dtype")
+    p.add_argument("--kv-dtype", default=d.kv_dtype, choices=QUANT_DTYPES,
+                   help="'int8' stores KV pages as int8 with one f32 scale "
+                        "per (slot, kv head): pages shrink by (hd+4)/(2*hd)")
     p.add_argument("--max-slots", type=int, default=d.max_slots)
     p.add_argument("--num-pages", type=int, default=d.num_pages)
     p.add_argument("--page-size", type=int, default=d.page_size)
@@ -46,10 +53,13 @@ def engine_config(args) -> EngineConfig:
         page_size=args.page_size, max_pages_per_seq=args.max_pages_per_seq,
         max_batch_tokens=args.max_batch_tokens, token_granule=args.token_granule,
         decode_steps_per_iter=args.decode_steps,
-        max_new_tokens=args.max_new_tokens, dtype=args.dtype, seed=args.seed)
+        max_new_tokens=args.max_new_tokens, dtype=args.dtype,
+        weights_dtype=args.weights_dtype, kv_dtype=args.kv_dtype, seed=args.seed)
 
 
 def main(argv=None) -> None:
+    # An unknown --weights-dtype / --kv-dtype fails here, in argparse,
+    # before any device work.
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level.upper(),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")

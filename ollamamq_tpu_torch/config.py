@@ -163,8 +163,31 @@ class EngineConfig:
     # Repeat-penalty window (llama.cpp repeat_last_n).
     repeat_last_n: int = 64
     dtype: str = "bfloat16"
+    # "int8": per-channel symmetric int8 weights, quantized when the
+    # runtime builds them (f32 scales; norms and biases stay in `dtype`).
+    weights_dtype: str = "bfloat16"
+    # "int8": int8 KV pages with one f32 scale per (slot, kv head) stored
+    # beside the pool; pages shrink by (hd + 4) / (2 * hd).
+    kv_dtype: str = "bfloat16"
     seed: int = 0
 
     @property
     def max_context(self) -> int:
         return self.max_pages_per_seq * self.page_size
+
+
+QUANT_DTYPES = ("bfloat16", "int8")
+
+
+def validate_quant_config(weights_dtype: str, kv_dtype: str) -> Optional[str]:
+    """Check the quantization flags before any device work: an error
+    string, or None when valid. ModelRuntime calls it at build (the CLI's
+    argparse choices already restrict the flags to QUANT_DTYPES).
+    (The JAX package's copy also rejects int8 KV with pp/sp and int8
+    weights for MoE models; this package serves neither yet.)"""
+    if weights_dtype not in QUANT_DTYPES:
+        return (f"--weights-dtype must be one of {QUANT_DTYPES}, "
+                f"got {weights_dtype!r}")
+    if kv_dtype not in QUANT_DTYPES:
+        return f"--kv-dtype must be one of {QUANT_DTYPES}, got {kv_dtype!r}"
+    return None

@@ -17,6 +17,14 @@
 // stale slot data (a reused page, the trash page padding rows write to)
 // can never reach the accumulator, not even as 0 * NaN.
 //
+// Int8 pools (the TPU kernels' quantized=True variants): the payload P is
+// int8 and every (slot, kv head) row carries one f32 scale in a [S, Hk]
+// plane beside the pool. A tile first stages its positions' scales in
+// shared memory (one load per position and pool), then dequantizes each
+// element in f32 right after its load, (float)q * scale, the value the
+// plain version's kv_gather computes; nothing is rounded to bf16, and the
+// tiles stay f32. Scales of positions past the frontier are never loaded.
+//
 // Kept simple on purpose: plain loads, float32 FMA on CUDA cores, no
 // tensor cores, no split over the context. Sharing K/V loads across the
 // query rows of one prefill span, wgmma and TMA are later work.
@@ -26,6 +34,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace paged_attn {
 
@@ -36,6 +47,7 @@ enum DType { F32 = 0, BF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -53,27 +65,34 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared-memory floats one block needs.
-__host__ __device__ inline int smem_floats(int group, int hd) {
+// Shared-memory floats one block needs; `quantized` adds the tile's
+// staged K and V scales.
+__host__ __device__ inline int smem_floats(int group, int hd, bool quantized) {
   return group * hd          // q rows (pre-scaled)
          + TILE * (hd + 1)   // K tile, rows padded against bank conflicts
          + TILE * hd         // V tile
          + group * TILE      // scores, then probabilities
          + group * hd        // accumulators
-         + 3 * group;        // running max, running sum, rescale factor
+         + 3 * group         // running max, running sum, rescale factor
+         + (quantized ? 2 * TILE : 0);  // K and V scales of the tile
 }
 
-// Attend one query token (q_row: [group, hd], this kv head's query heads)
-// over context positions [0, n_visible) of the sequence whose page-table
-// row is pt_row; write [group, hd] to out_row. n_visible must already be
-// clamped to max_pages * page_size.
-template <typename T>
+// Attend one query token (q_row: [group, hd] of type T, this kv head's
+// query heads) over context positions [0, n_visible) of the sequence
+// whose page-table row is pt_row; write [group, hd] to out_row in T.
+// n_visible must already be clamped to max_pages * page_size. The pools
+// hold payload P: T itself, or int8 with f32 scale planes k_scale /
+// v_scale [S, Hk] (unread, and may be null, for other payloads).
+template <typename T, typename P>
 __device__ void attend_token(const T* __restrict__ q_row,
-                             const T* __restrict__ k_pool,
-                             const T* __restrict__ v_pool,
+                             const P* __restrict__ k_pool,
+                             const P* __restrict__ v_pool,
+                             const float* __restrict__ k_scale,
+                             const float* __restrict__ v_scale,
                              const int* __restrict__ pt_row, int n_visible,
                              int kvh, int Hk, int hd, int group, int page_size,
                              T* __restrict__ out_row, float* smem) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   float* qs = smem;
   float* ks = qs + group * hd;
   float* vs = ks + TILE * (hd + 1);
@@ -82,6 +101,8 @@ __device__ void attend_token(const T* __restrict__ q_row,
   float* m_run = acc + group * hd;
   float* l_run = m_run + group;
   float* alpha = l_run + group;
+  float* k_sc = alpha + group;  // [TILE], int8 pools only
+  float* v_sc = k_sc + TILE;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -101,7 +122,24 @@ __device__ void attend_token(const T* __restrict__ q_row,
 
   for (int base = 0; base < n_visible; base += TILE) {
     const int nt = min(TILE, n_visible - base);
-    // Load the tile's K/V rows; positions past the frontier load zeros.
+    if constexpr (kQuant) {
+      // Stage the tile's scales, one load per position; the previous
+      // tile's last barrier guarantees no thread still reads them.
+      for (int t = tid; t < TILE; t += blockDim.x) {
+        float kscale = 0.f, vscale = 0.f;
+        if (t < nt) {
+          const int pos = base + t;
+          const long slot = (long)pt_row[pos / page_size] * page_size + pos % page_size;
+          kscale = k_scale[slot * Hk + kvh];
+          vscale = v_scale[slot * Hk + kvh];
+        }
+        k_sc[t] = kscale;
+        v_sc[t] = vscale;
+      }
+      __syncthreads();
+    }
+    // Load the tile's K/V rows (dequantized in f32 for int8 pools);
+    // positions past the frontier load zeros.
     for (int i = tid; i < TILE * hd; i += blockDim.x) {
       const int t = i / hd, d = i - t * hd;
       float kf = 0.f, vf = 0.f;
@@ -111,6 +149,10 @@ __device__ void attend_token(const T* __restrict__ q_row,
         const long off = (slot * Hk + kvh) * hd + d;
         kf = to_f32(k_pool[off]);
         vf = to_f32(v_pool[off]);
+        if constexpr (kQuant) {
+          kf *= k_sc[t];
+          vf *= v_sc[t];
+        }
       }
       ks[t * (hd + 1) + d] = kf;
       vs[t * hd + d] = vf;

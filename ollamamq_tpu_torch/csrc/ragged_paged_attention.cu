@@ -10,6 +10,10 @@
 // padding) write exact zeros. Spans are contiguous and ascending in
 // stream order; padding sequences carry q_len = 0, q_start = T.
 //
+// Two entry points: ragged_paged_attention (pool in q's dtype) and
+// ragged_paged_attention_int8 (the quantized=True variant: int8 pool plus
+// f32 [S, Hk] scale planes, dequantized in f32 right after each load).
+//
 // Design: one block per (stream row, kv head). The block finds its own
 // sequence by binary search over the span ends (the searchsorted the TPU
 // wrapper ran on the host side of the grid) and walks pages up to its
@@ -25,10 +29,12 @@
 
 using namespace paged_attn;
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(THREADS)
-ragged_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ page_table,
+ragged_paged_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                    const P* __restrict__ v_pool, const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ page_table,
                     const int* __restrict__ q_start, const int* __restrict__ q_lens,
                     const int* __restrict__ kv_lens, T* __restrict__ out, int B, int H,
                     int Hk, int hd, int page_size, int max_pages) {
@@ -52,22 +58,24 @@ ragged_paged_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     s = 0;  // uncovered row: n = 0 writes zeros, the page table is not read
   }
   const long row = ((long)t * H + (long)kvh * group) * hd;
-  attend_token<T>(q + row, k_pool, v_pool, page_table + (long)s * max_pages, n, kvh,
-                  Hk, hd, group, page_size, out + row, smem);
+  attend_token<T, P>(q + row, k_pool, v_pool, k_scale, v_scale,
+                     page_table + (long)s * max_pages, n, kvh, Hk, hd, group,
+                     page_size, out + row, smem);
 }
 
-template <typename T>
-static int launch(const void* q, const void* k, const void* v, const int* pt,
-                  const int* qs, const int* ql, const int* kl, void* out, int T_rows,
-                  int B, int H, int Hk, int hd, int page_size, int max_pages,
-                  cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(H / Hk, hd);
-  cudaError_t err = allow_smem(ragged_paged_kernel<T>, bytes);
+template <typename T, typename P>
+static int launch(const void* q, const void* k, const void* v, const float* ks,
+                  const float* vs, const int* pt, const int* qs, const int* ql,
+                  const int* kl, void* out, int T_rows, int B, int H, int Hk, int hd,
+                  int page_size, int max_pages, cudaStream_t stream) {
+  const size_t bytes =
+      sizeof(float) * smem_floats(H / Hk, hd, std::is_same<P, int8_t>::value);
+  cudaError_t err = allow_smem(ragged_paged_kernel<T, P>, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T_rows, Hk);
-  ragged_paged_kernel<T><<<grid, THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, pt, qs, ql, kl, (T*)out, B, H, Hk, hd,
-      page_size, max_pages);
+  ragged_paged_kernel<T, P><<<grid, THREADS, bytes, stream>>>(
+      (const T*)q, (const P*)k, (const P*)v, ks, vs, pt, qs, ql, kl, (T*)out, B, H,
+      Hk, hd, page_size, max_pages);
   return (int)cudaGetLastError();
 }
 
@@ -84,11 +92,44 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case F32:
-      return launch<float>(q, k_pool, v_pool, pt, qs, ql, kl, out, T_rows, B, H, Hk,
-                           hd, page_size, max_pages, s);
+      return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, pt, qs, ql,
+                                  kl, out, T_rows, B, H, Hk, hd, page_size,
+                                  max_pages, s);
     case BF16:
-      return launch<__nv_bfloat16>(q, k_pool, v_pool, pt, qs, ql, kl, out, T_rows, B,
-                                   H, Hk, hd, page_size, max_pages, s);
+      return launch<__nv_bfloat16, __nv_bfloat16>(q, k_pool, v_pool, nullptr,
+                                                  nullptr, pt, qs, ql, kl, out,
+                                                  T_rows, B, H, Hk, hd, page_size,
+                                                  max_pages, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 pools: k_pool / v_pool int8 [S, Hk, hd], k_scale / v_scale f32
+// [S, Hk]; `dtype` is q's (and out's).
+extern "C" int ragged_paged_attention_int8(const void* q, const void* k_pool,
+                                           const void* v_pool, const void* k_scale,
+                                           const void* v_scale,
+                                           const void* page_table,
+                                           const void* q_start, const void* q_lens,
+                                           const void* kv_lens, void* out, int T_rows,
+                                           int B, int H, int Hk, int hd,
+                                           int page_size, int max_pages, int dtype,
+                                           void* stream) {
+  const float* ks = (const float*)k_scale;
+  const float* vs = (const float*)v_scale;
+  const int* pt = (const int*)page_table;
+  const int* qs = (const int*)q_start;
+  const int* ql = (const int*)q_lens;
+  const int* kl = (const int*)kv_lens;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case F32:
+      return launch<float, int8_t>(q, k_pool, v_pool, ks, vs, pt, qs, ql, kl, out,
+                                   T_rows, B, H, Hk, hd, page_size, max_pages, s);
+    case BF16:
+      return launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, ks, vs, pt, qs, ql,
+                                           kl, out, T_rows, B, H, Hk, hd, page_size,
+                                           max_pages, s);
   }
   return (int)cudaErrorInvalidValue;
 }

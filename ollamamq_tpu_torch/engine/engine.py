@@ -19,10 +19,15 @@ Where the JAX jits donated the KV pools and the recent-token ring, this
 engine updates them IN PLACE. Device work is issued without host
 synchronisation until a tick's tokens are read back.
 
+With weights_dtype="int8" the runtime quantizes its weights when it
+builds them (int8 QuantTensors, f32 per-channel scales); with
+kv_dtype="int8" its pools are QuantKV (int8 payload, f32 per-slot
+per-head scales) and both forwards go through the int8-pool kernels.
+
 Not carried over yet (later slices): speculative decoding, the prefix
 cache, preemption with recompute, retries and runtime rebuilds, KV
-migration, int8, embeddings, multi-device layouts, fleet, durability,
-journal and telemetry. A failed dispatch errors the runtime's requests.
+migration, embeddings, multi-device layouts, fleet, durability, journal
+and telemetry. A failed dispatch errors the runtime's requests.
 """
 
 from __future__ import annotations
@@ -36,12 +41,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ollamamq_tpu_torch.config import EngineConfig, ModelConfig, get_model_config, smart_match
+from ollamamq_tpu_torch.config import (EngineConfig, ModelConfig, get_model_config,
+                                       smart_match, validate_quant_config)
 from ollamamq_tpu_torch.core.mqcore import Family, MQCore, StuckQueue
 from ollamamq_tpu_torch.engine import kv_cache as kvc
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
 from ollamamq_tpu_torch.models import llama, weights
+from ollamamq_tpu_torch.ops.quant import nbytes
 from ollamamq_tpu_torch.ops.sampling import (maybe_apply_penalties, row_uniforms,
                                              sample_tokens_rowwise, sampling_flags)
 
@@ -86,16 +93,30 @@ class ModelRuntime:
     def __init__(self, name: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None, dtype=None,
                  params: Optional[dict] = None):
+        # An unsupported quantization fails here, before any device work.
+        err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype)
+        if err is not None:
+            raise ValueError(err)
         self.name = name
         self.cfg = model_cfg
         self.ecfg = engine_cfg
+        self.weights_dtype = engine_cfg.weights_dtype
+        self.kv_dtype = engine_cfg.kv_dtype
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
         self.tokenizer = ByteTokenizer()
-        self.params = params if params is not None else weights.init_random(
-            model_cfg, engine_cfg.seed, self.dtype, self.device)
+        # Params passed in are used as given (already quantized or not);
+        # random weights are quantized at build time for int8, as the JAX
+        # package's load_params does.
+        if params is None:
+            params = weights.init_random(model_cfg, engine_cfg.seed,
+                                         self.dtype, self.device)
+            if self.weights_dtype == "int8":
+                params = weights.quantize_params_int8(params)
+        self.params = params
         self.kc, self.vc = kvc.alloc_kv_pool(model_cfg, engine_cfg,
-                                             self.dtype, self.device)
+                                             self.dtype, self.device,
+                                             kv_dtype=self.kv_dtype)
         S, MP = engine_cfg.max_slots, engine_cfg.max_pages_per_seq
         # Repeat-penalty ring of each slot's last-W context token ids
         # (-1 = empty). Row S is a trash row for padding rows' writes.
@@ -146,9 +167,9 @@ class ModelRuntime:
         self.decode_steps = 0
         self.step_latency_ms = 0.0
         self.prefill_latency_ms = 0.0
-        self.param_bytes = sum(
-            t.numel() * t.element_size() for t in _leaves(self.params))
-        self.kv_bytes = 2 * self.kc.numel() * self.kc.element_size()
+        # Device bytes, payload plus scales for int8 leaves and pools.
+        self.param_bytes = sum(nbytes(t) for t in _leaves(self.params))
+        self.kv_bytes = nbytes(self.kc) + nbytes(self.vc)
 
     # -- capacity ----------------------------------------------------------
     def free_slots(self) -> int:
@@ -668,6 +689,7 @@ class ModelRuntime:
                 "kv_pages_used": self.alloc.used_pages,
                 "kv_pages_free": self.alloc.free_pages,
                 "param_bytes": self.param_bytes, "kv_bytes": self.kv_bytes,
+                "weights_dtype": self.weights_dtype, "kv_dtype": self.kv_dtype,
                 "failed": self._failed}
 
 

@@ -1,10 +1,11 @@
 """Paged KV cache: device slot pool + host-side page allocator.
 
-Device side: two tensors per model, [num_layers, num_pages*page_size,
-kv_heads, head_dim] for K and V, allocated once at engine start. Host
-side: a free-list allocator of page indices. Page 0 is RESERVED as the
-trash page: page-table rows are padded with it, and padding tokens write
-their K/V there.
+Device side: two pools per model, [num_layers, num_pages*page_size,
+kv_heads, head_dim] for K and V, allocated once at engine start: plain
+tensors, or QuantKV pools (int8 payload plus f32 [L, S, Hk] scales) when
+kv_dtype="int8". Host side: a free-list allocator of page indices. Page
+0 is RESERVED as the trash page: page-table rows are padded with it, and
+padding tokens write their K/V there.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from ollamamq_tpu_torch.config import EngineConfig, ModelConfig
+from ollamamq_tpu_torch.ops.quant import QuantKV
 
 TRASH_PAGE = 0
 
@@ -72,10 +74,34 @@ def make_page_table_row(pages: List[int], max_pages: int) -> np.ndarray:
 
 
 def alloc_kv_pool(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                  dtype=torch.bfloat16, device="cpu"):
-    """Allocate the K/V slot pools (zeros) on `device`."""
+                  dtype=torch.bfloat16, device="cpu", kv_dtype: str = "bfloat16"):
+    """Allocate the K/V slot pools on `device`: zeros in `dtype`, or, for
+    kv_dtype="int8", QuantKV pools of an int8 zero payload and f32 scales
+    of ONE per (layer, slot, kv head), as the JAX package allocates them."""
     S = engine_cfg.num_pages * engine_cfg.page_size
     shape = (model_cfg.num_layers, S, model_cfg.num_kv_heads,
              model_cfg.head_dim)
+    if kv_dtype == "int8":
+        return tuple(QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                             torch.ones(shape[:-1], dtype=torch.float32,
+                                        device=device))
+                     for _ in range(2))
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def kv_page_bytes(model_cfg: ModelConfig, page_size: int,
+                  bytes_per_el=2, kv_dtype: str = "bfloat16") -> int:
+    """Bytes ONE page costs (K and V, all layers), the unit of equal-memory
+    pool sizing: each (slot, kv head) row holds hd elements of
+    bytes_per_el, or hd int8 bytes plus a 4-byte f32 scale."""
+    per_row = (model_cfg.head_dim + 4 if kv_dtype == "int8"
+               else model_cfg.head_dim * bytes_per_el)
+    return 2 * model_cfg.num_layers * page_size * model_cfg.num_kv_heads * per_row
+
+
+def kv_pool_bytes(model_cfg: ModelConfig, engine_cfg: EngineConfig,
+                  bytes_per_el=2, kv_dtype: str = "bfloat16") -> int:
+    """Planning-time size of both pools (K and V, all layers)."""
+    return engine_cfg.num_pages * kv_page_bytes(model_cfg, engine_cfg.page_size,
+                                                 bytes_per_el, kv_dtype)

@@ -104,22 +104,32 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits_head(x, params.get("lm_head", params["embed"]))
 
 
-def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend):
-    """The shared layer stack: norm, qkv, RoPE, KV write BEFORE attention
-    (a token sees its own K/V), attention through `attend(layer, q)`,
-    output projection and the SwiGLU MLP, with residuals."""
+def layer_step(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+               positions: torch.Tensor, attend) -> torch.Tensor:
+    """One decoder layer: norm, qkv, RoPE, `attend(q, k, v)` -> [N, H,
+    hd], output projection and the SwiGLU MLP, with residuals."""
     N = x.shape[0]
+    h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    q, k, v = _qkv(cfg, lp, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    attn = attend(q, k, v)
+    x = x + qeinsum("ne,ed->nd", attn.reshape(N, cfg.q_dim), lp["wo"])
+    h2 = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + _mlp(lp, h2)
+
+
+def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend):
+    """The paged layer stack: each layer writes its K/V BEFORE attention
+    (a token sees its own K/V), then attends through `attend(layer, q)`.
+    `k_cache[layer]` is that layer's pool, a tensor or a QuantKV."""
     for layer, lp in enumerate(params["layers"]):
-        h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(cfg, lp, h)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        kv_write(k_cache[layer], write_slots, k)
-        kv_write(v_cache[layer], write_slots, v)
-        attn = attend(layer, q)
-        x = x + qeinsum("ne,ed->nd", attn.reshape(N, cfg.q_dim), lp["wo"])
-        h2 = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp(lp, h2)
+        def paged(q, k, v, layer=layer):
+            kv_write(k_cache[layer], write_slots, k)
+            kv_write(v_cache[layer], write_slots, v)
+            return attend(layer, q)
+
+        x = layer_step(cfg, lp, x, positions, paged)
     return x
 
 
@@ -131,8 +141,8 @@ def forward_ragged(
     tok_pos: torch.Tensor,  # [T] kv position per token (-1 = pad)
     write_slots: torch.Tensor,  # [T] flat cache slot per token
     out_idx: torch.Tensor,  # [B] or [B, O] stream indices to read logits at
-    k_cache: torch.Tensor,  # [L, S, Hk, hd], written in place
-    v_cache: torch.Tensor,
+    k_cache,  # [L, S, Hk, hd] tensor or QuantKV, written in place
+    v_cache,
     page_table: torch.Tensor,  # [B, max_pages] int32
     q_start: torch.Tensor,  # [B] int32 span offset per sequence
     q_len: torch.Tensor,  # [B] int32 span length (0 = padding row)
@@ -164,8 +174,8 @@ def forward_decode(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B] last generated token per slot
     positions: torch.Tensor,  # [B] int32 position of `tokens` in each seq
-    k_cache: torch.Tensor,  # [L, S, Hk, hd], written in place
-    v_cache: torch.Tensor,
+    k_cache,  # [L, S, Hk, hd] tensor or QuantKV, written in place
+    v_cache,
     page_table: torch.Tensor,  # [B, max_pages] int32
     page_size: int,
     attn_impl: str = "kernel",  # "kernel" (serving) | "plain" (reference)

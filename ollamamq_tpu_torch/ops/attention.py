@@ -5,7 +5,9 @@ package:
     k_cache, v_cache: [num_layers, num_pages * page_size, kv_heads, head_dim]
 A page is page_size contiguous slots; page 0 is the trash page that
 padding rows point at. Slot of (page_table row, position p) is
-row[p // page_size] * page_size + p % page_size.
+row[p // page_size] * page_size + p % page_size. A pool may be a QuantKV
+(int8 payload, f32 [S, Hk] scales): the plain versions dequantize at
+the gather, in f32, and the dispatchers route it to the int8 kernels.
 
 The plain versions here define what the hand-written CUDA kernels
 (ops/cuda/) compute and are what those kernels are held against. They
@@ -18,6 +20,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ollamamq_tpu_torch.ops.quant import QuantKV, kv_gather
 
 
 def _attend_rows(q, k_cache, v_cache, rows, n_visible, page_size):
@@ -36,8 +40,8 @@ def _attend_rows(q, k_cache, v_cache, rows, n_visible, page_size):
     slots = (rows.long()[:, pos // page_size] * page_size
              + pos % page_size)  # [N, L]
     mask = pos[None, :] < n_visible.long()[:, None]  # [N, L]
-    k = torch.where(mask[..., None, None], k_cache[slots].float(), 0.0)
-    v = torch.where(mask[..., None, None], v_cache[slots].float(), 0.0)
+    k = torch.where(mask[..., None, None], kv_gather(k_cache, slots).float(), 0.0)
+    v = torch.where(mask[..., None, None], kv_gather(v_cache, slots).float(), 0.0)
     qf = q.float().reshape(N, Hk, G, hd) * (1.0 / math.sqrt(hd))
     s = torch.einsum("nkgd,nlkd->nkgl", qf, k)  # [N, Hk, G, L]
     keep = mask[:, None, None, :]
@@ -52,8 +56,8 @@ def _attend_rows(q, k_cache, v_cache, rows, n_visible, page_size):
 
 def paged_decode_attention(
     q: torch.Tensor,  # [B, H, hd] one new token per sequence
-    k_cache: torch.Tensor,  # [S, Hk, hd] flat slot pool for ONE layer
-    v_cache: torch.Tensor,
+    k_cache,  # [S, Hk, hd] flat slot pool for ONE layer (tensor or QuantKV)
+    v_cache,
     page_table: torch.Tensor,  # [B, max_pages]
     seq_lens: torch.Tensor,  # [B] context length INCLUDING the new token
     page_size: int,
@@ -66,8 +70,8 @@ def paged_decode_attention(
 
 def ragged_paged_attention(
     q: torch.Tensor,  # [T, H, hd] flattened mixed-batch query stream
-    k_cache: torch.Tensor,  # [S, Hk, hd] flat slot pool for ONE layer
-    v_cache: torch.Tensor,
+    k_cache,  # [S, Hk, hd] flat slot pool for ONE layer (tensor or QuantKV)
+    v_cache,
     page_table: torch.Tensor,  # [B, max_pages] one row per sequence
     tok_seq: torch.Tensor,  # [T] sequence index of each token
     tok_pos: torch.Tensor,  # [T] kv position of each token (-1 = pad)
@@ -112,16 +116,18 @@ def ragged_attention_any(
 ) -> torch.Tensor:
     """The ONE ragged-attention dispatch of forward_ragged. "kernel"
     launches the CUDA kernel for CUDA tensors (its wrapper raises rather
-    than fall back) and runs the plain version only for CPU tensors;
-    "plain" is the explicit reference path a comparison asks for."""
+    than fall back) and runs the plain version only for CPU tensors; a
+    QuantKV pool goes to the int8-pool kernel. "plain" is the explicit
+    reference path a comparison asks for."""
     if attn_impl == "plain":
         return ragged_paged_attention(q, k_cache, v_cache, page_table,
                                       tok_seq, tok_pos, kv_lens, page_size)
-    from ollamamq_tpu_torch.ops.cuda.ragged_attention import (
-        ragged_paged_attention_cuda)
+    from ollamamq_tpu_torch.ops.cuda import ragged_attention as ra
 
-    return ragged_paged_attention_cuda(q, k_cache, v_cache, page_table,
-                                       q_start, q_lens, kv_lens, page_size)
+    fn = (ra.ragged_paged_attention_int8_cuda if isinstance(k_cache, QuantKV)
+          else ra.ragged_paged_attention_cuda)
+    return fn(q, k_cache, v_cache, page_table, q_start, q_lens, kv_lens,
+              page_size)
 
 
 def paged_decode_attention_any(
@@ -133,8 +139,31 @@ def paged_decode_attention_any(
     if attn_impl == "plain":
         return paged_decode_attention(q, k_cache, v_cache, page_table,
                                       seq_lens, page_size)
-    from ollamamq_tpu_torch.ops.cuda.paged_attention import (
-        paged_decode_attention_cuda)
+    from ollamamq_tpu_torch.ops.cuda import paged_attention as pa
 
-    return paged_decode_attention_cuda(q, k_cache, v_cache, page_table,
-                                       seq_lens, page_size)
+    fn = (pa.paged_decode_attention_int8_cuda if isinstance(k_cache, QuantKV)
+          else pa.paged_decode_attention_cuda)
+    return fn(q, k_cache, v_cache, page_table, seq_lens, page_size)
+
+
+def causal_attention(
+    q: torch.Tensor,  # [B, T, H, hd]
+    k: torch.Tensor,  # [B, T, Hk, hd]
+    v: torch.Tensor,  # [B, T, Hk, hd]
+    seq_lens: torch.Tensor,  # [B] valid lengths (padding masked out)
+) -> torch.Tensor:
+    """Causal self-attention over a padded batch with no KV pool, f32
+    softmax (the quantization guardrail's probe). GQA repeats each kv
+    head over its H // Hk query heads."""
+    B, T, H, hd = q.shape
+    n_rep = H // k.shape[2]
+    k = k.float().repeat_interleave(n_rep, dim=2)
+    v = v.float().repeat_interleave(n_rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(T, device=q.device)
+    causal = pos[None, :] <= pos[:, None]  # [q, k]
+    valid = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]  # [B, 1, k]
+    mask = causal[None, None] & valid[:, None]
+    logits = torch.where(mask, logits, -1e30)  # the JAX package's NEG_INF
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)

@@ -2,14 +2,17 @@
 
 A wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch version from ops/attention.py for CPU tensors only. Each
-wrapper module keeps a plain integer `launches`, incremented once per
-launch of its kernel; launch_counts()/reset_launch_counts() read and
-clear them all.
+wrapper module keeps one plain integer per kernel variant (`launches`
+for the pool in q's dtype, `launches_int8` for the int8 pool),
+incremented once per launch of that kernel; launch_counts() and
+reset_launch_counts() read and clear them all.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ollamamq_tpu_torch.ops.quant import QuantKV
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -29,17 +32,35 @@ def check(t: torch.Tensor, name: str, device, dtype=None, shape=None) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _modules():
+def check_quant_pool(pool, name: str, device, shape) -> None:
+    """Raise unless `pool` is a QuantKV with a contiguous int8 payload of
+    `shape` [S, Hk, hd] and contiguous f32 scales [S, Hk] on `device`."""
+    if not isinstance(pool, QuantKV):
+        raise ValueError(f"{name}: expected a QuantKV pool, got {type(pool).__name__}")
+    check(pool.q, f"{name}.q", device, torch.int8, shape)
+    check(pool.s, f"{name}.s", device, torch.float32, shape[:2])
+
+
+def raise_on_launch_error(rc: int, name: str) -> None:
+    """A kernel entry point returns the cudaError_t of its launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _counters():
+    """Kernel name -> (wrapper module, counter attribute)."""
     from ollamamq_tpu_torch.ops.cuda import paged_attention, ragged_attention
 
-    return {"paged_decode_attention": paged_attention,
-            "ragged_paged_attention": ragged_attention}
+    return {"paged_decode_attention": (paged_attention, "launches"),
+            "paged_decode_attention_int8": (paged_attention, "launches_int8"),
+            "ragged_paged_attention": (ragged_attention, "launches"),
+            "ragged_paged_attention_int8": (ragged_attention, "launches_int8")}
 
 
 def launch_counts() -> dict:
-    return {name: mod.launches for name, mod in _modules().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _modules().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)

@@ -1,6 +1,7 @@
 """The port stands alone: every module of ollamamq_tpu_torch imports and
-serves a request without JAX or the JAX package ever being imported, and
-without a GPU the engine refuses to start unless the CPU is asked for.
+serves a request (bf16/f32, then int8 weights and int8 KV pages) without
+JAX or the JAX package ever being imported, and without a GPU the engine
+refuses to start unless the CPU is asked for.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -22,6 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(ollamamq_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 
+import dataclasses
 import torch
 from ollamamq_tpu_torch.config import EngineConfig
 from ollamamq_tpu_torch.engine.engine import TorchEngine
@@ -29,14 +31,24 @@ from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
 
 cfg = EngineConfig(model="test-tiny", max_slots=2, num_pages=32, page_size=8,
                    max_pages_per_seq=8, max_new_tokens=4)
-srv = serve_in_thread(TorchEngine(cfg, device="cpu", dtype=torch.float32))
-req = urllib.request.Request(
-    f"http://127.0.0.1:{srv.server_address[1]}/api/generate",
-    data=json.dumps({"model": "test-tiny", "prompt": "hi", "stream": False,
-                     "options": {"temperature": 0}}).encode(),
-    headers={"X-User-ID": "solo"})
-body = json.loads(urllib.request.urlopen(req, timeout=60).read())
-stop_server(srv)
+
+
+def serve_one(ecfg):
+    srv = serve_in_thread(TorchEngine(ecfg, device="cpu", dtype=torch.float32))
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.server_address[1]}/api/generate",
+        data=json.dumps({"model": "test-tiny", "prompt": "hi", "stream": False,
+                         "options": {"temperature": 0}}).encode(),
+        headers={"X-User-ID": "solo"})
+    body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+    stats = srv.engine.stats()["runtimes"][0]
+    stop_server(srv)
+    return body, stats
+
+
+body, _ = serve_one(cfg)
+body8, stats8 = serve_one(dataclasses.replace(cfg, weights_dtype="int8",
+                                              kv_dtype="int8"))
 
 refused = None
 if not torch.cuda.is_available():
@@ -47,6 +59,8 @@ if not torch.cuda.is_available():
 print(json.dumps({
     "modules": names,
     "eval_count": body["eval_count"],
+    "eval_count_int8": body8["eval_count"],
+    "dtypes_int8": [stats8["weights_dtype"], stats8["kv_dtype"]],
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu")),
     "refused": refused,
@@ -65,10 +79,13 @@ def test_port_imports_and_serves_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["foreign"] == []
     assert out["eval_count"] == 4
+    assert out["eval_count_int8"] == 4
+    assert out["dtypes_int8"] == ["int8", "int8"]
     expected = {"ollamamq_tpu_torch.engine.engine", "ollamamq_tpu_torch.server.app",
                 "ollamamq_tpu_torch.ops.cuda.paged_attention",
                 "ollamamq_tpu_torch.ops.cuda.ragged_attention",
-                "ollamamq_tpu_torch.models.llama", "ollamamq_tpu_torch.cli"}
+                "ollamamq_tpu_torch.models.llama", "ollamamq_tpu_torch.cli",
+                "ollamamq_tpu_torch.ops.quant", "ollamamq_tpu_torch.models.weights"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.

@@ -45,8 +45,9 @@ def test_health_and_tags(server):
     status, _, data = _call(server, "GET", "/health")
     body = json.loads(data)
     assert status == 200 and body["status"] == "ok" and body["device"] == "cpu"
-    assert set(body["kernel_launches"]) == {"paged_decode_attention",
-                                            "ragged_paged_attention"}
+    assert set(body["kernel_launches"]) == {
+        "paged_decode_attention", "paged_decode_attention_int8",
+        "ragged_paged_attention", "ragged_paged_attention_int8"}
     status, _, data = _call(server, "GET", "/api/tags")
     assert status == 200
     assert [m["name"] for m in json.loads(data)["models"]] == ["test-tiny"]
