@@ -11,15 +11,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
            attention over a pool in q's dtype and over an int8 pool.
   kernels  each kernel against its plain PyTorch version on the card, q in
            bf16 (atol = rtol = 2e-2) and float32 (1e-4), at the
-           llama3.2:1b and llama3:8b attention shapes and the CPU tests'
-           edge cases (GQA, MQA, group 1, empty rows, contexts past
-           max_pages). Every pool slot a kernel must not read holds NaN;
-           in an int8 pool (built by the port's kv_quantize) it holds
-           payload 127 and a NaN scale. Times kernel_ms / plain_ms /
-           sdpa_dense_ms (CUDA events; SDPA over dense K/V, dequantized
-           to q's dtype for an int8 pool, a yardstick only) and bound_ms
-           (bytes the call must move over 3.35 TB/s, or its FLOPs over
-           the dtype's peak, whichever is larger).
+           llama3.2:1b and llama3:8b attention shapes, a 512-token
+           llama3.2:1b prefill (ragged only), the CPU tests' edge cases
+           (GQA, MQA, group 1, empty rows, contexts past max_pages) and
+           the ragged kernel's query-tiling edges (a span starting
+           mid-page, spans of QT, QT + 1 and 2 QT + 3 rows, groups 3 and
+           7, long tail padding, a prefill past max_pages). Every pool
+           slot a kernel must not read holds NaN; in an int8 pool (built
+           by the port's kv_quantize) it holds payload 127 and a NaN
+           scale. Times with CUDA events: kernel_ms and sdpa_dense_ms as
+           50 calls captured in a CUDA graph and replayed (device time;
+           SDPA over dense K/V, dequantized to q's dtype for an int8 pool,
+           a yardstick only), *_eager_ms as 50 eager calls back to back
+           (host launch cost included), plain_ms eager; bound_ms is the
+           bytes the call must move over 3.35 TB/s, or its FLOPs over the
+           dtype's peak, whichever is larger. Ragged lines count the K/V
+           positions loaded per kv head per row, per query tile and
+           distinct.
   serve    the port's HTTP server in-process with llama3.2:1b at full
            width (16 layers, bf16, seeded random weights): requests from
            3 users over /api/generate, /api/chat, /v1/chat/completions,
@@ -60,6 +68,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# Kernel shapes timed with q in bf16 (the rest are checked, not timed).
+TIMED_SHAPES = ("llama3.2:1b", "llama3:8b-attn", "llama3.2:1b-prefill512")
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 # Kernel -> (source, the TPU kernel it replaces, the serve phase whose
 # window counts its launches).
@@ -98,6 +108,36 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of fn() over `iters` calls captured in one
+    CUDA graph and replayed back to back: the calls' device time without
+    the host's launch cost between them (which cuda_ms includes once a
+    call takes less device time than its wrapper takes on the host)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as PyTorch asks
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 # -- kernel cases ------------------------------------------------------------
@@ -221,7 +261,8 @@ def bound(c, kind, dtype_name):
     elements of the pool's own size per (row, kv head), plus a 4-byte f32
     scale in an int8 pool) over HBM bandwidth and its attention FLOPs (QK
     and PV, 4 per head-dim element per visible position) over q's
-    dtype's peak (an int8 pool is dequantized to f32 before the math)."""
+    dtype's peak (an int8 pool is dequantized to q's dtype before the
+    math)."""
     q, k = c["q"], c["k"]
     isz = q.element_size()
     N, H, hd = q.shape
@@ -239,6 +280,26 @@ def bound(c, kind, dtype_name):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kv_positions(c):
+    """K/V positions loaded per kv head at this ragged case: by a kernel
+    that reads each row's visible prefix per stream row (the float32-q
+    kernel), by the bf16-q kernel that reads each query tile's deepest
+    frontier once (its launch plan's QT), and the distinct positions."""
+    from ollamamq_tpu_torch.ops.cuda.ragged_attention import launch_plan
+
+    T, H, hd = c["q"].shape
+    qt = launch_plan(H, c["k"].shape[1], hd, _is_int8(c)).q_tile
+    cap = c["pt"].shape[1] * c["ps"]
+    per_tile = 0
+    for ql, kv in zip(c["q_len"].tolist(), c["kv_len"].tolist()):
+        for first in range(0, ql, qt):
+            last = min(first + qt, ql) - 1
+            per_tile += max(0, min(kv - ql + last + 1, kv, cap))
+    return {"kv_positions_per_row": int(_visible(c, "ragged").sum()),
+            "kv_positions_per_tile": per_tile,
+            "kv_positions_distinct": int(c["kv_len"].clamp(0, cap).sum())}
 
 
 def sdpa_dense(c, kind):
@@ -280,51 +341,60 @@ def sdpa_dense(c, kind):
     return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
 
 
-def kernel_phase(report) -> None:
-    import torch
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    bf16, f32 = torch.bfloat16, torch.float32
+def kernel_cases(dtype, int8):
+    """(kind, case) pairs: the timed shapes first, then edge cases."""
     import random
 
     rnd = random.Random(0)
     ctx64 = [rnd.randint(1, 512) for _ in range(64)]
     decode_spans = [(1, rnd.randint(1, 512)) for _ in range(48)]
     mixed = decode_spans + [(128, 128), (96, 352), (32, 32)]  # 304 rows
+    d = dict(dtype=dtype, int8=int8)
+    return [
+        ("decode", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, **d)),
+        ("decode", decode_case("llama3:8b-attn", 3, 64, 32, 8, 128, 32, 16, ctx64, **d)),
+        ("ragged", ragged_case("llama3.2:1b", 2, mixed, 64, 320, 32, 8, 64, 32, 16, **d)),
+        ("ragged", ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, **d)),
+        ("ragged", ragged_case("llama3.2:1b-prefill512", 22, [(512, 512)], 8, 512, 32, 8, 64, 32, 16, **d)),
+        ("decode", decode_case("gqa-a", 5, 3, 8, 4, 32, 8, 6, [20, 9, 37], **d)),
+        ("decode", decode_case("gqa-b", 6, 3, 8, 4, 32, 8, 6, [1, 48, 16], **d)),
+        ("decode", decode_case("mqa", 7, 2, 4, 1, 16, 8, 4, [8, 25], **d)),
+        ("decode", decode_case("group1", 8, 2, 4, 4, 64, 8, 4, [5, 30], **d)),
+        ("decode", decode_case("past-cap+empty", 9, 3, 8, 2, 32, 8, 4, [40, 0, 33], **d)),
+        ("ragged", ragged_case("mixed", 10, [(11, 11), (1, 20), (5, 29), (1, 1)], 10, 40, 4, 2, 16, 8, 8, **d)),
+        ("ragged", ragged_case("decode-tile", 11, [(1, 5 + 3 * i) for i in range(9)], 10, 40, 4, 2, 16, 8, 8, **d)),
+        ("ragged", ragged_case("long-prefill", 12, [(21, 21), (1, 9), (1, 17), (3, 30)], 10, 40, 4, 2, 16, 8, 8, **d)),
+        ("ragged", ragged_case("mqa", 13, [(6, 6), (1, 12)], 3, 8, 4, 1, 16, 8, 8, **d)),
+        ("ragged", ragged_case("group1", 14, [(6, 6), (1, 12)], 3, 8, 4, 4, 16, 8, 8, **d)),
+        ("ragged", ragged_case("past-cap", 15, [(3, 40), (1, 33)], 4, 6, 8, 2, 32, 8, 4, **d)),
+        # Edges of the query tiling (QT = 16 at group 4, 21 at group 3,
+        # 9 at group 7): a span starting mid-page after prior context,
+        # spans of QT, QT + 1 and 2 QT + 3 rows, long tail padding with
+        # padding sequences, a prefill whose frontier passes the cap.
+        ("ragged", ragged_case("mid-page", 16, [(37, 82), (1, 30), (5, 13)], 4, 48, 32, 8, 64, 8, 12, **d)),
+        ("ragged", ragged_case("qt-edges", 17, [(16, 16), (17, 50), (35, 90), (1, 7)], 6, 72, 32, 8, 64, 16, 8, **d)),
+        ("ragged", ragged_case("group3", 18, [(21, 21), (22, 60), (45, 100), (1, 33)], 6, 96, 24, 8, 128, 16, 8, **d)),
+        ("ragged", ragged_case("group7", 19, [(9, 9), (10, 40), (21, 70), (1, 12)], 6, 48, 28, 4, 128, 16, 8, **d)),
+        ("ragged", ragged_case("tail-pad", 20, [(5, 20), (1, 9), (12, 12)], 8, 64, 8, 2, 32, 8, 4, **d)),
+        ("ragged", ragged_case("prefill-past-cap", 21, [(24, 40), (12, 60), (1, 70)], 4, 40, 8, 2, 32, 8, 4, **d)),
+    ]
 
-    def cases(dtype, int8):
-        d = dict(dtype=dtype, int8=int8)
-        main = [
-            ("llama3.2:1b", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, **d),
-             ragged_case("llama3.2:1b", 2, mixed, 64, 320, 32, 8, 64, 32, 16, **d)),
-            ("llama3:8b-attn", decode_case("llama3:8b-attn", 3, 64, 32, 8, 128, 32, 16, ctx64, **d),
-             ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, **d)),
-        ]
-        edge = [
-            ("decode", decode_case("gqa-a", 5, 3, 8, 4, 32, 8, 6, [20, 9, 37], **d)),
-            ("decode", decode_case("gqa-b", 6, 3, 8, 4, 32, 8, 6, [1, 48, 16], **d)),
-            ("decode", decode_case("mqa", 7, 2, 4, 1, 16, 8, 4, [8, 25], **d)),
-            ("decode", decode_case("group1", 8, 2, 4, 4, 64, 8, 4, [5, 30], **d)),
-            ("decode", decode_case("past-cap+empty", 9, 3, 8, 2, 32, 8, 4, [40, 0, 33], **d)),
-            ("ragged", ragged_case("mixed", 10, [(11, 11), (1, 20), (5, 29), (1, 1)], 10, 40, 4, 2, 16, 8, 8, **d)),
-            ("ragged", ragged_case("decode-tile", 11, [(1, 5 + 3 * i) for i in range(9)], 10, 40, 4, 2, 16, 8, 8, **d)),
-            ("ragged", ragged_case("long-prefill", 12, [(21, 21), (1, 9), (1, 17), (3, 30)], 10, 40, 4, 2, 16, 8, 8, **d)),
-            ("ragged", ragged_case("mqa", 13, [(6, 6), (1, 12)], 3, 8, 4, 1, 16, 8, 8, **d)),
-            ("ragged", ragged_case("group1", 14, [(6, 6), (1, 12)], 3, 8, 4, 4, 16, 8, 8, **d)),
-            ("ragged", ragged_case("past-cap", 15, [(3, 40), (1, 33)], 4, 6, 8, 2, 32, 8, 4, **d)),
-        ]
-        return main, edge
+
+def kernel_phase(report) -> None:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bf16, f32 = torch.bfloat16, torch.float32
 
     summary = {name: {} for name in KERNEL_ROWS}
     for int8 in (False, True):
         for dtype in (bf16, f32):
             dname = str(dtype).replace("torch.", "")
             tol = TOL[dname]
-            main, edge = cases(dtype, int8)
-            flat = [(n, "decode", d) for n, d, _ in main] + [(n, "ragged", r) for n, _, r in main] \
-                + [(c["name"], kind, c) for kind, c in edge]
-            for shape_name, kind, c in flat:
+            flat = kernel_cases(dtype, int8)
+            for kind, c in flat:
+                shape_name = c["name"]
                 kern, plain = (_decode_calls if kind == "decode" else _ragged_calls)(c)
                 out = kern()
                 ref = plain()
@@ -340,21 +410,25 @@ def kernel_phase(report) -> None:
                 line = {"phase": "kernels", "kernel": name, "case": shape_name,
                         "dtype": dname, "pool": "int8" if int8 else dname,
                         "tol": tol, "max_abs_err": err, "ok": ok}
-                if shape_name in ("llama3.2:1b", "llama3:8b-attn") and dtype == bf16:
-                    line["kernel_ms"] = cuda_ms(kern, 50)
+                if shape_name in TIMED_SHAPES and dtype == bf16:
+                    sdpa = sdpa_dense(c, kind)
+                    line["kernel_ms"] = graph_ms(kern, 50)
+                    line["kernel_eager_ms"] = cuda_ms(kern, 50)
                     line["plain_ms"] = cuda_ms(plain, 5, warmup=1)
-                    line["sdpa_dense_ms"] = cuda_ms(sdpa_dense(c, kind), 50)
+                    line["sdpa_dense_ms"] = graph_ms(sdpa, 50)
+                    line["sdpa_dense_eager_ms"] = cuda_ms(sdpa, 50)
                     line["bound_ms"], line["bound_by"] = bound(c, kind, dname)
                     if kind == "ragged":
                         line["rows"] = int(c["q"].shape[0])
                         line["rows_in_spans"] = c["T_real"]
+                        line.update(kv_positions(c))
                     summary[name][shape_name] = line
                 emit(line)
                 report["kernels"].append(line)
                 if not ok:
                     raise SystemExit(f"kernel mismatch: {line}")
                 del out, ref
-            del main, edge
+            del flat
             torch.cuda.empty_cache()
     report["kernel_summary"] = summary
 

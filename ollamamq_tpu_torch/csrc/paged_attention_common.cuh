@@ -1,12 +1,15 @@
-// Shared device code of the two paged-attention kernels.
+// Per-token attention body (attend_token) of the decode kernel and of the
+// ragged kernel's float32-q path. The ragged kernel's bf16-q path, the
+// one serving runs, has its own query-tiled tensor-core body in
+// ragged_paged_attention.cu.
 //
 // One thread block attends ONE query token for ONE kv head: the block
 // holds that kv head's `group` query heads (GQA) in float32 shared
 // memory, walks the token's visible context in tiles of TILE positions
 // (each position resolved through the page table to its slot in the
 // flat [S, Hk, hd] pool), and keeps a float32 online softmax per query
-// head. The decode kernel and the ragged kernel differ only in how a
-// block finds its query row and how many positions it may see.
+// head. Its two callers differ only in how a block finds its query row
+// and how many positions it may see.
 //
 // What bounds it on an H100: the bytes of K/V it reads (one decode step
 // of llama3.2:1b at 64 sequences of 512 tokens reads 64 MiB of K/V per
@@ -26,8 +29,8 @@
 // tiles stay f32. Scales of positions past the frontier are never loaded.
 //
 // Kept simple on purpose: plain loads, float32 FMA on CUDA cores, no
-// tensor cores, no split over the context. Sharing K/V loads across the
-// query rows of one prefill span, wgmma and TMA are later work.
+// tensor cores, no split over the context; the decode kernel's
+// split-context redesign is later work.
 
 #pragma once
 

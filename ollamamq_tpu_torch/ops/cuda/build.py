@@ -40,13 +40,14 @@ KERNELS = {
     "paged_decode_attention_int8": ("paged_decode_attention.cu",
                                     [_P] * 8 + [_I] * 7 + [_P]),
     # q, k, v, page_table, q_start, q_lens, kv_lens, out, T, B, H, Hk,
-    # hd, page_size, max_pages, dtype, stream
+    # hd, page_size, max_pages, then the launch plan (q_tile, kv_tile,
+    # threads, smem_bytes, blocks), dtype, stream
     "ragged_paged_attention": ("ragged_paged_attention.cu",
-                               [_P] * 8 + [_I] * 8 + [_P]),
+                               [_P] * 8 + [_I] * 13 + [_P]),
     # q, k, v, k_scale, v_scale, page_table, q_start, q_lens, kv_lens,
     # out, T, ...
     "ragged_paged_attention_int8": ("ragged_paged_attention.cu",
-                                    [_P] * 10 + [_I] * 8 + [_P]),
+                                    [_P] * 10 + [_I] * 13 + [_P]),
 }
 
 _lock = threading.Lock()

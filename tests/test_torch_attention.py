@@ -106,6 +106,12 @@ RAGGED_CASES = {
     "decode-tile": dict(spans=[(1, 5 + 3 * i) for i in range(9)]),
     "long-prefill": dict(spans=[(21, 21), (1, 9), (1, 17), (3, 30)]),
     "group1": dict(spans=[(6, 6), (1, 12)], Hk=4, H=4, seed=2),
+    # Edges of the CUDA kernel's query tiling: a span that starts mid-page
+    # after 34 positions of prior context, and the GQA groups of
+    # llama3.2:3b (3) and qwen2.5:7b (7) at a small head dim.
+    "mid-page": dict(spans=[(27, 61), (1, 13), (5, 21)], seed=3),
+    "group3": dict(spans=[(13, 13), (1, 30), (9, 40)], Hk=2, H=6, seed=4),
+    "group7": dict(spans=[(10, 10), (1, 25), (9, 33)], Hk=1, H=7, seed=5),
 }
 
 
