@@ -9,25 +9,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
   build    nvcc builds both CUDA sources from ollamamq_tpu_torch/csrc, in
            parallel, and all four entry points load: ragged and decode
            attention over a pool in q's dtype and over an int8 pool.
+  decode-plan
+           each decode entry point, called directly with q in bf16,
+           refuses a launch plan that differs from decode_launch_plan in
+           any one number.
   kernels  each kernel against its plain PyTorch version on the card, q in
            bf16 (atol = rtol = 2e-2) and float32 (1e-4), at the
            llama3.2:1b and llama3:8b attention shapes, a 512-token
-           llama3.2:1b prefill (ragged only), the CPU tests' edge cases
-           (GQA, MQA, group 1, empty rows, contexts past max_pages) and
-           the ragged kernel's query-tiling edges (a span starting
-           mid-page, spans of QT, QT + 1 and 2 QT + 3 rows, groups 3 and
-           7, long tail padding, a prefill past max_pages). Every pool
+           llama3.2:1b prefill (ragged only), a serving decode step of
+           llama3.2:1b (8 sequences of 20 to 140 tokens; decode only),
+           the CPU tests' edge cases (GQA, MQA, group 1, empty rows,
+           contexts past max_pages), the ragged kernel's query-tiling
+           edges (a span starting mid-page, spans of QT, QT + 1 and
+           2 QT + 3 rows, groups 3 and 7, long tail padding, a prefill
+           past max_pages) and the decode kernel's split edges (contexts
+           of SPLIT - 1, SPLIT, SPLIT + 1 and 2 SPLIT + 3 at page sizes 8
+           and 16, one 512-token sequence alone, a context past
+           max_pages beside empty and negative ones, groups 3 and 7 at
+           head dim 128, MQA and group 1 over several splits). Every pool
            slot a kernel must not read holds NaN; in an int8 pool (built
            by the port's kv_quantize) it holds payload 127 and a NaN
            scale. Times with CUDA events: kernel_ms and sdpa_dense_ms as
            50 calls captured in a CUDA graph and replayed (device time;
            SDPA over dense K/V, dequantized to q's dtype for an int8 pool,
            a yardstick only), *_eager_ms as 50 eager calls back to back
-           (host launch cost included), plain_ms eager; bound_ms is the
-           bytes the call must move over 3.35 TB/s, or its FLOPs over the
-           dtype's peak, whichever is larger. Ragged lines count the K/V
+           (host launch cost included), decode's kernel_cold_l2_ms with
+           the L2 flushed before each replayed call, plain_ms eager;
+           bound_ms is the bytes the call must move over 3.35 TB/s, or
+           its FLOPs over the dtype's peak, whichever is larger. Ragged lines count the K/V
            positions loaded per kv head per row, per query tile and
-           distinct.
+           distinct; bf16 decode lines give the launch plan's split
+           count and the split blocks that have work.
   serve    the port's HTTP server in-process with llama3.2:1b at full
            width (16 layers, bf16, seeded random weights): requests from
            3 users over /api/generate, /api/chat, /v1/chat/completions,
@@ -69,7 +81,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Kernel shapes timed with q in bf16 (the rest are checked, not timed).
-TIMED_SHAPES = ("llama3.2:1b", "llama3:8b-attn", "llama3.2:1b-prefill512")
+TIMED_SHAPES = ("llama3.2:1b", "llama3:8b-attn", "llama3.2:1b-prefill512",
+                "llama3.2:1b-serve8")
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 # Kernel -> (source, the TPU kernel it replaces, the serve phase whose
 # window counts its launches).
@@ -140,6 +153,29 @@ def graph_ms(fn, iters: int) -> float:
     return ms
 
 
+def cold_l2_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of fn() with a cold L2: graph_ms of a
+    read of 100 MB (twice the H100's 50 MB L2) followed by fn(), less
+    graph_ms of the read alone. graph_ms replays the same call with its
+    inputs left in L2; a serving step meets them after the weights'
+    reads have passed through it."""
+    import torch
+
+    buf = torch.zeros(100 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    sink = torch.zeros((), dtype=torch.float32, device="cuda")
+
+    def flush():
+        torch.sum(buf, dim=0, out=sink)
+
+    def flushed():
+        flush()
+        return fn()
+
+    ms = graph_ms(flushed, iters) - graph_ms(flush, iters)
+    del buf, sink
+    return ms
+
+
 # -- kernel cases ------------------------------------------------------------
 def _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8=False):
     """A paged pool holding `contexts[b]` written positions for sequence b
@@ -154,7 +190,8 @@ def _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8=False):
 
     g = torch.Generator().manual_seed(seed)
     cap = MP * ps
-    need = [-(-min(c, cap) // ps) for c in contexts]
+    contexts = [max(0, min(c, cap)) for c in contexts]  # positions written
+    need = [-(-c // ps) for c in contexts]
     n_pages = sum(need) + 2
     perm = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
     k = torch.full((n_pages * ps, Hk, hd), float("nan"))
@@ -164,7 +201,7 @@ def _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8=False):
     for b, (c, n) in enumerate(zip(contexts, need)):
         pages = [perm.pop() for _ in range(n)]
         pt[b, :n] = torch.tensor(pages, dtype=torch.int32)
-        pos = torch.arange(min(c, cap))
+        pos = torch.arange(c)
         slots = pt[b].long()[pos // ps] * ps + pos % ps
         k[slots] = torch.randn((len(pos), Hk, hd), generator=g)
         v[slots] = torch.randn((len(pos), Hk, hd), generator=g)
@@ -302,6 +339,20 @@ def kv_positions(c):
             "kv_positions_distinct": int(c["kv_len"].clamp(0, cap).sum())}
 
 
+def decode_blocks(c):
+    """The bf16 decode kernel's split count and the split blocks that
+    have work at this decode case (its launch plan)."""
+    from ollamamq_tpu_torch.ops.cuda.paged_attention import decode_launch_plan
+
+    B, H, hd = c["q"].shape
+    Hk, MP = c["k"].shape[1], c["pt"].shape[1]
+    plan = decode_launch_plan(H, Hk, hd, c["ps"], MP, _is_int8(c))
+    n = c["seq_lens"].clamp(0, MP * c["ps"]).tolist()
+    return {"split": plan.split, "n_splits": plan.n_splits,
+            "grid_blocks": plan.n_splits * Hk * B,
+            "blocks_with_work": Hk * sum(plan.splits_with_work(x) for x in n)}
+
+
 def sdpa_dense(c, kind):
     """F.scaled_dot_product_attention over K/V pre-gathered into dense
     per-sequence tensors in q's dtype (GQA heads expanded; an int8 pool
@@ -341,14 +392,15 @@ def sdpa_dense(c, kind):
     return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)
 
 
-def kernel_cases(dtype, int8):
-    """(kind, case) pairs: the timed shapes first, then edge cases."""
+def timed_cases(dtype, int8):
+    """(kind, case) pairs at the timed shapes (TIMED_SHAPES)."""
     import random
 
     rnd = random.Random(0)
     ctx64 = [rnd.randint(1, 512) for _ in range(64)]
     decode_spans = [(1, rnd.randint(1, 512)) for _ in range(48)]
     mixed = decode_spans + [(128, 128), (96, 352), (32, 32)]  # 304 rows
+    ctx8 = [rnd.randint(20, 140) for _ in range(8)]  # a serving decode step
     d = dict(dtype=dtype, int8=int8)
     return [
         ("decode", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, **d)),
@@ -356,6 +408,19 @@ def kernel_cases(dtype, int8):
         ("ragged", ragged_case("llama3.2:1b", 2, mixed, 64, 320, 32, 8, 64, 32, 16, **d)),
         ("ragged", ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, **d)),
         ("ragged", ragged_case("llama3.2:1b-prefill512", 22, [(512, 512)], 8, 512, 32, 8, 64, 32, 16, **d)),
+        ("decode", decode_case("llama3.2:1b-serve8", 31, 8, 32, 8, 64, 32, 16, ctx8, **d)),
+    ]
+
+
+def kernel_cases(dtype, int8):
+    """(kind, case) pairs: the timed shapes first, then edge cases."""
+    from ollamamq_tpu_torch.ops.cuda.paged_attention import decode_launch_plan
+
+    d = dict(dtype=dtype, int8=int8)
+    S = decode_launch_plan(32, 8, 64, 8, 40, int8).split  # the decode kernel's split
+    edges = [S - 1, S, S + 1, 2 * S + 3]
+    two = (2 * S + 64) // 16  # pages of 16 past two splits
+    return timed_cases(dtype, int8) + [
         ("decode", decode_case("gqa-a", 5, 3, 8, 4, 32, 8, 6, [20, 9, 37], **d)),
         ("decode", decode_case("gqa-b", 6, 3, 8, 4, 32, 8, 6, [1, 48, 16], **d)),
         ("decode", decode_case("mqa", 7, 2, 4, 1, 16, 8, 4, [8, 25], **d)),
@@ -377,7 +442,59 @@ def kernel_cases(dtype, int8):
         ("ragged", ragged_case("group7", 19, [(9, 9), (10, 40), (21, 70), (1, 12)], 6, 48, 28, 4, 128, 16, 8, **d)),
         ("ragged", ragged_case("tail-pad", 20, [(5, 20), (1, 9), (12, 12)], 8, 64, 8, 2, 32, 8, 4, **d)),
         ("ragged", ragged_case("prefill-past-cap", 21, [(24, 40), (12, 60), (1, 70)], 4, 40, 8, 2, 32, 8, 4, **d)),
+        # Edges of the decode kernel's split over the context: contexts
+        # around one and two splits, one sequence alone, a context past
+        # max_pages beside empty and negative ones, the GQA groups of
+        # llama3.2:3b and qwen2.5:7b, MQA and group 1 over several splits.
+        ("decode", decode_case("split-edges-ps8", 23, 4, 32, 8, 64, 8, -(-edges[-1] // 8) + 1, edges, **d)),
+        ("decode", decode_case("split-edges-ps16", 24, 4, 32, 8, 64, 16, -(-edges[-1] // 16) + 1, edges, **d)),
+        ("decode", decode_case("alone-512", 25, 1, 32, 8, 64, 32, 16, [512], **d)),
+        ("decode", decode_case("past-cap+zero", 26, 4, 32, 8, 64, 16, (S + 64) // 16, [S + 200, 0, -3, S // 2 + 20], **d)),
+        ("decode", decode_case("group3-hd128", 27, 3, 24, 8, 128, 16, two, [5, S + 72, 2 * S + 44], **d)),
+        ("decode", decode_case("group7-hd128", 28, 3, 28, 4, 128, 16, two, [S + 2, 1, 2 * S], **d)),
+        ("decode", decode_case("mqa-split", 29, 3, 8, 1, 64, 16, two, [77, 2 * S + 4, S + 1], **d)),
+        ("decode", decode_case("group1-split", 30, 3, 8, 8, 128, 16, two, [2 * S, 3, S + 72], **d)),
     ]
+
+
+def decode_plan_phase(report) -> None:
+    """Each bf16-q decode entry point refuses a launch plan that differs
+    from decode_launch_plan in any one of its five numbers
+    (cudaErrorInvalidValue, 1), called directly at the llama3.2:1b shape;
+    a refused call launches nothing, and no wrapper counts it."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.cuda import DTYPE_CODES, build
+    from ollamamq_tpu_torch.ops.cuda.paged_attention import decode_launch_plan
+
+    for int8 in (False, True):
+        kind, c = timed_cases(torch.bfloat16, int8)[0]
+        assert kind == "decode" and c["name"] == "llama3.2:1b"
+        B, H, hd = c["q"].shape
+        Hk, MP = c["k"].shape[1], c["pt"].shape[1]
+        plan = decode_launch_plan(H, Hk, hd, c["ps"], MP, int8)
+        good = [plan.split, plan.kv_tile, plan.threads, plan.smem_bytes, plan.n_splits]
+        scratch = torch.empty(plan.scratch_shape(B), dtype=torch.float32, device="cuda")
+        out = torch.empty_like(c["q"])
+        pools = (c["k"].q, c["v"].q, c["k"].s, c["v"].s) if int8 else (c["k"], c["v"])
+        name = "paged_decode_attention" + ("_int8" if int8 else "")
+        fn = build.kernel_fn(name)
+        refused = {}
+        for i, field in enumerate(("split", "kv_tile", "threads", "smem_bytes", "n_splits")):
+            bad = list(good)
+            bad[i] += 1 if field == "n_splits" else 64
+            refused[field] = fn(c["q"].data_ptr(), *(t.data_ptr() for t in pools),
+                                c["pt"].data_ptr(), c["seq_lens"].data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), B, H, Hk, hd, c["ps"], MP, *bad,
+                                DTYPE_CODES[torch.bfloat16],
+                                torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        line = {"phase": "decode-plan", "kernel": name, "plan": good, "rc": refused,
+                "ok": all(rc == 1 for rc in refused.values())}
+        emit(line)
+        report["decode_plan"].append(line)
+        if not line["ok"]:
+            raise SystemExit(f"a decode entry point took a plan not its own: {line}")
 
 
 def kernel_phase(report) -> None:
@@ -405,15 +522,21 @@ def kernel_phase(report) -> None:
                 if kind == "ragged":
                     pad = c["tok_pos"] < 0
                     ok = ok and bool((out[pad] == 0).all())
+                else:  # nothing visible: exact zeros
+                    ok = ok and bool((out[c["seq_lens"] <= 0] == 0).all())
                 name = ("paged_decode_attention" if kind == "decode"
                         else "ragged_paged_attention") + ("_int8" if int8 else "")
                 line = {"phase": "kernels", "kernel": name, "case": shape_name,
                         "dtype": dname, "pool": "int8" if int8 else dname,
                         "tol": tol, "max_abs_err": err, "ok": ok}
+                if kind == "decode" and dtype == bf16:
+                    line.update(decode_blocks(c))
                 if shape_name in TIMED_SHAPES and dtype == bf16:
                     sdpa = sdpa_dense(c, kind)
                     line["kernel_ms"] = graph_ms(kern, 50)
                     line["kernel_eager_ms"] = cuda_ms(kern, 50)
+                    if kind == "decode":
+                        line["kernel_cold_l2_ms"] = cold_l2_ms(kern, 20)
                     line["plain_ms"] = cuda_ms(plain, 5, warmup=1)
                     line["sdpa_dense_ms"] = graph_ms(sdpa, 50)
                     line["sdpa_dense_eager_ms"] = cuda_ms(sdpa, 50)
@@ -725,13 +848,25 @@ def profile_window(port, model, text, rt):
     with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     os.remove(trace)
-    groups = {"attention kernels": ("paged_decode_kernel", "ragged_paged_kernel"),
+    groups = {"attention kernels": ("paged_decode_", "ragged_paged_kernel"),
               "gemm": ("gemm", "nvjet", "sm90_xmma", "cutlass"),
               "copy / cast": ("copy",)}
     by_group = {g: 0.0 for g in (*groups, "other")}
     for us, key, _n in rows:
         g = next((g for g, pats in groups.items() if any(p in key for p in pats)), "other")
         by_group[g] += us / 1e3
+    # The serving path's own attention kernels must show up by name (a
+    # renamed kernel would otherwise be counted under "other").
+    expected = {"decode_steps": ("paged_decode_split_kernel", "paged_decode_combine_kernel"),
+                "ragged_dispatches": ("ragged_paged_kernel_tc",)}
+    attention = {name: {"ms": sum(us for us, k, _ in rows if name in k) / 1e3,
+                        "calls": sum(n for _, k, n in rows if name in k)}
+                 for names in expected.values() for name in names}
+    missing = [name for key, names in expected.items() if profiled_counts[key] > 0
+               for name in names if attention[name]["calls"] == 0]
+    if missing:
+        raise SystemExit(f"profile: the window ran {profiled_counts} but found no "
+                         f"device time of {missing}")
     # A forward is one decode step or one ragged dispatch. Arrival timing
     # may split the two bursts' prefills differently, so each burst is
     # divided by its own count.
@@ -745,6 +880,7 @@ def profile_window(port, model, text, rt):
             "device_ms_per_forward": dev_fwd,
             "device_busy_share": dev_fwd / wall_fwd,
             "device_ms_by_group": by_group,
+            "attention_kernels": attention,
             "top": [{"name": k[:90], "ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:15]]}
 
@@ -775,7 +911,8 @@ def main(argv=None) -> int:
     from ollamamq_tpu_torch.ops.cuda import build
 
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
-              "device": torch.cuda.get_device_name(0), "kernels": []}
+              "device": torch.cuda.get_device_name(0), "kernels": [],
+              "decode_plan": []}
     t0 = time.monotonic()
     built = build.build()
     for name in build.KERNELS:  # every entry point loads from its library
@@ -790,6 +927,7 @@ def main(argv=None) -> int:
     emit(line)
     report["build"] = line
 
+    decode_plan_phase(report)
     kernel_phase(report)
     serve_phase(report, args.profile)
     serve_phase(report, args.profile, int8=True)

@@ -1,7 +1,10 @@
-// Per-token attention body (attend_token) of the decode kernel and of the
-// ragged kernel's float32-q path. The ragged kernel's bf16-q path, the
-// one serving runs, has its own query-tiled tensor-core body in
-// ragged_paged_attention.cu.
+// Per-token attention body (attend_token) of the float32-q paths of both
+// kernels: paged_decode_kernel (paged_decode_attention.cu) and
+// ragged_paged_kernel (ragged_paged_attention.cu). With q in bf16, the
+// dtype serving runs, each kernel has its own tensor-core body instead:
+// the ragged kernel's query-tiled one and the decode kernel's split over
+// the context with a combine pass. The float32 paths are held to 1e-4,
+// which a bf16 tensor-core product cannot meet, so they keep this body.
 //
 // One thread block attends ONE query token for ONE kv head: the block
 // holds that kv head's `group` query heads (GQA) in float32 shared
@@ -29,8 +32,7 @@
 // tiles stay f32. Scales of positions past the frontier are never loaded.
 //
 // Kept simple on purpose: plain loads, float32 FMA on CUDA cores, no
-// tensor cores, no split over the context; the decode kernel's
-// split-context redesign is later work.
+// tensor cores, no split over the context.
 
 #pragma once
 

@@ -57,6 +57,7 @@
 // held to 1e-4, which a bf16 tensor-core product cannot meet.
 
 #include "paged_attention_common.cuh"
+#include "paged_attention_tc.cuh"
 
 using namespace paged_attn;
 
@@ -120,8 +121,6 @@ constexpr int KV_TILE = 64;   // context positions per K/V tile
 constexpr int ROW_PAD = 8;    // bf16 padding per shared row (ldmatrix banks)
 constexpr int MAX_ROWS = 128; // matrix rows per block at most (8 warps)
 
-typedef __nv_bfloat16 bf16;
-
 // Dynamic shared memory of one block; launch_plan mirrors this formula.
 __host__ __device__ constexpr int smem_bytes(int hd, bool quantized) {
   return quantized
@@ -129,62 +128,6 @@ __host__ __device__ constexpr int smem_bytes(int hd, bool quantized) {
                    + 2 * 2 * KV_TILE * 4               // their f32 scales
                    + 2 * KV_TILE * (hd + ROW_PAD) * 2  // dequantized bf16 K, V
              : 2 * 2 * KV_TILE * (hd + ROW_PAD) * 2;   // bf16 K, V ring
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// d += a (16x16, row major) * b (16x8, column major); bf16 in, f32 out.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats as bf16 in one register, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <typename P, int HD>

@@ -32,13 +32,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaError_t of its launch as an int. The int8 variants take the two
 # f32 scale planes right after the pools.
 KERNELS = {
-    # q, k, v, page_table, seq_lens, out, B, H, Hk, hd, page_size,
-    # max_pages, dtype, stream
+    # q, k, v, page_table, seq_lens, out, scratch, B, H, Hk, hd,
+    # page_size, max_pages, then the launch plan (split, kv_tile, threads,
+    # smem_bytes, n_splits), dtype, stream
     "paged_decode_attention": ("paged_decode_attention.cu",
-                               [_P] * 6 + [_I] * 7 + [_P]),
-    # q, k, v, k_scale, v_scale, page_table, seq_lens, out, B, ...
+                               [_P] * 7 + [_I] * 12 + [_P]),
+    # q, k, v, k_scale, v_scale, page_table, seq_lens, out, scratch, B, ...
     "paged_decode_attention_int8": ("paged_decode_attention.cu",
-                                    [_P] * 8 + [_I] * 7 + [_P]),
+                                    [_P] * 9 + [_I] * 12 + [_P]),
     # q, k, v, page_table, q_start, q_lens, kv_lens, out, T, B, H, Hk,
     # hd, page_size, max_pages, then the launch plan (q_tile, kv_tile,
     # threads, smem_bytes, blocks), dtype, stream

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch/CUDA port's ragged attention kernels, q in bf16 over
-both pool formats, at chip_smoke.py's timed shapes, using the
+"""Time the PyTorch/CUDA port's attention kernels (ragged and decode), q
+in bf16 over both pool formats, at chip_smoke.py's timed shapes, using the
 ollamamq_tpu_torch package found under --root. It compares two
 checkouts of the port on one card:
 
@@ -9,9 +9,10 @@ checkouts of the port on one card:
         python3 scripts/torch_kernel_ab.py --root $r; done
 
 Each run builds that checkout's kernels, checks each call against the
-plain version (atol = rtol = 2e-2), and prints one JSON line per (shape,
-pool) with kernel_ms (50 calls replayed from one CUDA graph) and
-kernel_eager_ms (50 eager calls), timed as chip_smoke.py times them.
+plain version (atol = rtol = 2e-2), and prints one JSON line per (kernel,
+shape, pool) with kernel_ms (50 calls replayed from one CUDA graph),
+kernel_eager_ms (50 eager calls) and, for decode, kernel_cold_l2_ms (the
+L2 flushed before each replayed call), timed as chip_smoke.py times them.
 The cases come from this checkout's chip_smoke.py, so both checkouts see
 the same inputs. Needs a GPU.
 """
@@ -51,18 +52,18 @@ def main(argv=None) -> int:
         raise SystemExit(f"imported {pkg}, not the package under {root}")
     card = cs.card_line()
     for int8 in (False, True):
-        for kind, c in cs.kernel_cases(torch.bfloat16, int8):
-            if kind != "ragged" or c["name"] not in cs.TIMED_SHAPES:
-                continue
-            kern, plain = cs._ragged_calls(c)
+        for kind, c in cs.timed_cases(torch.bfloat16, int8):
+            kern, plain = (cs._decode_calls if kind == "decode" else cs._ragged_calls)(c)
             out, ref = kern(), plain()
             torch.cuda.synchronize()
             ok = bool(torch.isfinite(out).all()) and torch.allclose(
                 out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-            line = {"root": args.root, "package": pkg, "case": c["name"],
+            line = {"root": args.root, "package": pkg, "kernel": kind, "case": c["name"],
                     "pool": "int8" if int8 else "bfloat16", "dtype": "bfloat16",
                     "ok": ok, "kernel_ms": cs.graph_ms(kern, args.iters),
                     "kernel_eager_ms": cs.cuda_ms(kern, args.iters), "card": card}
+            if kind == "decode":
+                line["kernel_cold_l2_ms"] = cs.cold_l2_ms(kern, 20)
             print(json.dumps(line), flush=True)
             if not ok:
                 raise SystemExit(f"kernel disagrees with its plain version: {line}")

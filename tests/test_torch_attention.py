@@ -15,7 +15,7 @@ import torch
 from ollamamq_tpu.ops.pallas.paged_attention import paged_decode_attention_pallas
 from ollamamq_tpu.ops.pallas.ragged_attention import ragged_paged_attention_pallas
 from ollamamq_tpu_torch.ops import attention as tatt
-from ollamamq_tpu_torch.ops.cuda.paged_attention import paged_decode_attention_cuda
+from ollamamq_tpu_torch.ops.cuda.paged_attention import SPLIT, paged_decode_attention_cuda
 from ollamamq_tpu_torch.ops.cuda.ragged_attention import ragged_paged_attention_cuda
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -36,14 +36,27 @@ def _decode_case(B, H, Hk, hd, PS, MP, seq_lens, seed=0):
     return q, k, v, pt, np.asarray(seq_lens, np.int32)
 
 
-DECODE_CASES = [
-    dict(B=3, H=8, Hk=4, hd=32, PS=8, MP=6, seq_lens=[20, 9, 37]),
-    dict(B=3, H=8, Hk=4, hd=32, PS=8, MP=6, seq_lens=[1, 48, 16]),
-    dict(B=2, H=4, Hk=1, hd=16, PS=8, MP=4, seq_lens=[8, 25]),  # MQA
-]
+# Contexts around the CUDA kernel's split of SPLIT positions (one split,
+# two, three) at two page sizes.
+_EDGES = [SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 3]
+
+DECODE_CASES = {
+    "gqa-a": dict(B=3, H=8, Hk=4, hd=32, PS=8, MP=6, seq_lens=[20, 9, 37]),
+    "gqa-b": dict(B=3, H=8, Hk=4, hd=32, PS=8, MP=6, seq_lens=[1, 48, 16]),
+    "mqa": dict(B=2, H=4, Hk=1, hd=16, PS=8, MP=4, seq_lens=[8, 25]),
+    "split-edges-ps8": dict(B=4, H=4, Hk=2, hd=16, PS=8, MP=-(-_EDGES[-1] // 8),
+                            seq_lens=_EDGES),
+    "split-edges-ps16": dict(B=4, H=4, Hk=2, hd=16, PS=16, MP=-(-_EDGES[-1] // 16),
+                             seq_lens=_EDGES),
+    # The GQA groups of llama3.2:3b (3) and qwen2.5:7b (7) at head dim 128.
+    "group3-hd128": dict(B=3, H=6, Hk=2, hd=128, PS=16, MP=-(-(SPLIT + 9) // 16),
+                         seq_lens=[5, SPLIT + 9, 40]),
+    "group7-hd128": dict(B=2, H=7, Hk=1, hd=128, PS=16, MP=-(-(SPLIT + 1) // 16),
+                         seq_lens=[SPLIT + 1, 33]),
+}
 
 
-@pytest.mark.parametrize("case", DECODE_CASES, ids=["gqa-a", "gqa-b", "mqa"])
+@pytest.mark.parametrize("case", list(DECODE_CASES.values()), ids=list(DECODE_CASES))
 def test_plain_decode_matches_pallas(case):
     q, k, v, pt, sl = _decode_case(**case)
     PS = case["PS"]
