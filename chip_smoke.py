@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about two minutes
+    python3 chip_smoke.py            # one card, about four minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -26,7 +26,12 @@ Phases, each printing JSON lines; any failure exits non-zero:
            of SPLIT - 1, SPLIT, SPLIT + 1 and 2 SPLIT + 3 at page sizes 8
            and 16, one 512-token sequence alone, a context past
            max_pages beside empty and negative ones, groups 3 and 7 at
-           head dim 128, MQA and group 1 over several splits). Every pool
+           head dim 128, MQA and group 1 over several splits), and the
+           span shapes of the page lifecycle at the llama3.2:1b shape:
+           speculative verify spans (1 + 4 rows across page boundaries,
+           1 + d beside decode rows and a prefill), prefix-hit spans from
+           page boundaries 128 and 256 over pages that other rows of the
+           call read too, and a decode call after a rollback. Every pool
            slot a kernel must not read holds NaN; in an int8 pool (built
            by the port's kv_quantize) it holds payload 127 and a NaN
            scale. Times with CUDA events: kernel_ms and sdpa_dense_ms as
@@ -56,6 +61,23 @@ Phases, each printing JSON lines; any failure exits non-zero:
   quant-guardrail
            greedy token-match rate and logit error of the int8 llama3.2:1b
            tree against its bf16 source at full width; printed, not gated.
+  serve-runtime
+           llama3.2:1b in bf16 through the HTTP server with the prefix
+           cache, speculation (k 4), default preemption on a 44-page pool
+           that the traffic overflows, and one injected ragged fault: a
+           warm request, then 6 users sharing a 4-page system prefix, a
+           repeated pattern and a sampled request at once. Gates: every
+           reply stop/length, preemptions, prefix hits and accepted drafts
+           >= 1, exactly one retry, the sampled request never speculates,
+           no page used afterwards and the tree's invariants hold, only
+           the two bf16 kernels launched. Prints tokens/s and, per reply,
+           the first token that differs from the request served alone
+           (not gated).
+  serve-runtime-f32
+           byte identity at full width in float32 (TF32 off): a lone
+           greedy request with and without a forced self-preemption
+           (cache off and on), and a repeated pattern with spec off and
+           on; token ids must be identical.
 
 Then the card as nvidia-smi names it, the kernels line, and the last
 line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
@@ -227,14 +249,15 @@ def decode_case(name, seed, B, H, Hk, hd, ps, MP, seq_lens, dtype, int8=False):
     return dict(name=name, q=q, k=k, v=v, pt=pt, seq_lens=sl, ps=ps)
 
 
-def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype, int8=False):
+def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype, int8=False,
+                pool=None):
     """spans: [(q_len, kv_len)] contiguous in stream order; sequences past
     the spans are padding rows, stream rows past them are covered by no
-    span."""
+    span. `pool` (k, v, page_table) replaces the default pool."""
     import torch
 
     contexts = [kv for _, kv in spans] + [0] * (B - len(spans))
-    k, v, pt = _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8)
+    k, v, pt = pool or _pool(seed, contexts, Hk, hd, ps, MP, dtype, int8)
     g = torch.Generator().manual_seed(seed + 1)
     q = torch.randn((T, H, hd), generator=g).to("cuda", dtype)
     q_start = torch.full((B,), T, dtype=torch.int32)
@@ -247,6 +270,27 @@ def ragged_case(name, seed, spans, B, T, H, Hk, hd, ps, MP, dtype, int8=False):
     assert off <= T, name
     return dict(name=name, q=q, k=k, v=v, pt=pt, q_start=q_start.cuda(),
                 q_len=q_len.cuda(), kv_len=kv_len.cuda(), ps=ps, T_real=off)
+
+
+def prefix_hit_case(name, seed, dtype, int8=False):
+    """Prefix-cache hit spans at the llama3.2:1b attention shape: row 0
+    decodes at context 300 over its own 10 pages; rows 1 and 2 are spans
+    starting at the page boundaries 128 and 256 whose first 4 and 8 pages
+    ARE row 0's (shared, read by three rows of one call) and whose tails
+    are private; row 3 is a 1 + 4 verify span over the same shared pages."""
+    import torch
+
+    ps, MP = 32, 16
+    k, v, pt = _pool(seed, [300, 40, 70, 13, 0, 0], 8, 64, ps, MP, dtype, int8)
+    shared = pt.clone()
+    for row, n_shared, n_tail in ((1, 4, 2), (2, 8, 3), (3, 4, 1)):
+        own = pt[row, :n_tail].clone()
+        shared[row] = 0
+        shared[row, :n_shared] = pt[0, :n_shared]
+        shared[row, n_shared:n_shared + n_tail] = own
+    spans = [(1, 300), (40, 168), (70, 326), (5, 141)]
+    return ragged_case(name, seed, spans, 6, 128, 32, 8, 64, ps, MP, dtype, int8,
+                       pool=(k, v, shared))
 
 
 def _is_int8(c) -> bool:
@@ -454,6 +498,19 @@ def kernel_cases(dtype, int8):
         ("decode", decode_case("group7-hd128", 28, 3, 28, 4, 128, 16, two, [S + 2, 1, 2 * S], **d)),
         ("decode", decode_case("mqa-split", 29, 3, 8, 1, 64, 16, two, [77, 2 * S + 4, S + 1], **d)),
         ("decode", decode_case("group1-split", 30, 3, 8, 8, 128, 16, two, [2 * S, 3, S + 72], **d)),
+        # Span shapes the page lifecycle brings to the serve path, at the
+        # llama3.2:1b attention shape: speculative verify spans (1 + 4
+        # rows whose positions cross a page boundary, then 1 + d beside
+        # decode rows and a prefill span), prefix-hit spans over pages
+        # other rows of the call read too, and a decode call after a
+        # rollback (contexts at and one past page multiples, their
+        # freed tail entries the trash page, whose slots hold NaN).
+        ("ragged", ragged_case("verify-spans", 32, [(5, kv) for kv in (36, 100, 130, 194, 260, 322, 418, 484)],
+                               8, 40, 32, 8, 64, 32, 16, **d)),
+        ("ragged", ragged_case("verify-mixed", 33, [(1, 77), (2, 64), (3, 97), (4, 250), (5, 33), (1, 5), (48, 48)],
+                               8, 80, 32, 8, 64, 32, 16, **d)),
+        ("ragged", prefix_hit_case("prefix-hit", 34, **d)),
+        ("decode", decode_case("post-rollback", 35, 8, 32, 8, 64, 32, 16, [32, 33, 64, 65, 96, 97, 128, 129], **d)),
     ]
 
 
@@ -772,6 +829,248 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
         raise SystemExit(f"kernel path logits disagree with the plain path: {checks}")
 
 
+def _first_diff(a, b):
+    """Index of the first token where two id streams differ, else None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def serve_runtime_phase(report) -> None:
+    """llama3.2:1b at full width in bf16 through the HTTP server with the
+    prefix cache, speculation (k 4) and default preemption on a pool too
+    small for the traffic, and one injected ragged fault. A warm request
+    (system prefix + tail) runs first and takes the fault: it is retried
+    once and its finished prompt pages seed the tree. Then 8 requests at
+    once: 6 users sharing the 4-page system prefix, a repeated pattern
+    (drafts verify) and a sampled request (never speculates). Gates: every
+    reply ends stop/length; preemptions >= 1, prefix hits >= 1, accepted
+    drafts >= 1, exactly one retry; afterwards no page is used and the
+    tree's invariants hold; the window launched both bf16 kernels and no
+    int8 entry point. Each reply's first token differing from the same
+    request served alone (cache, spec and pressure off) is printed, not
+    gated: bf16 rounding differs between batch shapes."""
+    import torch
+
+    from ollamamq_tpu_torch.config import EngineConfig
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.testing.faults import FaultPlan
+
+    model, ps, usable, max_new = "llama3.2:1b", 32, 44, 160
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 127 bytes + BOS: the system prefix is exactly 4 pages.
+    system = ("System: you are the assistant of a shared serving front; every "
+              "user's queue is fair and each answer is short and exact.\n")[:127]
+    system = system + "." * (127 - len(system))
+    tails = ["Q: what is a page table?", "Q: why preempt a victim?",
+             "Q: how does a radix tree share prompts?", "Q: when is a draft accepted?",
+             "Q: what does fair share mean for me?", "Q: how long is one page?"]
+    # Greedy and penalty-free (Ollama's default repeat_penalty is 1.1):
+    # the rows that speculate.
+    greedy = {"temperature": 0, "repeat_penalty": 1.0, "num_predict": max_new}
+    jobs = {f"user{i}/prefix": (f"user{i}", {"prompt": system + t, "options": greedy})
+            for i, t in enumerate(tails)}
+    jobs["copy/pattern"] = ("copy", {"prompt": "red green blue " * 10, "options": greedy})
+    jobs["sampled/seeded"] = ("sampled", {"prompt": system + "Q: tell me anything.",
+                                          "options": {"temperature": 0.8, "top_k": 40,
+                                                      "top_p": 0.9, "seed": 11,
+                                                      "num_predict": max_new}})
+    warm = ("warm", {"prompt": system + "Q: warm the cache.", "options": greedy})
+    # Pages: each request needs ceil((prompt + 1 + max_new) / 32) <= 10;
+    # the 8 concurrent ones need about 56 pages (the 4 shared ones once)
+    # against 44 usable (a request that finishes early, as the drafted one
+    # does, frees 10), so decode growth must preempt.
+    plan = FaultPlan([{"site": "ragged", "kind": "exception", "at": [1]}])
+    ecfg = EngineConfig(model=model, max_slots=8, num_pages=usable + 1, page_size=ps,
+                        max_pages_per_seq=16, max_batch_tokens=512, token_granule=16,
+                        max_new_tokens=max_new, decode_steps_per_iter=8,
+                        dtype="bfloat16", prefix_cache=True, spec=True, spec_k=4,
+                        fault_plan=plan, seed=0)
+    engine = TorchEngine(ecfg)
+    rt = engine.runtimes[model]
+    srv = serve_in_thread(engine, port=0, timeout_s=600)
+    port = srv.server_address[1]
+
+    def gen(user, body):
+        return _ollama_result(*_post(port, "/api/generate",
+                                     {"model": model, "stream": False, **body}, user))
+
+    results, errors = {}, []
+
+    def run(name):
+        user, body = jobs[name]
+        try:
+            results[name] = gen(user, body)
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{name}: {e}")
+
+    reset_launch_counts()
+    t0 = time.monotonic()
+    results["warm"] = gen(*warm)
+    threads = [threading.Thread(target=run, args=(n,)) for n in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    serve_s = time.monotonic() - t0
+    counts = launch_counts()
+    stats, sampled_speculated = engine.call_on_loop(
+        lambda: (rt.prefix_cache.check(), rt.stats(), "sampled" in rt._spec_user)[1:])
+    stop_server(srv)
+    if errors or len(results) != len(jobs) + 1:
+        raise SystemExit(f"serve-runtime requests failed: {errors}")
+
+    # Each request alone on a plain engine (same weights): cache, spec and
+    # pressure off.
+    plain = TorchEngine(EngineConfig(model=model, max_slots=8, num_pages=8 * 16 + 8,
+                                     page_size=ps, max_pages_per_seq=16,
+                                     max_batch_tokens=512, token_granule=16,
+                                     max_new_tokens=max_new, decode_steps_per_iter=8,
+                                     dtype="bfloat16", seed=0), params=rt.params)
+    srv = serve_in_thread(plain, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    alone = {name: gen(*job) for name, job in [("warm", warm), *jobs.items()]}
+    stop_server(srv)
+
+    tokens = sum(len(ids) for ids, _ in results.values())
+    pc = stats["prefix_cache"]
+    line = {"phase": "serve-runtime", "model": model, "layers": rt.cfg.num_layers,
+            "dtype": "bfloat16", "max_slots": ecfg.max_slots,
+            "num_pages": ecfg.num_pages, "usable_pages": usable, "max_new_tokens": max_new,
+            "pages_per_request": {n: -(-(len(body["prompt"]) + 1 + max_new) // ps)
+                                  for n, (_, body) in [("warm", warm), *jobs.items()]},
+            "requests": len(results), "serve_s": serve_s, "tokens": tokens,
+            "tokens_per_s": tokens / serve_s,
+            "replies": {n: {"tokens": len(ids), "done_reason": why,
+                            "first_diff_vs_alone": _first_diff(ids, alone[n][0])}
+                        for n, (ids, why) in results.items()},
+            "preempt_count": stats["preempt_count"], "retry_count": engine.retry_count(),
+            "spec_proposed": stats["spec_proposed"], "spec_accepted": stats["spec_accepted"],
+            "spec_rollbacks": stats["spec_rollbacks"], "prefix_cache": pc,
+            "sampled_speculated": sampled_speculated,
+            "used_pages_after": stats["kv_pages_used"],
+            "cached_pages_after": stats["kv_pages_cached"],
+            "ragged_dispatches": stats["ragged_dispatches"],
+            "decode_steps": stats["decode_steps"], "launches": counts,
+            "fault_plan": plan.stats()}
+    emit(line)
+    report["serve_runtime"] = line
+    del plain, engine, rt
+    bad = [n for n, r in line["replies"].items() if r["done_reason"] not in ("stop", "length")
+           or r["tokens"] <= 0]
+    own = ("ragged_paged_attention", "paged_decode_attention")
+    gates = {"replies": not bad, "preempt": line["preempt_count"] >= 1,
+             "prefix_hits": pc["hits"] >= 1, "spec_accepted": line["spec_accepted"] >= 1,
+             "one_retry": line["retry_count"] == 1, "sampled_no_spec": not sampled_speculated,
+             "no_used_pages": line["used_pages_after"] == 0,
+             "kernels": all(counts[k] > 0 for k in own)
+             and all(counts[k] == 0 for k in counts if k not in own)}
+    if not all(gates.values()):
+        raise SystemExit(f"serve-runtime gates failed: {gates} {bad}")
+
+
+def _collect(req, timeout=600):
+    deadline = time.monotonic() + timeout
+    items = []
+    while time.monotonic() < deadline:
+        item = req.stream.get(timeout=0.5)
+        if item is not None:
+            items.append(item)
+            if item.kind in ("done", "error"):
+                return items
+    raise SystemExit(f"request {req.req_id} did not finish: {items[-3:]}")
+
+
+def serve_runtime_f32_phase(report) -> None:
+    """Byte identity on the card: llama3.2:1b at full width with float32
+    weights and KV (TF32 off), so argmax flips from rounding are
+    vanishingly rare, through the float32-q bodies of both kernels. One
+    greedy request served plainly, then with the third decode-time page
+    growth failing (it preempts itself and replays), cache off and on;
+    a repeated-pattern prompt with spec off and on. Token ids must be
+    identical, with a preemption and with accepted drafts."""
+    import dataclasses
+
+    import torch
+
+    from ollamamq_tpu_torch.config import EngineConfig, get_model_config
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.models import weights
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.testing.faults import FaultPlan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = "llama3.2:1b"
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = weights.init_random(get_model_config(model), 0, torch.float32, "cuda")
+    base = EngineConfig(model=model, max_slots=4, num_pages=4 * 16 + 4, page_size=32,
+                        max_pages_per_seq=16, max_batch_tokens=512, token_granule=16,
+                        max_new_tokens=96, decode_steps_per_iter=8, dtype="float32",
+                        seed=0)
+
+    def serve(prompt, max_tokens, **over):
+        eng = TorchEngine(dataclasses.replace(base, **over), params=params)
+        eng.start()
+        try:
+            rt = eng.runtimes[model]
+            ids = rt.tokenizer.encode(prompt)
+            req = eng.enqueue_request("solo", "", model, prompt_tokens=ids,
+                                      sampling=SamplingParams(max_tokens=max_tokens))
+            items = _collect(req)
+            if items[-1].kind != "done":
+                raise SystemExit(f"serve-runtime-f32 {over}: {items[-1]}")
+            return list(req.generated_ids), {
+                "preemptions": req.preemptions, "spec_accepted": rt.spec_accepted,
+                "spec_proposed": rt.spec_proposed, "used_pages": rt.alloc.used_pages,
+                "prefix_hits": (rt.prefix_cache.hits if rt.prefix_cache else None)}
+        finally:
+            eng.stop()
+
+    lone = "The quick brown fox jumps over the lazy dog; the scheduler keeps queues fair."
+    copy = "red green blue " * 10
+    reset_launch_counts()
+    t0 = time.monotonic()
+    runs = {"plain": serve(lone, 64)}
+    for cache in (False, True):
+        runs[f"preempted-cache-{'on' if cache else 'off'}"] = serve(
+            lone, 64, prefix_cache=cache,
+            fault_plan=FaultPlan([{"site": "extend", "kind": "alloc_fail", "at": [3]}]))
+    runs["copy-spec-off"] = serve(copy, 96)
+    runs["copy-spec-on"] = serve(copy, 96, spec=True, spec_k=4, spec_min_accept=0.0)
+    seconds = time.monotonic() - t0
+    counts = launch_counts()
+    checks = {
+        "preempt_identical": all(runs[k][0] == runs["plain"][0]
+                                 for k in ("preempted-cache-off", "preempted-cache-on")),
+        "preempted": all(runs[k][1]["preemptions"] >= 1
+                         for k in ("preempted-cache-off", "preempted-cache-on")),
+        "spec_identical": runs["copy-spec-on"][0] == runs["copy-spec-off"][0],
+        "spec_accepted": runs["copy-spec-on"][1]["spec_accepted"] >= 1,
+        "no_used_pages": all(r[1]["used_pages"] == 0 for r in runs.values()),
+        "kernels": counts["ragged_paged_attention"] > 0
+        and counts["paged_decode_attention"] > 0,
+    }
+    line = {"phase": "serve-runtime-f32", "model": model, "dtype": "float32",
+            "tf32": False, "seconds": seconds,
+            "runs": {k: {"tokens": len(ids), "first_diff_vs_plain": _first_diff(
+                ids, runs["copy-spec-off" if k.startswith("copy") else "plain"][0]), **st}
+                     for k, (ids, st) in runs.items()},
+            "launches": counts, "checks": checks}
+    emit(line)
+    report["serve_runtime_f32"] = line
+    del params
+    if not all(checks.values()):
+        raise SystemExit(f"serve-runtime-f32 checks failed: {checks}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -932,6 +1231,8 @@ def main(argv=None) -> int:
     serve_phase(report, args.profile)
     serve_phase(report, args.profile, int8=True)
     guardrail_phase(report)
+    serve_runtime_phase(report)
+    serve_runtime_f32_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]

@@ -2,8 +2,8 @@
 
 The dense decoder architectures (Llama 3.x, Qwen2.5 with attention bias,
 Qwen3 with per-head q/k norm) and the engine fields the single-device
-serving path reads. Mixture-of-experts and encoder models are not served
-by this package yet.
+serving path reads, with the JAX package's defaults. Mixture-of-experts
+and encoder models are not served by this package yet.
 """
 
 from __future__ import annotations
@@ -155,6 +155,34 @@ class EngineConfig:
     # The stream's total token count rounds to rungs of a power-of-two
     # ladder over this granule.
     token_granule: int = 16
+    # Speculative decoding on the ragged path: up to spec_k n-gram draft
+    # tokens per greedy, penalty-free decode slot, verified in one
+    # dispatch as a (1 + k)-token span; rejected drafts' pages roll back.
+    spec: bool = False
+    spec_k: int = 4
+    # A user whose drafts' accept rate falls below this (after a warm-up
+    # sample) stops speculating. 0 = never throttle.
+    spec_min_accept: float = 0.1
+    # Prefix cache: finished prompts' full KV pages merge into a radix
+    # tree (engine/prefix_cache.py); admissions sharing a prefix pin
+    # those pages and prefill only the uncached tail.
+    prefix_cache: bool = False
+    # Minimum matched full pages before a hit is taken.
+    prefix_cache_min_pages: int = 1
+    # Preemption with recompute: decode-time pool exhaustion sends a
+    # victim back to the front of its user's queue instead of failing.
+    # Off => an explicit kv_exhausted error, never a silent LENGTH.
+    preempt: bool = True
+    # After this many preemptions a request holds its slot and pages
+    # (a stalled reservation) and is never picked as a victim.
+    preempt_max: int = 3
+    # Requests implicated in a failed step are retried this many times
+    # (exponential backoff from retry_backoff_s) before an explicit error.
+    step_retries: int = 1
+    retry_backoff_s: float = 0.2
+    # Deterministic fault injection (testing/faults.py): a plan file path
+    # or a FaultPlan instance. None = no injection.
+    fault_plan: Optional[object] = None
     # Max new tokens default when the request doesn't specify.
     max_new_tokens: int = 256
     # Decode steps run per dispatch when no admission could land between

@@ -51,6 +51,7 @@ def _load() -> ctypes.CDLL:
         "mq_new": (P, [S]),
         "mq_destroy": (None, [P]),
         "mq_enqueue_kind": (L, [P, S, S, S, I, I]),
+        "mq_requeue_front": (L, [P, S, S, S, I, I]),
         "mq_next2": (L, [P, S, S, S, I, S, I]),
         "mq_cancel": (I, [P, L]),
         "mq_mark_started": (None, [P, S]),
@@ -132,6 +133,15 @@ class MQCore:
         """Returns req_id > 0, or raises BlockedError."""
         rid = self._lib.mq_enqueue_kind(self._h, user.encode(), ip.encode(),
                                         _opt(model), int(family), 0)
+        return self._check_rid(rid, user, ip)
+
+    def requeue_front(self, user: str, ip: str = "", model: Optional[str] = None,
+                      family: Family = Family.UNKNOWN) -> int:
+        """Return a popped task to the FRONT of its user's queue (a
+        preempted or retried request keeps its place in the user's FIFO).
+        Returns the fresh req_id, or raises BlockedError."""
+        rid = self._lib.mq_requeue_front(self._h, user.encode(), ip.encode(),
+                                         _opt(model), int(family), 0)
         return self._check_rid(rid, user, ip)
 
     def next(self, eligible_models: Optional[Iterable[str]] = None

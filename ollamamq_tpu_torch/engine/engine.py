@@ -1,33 +1,45 @@
 """Continuous-batching engine on PyTorch (one device).
 
-The JAX package's serving loop, carried over for the single-device main
-path:
+The JAX package's serving loop, carried over for the single-device
+ragged path:
 
   - admission: the engine loop pops requests from the native fair-share
     core (cpp/mqcore.cpp) whenever the model runtime has a free slot and
-    KV pages;
+    KV pages. With the prefix cache on, a prompt sharing full pages with
+    a finished one pins them in the radix tree (engine/prefix_cache.py)
+    and prefills only its uncached tail;
   - ragged ticks: every admitted prompt rides the span path. A tick with
-    a prefill span in flight packs those spans plus every live decode
-    row into ONE flattened token stream (forward_ragged, the ragged
-    paged-attention kernel), then the penalty ring and sampling;
-  - decode ticks: with no prefill in flight, all live slots advance
-    k_steps tokens in one dispatch (forward_decode, the paged decode
-    kernel, in a Python loop of k_steps), collected after every runtime
-    has dispatched.
+    a prefill span or a speculative verify span in flight packs those
+    spans plus every live decode row into ONE flattened token stream
+    (forward_ragged, the ragged paged-attention kernel), then the penalty
+    ring, sampling and, for verify spans, greedy acceptance;
+  - decode ticks: with no span in flight, all live slots advance k_steps
+    tokens in one dispatch (forward_decode, the paged decode kernel, in a
+    Python loop of k_steps), collected after every runtime has
+    dispatched.
+
+The page lifecycle is the reference's: a decode slot that cannot grow
+preempts a victim for recompute (its stream resumes byte-identically
+after a replay prefill) or holds a stalled reservation; rejected drafts
+roll their pages back; a failed dispatch retries its requests once and
+then poisons them; a runtime whose step fails is rebuilt off the engine
+thread while its requests wait at the front of their users' queues.
 
 Where the JAX jits donated the KV pools and the recent-token ring, this
 engine updates them IN PLACE. Device work is issued without host
-synchronisation until a tick's tokens are read back.
+synchronisation until a tick's tokens are read back. Preemption and
+rollback free pages on the host only: the device reuses them in stream
+order.
 
 With weights_dtype="int8" the runtime quantizes its weights when it
 builds them (int8 QuantTensors, f32 per-channel scales); with
 kv_dtype="int8" its pools are QuantKV (int8 payload, f32 per-slot
 per-head scales) and both forwards go through the int8-pool kernels.
 
-Not carried over yet (later slices): speculative decoding, the prefix
-cache, preemption with recompute, retries and runtime rebuilds, KV
-migration, embeddings, multi-device layouts, fleet, durability, journal
-and telemetry. A failed dispatch errors the runtime's requests.
+Not carried over yet (later slices): KV migration, embeddings, the
+bucketed prefill path of pp > 1, multi-device layouts (and sequence
+parallelism), fleet, durability, the decision journal, Prometheus
+series and tracing, and scheduler policies (fcfs is the only order).
 """
 
 from __future__ import annotations
@@ -43,14 +55,16 @@ import torch
 
 from ollamamq_tpu_torch.config import (EngineConfig, ModelConfig, get_model_config,
                                        smart_match, validate_quant_config)
-from ollamamq_tpu_torch.core.mqcore import Family, MQCore, StuckQueue
+from ollamamq_tpu_torch.core.mqcore import BlockedError, Family, MQCore, StuckQueue
 from ollamamq_tpu_torch.engine import kv_cache as kvc
+from ollamamq_tpu_torch.engine.prefix_cache import PrefixCache
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
-from ollamamq_tpu_torch.ops.sampling import (maybe_apply_penalties, row_uniforms,
-                                             sample_tokens_rowwise, sampling_flags)
+from ollamamq_tpu_torch.ops.sampling import (accept_prefix, maybe_apply_penalties,
+                                             row_uniforms, sample_tokens_rowwise,
+                                             sampling_flags)
 
 log = logging.getLogger("ollamamq.torch.engine")
 
@@ -90,6 +104,28 @@ def drop_expired(req: Request, core: MQCore) -> None:
 class ModelRuntime:
     """Per-model serving state: weights, KV pool, slot table, steps."""
 
+    # Preemption hook, attached by the owning engine when cfg.preempt is
+    # on: callable(req) -> bool that returns a victim to the FRONT of its
+    # user's queue (False = the hook finished it instead). None =>
+    # decode-time exhaustion errors explicitly (kv_exhausted).
+    on_preempt = None
+    # Deterministic fault injection (testing/faults.py), attached by the
+    # engine from cfg.fault_plan.
+    fault_plan = None
+
+    # Speculative decoding: the n-gram proposer's lengths and window, and
+    # the proposed-token sample after which a user's accept rate counts.
+    SPEC_NGRAMS = (3, 2)
+    SPEC_LOOKUP_WINDOW = 1024
+    SPEC_THROTTLE_SAMPLE = 64
+    # A batch of nothing but stalled reservations is broken after this
+    # long: the youngest fails with kv_exhausted.
+    STALL_BREAK_S = 5.0
+
+    KV_EXHAUSTED_MSG = ("KV page pool exhausted mid-decode and preemption "
+                        "is disabled; retry, shorten the prompt, or raise "
+                        "--num-pages")
+
     def __init__(self, name: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None, dtype=None,
                  params: Optional[dict] = None):
@@ -124,10 +160,23 @@ class ModelRuntime:
                                  dtype=torch.int32, device=self.device)
         self.alloc = kvc.PageAllocator(engine_cfg.num_pages,
                                        engine_cfg.page_size, MP)
+        self.prefix_cache = (
+            PrefixCache(engine_cfg.page_size, self.alloc, model=name,
+                        min_pages=engine_cfg.prefix_cache_min_pages)
+            if engine_cfg.prefix_cache else None)
         # Slots mid-prefill: reserved (not schedulable) but not decoding.
         self.reserved_slots: set = set()
+        # Slots holding a page reservation: their request spent its
+        # preemption budget (or nobody was preemptible) when the pool ran
+        # dry, so it keeps slot and pages but sits out dispatches until
+        # growth succeeds.
+        self._stalled_slots: set = set()
+        self._stall_since: Optional[float] = None
         self.slot_req: List[Optional[Request]] = [None] * S
         self.slot_pages: List[List[int]] = [[] for _ in range(S)]
+        # Pinned prefix-cache nodes per slot: shared tree pages lead
+        # slot_pages, private pages follow.
+        self.slot_pins: List[list] = [[] for _ in range(S)]
         self.page_table = np.full((S, MP), kvc.TRASH_PAGE, np.int32)
         self.seq_lens = np.zeros((S,), np.int32)
         self.last_tokens = np.zeros((S,), np.int32)
@@ -147,6 +196,7 @@ class ModelRuntime:
         # Engine-stream generator for unseeded sampled rows.
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(engine_cfg.seed)
+        # Set after a failed step; the engine rebuilds the runtime.
         self._failed = False
         g = max(1, engine_cfg.token_granule)
         # A full decode batch plus one granule of prefill always fits.
@@ -160,11 +210,21 @@ class ModelRuntime:
             v *= 2
         ladder.append(self._ragged_budget)
         self._ragged_ladder = ladder
+        # Speculative decoding: n-gram drafts verified on the span path;
+        # user -> [proposed, accepted] feeds the per-user throttle.
+        self.spec = bool(engine_cfg.spec) and engine_cfg.spec_k > 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollbacks = 0
+        self._spec_user: Dict[str, list] = {}
+        self._spec_throttled: set = set()
         # Counters (host side).
         self.tokens_generated = 0
         self.ragged_dispatches = 0
         self.decode_dispatches = 0
         self.decode_steps = 0
+        self.preempt_count = 0
+        self.retry_count = 0
         self.step_latency_ms = 0.0
         self.prefill_latency_ms = 0.0
         # Device bytes, payload plus scales for int8 leaves and pools.
@@ -177,11 +237,15 @@ class ModelRuntime:
                    for i, r in enumerate(self.slot_req))
 
     def has_capacity(self) -> bool:
-        """Can one more request be taken from the scheduler right now?"""
+        """Can one more request be taken from the scheduler right now?
+        Unreferenced cached pages count: a full cache evicts, never
+        rejects."""
+        evictable = (self.prefix_cache.evictable_pages
+                     if self.prefix_cache is not None else 0)
         return (not self._failed
                 and len(self.pending_prefill) < 2 * self.ecfg.max_slots
                 and self.free_slots() > 0
-                and self.alloc.free_pages >= 2)
+                and self.alloc.free_pages + evictable >= 2)
 
     def has_work(self) -> bool:
         return (bool(self.pending_prefill) or bool(self.chunking)
@@ -196,9 +260,17 @@ class ModelRuntime:
 
     def submit(self, req: Request) -> bool:
         if req._inc_decode is None:
+            # Kept across preemption and retry requeues: the replay
+            # prompt carries ids the decoder has already seen.
             req._inc_decode = self.tokenizer.make_incremental_decoder()
         self.pending_prefill.append(req)
         return True
+
+    def _fault(self, site: str) -> None:
+        """Fault-injection seam at the top of each dispatch: a firing rule
+        raises or sleeps BEFORE any device work, so no state is touched."""
+        if self.fault_plan is not None:
+            self.fault_plan.check(site)
 
     # -- host -> device ----------------------------------------------------
     def _to_dev(self, arrays, dtype) -> List[torch.Tensor]:
@@ -220,11 +292,9 @@ class ModelRuntime:
                 return i
         return None
 
-    def _release_slot_pages(self, slot: int) -> None:
-        self.alloc.free(self.slot_pages[slot])
-        self.page_table[slot, :] = kvc.TRASH_PAGE
-
     def _clear_slot(self, slot: int) -> None:
+        """Reset a slot's sampling rows and bookkeeping (the caller
+        releases its pages: finish and preempt release differently)."""
         self.seq_lens[slot] = 0
         self.temp[slot] = 0.0
         self.top_k[slot] = 0
@@ -234,6 +304,7 @@ class ModelRuntime:
         self.freq_pen[slot] = 0.0
         self.seeds[slot] = 0
         self.slot_req[slot] = None
+        self._stalled_slots.discard(slot)
 
     def _finish_slot(self, slot: int, reason: FinishReason, core: MQCore,
                      flush: bool = True, error: str = "") -> None:
@@ -242,7 +313,9 @@ class ModelRuntime:
         req = self.slot_req[slot]
         if req is None:
             return
-        self._release_slot_pages(slot)
+        # An installed slot's prompt KV is fully written: its full prompt
+        # pages may merge into the prefix cache.
+        self._release_slot_pages(slot, req)
         self._clear_slot(slot)
         req.stats.completion_tokens = len(req.generated_ids)
         if reason != FinishReason.CANCELLED and flush:
@@ -306,29 +379,287 @@ class ModelRuntime:
             # Token written at position n by the next step.
             self.last_tokens[slot] = tok
 
-    KV_EXHAUSTED_MSG = ("KV page pool exhausted mid-decode; retry, shorten "
-                        "the prompt, or raise --num-pages")
+    # -- pages and the prefix cache ----------------------------------------
+    def _match_prefix(self, tokens: List[int]):
+        """(nodes, pages) of the longest cached prefix, or ([], []) below
+        the reuse threshold."""
+        nodes, pages = self.prefix_cache.match(tokens)
+        if len(nodes) < self.prefix_cache.min_pages:
+            return [], []
+        return nodes, pages
 
-    def _grow_pages(self, slot: int, need_tokens: int, core: MQCore) -> None:
-        """Page headroom for a live slot: grow it, or finish it — an
-        honest LENGTH at the per-sequence cap, an explicit kv_exhausted
-        error when the pool is dry (never a silent truncation)."""
+    def _pc_miss(self) -> None:
+        if self.prefix_cache is not None:
+            self.prefix_cache.note_miss()
+
+    def _alloc_pages(self, num_tokens: int) -> Optional[List[int]]:
+        """alloc() with the prefix cache's eviction backstop: free-list
+        exhaustion reclaims unreferenced cached pages (LRU) instead of
+        failing admission."""
+        if self.fault_plan is not None and self.fault_plan.blocked("alloc"):
+            return None  # injected allocation pressure
+        pages = self.alloc.alloc(num_tokens)
+        if pages is None and self.prefix_cache is not None:
+            short = self.alloc.pages_needed(num_tokens) - self.alloc.free_pages
+            if short > 0 and self.prefix_cache.evict(short) > 0:
+                pages = self.alloc.alloc(num_tokens)
+        return pages
+
+    def _alloc_tail(self, held: int, num_tokens: int) -> Optional[List[int]]:
+        """Private tail pages for a cache-hit admission already holding
+        `held` shared pages; the same eviction backstop."""
+        need = self.alloc.pages_needed(num_tokens) - held
+        pages = self.alloc.alloc_n(need, held=held)
+        if pages is None and self.prefix_cache is not None:
+            short = need - self.alloc.free_pages
+            if short > 0 and self.prefix_cache.evict(short) > 0:
+                pages = self.alloc.alloc_n(need, held=held)
+        return pages
+
+    def _extend_pages(self, pages: List[int], new_total_tokens: int) -> bool:
+        """Decode-time page growth with the eviction backstop."""
+        if self.fault_plan is not None and self.fault_plan.blocked("extend"):
+            return False  # injected allocation pressure
+        if self.alloc.extend(pages, new_total_tokens):
+            return True
+        if self.prefix_cache is None:
+            return False
+        need = self.alloc.pages_needed(new_total_tokens) - len(pages)
+        if need <= 0 or len(pages) + need > self.alloc.max_pages_per_seq:
+            return False  # per-sequence cap: eviction can't help
+        if self.prefix_cache.evict(need - self.alloc.free_pages) > 0:
+            return self.alloc.extend(pages, new_total_tokens)
+        return False
+
+    def _release_slot_pages(self, slot: int,
+                            req: Optional[Request] = None) -> None:
+        """Free a slot's KV pages and reset its page-table row. With the
+        prefix cache on, the slot's pins are released and, when `req` is
+        given (its prompt KV is fully written), its full prompt pages
+        MERGE into the tree instead of returning to the free list."""
         pages = self.slot_pages[slot]
-        if self.alloc.extend(pages, need_tokens):
-            self.page_table[slot, :] = kvc.make_page_table_row(
-                pages, self.ecfg.max_pages_per_seq)
-        elif (self.alloc.pages_needed(need_tokens) > self.alloc.max_pages_per_seq
-              or len(pages) >= self.alloc.max_pages_per_seq):
-            self._finish_slot(slot, FinishReason.LENGTH, core)
+        pc = self.prefix_cache
+        if pc is None:
+            self.alloc.free(pages)
         else:
+            pins = self.slot_pins[slot]
+            keep = len(pins)  # shared tree pages lead slot_pages
+            if req is not None and req.prompt_tokens:
+                full = min(len(req.prompt_tokens) // self.ecfg.page_size,
+                           len(pages))
+                if full > keep:
+                    pc.insert(req.prompt_tokens, pages[:full])
+                    keep = full
+            self.alloc.free(pages[keep:])
+            pc.release(pins)
+            self.slot_pages[slot] = []
+            self.slot_pins[slot] = []
+        self.page_table[slot, :] = kvc.TRASH_PAGE
+
+    # -- speculative decoding ----------------------------------------------
+    def _spec_eligible(self, req: Request) -> bool:
+        """Only rows whose sampling the greedy verifier reproduces exactly
+        speculate: temperature 0 and neutral penalties (a penalized
+        argmax depends on the ring at each draft position). Throttled
+        users sit out."""
+        s = req.sampling
+        return (s.temperature == 0.0 and s.repeat_penalty == 1.0
+                and s.presence_penalty == 0.0 and s.frequency_penalty == 0.0
+                and req.user not in self._spec_throttled)
+
+    def _propose_drafts(self, req: Request, slot: int) -> List[int]:
+        """Prompt-lookup drafts: the tokens that followed the most recent
+        earlier occurrence of the context's trailing n-gram (n in
+        SPEC_NGRAMS, longest first), capped at spec_k, the request's
+        remaining budget and the context ceiling. [] when nothing
+        matches."""
+        k = self.ecfg.spec_k
+        remaining = req.sampling.max_tokens - len(req.generated_ids) - 1
+        max_ctx = min(self.ecfg.max_context, self.cfg.max_seq_len)
+        pos = int(self.seq_lens[slot])
+        k = min(k, remaining, max_ctx - pos - 2)
+        if k <= 0:
+            return []
+        # The full history as the decoder saw it: a preempted request
+        # folded its streamed ids into prompt_tokens.
+        ctx = req.prompt_tokens + req.generated_ids[req._replay_gen:]
+        lo = max(0, len(ctx) - self.SPEC_LOOKUP_WINDOW)
+        for n in self.SPEC_NGRAMS:
+            if len(ctx) - lo < n + 1:
+                continue
+            key = ctx[-n:]
+            for s in range(len(ctx) - n - 1, lo - 1, -1):
+                if ctx[s:s + n] == key:
+                    drafts = ctx[s + n:s + n + k]
+                    if drafts:
+                        return list(drafts)
+                    break
+        return []
+
+    def _note_spec_outcome(self, req: Request, proposed: int,
+                           accepted: int) -> None:
+        """Totals and the per-user throttle: a user whose drafts keep
+        being rejected stops paying for their verify tokens."""
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        row = self._spec_user.setdefault(req.user, [0, 0])
+        row[0] += proposed
+        row[1] += accepted
+        min_rate = self.ecfg.spec_min_accept
+        if (min_rate > 0 and row[0] >= self.SPEC_THROTTLE_SAMPLE
+                and row[1] / row[0] < min_rate
+                and req.user not in self._spec_throttled):
+            self._spec_throttled.add(req.user)
+            log.info("%s: speculation throttled for user %s (accept rate "
+                     "%.2f < %.2f over %d proposed)", self.name, req.user,
+                     row[1] / row[0], min_rate, row[0])
+
+    def _rollback_spec(self, slot: int, kv_after: int) -> None:
+        """Release the pages of rejected drafts: the slot keeps the pages
+        its accepted context needs, never fewer than its shared prefix
+        pages. The page-table row is rewritten before the next dispatch,
+        so no later step writes through a freed page."""
+        self.spec_rollbacks += 1
+        keep = len(self.slot_pins[slot])
+        if self.alloc.rollback_to(self.slot_pages[slot], kv_after, keep=keep):
+            self.page_table[slot, :] = kvc.make_page_table_row(
+                self.slot_pages[slot], self.ecfg.max_pages_per_seq)
+
+    def _drop_expired_slot(self, slot: int, core: MQCore) -> None:
+        """An expired request never burns a k-token verify span."""
+        self._finish_slot(slot, FinishReason.DEADLINE, core,
+                          error="deadline expired before completion")
+
+    # -- preemption with recompute -----------------------------------------
+    def _pick_victim(self, core: MQCore) -> Optional[int]:
+        """Victim slot for a preemption (fcfs): the user with the most
+        served requests, the youngest arrival breaking ties; never the VIP
+        and never a request past its preemption budget. Stalled
+        reservation-holders under budget qualify (they hold pages too).
+        None = nobody is preemptible."""
+        try:
+            snap = core.snapshot()
+        except Exception:  # noqa: BLE001 — an age-only pick beats none
+            snap = {}
+        vip, users = snap.get("vip"), snap.get("users", {})
+        best, best_key = None, None
+        for i, r in enumerate(self.slot_req):
+            if r is None or r.preemptions >= self.ecfg.preempt_max:
+                continue
+            if vip is not None and r.user == vip:
+                continue
+            key = (users.get(r.user, {}).get("processed", 0),
+                   r.stats.enqueued_at)
+            if best_key is None or key > best_key:
+                best, best_key = i, key
+        return best
+
+    def _preempt_slot(self, slot: int) -> None:
+        """Evict `slot` for recompute: the replay prompt is prompt +
+        generated tokens; the WRITTEN pages merge into the prefix cache,
+        the rest are freed, and the request goes to the engine's
+        requeue-front hook. Its stream, detokenizer and generated ids
+        survive, so the client sees one seamless stream."""
+        req = self.slot_req[slot]
+        self.preempt_count += 1
+        req.preemptions += 1
+        # KV is written for every replay token but the last sampled one
+        # (its write belongs to the step that never ran); the replay
+        # prefill recomputes it and samples the NEXT token.
+        replay = req.prompt_tokens + req.generated_ids[req._replay_gen:]
+        written = len(replay) - 1 if req.generated_ids else len(replay)
+        req.trace_event("preempt", slot=slot, tokens=written,
+                        n=req.preemptions)
+        # Cut to the written tokens for the tree insert only.
+        req.prompt_tokens = replay[:written]
+        self._release_slot_pages(slot, req if written else None)
+        req.prompt_tokens = replay
+        req._replay_gen = len(req.generated_ids)
+        self._clear_slot(slot)
+        if self.on_preempt is not None:
+            self.on_preempt(req)  # False => the hook finished it
+
+    def _page_exhausted(self, slot: int, need_tokens: int,
+                        core: MQCore) -> None:
+        """Decode-time growth failed for `slot`: preempt victims until it
+        grows, hold a stalled reservation, or (preemption off) error
+        explicitly as kv_exhausted. The per-sequence cap is an honest
+        LENGTH."""
+        pages = self.slot_pages[slot]
+        if (self.alloc.pages_needed(need_tokens) > self.alloc.max_pages_per_seq
+                or len(pages) >= self.alloc.max_pages_per_seq):
+            self._finish_slot(slot, FinishReason.LENGTH, core)
+            return
+        if self.on_preempt is None or not self.ecfg.preempt:
             self._finish_slot(slot, FinishReason.KV_EXHAUSTED, core,
                               error=self.KV_EXHAUSTED_MSG)
+            return
+        # At most one victim per occupied slot: a persistent extend
+        # failure cannot spin here.
+        for _ in range(len(self.slot_req)):
+            victim = self._pick_victim(core)
+            if victim is None:
+                break
+            self._preempt_slot(victim)
+            if self.slot_req[slot] is None:
+                return  # this slot was the victim
+            if self._extend_pages(pages, need_tokens):
+                self._stalled_slots.discard(slot)
+                return
+        self.slot_req[slot].trace_event("kv_stall", pages=len(pages))
+        self._stalled_slots.add(slot)
+
+    def _break_stall_deadlock(self, core: MQCore) -> None:
+        """Every active slot has been a stalled reservation for
+        STALL_BREAK_S: nothing can finish to free pages. Fail the
+        youngest with the explicit exhaustion error."""
+        youngest = max(self._stalled_slots,
+                       key=lambda i: self.slot_req[i].stats.enqueued_at)
+        log.warning("breaking KV-reservation deadlock: failing slot %d "
+                    "(req %d)", youngest, self.slot_req[youngest].req_id)
+        self._finish_slot(youngest, FinishReason.KV_EXHAUSTED, core,
+                          error=self.KV_EXHAUSTED_MSG)
+
+    def _retry_stalled(self, need_extra: int) -> None:
+        """Reservation-holders first: pages may have freed since they
+        stalled, and growth puts them back into the batch."""
+        for i in sorted(self._stalled_slots):
+            if self.slot_req[i] is None:
+                self._stalled_slots.discard(i)
+            elif self._extend_pages(self.slot_pages[i],
+                                    int(self.seq_lens[i]) + need_extra):
+                self._stalled_slots.discard(i)
+
+    # -- fault-retry containment -------------------------------------------
+    def _retry_requeue(self, req: Request, msg: str) -> bool:
+        """Queue a fault-implicated request for ONE more attempt (front of
+        the pending queue, exponential backoff). False once its budget is
+        spent or it is cancelled: the caller errors it."""
+        if req.retries >= self.ecfg.step_retries or req.cancelled.is_set():
+            return False
+        req.retries += 1
+        self.retry_count += 1
+        req._retry_at = time.monotonic() + (
+            self.ecfg.retry_backoff_s * (2 ** (req.retries - 1)))
+        req.trace_event("retry", error=msg[:200], n=req.retries)
+        self.pending_prefill.appendleft(req)
+        return True
+
+    @staticmethod
+    def _poison_msg(req: Request, msg: str) -> str:
+        """Error text once the retry budget is spent: the client sees that
+        retries happened and stopped on purpose."""
+        if req.retries:
+            return (f"{msg} (request poisoned after {req.retries} "
+                    f"retr{'y' if req.retries == 1 else 'ies'})")
+        return msg
 
     # -- admission ---------------------------------------------------------
     def _admit_ragged(self, core: MQCore) -> bool:
-        """Claim a reserved slot + the prompt's full page allocation for
-        each pending prompt and queue it on `chunking`: every prefill
-        rides the span path, sized each tick by the token budget."""
+        """Claim a reserved slot + the prompt's page allocation for each
+        pending prompt and queue it on `chunking`: every prefill rides the
+        span path. A prefix-cache hit pins its shared pages and starts the
+        span at the cached page boundary."""
         did = False
         while self.pending_prefill:
             req = self.pending_prefill[0]
@@ -337,6 +668,8 @@ class ModelRuntime:
                 core.mark_dropped(req.user)
                 req.finish(FinishReason.CANCELLED)
                 continue
+            if req._retry_at > time.monotonic():
+                break  # the head is backing off after a contained fault
             if req.expired():
                 self.pending_prefill.popleft()
                 drop_expired(req, core)
@@ -350,19 +683,39 @@ class ModelRuntime:
                     f"prompt length {n} exceeds maximum {max_prompt}" if n
                     else "empty prompt"))
                 continue
+            nodes, shared = [], []
+            if self.prefix_cache is not None:
+                nodes, shared = self._match_prefix(req.prompt_tokens)
             slot = self._claim_slot()
             if slot is None:
                 break
-            pages = self.alloc.alloc(n + 1)
-            if pages is None:
-                break  # pool exhausted; retry after frees
+            if nodes:
+                # Pin BEFORE the tail allocation: its eviction backstop
+                # must never reclaim the pages just matched.
+                self.prefix_cache.pin(nodes)
+                tail = self._alloc_tail(len(shared), n + 1)
+                if tail is None:
+                    self.prefix_cache.release(nodes)
+                    break  # wait for frees
+                prefix_len = len(shared) * self.ecfg.page_size
+                self.slot_pins[slot] = list(nodes)
+                self.slot_pages[slot] = list(shared) + tail
+                self.prefix_cache.note_hit(prefix_len)
+                req.trace_event("prefix_hit", cached_tokens=prefix_len, tokens=n)
+            else:
+                pages = self._alloc_pages(n + 1)
+                if pages is None:
+                    break  # pool exhausted; retry after frees
+                self._pc_miss()
+                self.slot_pages[slot] = pages
+                prefix_len = 0
             self.pending_prefill.popleft()
-            self.slot_pages[slot] = pages
-            req._chunk_pos = 0
+            req._chunk_pos = req._chunk_base = prefix_len
             # The row stays OFF the shared page table until install: decode
             # steps write through self.page_table, and a reserved slot must
             # keep pointing at the trash page meanwhile.
-            req._pt_row = kvc.make_page_table_row(pages, self.ecfg.max_pages_per_seq)
+            req._pt_row = kvc.make_page_table_row(self.slot_pages[slot],
+                                                  self.ecfg.max_pages_per_seq)
             req._prefill_slot = slot
             self.reserved_slots.add(slot)
             self.chunking.append(req)
@@ -370,7 +723,8 @@ class ModelRuntime:
         return did
 
     def _drop_chunking(self, req: Request) -> None:
-        """Remove a span-path request: release its pages and reservation."""
+        """Remove a span-path request: release its pages (unpinning any
+        shared ones) and its reservation."""
         slot = req._prefill_slot
         self.chunking.remove(req)
         self._release_slot_pages(slot)
@@ -379,20 +733,64 @@ class ModelRuntime:
     # -- ragged tick -------------------------------------------------------
     def step_ragged(self, core: MQCore) -> bool:
         """ONE ragged mixed-batch tick: admit pending prompts, then pack
-        every live decode slot (one token each) plus as many prefill-span
-        tokens as the token budget allows into a single dispatch. True
-        when a mixed dispatch ran (decode slots advanced inside it);
-        False leaves decode to step_decode_dispatch."""
+        every live decode slot (one token each, or with spec a (1 + k)
+        token verify span) plus as many prefill-span tokens as the token
+        budget allows into a single dispatch. True when a mixed dispatch
+        ran (decode slots advanced inside it); False leaves decode to
+        step_decode_dispatch."""
         self._admit_ragged(core)
-        if not self.chunking:
+        if not self.chunking and not self.spec:
             return False
+        if not self.chunking and not any(r is not None for r in self.slot_req):
+            return False
+
+        # Decode-row page headroom (reservation-holders first). A draft
+        # span claims its pages optimistically and rolls back after the
+        # verify; a draft is dropped, never stalled on, when the pool
+        # cannot cover it.
+        self._retry_stalled(1)
+        spec_plan: Dict[int, List[int]] = {}
+        n_active = sum(1 for i, r in enumerate(self.slot_req)
+                       if r is not None and i not in self._stalled_slots)
+        spec_budget = self._ragged_budget - n_active
         for i, r in enumerate(self.slot_req):
-            if r is not None:
-                self._grow_pages(i, int(self.seq_lens[i]) + 1, core)
-        rows: List[tuple] = [("decode", i, r, 0, 1)
-                             for i, r in enumerate(self.slot_req) if r is not None]
+            if r is None or i in self._stalled_slots:
+                continue
+            drafts: List[int] = []
+            if self.spec and self._spec_eligible(r):
+                if r.expired():
+                    self._drop_expired_slot(i, core)
+                    continue
+                drafts = self._propose_drafts(r, i)[:max(0, spec_budget)]
+            need = int(self.seq_lens[i]) + 1 + len(drafts)
+            if drafts and not self._extend_pages(self.slot_pages[i], need):
+                drafts = []
+                need = int(self.seq_lens[i]) + 1
+            if not drafts and not self._extend_pages(self.slot_pages[i], need):
+                self._page_exhausted(i, need, core)
+            if self.slot_req[i] is not None and i not in self._stalled_slots:
+                self.page_table[i, :] = kvc.make_page_table_row(
+                    self.slot_pages[i], self.ecfg.max_pages_per_seq)
+                if drafts:
+                    spec_plan[i] = drafts
+                    spec_budget -= len(drafts)
+        if not self.chunking and not spec_plan:
+            return False  # nothing multi-token this tick: decode runs fused
+
+        # Decode and verify rows first (the ladder trim below only ever
+        # shortens prefill tails), then prefill spans in FIFO order until
+        # the budget runs out. A verify row carries its drafts in place
+        # of the chunk position.
+        rows: List[tuple] = []  # (kind, slot, req, chunk_pos | drafts, span)
+        for i, r in enumerate(self.slot_req):
+            if r is not None and i not in self._stalled_slots:
+                d = spec_plan.get(i)
+                rows.append(("spec", i, r, d, 1 + len(d)) if d
+                            else ("decode", i, r, 0, 1))
         n_decode = len(rows)
-        budget = self._ragged_budget - n_decode
+        fixed_tokens = sum(span for *_, span in rows)
+        budget = self._ragged_budget - fixed_tokens
+        now = time.monotonic()
         for req in list(self.chunking):
             if budget <= 0:
                 break
@@ -405,17 +803,22 @@ class ModelRuntime:
                 self._drop_chunking(req)
                 drop_expired(req, core)
                 continue
+            if req._retry_at > now:
+                continue  # backing off after a contained fault
             span = min(len(req.prompt_tokens) - req._chunk_pos, budget)
+            if span <= 0:
+                continue
             rows.append(("prefill", req._prefill_slot, req, req._chunk_pos, span))
             budget -= span
-        if len(rows) == n_decode:
+        if len(rows) == n_decode and not spec_plan:
             return False  # no span ready this tick: decode runs fused
 
         # Dispatch total from the ladder: the largest rung the stream can
         # be TRIMMED down to (tail prefill tokens go next tick), else the
-        # next rung up.
+        # next rung up. Verify spans are never trimmed: the lower bound
+        # covers every fixed token.
         T_raw = sum(span for *_, span in rows)
-        lower = n_decode + 1
+        lower = fixed_tokens + (1 if len(rows) > n_decode else 0)
         L = next((v for v in reversed(self._ragged_ladder)
                   if lower <= v <= T_raw), None)
         if L is None:
@@ -446,6 +849,7 @@ class ModelRuntime:
         ring_len = np.zeros(S, np.int32)
         is_first = np.zeros(S, np.int32)
         append = np.zeros(S, np.int32)
+        is_spec = np.zeros(S, np.int32)
         seed_rows = np.full((S, W), -1, np.int32)
         slot_ids = np.full(S, S, np.int32)  # padding rows -> trash ring row
         pt_rows = np.full((S, MP), kvc.TRASH_PAGE, np.int32)
@@ -470,38 +874,53 @@ class ModelRuntime:
             pres[idx] = s.presence_penalty
             freq[idx] = s.frequency_penalty
             seeds[idx] = s.seed
-            if kind == "decode":
-                pos = int(self.seq_lens[slot])
-                row = self.page_table[slot]
-                tokens[off] = self.last_tokens[slot]
-                tok_seq[off] = idx
-                tok_pos[off] = pos
-                write_slots[off] = row[pos // ps] * ps + pos % ps
-                kv_len[idx] = pos + 1
-                append[idx] = 1  # ring_len 0: input token already rolled
-                pt_rows[idx] = row
-            else:
+            if kind == "prefill":
                 row = req._pt_row
                 positions = np.arange(cpos, cpos + span, dtype=np.int32)
                 tokens[off:off + span] = req.prompt_tokens[cpos:cpos + span]
-                tok_seq[off:off + span] = idx
-                tok_pos[off:off + span] = positions
-                write_slots[off:off + span] = row[positions // ps] * ps + positions % ps
-                kv_len[idx] = cpos + span
                 ring_len[idx] = span
-                is_first[idx] = 1 if cpos == 0 else 0
-                append[idx] = 1 if cpos + span >= len(req.prompt_tokens) else 0
-                pt_rows[idx] = row
+                first = cpos == req._chunk_base
+                is_first[idx] = first
+                if first and cpos > 0:
+                    # Prefix-cache hit: the ring opens with the cached
+                    # prefix's last W tokens, as a full prefill would.
+                    prev = req.prompt_tokens[max(0, cpos - W):cpos]
+                    seed_rows[idx, W - len(prev):] = prev
+                append[idx] = cpos + span >= len(req.prompt_tokens)
+            else:
+                # A decode row is the slot's input token; a verify row adds
+                # its drafts (carried in the chunk position's place),
+                # written optimistically at pos + 1.. (rejected positions
+                # sit past the rolled-back kv_len).
+                if kind == "spec":
+                    tokens[off + 1:off + span] = cpos
+                    is_spec[idx] = 1
+                row = self.page_table[slot]
+                cpos = int(self.seq_lens[slot])
+                positions = np.arange(cpos, cpos + span, dtype=np.int32)
+                tokens[off] = self.last_tokens[slot]
+                append[idx] = 1  # ring_len 0: input token already rolled
+            tok_seq[off:off + span] = idx
+            tok_pos[off:off + span] = positions
+            write_slots[off:off + span] = row[positions // ps] * ps + positions % ps
+            kv_len[idx] = cpos + span
+            pt_rows[idx] = row
             off += span
 
         prefill_rows = [r for r in rows if r[0] == "prefill"]
+        # k_cap in {0, spec_k}: verify dispatches read spec_k + 1 logits
+        # per row whatever their draft count.
+        k_cap = self.ecfg.spec_k if any(r[0] == "spec" for r in rows) else 0
         self.inflight_prefill = [r[2] for r in prefill_rows]
         t0 = time.monotonic()
         try:
-            toks = self._ragged_dispatch(
-                T_pad, tokens, tok_seq, tok_pos, write_slots, q_start, q_len,
-                kv_len, ring_len, is_first, append, seed_rows, slot_ids,
-                pt_rows, temp, top_k, top_p, pen, pres, freq, seeds)
+            toks, n_emit = self._ragged_dispatch(
+                T_pad, k_cap, tokens, tok_seq, tok_pos, write_slots, q_start,
+                q_len, kv_len, ring_len, is_first, append, is_spec, seed_rows,
+                slot_ids, pt_rows, temp, top_k, top_p, pen, pres, freq, seeds)
+        except Exception as e:  # noqa: BLE001 — contained to these rows
+            self._ragged_failed(rows, e, core)
+            return True
         finally:
             self.inflight_prefill = []
         dt = time.monotonic() - t0
@@ -512,14 +931,7 @@ class ModelRuntime:
             self.step_latency_ms = dt * 1e3
 
         for idx, (kind, slot, req, cpos, span) in enumerate(rows):
-            if kind == "decode":
-                if self.slot_req[slot] is not req:
-                    continue  # finished between compose and emit
-                self.seq_lens[slot] += 1
-                self.tokens_generated += 1
-                if self._emit_token(slot, int(toks[idx]), core):
-                    self.last_tokens[slot] = toks[idx]
-            else:
+            if kind == "prefill":
                 req._chunk_pos = cpos + span
                 if req._chunk_pos >= len(req.prompt_tokens):
                     # Final span: publish the page-table row (decode writes
@@ -528,40 +940,86 @@ class ModelRuntime:
                     self.reserved_slots.discard(slot)
                     self.page_table[slot, :] = req._pt_row
                     self._install_slot(slot, req, len(req.prompt_tokens),
-                                       int(toks[idx]), core)
+                                       int(toks[idx, 0]), core)
+                continue
+            if self.slot_req[slot] is not req:
+                continue  # finished between compose and emit
+            for j in range(int(n_emit[idx])):  # 1, or accepted + 1
+                if self.slot_req[slot] is not req:
+                    break  # EOS, stop string or cap mid-emission
+                self.seq_lens[slot] += 1
+                self.tokens_generated += 1
+                if self._emit_token(slot, int(toks[idx, j]), core):
+                    self.last_tokens[slot] = toks[idx, j]
+            if kind == "spec":
+                proposed, accepted = span - 1, int(n_emit[idx]) - 1
+                self._note_spec_outcome(req, proposed, accepted)
+                if proposed > accepted and self.slot_req[slot] is req:
+                    # Rejected drafts claimed pages past the accepted
+                    # context (a finished stream released everything).
+                    self._rollback_spec(slot, int(self.seq_lens[slot]) + 1)
         return True
 
-    def _ragged_dispatch(self, T_pad, tokens, tok_seq, tok_pos, write_slots,
-                         q_start, q_len, kv_len, ring_len, is_first, append,
-                         seed_rows, slot_ids, pt_rows, temp, top_k, top_p,
-                         pen, pres, freq, seeds) -> np.ndarray:
+    def _ragged_dispatch(self, T_pad, k_cap, tokens, tok_seq, tok_pos,
+                         write_slots, q_start, q_len, kv_len, ring_len,
+                         is_first, append, is_spec, seed_rows, slot_ids,
+                         pt_rows, temp, top_k, top_p, pen, pres, freq,
+                         seeds):
         """Forward the flattened stream, maintain the penalty ring, sample
-        one token per row. Returns the sampled tokens [S] on the host."""
+        one token per row, and verify each spec row's drafts. Returns
+        (toks [S, k_cap + 1], n_emit [S]) on the host: row i emits
+        toks[i, :n_emit[i]]."""
+        # Verify dispatches get their own fault site.
+        self._fault("spec_verify" if k_cap else "ragged")
         need_pen, need_mask, need_sample = sampling_flags(
             temp, top_k, top_p, pen, pres, freq)
         (tokens_d, tok_seq_d, tok_pos_d, ws_d, qs_d, ql_d, kv_d, rl_d,
-         first_d, app_d, seed_rows_d, slots_d, pt_d, tk_d) = self._to_dev(
+         first_d, app_d, spec_d, seed_rows_d, slots_d, pt_d, tk_d) = self._to_dev(
             [tokens, tok_seq, tok_pos, write_slots, q_start, q_len, kv_len,
-             ring_len, is_first, append, seed_rows, slot_ids, pt_rows, top_k],
-            np.int32)
+             ring_len, is_first, append, is_spec, seed_rows, slot_ids,
+             pt_rows, top_k], np.int32)
         temp_d, tp_d, pen_d, pres_d, freq_d = self._to_dev(
             [temp, top_p, pen, pres, freq], np.float32)
-        # Every row reads the logit of its span's last token.
-        out_idx = (qs_d + ql_d - 1).clamp(0, T_pad - 1)
+        # Every row reads the logit of its span's last token; with k_cap a
+        # verify row reads one at EVERY span position, so column j holds
+        # the argmax that verifies draft j + 1.
+        last = (qs_d + ql_d - 1).clamp(0, T_pad - 1)
+        spec = spec_d > 0
+        if k_cap:
+            j = torch.arange(k_cap + 1, device=self.device)[None, :]
+            col = torch.minimum(j, ql_d[:, None] - 1)
+            out_idx = torch.where(spec[:, None], (qs_d[:, None] + col).clamp(0, T_pad - 1),
+                                  last[:, None])
+        else:
+            out_idx = last
         logits, _, _ = llama.forward_ragged(
             self.params, self.cfg, tokens_d, tok_seq_d, tok_pos_d, ws_d,
             out_idx, self.kc, self.vc, pt_d, qs_d, ql_d, kv_d,
             self.ecfg.page_size)
+        if k_cap:
+            greedy_all = logits.argmax(-1).to(torch.int32)  # [S, k_cap + 1]
+            # Draft j + 1 sits right after the span's input token.
+            draft_idx = (qs_d[:, None] + 1 + torch.arange(k_cap, device=self.device)[None, :])
+            accepted = accept_prefix(tokens_d[draft_idx.clamp(0, T_pad - 1).long()],
+                                     greedy_all[:, :k_cap], ql_d - 1)
+            accepted = torch.where(spec, accepted, torch.zeros_like(accepted))
+            logits = logits[:, -1, :]
+            # A verify row's ring rolls by the ACCEPTED count, from one
+            # past its input token; never by k.
+            roll_n = torch.where(spec, accepted, rl_d)
+            base = qs_d + spec.to(torch.int32)
+        else:
+            roll_n, base = rl_d, qs_d
         # Penalty ring: open from seed_rows on a request's first span,
-        # slide each ring by ring_len tokens of its own span (0 for decode
+        # slide each ring by roll_n tokens of its own span (0 for decode
         # rows, whose input token rolled in when it was sampled).
         W = self.recent.shape[1]
         slots_l = slots_d.long()
         rows = torch.where(first_d[:, None] > 0, seed_rows_d, self.recent[slots_l])
         j_w = torch.arange(W, device=self.device)
-        cidx = rl_d[:, None] + j_w[None, :] - W
-        from_stream = tokens_d[(qs_d[:, None] + cidx).clamp(0, T_pad - 1).long()]
-        from_row = torch.gather(rows, 1, (rl_d[:, None] + j_w[None, :]).clamp(0, W - 1).long())
+        cidx = roll_n[:, None] + j_w[None, :] - W
+        from_stream = tokens_d[(base[:, None] + cidx).clamp(0, T_pad - 1).long()]
+        from_row = torch.gather(rows, 1, (roll_n[:, None] + j_w[None, :]).clamp(0, W - 1).long())
         new_rows = torch.where(cidx >= 0, from_stream, from_row)
         pen_logits = maybe_apply_penalties(logits, new_rows, pen_d, pres_d,
                                            freq_d, need_pen)
@@ -570,11 +1028,51 @@ class ModelRuntime:
              if need_sample else None)
         tok = sample_tokens_rowwise(pen_logits, u, temp_d, tk_d, tp_d,
                                     need_mask, need_sample)
-        # Rows that emit (decode rows, final prefill spans) roll the
-        # sampled token in; mid-prefill spans do not.
+        if k_cap:
+            # A verify row takes the model's own token past its accepted
+            # drafts: what plain greedy would sample next (verify rows
+            # are greedy and penalty-free).
+            bonus = torch.gather(greedy_all, 1, accepted[:, None].long())[:, 0]
+            tok = torch.where(spec, bonus, tok)
+        # Rows that emit (decode and verify rows, final prefill spans)
+        # roll the final token in; mid-prefill spans do not.
         appended = torch.cat([new_rows[:, 1:], tok[:, None]], dim=1)
         self.recent[slots_l] = torch.where(app_d[:, None] > 0, appended, new_rows)
-        return tok.cpu().numpy()
+        if not k_cap:
+            return tok[:, None].cpu().numpy(), np.ones(len(tok), np.int32)
+        # A verify row emits its accepted drafts (their verifying argmaxes)
+        # and the bonus token at column `accepted`.
+        col0 = torch.where(spec, greedy_all[:, 0], tok)
+        n_emit = torch.where(spec, accepted + 1, torch.ones_like(accepted))
+        out = torch.cat([col0[:, None], greedy_all[:, 1:], n_emit[:, None]],
+                        dim=1).cpu().numpy()  # one read-back
+        return out[:, :-1], out[:, -1]
+
+    def _ragged_failed(self, rows, e: Exception, core: MQCore) -> None:
+        """Contain a failed mixed dispatch: prefill spans release their
+        reservation and retry from scratch; decode and verify rows fold
+        their generated tokens into a replay prompt (preemption semantics:
+        the stream resumes byte-identically) and retry too. Past the
+        retry budget each is poisoned with an explicit error."""
+        log.exception("ragged mixed dispatch failed (%d rows)", len(rows),
+                      exc_info=e)
+        msg = f"ragged dispatch failed: {e}"
+        for kind, slot, req, _cpos, _span in rows:
+            if kind == "prefill":
+                self._drop_chunking(req)
+            else:
+                if self.slot_req[slot] is not req:
+                    continue
+                replay = req.prompt_tokens + req.generated_ids[req._replay_gen:]
+                written = len(replay) - 1 if req.generated_ids else len(replay)
+                req.prompt_tokens = replay[:written]
+                self._release_slot_pages(slot, req if written else None)
+                req.prompt_tokens = replay
+                req._replay_gen = len(req.generated_ids)
+                self._clear_slot(slot)
+            if not self._retry_requeue(req, msg):
+                core.mark_dropped(req.user)
+                req.finish(FinishReason.ERROR, error=self._poison_msg(req, msg))
 
     # -- decode tick -------------------------------------------------------
     def step_decode(self, core: MQCore, k_steps: int = 1) -> int:
@@ -589,13 +1087,36 @@ class ModelRuntime:
         """Issue k_steps decode steps for every active slot WITHOUT
         reading their tokens back: the returned handle holds the device
         tensor of sampled tokens [k_steps, S]. None when nothing is
-        active."""
-        for i, r in enumerate(self.slot_req):
-            if r is not None:
-                self._grow_pages(i, int(self.seq_lens[i]) + k_steps, core)
-        active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active:
+        active (or every occupant is a stalled reservation)."""
+        if not any(r is not None for r in self.slot_req):
             return None
+        self._retry_stalled(k_steps)
+        for i, r in enumerate(self.slot_req):
+            if r is None or i in self._stalled_slots:
+                continue
+            need = int(self.seq_lens[i]) + k_steps
+            if not self._extend_pages(self.slot_pages[i], need):
+                # Never a silent LENGTH: preempt with recompute, stall on a
+                # reservation, or error explicitly (kv_exhausted).
+                self._page_exhausted(i, need, core)
+            if self.slot_req[i] is not None and i not in self._stalled_slots:
+                self.page_table[i, :] = kvc.make_page_table_row(
+                    self.slot_pages[i], self.ecfg.max_pages_per_seq)
+        active = [i for i, r in enumerate(self.slot_req)
+                  if r is not None and i not in self._stalled_slots]
+        if not active:
+            # Only stalled reservations: nothing can finish to free pages.
+            # After a grace window, fail the youngest loudly (an in-flight
+            # prefill may still unblock them first).
+            if self._stalled_slots and not self.chunking:
+                now = time.monotonic()
+                if self._stall_since is None:
+                    self._stall_since = now
+                elif now - self._stall_since > self.STALL_BREAK_S:
+                    self._break_stall_deadlock(core)
+                    self._stall_since = None
+            return None
+        self._stall_since = None
         t0 = time.monotonic()
         S = self.ecfg.max_slots
         active_mask = np.zeros(S, np.int32)
@@ -603,6 +1124,7 @@ class ModelRuntime:
         need_pen, need_mask, need_sample = sampling_flags(
             self.temp, self.top_k, self.top_p, self.rep_pen, self.pres_pen,
             self.freq_pen)
+        self._fault("decode")
         tokens, positions, act_d, pt_d, tk_d = self._to_dev(
             [self.last_tokens, self.seq_lens, active_mask, self.page_table,
              self.top_k], np.int32)
@@ -662,32 +1184,28 @@ class ModelRuntime:
             if req is not None and req.cancelled.is_set():
                 self._finish_slot(i, FinishReason.CANCELLED, core)
 
-    def fail_all(self, core: MQCore, msg: str) -> None:
-        """Error out every request this runtime holds (after a failed
-        step) and mark the runtime failed."""
-        self._failed = True
-        for i, req in enumerate(self.slot_req):
-            if req is not None:
-                self._finish_slot(i, FinishReason.ERROR, core, error=msg)
-        for req in list(self.chunking) + list(self.pending_prefill):
-            core.mark_dropped(req.user)
-            req.finish(FinishReason.ERROR, error=msg)
-        self.chunking.clear()
-        self.pending_prefill.clear()
-
     def stats(self) -> dict:
         return {"model": self.name, "device": str(self.device),
                 "active": self.active_count(),
                 "pending_prefill": len(self.pending_prefill),
                 "chunking": len(self.chunking),
+                "stalled": len(self._stalled_slots),
                 "tokens_generated": self.tokens_generated,
                 "ragged_dispatches": self.ragged_dispatches,
                 "decode_dispatches": self.decode_dispatches,
                 "decode_steps": self.decode_steps,
+                "preempt_count": self.preempt_count,
+                "retry_count": self.retry_count,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_rollbacks": self.spec_rollbacks,
+                "prefix_cache": (self.prefix_cache.stats()
+                                 if self.prefix_cache is not None else None),
                 "step_latency_ms": round(self.step_latency_ms, 3),
                 "prefill_latency_ms": round(self.prefill_latency_ms, 3),
                 "kv_pages_used": self.alloc.used_pages,
                 "kv_pages_free": self.alloc.free_pages,
+                "kv_pages_cached": self.alloc.cached_pages,
                 "param_bytes": self.param_bytes, "kv_bytes": self.kv_bytes,
                 "weights_dtype": self.weights_dtype, "kv_dtype": self.kv_dtype,
                 "failed": self._failed}
@@ -704,25 +1222,55 @@ def _leaves(params: dict):
 
 class TorchEngine:
     """Engine front: owns the fair-share core, the model runtime and the
-    loop thread."""
+    loop thread, and contains failures: preempted and fault-implicated
+    requests go back to the front of their users' queues, and a runtime
+    whose step failed is rebuilt off the loop thread."""
 
     def __init__(self, engine_cfg: EngineConfig, device=None, dtype=None,
                  blocklist_path: Optional[str] = None,
                  params: Optional[dict] = None):
         self.ecfg = engine_cfg
         self.device = resolve_device(device)
+        self.dtype = dtype
+        # A rebuild reuses the weights the engine was built with (None:
+        # the seed's init again).
+        self._params = params
         cfg = get_model_config(engine_cfg.model)
         if cfg is None:
             raise KeyError(f"unknown model architecture: {engine_cfg.model}")
+        # A plan file fails here, before any device work.
+        self.fault_plan = None
+        if engine_cfg.fault_plan:
+            from ollamamq_tpu_torch.testing.faults import FaultPlan
+
+            self.fault_plan = (FaultPlan.load(engine_cfg.fault_plan)
+                               if isinstance(engine_cfg.fault_plan, str)
+                               else engine_cfg.fault_plan)
         self.core = MQCore(blocklist_path)
-        self.runtimes: Dict[str, ModelRuntime] = {
-            engine_cfg.model: ModelRuntime(engine_cfg.model, cfg, engine_cfg,
-                                           self.device, dtype, params)}
+        rt = ModelRuntime(engine_cfg.model, cfg, engine_cfg, self.device,
+                          dtype, params)
+        self._attach_hooks(rt)
+        self.runtimes: Dict[str, ModelRuntime] = {engine_cfg.model: rt}
         self.pending: Dict[int, Request] = {}
         self._pending_lock = threading.Lock()
         self._cond = threading.Condition()
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        # Calls that must run on the loop thread, in order with dispatches.
+        self._engine_calls: collections.deque = collections.deque()
+        self._engine_retries = 0  # retries issued by _retry_or_error
+        # Failure recovery: failed runtimes are rebuilt on this cadence.
+        self._failed_runtimes: List[ModelRuntime] = []
+        self._recovering: set = set()  # id(rt) with a rebuild in flight
+        self._rebuilt: List[tuple] = []  # (dead, fresh) awaiting the swap
+        self._rebuilt_lock = threading.Lock()
+        self._last_recover_attempt = 0.0
+        self.recover_interval = 5.0
+
+    def _attach_hooks(self, rt: ModelRuntime) -> None:
+        rt.fault_plan = self.fault_plan
+        if self.ecfg.preempt:
+            rt.on_preempt = self._requeue_preempted
 
     # -- request flow ------------------------------------------------------
     def enqueue_request(self, user: str, ip: str, model: str,
@@ -737,6 +1285,64 @@ class TorchEngine:
             self.pending[rid] = req
         self.notify()
         return req
+
+    def _requeue_front(self, req: Request) -> bool:
+        """Return a request to the FRONT of its user's native queue under a
+        fresh id. False when its user is blocked: it is finished here."""
+        try:
+            with self._pending_lock:
+                rid = self.core.requeue_front(req.user, "", req.model)
+                req.req_id = rid
+                self.pending[rid] = req
+        except BlockedError:
+            self.core.mark_dropped(req.user, started=req.started)
+            req.finish(FinishReason.CANCELLED)
+            return False
+        self.notify()
+        return True
+
+    def _requeue_preempted(self, req: Request) -> bool:
+        """on_preempt hook: a preempted request goes back to the front of
+        its user's queue for recompute. False => it was cancelled, expired
+        or blocked and is finished here (its pages are already free)."""
+        if req.cancelled.is_set():
+            self.core.mark_dropped(req.user)
+            req.finish(FinishReason.CANCELLED)
+            return False
+        if req.expired():
+            drop_expired(req, self.core)
+            return False
+        req.trace_event("requeue")
+        return self._requeue_front(req)
+
+    def _retry_or_error(self, req: Request, msg: str,
+                        replay: bool = False) -> None:
+        """Route a request implicated in a runtime failure: one more try
+        via the front of its user's queue (the runtime's pending gate
+        honours the backoff), or an explicit poisoned error once the
+        budget is spent. replay=True folds generated ids into the prompt
+        so a mid-decode victim resumes its stream."""
+        if req.cancelled.is_set():
+            self.core.mark_dropped(req.user, started=req.started)
+            req.finish(FinishReason.CANCELLED)
+            return
+        if req.expired():
+            drop_expired(req, self.core)
+            return
+        if req.retries >= self.ecfg.step_retries:
+            self.core.mark_dropped(req.user, started=req.started)
+            req.finish(FinishReason.ERROR, error=ModelRuntime._poison_msg(req, msg))
+            return
+        req.retries += 1
+        self._engine_retries += 1
+        req._retry_at = time.monotonic() + (
+            self.ecfg.retry_backoff_s * (2 ** (req.retries - 1)))
+        if replay and req.generated_ids:
+            req.prompt_tokens = (req.prompt_tokens
+                                 + req.generated_ids[req._replay_gen:])
+            req._replay_gen = len(req.generated_ids)
+        req.trace_event("retry", error=msg[:200], n=req.retries)
+        self._requeue_front(req)
 
     def cancel(self, req_id: int) -> None:
         with self._pending_lock:
@@ -767,6 +1373,30 @@ class TorchEngine:
         with self._cond:
             self._cond.notify()
 
+    def call_on_loop(self, fn, timeout: float = 300.0):
+        """Run `fn` on the loop thread, in order with dispatches, and
+        return its result (raising what it raised); inline when the loop
+        is not running or this IS the loop thread."""
+        if not self._running or threading.current_thread() is self._thread:
+            return fn()
+        ev, box = threading.Event(), {}
+        self._engine_calls.append((fn, ev, box))
+        self.notify()
+        if not ev.wait(timeout):
+            raise TimeoutError("engine-loop call timed out")
+        if "err" in box:
+            raise box["err"]
+        return box.get("ret")
+
+    def _drain_engine_calls(self) -> None:
+        while self._engine_calls:
+            fn, ev, box = self._engine_calls.popleft()
+            try:
+                box["ret"] = fn()
+            except Exception as e:  # noqa: BLE001 — delivered to the caller
+                box["err"] = e
+            ev.set()
+
     # -- loop ----------------------------------------------------------------
     def start(self) -> None:
         if self._running:
@@ -782,6 +1412,7 @@ class TorchEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        self._drain_engine_calls()
 
     def _loop(self) -> None:
         while self._running:
@@ -793,12 +1424,12 @@ class TorchEngine:
 
     def _admit(self) -> int:
         """Pop requests in fair-share order while a runtime can take one.
-        A failed runtime stays eligible so its requests are popped and
-        errored instead of parking forever."""
+        A failed runtime has no capacity: its requests wait in the queue
+        until the rebuild is swapped in."""
         admitted = 0
         while True:
             eligible = [name for name, rt in self.runtimes.items()
-                        if rt._failed or rt.has_capacity()]
+                        if rt.has_capacity()]
             if not eligible:
                 break
             try:
@@ -819,29 +1450,103 @@ class TorchEngine:
 
     def _place(self, req: Request, user: str, model: str) -> bool:
         if req.cancelled.is_set() or self.core.is_user_or_ip_blocked(user):
-            self.core.mark_dropped(user, started=False)
+            self.core.mark_dropped(user, started=req.started)
             req.finish(FinishReason.CANCELLED)
             return False
         if req.expired():
             drop_expired(req, self.core)
             return False
         rt = self.resolve_runtime(model)
-        if rt is None or rt._failed:
-            self.core.mark_dropped(user, started=False)
-            req.finish(FinishReason.ERROR, error=(
-                f"model not loaded: {model}" if rt is None
-                else f"model {rt.name} failed; see the server log"))
+        if rt is None:
+            self.core.mark_dropped(user, started=req.started)
+            req.finish(FinishReason.ERROR, error=f"model not loaded: {model}")
             return False
         rt.submit(req)
-        self.core.mark_started(user)
-        req.started = True
+        if not req.started:
+            # A preempted or retried requeue was counted already.
+            self.core.mark_started(user)
+            req.started = True
         return True
 
     def _kill_runtime(self, rt: ModelRuntime, exc: Exception) -> None:
+        """Contain a failed step: retry or poison every request the runtime
+        holds, drop its device buffers (the rebuild must fit beside the
+        other runtimes) and queue it for a rebuild."""
         log.error("runtime %s step failed: %s", rt.name, exc, exc_info=exc)
-        rt.fail_all(self.core, f"engine step failed: {exc}")
+        self._fail_runtime(rt, f"engine step failed: {exc}")
+        rt._failed = True
+        rt.params = rt.kc = rt.vc = rt.recent = None
+        self._failed_runtimes.append(rt)
+
+    def _fail_runtime(self, rt: ModelRuntime, msg: str) -> None:
+        """Each implicated request is retried ONCE on a fresh dispatch
+        (mid-decode victims replay prompt + generated so their streams
+        resume after the rebuild); one that keeps failing is poisoned."""
+        for i, req in enumerate(rt.slot_req):
+            if req is not None:
+                rt._release_slot_pages(i)
+                rt.seq_lens[i] = 0
+                rt.slot_req[i] = None
+                self._retry_or_error(req, msg, replay=True)
+        rt._stalled_slots.clear()
+        for q in (rt.pending_prefill, rt.chunking):
+            while q:
+                self._retry_or_error(q.popleft(), msg)
+        for slot in list(rt.reserved_slots):
+            rt._release_slot_pages(slot)
+        rt.reserved_slots.clear()
+
+    def _try_recover(self) -> None:
+        """Start a background rebuild of each failed runtime."""
+        self._last_recover_attempt = time.monotonic()
+        for rt in list(self._failed_runtimes):
+            if id(rt) not in self._recovering:
+                self._recovering.add(id(rt))
+                self._start_rebuild(rt)
+
+    def _start_rebuild(self, rt: ModelRuntime) -> None:
+        threading.Thread(target=self._rebuild_runtime, args=(rt,),
+                         name=f"recover-{rt.name}", daemon=True).start()
+
+    def _rebuild_runtime(self, rt: ModelRuntime) -> bool:
+        """(background thread) Build a replacement runtime with the
+        engine's weights and post it for the loop thread to swap in."""
+        try:
+            fresh = ModelRuntime(rt.name, rt.cfg, self.ecfg, self.device,
+                                 self.dtype, self._params)
+        except Exception:  # noqa: BLE001 — retried on the next interval
+            log.exception("rebuild of %s failed; retrying in %.0fs",
+                          rt.name, self.recover_interval)
+            self._recovering.discard(id(rt))
+            return False
+        with self._rebuilt_lock:
+            self._rebuilt.append((rt, fresh))
+        self.notify()
+        return True
+
+    def _swap_rebuilt(self) -> None:
+        """(loop thread) Install finished rebuilds; requests that reached
+        the dead runtime meanwhile restart on the fresh one."""
+        with self._rebuilt_lock:
+            items, self._rebuilt = self._rebuilt, []
+        for rt, fresh in items:
+            self._attach_hooks(fresh)
+            if self.runtimes.get(rt.name) is rt:
+                self.runtimes[rt.name] = fresh
+            for q in (rt.pending_prefill, rt.chunking):
+                while q:
+                    fresh.submit(q.popleft())
+            self._failed_runtimes.remove(rt)
+            self._recovering.discard(id(rt))
+            log.warning("runtime %s rebuilt; serving resumes", rt.name)
+            self.notify()
 
     def _loop_once(self) -> None:
+        self._drain_engine_calls()
+        self._swap_rebuilt()
+        if (self._failed_runtimes and time.monotonic()
+                - self._last_recover_attempt > self.recover_interval):
+            self._try_recover()
         self._admit()
         did_work = False
         handles = []
@@ -864,10 +1569,14 @@ class TorchEngine:
                     if h is not None:
                         handles.append((rt, h))
                         did_work = True
+                    # None with slots occupied: every occupant is a stalled
+                    # reservation; nap on the condvar instead of spinning.
             except Exception as e:  # noqa: BLE001 — contain to this runtime
                 self._kill_runtime(rt, e)
                 did_work = True
         for rt, h in handles:
+            if rt._failed:
+                continue
             try:
                 rt.step_decode_collect(h, self.core)
             except Exception as e:  # noqa: BLE001 — contain to this runtime
@@ -876,7 +1585,30 @@ class TorchEngine:
             with self._cond:
                 self._cond.wait(timeout=0.05)
 
+    # -- counters ------------------------------------------------------------
+    def prefix_cache_stats(self) -> dict:
+        models = {name: rt.prefix_cache.stats()
+                  for name, rt in self.runtimes.items()
+                  if rt.prefix_cache is not None}
+        return {"enabled": bool(models), "models": models}
+
+    def prefix_cache_flush(self) -> int:
+        """Evict every unreferenced cached page, on the loop thread (the
+        tree and the allocator are loop state)."""
+        return self.call_on_loop(lambda: sum(
+            rt.prefix_cache.flush() for rt in self.runtimes.values()
+            if rt.prefix_cache is not None))
+
+    def preemption_count(self) -> int:
+        return sum(rt.preempt_count for rt in self.runtimes.values())
+
+    def retry_count(self) -> int:
+        return self._engine_retries + sum(rt.retry_count
+                                          for rt in self.runtimes.values())
+
     def stats(self) -> dict:
         return {"queued": self.core.total_queued(),
                 "device": str(self.device),
+                "preemptions": self.preemption_count(),
+                "retries": self.retry_count(),
                 "runtimes": [rt.stats() for rt in self.runtimes.values()]}

@@ -22,13 +22,21 @@ TRASH_PAGE = 0
 
 
 class PageAllocator:
-    """Free-list allocator over page indices [1, num_pages)."""
+    """Free-list allocator over page indices [1, num_pages).
+
+    With the prefix cache on (engine/prefix_cache.py) every page is
+    exactly one of FREE (on the free list), USED (private to a slot) or
+    CACHED (owned by the radix tree, possibly pinned by live requests);
+    `cached_pages` counts the third, so free + used + cached ==
+    num_pages - 1 always holds.
+    """
 
     def __init__(self, num_pages: int, page_size: int, max_pages_per_seq: int):
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
         self._free: List[int] = list(range(num_pages - 1, 0, -1))  # page 0 reserved
+        self.cached_pages = 0  # tree-owned
 
     @property
     def free_pages(self) -> int:
@@ -36,7 +44,7 @@ class PageAllocator:
 
     @property
     def used_pages(self) -> int:
-        return (self.num_pages - 1) - len(self._free)
+        return (self.num_pages - 1) - len(self._free) - self.cached_pages
 
     def pages_needed(self, num_tokens: int) -> int:
         return max(1, -(-num_tokens // self.page_size))
@@ -44,10 +52,25 @@ class PageAllocator:
     def alloc(self, num_tokens: int) -> Optional[List[int]]:
         """Pages to hold num_tokens; None if the pool is exhausted or the
         request exceeds the per-sequence page cap."""
-        n = self.pages_needed(num_tokens)
-        if n > len(self._free) or n > self.max_pages_per_seq:
+        return self.alloc_n(self.pages_needed(num_tokens))
+
+    def alloc_n(self, n: int, held: int = 0) -> Optional[List[int]]:
+        """Exactly n pages for a sequence already holding `held` (a
+        prefix-cache hit: its shared pages count against the per-sequence
+        cap but come from the tree, not the free list)."""
+        if n > len(self._free) or held + n > self.max_pages_per_seq:
             return None
         return [self._free.pop() for _ in range(n)]
+
+    def adopt_cached(self, n: int = 1) -> None:
+        """A slot's page(s) moved into the prefix-cache tree."""
+        self.cached_pages += n
+
+    def reclaim_cached(self, page: int) -> None:
+        """An evicted tree page returns to the free list."""
+        self.cached_pages -= 1
+        if page != TRASH_PAGE:
+            self._free.append(page)
 
     def extend(self, pages: List[int], new_total_tokens: int) -> bool:
         """Grow an allocation (in place) to cover new_total_tokens. False
@@ -58,6 +81,23 @@ class PageAllocator:
                 return False
             pages.append(self._free.pop())
         return True
+
+    def rollback_to(self, pages: List[int], kv_len: int, keep: int = 0) -> int:
+        """Speculative rollback: shrink an allocation (in place) to the
+        pages `kv_len` written tokens need, returning the rejected tail's
+        pages to the free list; never below `keep`, the sequence's shared
+        prefix-tree pages (they lead the list and belong to the tree).
+        Returns the number of pages freed. Rejected positions on the
+        device need no un-write: they sit past the rolled-back kv_len and
+        the next real step overwrites them."""
+        target = max(self.pages_needed(max(1, kv_len)), keep)
+        freed = 0
+        while len(pages) > target:
+            p = pages.pop()
+            if p != TRASH_PAGE:
+                self._free.append(p)
+                freed += 1
+        return freed
 
     def free(self, pages: List[int]) -> None:
         for p in pages:

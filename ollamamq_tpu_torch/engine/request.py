@@ -116,10 +116,22 @@ class Request:
         self.cancelled = threading.Event()
         dm = float(getattr(self.sampling, "deadline_ms", 0.0) or 0.0)
         self.deadline = (self.stats.enqueued_at + dm / 1e3) if dm > 0 else None
-        # True once the fair-share core counted this request as started.
+        # True once the fair-share core counted this request as started:
+        # a preempted or retried requeue must not count it twice.
         self.started = False
-        # Incremental detokenizer, attached at runtime submit.
+        # Degradation state (engine-owned): preemptions (the anti-livelock
+        # budget), fault retries (the poisoning budget), the earliest next
+        # retry, and how many generated ids are folded into prompt_tokens
+        # for a recompute replay.
+        self.preemptions = 0
+        self.retries = 0
+        self._retry_at = 0.0
+        self._replay_gen = 0
+        # Incremental detokenizer, attached at runtime submit and kept
+        # across requeues: the replay prompt carries ids it has seen.
         self._inc_decode = None
+        # Lifecycle trace; the port records none yet (trace_event no-ops).
+        self.trace = None
         # Generation state (engine-owned):
         self.generated_ids: List[int] = []
         self.emitted_len = 0  # chars of detok text already pushed
@@ -161,6 +173,11 @@ class Request:
         if self.deadline is None:
             return False
         return (now if now is not None else time.monotonic()) >= self.deadline
+
+    def trace_event(self, name: str, **args) -> None:
+        """Record a lifecycle event; no-op for untraced requests."""
+        if self.trace is not None:
+            self.trace.event(name, **args)
 
     def finish(self, reason: FinishReason, error: str = "") -> None:
         self.stats.finished_at = time.monotonic()

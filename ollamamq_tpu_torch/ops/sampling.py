@@ -216,3 +216,20 @@ def sample_tokens_rowwise(
     gumbel = -torch.log(-torch.log(uniforms))
     sampled = torch.argmax(masked + gumbel, dim=-1)
     return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
+
+
+def accept_prefix(draft: torch.Tensor,  # [B, K] int32 proposed drafts
+                  greedy: torch.Tensor,  # [B, K] int32 argmax at each draft's position
+                  draft_len: torch.Tensor,  # [B] int32 valid drafts per row
+                  ) -> torch.Tensor:
+    """[B] number of leading drafts the model verified: draft j counts iff
+    every draft before it did and the argmax at its position equals it
+    (the running product of the match mask), and only below draft_len.
+    Accepting this prefix and then taking the model's own next token
+    reproduces the non-speculative greedy stream exactly."""
+    K = draft.shape[1]
+    if K == 0:
+        return torch.zeros(draft.shape[0], dtype=torch.int32, device=draft.device)
+    valid = torch.arange(K, device=draft.device)[None, :] < draft_len[:, None]
+    match = ((draft == greedy) & valid).to(torch.int32)
+    return torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)

@@ -1,7 +1,8 @@
 """The port stands alone: every module of ollamamq_tpu_torch imports and
-serves a request (bf16/f32, then int8 weights and int8 KV pages) without
-JAX or the JAX package ever being imported, and without a GPU the engine
-refuses to start unless the CPU is asked for.
+serves a request (bf16/f32, then int8 weights and int8 KV pages, then
+with the prefix cache, speculation and an injected ragged fault that is
+retried) without JAX or the JAX package ever being imported, and without
+a GPU the engine refuses to start unless the CPU is asked for.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -28,6 +29,7 @@ import torch
 from ollamamq_tpu_torch.config import EngineConfig
 from ollamamq_tpu_torch.engine.engine import TorchEngine
 from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+from ollamamq_tpu_torch.testing.faults import FaultPlan
 
 cfg = EngineConfig(model="test-tiny", max_slots=2, num_pages=32, page_size=8,
                    max_pages_per_seq=8, max_new_tokens=4)
@@ -41,7 +43,7 @@ def serve_one(ecfg):
                          "options": {"temperature": 0}}).encode(),
         headers={"X-User-ID": "solo"})
     body = json.loads(urllib.request.urlopen(req, timeout=60).read())
-    stats = srv.engine.stats()["runtimes"][0]
+    stats = srv.engine.stats()
     stop_server(srv)
     return body, stats
 
@@ -49,6 +51,9 @@ def serve_one(ecfg):
 body, _ = serve_one(cfg)
 body8, stats8 = serve_one(dataclasses.replace(cfg, weights_dtype="int8",
                                               kv_dtype="int8"))
+body_rt, stats_rt = serve_one(dataclasses.replace(
+    cfg, prefix_cache=True, spec=True, retry_backoff_s=0.0,
+    fault_plan=FaultPlan([{"site": "ragged", "kind": "exception", "at": [1]}])))
 
 refused = None
 if not torch.cuda.is_available():
@@ -60,7 +65,11 @@ print(json.dumps({
     "modules": names,
     "eval_count": body["eval_count"],
     "eval_count_int8": body8["eval_count"],
-    "dtypes_int8": [stats8["weights_dtype"], stats8["kv_dtype"]],
+    "dtypes_int8": [stats8["runtimes"][0]["weights_dtype"],
+                    stats8["runtimes"][0]["kv_dtype"]],
+    "eval_count_runtime": body_rt["eval_count"],
+    "retries_runtime": stats_rt["retries"],
+    "prefix_cache_runtime": stats_rt["runtimes"][0]["prefix_cache"] is not None,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu")),
     "refused": refused,
@@ -81,11 +90,15 @@ def test_port_imports_and_serves_without_jax():
     assert out["eval_count"] == 4
     assert out["eval_count_int8"] == 4
     assert out["dtypes_int8"] == ["int8", "int8"]
+    assert out["eval_count_runtime"] == 4
+    assert out["retries_runtime"] == 1 and out["prefix_cache_runtime"]
     expected = {"ollamamq_tpu_torch.engine.engine", "ollamamq_tpu_torch.server.app",
                 "ollamamq_tpu_torch.ops.cuda.paged_attention",
                 "ollamamq_tpu_torch.ops.cuda.ragged_attention",
                 "ollamamq_tpu_torch.models.llama", "ollamamq_tpu_torch.cli",
-                "ollamamq_tpu_torch.ops.quant", "ollamamq_tpu_torch.models.weights"}
+                "ollamamq_tpu_torch.ops.quant", "ollamamq_tpu_torch.models.weights",
+                "ollamamq_tpu_torch.engine.prefix_cache",
+                "ollamamq_tpu_torch.testing.faults"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
