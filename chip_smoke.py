@@ -78,6 +78,26 @@ Phases, each printing JSON lines; any failure exits non-zero:
            greedy request with and without a forced self-preemption
            (cache off and on), and a repeated pattern with spec off and
            on; token ids must be identical.
+  serve-sched
+           the fair-share front's scheduling and observability: llama3.2:1b
+           in bf16 through the HTTP server under --scheduler srpt, token
+           fairness, max_queued_per_user 3 and max_queued 6. With the
+           engine loop not started, one user's fourth request gets 429,
+           a second user's three are queued (6 in all) and a third
+           user's request gets 503, each with a Retry-After >= 1; the
+           loop then serves the 6. Then one user sends 4 long requests
+           (160 tokens) and four users 2 short ones (16), paced by the
+           client under the caps. Gates: every reply stop/length; the
+           /metrics scrape parses, its TTFT count grew by the replies
+           served and its generated-token counter by their eval_count;
+           the MFU gauge in (0, 1] with the card's peak from the table
+           (a card missing from it fails); /debug/stepprof samples in the
+           ragged and decode modes with all four phases; /debug/hbm
+           allocated bytes >= weights + KV pool; /health online after a
+           watchdog probe on cuda with no alert firing; only the two
+           bf16 kernels launched. Prints the step-phase medians per mode,
+           TTFT p50/p99 and TPOT p50 (from the histograms' growth in this
+           phase), per-user generated tokens and the MFU.
 
 Then the card as nvidia-smi names it, the kernels line, and the last
 line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
@@ -949,11 +969,12 @@ def serve_runtime_phase(report) -> None:
             "replies": {n: {"tokens": len(ids), "done_reason": why,
                             "first_diff_vs_alone": _first_diff(ids, alone[n][0])}
                         for n, (ids, why) in results.items()},
-            "preempt_count": stats["preempt_count"], "retry_count": engine.retry_count(),
-            "spec_proposed": stats["spec_proposed"], "spec_accepted": stats["spec_accepted"],
-            "spec_rollbacks": stats["spec_rollbacks"], "prefix_cache": pc,
+            "preempt_count": stats["preemptions"], "retry_count": engine.retry_count(),
+            "spec_proposed": stats["spec"]["proposed"],
+            "spec_accepted": stats["spec"]["accepted"],
+            "spec_rollbacks": stats["spec"]["rollbacks"], "prefix_cache": pc,
             "sampled_speculated": sampled_speculated,
-            "used_pages_after": stats["kv_pages_used"],
+            "used_pages_after": stats["pages_used"],
             "cached_pages_after": stats["kv_pages_cached"],
             "ragged_dispatches": stats["ragged_dispatches"],
             "decode_steps": stats["decode_steps"], "launches": counts,
@@ -1069,6 +1090,223 @@ def serve_runtime_f32_phase(report) -> None:
     del params
     if not all(checks.values()):
         raise SystemExit(f"serve-runtime-f32 checks failed: {checks}")
+
+
+def _get(port, path, user="smoke"):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("GET", path, headers={"X-User-ID": user})
+    r = c.getresponse()
+    data = r.read()
+    c.close()
+    if r.status != 200:
+        raise RuntimeError(f"GET {path}: HTTP {r.status} {data[:300]!r}")
+    return data
+
+
+def _post_status(port, body, user):
+    """(status, Retry-After, body) of one /api/generate, any status."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    c.request("POST", "/api/generate", json.dumps(body),
+              {"X-User-ID": user, "Content-Type": "application/json"})
+    r = c.getresponse()
+    data = r.read()
+    c.close()
+    return r.status, r.getheader("Retry-After"), data
+
+
+def _parse_prometheus(text):
+    """{(name, labels): value} of every sample line; raises on a line that
+    does not parse."""
+    import re
+
+    pat = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        m = pat.match(ln)
+        if m is None:
+            raise SystemExit(f"serve-sched: /metrics line does not parse: {ln!r}")
+        out[(m.group(1), m.group(3) or "")] = float(m.group(4))
+    return out
+
+
+def _delta_quantiles(child, before, qs):
+    """Quantiles of what a histogram child observed since `before` (its
+    bucket counts then), by the registry's own interpolation."""
+    from ollamamq_tpu_torch.telemetry.metrics import HistogramChild
+
+    delta = HistogramChild(child.buckets)
+    delta.counts = [a - b for a, b in zip(child.counts, before)]
+    delta.count = sum(delta.counts)
+    return {f"p{int(q * 100)}": delta.quantile(q) for q in qs}
+
+
+def serve_sched_phase(report) -> None:
+    """Scheduling and observability of the fair-share front on the card
+    (module docstring, serve-sched). The 503 goes to a third user's
+    request: with max_queued 6 and the first user's 3 queued, the second
+    user's third request is the sixth and is queued."""
+    import torch
+
+    from ollamamq_tpu_torch.config import EngineConfig
+    from ollamamq_tpu_torch.core.mqcore import Fairness
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import OllamaServer
+    from ollamamq_tpu_torch.telemetry import mfu, stepprof
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    model = "llama3.2:1b"
+    kind = torch.cuda.get_device_name(0)
+    peak = next((p for sub, p in mfu.PEAK_FLOPS_BY_KIND if sub in kind.lower()), None)
+    if peak is None:
+        raise SystemExit(f"serve-sched: no bf16 peak in the MFU table for {kind!r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ecfg = EngineConfig(model=model, max_slots=8, num_pages=8 * 16 + 8, page_size=32,
+                        max_pages_per_seq=16, max_batch_tokens=512, token_granule=16,
+                        max_new_tokens=160, decode_steps_per_iter=8, dtype="bfloat16",
+                        scheduler="srpt", max_queued=6, max_queued_per_user=3, seed=0)
+    engine = TorchEngine(ecfg, fairness=Fairness.TOKENS)
+    rt = engine.runtimes[model]
+    srv = OllamaServer(engine, port=0, timeout_s=600)
+    threading.Thread(target=srv.serve_forever, name="http", daemon=True).start()
+    port = srv.server_address[1]
+    text = "Tell me about fair queues, pages and kernels on a shared card. "
+    greedy = {"temperature": 0, "repeat_penalty": 1.0}
+    replies, errors, threads = [], [], []
+
+    def run(user, body):
+        try:
+            ids, why = _ollama_result(*_post(port, "/api/generate", body, user))
+            replies.append((user, len(ids), why))
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{user}: {e}")
+
+    def send(user, max_tokens, prompt):
+        """Start one request on its own thread once the caps admit it (the
+        client paces itself: nothing else enqueues meanwhile), and return
+        when the engine has traced it."""
+        body = {"model": model, "prompt": prompt, "stream": False,
+                "options": {**greedy, "num_predict": max_tokens}}
+        deadline = time.monotonic() + 600
+        while (engine.core.total_queued() >= ecfg.max_queued
+               or engine.core.queue_len(user) >= ecfg.max_queued_per_user):
+            if time.monotonic() > deadline:
+                raise SystemExit("serve-sched: the queue never drained")
+            time.sleep(0.002)
+        n = len(engine.tracer.traces())
+        threads.append(threading.Thread(target=run, args=(user, body)))
+        threads[-1].start()
+        while len(engine.tracer.traces()) == n and not errors:
+            time.sleep(0.001)
+
+    # Shedding, with the loop not started: nothing is admitted.
+    stepprof.PROFILER.reset()
+    ttft = tm.TTFT_MS.labels(model=model)
+    tpot = tm.TPOT_MS.labels(model=model)
+    ttft0, tpot0 = list(ttft.counts), list(tpot.counts)
+    before = _parse_prometheus(_get(port, "/metrics").decode())
+    sheds = {}
+    for i in range(3):
+        send("shed-a", 16, f"{text} (a{i})")
+    sheds["user_queue_full"] = _post_status(
+        port, {"model": model, "prompt": text, "stream": False}, "shed-a")
+    for i in range(3):
+        send("shed-b", 16, f"{text} (b{i})")
+    queued = engine.core.total_queued()
+    sheds["queue_full"] = _post_status(
+        port, {"model": model, "prompt": text, "stream": False}, "shed-c")
+    reset_launch_counts()
+    t0 = time.monotonic()
+    engine.start()
+    for t in threads:
+        t.join(timeout=600)
+    # The mix: one user's long requests against four users' short ones.
+    threads.clear()
+    for i in range(4):
+        send("long", 160, f"{text * 3} (long {i})")
+        for u in range(4):
+            if i < 2:
+                send(f"short{u}", 16, f"{text} (short{u} {i})")
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    serve_s = time.monotonic() - t0
+    counts = launch_counts()
+    engine.health.check_once()  # a watchdog probe on the engine's card
+    probe = (str(engine.health.probe_device), engine.health.probes)
+    after_text = _get(port, "/metrics").decode()
+    after = _parse_prometheus(after_text)
+    health = json.loads(_get(port, "/health"))
+    prof = json.loads(_get(port, "/debug/stepprof?n=8"))
+    hbm = json.loads(_get(port, "/debug/hbm"))
+    srv.shutdown()
+    srv.server_close()
+    engine.stop()
+    if errors:
+        raise SystemExit(f"serve-sched requests failed: {errors}")
+
+    lab = f'model="{model}"'
+    served = len(replies)
+    evals = sum(n for _, n, _ in replies)
+    per_user = {}
+    for user, n, _ in replies:
+        per_user[user] = per_user.get(user, 0) + n
+    mfu_gauge = after[("ollamamq_mfu", lab)]
+    modes = prof["summary"]["modes"]
+    phase_ms = {m: {ph: modes[m][ph]["p50_ms"] for ph in stepprof.PHASES}
+                for m in ("ragged", "decode") if m in modes}
+    last_hbm = next((s for s in reversed(hbm["timeline"]) if "device" in s), None)
+    line = {"phase": "serve-sched", "model": model, "layers": rt.cfg.num_layers,
+            "scheduler": "srpt", "fairness": "tokens", "max_queued": ecfg.max_queued,
+            "max_queued_per_user": ecfg.max_queued_per_user, "queued_before_loop": queued,
+            "sheds": {k: {"status": v[0], "retry_after": v[1],
+                          "body": json.loads(v[2])} for k, v in sheds.items()},
+            "shed_counts": engine.shed_counts, "replies": served,
+            "done_reasons": sorted({why for _, _, why in replies}),
+            "serve_s": serve_s, "eval_count": evals, "per_user_tokens": per_user,
+            "ttft_count_delta": (after[("ollamamq_ttft_ms_count", lab)]
+                                 - before.get(("ollamamq_ttft_ms_count", lab), 0.0)),
+            "tokens_total_delta": (after[("ollamamq_tokens_generated_total", lab)]
+                                   - before.get(("ollamamq_tokens_generated_total", lab), 0.0)),
+            "ttft_ms": _delta_quantiles(ttft, ttft0, (0.5, 0.99)),
+            "tpot_ms": _delta_quantiles(tpot, tpot0, (0.5,)),
+            "mfu": mfu_gauge, "peak_flops": peak, "runtime_peak_flops": rt.peak_flops,
+            "step_phase_p50_ms": phase_ms,
+            "step_samples": {m: modes[m]["step"]["n"] for m in modes},
+            "step_p50_ms": {m: modes[m]["step"]["p50_ms"] for m in modes},
+            "hbm_device": last_hbm and last_hbm["device"],
+            "param_bytes": rt.param_bytes, "kv_bytes": rt.kv_bytes,
+            "health": health["health"], "alerts": health["alerts"],
+            "probe_device": probe[0], "probes": probe[1],
+            "scheduler_stats": health["scheduler"], "launches": counts}
+    emit(line)
+    report["serve_sched"] = line
+    own = ("ragged_paged_attention", "paged_decode_attention")
+    retry_ok = all(v[1] is not None and int(v[1]) >= 1 for v in sheds.values())
+    gates = {
+        "replies": served == 18 and set(line["done_reasons"]) <= {"stop", "length"},
+        "shedding": (sheds["user_queue_full"][0] == 429 and sheds["queue_full"][0] == 503
+                     and retry_ok and queued == 6
+                     and engine.shed_counts == {"user_queue_full": 1, "queue_full": 1}),
+        "ttft_count": line["ttft_count_delta"] == served,
+        "tokens_total": line["tokens_total_delta"] == evals,
+        "mfu": 0.0 < mfu_gauge <= 1.0 and rt.peak_flops == peak,
+        "stepprof": all(m in phase_ms and all(v > 0 for v in phase_ms[m].values())
+                        for m in ("ragged", "decode")),
+        "hbm": (last_hbm is not None and last_hbm["device"]["allocated_bytes"]
+                >= rt.param_bytes + rt.kv_bytes),
+        "health": (health["health"]["device_online"] and health["alerts"] == []
+                   and health["status"] == "ok" and probe[0].startswith("cuda")
+                   and probe[1] >= 1),
+        "kernels": all(counts[k] > 0 for k in own)
+        and all(counts[k] == 0 for k in counts if k not in own),
+    }
+    line["gates"] = gates
+    if not all(gates.values()):
+        raise SystemExit(f"serve-sched gates failed: {gates}")
 
 
 def guardrail_phase(report) -> None:
@@ -1233,6 +1471,7 @@ def main(argv=None) -> int:
     guardrail_phase(report)
     serve_runtime_phase(report)
     serve_runtime_f32_phase(report)
+    serve_sched_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]

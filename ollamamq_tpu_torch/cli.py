@@ -4,17 +4,24 @@
     python -m ollamamq_tpu_torch.cli --model test-tiny --device cpu
     python -m ollamamq_tpu_torch.cli --weights-dtype int8 --kv-dtype int8
     python -m ollamamq_tpu_torch.cli --prefix-cache --spec --spec-k 4
+    python -m ollamamq_tpu_torch.cli --scheduler srpt --token-fairness \
+        --max-queued 64 --max-queued-per-user 8 --slo-ttft-ms 500
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
 start when no CUDA device is found. Weights are seeded random (--seed).
+The admin TUI owns the terminal when stdout is a TTY (--no-tui: never);
+quitting it ends the process.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import sys
 
-from ollamamq_tpu_torch.config import QUANT_DTYPES, EngineConfig
+from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
+                                       validate_scheduler)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,12 +77,58 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preempt-max", type=int, default=d.preempt_max,
                    help="preemptions allowed per request before it holds "
                         "its reservation and is never a victim again")
+    p.add_argument("--scheduler", default=os.environ.get("SCHEDULER", "fcfs"),
+                   help="scheduling policy: 'fcfs' (default; FIFO within fair "
+                        "share), 'srpt' (shortest-predicted-remaining-first "
+                        "off an online output-length predictor, with "
+                        "anti-starvation aging) or 'edf' (earliest-deadline-"
+                        "first; srpt order for deadline-less requests). "
+                        "Policies reorder only within what fair share allows")
+    p.add_argument("--token-fairness", action="store_true",
+                   help="fair-share by served tokens instead of request count")
+    p.add_argument("--max-queued", type=int, default=0,
+                   help="global queued-request cap: past it, enqueues are "
+                        "shed with 503 + Retry-After (derived from the "
+                        "observed completion rate); 0 = unbounded")
+    p.add_argument("--max-queued-per-user", type=int, default=0,
+                   help="per-user queued-request cap: past it, that user's "
+                        "enqueues are shed with 429 + Retry-After; 0 = "
+                        "unbounded")
+    p.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                   help="TTFT latency objective in ms (enqueue to first "
+                        "token); 0 = no TTFT SLO. Multi-window burn-rate "
+                        "alerts surface in /health, /metrics and the TUI")
+    p.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                   help="per-token decode latency objective in ms; 0 = no "
+                        "TPOT SLO")
+    p.add_argument("--slo-target", type=float, default=0.99,
+                   help="good-fraction target for both SLOs (0.99 = 1%% "
+                        "error budget)")
+    p.add_argument("--trace-ring", type=int, default=512,
+                   help="finished request traces kept for /debug/trace "
+                        "(Chrome trace-event export)")
     p.add_argument("--max-new-tokens", type=int, default=d.max_new_tokens)
     p.add_argument("--seed", type=int, default=d.seed)
-    p.add_argument("--blocklist", default=None, help="blocklist JSON path")
+    p.add_argument("--blocklist", default="blocked_items.json",
+                   help="blocklist persistence path")
+    p.add_argument("--no-tui", action="store_true", help="disable the admin TUI")
     p.add_argument("--timeout-s", type=float, default=300.0)
     p.add_argument("--log-level", default="INFO")
     return p
+
+
+def validate(args) -> str:
+    """The flags' errors, checked before any device work ("" = valid)."""
+    err = validate_scheduler(args.scheduler)
+    if err:
+        return err
+    if not 0.0 < args.slo_target < 1.0:
+        return f"--slo-target must be in (0, 1), got {args.slo_target}"
+    if args.max_queued < 0 or args.max_queued_per_user < 0 or args.preempt_max < 0:
+        return "--max-queued / --max-queued-per-user / --preempt-max must be >= 0"
+    if args.trace_ring < 1:
+        return "--trace-ring must be >= 1"
+    return ""
 
 
 def engine_config(args) -> EngineConfig:
@@ -89,33 +142,60 @@ def engine_config(args) -> EngineConfig:
         prefix_cache_min_pages=args.prefix_cache_min_pages,
         preempt=args.preempt, preempt_max=args.preempt_max,
         max_new_tokens=args.max_new_tokens, dtype=args.dtype,
-        weights_dtype=args.weights_dtype, kv_dtype=args.kv_dtype, seed=args.seed)
+        weights_dtype=args.weights_dtype, kv_dtype=args.kv_dtype, seed=args.seed,
+        scheduler=args.scheduler, max_queued=args.max_queued,
+        max_queued_per_user=args.max_queued_per_user,
+        slo_ttft_ms=args.slo_ttft_ms or None, slo_tpot_ms=args.slo_tpot_ms or None,
+        slo_target=args.slo_target, trace_ring=args.trace_ring)
 
 
-def main(argv=None) -> None:
-    # An unknown --weights-dtype / --kv-dtype fails here, in argparse,
-    # before any device work.
+def main(argv=None) -> int:
+    # An unknown --weights-dtype / --kv-dtype fails in argparse, and the
+    # other invalid values in validate(), before any device work.
     args = build_parser().parse_args(argv)
+    use_tui = not args.no_tui and sys.stdout.isatty()
     logging.basicConfig(level=args.log_level.upper(),
+                        filename="ollamamq.log" if use_tui else None,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    log = logging.getLogger("ollamamq.torch")
+    err = validate(args)
+    if err:
+        log.error("%s", err)
+        return 2
+    import threading
+
+    from ollamamq_tpu_torch.core.mqcore import Fairness
     from ollamamq_tpu_torch.engine.engine import TorchEngine
     from ollamamq_tpu_torch.server.app import OllamaServer
 
     engine = TorchEngine(engine_config(args), device=args.device,
-                         blocklist_path=args.blocklist)
+                         blocklist_path=args.blocklist,
+                         fairness=Fairness.TOKENS if args.token_fairness
+                         else Fairness.REQUESTS)
     engine.start()
     server = OllamaServer(engine, args.host, args.port, args.timeout_s)
-    logging.getLogger("ollamamq.torch").info(
-        "serving %s on %s:%d (device %s)", args.model, args.host,
-        server.server_address[1], engine.device)
+    log.info("serving %s on %s:%d (device %s, tui=%s)", args.model, args.host,
+             server.server_address[1], engine.device, use_tui)
     try:
-        server.serve_forever()
+        if use_tui:
+            from ollamamq_tpu_torch.admin.tui import run_tui
+
+            # The server on a background thread; the TUI owns the terminal
+            # and quitting it ends the process.
+            threading.Thread(target=server.serve_forever, name="http",
+                             daemon=True).start()
+            run_tui(engine, None)
+            server.shutdown()
+        else:
+            server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        engine.quiesce()
         server.server_close()
         engine.stop()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

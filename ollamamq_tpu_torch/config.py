@@ -198,6 +198,28 @@ class EngineConfig:
     # beside the pool; pages shrink by (hd + 4) / (2 * hd).
     kv_dtype: str = "bfloat16"
     seed: int = 0
+    # Telemetry: finished request traces kept for GET /debug/trace
+    # (Chrome trace-event export); in-flight traces are always exported.
+    trace_ring: int = 512
+    # Latency SLOs (telemetry/slo.py): 0/None = objective not configured.
+    # slo_ttft_ms bounds enqueue -> first token; slo_tpot_ms bounds the
+    # per-token decode step. slo_target is the good-fraction objective
+    # (0.99 = 1% error budget); burn-rate alerts fire against it.
+    slo_ttft_ms: Optional[float] = None
+    slo_tpot_ms: Optional[float] = None
+    slo_target: float = 0.99
+    # Bounded admission: total / per-user queued-request caps (0 = off).
+    # Over-cap enqueues are shed with 503 / 429 + Retry-After instead of
+    # growing the queue without bound.
+    max_queued: int = 0
+    max_queued_per_user: int = 0
+    # Scheduling policy (engine/scheduler.py): "fcfs" (the default: the
+    # fair-share core's pop order), "srpt" (shortest predicted remaining
+    # first off the online output-length predictor, with anti-starvation
+    # aging) or "edf" (earliest deadline first; srpt order for requests
+    # without a deadline). Policies reorder only within what the
+    # fair-share core released.
+    scheduler: str = "fcfs"
 
     @property
     def max_context(self) -> int:
@@ -205,6 +227,18 @@ class EngineConfig:
 
 
 QUANT_DTYPES = ("bfloat16", "int8")
+
+# Closed scheduling-policy vocabulary (engine/scheduler.py maps each
+# name to its implementation and asserts the two stay in sync).
+SCHEDULERS = ("fcfs", "srpt", "edf")
+
+
+def validate_scheduler(name: str) -> Optional[str]:
+    """--scheduler validation before any device work: an error string,
+    or None when valid."""
+    if name not in SCHEDULERS:
+        return f"--scheduler must be one of {SCHEDULERS}, got {name!r}"
+    return None
 
 
 def validate_quant_config(weights_dtype: str, kv_dtype: str) -> Optional[str]:

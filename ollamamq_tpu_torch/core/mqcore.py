@@ -2,7 +2,8 @@
 
 The same C++ library the JAX package uses: per-user fair-share queues,
 VIP/boost, blocklists and smart model matching all live in C++; this
-module marshals strings. cpp/libmqcore.so is built with `make -C cpp` the
+module marshals strings. The admin verbs (VIP, boost, block, unblock)
+act on the same core the native admin TUI (cpp/tui.cpp) drives. cpp/libmqcore.so is built with `make -C cpp` the
 first time it is needed (not at import).
 """
 
@@ -26,6 +27,11 @@ class Family(enum.IntEnum):
     UNKNOWN = 0
     OLLAMA = 1
     OPENAI = 2
+
+
+class Fairness(enum.IntEnum):
+    REQUESTS = 0
+    TOKENS = 1
 
 
 def _ensure_built() -> str:
@@ -64,6 +70,16 @@ def _load() -> ctypes.CDLL:
         "mq_total_queued": (L, [P]),
         "mq_queued_matching": (L, [P, S]),
         "mq_snapshot_json": (L, [P, S, L]),
+        "mq_reserve_req_ids": (None, [P, L]),
+        "mq_block_user": (None, [P, S]),
+        "mq_unblock_user": (None, [P, S]),
+        "mq_block_ip": (None, [P, S]),
+        "mq_unblock_ip": (None, [P, S]),
+        "mq_unblock_item": (I, [P, S]),
+        "mq_set_vip": (None, [P, S]),
+        "mq_set_boost": (None, [P, S]),
+        "mq_set_fairness_mode": (None, [P, I]),
+        "mq_queue_len": (L, [P, S]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -148,10 +164,14 @@ class MQCore:
              ) -> Optional[Tuple[int, str, str]]:
         """Pop per policy: (req_id, user, model), or None when empty.
         Raises StuckQueue if the pick's model isn't servable now."""
+        return self._next2(eligible_models, None)
+
+    def _next2(self, eligible_models, eligible_embed):
         ubuf = ctypes.create_string_buffer(512)
         mbuf = ctypes.create_string_buffer(512)
         em = None if eligible_models is None else "\n".join(eligible_models).encode()
-        rid = self._lib.mq_next2(self._h, em, None, ubuf, len(ubuf), mbuf,
+        ee = None if eligible_embed is None else "\n".join(eligible_embed).encode()
+        rid = self._lib.mq_next2(self._h, em, ee, ubuf, len(ubuf), mbuf,
                                  len(mbuf))
         if rid == EMPTY:
             return None
@@ -159,8 +179,39 @@ class MQCore:
             raise StuckQueue()
         return rid, ubuf.value.decode(), mbuf.value.decode()
 
+    def next_window(self, k: int,
+                    eligible_models: Optional[Iterable[str]] = None,
+                    eligible_embed: Optional[Iterable[str]] = None
+                    ) -> Tuple[list, bool]:
+        """Pop up to k tasks in fair-share order: the candidate window a
+        scheduler policy (engine/scheduler.py) may reorder before
+        placement. The core still decides WHICH tasks are released; k=1
+        is the plain pop-and-place flow. Returns (items, stuck): items
+        are (req_id, user, model) tuples; stuck=True means a later pop
+        hit an unservable policy pick AFTER the returned items, which
+        are dequeued and must still be placed. `eligible_embed` gates
+        embed-kind tasks apart from generate ones (None: one list)."""
+        models = list(eligible_models) if eligible_models is not None else None
+        embed = list(eligible_embed) if eligible_embed is not None else None
+        items: list = []
+        stuck = False
+        for _ in range(max(1, int(k))):
+            try:
+                item = self._next2(models, embed)
+            except StuckQueue:
+                stuck = True
+                break
+            if item is None:
+                break
+            items.append(item)
+        return items, stuck
+
     def cancel(self, req_id: int) -> bool:
         return bool(self._lib.mq_cancel(self._h, req_id))
+
+    def reserve_req_ids(self, min_next: int) -> None:
+        """Advance the request-id counter to at least `min_next`."""
+        self._lib.mq_reserve_req_ids(self._h, int(min_next))
 
     def mark_started(self, user: str) -> None:
         self._lib.mq_mark_started(self._h, user.encode())
@@ -170,6 +221,32 @@ class MQCore:
 
     def mark_dropped(self, user: str, started: bool = True) -> None:
         self._lib.mq_mark_dropped(self._h, user.encode(), int(started))
+
+    # -- admin -------------------------------------------------------------
+    def block_user(self, user: str) -> None:
+        self._lib.mq_block_user(self._h, user.encode())
+
+    def unblock_user(self, user: str) -> None:
+        self._lib.mq_unblock_user(self._h, user.encode())
+
+    def block_ip(self, ip: str) -> None:
+        self._lib.mq_block_ip(self._h, ip.encode())
+
+    def unblock_ip(self, ip: str) -> None:
+        self._lib.mq_unblock_ip(self._h, ip.encode())
+
+    def unblock_item(self, item: str) -> bool:
+        """Unblock a user or an IP by name; True if it was blocked."""
+        return bool(self._lib.mq_unblock_item(self._h, item.encode()))
+
+    def set_vip(self, user: Optional[str]) -> None:
+        self._lib.mq_set_vip(self._h, _opt(user))
+
+    def set_boost(self, user: Optional[str]) -> None:
+        self._lib.mq_set_boost(self._h, _opt(user))
+
+    def set_fairness(self, mode: Fairness) -> None:
+        self._lib.mq_set_fairness_mode(self._h, int(mode))
 
     def is_user_blocked(self, user: str) -> bool:
         return bool(self._lib.mq_is_user_blocked(self._h, user.encode()))
@@ -183,6 +260,9 @@ class MQCore:
 
     def block_version(self) -> int:
         return int(self._lib.mq_block_version(self._h))
+
+    def queue_len(self, user: str) -> int:
+        return int(self._lib.mq_queue_len(self._h, user.encode()))
 
     def total_queued(self) -> int:
         return int(self._lib.mq_total_queued(self._h))

@@ -36,10 +36,18 @@ builds them (int8 QuantTensors, f32 per-channel scales); with
 kv_dtype="int8" its pools are QuantKV (int8 payload, f32 per-slot
 per-head scales) and both forwards go through the int8-pool kernels.
 
+Scheduling and observability are the reference's too: a policy
+(engine/scheduler.py: fcfs, srpt or edf) orders the admission window
+the fair-share core releases (request or token fairness), the pending
+prompts, the prefill packing and the preemption victim; bounded
+admission sheds past --max-queued / --max-queued-per-user with a
+Retry-After; the per-model Prometheus series, the step profiler, the
+HBM timeline, request traces, SLO alerts and the health watchdog are
+fed at the reference's sites.
+
 Not carried over yet (later slices): KV migration, embeddings, the
 bucketed prefill path of pp > 1, multi-device layouts (and sequence
-parallelism), fleet, durability, the decision journal, Prometheus
-series and tracing, and scheduler policies (fcfs is the only order).
+parallelism), fleet, durability and the decision journal.
 """
 
 from __future__ import annotations
@@ -55,16 +63,23 @@ import torch
 
 from ollamamq_tpu_torch.config import (EngineConfig, ModelConfig, get_model_config,
                                        smart_match, validate_quant_config)
-from ollamamq_tpu_torch.core.mqcore import BlockedError, Family, MQCore, StuckQueue
+from ollamamq_tpu_torch.core.mqcore import BlockedError, Fairness, Family, MQCore
 from ollamamq_tpu_torch.engine import kv_cache as kvc
+from ollamamq_tpu_torch.engine.health import HealthMonitor, device_memory
 from ollamamq_tpu_torch.engine.prefix_cache import PrefixCache
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
+from ollamamq_tpu_torch.engine.scheduler import make_policy
 from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
 from ollamamq_tpu_torch.ops.sampling import (accept_prefix, maybe_apply_penalties,
                                              row_uniforms, sample_tokens_rowwise,
                                              sampling_flags)
+from ollamamq_tpu_torch.telemetry import mfu as mfu_model
+from ollamamq_tpu_torch.telemetry import schema as tm
+from ollamamq_tpu_torch.telemetry import stepprof
+from ollamamq_tpu_torch.telemetry.slo import AlertManager, SLOEngine
+from ollamamq_tpu_torch.telemetry.tracing import DECODE_EVENT_EVERY, Tracer
 
 log = logging.getLogger("ollamamq.torch.engine")
 
@@ -94,11 +109,43 @@ def sweep_blocked(core: MQCore, held, last_version: int) -> int:
     return ver
 
 
-def drop_expired(req: Request, core: MQCore) -> None:
-    """Finish an expired request with the explicit deadline reason."""
+def drop_expired(req: Request, core: MQCore, model: str) -> None:
+    """Finish an expired request with the explicit deadline reason and
+    count the shed."""
     core.mark_dropped(req.user, started=req.started)
+    tm.DEADLINE_DROPS_TOTAL.labels(model=model or "?").inc()
+    tm.SHED_TOTAL.labels(reason="deadline").inc()
     req.finish(FinishReason.DEADLINE,
                error="deadline expired before completion")
+
+
+def chip_stats(device: torch.device) -> List[dict]:
+    """One row for the engine's device: id, name, HBM in use / total.
+    memory_stats=False marks the CPU, which reports no HBM: /metrics omits
+    the series and the TUI renders "n/a" instead of a 0-byte reading."""
+    row = {"device": str(device), "id": device.index or 0, "process": 0,
+           "hbm_used": 0, "hbm_total": 0, "memory_stats": False}
+    mem = device_memory(device)
+    if mem is not None:
+        row.update(device=torch.cuda.get_device_name(device),
+                   hbm_used=mem["allocated_bytes"], hbm_total=mem["total_bytes"],
+                   memory_stats=True)
+    return [row]
+
+
+class QueueFullError(Exception):
+    """Bounded admission refused an enqueue: the queue (global or this
+    user's) is at its --max-queued / --max-queued-per-user cap. Carries
+    the Retry-After estimate (seconds) from the observed completion rate,
+    so the HTTP layer answers 503/429 instead of queueing without bound."""
+
+    def __init__(self, scope: str, retry_after_s: float, limit: int):
+        self.scope = scope  # "queue_full" | "user_queue_full"
+        self.retry_after_s = retry_after_s
+        self.limit = limit
+        super().__init__(
+            f"{scope.replace('_', ' ')}: admission cap {limit} reached; "
+            f"retry after ~{retry_after_s:.0f}s")
 
 
 class ModelRuntime:
@@ -112,6 +159,10 @@ class ModelRuntime:
     # Deterministic fault injection (testing/faults.py), attached by the
     # engine from cfg.fault_plan.
     fault_plan = None
+    # Scheduling policy (engine/scheduler.py) and SLO engine, attached by
+    # the owning engine; None orders fcfs and records no SLO.
+    policy = None
+    slo = None
 
     # Speculative decoding: the n-gram proposer's lengths and window, and
     # the proposed-token sample after which a user's accept rate counts.
@@ -198,6 +249,8 @@ class ModelRuntime:
         self.gen.manual_seed(engine_cfg.seed)
         # Set after a failed step; the engine rebuilds the runtime.
         self._failed = False
+        # The decode step timer between dispatch and collect.
+        self._sp_decode = None
         g = max(1, engine_cfg.token_granule)
         # A full decode batch plus one granule of prefill always fits.
         self._ragged_budget = -(-max(engine_cfg.max_batch_tokens, S + g) // g) * g
@@ -227,9 +280,44 @@ class ModelRuntime:
         self.retry_count = 0
         self.step_latency_ms = 0.0
         self.prefill_latency_ms = 0.0
+        self.ttft_window: collections.deque = collections.deque(maxlen=512)
+        self.step_window: collections.deque = collections.deque(maxlen=512)
+        # The reference's per-model series, resolved once.
+        self._tm_spec_prop = tm.SPEC_TOKENS_TOTAL.labels(model=name, outcome="proposed")
+        self._tm_spec_acc = tm.SPEC_TOKENS_TOTAL.labels(model=name, outcome="accepted")
+        self._tm_spec_rej = tm.SPEC_TOKENS_TOTAL.labels(model=name, outcome="rejected")
+        self._tm_spec_rate = tm.SPEC_ACCEPT_RATE.labels(model=name)
+        self._tm_ttft = tm.TTFT_MS.labels(model=name)
+        self._tm_tpot = tm.TPOT_MS.labels(model=name)
+        self._tm_step = tm.STEP_LATENCY_MS.labels(model=name)
+        self._tm_prefill = tm.PREFILL_LATENCY_MS.labels(model=name)
+        self._tm_occupancy = tm.BATCH_OCCUPANCY.labels(model=name)
+        self._tm_padding = tm.BATCH_PADDING_WASTE.labels(model=name)
+        self._tm_pages = tm.KV_PAGES_USED.labels(model=name)
+        self._tm_page_util = tm.KV_PAGE_UTILIZATION.labels(model=name)
+        self._tm_mfu = tm.MFU.labels(model=name)
+        self._tm_tokens = tm.TOKENS_GENERATED_TOTAL.labels(model=name)
+        self._tm_prompt_tokens = tm.PROMPT_TOKENS_TOTAL.labels(model=name)
+        self._tm_preempt = tm.PREEMPTIONS_TOTAL.labels(model=name)
+        self._tm_retries = tm.RETRIES_TOTAL.labels(model=name)
+        # MFU: analytic FLOPs per token over the card's bf16 dense peak,
+        # looked up by its name; the CPU and cards missing from the table
+        # publish 0, never a made-up peak.
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "")
+        self.peak_flops = mfu_model.peak_flops_per_chip(kind)
+        if self.device.type == "cuda" and self.peak_flops is None:
+            log.warning("%s: no bf16 peak known for %r; MFU publishes 0 "
+                        "(set OLLAMAMQ_PEAK_FLOPS)", name, kind)
+        self.mfu = 0.0
+        tm.FLOPS_PER_TOKEN.labels(model=name).set(mfu_model.flops_per_token(model_cfg))
+        self._tm_occupancy.set(0.0)
+        self._tm_mfu.set(0.0)
         # Device bytes, payload plus scales for int8 leaves and pools.
         self.param_bytes = sum(nbytes(t) for t in _leaves(self.params))
         self.kv_bytes = nbytes(self.kc) + nbytes(self.vc)
+        tm.HBM_WEIGHT_BYTES.labels(model=name).set(self.param_bytes)
+        tm.HBM_KV_BYTES.labels(model=name).set(self.kv_bytes)
 
     # -- capacity ----------------------------------------------------------
     def free_slots(self) -> int:
@@ -313,6 +401,11 @@ class ModelRuntime:
         req = self.slot_req[slot]
         if req is None:
             return
+        if self.policy is not None and reason in (FinishReason.STOP,
+                                                  FinishReason.LENGTH):
+            # Served-to-completion outcomes feed the output-length
+            # predictor; cancels and errors would teach it client behavior.
+            self.policy.observe_finish(req, model=self.name)
         # An installed slot's prompt KV is fully written: its full prompt
         # pages may merge into the prefix cache.
         self._release_slot_pages(slot, req)
@@ -341,8 +434,18 @@ class ModelRuntime:
             self._finish_slot(slot, FinishReason.STOP, core)
             return False
         req.generated_ids.append(tok)
+        # Counted where the token joins the reply, so the series equals
+        # the replies' eval_count (first tokens included, EOS excluded).
+        self._tm_tokens.inc()
         if not req.stats.first_token_at:
             req.stats.first_token_at = time.monotonic()
+            self.ttft_window.append(req.stats.ttft_ms)
+            self._tm_ttft.observe(req.stats.ttft_ms)
+            if self.slo is not None:
+                self.slo.record("ttft", req.stats.ttft_ms)
+            req.trace_event("first_token", ttft_ms=round(req.stats.ttft_ms, 3))
+        elif len(req.generated_ids) % DECODE_EVENT_EVERY == 0:
+            req.trace_event("decode", tokens=len(req.generated_ids))
         text = req._inc_decode(tok)
         chunk = req.emit_text(text) if text else ""
         if chunk is None:  # stop string fired: suppress held-back text
@@ -351,6 +454,15 @@ class ModelRuntime:
         # Every sampled token is pushed, text or not, so the id stream is
         # complete.
         req.stream.push(StreamItem("token", text=chunk, token_id=tok))
+        # A consumer backlog above the high-water mark opens a "stream"
+        # span on the trace; falling back under half of it closes it.
+        depth = req.stream.depth()
+        if not req._stream_stalled and depth >= req.stream.high_water:
+            req._stream_stalled = True
+            req.trace_event("stream_stall", depth=depth)
+        elif req._stream_stalled and depth < req.stream.high_water // 2:
+            req._stream_stalled = False
+            req.trace_event("stream_resume", depth=depth)
         if len(req.generated_ids) >= req.sampling.max_tokens:
             self._finish_slot(slot, FinishReason.LENGTH, core)
             return False
@@ -365,6 +477,7 @@ class ModelRuntime:
         """Activate a prefilled request in its decode slot and emit the
         first sampled token."""
         self.slot_req[slot] = req
+        self._tm_prompt_tokens.inc(n)
         self.seq_lens[slot] = n
         s = req.sampling
         self.temp[slot] = s.temperature
@@ -502,6 +615,11 @@ class ModelRuntime:
         being rejected stops paying for their verify tokens."""
         self.spec_proposed += proposed
         self.spec_accepted += accepted
+        self._tm_spec_prop.inc(proposed)
+        self._tm_spec_acc.inc(accepted)
+        self._tm_spec_rej.inc(proposed - accepted)
+        if self.spec_proposed:
+            self._tm_spec_rate.set(round(self.spec_accepted / self.spec_proposed, 4))
         row = self._spec_user.setdefault(req.user, [0, 0])
         row[0] += proposed
         row[1] += accepted
@@ -527,16 +645,20 @@ class ModelRuntime:
 
     def _drop_expired_slot(self, slot: int, core: MQCore) -> None:
         """An expired request never burns a k-token verify span."""
+        tm.DEADLINE_DROPS_TOTAL.labels(model=self.name).inc()
+        tm.SHED_TOTAL.labels(reason="deadline").inc()
         self._finish_slot(slot, FinishReason.DEADLINE, core,
                           error="deadline expired before completion")
 
     # -- preemption with recompute -----------------------------------------
     def _pick_victim(self, core: MQCore) -> Optional[int]:
-        """Victim slot for a preemption (fcfs): the user with the most
-        served requests, the youngest arrival breaking ties; never the VIP
-        and never a request past its preemption budget. Stalled
+        """Victim slot for a preemption. Eligibility stays here: never the
+        VIP, never a request past its preemption budget; stalled
         reservation-holders under budget qualify (they hold pages too).
-        None = nobody is preemptible."""
+        The preference among the eligible is the policy's victim_key (max
+        wins); fcfs (or no policy) keys on the user with the most served
+        requests, the youngest arrival breaking ties. None = nobody is
+        preemptible."""
         try:
             snap = core.snapshot()
         except Exception:  # noqa: BLE001 — an age-only pick beats none
@@ -548,8 +670,9 @@ class ModelRuntime:
                 continue
             if vip is not None and r.user == vip:
                 continue
-            key = (users.get(r.user, {}).get("processed", 0),
-                   r.stats.enqueued_at)
+            served = users.get(r.user, {}).get("processed", 0)
+            key = (self.policy.victim_key(r, served) if self.policy is not None
+                   else (served, r.stats.enqueued_at))
             if best_key is None or key > best_key:
                 best, best_key = i, key
         return best
@@ -562,6 +685,7 @@ class ModelRuntime:
         survive, so the client sees one seamless stream."""
         req = self.slot_req[slot]
         self.preempt_count += 1
+        self._tm_preempt.inc()
         req.preemptions += 1
         # KV is written for every replay token but the last sampled one
         # (its write belongs to the step that never ran); the replay
@@ -591,6 +715,7 @@ class ModelRuntime:
             self._finish_slot(slot, FinishReason.LENGTH, core)
             return
         if self.on_preempt is None or not self.ecfg.preempt:
+            tm.SHED_TOTAL.labels(reason="kv_exhausted").inc()
             self._finish_slot(slot, FinishReason.KV_EXHAUSTED, core,
                               error=self.KV_EXHAUSTED_MSG)
             return
@@ -615,6 +740,7 @@ class ModelRuntime:
         youngest with the explicit exhaustion error."""
         youngest = max(self._stalled_slots,
                        key=lambda i: self.slot_req[i].stats.enqueued_at)
+        tm.SHED_TOTAL.labels(reason="kv_exhausted").inc()
         log.warning("breaking KV-reservation deadlock: failing slot %d "
                     "(req %d)", youngest, self.slot_req[youngest].req_id)
         self._finish_slot(youngest, FinishReason.KV_EXHAUSTED, core,
@@ -639,6 +765,7 @@ class ModelRuntime:
             return False
         req.retries += 1
         self.retry_count += 1
+        self._tm_retries.inc()
         req._retry_at = time.monotonic() + (
             self.ecfg.retry_backoff_s * (2 ** (req.retries - 1)))
         req.trace_event("retry", error=msg[:200], n=req.retries)
@@ -660,6 +787,10 @@ class ModelRuntime:
         pending prompt and queue it on `chunking`: every prefill rides the
         span path. A prefix-cache hit pins its shared pages and starts the
         span at the cached page boundary."""
+        if self.policy is not None:
+            # Decision point (a): slot-admission order out of the released
+            # queue (fcfs: FIFO, untouched).
+            self.policy.reorder_pending(self.pending_prefill)
         did = False
         while self.pending_prefill:
             req = self.pending_prefill[0]
@@ -672,7 +803,7 @@ class ModelRuntime:
                 break  # the head is backing off after a contained fault
             if req.expired():
                 self.pending_prefill.popleft()
-                drop_expired(req, core)
+                drop_expired(req, core, self.name)
                 continue
             n = len(req.prompt_tokens)
             max_prompt = min(self.ecfg.max_context - 1, self.cfg.max_seq_len - 1)
@@ -710,6 +841,7 @@ class ModelRuntime:
                 self.slot_pages[slot] = pages
                 prefix_len = 0
             self.pending_prefill.popleft()
+            req.stats.prefill_started_at = time.monotonic()
             req._chunk_pos = req._chunk_base = prefix_len
             # The row stays OFF the shared page table until install: decode
             # steps write through self.page_table, and a reserved slot must
@@ -738,6 +870,9 @@ class ModelRuntime:
         budget allows into a single dispatch. True when a mixed dispatch
         ran (decode slots advanced inside it); False leaves decode to
         step_decode_dispatch."""
+        # Step profiler: phases are contiguous marks of one timer; an early
+        # return or a failed dispatch abandons it (no partial sample).
+        _sp = stepprof.PROFILER.start("ragged")
         self._admit_ragged(core)
         if not self.chunking and not self.spec:
             return False
@@ -791,7 +926,11 @@ class ModelRuntime:
         fixed_tokens = sum(span for *_, span in rows)
         budget = self._ragged_budget - fixed_tokens
         now = time.monotonic()
-        for req in list(self.chunking):
+        # Decision point (b): the order the remaining token budget goes to
+        # in-flight prefills (fcfs: FIFO).
+        chunk_order = (self.policy.pack_order(self.chunking)
+                       if self.policy is not None else list(self.chunking))
+        for req in chunk_order:
             if budget <= 0:
                 break
             if req.cancelled.is_set() or req.stream.overflowed:
@@ -801,7 +940,7 @@ class ModelRuntime:
                 continue
             if req.expired():
                 self._drop_chunking(req)
-                drop_expired(req, core)
+                drop_expired(req, core, self.name)
                 continue
             if req._retry_at > now:
                 continue  # backing off after a contained fault
@@ -887,6 +1026,7 @@ class ModelRuntime:
                     prev = req.prompt_tokens[max(0, cpos - W):cpos]
                     seed_rows[idx, W - len(prev):] = prev
                 append[idx] = cpos + span >= len(req.prompt_tokens)
+                req.trace_event("prefill_chunk", pos=cpos, tokens=span)
             else:
                 # A decode row is the slot's input token; a verify row adds
                 # its drafts (carried in the chunk position's place),
@@ -908,16 +1048,22 @@ class ModelRuntime:
             off += span
 
         prefill_rows = [r for r in rows if r[0] == "prefill"]
+        spec_rows = [r for r in rows if r[0] == "spec"]
+        T_real = sum(span for *_, span in rows)
         # k_cap in {0, spec_k}: verify dispatches read spec_k + 1 logits
         # per row whatever their draft count.
-        k_cap = self.ecfg.spec_k if any(r[0] == "spec" for r in rows) else 0
+        k_cap = self.ecfg.spec_k if spec_rows else 0
         self.inflight_prefill = [r[2] for r in prefill_rows]
+        _sp.mark("host_prep")
         t0 = time.monotonic()
         try:
-            toks, n_emit = self._ragged_dispatch(
+            packed = self._ragged_dispatch(
                 T_pad, k_cap, tokens, tok_seq, tok_pos, write_slots, q_start,
                 q_len, kv_len, ring_len, is_first, append, is_spec, seed_rows,
                 slot_ids, pt_rows, temp, top_k, top_p, pen, pres, freq, seeds)
+            _sp.mark("dispatch")
+            toks, n_emit = self._ragged_readback(packed, k_cap)
+            _sp.mark("collect")
         except Exception as e:  # noqa: BLE001 — contained to these rows
             self._ragged_failed(rows, e, core)
             return True
@@ -925,10 +1071,17 @@ class ModelRuntime:
             self.inflight_prefill = []
         dt = time.monotonic() - t0
         self.ragged_dispatches += 1
+        self._tm_padding.set(round((T_pad - T_real) / max(1, T_pad), 4))
         if prefill_rows:
             self.prefill_latency_ms = dt * 1e3
+            self._tm_prefill.observe(self.prefill_latency_ms)
         if n_decode:
             self.step_latency_ms = dt * 1e3
+            self.step_window.append(self.step_latency_ms)
+            self._tm_step.observe(self.step_latency_ms)
+            self._tm_tpot.observe(self.step_latency_ms)
+            if self.slo is not None:
+                self.slo.record("tpot", self.step_latency_ms, n=n_decode)
 
         for idx, (kind, slot, req, cpos, span) in enumerate(rows):
             if kind == "prefill":
@@ -958,7 +1111,26 @@ class ModelRuntime:
                     # Rejected drafts claimed pages past the accepted
                     # context (a finished stream released everything).
                     self._rollback_spec(slot, int(self.seq_lens[slot]) + 1)
+        self._note_occupancy()
+        mean_ctx = float(np.mean(kv_len[:len(rows)])) if rows else 0.0
+        # MFU over EVERY real token the dispatch processed (prefill spans
+        # do the same per-token matmuls as decode rows).
+        self.mfu = mfu_model.mfu(self.cfg, T_real, dt, self.peak_flops,
+                                 context_len=mean_ctx)
+        self._tm_mfu.set(self.mfu)
+        _sp.mark("detok")
+        _sp.mode = "spec_verify" if spec_rows else "ragged"
+        _sp.finish(T_pad=int(T_pad), k_cap=int(k_cap),
+                   n_prefill=len(prefill_rows),
+                   n_decode=n_decode - len(spec_rows), tokens=int(T_real),
+                   padded_tokens=int(T_pad), compiled=False)
         return True
+
+    def _note_occupancy(self) -> None:
+        """Per-step occupancy and KV-page pressure gauges."""
+        self._tm_occupancy.set(self.active_count() / max(1, self.ecfg.max_slots))
+        self._tm_pages.set(self.alloc.used_pages)
+        self._tm_page_util.set(self.alloc.used_pages / max(1, self.alloc.num_pages - 1))
 
     def _ragged_dispatch(self, T_pad, k_cap, tokens, tok_seq, tok_pos,
                          write_slots, q_start, q_len, kv_len, ring_len,
@@ -966,9 +1138,9 @@ class ModelRuntime:
                          pt_rows, temp, top_k, top_p, pen, pres, freq,
                          seeds):
         """Forward the flattened stream, maintain the penalty ring, sample
-        one token per row, and verify each spec row's drafts. Returns
-        (toks [S, k_cap + 1], n_emit [S]) on the host: row i emits
-        toks[i, :n_emit[i]]."""
+        one token per row, and verify each spec row's drafts. Returns the
+        device tensor _ragged_readback turns into (toks, n_emit); nothing
+        is read back here."""
         # Verify dispatches get their own fault site.
         self._fault("spec_verify" if k_cap else "ragged")
         need_pen, need_mask, need_sample = sampling_flags(
@@ -1039,13 +1211,21 @@ class ModelRuntime:
         appended = torch.cat([new_rows[:, 1:], tok[:, None]], dim=1)
         self.recent[slots_l] = torch.where(app_d[:, None] > 0, appended, new_rows)
         if not k_cap:
-            return tok[:, None].cpu().numpy(), np.ones(len(tok), np.int32)
+            return tok[:, None]
         # A verify row emits its accepted drafts (their verifying argmaxes)
         # and the bonus token at column `accepted`.
         col0 = torch.where(spec, greedy_all[:, 0], tok)
         n_emit = torch.where(spec, accepted + 1, torch.ones_like(accepted))
-        out = torch.cat([col0[:, None], greedy_all[:, 1:], n_emit[:, None]],
-                        dim=1).cpu().numpy()  # one read-back
+        return torch.cat([col0[:, None], greedy_all[:, 1:], n_emit[:, None]], dim=1)
+
+    @staticmethod
+    def _ragged_readback(packed: torch.Tensor, k_cap: int):
+        """ONE device-to-host read of a ragged dispatch's result (blocks
+        until the device is done): (toks [S, k_cap + 1], n_emit [S]); row
+        i emits toks[i, :n_emit[i]]."""
+        out = packed.cpu().numpy()
+        if not k_cap:
+            return out, np.ones(len(out), np.int32)
         return out[:, :-1], out[:, -1]
 
     def _ragged_failed(self, rows, e: Exception, core: MQCore) -> None:
@@ -1090,6 +1270,9 @@ class ModelRuntime:
         active (or every occupant is a stalled reservation)."""
         if not any(r is not None for r in self.slot_req):
             return None
+        # Step profiler: the timer spans dispatch AND collect (the two
+        # halves of one step) and rides self._sp_decode between them.
+        _sp = stepprof.PROFILER.start("decode")
         self._retry_stalled(k_steps)
         for i, r in enumerate(self.slot_req):
             if r is None or i in self._stalled_slots:
@@ -1124,6 +1307,7 @@ class ModelRuntime:
         need_pen, need_mask, need_sample = sampling_flags(
             self.temp, self.top_k, self.top_p, self.rep_pen, self.pres_pen,
             self.freq_pen)
+        _sp.mark("host_prep")
         self._fault("decode")
         tokens, positions, act_d, pt_d, tk_d = self._to_dev(
             [self.last_tokens, self.seq_lens, active_mask, self.page_table,
@@ -1154,14 +1338,35 @@ class ModelRuntime:
             tokens, positions = nxt, positions + 1
         self.decode_dispatches += 1
         self.decode_steps += k_steps
-        return torch.stack(steps), active, k_steps, t0
+        out = torch.stack(steps)
+        _sp.mark("dispatch")
+        self._sp_decode = _sp
+        return out, active, k_steps, t0
 
     def step_decode_collect(self, handle, core: MQCore) -> int:
         """Read a dispatched decode chunk's tokens back (this blocks until
-        the device is done) and emit them."""
+        the device is done) and emit them. Step latency (and TPOT) is the
+        chunk's wall from dispatch start to the tokens on the host over
+        k_steps: eager dispatch launches every kernel from this thread, so
+        the launch time is part of each step."""
         toks_d, active, k_steps, t0 = handle
+        _sp, self._sp_decode = self._sp_decode, None
+        # Mean context BEFORE the emit loop advances seq_lens: the
+        # attention term of the per-token FLOPs model.
+        mean_ctx = float(np.mean([self.seq_lens[i] for i in active]))
         toks = toks_d.cpu().numpy()  # [K, S]
-        self.step_latency_ms = (time.monotonic() - t0) * 1e3 / k_steps
+        t_done = time.monotonic()
+        if _sp is not None:
+            _sp.mark("collect")
+        self.step_latency_ms = (t_done - t0) * 1e3 / k_steps
+        self.step_window.append(self.step_latency_ms)
+        self._tm_step.observe(self.step_latency_ms)
+        # Every active slot gains one token per step: step latency IS the
+        # time per output token of each stream in the batch.
+        self._tm_tpot.observe(self.step_latency_ms)
+        if self.slo is not None:
+            self.slo.record("tpot", self.step_latency_ms,
+                            n=max(1, len(active) * k_steps))
         emitted = 0
         for k in range(k_steps):
             for i in active:
@@ -1173,6 +1378,16 @@ class ModelRuntime:
                 emitted += 1
                 if self._emit_token(i, tok, core):
                     self.last_tokens[i] = tok
+        self._note_occupancy()
+        self.mfu = mfu_model.mfu(self.cfg, emitted, t_done - t0, self.peak_flops,
+                                 context_len=mean_ctx)
+        self._tm_mfu.set(self.mfu)
+        if _sp is not None:
+            _sp.mark("detok")
+            _sp.finish(T_pad=0, k_cap=int(k_steps), n_prefill=0,
+                       n_decode=len(active), tokens=emitted,
+                       padded_tokens=int(k_steps) * self.ecfg.max_slots,
+                       compiled=False)
         return emitted
 
     def check_cancellations(self, core: MQCore) -> None:
@@ -1185,25 +1400,44 @@ class ModelRuntime:
                 self._finish_slot(i, FinishReason.CANCELLED, core)
 
     def stats(self) -> dict:
+        """The JAX runtime's keys (the admin TUI and the JSON metrics read
+        them) plus the port's own counters."""
+        def pctl(window, q):
+            if not window:
+                return 0.0
+            xs = sorted(window)
+            return round(xs[min(len(xs) - 1, int(q * len(xs)))], 3)
+
         return {"model": self.name, "device": str(self.device),
-                "active": self.active_count(),
+                "active_slots": self.active_count(),
+                "max_slots": self.ecfg.max_slots,
+                "pages_used": self.alloc.used_pages,
+                "pages_total": self.alloc.num_pages - 1,
+                "step_p50_ms": pctl(self.step_window, 0.50),
+                "step_p99_ms": pctl(self.step_window, 0.99),
+                "ttft_p50_ms": pctl(self.ttft_window, 0.50),
+                "ttft_p99_ms": pctl(self.ttft_window, 0.99),
+                "preemptions": self.preempt_count,
+                "retries": self.retry_count,
+                "stalled_slots": len(self._stalled_slots),
+                "mfu": round(self.mfu, 4),
+                "spec": ({"proposed": self.spec_proposed,
+                          "accepted": self.spec_accepted,
+                          "accept_rate": round(self.spec_accepted / self.spec_proposed, 4)
+                          if self.spec_proposed else 0.0,
+                          "rollbacks": self.spec_rollbacks,
+                          "throttled_users": len(self._spec_throttled)}
+                         if self.spec else None),
                 "pending_prefill": len(self.pending_prefill),
                 "chunking": len(self.chunking),
-                "stalled": len(self._stalled_slots),
                 "tokens_generated": self.tokens_generated,
                 "ragged_dispatches": self.ragged_dispatches,
                 "decode_dispatches": self.decode_dispatches,
                 "decode_steps": self.decode_steps,
-                "preempt_count": self.preempt_count,
-                "retry_count": self.retry_count,
-                "spec_proposed": self.spec_proposed,
-                "spec_accepted": self.spec_accepted,
-                "spec_rollbacks": self.spec_rollbacks,
                 "prefix_cache": (self.prefix_cache.stats()
                                  if self.prefix_cache is not None else None),
                 "step_latency_ms": round(self.step_latency_ms, 3),
                 "prefill_latency_ms": round(self.prefill_latency_ms, 3),
-                "kv_pages_used": self.alloc.used_pages,
                 "kv_pages_free": self.alloc.free_pages,
                 "kv_pages_cached": self.alloc.cached_pages,
                 "param_bytes": self.param_bytes, "kv_bytes": self.kv_bytes,
@@ -1226,10 +1460,20 @@ class TorchEngine:
     requests go back to the front of their users' queues, and a runtime
     whose step failed is rebuilt off the loop thread."""
 
+    # HBM/allocator timeline: one sample per period (the engine ticks far
+    # faster) of every runtime's page pool and footprint, plus the card's
+    # allocator and free memory, for GET /debug/hbm.
+    HBM_SAMPLE_PERIOD_S = 1.0
+    _hbm_last_sample = 0.0
+
     def __init__(self, engine_cfg: EngineConfig, device=None, dtype=None,
                  blocklist_path: Optional[str] = None,
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None,
+                 fairness: Fairness = Fairness.REQUESTS):
         self.ecfg = engine_cfg
+        # The scheduling policy is built before any device work, so an
+        # unknown --scheduler fails at start-up.
+        self.policy = make_policy(engine_cfg)
         self.device = resolve_device(device)
         self.dtype = dtype
         # A rebuild reuses the weights the engine was built with (None:
@@ -1247,6 +1491,22 @@ class TorchEngine:
                                if isinstance(engine_cfg.fault_plan, str)
                                else engine_cfg.fault_plan)
         self.core = MQCore(blocklist_path)
+        self.core.set_fairness(fairness)
+        # Load-shed accounting by reason (mirrors ollamamq_shed_total).
+        self.shed_counts: Dict[str, int] = {}
+        self.started_at = time.time()
+        # Request-lifecycle traces (GET /debug/trace), the alert table
+        # (/health, /metrics, the TUI) and the opt-in SLO objectives.
+        self.tracer = Tracer(capacity=engine_cfg.trace_ring)
+        self.alerts = AlertManager()
+        self.slo = SLOEngine(self.alerts, ttft_ms=engine_cfg.slo_ttft_ms or None,
+                             tpot_ms=engine_cfg.slo_tpot_ms or None,
+                             target=engine_cfg.slo_target)
+        self.health: Optional[HealthMonitor] = None
+        # Loop liveness tick for the stall watchdog.
+        self.last_tick_at = time.monotonic()
+        # Graceful-shutdown gate: after quiesce() every enqueue sheds (503).
+        self.accepting = True
         rt = ModelRuntime(engine_cfg.model, cfg, engine_cfg, self.device,
                           dtype, params)
         self._attach_hooks(rt)
@@ -1269,6 +1529,8 @@ class TorchEngine:
 
     def _attach_hooks(self, rt: ModelRuntime) -> None:
         rt.fault_plan = self.fault_plan
+        rt.policy = self.policy
+        rt.slo = self.slo
         if self.ecfg.preempt:
             rt.on_preempt = self._requeue_preempted
 
@@ -1278,13 +1540,50 @@ class TorchEngine:
                         sampling=None) -> Request:
         """Enqueue into the native core AND register the Request under one
         lock, so the loop can never pop an id it doesn't know. Raises
-        BlockedError for blocked users/IPs."""
+        BlockedError for blocked users/IPs and QueueFullError at a
+        bounded-admission cap (--max-queued / --max-queued-per-user)."""
+        cfg = self.ecfg
+        if not self.accepting:
+            self._count_shed("queue_full")
+            raise QueueFullError("queue_full", 5.0, 0)
+        if cfg.max_queued and self.core.total_queued() >= cfg.max_queued:
+            self._count_shed("queue_full")
+            raise QueueFullError("queue_full", self.retry_after_s(), cfg.max_queued)
+        if (cfg.max_queued_per_user
+                and self.core.queue_len(user) >= cfg.max_queued_per_user):
+            self._count_shed("user_queue_full")
+            raise QueueFullError("user_queue_full", self.retry_after_s(),
+                                 cfg.max_queued_per_user)
         with self._pending_lock:
             rid = self.core.enqueue(user, ip, model, family)
             req = Request(rid, user, model, prompt_tokens or [], sampling)
+            req.trace = self.tracer.begin(rid, user, model)
             self.pending[rid] = req
         self.notify()
         return req
+
+    def _count_shed(self, reason: str) -> None:
+        tm.SHED_TOTAL.labels(reason=reason).inc()
+        self.shed_counts[reason] = self.shed_counts.get(reason, 0) + 1
+
+    def retry_after_s(self) -> float:
+        """Retry-After estimate for shed answers: queue depth over the
+        OBSERVED completion rate (the tracer's recent finish times),
+        clamped to [1, 300]; with fewer than two completions seen, the
+        depth clamped to [2, 10]."""
+        queued = max(1, self.core.total_queued())
+        window = self.tracer.finish_times
+        if len(window) >= 2:
+            span = window[-1] - window[0]
+            if span > 0:
+                rate = (len(window) - 1) / span  # completions per second
+                return float(min(300.0, max(1.0, queued / rate)))
+        return float(min(10.0, max(2.0, float(queued))))
+
+    def quiesce(self) -> None:
+        """Stop accepting requests (later enqueues shed with 503) while
+        everything in flight drains."""
+        self.accepting = False
 
     def _requeue_front(self, req: Request) -> bool:
         """Return a request to the FRONT of its user's native queue under a
@@ -1310,7 +1609,7 @@ class TorchEngine:
             req.finish(FinishReason.CANCELLED)
             return False
         if req.expired():
-            drop_expired(req, self.core)
+            drop_expired(req, self.core, req.model)
             return False
         req.trace_event("requeue")
         return self._requeue_front(req)
@@ -1327,7 +1626,7 @@ class TorchEngine:
             req.finish(FinishReason.CANCELLED)
             return
         if req.expired():
-            drop_expired(req, self.core)
+            drop_expired(req, self.core, req.model)
             return
         if req.retries >= self.ecfg.step_retries:
             self.core.mark_dropped(req.user, started=req.started)
@@ -1335,6 +1634,7 @@ class TorchEngine:
             return
         req.retries += 1
         self._engine_retries += 1
+        tm.RETRIES_TOTAL.labels(model=req.model or "?").inc()
         req._retry_at = time.monotonic() + (
             self.ecfg.retry_backoff_s * (2 ** (req.retries - 1)))
         if replay and req.generated_ids:
@@ -1405,6 +1705,9 @@ class TorchEngine:
         self._thread = threading.Thread(target=self._loop, name="engine",
                                         daemon=True)
         self._thread.start()
+        if self.health is None:
+            self.health = HealthMonitor(self)
+            self.health.start()
 
     def stop(self) -> None:
         self._running = False
@@ -1413,6 +1716,9 @@ class TorchEngine:
             self._thread.join(timeout=30)
             self._thread = None
         self._drain_engine_calls()
+        if self.health is not None:
+            self.health.stop()
+            self.health = None
 
     def _loop(self) -> None:
         while self._running:
@@ -1423,29 +1729,37 @@ class TorchEngine:
                 time.sleep(0.1)
 
     def _admit(self) -> int:
-        """Pop requests in fair-share order while a runtime can take one.
-        A failed runtime has no capacity: its requests wait in the queue
+        """Pop windows of requests in fair-share order while a runtime can
+        take one and place each window in policy order (decision point
+        (a); fcfs pops a window of 1, the plain pop-and-place flow). A
+        failed runtime has no capacity: its requests wait in the queue
         until the rebuild is swapped in."""
         admitted = 0
+        pol = self.policy
+        # One tick of the anti-starvation aging clock per admission pass.
+        pol.on_admit_tick()
         while True:
             eligible = [name for name, rt in self.runtimes.items()
                         if rt.has_capacity()]
             if not eligible:
                 break
-            try:
-                item = self.core.next(eligible)
-            except StuckQueue:
+            # No embeddings here: embed-kind tasks are never eligible.
+            items, stuck = self.core.next_window(
+                pol.admission_window, eligible_models=eligible, eligible_embed=[])
+            batch = []
+            for rid, user, model in items:
+                with self._pending_lock:
+                    req = self.pending.pop(rid, None)
+                if req is None:
+                    self.core.mark_dropped(user, started=False)
+                    continue
+                batch.append((rid, user, model, req))
+            for _rid, user, model, req in pol.order_admission(batch):
+                req.trace_event("admit")
+                if self._place(req, user, model):
+                    admitted += 1
+            if stuck or not items:
                 break
-            if item is None:
-                break
-            rid, user, model = item
-            with self._pending_lock:
-                req = self.pending.pop(rid, None)
-            if req is None:
-                self.core.mark_dropped(user, started=False)
-                continue
-            if self._place(req, user, model):
-                admitted += 1
         return admitted
 
     def _place(self, req: Request, user: str, model: str) -> bool:
@@ -1454,7 +1768,7 @@ class TorchEngine:
             req.finish(FinishReason.CANCELLED)
             return False
         if req.expired():
-            drop_expired(req, self.core)
+            drop_expired(req, self.core, model)
             return False
         rt = self.resolve_runtime(model)
         if rt is None:
@@ -1462,6 +1776,7 @@ class TorchEngine:
             req.finish(FinishReason.ERROR, error=f"model not loaded: {model}")
             return False
         rt.submit(req)
+        req.trace_event("place", runtime=rt.name)
         if not req.started:
             # A preempted or retried requeue was counted already.
             self.core.mark_started(user)
@@ -1541,7 +1856,27 @@ class TorchEngine:
             log.warning("runtime %s rebuilt; serving resumes", rt.name)
             self.notify()
 
+    def _sample_hbm_timeline(self) -> None:
+        now = time.monotonic()
+        if now - self._hbm_last_sample < self.HBM_SAMPLE_PERIOD_S:
+            return
+        self._hbm_last_sample = now
+        models = {}
+        for name, rt in self.runtimes.items():
+            models[name] = {"weight_bytes": int(rt.param_bytes),
+                            "kv_bytes": int(rt.kv_bytes),
+                            "free": rt.alloc.free_pages, "used": rt.alloc.used_pages,
+                            "cached": rt.alloc.cached_pages,
+                            "pool": rt.alloc.num_pages - 1}
+        sample = {"models": models}
+        mem = device_memory(self.device)  # None on the CPU: no readings
+        if mem is not None:
+            sample["device"] = mem
+        stepprof.PROFILER.hbm_record(sample)
+
     def _loop_once(self) -> None:
+        self.last_tick_at = time.monotonic()
+        self._sample_hbm_timeline()
         self._drain_engine_calls()
         self._swap_rebuilt()
         if (self._failed_runtimes and time.monotonic()
@@ -1606,9 +1941,36 @@ class TorchEngine:
         return self._engine_retries + sum(rt.retry_count
                                           for rt in self.runtimes.values())
 
+    def scheduler_stats(self) -> dict:
+        """Live policy readout (TUI sched chip, /metrics.json): the active
+        policy, the output-length predictor's accuracy over its recent
+        window (None until warmed up), observations, reorders applied."""
+        p = self.policy
+        acc = p.predictor.accuracy()
+        return {"policy": p.name,
+                "pred_accuracy": round(acc, 4) if acc is not None else None,
+                "pred_observed": p.predictor.observed,
+                "decisions": p.decisions}
+
+    def chip_stats(self) -> List[dict]:
+        return chip_stats(self.device)
+
     def stats(self) -> dict:
+        runtime_stats = [rt.stats() for rt in self.runtimes.values()]
+        chips = self.chip_stats()
+        hbm_total = sum(c["hbm_total"] for c in chips) or None
         return {"queued": self.core.total_queued(),
                 "device": str(self.device),
+                "runtimes": runtime_stats,
+                "chips": chips,
+                "hbm_used_bytes": sum(c["hbm_used"] for c in chips) or sum(
+                    r["param_bytes"] + r["kv_bytes"] for r in runtime_stats),
+                "hbm_total_bytes": hbm_total,
+                "uptime_s": round(time.time() - self.started_at, 1),
+                "health": self.health.status() if self.health is not None else None,
+                "queue": self.core.snapshot(),
+                "shed": dict(self.shed_counts),
                 "preemptions": self.preemption_count(),
                 "retries": self.retry_count(),
-                "runtimes": [rt.stats() for rt in self.runtimes.values()]}
+                "scheduler": self.scheduler_stats(),
+                "stepprof": stepprof.PROFILER.brief()}

@@ -52,6 +52,10 @@ class TokenStream:
         self._q: "queue.Queue[StreamItem]" = queue.Queue(maxsize=maxsize)
         self._closed = False
         self.overflowed = False
+        # Consumer-not-draining threshold: the engine marks the request's
+        # trace with a stream_stall event when the backlog crosses it,
+        # well before a full queue turns into a disconnect.
+        self.high_water = max(1, maxsize // 2)
 
     def push(self, item: StreamItem) -> None:
         if self._closed:
@@ -74,6 +78,9 @@ class TokenStream:
         if terminal:
             self._closed = True
 
+    def depth(self) -> int:
+        return self._q.qsize()
+
     def get(self, timeout: Optional[float] = None) -> Optional[StreamItem]:
         try:
             return self._q.get(timeout=timeout)
@@ -84,10 +91,17 @@ class TokenStream:
 @dataclasses.dataclass
 class RequestStats:
     enqueued_at: float = dataclasses.field(default_factory=time.monotonic)
+    prefill_started_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
     prompt_tokens: int = 0
     completion_tokens: int = 0
+
+    @property
+    def ttft_ms(self) -> float:
+        if self.first_token_at:
+            return (self.first_token_at - self.enqueued_at) * 1e3
+        return 0.0
 
     @property
     def total_duration_s(self) -> float:
@@ -130,8 +144,13 @@ class Request:
         # Incremental detokenizer, attached at runtime submit and kept
         # across requeues: the replay prompt carries ids it has seen.
         self._inc_decode = None
-        # Lifecycle trace; the port records none yet (trace_event no-ops).
+        # Lifecycle trace (telemetry.tracing.Trace), attached by the
+        # engine's enqueue path; None for directly built Requests (unit
+        # tests), and then every trace hook below is a no-op.
         self.trace = None
+        # Stream-stall state (engine-owned): True while the consumer's
+        # backlog sits above the TokenStream high-water mark.
+        self._stream_stalled = False
         # Generation state (engine-owned):
         self.generated_ids: List[int] = []
         self.emitted_len = 0  # chars of detok text already pushed
@@ -183,3 +202,5 @@ class Request:
         self.stats.finished_at = time.monotonic()
         kind = "error" if reason in ERROR_REASONS else "done"
         self.stream.push(StreamItem(kind, finish_reason=reason, error=error))
+        if self.trace is not None:
+            self.trace.finish(reason.value)

@@ -7,7 +7,15 @@ schedules by) and reads the request's TokenStream, writing NDJSON
 or one JSON body when the client asked for no stream.
 
 Routes: GET /health, GET|POST /api/tags, POST /api/generate,
-POST /api/chat, POST /v1/chat/completions.
+POST /api/chat, POST /v1/chat/completions; the telemetry plane:
+GET /metrics (Prometheus text), GET /metrics.json, GET /metrics/snapshot,
+GET /debug/trace, GET /debug/trace/{req_id}, GET /debug/stepprof,
+GET /debug/hbm, POST /debug/profile (a torch.profiler capture exported as
+a Chrome trace), GET|POST /debug/prefix_cache.
+
+Bounded admission answers 429 (this user's queue is full) or 503 (the
+whole queue is full) with a Retry-After from the observed completion
+rate, and the JAX package's body.
 """
 
 from __future__ import annotations
@@ -15,27 +23,34 @@ from __future__ import annotations
 import datetime
 import json
 import logging
+import os
+import tempfile
 import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
+from urllib.parse import parse_qs
 
 from ollamamq_tpu_torch.config import get_model_config
 from ollamamq_tpu_torch.core.mqcore import BlockedError, Family
+from ollamamq_tpu_torch.engine.engine import QueueFullError
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.ops.cuda import launch_counts
 from ollamamq_tpu_torch.ops.sampling import SamplingParams
 from ollamamq_tpu_torch.server.templates import render_chat, template_owns_bos
+from ollamamq_tpu_torch.telemetry import REGISTRY, stepprof, tracing
+from ollamamq_tpu_torch.telemetry import schema as tm
 
 log = logging.getLogger("ollamamq.torch.server")
 
 
 class ApiError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str, headers: Optional[dict] = None):
         super().__init__(message)
         self.status = status
         self.message = message
+        self.headers = headers or {}
 
 
 def _now_iso() -> str:
@@ -86,7 +101,8 @@ class Handler(BaseHTTPRequestHandler):
         self._dispatch("POST")
 
     def _dispatch(self, method: str) -> None:
-        path = self.path.split("?", 1)[0]
+        path, _, query = self.path.partition("?")
+        self.query = {k: v[-1] for k, v in parse_qs(query).items()}
         routes = {
             ("GET", "/health"): self.health,
             ("GET", "/api/tags"): self.api_tags,
@@ -94,15 +110,26 @@ class Handler(BaseHTTPRequestHandler):
             ("POST", "/api/generate"): self.api_generate,
             ("POST", "/api/chat"): self.api_chat,
             ("POST", "/v1/chat/completions"): self.v1_chat_completions,
+            ("GET", "/metrics"): self.metrics,
+            ("GET", "/metrics.json"): self.metrics_json,
+            ("GET", "/metrics/snapshot"): self.metrics_snapshot,
+            ("GET", "/debug/trace"): self.debug_trace,
+            ("GET", "/debug/stepprof"): self.debug_stepprof,
+            ("GET", "/debug/hbm"): self.debug_hbm,
+            ("POST", "/debug/profile"): self.debug_profile,
+            ("GET", "/debug/prefix_cache"): self.debug_prefix_cache,
+            ("POST", "/debug/prefix_cache"): self.debug_prefix_cache_flush,
         }
         fn = routes.get((method, path))
+        if fn is None and method == "GET" and path.startswith("/debug/trace/"):
+            fn = lambda: self.debug_trace_one(path[len("/debug/trace/"):])  # noqa: E731
         try:
             if fn is None:
                 self._read_body()
                 raise ApiError(404, f"no route for {method} {path}")
             fn()
         except ApiError as e:
-            self._send_json(e.status, {"error": e.message})
+            self._send_json(e.status, {"error": e.message}, e.headers)
         except _ClientGone:
             self.close_connection = True
 
@@ -119,16 +146,27 @@ class Handler(BaseHTTPRequestHandler):
             raise ApiError(400, "request body must be a JSON object")
         return body
 
-    def _send_json(self, status: int, obj) -> None:
-        data = json.dumps(obj).encode()
+    def _send_json(self, status: int, obj, headers: Optional[dict] = None) -> None:
+        self._send(status, json.dumps(obj).encode(), "application/json", headers)
+
+    def _send(self, status: int, data: bytes, content_type: str,
+              headers: Optional[dict] = None) -> None:
         try:
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):
             raise _ClientGone()
+
+    def _int_query(self, name: str, default: int) -> int:
+        try:
+            return int(self.query.get(name, default))
+        except ValueError:
+            raise ApiError(400, f"'{name}' must be an integer")
 
     def _start_chunked(self, content_type: str) -> None:
         self.send_response(200)
@@ -170,6 +208,12 @@ class Handler(BaseHTTPRequestHandler):
                 user, ip, model, family, tokens, sampling)
         except BlockedError as e:
             raise ApiError(403, str(e))
+        except QueueFullError as e:
+            # Per-user cap => 429 (this client backs off); global cap =>
+            # 503 (the service is saturated).
+            status = 429 if e.scope == "user_queue_full" else 503
+            raise ApiError(status, str(e), headers={
+                "Retry-After": str(max(1, int(round(e.retry_after_s))))})
 
     def _items(self, req: Request):
         """The request's stream items up to its terminal one; a request
@@ -206,10 +250,117 @@ class Handler(BaseHTTPRequestHandler):
 
     # -- routes --------------------------------------------------------------
     def health(self) -> None:
+        """Liveness and degradation: always 200 (degraded is not dead);
+        "ok" or "degraded" plus every firing alert (SLO burn, watchdog
+        stalls, device loss), the watchdog's state under "health", and the
+        engine's stats. Open to blocked users."""
         eng = self.server.engine
-        self._send_json(200, {"status": "ok", "device": str(eng.device),
-                              "kernel_launches": launch_counts(),
-                              **eng.stats()})
+        active = [a.to_dict() for a in eng.alerts.active()]
+        self._send_json(200, {**eng.stats(),
+                              "status": "degraded" if active else "ok",
+                              "alerts": active, "device": str(eng.device),
+                              "kernel_launches": launch_counts()})
+
+    # -- telemetry -----------------------------------------------------------
+    def metrics(self) -> None:
+        """Prometheus text exposition (format 0.0.4). Scrape-time gauges
+        (queue depth per user, the card's HBM, uptime, firing alerts)
+        refresh here; hot-path series are already current."""
+        self._ident()
+        self._send(200, render_prometheus(self.server.engine).encode(),
+                   "text/plain; version=0.0.4; charset=utf-8")
+
+    def metrics_json(self) -> None:
+        self._ident()
+        self._send_json(200, self.server.engine.stats())
+
+    def metrics_snapshot(self) -> None:
+        """The raw registry snapshot (mergeable JSON)."""
+        self._ident()
+        self._send_json(200, REGISTRY.snapshot())
+
+    def debug_trace(self) -> None:
+        """Request-lifecycle traces as Chrome trace-event JSON (load in
+        chrome://tracing or Perfetto)."""
+        self._ident()
+        self._send_json(200, self.server.engine.tracer.export_chrome())
+
+    def debug_trace_one(self, rid: str) -> None:
+        """One request's timeline as Chrome trace-event JSON, with the
+        `stitched` phase summary (one process: no fleet stitching)."""
+        self._ident()
+        try:
+            rid = int(rid)
+        except ValueError:
+            raise ApiError(400, "request id must be an integer")
+        tracer = self.server.engine.tracer
+        tr = tracer.find(rid)
+        spans = tracer.export_spans([tr]) if tr is not None else []
+        if not spans:
+            raise ApiError(404, f"no trace for request {rid} (expired "
+                                "from the ring, or never existed)")
+        self._send_json(200, tracing.merged_chrome(spans, root_origin=tracer.origin))
+
+    def debug_stepprof(self) -> None:
+        """The step profiler's ring: per-mode/per-phase p50/p99, the
+        per-shape table and recent samples (`?n=` bounds the tails)."""
+        self._ident()
+        n = self._int_query("n", 128)
+        self._send_json(200, stepprof.PROFILER.snapshot(max(1, n)))
+
+    def debug_hbm(self) -> None:
+        """The HBM timeline: sampled page-pool state and weight/KV bytes
+        per runtime, and on a CUDA device the allocator's allocated and
+        reserved bytes and the card's free and total memory (`?n=`)."""
+        self._ident()
+        n = self._int_query("n", 0)
+        self._send_json(200, {
+            "period_s": self.server.engine.HBM_SAMPLE_PERIOD_S,
+            "timeline": stepprof.PROFILER.hbm_tail(n if n > 0 else None)})
+
+    def debug_profile(self) -> None:
+        """Capture a torch.profiler trace of the live engine for N seconds
+        and export it as a Chrome trace. The output directory is the
+        operator's (OLLAMAMQ_PROFILE_DIR, never the request body), the
+        duration is clamped to [0.1, 30] s, one capture runs at a time."""
+        self._ident()
+        body = self._read_body()
+        try:
+            seconds = max(0.1, min(float(body.get("seconds", 3.0)), 30.0))
+        except (TypeError, ValueError):
+            raise ApiError(400, "'seconds' must be a number")
+        out_dir = os.environ.get("OLLAMAMQ_PROFILE_DIR",
+                                 os.path.join(tempfile.gettempdir(), "ollamamq-profile"))
+        srv = self.server
+        with srv.profile_lock:
+            if srv.profiling:
+                raise ApiError(409, "a profile capture is already running")
+            srv.profiling = True
+        t_start = time.time()
+        try:
+            path = capture_profile(out_dir, seconds, srv.engine.device)
+        except Exception as e:  # noqa: BLE001 — answered, flag cleared
+            raise ApiError(500, f"profile capture failed: {e}")
+        finally:
+            srv.profiling = False
+        self._send_json(200, {"status": "success", "trace_dir": out_dir,
+                              "trace_file": path, "seconds": seconds,
+                              "stepprof": stepprof.PROFILER.window(t_start, time.time())})
+
+    def debug_prefix_cache(self) -> None:
+        self._ident()
+        self._send_json(200, self.server.engine.prefix_cache_stats())
+
+    def debug_prefix_cache_flush(self) -> None:
+        """Evict every unreferenced cached page (pinned prefixes of live
+        requests survive), on the engine loop."""
+        self._ident()
+        self._read_body()
+        try:
+            freed = self.server.engine.prefix_cache_flush()
+        except Exception as e:  # noqa: BLE001 — answered
+            raise ApiError(500, f"prefix-cache flush failed: {e}")
+        self._send_json(200, {"status": "success", "freed_pages": freed})
 
     def api_tags(self) -> None:
         self._read_body()
@@ -356,6 +507,46 @@ class Handler(BaseHTTPRequestHandler):
         self._stream(req, "text/event-stream", frames)
 
 
+def render_prometheus(engine) -> str:
+    """The registry as Prometheus text after refreshing the scrape-time
+    gauges: uptime, queue depth per user (rebuilt so departed users'
+    series go), the card's HBM (omitted on the CPU, never a fake 0) and
+    the firing alerts (rebuilt so resolved ones go)."""
+    tm.UPTIME_SECONDS.set(time.time() - engine.started_at)
+    tm.QUEUE_DEPTH.clear()
+    for user, row in engine.core.snapshot().get("users", {}).items():
+        tm.QUEUE_DEPTH.labels(user=user).set(row.get("queued", 0))
+    tm.HBM_USED_BYTES.clear()
+    tm.HBM_TOTAL_BYTES.clear()
+    for c in engine.chip_stats():
+        if c["memory_stats"]:
+            lab = {"chip": str(c["id"]), "host": str(c["process"])}
+            tm.HBM_USED_BYTES.labels(**lab).set(c["hbm_used"])
+            tm.HBM_TOTAL_BYTES.labels(**lab).set(c["hbm_total"])
+    tm.SLO_ALERTS_FIRING.clear()
+    for a in engine.alerts.active():
+        tm.SLO_ALERTS_FIRING.labels(alert=a.name, severity=a.severity).set(1)
+    return REGISTRY.render()
+
+
+def capture_profile(out_dir: str, seconds: float, device) -> str:
+    """torch.profiler over the live process for `seconds` (CPU activity,
+    plus CUDA on a CUDA engine), exported as a Chrome trace; returns its
+    path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        time.sleep(seconds)
+    path = os.path.join(out_dir, f"trace-{int(time.time() * 1e3)}.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 class OllamaServer(ThreadingHTTPServer):
     daemon_threads = True
 
@@ -364,6 +555,8 @@ class OllamaServer(ThreadingHTTPServer):
         super().__init__((host, port), Handler)
         self.engine = engine
         self.timeout_s = timeout_s
+        self.profile_lock = threading.Lock()
+        self.profiling = False
 
 
 def serve_in_thread(engine, host: str = "127.0.0.1", port: int = 0,

@@ -1,8 +1,9 @@
 """The port stands alone: every module of ollamamq_tpu_torch imports and
 serves a request (bf16/f32, then int8 weights and int8 KV pages, then
 with the prefix cache, speculation and an injected ragged fault that is
-retried) without JAX or the JAX package ever being imported, and without
-a GPU the engine refuses to start unless the CPU is asked for.
+retried, then under srpt with token fairness and a /metrics scrape)
+without JAX or the JAX package ever being imported, and without a GPU
+the engine refuses to start unless the CPU is asked for.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -35,15 +36,17 @@ cfg = EngineConfig(model="test-tiny", max_slots=2, num_pages=32, page_size=8,
                    max_pages_per_seq=8, max_new_tokens=4)
 
 
-def serve_one(ecfg):
-    srv = serve_in_thread(TorchEngine(ecfg, device="cpu", dtype=torch.float32))
+def serve_one(ecfg, **kw):
+    srv = serve_in_thread(TorchEngine(ecfg, device="cpu", dtype=torch.float32, **kw))
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
     req = urllib.request.Request(
-        f"http://127.0.0.1:{srv.server_address[1]}/api/generate",
+        base + "/api/generate",
         data=json.dumps({"model": "test-tiny", "prompt": "hi", "stream": False,
                          "options": {"temperature": 0}}).encode(),
         headers={"X-User-ID": "solo"})
     body = json.loads(urllib.request.urlopen(req, timeout=60).read())
     stats = srv.engine.stats()
+    stats["metrics"] = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
     stop_server(srv)
     return body, stats
 
@@ -54,6 +57,12 @@ body8, stats8 = serve_one(dataclasses.replace(cfg, weights_dtype="int8",
 body_rt, stats_rt = serve_one(dataclasses.replace(
     cfg, prefix_cache=True, spec=True, retry_backoff_s=0.0,
     fault_plan=FaultPlan([{"site": "ragged", "kind": "exception", "at": [1]}])))
+
+from ollamamq_tpu_torch.core.mqcore import Fairness
+body_s, stats_s = serve_one(dataclasses.replace(cfg, scheduler="srpt"),
+                            fairness=Fairness.TOKENS)
+ttft = [ln for ln in stats_s["metrics"].splitlines()
+        if ln.startswith('ollamamq_ttft_ms_count{model="test-tiny"}')]
 
 refused = None
 if not torch.cuda.is_available():
@@ -70,6 +79,9 @@ print(json.dumps({
     "eval_count_runtime": body_rt["eval_count"],
     "retries_runtime": stats_rt["retries"],
     "prefix_cache_runtime": stats_rt["runtimes"][0]["prefix_cache"] is not None,
+    "eval_count_srpt": body_s["eval_count"],
+    "policy_srpt": stats_s["scheduler"]["policy"],
+    "ttft_count": ttft,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu")),
     "refused": refused,
@@ -92,13 +104,22 @@ def test_port_imports_and_serves_without_jax():
     assert out["dtypes_int8"] == ["int8", "int8"]
     assert out["eval_count_runtime"] == 4
     assert out["retries_runtime"] == 1 and out["prefix_cache_runtime"]
+    assert out["eval_count_srpt"] == 4 and out["policy_srpt"] == "srpt"
+    # Four served requests in this process (one per engine).
+    assert out["ttft_count"] == ['ollamamq_ttft_ms_count{model="test-tiny"} 4']
     expected = {"ollamamq_tpu_torch.engine.engine", "ollamamq_tpu_torch.server.app",
                 "ollamamq_tpu_torch.ops.cuda.paged_attention",
                 "ollamamq_tpu_torch.ops.cuda.ragged_attention",
                 "ollamamq_tpu_torch.models.llama", "ollamamq_tpu_torch.cli",
                 "ollamamq_tpu_torch.ops.quant", "ollamamq_tpu_torch.models.weights",
                 "ollamamq_tpu_torch.engine.prefix_cache",
-                "ollamamq_tpu_torch.testing.faults"}
+                "ollamamq_tpu_torch.testing.faults",
+                "ollamamq_tpu_torch.engine.scheduler", "ollamamq_tpu_torch.engine.health",
+                "ollamamq_tpu_torch.admin.tui", "ollamamq_tpu_torch.telemetry.metrics",
+                "ollamamq_tpu_torch.telemetry.schema", "ollamamq_tpu_torch.telemetry.mfu",
+                "ollamamq_tpu_torch.telemetry.attribution",
+                "ollamamq_tpu_torch.telemetry.tracing",
+                "ollamamq_tpu_torch.telemetry.stepprof", "ollamamq_tpu_torch.telemetry.slo"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
