@@ -98,6 +98,37 @@ Phases, each printing JSON lines; any failure exits non-zero:
            bf16 kernels launched. Prints the step-phase medians per mode,
            TTFT p50/p99 and TPOT p50 (from the histograms' growth in this
            phase), per-user generated tokens and the MFU.
+  serve-models
+           the model lifecycle and the rest of the API surface: an engine
+           holding llama3.2:1b (bf16, seeded, serve's shape with 4 slots)
+           behind the HTTP server. (a) a streamed /api/pull of
+           nomic-embed-text (768-d encoder, 12 layers, seeded bf16):
+           progress lines then success; /api/tags and /api/ps list both
+           models, each with its runtime's weight bytes. (b) 4 greedy
+           streams of 160 tokens saturate the 4 decode slots while
+           /api/embed sends 8 inputs of 16 to 300 tokens to each model,
+           plus one /v1/embeddings and one /api/embeddings: dimensions
+           2048 and 768, every norm within 1e-3 of 1, every embed reply
+           before the last stream ends, the window launched only the two
+           bf16 attention kernels, and an embed-only sub-window (which
+           times one batch of 8 per model) none. (c) the first input
+           embedded alone against inside the batch: cosine >= 0.999; the
+           encoder's card embeddings of the batch against the port's
+           plain float32 forward on the CPU with the card's weights:
+           cosine >= 0.995. (d) with the loop stopped, an embed placed on
+           the encoder: /api/delete answers 409, then the loop restarts
+           and serves it. (e) /api/delete of the idle encoder: 200,
+           torch.cuda.memory_allocated falls by >= 0.95 of its weight
+           bytes, /api/embed on it answers 404; a re-pull gives
+           bit-identical lone embeddings. (g) /, /api/show, /api/version,
+           /v1/models, /v1/models/{model} and /v1/completions (JSON and
+           SSE) answer in the reference's shapes; /api/create, /api/push
+           and /api/blobs/x answer 501. (f) save_safetensors writes
+           llama3.2:1b's weights in HF layout to a temporary directory; a
+           second engine built from it streams greedy ids identical to
+           the seeded engine's for 2 prompts x 32 tokens; the directory
+           is deleted. Prints embed ms per batch per model, pull seconds,
+           bytes freed by the delete and checkpoint write/load seconds.
 
 Then the card as nvidia-smi names it, the kernels line, and the last
 line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
@@ -1309,6 +1340,337 @@ def serve_sched_phase(report) -> None:
         raise SystemExit(f"serve-sched gates failed: {gates}")
 
 
+def _request(port, method, path, body=None, user="smoke", timeout=600):
+    """(status, content type, body bytes) of one request, any status."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    c.request(method, path, json.dumps(body) if body is not None else None,
+              {"X-User-ID": user, "Content-Type": "application/json"})
+    r = c.getresponse()
+    data = r.read()
+    c.close()
+    return r.status, r.getheader("Content-Type"), data
+
+
+def _cosine(a, b) -> float:
+    a, b = [float(x) for x in a], [float(x) for x in b]
+    dot = sum(x * y for x, y in zip(a, b))
+    return dot / max(1e-30, math.sqrt(sum(x * x for x in a) * sum(y * y for y in b)))
+
+
+def _params_cpu_f32(params):
+    """A params dict's tensors copied to the CPU in float32."""
+    return {k: ([{n: t.float().cpu() for n, t in lp.items()} for lp in v]
+                if k == "layers" else v.float().cpu()) for k, v in params.items()}
+
+
+def serve_models_phase(report) -> None:
+    """The model lifecycle and the rest of the API surface on the card
+    (module docstring, serve-models)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ollamamq_tpu_torch.config import EngineConfig
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.models import llama, weights
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.server.app import OllamaServer
+    from ollamamq_tpu_torch.telemetry import stepprof
+
+    gen, enc = "llama3.2:1b", "nomic-embed-text"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.monotonic()
+    ecfg = EngineConfig(model=gen, max_slots=4, num_pages=8 * 16 + 8, page_size=32,
+                        max_pages_per_seq=16, max_batch_tokens=512, token_granule=16,
+                        max_new_tokens=160, decode_steps_per_iter=8, dtype="bfloat16",
+                        seed=0)
+    engine = TorchEngine(ecfg)
+    srv = OllamaServer(engine, port=0, timeout_s=600)
+    threading.Thread(target=srv.serve_forever, name="http", daemon=True).start()
+    engine.start()
+    port = srv.server_address[1]
+    gates, line = {}, {"phase": "serve-models", "models": [gen, enc]}
+
+    def ok(path, body=None, method="POST", user="smoke"):
+        status, ctype, data = _request(port, method, path, body, user)
+        if status != 200:
+            raise SystemExit(f"serve-models: {method} {path}: HTTP {status} {data[:300]!r}")
+        return json.loads(data) if ctype == "application/json" else data
+
+    try:
+        # (a) a streamed pull of the encoder.
+        t0 = time.monotonic()
+        pulled = [json.loads(x) for x in ok("/api/pull", {"model": enc}).decode().splitlines()]
+        line["pull_s"] = time.monotonic() - t0
+        line["pull_lines"] = pulled
+        rt_gen, rt_enc = engine.runtimes[gen], engine.runtimes[enc]
+        tags = {m["name"]: m["size"] for m in ok("/api/tags", method="GET")["models"]}
+        ps = {m["name"]: m["size_vram"] for m in ok("/api/ps", method="GET")["models"]}
+        sizes = {gen: rt_gen.param_bytes, enc: rt_enc.param_bytes}
+        line.update(tags=tags, ps=ps, param_bytes=sizes)
+        gates["pull"] = ([x.get("status") for x in pulled][0] == "pulling manifest"
+                         and len(pulled) >= 3 and pulled[-1] == {"status": "success"}
+                         and tags == sizes and ps == sizes)
+
+        # (b) embeddings while 4 greedy streams saturate the decode slots.
+        sentence = "Retrieval indexes embed documents while chat users keep decoding. "
+        texts = [(sentence * 5)[:n] for n in (15, 40, 63, 100, 150, 200, 250, 299)]
+        replies, errors, stream_end = {}, [], []
+
+        def stream(i):
+            try:
+                t = time.monotonic()
+                data = ok("/api/generate", {"model": gen, "prompt": f"{sentence} ({i})",
+                                             "options": {"temperature": 0, "num_predict": 160}},
+                          user=f"chat{i}")
+                ids, _ = _ollama_result("application/x-ndjson", data)
+                stream_end.append((time.monotonic(), t, len(ids)))
+            except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+                errors.append(f"stream {i}: {e}")
+
+        def embed(name, path, body):
+            try:
+                out = ok(path, body, user=f"rag-{name}")
+                replies[name] = (time.monotonic(), out, engine.runtimes[gen].active_count())
+            except Exception as e:  # noqa: BLE001
+                errors.append(f"{name}: {e}")
+
+        reset_launch_counts()
+        streams = [threading.Thread(target=stream, args=(i,)) for i in range(4)]
+        for t in streams:
+            t.start()
+        deadline = time.monotonic() + 120
+        while rt_gen.active_count() < 4 and not errors:
+            if time.monotonic() > deadline:
+                raise SystemExit("serve-models: the 4 streams never filled the slots")
+            time.sleep(0.001)
+        saturated = rt_gen.active_count() == 4 and not rt_gen.has_capacity("generate")
+        jobs = {f"{gen}/api/embed": ("/api/embed", {"model": gen, "input": texts}),
+                f"{enc}/api/embed": ("/api/embed", {"model": enc, "input": texts}),
+                f"{enc}/v1/embeddings": ("/v1/embeddings", {"model": enc, "input": texts[3]}),
+                f"{gen}/api/embeddings": ("/api/embeddings", {"model": gen, "prompt": texts[5]})}
+        workers = [threading.Thread(target=embed, args=(n, *j)) for n, j in jobs.items()]
+        for t in workers:
+            t.start()
+        for t in workers + streams:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        window = launch_counts()
+        if errors:
+            raise SystemExit(f"serve-models requests failed: {errors}")
+        vectors = {f"{gen}/api/embed": replies[f"{gen}/api/embed"][1]["embeddings"],
+                   f"{enc}/api/embed": replies[f"{enc}/api/embed"][1]["embeddings"],
+                   f"{enc}/v1/embeddings": [d["embedding"] for d in
+                                            replies[f"{enc}/v1/embeddings"][1]["data"]],
+                   f"{gen}/api/embeddings": [replies[f"{gen}/api/embeddings"][1]["embedding"]]}
+        dims = {k: sorted({len(v) for v in vs}) for k, vs in vectors.items()}
+        norms = [math.sqrt(sum(x * x for x in v)) for vs in vectors.values() for v in vs]
+        last_end = max(e for e, _, _ in stream_end)
+        own = ("ragged_paged_attention", "paged_decode_attention")
+        line.update(decode_saturated=saturated, embed_dims=dims,
+                    max_norm_err=max(abs(n - 1) for n in norms),
+                    stream_tokens=[n for _, _, n in stream_end],
+                    embed_reply_before_last_stream_end_s={
+                        k: last_end - t for k, (t, _, _) in replies.items()},
+                    active_slots_at_reply={k: a for k, (_, _, a) in replies.items()},
+                    launches=window)
+        gates["saturated"] = saturated
+        gates["dims"] = all(d == [2048 if k.startswith(gen) else 768] for k, d in dims.items())
+        gates["norms"] = line["max_norm_err"] <= 1e-3
+        gates["during_decode"] = all(t < last_end for t, _, _ in replies.values())
+        gates["window_kernels"] = (all(window[k] > 0 for k in own)
+                                   and all(window[k] == 0 for k in window if k not in own))
+
+        # The embed-only sub-window: the 8 inputs per model, 3 times; the
+        # step profiler's embed samples of 8 padded rows at length 512
+        # time one batch (a request set may split across dispatches).
+        reset_launch_counts()
+        embed_ms, embed_http_ms = {}, {}
+        for name in (gen, enc):
+            w0, http_runs = time.time(), []
+            for _ in range(3):
+                t0 = time.monotonic()
+                ok("/api/embed", {"model": name, "input": texts})
+                http_runs.append((time.monotonic() - t0) * 1e3)
+            full = sorted(x["total_ms"] for x in stepprof.PROFILER.window(w0, time.time())
+                          if x["mode"] == "embed" and x["padded_tokens"] == 8 * 512)
+            embed_ms[name] = full[len(full) // 2] if full else None
+            embed_http_ms[name] = sorted(http_runs)[1]
+        torch.cuda.synchronize()
+        sub = launch_counts()
+        line.update(embed_ms_per_batch=embed_ms, embed_http_ms_per_batch=embed_http_ms,
+                    embed_only_launches=sub)
+        gates["embed_only_kernels"] = all(v == 0 for v in sub.values())
+
+        # (c) alone vs in the batch; the card's encoder vs the CPU's.
+        lone = {name: ok("/api/embed", {"model": name, "input": texts[0]})["embeddings"][0]
+                for name in (gen, enc)}
+        cos_lone = {name: _cosine(lone[name], vectors[f"{name}/api/embed"][0])
+                    for name in (gen, enc)}
+        cpu_params = _params_cpu_f32(rt_enc.params)
+        toks = [rt_enc.tokenizer.encode(t) for t in texts]
+        T = 32
+        while T < max(map(len, toks)):
+            T *= 2
+        tok_cpu = torch.zeros((len(toks), T), dtype=torch.int32)
+        for i, t in enumerate(toks):
+            tok_cpu[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
+        t0 = time.monotonic()
+        with torch.no_grad():
+            ref = llama.forward_encoder(cpu_params, rt_enc.cfg, tok_cpu,
+                                        torch.tensor([len(t) for t in toks]))
+        cpu_s = time.monotonic() - t0
+        del cpu_params
+        cos_cpu = [_cosine(v, r.tolist()) for v, r in zip(vectors[f"{enc}/api/embed"], ref)]
+        line.update(cosine_lone_vs_batch=cos_lone, cosine_card_vs_cpu_f32_min=min(cos_cpu),
+                    cpu_reference_s=cpu_s)
+        gates["lone_vs_batch"] = all(c >= 0.999 for c in cos_lone.values())
+        gates["card_vs_cpu"] = min(cos_cpu) >= 0.995
+
+        # (d) deleting a busy model: with the loop stopped, an embed is
+        # placed on the encoder's queue by one admission pass.
+        engine.stop()
+        busy = {}
+        waiter = threading.Thread(target=lambda: busy.update(
+            reply=_request(port, "POST", "/api/embed", {"model": enc, "input": texts[1]},
+                           "busy")))
+        waiter.start()
+        deadline = time.monotonic() + 60
+        while engine.core.total_queued() == 0:
+            if time.monotonic() > deadline:
+                raise SystemExit("serve-models: the busy embed was never queued")
+            time.sleep(0.001)
+        engine._admit()
+        held = rt_enc.has_work()
+        busy_delete = _request(port, "POST", "/api/delete", {"model": enc})
+        engine.start()
+        waiter.join(timeout=120)
+        line.update(busy_delete={"status": busy_delete[0],
+                                 "body": json.loads(busy_delete[2])},
+                    busy_embed_status=busy.get("reply", (None,))[0])
+        gates["busy_409"] = (held and busy_delete[0] == 409
+                             and busy.get("reply", (None,))[0] == 200)
+
+        # (e) deleting the idle encoder frees its weights; a re-pull
+        # brings back bit-identical embeddings.
+        enc_bytes = rt_enc.param_bytes
+        del rt_enc
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        deleted = _request(port, "POST", "/api/delete", {"model": enc})
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = before - torch.cuda.memory_allocated()
+        gone = _request(port, "POST", "/api/embed", {"model": enc, "input": texts[0]})
+        t0 = time.monotonic()
+        ok("/api/pull", {"model": enc, "stream": False})
+        repull_s = time.monotonic() - t0
+        again = ok("/api/embed", {"model": enc, "input": texts[0]})["embeddings"][0]
+        line.update(delete_status=deleted[0], freed_bytes=freed, encoder_param_bytes=enc_bytes,
+                    embed_after_delete_status=gone[0], repull_s=repull_s,
+                    repull_bit_identical=again == lone[enc])
+        gates["delete"] = deleted[0] == 200 and gone[0] == 404
+        gates["freed"] = freed >= 0.95 * enc_bytes
+        gates["repull_identical"] = again == lone[enc]
+
+        # (g) the other routes.
+        root = _request(port, "GET", "/")
+        show = ok("/api/show", {"model": gen})
+        version = ok("/api/version", method="GET")
+        models = ok("/v1/models", method="GET")
+        one = ok("/v1/models/" + gen, method="GET")
+        cmpl = ok("/v1/completions", {"model": gen, "prompt": sentence, "max_tokens": 8,
+                                      "temperature": 0})
+        sse = ok("/v1/completions", {"model": gen, "prompt": sentence, "max_tokens": 8,
+                                     "temperature": 0, "stream": True}).decode()
+        events = [x[len("data: "):] for x in sse.split("\n\n") if x.startswith("data: ")]
+        chunks = [json.loads(x) for x in events[:-1]]
+        honest = {p: _request(port, "POST", p, {})[0]
+                  for p in ("/api/create", "/api/push", "/api/blobs/x")}
+        routes = {
+            "root": root[0] == 200 and root[2] == b"Ollama is running",
+            "show": ({"modelfile", "parameters", "template", "details", "model_info"}
+                     <= set(show) and show["model_info"]["llama.embedding_length"] == 2048),
+            "version": isinstance(version.get("version"), str),
+            "v1_models": (models["object"] == "list"
+                          and {m["id"] for m in models["data"]} == {gen, enc}),
+            "v1_model": one["id"] == gen and one["object"] == "model",
+            "completions": (cmpl["object"] == "text_completion"
+                            and cmpl["choices"][0]["finish_reason"] in ("stop", "length")
+                            and cmpl["usage"]["completion_tokens"] > 0),
+            # Random weights mostly pick ids outside the byte tokenizer's
+            # range, which stream no text: the finish chunk may stand alone.
+            "completions_sse": (events[-1] == "[DONE]" and len(chunks) >= 1
+                                and all(c["object"] == "text_completion"
+                                        and "text" in c["choices"][0] for c in chunks)
+                                and chunks[-1]["choices"][0]["finish_reason"]
+                                in ("stop", "length")),
+            "honest_501": set(honest.values()) == {501},
+        }
+        line["routes"] = routes
+        gates["routes"] = all(routes.values())
+
+        # (f) a safetensors checkpoint of the generative model.
+        prompts = [f"{sentence} (checkpoint {i})" for i in range(2)]
+
+        def greedy_ids(eng):
+            out = []
+            for prompt in prompts:
+                rt = eng.runtimes[gen]
+                req = eng.enqueue_request("ckpt", "", gen, prompt_tokens=rt.tokenizer.encode(prompt),
+                                          sampling=SamplingParams(max_tokens=32))
+                items = _collect(req)
+                if items[-1].kind != "done":
+                    raise SystemExit(f"serve-models checkpoint stream: {items[-1]}")
+                out.append(list(req.generated_ids))
+            return out
+
+        seeded = greedy_ids(engine)
+        tmp = tempfile.mkdtemp(prefix="ollamamq-ckpt-")
+        try:
+            t0 = time.monotonic()
+            path = weights.save_safetensors(rt_gen.params, rt_gen.cfg, tmp)
+            write_s = time.monotonic() - t0
+            file_bytes = os.path.getsize(path)
+            t0 = time.monotonic()
+            eng2 = TorchEngine(ecfg, models={gen: tmp})
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            eng2.start()
+            try:
+                loaded = greedy_ids(eng2)
+            finally:
+                eng2.stop()
+                del eng2
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        line.update(checkpoint_write_s=write_s, checkpoint_load_s=load_s,
+                    checkpoint_bytes=file_bytes, checkpoint_tokens=[len(x) for x in loaded],
+                    checkpoint_ids_identical=loaded == seeded, checkpoint_dir_removed=not
+                    os.path.exists(tmp))
+        gates["checkpoint"] = (loaded == seeded and all(len(x) > 0 for x in loaded)
+                               and not os.path.exists(tmp))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        engine.stop()
+    line["seconds"] = time.monotonic() - t_phase
+    line["gates"] = gates
+    emit(line)
+    report["serve_models"] = line
+    emit({"phase": "serve-models-numbers",
+          "embed_ms_per_batch": line["embed_ms_per_batch"], "pull_s": line["pull_s"],
+          "freed_bytes": line["freed_bytes"],
+          "checkpoint_write_s": line["checkpoint_write_s"],
+          "checkpoint_load_s": line["checkpoint_load_s"]})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-models gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -1472,6 +1834,7 @@ def main(argv=None) -> int:
     serve_runtime_phase(report)
     serve_runtime_f32_phase(report)
     serve_sched_phase(report)
+    serve_models_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]

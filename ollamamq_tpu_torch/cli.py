@@ -1,14 +1,19 @@
-"""Command-line entry point: serve one model over HTTP.
+"""Command-line entry point: serve one or several models over HTTP.
 
     python -m ollamamq_tpu_torch.cli --model llama3.2:1b --port 11434
     python -m ollamamq_tpu_torch.cli --model test-tiny --device cpu
+    python -m ollamamq_tpu_torch.cli --models llama3.2:1b,nomic-embed-text \
+        --checkpoints llama3.2:1b=/path/to/hf-dir
     python -m ollamamq_tpu_torch.cli --weights-dtype int8 --kv-dtype int8
     python -m ollamamq_tpu_torch.cli --prefix-cache --spec --spec-k 4
     python -m ollamamq_tpu_torch.cli --scheduler srpt --token-fairness \
         --max-queued 64 --max-queued-per-user 8 --slo-ttft-ms 500
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
-start when no CUDA device is found. Weights are seeded random (--seed).
+start when no CUDA device is found. Weights are seeded random (--seed)
+unless --checkpoints names an HF safetensors directory for a model (its
+tokenizer.json, when present, replaces the byte-level tokenizer). More
+models load and unload at run time through /api/pull and /api/delete.
 The admin TUI owns the terminal when stdout is a TTY (--no-tui: never);
 quitting it ends the process.
 """
@@ -21,14 +26,22 @@ import os
 import sys
 
 from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
-                                       validate_scheduler)
+                                       get_model_config, validate_scheduler)
 
 
 def build_parser() -> argparse.ArgumentParser:
     d = EngineConfig()
     p = argparse.ArgumentParser(prog="ollamamq_tpu_torch.cli", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--model", default="llama3.2:1b")
+    p.add_argument("--model", default="llama3.2:1b",
+                   help="the model to serve when --models is not given")
+    p.add_argument("--models", default=os.environ.get("MODELS", ""),
+                   help="comma-separated models to load at start-up "
+                        "(generative and embedding models); the first is "
+                        "the engine's default. Empty: --model alone")
+    p.add_argument("--checkpoints", default=os.environ.get("CHECKPOINTS", ""),
+                   help="comma-separated name=path pairs: an HF safetensors "
+                        "directory per model; the others use seeded weights")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=11434)
     p.add_argument("--device", default="cuda",
@@ -117,8 +130,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def model_table(args) -> dict:
+    """{model: checkpoint directory or None} of --models / --checkpoints
+    (--model alone when --models is empty)."""
+    names = [m.strip() for m in args.models.split(",") if m.strip()] or [args.model]
+    checkpoints = {}
+    for pair in args.checkpoints.split(","):
+        if "=" in pair:
+            name, path = pair.split("=", 1)
+            checkpoints[name.strip()] = path.strip()
+    return {name: checkpoints.get(name) for name in names}
+
+
 def validate(args) -> str:
     """The flags' errors, checked before any device work ("" = valid)."""
+    for name in model_table(args):
+        if get_model_config(name) is None:
+            return f"unknown model architecture: {name}"
     err = validate_scheduler(args.scheduler)
     if err:
         return err
@@ -133,7 +161,8 @@ def validate(args) -> str:
 
 def engine_config(args) -> EngineConfig:
     return EngineConfig(
-        model=args.model, max_slots=args.max_slots, num_pages=args.num_pages,
+        model=next(iter(model_table(args))), max_slots=args.max_slots,
+        num_pages=args.num_pages,
         page_size=args.page_size, max_pages_per_seq=args.max_pages_per_seq,
         max_batch_tokens=args.max_batch_tokens, token_granule=args.token_granule,
         decode_steps_per_iter=args.decode_steps, spec=args.spec,
@@ -171,10 +200,11 @@ def main(argv=None) -> int:
     engine = TorchEngine(engine_config(args), device=args.device,
                          blocklist_path=args.blocklist,
                          fairness=Fairness.TOKENS if args.token_fairness
-                         else Fairness.REQUESTS)
+                         else Fairness.REQUESTS, models=model_table(args))
     engine.start()
     server = OllamaServer(engine, args.host, args.port, args.timeout_s)
-    log.info("serving %s on %s:%d (device %s, tui=%s)", args.model, args.host,
+    log.info("serving %s on %s:%d (device %s, tui=%s)",
+             ",".join(engine.loaded_models()), args.host,
              server.server_address[1], engine.device, use_tui)
     try:
         if use_tui:

@@ -1,9 +1,10 @@
 """Model and engine configuration for the PyTorch/CUDA serving path.
 
 The dense decoder architectures (Llama 3.x, Qwen2.5 with attention bias,
-Qwen3 with per-head q/k norm) and the engine fields the single-device
+Qwen3 with per-head q/k norm), a bidirectional encoder for embedding
+models (nomic-embed-text class), and the engine fields the single-device
 serving path reads, with the JAX package's defaults. Mixture-of-experts
-and encoder models are not served by this package yet.
+models are not served by this package yet.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ class ModelConfig:
     attn_bias: bool = False
     # Qwen3-style per-head RMSNorm on q and k after projection (pre-RoPE).
     qk_norm: bool = False
+    # Bidirectional attention + mean pooling => embedding encoder, not a LM.
+    is_encoder: bool = False
 
     @property
     def q_dim(self) -> int:
@@ -101,6 +104,19 @@ MODEL_CONFIGS = {
         vocab_size=152_064, hidden_size=3584, intermediate_size=18_944,
         num_layers=28, num_heads=28, num_kv_heads=4, head_dim=128,
         rope_theta=1_000_000.0, max_seq_len=32_768, attn_bias=True,
+    ),
+    # Embedding encoder (nomic-embed-text class: 768-d encoder).
+    "nomic-embed-text": ModelConfig(
+        name="nomic-embed-text", vocab_size=30_528, hidden_size=768,
+        intermediate_size=3072, num_layers=12, num_heads=12, num_kv_heads=12,
+        head_dim=64, rope_theta=1000.0, max_seq_len=8192, tie_embeddings=True,
+        is_encoder=True,
+    ),
+    "test-tiny-embed": ModelConfig(
+        name="test-tiny-embed", vocab_size=512, hidden_size=64,
+        intermediate_size=128, num_layers=2, num_heads=4, num_kv_heads=4,
+        head_dim=16, rope_theta=1000.0, max_seq_len=512, tie_embeddings=True,
+        is_encoder=True,
     ),
     "qwen3:8b": ModelConfig(
         name="qwen3:8b", vocab_size=151_936, hidden_size=4096,

@@ -145,19 +145,23 @@ class MQCore:
         return rid
 
     def enqueue(self, user: str, ip: str = "", model: Optional[str] = None,
-                family: Family = Family.UNKNOWN) -> int:
-        """Returns req_id > 0, or raises BlockedError."""
+                family: Family = Family.UNKNOWN, kind: str = "generate") -> int:
+        """Returns req_id > 0, or raises BlockedError. `kind` ("generate"
+        or "embed") selects the capacity list next_window gates it on."""
         rid = self._lib.mq_enqueue_kind(self._h, user.encode(), ip.encode(),
-                                        _opt(model), int(family), 0)
+                                        _opt(model), int(family),
+                                        1 if kind == "embed" else 0)
         return self._check_rid(rid, user, ip)
 
     def requeue_front(self, user: str, ip: str = "", model: Optional[str] = None,
-                      family: Family = Family.UNKNOWN) -> int:
+                      family: Family = Family.UNKNOWN,
+                      kind: str = "generate") -> int:
         """Return a popped task to the FRONT of its user's queue (a
         preempted or retried request keeps its place in the user's FIFO).
         Returns the fresh req_id, or raises BlockedError."""
         rid = self._lib.mq_requeue_front(self._h, user.encode(), ip.encode(),
-                                         _opt(model), int(family), 0)
+                                         _opt(model), int(family),
+                                         1 if kind == "embed" else 0)
         return self._check_rid(rid, user, ip)
 
     def next(self, eligible_models: Optional[Iterable[str]] = None
@@ -272,7 +276,12 @@ class MQCore:
         return int(self._lib.mq_queued_matching(self._h, model.encode()))
 
     def snapshot(self) -> dict:
+        """The core's state as a dict. The JSON can grow between the size
+        query and the copy (another thread enqueues for a new user), and
+        the core then copies nothing: retry at the size it reports."""
         need = self._lib.mq_snapshot_json(self._h, None, 0)
-        buf = ctypes.create_string_buffer(need + 16)
-        self._lib.mq_snapshot_json(self._h, buf, len(buf))
-        return json.loads(buf.value.decode())
+        while True:
+            buf = ctypes.create_string_buffer(need + 16)
+            need = self._lib.mq_snapshot_json(self._h, buf, len(buf))
+            if need < len(buf):
+                return json.loads(buf.value.decode())

@@ -45,8 +45,17 @@ Retry-After; the per-model Prometheus series, the step profiler, the
 HBM timeline, request traces, SLO alerts and the health watchdog are
 fed at the reference's sites.
 
-Not carried over yet (later slices): KV migration, embeddings, the
-bucketed prefill path of pp > 1, multi-device layouts (and sequence
+Several models share one engine, as in the reference: generative
+runtimes (ModelRuntime) and embedding encoders (EncoderRuntime), each
+from seeded weights or an HF safetensors directory, loaded and evicted at
+run time (/api/pull, /api/delete) with the runtime table changed only on
+the loop thread. Embeddings are stateless batched forwards
+(serve_embed_batch) with their own capacity pool: a generative runtime
+serves them beside its decode slots (step_embed), so an embed request is
+admitted while decode is saturated.
+
+Not carried over yet (later slices): KV migration, the bucketed prefill
+path of pp > 1, multi-device layouts (data-parallel replicas, sequence
 parallelism), fleet, durability and the decision journal.
 """
 
@@ -69,7 +78,7 @@ from ollamamq_tpu_torch.engine.health import HealthMonitor, device_memory
 from ollamamq_tpu_torch.engine.prefix_cache import PrefixCache
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.engine.scheduler import make_policy
-from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
+from ollamamq_tpu_torch.engine.tokenizer import load_tokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
 from ollamamq_tpu_torch.ops.sampling import (accept_prefix, maybe_apply_penalties,
@@ -133,6 +142,85 @@ def chip_stats(device: torch.device) -> List[dict]:
     return [row]
 
 
+def serve_embed_batch(rt, core: MQCore, pending, max_len: int, dispatch,
+                      max_batch: int = 8) -> bool:
+    """Pop up to `max_batch` ready embed requests, pad them to a
+    power-of-two length bucket (>= 32) and a batch of 1 or `max_batch`,
+    run ONE stateless forward `dispatch(B, bucket, tokens, lens)` -> [B, D]
+    and finish each request with its vector. The one batching scheme of
+    both embedding paths (EncoderRuntime.step, ModelRuntime.step_embed).
+    Cancelled, expired and too-long requests finish one by one, never
+    failing the batch. On a dispatch failure every request of the batch
+    is retried (where the runtime offers _retry_embed) or errored before
+    the exception propagates: a popped request is in no queue a runtime
+    failure can see. Returns True if a forward ran."""
+    _sp = stepprof.PROFILER.start("embed")
+    batch: List[Request] = []
+    while pending and len(batch) < max_batch:
+        if pending[0]._retry_at > time.monotonic():
+            break  # the head is backing off after a contained fault
+        req = pending.popleft()
+        if req.cancelled.is_set():
+            core.mark_dropped(req.user)
+            req.finish(FinishReason.CANCELLED)
+            continue
+        if req.expired():
+            drop_expired(req, core, rt.name)
+            continue
+        n = len(req.prompt_tokens)
+        if n > max_len:
+            core.mark_dropped(req.user)
+            req.finish(FinishReason.ERROR,
+                       error=f"input length {n} exceeds maximum {max_len}")
+            continue
+        batch.append(req)
+    if not batch:
+        return False
+    for r in batch:
+        r.trace_event("embed_batch", tokens=len(r.prompt_tokens))
+    longest = max(len(r.prompt_tokens) for r in batch)
+    bucket = 32
+    while bucket < longest:
+        bucket *= 2
+    # Two batch sizes per length bucket: a lone request does not pay
+    # max_batch rows of compute.
+    B = 1 if len(batch) == 1 else max_batch
+    tokens = np.zeros((B, bucket), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for i, r in enumerate(batch):
+        tokens[i, :len(r.prompt_tokens)] = r.prompt_tokens
+        lens[i] = len(r.prompt_tokens)
+    _sp.mark("host_prep")
+    t0 = time.monotonic()
+    try:
+        out_dev = dispatch(B, bucket, tokens, lens)
+        _sp.mark("dispatch")
+        out = out_dev.float().cpu().numpy()
+        _sp.mark("collect")
+    except Exception as e:
+        retry = getattr(rt, "_retry_embed", None)
+        msg = f"embed failed: {e}"
+        for r in batch:
+            if retry is not None and retry(r, msg):
+                continue
+            core.mark_dropped(r.user)
+            r.finish(FinishReason.ERROR, error=ModelRuntime._poison_msg(r, msg))
+        raise
+    rt.step_latency_ms = (time.monotonic() - t0) * 1e3
+    for i, r in enumerate(batch):
+        r.embedding = out[i].tolist()
+        r.stats.first_token_at = time.monotonic()
+        # Processed tokens count toward the TUI's tok/s.
+        rt.tokens_generated += int(lens[i])
+        core.mark_done(r.user, tokens=int(lens[i]))
+        r.finish(FinishReason.STOP)
+    _sp.mark("detok")
+    _sp.finish(T_pad=int(bucket), k_cap=0, n_prefill=len(batch), n_decode=0,
+               tokens=int(lens.sum()), padded_tokens=int(B) * int(bucket),
+               compiled=False)
+    return True
+
+
 class QueueFullError(Exception):
     """Bounded admission refused an enqueue: the queue (global or this
     user's) is at its --max-queued / --max-queued-per-user cap. Carries
@@ -150,6 +238,10 @@ class QueueFullError(Exception):
 
 class ModelRuntime:
     """Per-model serving state: weights, KV pool, slot table, steps."""
+
+    # Generative runtimes embed too (causal forward, mean pool), as the
+    # reference's Ollama backends answer /api/embed on llama models.
+    SERVES = ("generate", "embed")
 
     # Preemption hook, attached by the owning engine when cfg.preempt is
     # on: callable(req) -> bool that returns a victim to the FRONT of its
@@ -179,7 +271,8 @@ class ModelRuntime:
 
     def __init__(self, name: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None, dtype=None,
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None,
+                 checkpoint_path: Optional[str] = None):
         # An unsupported quantization fails here, before any device work.
         err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype)
         if err is not None:
@@ -191,15 +284,14 @@ class ModelRuntime:
         self.kv_dtype = engine_cfg.kv_dtype
         self.device = resolve_device(device)
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
-        self.tokenizer = ByteTokenizer()
+        self.tokenizer = load_tokenizer(checkpoint_path)
         # Params passed in are used as given (already quantized or not);
-        # random weights are quantized at build time for int8, as the JAX
-        # package's load_params does.
+        # a checkpoint or the seed's weights are quantized at build time
+        # for int8, as the JAX package's load_params does.
         if params is None:
-            params = weights.init_random(model_cfg, engine_cfg.seed,
-                                         self.dtype, self.device)
-            if self.weights_dtype == "int8":
-                params = weights.quantize_params_int8(params)
+            params = weights.load_params(model_cfg, checkpoint_path,
+                                         engine_cfg.seed, self.dtype,
+                                         self.weights_dtype, self.device)
         self.params = params
         self.kc, self.vc = kvc.alloc_kv_pool(model_cfg, engine_cfg,
                                              self.dtype, self.device,
@@ -239,6 +331,8 @@ class ModelRuntime:
         self.freq_pen = np.zeros((S,), np.float32)
         self.seeds = np.zeros((S,), np.int32)  # >0 = per-request seed
         self.pending_prefill: collections.deque = collections.deque()
+        # Embed requests: stateless batch forwards beside the decode slots.
+        self.pending_embed: collections.deque = collections.deque()
         # Admitted prompts whose spans are still being prefilled.
         self.chunking: collections.deque = collections.deque()
         # Requests inside a dispatch right now (cancel() must find them).
@@ -314,7 +408,7 @@ class ModelRuntime:
         self._tm_occupancy.set(0.0)
         self._tm_mfu.set(0.0)
         # Device bytes, payload plus scales for int8 leaves and pools.
-        self.param_bytes = sum(nbytes(t) for t in _leaves(self.params))
+        self.param_bytes = sum(nbytes(t) for t in weights.leaves(self.params))
         self.kv_bytes = nbytes(self.kc) + nbytes(self.vc)
         tm.HBM_WEIGHT_BYTES.labels(model=name).set(self.param_bytes)
         tm.HBM_KV_BYTES.labels(model=name).set(self.kv_bytes)
@@ -324,19 +418,26 @@ class ModelRuntime:
         return sum(r is None and i not in self.reserved_slots
                    for i, r in enumerate(self.slot_req))
 
-    def has_capacity(self) -> bool:
-        """Can one more request be taken from the scheduler right now?
-        Unreferenced cached pages count: a full cache evicts, never
-        rejects."""
+    def has_capacity(self, kind: Optional[str] = None) -> bool:
+        """Can one more request of `kind` be taken from the scheduler right
+        now? Embeds are bounded only by their queue; generates need a
+        decode slot and KV pages (unreferenced cached pages count: a full
+        cache evicts, never rejects). kind None answers "either"."""
+        if self._failed:
+            return False
+        embed_ok = len(self.pending_embed) < 4 * self.ecfg.max_slots
+        if kind == "embed":
+            return embed_ok
         evictable = (self.prefix_cache.evictable_pages
                      if self.prefix_cache is not None else 0)
-        return (not self._failed
-                and len(self.pending_prefill) < 2 * self.ecfg.max_slots
-                and self.free_slots() > 0
-                and self.alloc.free_pages + evictable >= 2)
+        gen_ok = (len(self.pending_prefill) < 2 * self.ecfg.max_slots
+                  and self.free_slots() > 0
+                  and self.alloc.free_pages + evictable >= 2)
+        return gen_ok if kind == "generate" else (gen_ok or embed_ok)
 
     def has_work(self) -> bool:
-        return (bool(self.pending_prefill) or bool(self.chunking)
+        return (bool(self.pending_prefill) or bool(self.pending_embed)
+                or bool(self.chunking)
                 or any(r is not None for r in self.slot_req))
 
     def active_count(self) -> int:
@@ -344,9 +445,13 @@ class ModelRuntime:
 
     def held_requests(self) -> List[Request]:
         return ([r for r in self.slot_req if r is not None]
-                + list(self.pending_prefill) + list(self.chunking))
+                + list(self.pending_prefill) + list(self.pending_embed)
+                + list(self.chunking))
 
     def submit(self, req: Request) -> bool:
+        if req.kind == "embed":
+            self.pending_embed.append(req)
+            return True
         if req._inc_decode is None:
             # Kept across preemption and retry requeues: the replay
             # prompt carries ids the decoder has already seen.
@@ -757,9 +862,10 @@ class ModelRuntime:
                 self._stalled_slots.discard(i)
 
     # -- fault-retry containment -------------------------------------------
-    def _retry_requeue(self, req: Request, msg: str) -> bool:
+    def _retry_requeue(self, req: Request, msg: str,
+                       queue: Optional[collections.deque] = None) -> bool:
         """Queue a fault-implicated request for ONE more attempt (front of
-        the pending queue, exponential backoff). False once its budget is
+        its pending queue, exponential backoff). False once its budget is
         spent or it is cancelled: the caller errors it."""
         if req.retries >= self.ecfg.step_retries or req.cancelled.is_set():
             return False
@@ -769,8 +875,11 @@ class ModelRuntime:
         req._retry_at = time.monotonic() + (
             self.ecfg.retry_backoff_s * (2 ** (req.retries - 1)))
         req.trace_event("retry", error=msg[:200], n=req.retries)
-        self.pending_prefill.appendleft(req)
+        (self.pending_prefill if queue is None else queue).appendleft(req)
         return True
+
+    def _retry_embed(self, req: Request, msg: str) -> bool:
+        return self._retry_requeue(req, msg, self.pending_embed)
 
     @staticmethod
     def _poison_msg(req: Request, msg: str) -> str:
@@ -1399,6 +1508,26 @@ class ModelRuntime:
             if req is not None and req.cancelled.is_set():
                 self._finish_slot(i, FinishReason.CANCELLED, core)
 
+    # -- embeddings on a generative model ----------------------------------
+    def _dispatch_embed(self, B, bucket, tokens, lens) -> torch.Tensor:
+        self._fault("embed")
+        toks, n = self._to_dev([tokens, lens], np.int32)
+        return llama.forward_embed(self.params, self.cfg, toks, n)
+
+    def step_embed(self, core: MQCore) -> bool:
+        """Serve pending embed requests: stateless forwards (no KV write),
+        so a failure never touches decode state. A failed batch is
+        retried or errored by serve_embed_batch and the runtime keeps
+        serving (its decode slots are healthy; a dead device fails the
+        next decode dispatch, which does rebuild). True if a batch ran."""
+        max_len = min(self.ecfg.max_context, self.cfg.max_seq_len)
+        try:
+            return serve_embed_batch(self, core, self.pending_embed, max_len,
+                                     self._dispatch_embed)
+        except Exception:  # noqa: BLE001 — contained to the batch
+            log.exception("embed forward failed on %s", self.name)
+            return True
+
     def stats(self) -> dict:
         """The JAX runtime's keys (the admin TUI and the JSON metrics read
         them) plus the port's own counters."""
@@ -1429,6 +1558,7 @@ class ModelRuntime:
                           "throttled_users": len(self._spec_throttled)}
                          if self.spec else None),
                 "pending_prefill": len(self.pending_prefill),
+                "pending_embed": len(self.pending_embed),
                 "chunking": len(self.chunking),
                 "tokens_generated": self.tokens_generated,
                 "ragged_dispatches": self.ragged_dispatches,
@@ -1445,20 +1575,120 @@ class ModelRuntime:
                 "failed": self._failed}
 
 
-def _leaves(params: dict):
-    for k, v in params.items():
-        if k == "layers":
-            for lp in v:
-                yield from lp.values()
-        else:
-            yield v
+class EncoderRuntime:
+    """Embedding-model runtime: batched bidirectional encodes of padded
+    inputs (serve_embed_batch), no KV pool, no decode slots."""
+
+    SERVES = ("embed",)
+    # Deterministic fault injection, attached by the engine.
+    fault_plan = None
+
+    def __init__(self, name: str, model_cfg: ModelConfig,
+                 engine_cfg: EngineConfig, device=None, dtype=None,
+                 params: Optional[dict] = None,
+                 checkpoint_path: Optional[str] = None):
+        err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype)
+        if err is not None:
+            raise ValueError(err)
+        self.name = name
+        self.cfg = model_cfg
+        self.ecfg = engine_cfg
+        self.weights_dtype = engine_cfg.weights_dtype
+        self.device = resolve_device(device)
+        self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
+        self.tokenizer = load_tokenizer(checkpoint_path)
+        if params is None:
+            params = weights.load_params(model_cfg, checkpoint_path,
+                                         engine_cfg.seed, self.dtype,
+                                         self.weights_dtype, self.device)
+        self.params = params
+        self.pending: collections.deque = collections.deque()
+        self._block_ver = -1  # first tick sweeps the loaded blocklist
+        self._failed = False
+        self.tokens_generated = 0
+        self.step_latency_ms = 0.0
+        self.preempt_count = 0
+        self.retry_count = 0
+        self.prefix_cache = None
+        self.param_bytes = sum(nbytes(t) for t in weights.leaves(params))
+        self.kv_bytes = 0
+        tm.HBM_WEIGHT_BYTES.labels(model=name).set(self.param_bytes)
+        tm.HBM_KV_BYTES.labels(model=name).set(0)
+
+    def has_capacity(self, kind: Optional[str] = None) -> bool:
+        return not self._failed and len(self.pending) < 4 * self.ecfg.max_slots
+
+    def has_work(self) -> bool:
+        return bool(self.pending)
+
+    def active_count(self) -> int:
+        return 0
+
+    def held_requests(self) -> List[Request]:
+        return list(self.pending)
+
+    def submit(self, req: Request) -> bool:
+        self.pending.append(req)
+        return True
+
+    def check_cancellations(self, core: MQCore) -> None:
+        """Blocked users' queued embeds are cancelled (serve_embed_batch
+        finishes them when popped)."""
+        self._block_ver = sweep_blocked(core, self.pending, self._block_ver)
+
+    def _dispatch_encode(self, B, bucket, tokens, lens) -> torch.Tensor:
+        if self.fault_plan is not None:
+            self.fault_plan.check("encode")
+        toks = torch.from_numpy(tokens).to(self.device)
+        n = torch.from_numpy(lens).to(self.device)
+        return llama.forward_encoder(self.params, self.cfg, toks, n)
+
+    def step(self, core: MQCore) -> None:
+        """Encode pending requests in padded batches. A dispatch failure
+        errors the batch and propagates: the engine kills and rebuilds the
+        runtime (an encoder has no decode path to prove the device
+        alive)."""
+        serve_embed_batch(self, core, self.pending, self.cfg.max_seq_len,
+                          self._dispatch_encode)
+
+    def stats(self) -> dict:
+        return {"model": self.name, "device": str(self.device),
+                "active_slots": 0, "max_slots": 0,
+                "pending_prefill": len(self.pending),
+                "pages_used": 0, "pages_total": 0,
+                "step_latency_ms": round(self.step_latency_ms, 3),
+                "prefill_latency_ms": 0.0,
+                "tokens_generated": self.tokens_generated,
+                "preemptions": 0, "retries": 0, "stalled_slots": 0,
+                "mfu": 0.0,  # encoders publish no decode-step MFU
+                "param_bytes": self.param_bytes, "kv_bytes": self.kv_bytes,
+                "weights_dtype": self.weights_dtype,
+                "kv_dtype": "bfloat16",  # encoders hold no KV pool
+                "prefix_cache": None, "spec": None,
+                "failed": self._failed}
+
+
+def build_model_runtimes(name: str, cfg: ModelConfig, engine_cfg: EngineConfig,
+                         device, dtype, checkpoint_path: Optional[str] = None,
+                         params: Optional[dict] = None) -> list:
+    """The runtimes serving one model: THE construction path of
+    TorchEngine.load_model and of a failed runtime's rebuild. One runtime
+    per model here (the reference's data-parallel replicas wait for
+    multi-device layouts)."""
+    cls = EncoderRuntime if cfg.is_encoder else ModelRuntime
+    return [cls(name, cfg, engine_cfg, device, dtype, params=params,
+                checkpoint_path=checkpoint_path)]
 
 
 class TorchEngine:
-    """Engine front: owns the fair-share core, the model runtime and the
+    """Engine front: owns the fair-share core, the model runtimes and the
     loop thread, and contains failures: preempted and fault-implicated
     requests go back to the front of their users' queues, and a runtime
-    whose step failed is rebuilt off the loop thread."""
+    whose step failed is rebuilt off the loop thread.
+
+    `models` maps each model to load at start to an HF safetensors
+    directory or None (seeded weights); None serves engine_cfg.model
+    alone. `params` are weights for engine_cfg.model, used as given."""
 
     # HBM/allocator timeline: one sample per period (the engine ticks far
     # faster) of every runtime's page pool and footprint, plus the card's
@@ -1469,19 +1699,18 @@ class TorchEngine:
     def __init__(self, engine_cfg: EngineConfig, device=None, dtype=None,
                  blocklist_path: Optional[str] = None,
                  params: Optional[dict] = None,
-                 fairness: Fairness = Fairness.REQUESTS):
+                 fairness: Fairness = Fairness.REQUESTS,
+                 models: Optional[Dict[str, Optional[str]]] = None):
         self.ecfg = engine_cfg
         # The scheduling policy is built before any device work, so an
         # unknown --scheduler fails at start-up.
         self.policy = make_policy(engine_cfg)
         self.device = resolve_device(device)
         self.dtype = dtype
-        # A rebuild reuses the weights the engine was built with (None:
-        # the seed's init again).
-        self._params = params
-        cfg = get_model_config(engine_cfg.model)
-        if cfg is None:
-            raise KeyError(f"unknown model architecture: {engine_cfg.model}")
+        models = dict(models) if models is not None else {engine_cfg.model: None}
+        for name in models:
+            if get_model_config(name) is None:
+                raise KeyError(f"unknown model architecture: {name}")
         # A plan file fails here, before any device work.
         self.fault_plan = None
         if engine_cfg.fault_plan:
@@ -1507,10 +1736,14 @@ class TorchEngine:
         self.last_tick_at = time.monotonic()
         # Graceful-shutdown gate: after quiesce() every enqueue sheds (503).
         self.accepting = True
-        rt = ModelRuntime(engine_cfg.model, cfg, engine_cfg, self.device,
-                          dtype, params)
-        self._attach_hooks(rt)
-        self.runtimes: Dict[str, ModelRuntime] = {engine_cfg.model: rt}
+        # The runtime table: changed on the loop thread only (load_model,
+        # evict_model, a rebuild's swap); other threads read snapshots.
+        self.runtimes: Dict[str, object] = {}
+        # Where each loaded model's weights came from: its checkpoint
+        # (None: the seed) and, for engine_cfg.model, weights passed in. A
+        # rebuild reads them again.
+        self._model_sources: Dict[str, Optional[str]] = {}
+        self._model_params: Dict[str, dict] = {}
         self.pending: Dict[int, Request] = {}
         self._pending_lock = threading.Lock()
         self._cond = threading.Condition()
@@ -1526,18 +1759,85 @@ class TorchEngine:
         self._rebuilt_lock = threading.Lock()
         self._last_recover_attempt = 0.0
         self.recover_interval = 5.0
+        for name, ckpt in models.items():
+            self.load_model(name, ckpt, params=params
+                            if name == engine_cfg.model else None)
 
-    def _attach_hooks(self, rt: ModelRuntime) -> None:
+    def _attach_hooks(self, rt) -> None:
         rt.fault_plan = self.fault_plan
-        rt.policy = self.policy
-        rt.slo = self.slo
-        if self.ecfg.preempt:
-            rt.on_preempt = self._requeue_preempted
+        if isinstance(rt, ModelRuntime):
+            rt.policy = self.policy
+            rt.slo = self.slo
+            if self.ecfg.preempt:
+                rt.on_preempt = self._requeue_preempted
+
+    # -- model management (/api/pull and /api/delete) -------------------------
+    def load_model(self, name: str, checkpoint_path: Optional[str] = None,
+                   params: Optional[dict] = None) -> None:
+        """Load a model onto the engine's device: built on the calling
+        thread (seeded weights, or the HF safetensors directory), then put
+        into the runtime table on the loop thread. A model already loaded
+        stays as it is. Raises KeyError for an unknown architecture and
+        whatever the build raised (nothing falls back to another
+        device)."""
+        cfg = get_model_config(name)
+        if cfg is None:
+            raise KeyError(f"unknown model architecture: {name}")
+        if name in self.runtimes:
+            return
+        (rt,) = build_model_runtimes(name, cfg, self.ecfg, self.device,
+                                     self.dtype, checkpoint_path, params)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # loaded = resident, not queued
+        self._attach_hooks(rt)
+
+        def install() -> None:
+            if name in self.runtimes:
+                return  # a concurrent pull of the same model won
+            self.runtimes[name] = rt
+            self._model_sources[name] = checkpoint_path
+            if params is not None:
+                self._model_params[name] = params
+
+        self.call_on_loop(install)
+        log.info("loaded model %s (%.1f MB of weights)", name, rt.param_bytes / 1e6)
+        self.notify()
+
+    def evict_model(self, name: str) -> bool:
+        """Drop a loaded model and its device memory, on the loop thread.
+        False when it is not loaded; RuntimeError while it holds work
+        (queued requests for it stay queued until it is loaded again)."""
+
+        def evict() -> bool:
+            rt = self.runtimes.get(name)
+            if rt is None:
+                return False
+            if rt.has_work():
+                raise RuntimeError(f"model {name} has in-flight work")
+            del self.runtimes[name]
+            self._model_sources.pop(name, None)
+            self._model_params.pop(name, None)
+            if rt in self._failed_runtimes:
+                self._failed_runtimes.remove(rt)
+            # Drop the device tensors now, whoever still holds the
+            # runtime object.
+            rt.params = None
+            if isinstance(rt, ModelRuntime):
+                rt.kc = rt.vc = rt.recent = None
+            return True
+
+        ok = self.call_on_loop(evict)
+        if ok:
+            log.info("evicted model %s", name)
+        return ok
+
+    def loaded_models(self) -> List[str]:
+        return list(self.runtimes)
 
     # -- request flow ------------------------------------------------------
     def enqueue_request(self, user: str, ip: str, model: str,
                         family: Family = Family.UNKNOWN, prompt_tokens=None,
-                        sampling=None) -> Request:
+                        sampling=None, kind: str = "generate") -> Request:
         """Enqueue into the native core AND register the Request under one
         lock, so the loop can never pop an id it doesn't know. Raises
         BlockedError for blocked users/IPs and QueueFullError at a
@@ -1555,9 +1855,10 @@ class TorchEngine:
             raise QueueFullError("user_queue_full", self.retry_after_s(),
                                  cfg.max_queued_per_user)
         with self._pending_lock:
-            rid = self.core.enqueue(user, ip, model, family)
-            req = Request(rid, user, model, prompt_tokens or [], sampling)
-            req.trace = self.tracer.begin(rid, user, model)
+            rid = self.core.enqueue(user, ip, model, family, kind=kind)
+            req = Request(rid, user, model, prompt_tokens or [], sampling,
+                          kind=kind)
+            req.trace = self.tracer.begin(rid, user, model, kind=kind)
             self.pending[rid] = req
         self.notify()
         return req
@@ -1590,7 +1891,8 @@ class TorchEngine:
         fresh id. False when its user is blocked: it is finished here."""
         try:
             with self._pending_lock:
-                rid = self.core.requeue_front(req.user, "", req.model)
+                rid = self.core.requeue_front(req.user, "", req.model,
+                                              kind=req.kind)
                 req.req_id = rid
                 self.pending[rid] = req
         except BlockedError:
@@ -1656,18 +1958,25 @@ class TorchEngine:
                 req.finish(FinishReason.CANCELLED)
             self.notify()
             return
-        for rt in self.runtimes.values():
-            for cand in rt.held_requests() + list(rt.inflight_prefill):
+        for rt in list(self.runtimes.values()):
+            for cand in (rt.held_requests()
+                         + list(getattr(rt, "inflight_prefill", ()))):
                 if cand.req_id == req_id:
                     cand.cancelled.set()
                     self.notify()
                     return
 
-    def resolve_runtime(self, model: str) -> Optional[ModelRuntime]:
+    def resolve_runtime(self, model: str, kind: str = "generate"):
+        """The runtime serving `model` (smart_match), or None. With no
+        model named: a live runtime that serves `kind` (a generate request
+        never lands on an encoder), else a failed one mid-rebuild."""
+        runtimes = dict(self.runtimes)
         if not model:
-            return next(iter(self.runtimes.values()), None)
-        key = smart_match(model, self.runtimes.keys())
-        return self.runtimes[key] if key is not None else None
+            able = [rt for rt in runtimes.values() if kind in rt.SERVES]
+            return next((rt for rt in able if not rt._failed),
+                        able[0] if able else None)
+        key = smart_match(model, runtimes.keys())
+        return runtimes[key] if key is not None else None
 
     def notify(self) -> None:
         with self._cond:
@@ -1728,24 +2037,36 @@ class TorchEngine:
                 log.exception("engine loop iteration failed; continuing")
                 time.sleep(0.1)
 
+    @staticmethod
+    def _gate_eligible(rt, kind: str) -> bool:
+        """Whether the native pop may release a `kind` task for `rt`: it
+        can take one now, or it can never serve the kind (then _place
+        errors the mismatch instead of parking it forever)."""
+        if kind not in rt.SERVES:
+            return True
+        return rt.has_capacity(kind)
+
     def _admit(self) -> int:
         """Pop windows of requests in fair-share order while a runtime can
         take one and place each window in policy order (decision point
-        (a); fcfs pops a window of 1, the plain pop-and-place flow). A
-        failed runtime has no capacity: its requests wait in the queue
-        until the rebuild is swapped in."""
+        (a); fcfs pops a window of 1, the plain pop-and-place flow). Two
+        capacity pools, one gate each: an embed task is gated on the embed
+        list and a generate task on the generate list, so a full decode
+        batch does not park embeds. A failed runtime has no capacity: its
+        requests wait in the queue until the rebuild is swapped in."""
         admitted = 0
         pol = self.policy
         # One tick of the anti-starvation aging clock per admission pass.
         pol.on_admit_tick()
         while True:
-            eligible = [name for name, rt in self.runtimes.items()
-                        if rt.has_capacity()]
-            if not eligible:
+            gen_ok = [name for name, rt in self.runtimes.items()
+                      if self._gate_eligible(rt, "generate")]
+            emb_ok = [name for name, rt in self.runtimes.items()
+                      if self._gate_eligible(rt, "embed")]
+            if not gen_ok and not emb_ok:
                 break
-            # No embeddings here: embed-kind tasks are never eligible.
             items, stuck = self.core.next_window(
-                pol.admission_window, eligible_models=eligible, eligible_embed=[])
+                pol.admission_window, eligible_models=gen_ok, eligible_embed=emb_ok)
             batch = []
             for rid, user, model in items:
                 with self._pending_lock:
@@ -1770,10 +2091,22 @@ class TorchEngine:
         if req.expired():
             drop_expired(req, self.core, model)
             return False
-        rt = self.resolve_runtime(model)
+        rt = self.resolve_runtime(model, kind=req.kind)
+        if rt is None and model:
+            # Evicted between the native gate and placement: back to the
+            # front of the user's queue until the model is loaded again.
+            return self._requeue(req, user, model)
         if rt is None:
             self.core.mark_dropped(user, started=req.started)
             req.finish(FinishReason.ERROR, error=f"model not loaded: {model}")
+            return False
+        if req.kind not in rt.SERVES:
+            # A permanent mismatch: error it, never park it.
+            self.core.mark_dropped(user, started=req.started)
+            req.finish(FinishReason.ERROR, error=(
+                f"model {model or rt.name} is an embedding-only model"
+                if req.kind == "generate" else
+                f"model {model or rt.name} does not support embeddings"))
             return False
         rt.submit(req)
         req.trace_event("place", runtime=rt.name)
@@ -1783,7 +2116,21 @@ class TorchEngine:
             req.started = True
         return True
 
-    def _kill_runtime(self, rt: ModelRuntime, exc: Exception) -> None:
+    def _requeue(self, req: Request, user: str, model: str) -> bool:
+        """Return a popped request that cannot be placed to the FRONT of
+        its user's queue (FIFO kept). Always False: nothing was placed."""
+        try:
+            with self._pending_lock:
+                rid = self.core.requeue_front(user, "", model, kind=req.kind)
+                req.req_id = rid
+                self.pending[rid] = req
+            req.trace_event("requeue")
+        except BlockedError:
+            self.core.mark_dropped(user, started=False)
+            req.finish(FinishReason.CANCELLED)
+        return False
+
+    def _kill_runtime(self, rt, exc: Exception) -> None:
         """Contain a failed step: retry or poison every request the runtime
         holds, drop its device buffers (the rebuild must fit beside the
         other runtimes) and queue it for a rebuild."""
@@ -1793,10 +2140,14 @@ class TorchEngine:
         rt.params = rt.kc = rt.vc = rt.recent = None
         self._failed_runtimes.append(rt)
 
-    def _fail_runtime(self, rt: ModelRuntime, msg: str) -> None:
+    def _fail_runtime(self, rt, msg: str) -> None:
         """Each implicated request is retried ONCE on a fresh dispatch
         (mid-decode victims replay prompt + generated so their streams
         resume after the rebuild); one that keeps failing is poisoned."""
+        if isinstance(rt, EncoderRuntime):
+            while rt.pending:
+                self._retry_or_error(rt.pending.popleft(), msg)
+            return
         for i, req in enumerate(rt.slot_req):
             if req is not None:
                 rt._release_slot_pages(i)
@@ -1804,7 +2155,7 @@ class TorchEngine:
                 rt.slot_req[i] = None
                 self._retry_or_error(req, msg, replay=True)
         rt._stalled_slots.clear()
-        for q in (rt.pending_prefill, rt.chunking):
+        for q in (rt.pending_prefill, rt.pending_embed, rt.chunking):
             while q:
                 self._retry_or_error(q.popleft(), msg)
         for slot in list(rt.reserved_slots):
@@ -1823,12 +2174,14 @@ class TorchEngine:
         threading.Thread(target=self._rebuild_runtime, args=(rt,),
                          name=f"recover-{rt.name}", daemon=True).start()
 
-    def _rebuild_runtime(self, rt: ModelRuntime) -> bool:
-        """(background thread) Build a replacement runtime with the
-        engine's weights and post it for the loop thread to swap in."""
+    def _rebuild_runtime(self, rt) -> bool:
+        """(background thread) Build a replacement runtime from the model's
+        own weights source and post it for the loop thread to swap in."""
         try:
-            fresh = ModelRuntime(rt.name, rt.cfg, self.ecfg, self.device,
-                                 self.dtype, self._params)
+            (fresh,) = build_model_runtimes(
+                rt.name, rt.cfg, self.ecfg, self.device, self.dtype,
+                self._model_sources.get(rt.name),
+                self._model_params.get(rt.name))
         except Exception:  # noqa: BLE001 — retried on the next interval
             log.exception("rebuild of %s failed; retrying in %.0fs",
                           rt.name, self.recover_interval)
@@ -1845,14 +2198,15 @@ class TorchEngine:
         with self._rebuilt_lock:
             items, self._rebuilt = self._rebuilt, []
         for rt, fresh in items:
-            self._attach_hooks(fresh)
-            if self.runtimes.get(rt.name) is rt:
-                self.runtimes[rt.name] = fresh
-            for q in (rt.pending_prefill, rt.chunking):
-                while q:
-                    fresh.submit(q.popleft())
-            self._failed_runtimes.remove(rt)
             self._recovering.discard(id(rt))
+            if self.runtimes.get(rt.name) is not rt:
+                continue  # evicted meanwhile: the rebuild is dropped
+            self._attach_hooks(fresh)
+            self.runtimes[rt.name] = fresh
+            for r in rt.held_requests():
+                fresh.submit(r)
+            if rt in self._failed_runtimes:
+                self._failed_runtimes.remove(rt)
             log.warning("runtime %s rebuilt; serving resumes", rt.name)
             self.notify()
 
@@ -1863,11 +2217,14 @@ class TorchEngine:
         self._hbm_last_sample = now
         models = {}
         for name, rt in self.runtimes.items():
-            models[name] = {"weight_bytes": int(rt.param_bytes),
-                            "kv_bytes": int(rt.kv_bytes),
-                            "free": rt.alloc.free_pages, "used": rt.alloc.used_pages,
-                            "cached": rt.alloc.cached_pages,
-                            "pool": rt.alloc.num_pages - 1}
+            row = {"weight_bytes": int(rt.param_bytes),
+                   "kv_bytes": int(rt.kv_bytes),
+                   "free": 0, "used": 0, "cached": 0, "pool": 0}
+            if isinstance(rt, ModelRuntime):  # encoders hold no page pool
+                row.update(free=rt.alloc.free_pages, used=rt.alloc.used_pages,
+                           cached=rt.alloc.cached_pages,
+                           pool=rt.alloc.num_pages - 1)
+            models[name] = row
         sample = {"models": models}
         mem = device_memory(self.device)  # None on the CPU: no readings
         if mem is not None:
@@ -1892,14 +2249,23 @@ class TorchEngine:
                 continue
             try:
                 rt.check_cancellations(self.core)
-                if rt.step_ragged(self.core):
+                if isinstance(rt, EncoderRuntime):
+                    if rt.has_work():
+                        rt.step(self.core)
+                        did_work = True
+                    continue
+                ran_ragged = rt.step_ragged(self.core)
+                did_work = did_work or ran_ragged
+                # Embeds on a generative model: one stateless batch
+                # forward, no slot or page contention with decode.
+                if rt.pending_embed and rt.step_embed(self.core):
                     did_work = True
-                elif rt.active_count():
+                if not ran_ragged and rt.active_count():
                     # k=1 only when an admission could land between steps.
                     waiting = (bool(rt.pending_prefill)
                                or bool(self.core.queued_matching(rt.name)))
-                    k = (1 if (waiting and rt.has_capacity()) or rt.chunking
-                         else self.ecfg.decode_steps_per_iter)
+                    k = (1 if (waiting and rt.has_capacity("generate"))
+                         or rt.chunking else self.ecfg.decode_steps_per_iter)
                     h = rt.step_decode_dispatch(self.core, k_steps=k)
                     if h is not None:
                         handles.append((rt, h))
@@ -1923,7 +2289,7 @@ class TorchEngine:
     # -- counters ------------------------------------------------------------
     def prefix_cache_stats(self) -> dict:
         models = {name: rt.prefix_cache.stats()
-                  for name, rt in self.runtimes.items()
+                  for name, rt in dict(self.runtimes).items()
                   if rt.prefix_cache is not None}
         return {"enabled": bool(models), "models": models}
 
@@ -1935,11 +2301,11 @@ class TorchEngine:
             if rt.prefix_cache is not None))
 
     def preemption_count(self) -> int:
-        return sum(rt.preempt_count for rt in self.runtimes.values())
+        return sum(rt.preempt_count for rt in list(self.runtimes.values()))
 
     def retry_count(self) -> int:
         return self._engine_retries + sum(rt.retry_count
-                                          for rt in self.runtimes.values())
+                                          for rt in list(self.runtimes.values()))
 
     def scheduler_stats(self) -> dict:
         """Live policy readout (TUI sched chip, /metrics.json): the active
@@ -1956,7 +2322,7 @@ class TorchEngine:
         return chip_stats(self.device)
 
     def stats(self) -> dict:
-        runtime_stats = [rt.stats() for rt in self.runtimes.values()]
+        runtime_stats = [rt.stats() for rt in list(self.runtimes.values())]
         chips = self.chip_stats()
         hbm_total = sum(c["hbm_total"] for c in chips) or None
         return {"queued": self.core.total_queued(),

@@ -110,7 +110,9 @@ class RequestStats:
 
 
 class Request:
-    """One generation request flowing through the engine."""
+    """One generation (or embedding) request flowing through the engine.
+    An embed request finishes with its vector in `embedding` and no
+    tokens."""
 
     def __init__(
         self,
@@ -119,12 +121,14 @@ class Request:
         model: str,
         prompt_tokens: Sequence[int],
         sampling: Optional[SamplingParams] = None,
+        kind: str = "generate",  # "generate" | "embed"
     ):
         self.req_id = req_id
         self.user = user
         self.model = model
         self.prompt_tokens = list(prompt_tokens)
         self.sampling = sampling or SamplingParams()
+        self.kind = kind
         self.stream = TokenStream()
         self.stats = RequestStats(prompt_tokens=len(self.prompt_tokens))
         self.cancelled = threading.Event()
@@ -155,6 +159,7 @@ class Request:
         self.generated_ids: List[int] = []
         self.emitted_len = 0  # chars of detok text already pushed
         self._detok_text = ""
+        self.embedding: Optional[list] = None
 
     def emit_text(self, new_text: str) -> Optional[str]:
         """Accumulate detokenized text, honoring stop strings with

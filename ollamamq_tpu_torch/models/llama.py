@@ -1,7 +1,7 @@
 """Llama/Qwen-family decoder forwards in PyTorch.
 
 Parameters are a plain dict: "embed" [V, D], "final_norm" [D], optional
-"lm_head" [V, D], and "layers", a list with one dict per layer whose
+"lm_head" [V, D] (absent for tied embeddings and for encoders), and "layers", a list with one dict per layer whose
 matmul weights keep the JAX package's [in, out] orientation (wq [D,
 H*hd], wo [H*hd, D], ...). Activations are flattened to [tokens, D]; the
 KV pools [L, S, Hk, hd] are written IN PLACE (the JAX forwards return
@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ollamamq_tpu_torch.config import ModelConfig
-from ollamamq_tpu_torch.ops.attention import (paged_decode_attention_any,
+from ollamamq_tpu_torch.ops.attention import (bidirectional_attention,
+                                              causal_attention,
+                                              paged_decode_attention_any,
                                               ragged_attention_any)
 from ollamamq_tpu_torch.ops.quant import embed_lookup, kv_write, logits_head, qeinsum
 from ollamamq_tpu_torch.ops.rope import apply_rope
@@ -69,7 +71,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers.append(lp)
     params = {"embed": w((cfg.vocab_size, d), d), "final_norm": ones(d),
               "layers": layers}
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings and not cfg.is_encoder:
         params["lm_head"] = w((cfg.vocab_size, d), d)
     return params
 
@@ -198,3 +200,47 @@ def forward_decode(
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
                 attend)
     return _logits(params, cfg, x), k_cache, v_cache
+
+
+def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      seq_lens: torch.Tensor, attention) -> torch.Tensor:
+    """Stateless [B, T] forward with `attention(q, k, v, seq_lens)` over
+    dense [B, T, H, hd] tensors (no KV write), then a masked mean pool of
+    the final-norm states in float32 and L2 normalisation. Rows with
+    seq_len 0 pool to zeros."""
+    B, T = tokens.shape
+    x = embed_lookup(params["embed"], tokens.reshape(-1), _adtype(params))
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=tokens.device).repeat(B)
+
+    def attend(q, k, v):
+        out = attention(q.reshape(B, T, *q.shape[1:]),
+                        k.reshape(B, T, *k.shape[1:]),
+                        v.reshape(B, T, *v.shape[1:]), seq_lens)
+        return out.reshape(B * T, *q.shape[1:])
+
+    for lp in params["layers"]:
+        x = layer_step(cfg, lp, x, positions, attend)
+    x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps).float()
+    x = x.reshape(B, T, -1)
+    pos = torch.arange(T, device=tokens.device)
+    mask = (pos[None, :] < seq_lens.to(tokens.device)[:, None]).float()[..., None]
+    pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
+    return pooled / torch.linalg.norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+
+
+def forward_embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  seq_lens: torch.Tensor) -> torch.Tensor:
+    """Embeddings from a GENERATIVE model: causal forward with no KV
+    write, masked mean pool of the final-norm states, L2 norm (llama.cpp's
+    default pooling for causal models). tokens [B, T], seq_lens [B] ->
+    [B, D] float32."""
+    return _pooled_embedding(params, cfg, tokens, seq_lens, causal_attention)
+
+
+def forward_encoder(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                    seq_lens: torch.Tensor) -> torch.Tensor:
+    """Embedding encoder: bidirectional attention, masked mean pool, L2
+    norm. tokens [B, T], seq_lens [B] -> [B, D] float32."""
+    return _pooled_embedding(params, cfg, tokens, seq_lens,
+                             bidirectional_attention)

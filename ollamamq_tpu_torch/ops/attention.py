@@ -146,6 +146,25 @@ def paged_decode_attention_any(
     return fn(q, k_cache, v_cache, page_table, seq_lens, page_size)
 
 
+# Masked logits, as in the JAX package: a row with nothing visible then
+# softmaxes to a uniform (finite) distribution, never NaN.
+NEG_INF = -1e30
+
+
+def _dense_attention(q, k, v, mask) -> torch.Tensor:
+    """[B, T, H, hd] attention over dense K/V under a boolean mask
+    broadcastable to [B, H, Tq, Tk]; f32 logits and softmax. GQA repeats
+    each kv head over its H // Hk query heads."""
+    hd = q.shape[-1]
+    n_rep = q.shape[2] // k.shape[2]
+    k = k.float().repeat_interleave(n_rep, dim=2)
+    v = v.float().repeat_interleave(n_rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * (1.0 / math.sqrt(hd))
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+
+
 def causal_attention(
     q: torch.Tensor,  # [B, T, H, hd]
     k: torch.Tensor,  # [B, T, Hk, hd]
@@ -153,17 +172,25 @@ def causal_attention(
     seq_lens: torch.Tensor,  # [B] valid lengths (padding masked out)
 ) -> torch.Tensor:
     """Causal self-attention over a padded batch with no KV pool, f32
-    softmax (the quantization guardrail's probe). GQA repeats each kv
-    head over its H // Hk query heads."""
-    B, T, H, hd = q.shape
-    n_rep = H // k.shape[2]
-    k = k.float().repeat_interleave(n_rep, dim=2)
-    v = v.float().repeat_interleave(n_rep, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * (1.0 / math.sqrt(hd))
+    softmax (the embedding forward of a generative model and the
+    quantization guardrail's probe)."""
+    T = q.shape[1]
     pos = torch.arange(T, device=q.device)
     causal = pos[None, :] <= pos[:, None]  # [q, k]
     valid = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]  # [B, 1, k]
-    mask = causal[None, None] & valid[:, None]
-    logits = torch.where(mask, logits, -1e30)  # the JAX package's NEG_INF
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(q.dtype)
+    return _dense_attention(q, k, v, causal[None, None] & valid[:, None])
+
+
+def bidirectional_attention(
+    q: torch.Tensor,  # [B, T, H, hd]
+    k: torch.Tensor,  # [B, T, Hk, hd]
+    v: torch.Tensor,  # [B, T, Hk, hd]
+    seq_lens: torch.Tensor,  # [B] valid lengths (padding masked out)
+) -> torch.Tensor:
+    """Full (non-causal) attention for encoder / embedding models: every
+    position sees every valid key of its row. Builds [B, H, T, T] f32
+    logits, as the JAX package's version does."""
+    T = q.shape[1]
+    pos = torch.arange(T, device=q.device)
+    valid = pos[None, :] < seq_lens.to(q.device)[:, None]  # [B, k]
+    return _dense_attention(q, k, v, valid[:, None, None, :])

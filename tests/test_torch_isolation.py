@@ -1,9 +1,11 @@
 """The port stands alone: every module of ollamamq_tpu_torch imports and
 serves a request (bf16/f32, then int8 weights and int8 KV pages, then
 with the prefix cache, speculation and an injected ragged fault that is
-retried, then under srpt with token fairness and a /metrics scrape)
-without JAX or the JAX package ever being imported, and without a GPU
-the engine refuses to start unless the CPU is asked for.
+retried, then under srpt with token fairness and a /metrics scrape, then
+several models: an encoder pulled, embedded with and deleted over HTTP,
+and a safetensors checkpoint written and served) with JAX, the JAX
+package, safetensors and tokenizers all blocked from import, and
+without a GPU the engine refuses to start unless the CPU is asked for.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -18,7 +20,20 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, json, pkgutil, sys, urllib.request
+import sys
+
+
+class _Blocked:
+    # Importing any of these fails: the port needs none of them.
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu", "safetensors",
+                                  "tokenizers"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+import importlib, json, pkgutil, tempfile, urllib.request
 import ollamamq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ollamamq_tpu_torch.__path__,
                                                "ollamamq_tpu_torch.")]
@@ -64,6 +79,27 @@ body_s, stats_s = serve_one(dataclasses.replace(cfg, scheduler="srpt"),
 ttft = [ln for ln in stats_s["metrics"].splitlines()
         if ln.startswith('ollamamq_ttft_ms_count{model="test-tiny"}')]
 
+def http(base, path, body):
+    req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                 headers={"X-User-ID": "solo"})
+    return urllib.request.urlopen(req, timeout=60).read().decode()
+
+
+srv = serve_in_thread(TorchEngine(cfg, device="cpu", dtype=torch.float32))
+base = f"http://127.0.0.1:{srv.server_address[1]}"
+pull = [json.loads(x)["status"] for x in
+        http(base, "/api/pull", {"model": "test-tiny-embed"}).splitlines()]
+emb = json.loads(http(base, "/api/embed", {"model": "test-tiny-embed",
+                                           "input": ["a", "bc"]}))["embeddings"]
+deleted = json.loads(http(base, "/api/delete", {"model": "test-tiny-embed"}))
+models_after = srv.engine.loaded_models()
+from ollamamq_tpu_torch.models import weights
+ckpt = tempfile.mkdtemp()
+weights.save_safetensors(srv.engine.runtimes["test-tiny"].params,
+                         srv.engine.runtimes["test-tiny"].cfg, ckpt)
+stop_server(srv)
+body_ckpt, _ = serve_one(cfg, models={"test-tiny": ckpt})
+
 refused = None
 if not torch.cuda.is_available():
     try:
@@ -82,8 +118,11 @@ print(json.dumps({
     "eval_count_srpt": body_s["eval_count"],
     "policy_srpt": stats_s["scheduler"]["policy"],
     "ttft_count": ttft,
+    "pull": pull, "embed_dims": [len(v) for v in emb], "deleted": deleted,
+    "models_after_delete": models_after, "eval_count_ckpt": body_ckpt["eval_count"],
     "foreign": sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu")),
+                      if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu",
+                                             "safetensors", "tokenizers")),
     "refused": refused,
     "cuda": torch.cuda.is_available(),
 }))
@@ -107,6 +146,11 @@ def test_port_imports_and_serves_without_jax():
     assert out["eval_count_srpt"] == 4 and out["policy_srpt"] == "srpt"
     # Four served requests in this process (one per engine).
     assert out["ttft_count"] == ['ollamamq_ttft_ms_count{model="test-tiny"} 4']
+    assert out["pull"] == ["pulling manifest", "loading test-tiny-embed into HBM",
+                           "success"]
+    assert out["embed_dims"] == [64, 64] and out["deleted"] == {"status": "success"}
+    assert out["models_after_delete"] == ["test-tiny"]
+    assert out["eval_count_ckpt"] == 4
     expected = {"ollamamq_tpu_torch.engine.engine", "ollamamq_tpu_torch.server.app",
                 "ollamamq_tpu_torch.ops.cuda.paged_attention",
                 "ollamamq_tpu_torch.ops.cuda.ragged_attention",
@@ -119,7 +163,8 @@ def test_port_imports_and_serves_without_jax():
                 "ollamamq_tpu_torch.telemetry.schema", "ollamamq_tpu_torch.telemetry.mfu",
                 "ollamamq_tpu_torch.telemetry.attribution",
                 "ollamamq_tpu_torch.telemetry.tracing",
-                "ollamamq_tpu_torch.telemetry.stepprof", "ollamamq_tpu_torch.telemetry.slo"}
+                "ollamamq_tpu_torch.telemetry.stepprof", "ollamamq_tpu_torch.telemetry.slo",
+                "ollamamq_tpu_torch.server.registry", "ollamamq_tpu_torch.engine.tokenizer"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
