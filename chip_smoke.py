@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about four minutes
+    python3 chip_smoke.py            # one card, about five minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -69,10 +69,14 @@ Phases, each printing JSON lines; any failure exits non-zero:
            repeated pattern and a sampled request at once. Gates: every
            reply stop/length, preemptions, prefix hits and accepted drafts
            >= 1, exactly one retry, the sampled request never speculates,
-           no page used afterwards and the tree's invariants hold, only
-           the two bf16 kernels launched. Prints tokens/s and, per reply,
-           the first token that differs from the request served alone
-           (not gated).
+           no page used afterwards and the tree's invariants hold, the
+           decision journal of the whole phase (the ring holds it all) is
+           clean under check_invariants (pages conserved through
+           preemption, eviction and rollback; no slot held twice; no
+           starvation; one terminal per request), only the two bf16
+           kernels launched. Prints tokens/s, the journal's records by
+           kind and, per reply, the first token that differs from the
+           request served alone (not gated).
   serve-runtime-f32
            byte identity at full width in float32 (TF32 off): a lone
            greedy request with and without a forced self-preemption
@@ -84,7 +88,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
            fairness, max_queued_per_user 3 and max_queued 6. With the
            engine loop not started, one user's fourth request gets 429,
            a second user's three are queued (6 in all) and a third
-           user's request gets 503, each with a Retry-After >= 1; the
+           user's request gets 503, each with a Retry-After >= 1, and the
+           journal holds exactly one shed record per 429 and 503; the
            loop then serves the 6. Then one user sends 4 long requests
            (160 tokens) and four users 2 short ones (16), paced by the
            client under the caps. Gates: every reply stop/length; the
@@ -129,9 +134,41 @@ Phases, each printing JSON lines; any failure exits non-zero:
            the seeded engine's for 2 prompts x 32 tokens; the directory
            is deleted. Prints embed ms per batch per model, pull seconds,
            bytes freed by the delete and checkpoint write/load seconds.
+  serve-durable
+           crash durability: llama3.2:1b at full width (seeded) served by
+           `python -m ollamamq_tpu_torch.cli --wal-dir` in a subprocess on
+           the card, 4 users each sending one greedy /api/generate stream
+           of 96 tokens. Each client follows its stream by the req_id the
+           journal gives it through GET /api/stream/{rid} (one frame per
+           token); once each has read 16 token frames the clients stop
+           reading, and 0.1 s later the server gets SIGKILL. A restart on
+           the same WAL dir must report 4 recovered streams, and each
+           client resumes with ?from=N. float32 (TF32 off): every
+           stream's ids and text, before plus after the crash, identical
+           to the same requests served uninterrupted in-process from a
+           fresh WAL dir, and the recovered process's /health shows the
+           two float32-q kernels launched and the int8 ones not. bfloat16:
+           every stream reaches done, and the frames replayed from the
+           recovered registry equal the frames read before the crash (the
+           first differing token against the uninterrupted run printed,
+           not gated). SIGTERM (bf16): 4 streams, the signal once each has
+           8 tokens, a request 0.2 s later gets 503, every in-flight
+           stream completes, the process exits 0, and an engine restarted
+           on that WAL dir recovers 0 streams. No WAL may degrade.
+           Recorded, not gated: tokens/s and TTFT p50 of the same traffic
+           in-process with and without a WAL (after a warm-up run: off,
+           on, on, off, twice), the WAL
+           fsync p50/p99, ollamamq_recovered_streams_total, seconds from
+           restart to the first resumed frame, journal records per
+           request. Server logs and WAL dirs under chiprun_out/chip_smoke.
 
-Then the card as nvidia-smi names it, the kernels line, and the last
-line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
+Then the card as nvidia-smi names it, the kernels line (launches: the
+serve window of the row's pool format plus serve-durable's, counted in
+this process and in each server subprocess: a killed server's from its
+/health read just before the SIGKILL, so the launches of those last few
+ms go uncounted; the others' whole windows from the counts they log at
+the end of their graceful exit), and the
+last line {"ok": true, "device": {...}}. Without CUDA, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
 
@@ -145,6 +182,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -908,6 +946,7 @@ def serve_runtime_phase(report) -> None:
     from ollamamq_tpu_torch.engine.engine import TorchEngine
     from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.telemetry.journal import check_invariants
     from ollamamq_tpu_torch.testing.faults import FaultPlan
 
     model, ps, usable, max_new = "llama3.2:1b", 32, 44, 160
@@ -940,7 +979,7 @@ def serve_runtime_phase(report) -> None:
                         max_pages_per_seq=16, max_batch_tokens=512, token_granule=16,
                         max_new_tokens=max_new, decode_steps_per_iter=8,
                         dtype="bfloat16", prefix_cache=True, spec=True, spec_k=4,
-                        fault_plan=plan, seed=0)
+                        fault_plan=plan, seed=0, journal_ring=1_000_000)
     engine = TorchEngine(ecfg)
     rt = engine.runtimes[model]
     srv = serve_in_thread(engine, port=0, timeout_s=600)
@@ -973,6 +1012,12 @@ def serve_runtime_phase(report) -> None:
     stats, sampled_speculated = engine.call_on_loop(
         lambda: (rt.prefix_cache.check(), rt.stats(), "sampled" in rt._spec_user)[1:])
     stop_server(srv)
+    # The whole phase's journal, every record kept (the ring holds it).
+    records = engine.journal.tail(None)
+    journal_kinds = {}
+    for r in records:
+        journal_kinds[r["kind"]] = journal_kinds.get(r["kind"], 0) + 1
+    violations = check_invariants(records)
     if errors or len(results) != len(jobs) + 1:
         raise SystemExit(f"serve-runtime requests failed: {errors}")
 
@@ -1009,7 +1054,9 @@ def serve_runtime_phase(report) -> None:
             "cached_pages_after": stats["kv_pages_cached"],
             "ragged_dispatches": stats["ragged_dispatches"],
             "decode_steps": stats["decode_steps"], "launches": counts,
-            "fault_plan": plan.stats()}
+            "fault_plan": plan.stats(), "journal_records": len(records),
+            "journal_evicted": engine.journal.seq - len(records),
+            "journal_by_kind": journal_kinds, "journal_violations": violations[:5]}
     emit(line)
     report["serve_runtime"] = line
     del plain, engine, rt
@@ -1020,6 +1067,7 @@ def serve_runtime_phase(report) -> None:
              "prefix_hits": pc["hits"] >= 1, "spec_accepted": line["spec_accepted"] >= 1,
              "one_retry": line["retry_count"] == 1, "sampled_no_spec": not sampled_speculated,
              "no_used_pages": line["used_pages_after"] == 0,
+             "journal_clean": not violations and line["journal_evicted"] == 0,
              "kernels": all(counts[k] > 0 for k in own)
              and all(counts[k] == 0 for k in counts if k not in own)}
     if not all(gates.values()):
@@ -1290,12 +1338,19 @@ def serve_sched_phase(report) -> None:
     phase_ms = {m: {ph: modes[m][ph]["p50_ms"] for ph in stepprof.PHASES}
                 for m in ("ragged", "decode") if m in modes}
     last_hbm = next((s for s in reversed(hbm["timeline"]) if "device" in s), None)
+    shed_records = {}
+    for r in engine.journal.tail(None, kind="shed"):
+        shed_records[r["reason"]] = shed_records.get(r["reason"], 0) + 1
+    answered = {}
+    for status, _, _ in sheds.values():
+        answered[status] = answered.get(status, 0) + 1
     line = {"phase": "serve-sched", "model": model, "layers": rt.cfg.num_layers,
             "scheduler": "srpt", "fairness": "tokens", "max_queued": ecfg.max_queued,
             "max_queued_per_user": ecfg.max_queued_per_user, "queued_before_loop": queued,
             "sheds": {k: {"status": v[0], "retry_after": v[1],
                           "body": json.loads(v[2])} for k, v in sheds.items()},
-            "shed_counts": engine.shed_counts, "replies": served,
+            "shed_counts": engine.shed_counts, "shed_records": shed_records,
+            "replies": served,
             "done_reasons": sorted({why for _, _, why in replies}),
             "serve_s": serve_s, "eval_count": evals, "per_user_tokens": per_user,
             "ttft_count_delta": (after[("ollamamq_ttft_ms_count", lab)]
@@ -1322,6 +1377,9 @@ def serve_sched_phase(report) -> None:
         "shedding": (sheds["user_queue_full"][0] == 429 and sheds["queue_full"][0] == 503
                      and retry_ok and queued == 6
                      and engine.shed_counts == {"user_queue_full": 1, "queue_full": 1}),
+        "shed_journal": (sum(shed_records.values()) == answered.get(429, 0)
+                         + answered.get(503, 0) == 2
+                         and shed_records == {"user_queue_full": 1, "queue_full": 1}),
         "ttft_count": line["ttft_count_delta"] == served,
         "tokens_total": line["tokens_total_delta"] == evals,
         "mfu": 0.0 < mfu_gauge <= 1.0 and rt.peak_flops == peak,
@@ -1671,6 +1729,489 @@ def serve_models_phase(report) -> None:
         raise SystemExit(f"serve-models gates failed: {gates}")
 
 
+# -- serve-durable: crash durability through the CLI on the card ------------
+DURABLE_MODEL = "llama3.2:1b"
+DURABLE_ARGS = ["--no-tui", "--max-slots", "4",
+                "--num-pages", str(4 * 16 + 4), "--page-size", "32",
+                "--max-pages-per-seq", "16", "--max-batch-tokens", "512",
+                "--token-granule", "16", "--max-new-tokens", "96",
+                "--decode-steps", "8", "--seed", "0", "--wal-fsync-ms", "2",
+                "--stop-grace-s", "120", "--timeout-s", "600"]
+DURABLE_USERS = ("ada", "bob", "cyd", "dee")
+DURABLE_NEW = 96
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _durable_prompt(user: str) -> str:
+    return (f"{user}: a long answer about fair queues, KV pages and crash "
+            f"recovery on a shared card, please.")
+
+
+def _durable_body(user: str, stream: bool) -> dict:
+    return {"model": DURABLE_MODEL, "prompt": _durable_prompt(user), "stream": stream,
+            "options": {"temperature": 0, "repeat_penalty": 1.0,
+                        "num_predict": DURABLE_NEW}}
+
+
+def _durable_config(dtype: str, wal_dir=None):
+    """The EngineConfig the CLI builds from DURABLE_ARGS, so an in-process
+    engine serves exactly what the subprocess serves."""
+    from ollamamq_tpu_torch import cli
+
+    argv = DURABLE_ARGS + ["--model", DURABLE_MODEL, "--dtype", dtype]
+    if wal_dir:
+        argv += ["--wal-dir", wal_dir]
+    return cli.engine_config(cli.build_parser().parse_args(argv))
+
+
+def _ndjson(port, method, path, body=None, user="smoke", timeout=600):
+    """Open a streamed request; returns the HTTPResponse (iterate lines)."""
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    c.request(method, path, json.dumps(body) if body is not None else None,
+              {"X-User-ID": user, "Content-Type": "application/json"})
+    r = c.getresponse()
+    if r.status != 200:
+        raise RuntimeError(f"{method} {path}: HTTP {r.status} {r.read()[:300]!r}")
+    return r
+
+
+class _Server:
+    """python -m ollamamq_tpu_torch.cli in a subprocess on the card, its
+    output in the phase's log file."""
+
+    def __init__(self, name: str, dtype: str, wal_dir: str):
+        self.port = _free_port()
+        self.log = open(os.path.join(OUT_DIR, f"serve-durable-{name}.log"), "ab")
+        self.t_spawn = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ollamamq_tpu_torch.cli", *DURABLE_ARGS,
+             "--model", DURABLE_MODEL, "--dtype", dtype, "--port", str(self.port),
+             "--wal-dir", wal_dir, "--blocklist", os.path.join(OUT_DIR, f"blocked-{name}.json")],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def health(self, budget=300.0) -> dict:
+        """/health once the server answers and its recovery pass is done."""
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise SystemExit(f"serve-durable: server exited {self.proc.returncode}"
+                                 f" (log {self.log.name})")
+            try:
+                h = json.loads(_get(self.port, "/health"))
+                if h.get("status") != "recovering":
+                    return h
+            except (OSError, RuntimeError):
+                pass
+            time.sleep(0.2)
+        raise SystemExit(f"serve-durable: server on :{self.port} never became healthy")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self.log.close()
+
+
+class _Client:
+    """One user's stream: the /api/generate connection (kept open, as a
+    client waiting for its reply) and an observer of its frames through
+    GET /api/stream/{rid}: random-weight ids are mostly outside the byte
+    tokenizer's range, so generate frames (one per text chunk) are rare,
+    while the resume route carries one frame per token."""
+
+    def __init__(self, port: int, user: str):
+        self.user, self.port = user, port
+        self.frames = []  # (token id, text) as the observer read them
+        self.gen_done = None  # the generate stream's done_reason, or an error
+        self.rid = None
+        self.reading = True
+        self._gen = threading.Thread(target=self._generate, daemon=True)
+        self._gen.start()
+        deadline = time.monotonic() + 120
+        while self.rid is None:
+            evs = json.loads(_get(port, f"/debug/journal?user={user}&kind=enqueue"))
+            if evs["events"]:
+                self.rid = evs["events"][-1]["req_id"]
+            elif time.monotonic() > deadline:
+                raise SystemExit(f"serve-durable: {user}'s request never enqueued")
+            else:
+                time.sleep(0.01)
+        self._obs = threading.Thread(target=self._observe, daemon=True)
+        self._obs.start()
+
+    def _generate(self) -> None:
+        try:
+            for raw in _ndjson(self.port, "POST", "/api/generate",
+                               _durable_body(self.user, True), self.user):
+                f = json.loads(raw)
+                if f.get("done"):
+                    self.gen_done = f.get("error") or f["done_reason"]
+                    return
+            self.gen_done = "closed without a done frame"
+        except Exception as e:  # noqa: BLE001 — the server may be killed
+            self.gen_done = f"connection: {type(e).__name__}"
+
+    def _observe(self) -> None:
+        try:
+            for raw in _ndjson(self.port, "GET", f"/api/stream/{self.rid}?from=0",
+                               user=self.user):
+                if not self.reading:
+                    return
+                f = json.loads(raw)
+                if f.get("done"):
+                    return
+                self.frames.append((f["token_ids"][0] if f.get("token_ids") else -1,
+                                    f["response"]))
+        except Exception:  # noqa: BLE001 — killed under it
+            return
+
+    def ids(self):
+        return [t for t, _ in self.frames if t >= 0]
+
+    def stop_reading(self):
+        """The client stops here: what it read so far is all it has."""
+        self.reading = False
+        return list(self.frames)
+
+
+def _resume(port, user, rid, from_n):
+    """(frames, done_reason, monotonic time of the first frame) of GET
+    /api/stream/{rid}?from=N read to its terminal."""
+    first, frames, done = None, [], None
+    for raw in _ndjson(port, "GET", f"/api/stream/{rid}?from={from_n}", user=user):
+        f = json.loads(raw)
+        if first is None:
+            first = time.monotonic()
+        if f.get("done"):
+            done = f.get("error") or f["done_reason"]
+            break
+        frames.append((f["token_ids"][0] if f.get("token_ids") else -1, f["response"]))
+    return frames, done, first
+
+
+def _serve_four(port):
+    """The phase's traffic: one greedy /api/generate per user at once, not
+    streamed; {user: (ids, text, done_reason, ttft_ms)} and the seconds."""
+    out, errors = {}, []
+
+    def run(user):
+        try:
+            _, data = _post(port, "/api/generate", _durable_body(user, False), user)
+            r = json.loads(data)
+            out[user] = (r["token_ids"], r["response"], r["done_reason"],
+                         r["prompt_eval_duration"] / 1e6)
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{user}: {e}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(u,)) for u in DURABLE_USERS]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or len(out) != len(DURABLE_USERS):
+        raise SystemExit(f"serve-durable requests failed: {errors}")
+    return out, time.monotonic() - t0
+
+
+def _serve_in_process(ecfg, params=None):
+    """(replies, seconds, {journal counts, WAL status, dispatch counts and
+    step-phase medians}, the engine's params) of the phase's traffic on an
+    in-process engine, which is stopped after."""
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.telemetry import stepprof
+
+    srv = serve_in_thread(TorchEngine(ecfg, params=params), port=0, timeout_s=600)
+    try:
+        stepprof.PROFILER.reset()
+        replies, seconds = _serve_four(srv.server_address[1])
+        modes = stepprof.PROFILER.summary()["modes"]
+        eng = srv.engine
+        kinds = {}
+        for r in eng.journal.tail(None):
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        wal = eng.durability.status() if eng.durability is not None else None
+        rt = eng.runtimes[DURABLE_MODEL]
+        params, rst = rt.params, rt.stats()
+    finally:
+        stop_server(srv)
+    ticks = {k: rst[k] for k in ("ragged_dispatches", "decode_dispatches",
+                                 "decode_steps")}
+    # Median ms per phase of each step mode (the step profiler's split).
+    ticks["step_p50_ms"] = {m: {ph: v["p50_ms"] for ph, v in modes[m].items()
+                                if isinstance(v, dict) and "p50_ms" in v}
+                            for m in modes}
+    return replies, seconds, {"journal_seq": eng.journal.seq, "kinds": kinds,
+                              "wal": wal, "ticks": ticks}, params
+
+
+def _kill9_run(name, dtype, wal_dir):
+    """Start the CLI on a fresh WAL dir, stream to the 4 users, and once
+    each has read at least 16 token frames stop reading and SIGKILL it
+    (0.1 s later: the WAL's 2 ms group commit has made every frame read
+    durable). Restart it on the WAL dir and resume every stream from where
+    its client stopped. Returns what the gates and the line need."""
+    a = _Server(f"{name}-a", dtype, wal_dir)
+    b = None
+    try:
+        a.health()
+        clients = [_Client(a.port, u) for u in DURABLE_USERS]
+        deadline = time.monotonic() + 300
+        while min(len(c.ids()) for c in clients) < 16:
+            if time.monotonic() > deadline:
+                raise SystemExit(f"serve-durable {name}: streams never reached 16 tokens: "
+                                 f"{[len(c.ids()) for c in clients]}")
+            time.sleep(0.005)
+        pre = {c.user: c.stop_reading() for c in clients}
+        time.sleep(0.1)
+        # The last read of this process's launch counts, right before the
+        # kill: the launches of the few ms between it and the SIGKILL are
+        # the only ones of the phase that go uncounted.
+        health_a = json.loads(_get(a.port, "/health"))
+        a.proc.kill()  # SIGKILL: no flush, no goodbye
+        a.proc.wait(timeout=60)
+        for c in clients:  # their generate connections break with it
+            c._gen.join(timeout=30)
+        b = _Server(f"{name}-b", dtype, wal_dir)
+        health_b = b.health()
+        resumed, firsts = {}, []
+        for c in clients:
+            n = sum(1 for t, _ in pre[c.user] if t >= 0)
+            frames, done, first = _resume(b.port, c.user, c.rid, n)
+            resumed[c.user] = (frames, done)
+            firsts.append(first)
+        replay = {c.user: _resume(b.port, c.user, c.rid, 0)[0] for c in clients}
+        health_end = json.loads(_get(b.port, "/health"))
+        metrics = _parse_prometheus(_get(b.port, "/metrics").decode())
+        b.proc.send_signal(signal.SIGTERM)
+        b_rc = b.proc.wait(timeout=180)
+        return {"clients": {c.user: c.rid for c in clients}, "pre": pre,
+                "resumed": resumed, "replay": replay, "health_a": health_a,
+                "health_b": health_b, "health_end": health_end, "metrics": metrics,
+                "exit_launches": _exit_launches(b.log.name),
+                "recovered_rc": b_rc, "gen_done": {c.user: c.gen_done for c in clients},
+                "restart_to_first_resumed_s": min(firsts) - b.t_spawn}
+    finally:
+        a.close()
+        if b is not None:
+            b.close()
+
+
+def _exit_launches(log_path: str) -> dict:
+    """The kernel launch counts a CLI process logged at the end of its
+    graceful shutdown: its whole window, the drain included."""
+    tag = "kernel launches "
+    with open(log_path) as f:
+        lines = [ln for ln in f if "graceful shutdown complete" in ln]
+    if not lines:
+        raise SystemExit(f"serve-durable: no shutdown line in {log_path}")
+    text = lines[-1].split(tag, 1)[1]
+    return json.loads(text[:text.rindex("}") + 1])
+
+
+def _sigterm_run(wal_dir):
+    """Start the CLI (bf16) on a fresh WAL dir, stream to the 4 users, and
+    once each has 8 tokens send SIGTERM; 0.2 s later a fifth request
+    (answered while the others drain). Returns what the gates need."""
+    e = _Server("sigterm", "bfloat16", wal_dir)
+    try:
+        e.health()
+        clients = [_Client(e.port, u) for u in DURABLE_USERS]
+        deadline = time.monotonic() + 300
+        while min(len(c.ids()) for c in clients) < 8:
+            if time.monotonic() > deadline:
+                raise SystemExit("serve-durable sigterm: streams never started")
+            time.sleep(0.005)
+        health = json.loads(_get(e.port, "/health"))
+        e.proc.send_signal(signal.SIGTERM)
+        at_signal = {c.user: len(c.ids()) for c in clients}
+        time.sleep(0.2)
+        late = _post_status(e.port, _durable_body("late", False), "late")
+        for c in clients:
+            c._gen.join(timeout=300)
+        rc = e.proc.wait(timeout=300)
+        return {"health": health, "exit_launches": _exit_launches(e.log.name),
+                "late_status": late[0],
+                "late_body": late[2][:200].decode(errors="replace"),
+                "gen_done": {c.user: c.gen_done for c in clients},
+                "tokens_at_signal": at_signal,
+                "exit_code": rc}
+    finally:
+        e.close()
+
+
+def serve_durable_phase(report) -> None:
+    """Crash durability on the card (module docstring, serve-durable)."""
+    import torch
+
+    from ollamamq_tpu_torch.durability import load_wal_records
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    t_phase = time.monotonic()
+    root = os.path.join(OUT_DIR, "wal")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+
+    # In process, bf16: a warm-up run (in no timed run; its launches are
+    # counted), then the same traffic without and with a WAL (off, on,
+    # on, off, twice); the first run with a WAL is the bf16 reference.
+    _, _, _, params = _serve_in_process(_durable_config("bfloat16"))
+    fsync = tm.WAL_FSYNC_MS._default()
+    fsync0 = list(fsync.counts)
+    runs = []
+    for i, wal in enumerate((False, True, True, False) * 2):
+        ecfg = _durable_config("bfloat16", os.path.join(root, f"inproc-{i}") if wal else None)
+        replies, secs, st, params = _serve_in_process(ecfg, params)
+        runs.append({"wal": wal, "replies": replies, "seconds": secs, **st})
+    fsync_ms = _delta_quantiles(fsync, fsync0, (0.5, 0.99))
+    bf16_ref = runs[1]["replies"]
+    # The float32 reference: uninterrupted, from a fresh WAL dir.
+    f32_ref, f32_secs, _, _ = _serve_in_process(
+        _durable_config("float32", os.path.join(root, "ref-f32")))
+    inproc_counts = launch_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    f32 = _kill9_run("f32", "float32", os.path.join(root, "f32"))
+    bf16 = _kill9_run("bf16", "bfloat16", os.path.join(root, "bf16"))
+    term_dir = os.path.join(root, "sigterm")
+    term = _sigterm_run(term_dir)
+    term_wal, _ = load_wal_records(os.path.join(term_dir, "wal.jsonl"))
+    restart = TorchEngine(_durable_config("bfloat16", term_dir), params=params)
+    restart.start()
+    term_recovered = restart.durability.recovered_streams
+    restart.stop()
+    del restart, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def tps(rs):
+        return [sum(len(r[0]) for r in run["replies"].values()) / run["seconds"]
+                for run in rs]
+
+    def p50(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    on = [r for r in runs if r["wal"]]
+    off = [r for r in runs if not r["wal"]]
+    own = ("ragged_paged_attention", "paged_decode_attention")
+    # Each subprocess's whole window: the killed ones up to their last
+    # /health read just before SIGKILL; the recovered and the SIGTERMed
+    # ones from the counts they log at the end of their graceful exit.
+    sub_counts = [f32["health_a"]["kernel_launches"], f32["exit_launches"],
+                  bf16["health_a"]["kernel_launches"], bf16["exit_launches"],
+                  term["exit_launches"]]
+    launches = {k: inproc_counts[k] + sum(c[k] for c in sub_counts)
+                for k in inproc_counts}
+
+    def wal_ok(run):
+        hs = (run["health_a"], run["health_end"])
+        return all(not h["wal"]["wal"]["dead"] and not any(
+            a["name"] == "wal_degraded" for a in h["alerts"]) for h in hs)
+
+    def joined(frames):
+        return [t for t, _ in frames if t >= 0], "".join(x for _, x in frames)
+
+    streams = {}
+    for name, run, ref in (("float32", f32, f32_ref), ("bfloat16", bf16, bf16_ref)):
+        rows = {}
+        for u in DURABLE_USERS:
+            pre_ids, pre_text = joined(run["pre"][u])
+            post_ids, post_text = joined(run["resumed"][u][0])
+            ref_ids, ref_text, ref_why, _ = ref[u]
+            rows[u] = {"rid": run["clients"][u], "read_before_kill": len(pre_ids),
+                       "resumed": len(post_ids), "done": run["resumed"][u][1],
+                       "ref_done": ref_why,
+                       "identical": pre_ids + post_ids == ref_ids
+                       and pre_text + post_text == ref_text,
+                       "first_diff_vs_uninterrupted": _first_diff(pre_ids + post_ids,
+                                                                  ref_ids),
+                       "replay_equal": run["replay"][u][:len(run["pre"][u])]
+                       == run["pre"][u],
+                       "generate_conn": run["gen_done"][u]}
+        streams[name] = rows
+    recovered_total = {n: run["metrics"].get(("ollamamq_recovered_streams_total",
+                                              'outcome="replayed"'))
+                       for n, run in (("float32", f32), ("bfloat16", bf16))}
+    rec_counts = f32["health_end"]["kernel_launches"]
+    line = {
+        "phase": "serve-durable", "model": DURABLE_MODEL,
+        "max_new_tokens": DURABLE_NEW, "users": len(DURABLE_USERS),
+        "wal_fsync_ms_window": 2.0, "seconds": time.monotonic() - t_phase,
+        "streams": streams,
+        "recovered_streams": {"float32": f32["health_b"]["wal"]["recovered_streams"],
+                              "bfloat16": bf16["health_b"]["wal"]["recovered_streams"]},
+        "recovered_streams_total": recovered_total,
+        "recovered_exit_codes": {"float32": f32["recovered_rc"],
+                                 "bfloat16": bf16["recovered_rc"]},
+        "restart_to_first_resumed_s": {"float32": f32["restart_to_first_resumed_s"],
+                                       "bfloat16": bf16["restart_to_first_resumed_s"]},
+        "recovered_kernel_launches_f32": rec_counts,
+        "sigterm": {**{k: term[k] for k in ("late_status", "late_body", "gen_done",
+                                            "tokens_at_signal", "exit_code")},
+                    "wal_unfinished": sum(1 for e in term_wal.values()
+                                          if e["finished"] is None),
+                    "restart_recovered": term_recovered},
+        "tokens_per_s": {"wal_off": tps(off), "wal_on": tps(on)},
+        "runs": [{"wal": r["wal"], "seconds": r["seconds"], **r["ticks"],
+                  "ttft_ms": sorted(x[3] for x in r["replies"].values())}
+                 for r in runs],
+        "ttft_p50_ms": {"wal_off": p50([r[3] for run in off
+                                        for r in run["replies"].values()]),
+                        "wal_on": p50([r[3] for run in on
+                                       for r in run["replies"].values()])},
+        "wal_fsync_ms": fsync_ms, "fsyncs": [r["wal"]["wal"]["fsyncs"] for r in on],
+        "journal_records_per_request": runs[1]["journal_seq"] / len(DURABLE_USERS),
+        "journal_records_by_kind": runs[1]["kinds"],
+        "f32_reference_s": f32_secs, "launches": launches, "card": card_line()}
+    emit(line)
+    report["serve_durable"] = line
+    gates = {
+        "f32_recovered_4": line["recovered_streams"]["float32"] == 4,
+        "f32_identical": all(r["identical"] for r in streams["float32"].values()),
+        "f32_kernels": all(rec_counts[k] > 0 for k in own)
+        and all(rec_counts[k] == 0 for k in rec_counts if k not in own),
+        "bf16_recovered_4": line["recovered_streams"]["bfloat16"] == 4,
+        "bf16_done": all(r["done"] in ("stop", "length")
+                         for r in streams["bfloat16"].values()),
+        "bf16_replay_equal": all(r["replay_equal"] for r in streams["bfloat16"].values()),
+        "wal_healthy": wal_ok(f32) and wal_ok(bf16)
+        and all(not r["wal"]["wal"]["dead"] for r in on),
+        "sigterm_503": term["late_status"] == 503,
+        "sigterm_streams_complete": all(v in ("stop", "length")
+                                        for v in term["gen_done"].values())
+        and any(n < DURABLE_NEW for n in term["tokens_at_signal"].values()),
+        "sigterm_exit_0": term["exit_code"] == 0,
+        "sigterm_restart_recovers_0": term_recovered == 0
+        and line["sigterm"]["wal_unfinished"] == 0,
+        "inproc_replies": all(r[2] in ("stop", "length") for run in runs
+                              for r in run["replies"].values())
+        and all(r[2] in ("stop", "length") for r in f32_ref.values()),
+    }
+    line["gates"] = gates
+    if not all(gates.values()):
+        raise SystemExit(f"serve-durable gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -1835,6 +2376,7 @@ def main(argv=None) -> int:
     serve_runtime_f32_phase(report)
     serve_sched_phase(report)
     serve_models_phase(report)
+    serve_durable_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]
@@ -1842,7 +2384,9 @@ def main(argv=None) -> int:
     for name, (source, replaces, serve) in KERNEL_ROWS.items():
         m = s[name]["llama3.2:1b"]
         row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": report[serve]["launches"][name],
+               "replaces": replaces,
+               "launches": (report[serve]["launches"][name]
+                            + report["serve_durable"]["launches"][name]),
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

@@ -7,8 +7,9 @@ and quitting the TUI ends the whole process. All admin actions
 (VIP/boost/block/unblock) mutate the shared native core directly — the
 scheduler sees them on its next pop. The card's name and memory come
 from the engine's chip rows (torch.cuda.mem_get_info on a CUDA device).
-The JAX package's fleet, HA, tier and journal chips have no source in
-this package and are not sent.
+The last-decision line reads the decision journal. The JAX package's
+fleet, HA and tier chips have no source in this package and are not
+sent.
 """
 
 from __future__ import annotations
@@ -85,6 +86,15 @@ def _engine_stats_brief(engine) -> dict:
             sched = ss()
         except Exception:
             sched = None
+    # The last-decision line: the newest scheduler decision with the
+    # inputs that justified it.
+    last_decision = ""
+    jr = getattr(engine, "journal", None)
+    if jr is not None:
+        try:
+            last_decision = jr.last_summary()
+        except Exception:
+            last_decision = ""
     out = {
         "models": models,
         "device": _hbm_cache["device"] or "no-device",
@@ -94,6 +104,7 @@ def _engine_stats_brief(engine) -> dict:
         "shed": shed,
         "preempt": preempt,
         "alerts": alerts,
+        "last_decision": last_decision,
     }
     if sched is not None:
         out["sched"] = sched

@@ -8,6 +8,9 @@
     python -m ollamamq_tpu_torch.cli --prefix-cache --spec --spec-k 4
     python -m ollamamq_tpu_torch.cli --scheduler srpt --token-fairness \
         --max-queued 64 --max-queued-per-user 8 --slo-ttft-ms 500
+    python -m ollamamq_tpu_torch.cli --wal-dir /var/lib/ollamamq/wal \
+        --journal-file /var/log/ollamamq/journal.jsonl
+    python -m ollamamq_tpu_torch.cli --fake-engine --model test-tiny
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
 start when no CUDA device is found. Weights are seeded random (--seed)
@@ -15,12 +18,18 @@ unless --checkpoints names an HF safetensors directory for a model (its
 tokenizer.json, when present, replaces the byte-level tokenizer). More
 models load and unload at run time through /api/pull and /api/delete.
 The admin TUI owns the terminal when stdout is a TTY (--no-tui: never);
-quitting it ends the process.
+quitting it ends the process. Without the TUI, SIGTERM or SIGINT stop
+admission (later requests get 503), let in-flight streams finish for up
+to --stop-grace-s, flush the journal and the WAL and exit 0; a second
+signal exits at once, and unfinished streams stay in the WAL for the
+next start. --fake-engine serves deterministic words without a model
+(FAKE_TOKEN_LATENCY_S slows each token).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -120,6 +129,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-ring", type=int, default=512,
                    help="finished request traces kept for /debug/trace "
                         "(Chrome trace-event export)")
+    p.add_argument("--journal-ring", type=int, default=d.journal_ring,
+                   help="decision-journal records kept for GET "
+                        "/debug/journal (the engine flight recorder)")
+    p.add_argument("--journal-file", default=os.environ.get(
+                       "OLLAMAMQ_JOURNAL_FILE", ""),
+                   help="spill every decision-journal record to this JSONL "
+                        "file (analyze and replay offline with `python -m "
+                        "ollamamq_tpu_torch.tools.journal`)")
+    p.add_argument("--journal-rotate-mb", type=float, default=d.journal_rotate_mb,
+                   help="rotate --journal-file at this size (MB); 0 never")
+    p.add_argument("--journal-keep", type=int, default=d.journal_keep,
+                   help="rotated --journal-file generations kept")
+    p.add_argument("--journal-sample", type=float,
+                   default=float(os.environ.get("JOURNAL_SAMPLE", 1.0)),
+                   help="sampling rate in (0, 1] of the high-rate journal "
+                        "kinds (batch/chunk/page_*); decision kinds are "
+                        "always kept. 1.0 records everything")
+    p.add_argument("--wal-dir", default=os.environ.get("WAL_DIR", ""),
+                   help="write-ahead request log directory: every accepted "
+                        "generation request is fsynced before the enqueue "
+                        "returns, emitted tokens are logged behind it, and "
+                        "a restart replays unfinished requests; clients "
+                        "reattach with GET /api/stream/{req_id}?from=N. "
+                        "Empty = no WAL")
+    p.add_argument("--wal-fsync-ms", type=float,
+                   default=float(os.environ.get("WAL_FSYNC_MS", d.wal_fsync_ms)),
+                   help="WAL group-commit window in ms: an admission waits "
+                        "at most this long for its fsync; a crash loses at "
+                        "most this much token progress (regenerated on "
+                        "recovery). 0 = fsync every admission inline")
+    p.add_argument("--no-wal", action="store_true",
+                   help="no WAL even when WAL_DIR is set in the environment")
+    p.add_argument("--stop-grace-s", type=float,
+                   default=float(os.environ.get("STOP_GRACE_S", 30.0)),
+                   help="graceful-shutdown budget: on SIGTERM/SIGINT "
+                        "admission stops, in-flight streams drain for up to "
+                        "this long, the journal and WAL are flushed, and "
+                        "the process exits 0")
+    p.add_argument("--fake-engine", action="store_true",
+                   help="serve deterministic fake tokens (no model, no "
+                        "device; for tests)")
     p.add_argument("--max-new-tokens", type=int, default=d.max_new_tokens)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--blocklist", default="blocked_items.json",
@@ -156,6 +206,14 @@ def validate(args) -> str:
         return "--max-queued / --max-queued-per-user / --preempt-max must be >= 0"
     if args.trace_ring < 1:
         return "--trace-ring must be >= 1"
+    if args.journal_ring < 1 or args.journal_keep < 1:
+        return "--journal-ring / --journal-keep must be >= 1"
+    if args.journal_rotate_mb < 0:
+        return "--journal-rotate-mb must be >= 0 (0 disables rotation)"
+    if not 0.0 < args.journal_sample <= 1.0:
+        return f"--journal-sample must be in (0, 1], got {args.journal_sample}"
+    if args.wal_fsync_ms < 0 or args.stop_grace_s < 0:
+        return "--wal-fsync-ms / --stop-grace-s must be >= 0"
     return ""
 
 
@@ -175,7 +233,68 @@ def engine_config(args) -> EngineConfig:
         scheduler=args.scheduler, max_queued=args.max_queued,
         max_queued_per_user=args.max_queued_per_user,
         slo_ttft_ms=args.slo_ttft_ms or None, slo_tpot_ms=args.slo_tpot_ms or None,
-        slo_target=args.slo_target, trace_ring=args.trace_ring)
+        slo_target=args.slo_target, trace_ring=args.trace_ring,
+        journal_ring=args.journal_ring, journal_file=args.journal_file or None,
+        journal_rotate_mb=args.journal_rotate_mb, journal_keep=args.journal_keep,
+        journal_sample=args.journal_sample,
+        wal_dir=None if args.no_wal else (args.wal_dir or None),
+        wal_fsync_ms=args.wal_fsync_ms)
+
+
+def _fake_latency() -> float:
+    """Per-token delay of --fake-engine (env FAKE_TOKEN_LATENCY_S): crash
+    and drain tests need streams that stay in flight."""
+    try:
+        return max(0.0, float(os.environ.get("FAKE_TOKEN_LATENCY_S", 0.0)))
+    except ValueError:
+        return 0.0
+
+
+def install_graceful_shutdown(engine, grace_s: float) -> None:
+    """SIGTERM/SIGINT: stop admission (later enqueues shed with 503), let
+    in-flight streams drain for up to `grace_s`, flush and fsync the
+    journal and the WAL (engine.stop), exit 0. A second signal exits at
+    once. Streams still running past the grace stay in the WAL and are
+    recovered on the next start."""
+    import signal
+    import threading
+    import time
+
+    log = logging.getLogger("ollamamq.torch")
+    fired = threading.Event()
+
+    def run(signum: int) -> None:
+        log.warning("signal %d: graceful shutdown; admission stopped, "
+                    "draining in-flight work (grace %.0fs)", signum, grace_s)
+        engine.quiesce()
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline and engine.inflight_count():
+            time.sleep(0.1)
+        # The engine finishing a stream and the handler thread writing
+        # its last frames are asynchronous: let the sockets drain.
+        time.sleep(min(1.0, max(0.0, deadline - time.monotonic())))
+        left = engine.inflight_count()
+        if left:
+            log.warning("grace expired with %d request(s) in flight; they "
+                        "stay in the WAL and recover on the next start", left)
+        engine.stop()  # joins the loop, fsyncs the journal and the WAL
+        from ollamamq_tpu_torch.ops.cuda import launch_counts
+
+        # The process's whole count of kernel launches, drain included
+        # (/health's kernel_launches can no longer be read after this).
+        log.warning("graceful shutdown complete; kernel launches %s; "
+                    "exiting 0", json.dumps(launch_counts(), sort_keys=True))
+        os._exit(0)
+
+    def handler(signum, frame):  # noqa: ARG001
+        if fired.is_set():
+            os._exit(0)  # a second signal: now
+        fired.set()
+        threading.Thread(target=run, args=(signum,), daemon=True,
+                         name="graceful-shutdown").start()
+
+    signal.signal(signal.SIGTERM, handler)
+    signal.signal(signal.SIGINT, handler)
 
 
 def main(argv=None) -> int:
@@ -197,11 +316,18 @@ def main(argv=None) -> int:
     from ollamamq_tpu_torch.engine.engine import TorchEngine
     from ollamamq_tpu_torch.server.app import OllamaServer
 
-    engine = TorchEngine(engine_config(args), device=args.device,
-                         blocklist_path=args.blocklist,
-                         fairness=Fairness.TOKENS if args.token_fairness
-                         else Fairness.REQUESTS, models=model_table(args))
-    engine.start()
+    fairness = Fairness.TOKENS if args.token_fairness else Fairness.REQUESTS
+    if args.fake_engine:
+        from ollamamq_tpu_torch.engine.fake import FakeEngine
+
+        engine = FakeEngine(engine_config(args), models=model_table(args),
+                            blocklist_path=args.blocklist, fairness=fairness,
+                            token_latency_s=_fake_latency())
+    else:
+        engine = TorchEngine(engine_config(args), device=args.device,
+                             blocklist_path=args.blocklist, fairness=fairness,
+                             models=model_table(args))
+    engine.start()  # a WAL's recovery pass runs here, before serving
     server = OllamaServer(engine, args.host, args.port, args.timeout_s)
     log.info("serving %s on %s:%d (device %s, tui=%s)",
              ",".join(engine.loaded_models()), args.host,
@@ -217,6 +343,7 @@ def main(argv=None) -> int:
             run_tui(engine, None)
             server.shutdown()
         else:
+            install_graceful_shutdown(engine, args.stop_grace_s)
             server.serve_forever()
     except KeyboardInterrupt:
         pass

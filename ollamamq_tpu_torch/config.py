@@ -236,6 +236,22 @@ class EngineConfig:
     # without a deadline). Policies reorder only within what the
     # fair-share core released.
     scheduler: str = "fcfs"
+    # Flight recorder (telemetry/journal.py): ring capacity (records kept
+    # for /debug/journal and the health monitor's invariant sweep), an
+    # optional JSONL spill rotated at journal_rotate_mb keeping
+    # journal_keep files, and the sampling rate of the high-rate kinds
+    # (batch/chunk/page_*; decision kinds are always kept).
+    journal_ring: int = 2048
+    journal_file: Optional[str] = None
+    journal_rotate_mb: float = 64.0
+    journal_keep: int = 3
+    journal_sample: float = 1.0
+    # Crash durability (durability/): the write-ahead request log's
+    # directory (None = no WAL) and its group-commit fsync window in ms
+    # (0 = fsync inline on every admission). An admission returns once
+    # its record is on disk; a restart replays unfinished requests.
+    wal_dir: Optional[str] = None
+    wal_fsync_ms: float = 20.0
 
     @property
     def max_context(self) -> int:

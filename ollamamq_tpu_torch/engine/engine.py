@@ -54,14 +54,24 @@ the loop thread. Embeddings are stateless batched forwards
 serves them beside its decode slots (step_embed), so an embed request is
 admitted while decode is saturated.
 
+Every scheduler-visible decision (enqueue, shed, admit, place, batch,
+chunk, install, speculation, preemption, stalls, retries, poisons,
+deadline drops, finishes, page alloc/free/evict, rebuilds) lands in the
+engine's decision journal (telemetry/journal.py) with the reference's
+fields, through the runtimes' `_jrec` seam; nothing is recorded per
+decoded token. With a WAL directory (durability/) every generation
+request is fsynced before enqueue_request returns and a restart replays
+the unfinished ones token-exact.
+
 Not carried over yet (later slices): KV migration, the bucketed prefill
 path of pp > 1, multi-device layouts (data-parallel replicas, sequence
-parallelism), fleet, durability and the decision journal.
+parallelism) and the fleet.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import logging
 import threading
 import time
@@ -87,6 +97,7 @@ from ollamamq_tpu_torch.ops.sampling import (accept_prefix, maybe_apply_penaltie
 from ollamamq_tpu_torch.telemetry import mfu as mfu_model
 from ollamamq_tpu_torch.telemetry import schema as tm
 from ollamamq_tpu_torch.telemetry import stepprof
+from ollamamq_tpu_torch.telemetry.journal import Journal
 from ollamamq_tpu_torch.telemetry.slo import AlertManager, SLOEngine
 from ollamamq_tpu_torch.telemetry.tracing import DECODE_EVENT_EVERY, Tracer
 
@@ -118,14 +129,26 @@ def sweep_blocked(core: MQCore, held, last_version: int) -> int:
     return ver
 
 
-def drop_expired(req: Request, core: MQCore, model: str) -> None:
+def drop_expired(req: Request, core: MQCore, model: str,
+                 journal=None) -> None:
     """Finish an expired request with the explicit deadline reason and
-    count the shed."""
+    count the shed; the journal record carries how long past its
+    deadline the drop happened."""
     core.mark_dropped(req.user, started=req.started)
     tm.DEADLINE_DROPS_TOTAL.labels(model=model or "?").inc()
     tm.SHED_TOTAL.labels(reason="deadline").inc()
+    if journal is not None:
+        journal.record("deadline_drop", req=req, model=model or None,
+                       slack_ms=round(_slack_ms(req), 3))
     req.finish(FinishReason.DEADLINE,
                error="deadline expired before completion")
+
+
+def _slack_ms(req: Request) -> float:
+    """How long past its deadline a request is (ms)."""
+    if req.deadline is None:
+        return 0.0
+    return (time.monotonic() - req.deadline) * 1e3
 
 
 def chip_stats(device: torch.device) -> List[dict]:
@@ -155,6 +178,13 @@ def serve_embed_batch(rt, core: MQCore, pending, max_len: int, dispatch,
     the exception propagates: a popped request is in no queue a runtime
     failure can see. Returns True if a forward ran."""
     _sp = stepprof.PROFILER.start("embed")
+    journal = rt.journal
+
+    def jfinish(req: Request, reason: str) -> None:
+        if journal is not None:
+            journal.record("finish", req=req, model=rt.name, reason=reason,
+                           tokens=len(req.prompt_tokens))
+
     batch: List[Request] = []
     while pending and len(batch) < max_batch:
         if pending[0]._retry_at > time.monotonic():
@@ -162,14 +192,16 @@ def serve_embed_batch(rt, core: MQCore, pending, max_len: int, dispatch,
         req = pending.popleft()
         if req.cancelled.is_set():
             core.mark_dropped(req.user)
+            jfinish(req, "cancelled")
             req.finish(FinishReason.CANCELLED)
             continue
         if req.expired():
-            drop_expired(req, core, rt.name)
+            drop_expired(req, core, rt.name, journal=journal)
             continue
         n = len(req.prompt_tokens)
         if n > max_len:
             core.mark_dropped(req.user)
+            jfinish(req, "error")
             req.finish(FinishReason.ERROR,
                        error=f"input length {n} exceeds maximum {max_len}")
             continue
@@ -204,7 +236,8 @@ def serve_embed_batch(rt, core: MQCore, pending, max_len: int, dispatch,
             if retry is not None and retry(r, msg):
                 continue
             core.mark_dropped(r.user)
-            r.finish(FinishReason.ERROR, error=ModelRuntime._poison_msg(r, msg))
+            jfinish(r, "error")
+            r.finish(FinishReason.ERROR, error=rt._poison_msg(r, msg))
         raise
     rt.step_latency_ms = (time.monotonic() - t0) * 1e3
     for i, r in enumerate(batch):
@@ -213,6 +246,7 @@ def serve_embed_batch(rt, core: MQCore, pending, max_len: int, dispatch,
         # Processed tokens count toward the TUI's tok/s.
         rt.tokens_generated += int(lens[i])
         core.mark_done(r.user, tokens=int(lens[i]))
+        jfinish(r, "stop")
         r.finish(FinishReason.STOP)
     _sp.mark("detok")
     _sp.finish(T_pad=int(bucket), k_cap=0, n_prefill=len(batch), n_decode=0,
@@ -236,7 +270,41 @@ class QueueFullError(Exception):
             f"retry after ~{retry_after_s:.0f}s")
 
 
-class ModelRuntime:
+class TokenIdError(ValueError):
+    """A token id from the client (Ollama's `context`) or a WAL lies
+    outside the model's vocabulary. On the card such an id indexes the
+    embedding table past its end: a device-side assert that poisons the
+    CUDA context for every user, so it is refused at the door."""
+
+
+def poison_text(req: Request, msg: str) -> str:
+    """Error text once the retry budget is spent: the client sees that
+    retries happened and stopped on purpose."""
+    if req.retries:
+        return (f"{msg} (request poisoned after {req.retries} "
+                f"retr{'y' if req.retries == 1 else 'ies'})")
+    return msg
+
+
+class JournaledRuntime:
+    """The decision-journal seam both runtime kinds share: the owning
+    engine attaches its Journal (None records nothing)."""
+
+    journal = None
+
+    def _jrec(self, kind: str, req=None, **fields) -> None:
+        """Journal one decision under this runtime's model name."""
+        j = self.journal
+        if j is not None:
+            j.record(kind, req=req, model=self.name, **fields)
+
+    def _poison_msg(self, req: Request, msg: str) -> str:
+        """Journal the poisoning and return its error text."""
+        self._jrec("poison", req, retries=req.retries, error=msg[:120])
+        return poison_text(req, msg)
+
+
+class ModelRuntime(JournaledRuntime):
     """Per-model serving state: weights, KV pool, slot table, steps."""
 
     # Generative runtimes embed too (causal forward, mean pool), as the
@@ -506,6 +574,11 @@ class ModelRuntime:
         req = self.slot_req[slot]
         if req is None:
             return
+        pol = self.policy
+        extra = ({"predicted_tokens": pol.predict(req)}
+                 if pol is not None else {})
+        self._jrec("finish", req, reason=reason.value, slot=slot,
+                   tokens=len(req.generated_ids), **extra)
         if self.policy is not None and reason in (FinishReason.STOP,
                                                   FinishReason.LENGTH):
             # Served-to-completion outcomes feed the output-length
@@ -581,6 +654,7 @@ class ModelRuntime:
                       core: MQCore) -> None:
         """Activate a prefilled request in its decode slot and emit the
         first sampled token."""
+        self._jrec("install", req, slot=slot, n_prompt=n)
         self.slot_req[slot] = req
         self._tm_prompt_tokens.inc(n)
         self.seq_lens[slot] = n
@@ -610,6 +684,20 @@ class ModelRuntime:
         if self.prefix_cache is not None:
             self.prefix_cache.note_miss()
 
+    def _page_state(self) -> dict:
+        """The allocator's post-state for page records: the inputs of
+        the pages-conserved invariant (free + used + cached == pool)."""
+        a = self.alloc
+        return {"free": a.free_pages, "used": a.used_pages,
+                "cached": a.cached_pages, "pool": a.num_pages - 1}
+
+    def _evict(self, n: int) -> int:
+        """Reclaim up to n unreferenced cached pages; journaled."""
+        freed = self.prefix_cache.evict(n)
+        if freed > 0:
+            self._jrec("page_evict", n=freed, **self._page_state())
+        return freed
+
     def _alloc_pages(self, num_tokens: int) -> Optional[List[int]]:
         """alloc() with the prefix cache's eviction backstop: free-list
         exhaustion reclaims unreferenced cached pages (LRU) instead of
@@ -619,8 +707,10 @@ class ModelRuntime:
         pages = self.alloc.alloc(num_tokens)
         if pages is None and self.prefix_cache is not None:
             short = self.alloc.pages_needed(num_tokens) - self.alloc.free_pages
-            if short > 0 and self.prefix_cache.evict(short) > 0:
+            if short > 0 and self._evict(short) > 0:
                 pages = self.alloc.alloc(num_tokens)
+        if pages is not None:
+            self._jrec("page_alloc", n=len(pages), **self._page_state())
         return pages
 
     def _alloc_tail(self, held: int, num_tokens: int) -> Optional[List[int]]:
@@ -630,24 +720,28 @@ class ModelRuntime:
         pages = self.alloc.alloc_n(need, held=held)
         if pages is None and self.prefix_cache is not None:
             short = need - self.alloc.free_pages
-            if short > 0 and self.prefix_cache.evict(short) > 0:
+            if short > 0 and self._evict(short) > 0:
                 pages = self.alloc.alloc_n(need, held=held)
+        if pages is not None:
+            self._jrec("page_alloc", n=len(pages), **self._page_state())
         return pages
 
     def _extend_pages(self, pages: List[int], new_total_tokens: int) -> bool:
         """Decode-time page growth with the eviction backstop."""
         if self.fault_plan is not None and self.fault_plan.blocked("extend"):
             return False  # injected allocation pressure
-        if self.alloc.extend(pages, new_total_tokens):
-            return True
-        if self.prefix_cache is None:
-            return False
-        need = self.alloc.pages_needed(new_total_tokens) - len(pages)
-        if need <= 0 or len(pages) + need > self.alloc.max_pages_per_seq:
-            return False  # per-sequence cap: eviction can't help
-        if self.prefix_cache.evict(need - self.alloc.free_pages) > 0:
-            return self.alloc.extend(pages, new_total_tokens)
-        return False
+        before = len(pages)
+        grown = self.alloc.extend(pages, new_total_tokens)
+        if not grown and self.prefix_cache is not None:
+            need = self.alloc.pages_needed(new_total_tokens) - len(pages)
+            if need <= 0 or len(pages) + need > self.alloc.max_pages_per_seq:
+                return False  # per-sequence cap: eviction can't help
+            if self._evict(need - self.alloc.free_pages) > 0:
+                grown = self.alloc.extend(pages, new_total_tokens)
+        if grown and len(pages) > before:
+            self._jrec("page_alloc", n=len(pages) - before,
+                       **self._page_state())
+        return grown
 
     def _release_slot_pages(self, slot: int,
                             req: Optional[Request] = None) -> None:
@@ -658,6 +752,7 @@ class ModelRuntime:
         pages = self.slot_pages[slot]
         pc = self.prefix_cache
         if pc is None:
+            n_freed = len(pages)
             self.alloc.free(pages)
         else:
             pins = self.slot_pins[slot]
@@ -668,10 +763,13 @@ class ModelRuntime:
                 if full > keep:
                     pc.insert(req.prompt_tokens, pages[:full])
                     keep = full
+            n_freed = len(pages) - keep
             self.alloc.free(pages[keep:])
             pc.release(pins)
             self.slot_pages[slot] = []
             self.slot_pins[slot] = []
+        if n_freed > 0:
+            self._jrec("page_free", n=n_freed, slot=slot, **self._page_state())
         self.page_table[slot, :] = kvc.TRASH_PAGE
 
     # -- speculative decoding ----------------------------------------------
@@ -737,21 +835,27 @@ class ModelRuntime:
                      "%.2f < %.2f over %d proposed)", self.name, req.user,
                      row[1] / row[0], min_rate, row[0])
 
-    def _rollback_spec(self, slot: int, kv_after: int) -> None:
+    def _rollback_spec(self, slot: int, req: Request, kv_before: int,
+                       kv_after: int) -> None:
         """Release the pages of rejected drafts: the slot keeps the pages
         its accepted context needs, never fewer than its shared prefix
         pages. The page-table row is rewritten before the next dispatch,
         so no later step writes through a freed page."""
         self.spec_rollbacks += 1
         keep = len(self.slot_pins[slot])
-        if self.alloc.rollback_to(self.slot_pages[slot], kv_after, keep=keep):
+        freed = self.alloc.rollback_to(self.slot_pages[slot], kv_after, keep=keep)
+        if freed:
             self.page_table[slot, :] = kvc.make_page_table_row(
                 self.slot_pages[slot], self.ecfg.max_pages_per_seq)
+        self._jrec("spec_rollback", req, slot=slot, kv_before=kv_before,
+                   kv_after=kv_after, freed=freed, **self._page_state())
 
     def _drop_expired_slot(self, slot: int, core: MQCore) -> None:
         """An expired request never burns a k-token verify span."""
         tm.DEADLINE_DROPS_TOTAL.labels(model=self.name).inc()
         tm.SHED_TOTAL.labels(reason="deadline").inc()
+        self._jrec("deadline_drop", self.slot_req[slot],
+                   slack_ms=round(_slack_ms(self.slot_req[slot]), 3))
         self._finish_slot(slot, FinishReason.DEADLINE, core,
                           error="deadline expired before completion")
 
@@ -780,9 +884,15 @@ class ModelRuntime:
                    else (served, r.stats.enqueued_at))
             if best_key is None or key > best_key:
                 best, best_key = i, key
+        pol = self.policy
+        if best is not None and pol is not None and pol.name != "fcfs":
+            victim = self.slot_req[best]
+            self._jrec("sched", victim, policy=pol.name, point="victim",
+                       predicted=pol.predict(victim),
+                       score=round(pol.remaining(victim), 3))
         return best
 
-    def _preempt_slot(self, slot: int) -> None:
+    def _preempt_slot(self, slot: int, core: MQCore) -> None:
         """Evict `slot` for recompute: the replay prompt is prompt +
         generated tokens; the WRITTEN pages merge into the prefix cache,
         the rest are freed, and the request goes to the engine's
@@ -799,6 +909,17 @@ class ModelRuntime:
         written = len(replay) - 1 if req.generated_ids else len(replay)
         req.trace_event("preempt", slot=slot, tokens=written,
                         n=req.preemptions)
+        if self.journal is not None:
+            # Decision inputs: pool pressure, the victim's fair-share
+            # standing and the VIP it must never be.
+            try:
+                snap = core.snapshot()
+            except Exception:  # noqa: BLE001 — the record goes out anyway
+                snap = {}
+            served = snap.get("users", {}).get(req.user, {}).get("processed")
+            self._jrec("preempt", req, slot=slot, why="kv_pressure",
+                       n=req.preemptions, free_pages=self.alloc.free_pages,
+                       victim_served=served, vip=snap.get("vip"))
         # Cut to the written tokens for the tree insert only.
         req.prompt_tokens = replay[:written]
         self._release_slot_pages(slot, req if written else None)
@@ -830,13 +951,15 @@ class ModelRuntime:
             victim = self._pick_victim(core)
             if victim is None:
                 break
-            self._preempt_slot(victim)
+            self._preempt_slot(victim, core)
             if self.slot_req[slot] is None:
                 return  # this slot was the victim
             if self._extend_pages(pages, need_tokens):
                 self._stalled_slots.discard(slot)
                 return
         self.slot_req[slot].trace_event("kv_stall", pages=len(pages))
+        self._jrec("kv_stall", self.slot_req[slot], slot=slot,
+                   free_pages=self.alloc.free_pages, need=need_tokens)
         self._stalled_slots.add(slot)
 
     def _break_stall_deadlock(self, core: MQCore) -> None:
@@ -875,20 +998,12 @@ class ModelRuntime:
         req._retry_at = time.monotonic() + (
             self.ecfg.retry_backoff_s * (2 ** (req.retries - 1)))
         req.trace_event("retry", error=msg[:200], n=req.retries)
+        self._jrec("retry", req, n=req.retries, error=msg[:120])
         (self.pending_prefill if queue is None else queue).appendleft(req)
         return True
 
     def _retry_embed(self, req: Request, msg: str) -> bool:
         return self._retry_requeue(req, msg, self.pending_embed)
-
-    @staticmethod
-    def _poison_msg(req: Request, msg: str) -> str:
-        """Error text once the retry budget is spent: the client sees that
-        retries happened and stopped on purpose."""
-        if req.retries:
-            return (f"{msg} (request poisoned after {req.retries} "
-                    f"retr{'y' if req.retries == 1 else 'ies'})")
-        return msg
 
     # -- admission ---------------------------------------------------------
     def _admit_ragged(self, core: MQCore) -> bool:
@@ -906,19 +1021,21 @@ class ModelRuntime:
             if req.cancelled.is_set():
                 self.pending_prefill.popleft()
                 core.mark_dropped(req.user)
+                self._jrec("finish", req, reason="cancelled")
                 req.finish(FinishReason.CANCELLED)
                 continue
             if req._retry_at > time.monotonic():
                 break  # the head is backing off after a contained fault
             if req.expired():
                 self.pending_prefill.popleft()
-                drop_expired(req, core, self.name)
+                drop_expired(req, core, self.name, journal=self.journal)
                 continue
             n = len(req.prompt_tokens)
             max_prompt = min(self.ecfg.max_context - 1, self.cfg.max_seq_len - 1)
             if n > max_prompt or n == 0:
                 self.pending_prefill.popleft()
                 core.mark_dropped(req.user)
+                self._jrec("finish", req, reason="error")
                 req.finish(FinishReason.ERROR, error=(
                     f"prompt length {n} exceeds maximum {max_prompt}" if n
                     else "empty prompt"))
@@ -1018,6 +1135,8 @@ class ModelRuntime:
                 if drafts:
                     spec_plan[i] = drafts
                     spec_budget -= len(drafts)
+                    self._jrec("speculate", r, slot=i, k=len(drafts),
+                               source="ngram")
         if not self.chunking and not spec_plan:
             return False  # nothing multi-token this tick: decode runs fused
 
@@ -1045,11 +1164,12 @@ class ModelRuntime:
             if req.cancelled.is_set() or req.stream.overflowed:
                 self._drop_chunking(req)
                 core.mark_dropped(req.user)
+                self._jrec("finish", req, reason="cancelled")
                 req.finish(FinishReason.CANCELLED)
                 continue
             if req.expired():
                 self._drop_chunking(req)
-                drop_expired(req, core, self.name)
+                drop_expired(req, core, self.name, journal=self.journal)
                 continue
             if req._retry_at > now:
                 continue  # backing off after a contained fault
@@ -1136,6 +1256,8 @@ class ModelRuntime:
                     seed_rows[idx, W - len(prev):] = prev
                 append[idx] = cpos + span >= len(req.prompt_tokens)
                 req.trace_event("prefill_chunk", pos=cpos, tokens=span)
+                self._jrec("chunk", req, slot=slot, pos=cpos, tokens=span,
+                           cached=req._chunk_base)
             else:
                 # A decode row is the slot's input token; a verify row adds
                 # its drafts (carried in the chunk position's place),
@@ -1163,6 +1285,20 @@ class ModelRuntime:
         # per row whatever their draft count.
         k_cap = self.ecfg.spec_k if spec_rows else 0
         self.inflight_prefill = [r[2] for r in prefill_rows]
+        # The batch-compose record goes out after the dispatch, so it can
+        # carry the accepted-draft count (a failed dispatch records it
+        # without).
+        batch_fields = dict(
+            slots=[r[1] for r in rows], reqs=[r[2].req_id for r in rows],
+            batch_size=len(rows), tokens=int(T_real),
+            occupancy=round(len(rows) / max(1, S), 4),
+            pending=len(self.pending_prefill) + len(self.chunking),
+            free_pages=self.alloc.free_pages, mode="ragged",
+            padded_tokens=int(T_pad), n_decode=n_decode - len(spec_rows),
+            n_prefill=len(prefill_rows))
+        if spec_rows:
+            batch_fields["n_spec"] = len(spec_rows)
+            batch_fields["spec_tokens"] = sum(len(r[3]) for r in spec_rows)
         _sp.mark("host_prep")
         t0 = time.monotonic()
         try:
@@ -1174,11 +1310,17 @@ class ModelRuntime:
             toks, n_emit = self._ragged_readback(packed, k_cap)
             _sp.mark("collect")
         except Exception as e:  # noqa: BLE001 — contained to these rows
+            self._jrec("batch", **batch_fields)
             self._ragged_failed(rows, e, core)
             return True
         finally:
             self.inflight_prefill = []
         dt = time.monotonic() - t0
+        if spec_rows:
+            batch_fields["spec_accepted"] = int(sum(
+                int(n_emit[idx]) - 1 for idx, r in enumerate(rows)
+                if r[0] == "spec"))
+        self._jrec("batch", **batch_fields)
         self.ragged_dispatches += 1
         self._tm_padding.set(round((T_pad - T_real) / max(1, T_pad), 4))
         if prefill_rows:
@@ -1206,6 +1348,7 @@ class ModelRuntime:
                 continue
             if self.slot_req[slot] is not req:
                 continue  # finished between compose and emit
+            kv_before = int(self.seq_lens[slot]) + span
             for j in range(int(n_emit[idx])):  # 1, or accepted + 1
                 if self.slot_req[slot] is not req:
                     break  # EOS, stop string or cap mid-emission
@@ -1216,10 +1359,13 @@ class ModelRuntime:
             if kind == "spec":
                 proposed, accepted = span - 1, int(n_emit[idx]) - 1
                 self._note_spec_outcome(req, proposed, accepted)
+                self._jrec("spec_verify", req, slot=slot, proposed=proposed,
+                           accepted=accepted, rolled_back=proposed - accepted)
                 if proposed > accepted and self.slot_req[slot] is req:
                     # Rejected drafts claimed pages past the accepted
                     # context (a finished stream released everything).
-                    self._rollback_spec(slot, int(self.seq_lens[slot]) + 1)
+                    self._rollback_spec(slot, req, kv_before,
+                                        int(self.seq_lens[slot]) + 1)
         self._note_occupancy()
         mean_ctx = float(np.mean(kv_len[:len(rows)])) if rows else 0.0
         # MFU over EVERY real token the dispatch processed (prefill spans
@@ -1352,6 +1498,10 @@ class ModelRuntime:
             else:
                 if self.slot_req[slot] is not req:
                     continue
+                # Journaled as a preempt: the slot changes hands for a
+                # replay-recompute, and the invariant checker must see it.
+                self._jrec("preempt", req, slot=slot, why="dispatch_fault",
+                           n=req.retries + 1, free_pages=self.alloc.free_pages)
                 replay = req.prompt_tokens + req.generated_ids[req._replay_gen:]
                 written = len(replay) - 1 if req.generated_ids else len(replay)
                 req.prompt_tokens = replay[:written]
@@ -1575,7 +1725,7 @@ class ModelRuntime:
                 "failed": self._failed}
 
 
-class EncoderRuntime:
+class EncoderRuntime(JournaledRuntime):
     """Embedding-model runtime: batched bidirectional encodes of padded
     inputs (serve_embed_batch), no KV pool, no decode slots."""
 
@@ -1731,6 +1881,23 @@ class TorchEngine:
         self.slo = SLOEngine(self.alerts, ttft_ms=engine_cfg.slo_ttft_ms or None,
                              tpot_ms=engine_cfg.slo_tpot_ms or None,
                              target=engine_cfg.slo_target)
+        # Flight recorder: every scheduler decision as a typed record in a
+        # bounded ring (GET /debug/journal), optionally spilled to a file.
+        self.journal = Journal(
+            capacity=engine_cfg.journal_ring, path=engine_cfg.journal_file,
+            rotate_bytes=int(engine_cfg.journal_rotate_mb * 1e6),
+            keep=engine_cfg.journal_keep, sample=engine_cfg.journal_sample,
+            meta={"model": engine_cfg.model, "max_slots": engine_cfg.max_slots,
+                  "num_pages": engine_cfg.num_pages})
+        # Crash durability (--wal-dir): the admission WAL, the recovery
+        # pass and the resumable-stream registry. None: no WAL.
+        self.durability = None
+        if engine_cfg.wal_dir:
+            from ollamamq_tpu_torch.durability import DurabilityManager
+
+            self.durability = DurabilityManager(
+                engine_cfg, journal=self.journal, alerts=self.alerts,
+                fault_plan=self.fault_plan)
         self.health: Optional[HealthMonitor] = None
         # Loop liveness tick for the stall watchdog.
         self.last_tick_at = time.monotonic()
@@ -1765,6 +1932,7 @@ class TorchEngine:
 
     def _attach_hooks(self, rt) -> None:
         rt.fault_plan = self.fault_plan
+        rt.journal = self.journal
         if isinstance(rt, ModelRuntime):
             rt.policy = self.policy
             rt.slo = self.slo
@@ -1837,31 +2005,95 @@ class TorchEngine:
     # -- request flow ------------------------------------------------------
     def enqueue_request(self, user: str, ip: str, model: str,
                         family: Family = Family.UNKNOWN, prompt_tokens=None,
-                        sampling=None, kind: str = "generate") -> Request:
+                        sampling=None, kind: str = "generate",
+                        raw_prompt: str = "", context_ids=None) -> Request:
         """Enqueue into the native core AND register the Request under one
         lock, so the loop can never pop an id it doesn't know. Raises
         BlockedError for blocked users/IPs and QueueFullError at a
-        bounded-admission cap (--max-queued / --max-queued-per-user)."""
+        bounded-admission cap (--max-queued / --max-queued-per-user).
+
+        `context_ids` (Ollama's /api/generate `context`, and the WAL
+        recovery's replay): ids generated in an earlier turn. They fold
+        into the prompt with generated_ids pre-filled, the preemption
+        replay's convention, so decoding continues right after them and
+        max_tokens still budgets new tokens only. With a WAL the
+        admission is on disk before this returns."""
         cfg = self.ecfg
+        n_prompt = len(prompt_tokens or [])
         if not self.accepting:
-            self._count_shed("queue_full")
-            raise QueueFullError("queue_full", 5.0, 0)
+            # Quiesced (graceful shutdown): limit 0 = the door is closed.
+            self._shed(user, model, "queue_full", self.core.total_queued(), 0,
+                       5.0, n_prompt)
         if cfg.max_queued and self.core.total_queued() >= cfg.max_queued:
-            self._count_shed("queue_full")
-            raise QueueFullError("queue_full", self.retry_after_s(), cfg.max_queued)
+            self._shed(user, model, "queue_full", self.core.total_queued(),
+                       cfg.max_queued, self.retry_after_s(), n_prompt, sampling)
         if (cfg.max_queued_per_user
                 and self.core.queue_len(user) >= cfg.max_queued_per_user):
-            self._count_shed("user_queue_full")
-            raise QueueFullError("user_queue_full", self.retry_after_s(),
-                                 cfg.max_queued_per_user)
+            self._shed(user, model, "user_queue_full", self.core.queue_len(user),
+                       cfg.max_queued_per_user, self.retry_after_s(), n_prompt,
+                       sampling)
+        self._check_token_ids(model, kind, prompt_tokens, context_ids)
         with self._pending_lock:
             rid = self.core.enqueue(user, ip, model, family, kind=kind)
             req = Request(rid, user, model, prompt_tokens or [], sampling,
-                          kind=kind)
+                          kind=kind, raw_prompt=raw_prompt)
+            if context_ids:
+                ctx = [int(t) for t in context_ids]
+                sp = copy.copy(req.sampling)  # no __post_init__ seed refold
+                sp.max_tokens = sp.max_tokens + len(ctx)
+                req.sampling = sp
+                req.prompt_tokens = list(req.prompt_tokens) + ctx
+                req.generated_ids = list(ctx)
+                req._replay_gen = len(ctx)
+                req.stats.prompt_tokens = len(req.prompt_tokens)
             req.trace = self.tracer.begin(rid, user, model, kind=kind)
             self.pending[rid] = req
+        self.journal.record(
+            "enqueue", req=req, n_prompt=len(req.prompt_tokens),
+            queued=self.core.total_queued(), kind_req=kind,
+            max_tokens=req.sampling.max_tokens,
+            deadline_ms=req.sampling.deadline_ms or None)
+        if self.durability is not None:
+            # Durable admission: the WAL fsync lands BEFORE this returns,
+            # with the prompt as the client sent it (recovery re-folds).
+            self.durability.admit(req, prompt_tokens=prompt_tokens or [])
         self.notify()
         return req
+
+    def _check_token_ids(self, model: str, kind: str, prompt_tokens,
+                         context_ids) -> None:
+        """Raise TokenIdError unless every id of a generation lies in
+        [0, vocab_size) of the model that will serve it (the loaded
+        runtime's architecture, else the catalog's; a name neither knows
+        has nothing to check against and waits for a pull). Generations
+        are where ids arrive from outside this process's tokenizer: the
+        client's `context`, and a WAL's prompt and context at recovery.
+        Embeds are tokenized here and never WAL'd."""
+        if kind != "generate":
+            return
+        rt = self.resolve_runtime(model, kind)
+        cfg = getattr(rt, "cfg", None) or get_model_config(model)
+        if cfg is None:
+            return
+        for what, ids in (("prompt", prompt_tokens), ("context", context_ids)):
+            if ids and not (0 <= min(ids) and max(ids) < cfg.vocab_size):
+                raise TokenIdError(
+                    f"'{what}' holds a token id outside [0, "
+                    f"{cfg.vocab_size}) of model '{model}'")
+
+    def _shed(self, user: str, model: str, reason: str, queued: int,
+              limit: int, retry_after_s: float, n_prompt: int,
+              sampling=None) -> None:
+        """Refuse an enqueue at a bounded-admission cap (or the quiesced
+        door, limit 0): count it, journal its inputs, raise."""
+        self._count_shed(reason)
+        fields = dict(queued=queued, limit=limit,
+                      retry_after_s=round(retry_after_s, 3), n_prompt=n_prompt)
+        if sampling is not None:
+            fields["max_tokens"] = sampling.max_tokens
+        self.journal.record("shed", user=user, model=model or None,
+                            reason=reason, **fields)
+        raise QueueFullError(reason, retry_after_s, limit)
 
     def _count_shed(self, reason: str) -> None:
         tm.SHED_TOTAL.labels(reason=reason).inc()
@@ -1886,9 +2118,16 @@ class TorchEngine:
         everything in flight drains."""
         self.accepting = False
 
-    def _requeue_front(self, req: Request) -> bool:
+    def inflight_count(self) -> int:
+        """Queued plus admitted-but-unfinished requests: what a graceful
+        shutdown waits on."""
+        return self.core.total_queued() + sum(
+            len(rt.held_requests()) for rt in list(self.runtimes.values()))
+
+    def _requeue_front(self, req: Request, why: Optional[str] = None) -> bool:
         """Return a request to the FRONT of its user's native queue under a
-        fresh id. False when its user is blocked: it is finished here."""
+        fresh id (journaled as a requeue when `why` is given). False when
+        its user is blocked: it is finished here."""
         try:
             with self._pending_lock:
                 rid = self.core.requeue_front(req.user, "", req.model,
@@ -1897,8 +2136,11 @@ class TorchEngine:
                 self.pending[rid] = req
         except BlockedError:
             self.core.mark_dropped(req.user, started=req.started)
+            self.journal.record("finish", req=req, reason="cancelled")
             req.finish(FinishReason.CANCELLED)
             return False
+        if why is not None:
+            self.journal.record("requeue", req=req, why=why)
         self.notify()
         return True
 
@@ -1908,13 +2150,14 @@ class TorchEngine:
         or blocked and is finished here (its pages are already free)."""
         if req.cancelled.is_set():
             self.core.mark_dropped(req.user)
+            self.journal.record("finish", req=req, reason="cancelled")
             req.finish(FinishReason.CANCELLED)
             return False
         if req.expired():
-            drop_expired(req, self.core, req.model)
+            drop_expired(req, self.core, req.model, journal=self.journal)
             return False
         req.trace_event("requeue")
-        return self._requeue_front(req)
+        return self._requeue_front(req, why="preempt")
 
     def _retry_or_error(self, req: Request, msg: str,
                         replay: bool = False) -> None:
@@ -1925,14 +2168,17 @@ class TorchEngine:
         so a mid-decode victim resumes its stream."""
         if req.cancelled.is_set():
             self.core.mark_dropped(req.user, started=req.started)
+            self.journal.record("finish", req=req, reason="cancelled")
             req.finish(FinishReason.CANCELLED)
             return
         if req.expired():
-            drop_expired(req, self.core, req.model)
+            drop_expired(req, self.core, req.model, journal=self.journal)
             return
         if req.retries >= self.ecfg.step_retries:
             self.core.mark_dropped(req.user, started=req.started)
-            req.finish(FinishReason.ERROR, error=ModelRuntime._poison_msg(req, msg))
+            self.journal.record("poison", req=req, retries=req.retries,
+                                error=msg[:120])
+            req.finish(FinishReason.ERROR, error=poison_text(req, msg))
             return
         req.retries += 1
         self._engine_retries += 1
@@ -1944,6 +2190,7 @@ class TorchEngine:
                                  + req.generated_ids[req._replay_gen:])
             req._replay_gen = len(req.generated_ids)
         req.trace_event("retry", error=msg[:200], n=req.retries)
+        self.journal.record("retry", req=req, n=req.retries, error=msg[:120])
         self._requeue_front(req)
 
     def cancel(self, req_id: int) -> None:
@@ -2017,6 +2264,10 @@ class TorchEngine:
         if self.health is None:
             self.health = HealthMonitor(self)
             self.health.start()
+        if self.durability is not None:
+            # Recovery runs with the loop live (re-admissions take the
+            # normal enqueue path) and before the HTTP front serves.
+            self.durability.start(self)
 
     def stop(self) -> None:
         self._running = False
@@ -2028,6 +2279,9 @@ class TorchEngine:
         if self.health is not None:
             self.health.stop()
             self.health = None
+        if self.durability is not None:
+            self.durability.close()  # final WAL flush + fsync
+        self.journal.close()  # flush the --journal-file spill
 
     def _loop(self) -> None:
         while self._running:
@@ -2075,8 +2329,17 @@ class TorchEngine:
                     self.core.mark_dropped(user, started=False)
                     continue
                 batch.append((rid, user, model, req))
-            for _rid, user, model, req in pol.order_admission(batch):
+            ordered = pol.order_admission(batch)
+            if len(ordered) > 1 and pol.name != "fcfs":
+                first = ordered[0][3]
+                self.journal.record(
+                    "sched", req=first, policy=pol.name, point="admit",
+                    candidates=len(ordered), predicted=pol.predict(first),
+                    score=round(pol.score(first), 3))
+            for _rid, user, model, req in ordered:
                 req.trace_event("admit")
+                self.journal.record("admit", req=req,
+                                    queued=self.core.total_queued())
                 if self._place(req, user, model):
                     admitted += 1
             if stuck or not items:
@@ -2086,10 +2349,11 @@ class TorchEngine:
     def _place(self, req: Request, user: str, model: str) -> bool:
         if req.cancelled.is_set() or self.core.is_user_or_ip_blocked(user):
             self.core.mark_dropped(user, started=req.started)
+            self.journal.record("finish", req=req, reason="cancelled")
             req.finish(FinishReason.CANCELLED)
             return False
         if req.expired():
-            drop_expired(req, self.core, model)
+            drop_expired(req, self.core, model, journal=self.journal)
             return False
         rt = self.resolve_runtime(model, kind=req.kind)
         if rt is None and model:
@@ -2098,11 +2362,13 @@ class TorchEngine:
             return self._requeue(req, user, model)
         if rt is None:
             self.core.mark_dropped(user, started=req.started)
+            self.journal.record("finish", req=req, reason="error")
             req.finish(FinishReason.ERROR, error=f"model not loaded: {model}")
             return False
         if req.kind not in rt.SERVES:
             # A permanent mismatch: error it, never park it.
             self.core.mark_dropped(user, started=req.started)
+            self.journal.record("finish", req=req, reason="error")
             req.finish(FinishReason.ERROR, error=(
                 f"model {model or rt.name} is an embedding-only model"
                 if req.kind == "generate" else
@@ -2110,6 +2376,7 @@ class TorchEngine:
             return False
         rt.submit(req)
         req.trace_event("place", runtime=rt.name)
+        self.journal.record("place", req=req, runtime=rt.name)
         if not req.started:
             # A preempted or retried requeue was counted already.
             self.core.mark_started(user)
@@ -2125,8 +2392,10 @@ class TorchEngine:
                 req.req_id = rid
                 self.pending[rid] = req
             req.trace_event("requeue")
+            self.journal.record("requeue", req=req, why="unplaceable")
         except BlockedError:
             self.core.mark_dropped(user, started=False)
+            self.journal.record("finish", req=req, reason="cancelled")
             req.finish(FinishReason.CANCELLED)
         return False
 
@@ -2143,24 +2412,28 @@ class TorchEngine:
     def _fail_runtime(self, rt, msg: str) -> None:
         """Each implicated request is retried ONCE on a fresh dispatch
         (mid-decode victims replay prompt + generated so their streams
-        resume after the rebuild); one that keeps failing is poisoned."""
-        if isinstance(rt, EncoderRuntime):
-            while rt.pending:
-                self._retry_or_error(rt.pending.popleft(), msg)
-            return
-        for i, req in enumerate(rt.slot_req):
-            if req is not None:
-                rt._release_slot_pages(i)
-                rt.seq_lens[i] = 0
-                rt.slot_req[i] = None
-                self._retry_or_error(req, msg, replay=True)
-        rt._stalled_slots.clear()
-        for q in (rt.pending_prefill, rt.pending_embed, rt.chunking):
+        resume after the rebuild); one that keeps failing is poisoned.
+        Every runtime kind: slots (ModelRuntime), the active list
+        (FakeRuntime), then the pending queues."""
+        if isinstance(rt, ModelRuntime):
+            for i, req in enumerate(rt.slot_req):
+                if req is not None:
+                    rt._release_slot_pages(i)
+                    rt.seq_lens[i] = 0
+                    rt.slot_req[i] = None
+                    self._retry_or_error(req, msg, replay=True)
+            rt._stalled_slots.clear()
+        active = getattr(rt, "active", None)
+        while active:
+            self._retry_or_error(active.pop(), msg, replay=True)
+        for attr in ("pending_prefill", "pending_embed", "chunking", "pending"):
+            q = getattr(rt, attr, None)
             while q:
                 self._retry_or_error(q.popleft(), msg)
-        for slot in list(rt.reserved_slots):
-            rt._release_slot_pages(slot)
-        rt.reserved_slots.clear()
+        if isinstance(rt, ModelRuntime):
+            for slot in list(rt.reserved_slots):
+                rt._release_slot_pages(slot)
+            rt.reserved_slots.clear()
 
     def _try_recover(self) -> None:
         """Start a background rebuild of each failed runtime."""
@@ -2207,6 +2480,7 @@ class TorchEngine:
                 fresh.submit(r)
             if rt in self._failed_runtimes:
                 self._failed_runtimes.remove(rt)
+            self.journal.record("rebuild", model=rt.name)
             log.warning("runtime %s rebuilt; serving resumes", rt.name)
             self.notify()
 
@@ -2233,6 +2507,7 @@ class TorchEngine:
 
     def _loop_once(self) -> None:
         self.last_tick_at = time.monotonic()
+        self.journal.tick += 1
         self._sample_hbm_timeline()
         self._drain_engine_calls()
         self._swap_rebuilt()

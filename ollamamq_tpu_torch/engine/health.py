@@ -15,7 +15,10 @@ The JAX package's watchdog on the engine's torch device:
     event is older than the deadline (the phase it is stuck in reads
     straight off the attribution layer);
   - preemption storms (KV pressure). The JAX package's compile-storm
-    rule has no counterpart: eager PyTorch compiles nothing per shape.
+    rule has no counterpart: eager PyTorch compiles nothing per shape;
+  - scheduler invariants: the decision journal's ring swept by
+    check_invariants (pages conserved, no slot held twice, the VIP
+    never a victim, sheds only over their bounds, no starvation).
 
 HBM headroom (`device_memory`) reads torch.cuda.mem_get_info and the
 caching allocator's counters; the engine's HBM timeline and chip rows
@@ -24,9 +27,9 @@ and the admin TUI read it.
 Every detection raises a named alert through the engine's AlertManager
 (telemetry/slo.py) — the same table the SLO burn-rate evaluator feeds —
 so /health, /metrics (`ollamamq_slo_alerts_firing`) and the TUI alerts
-panel show one picture. The fleet, HA, worker-host and journal rules of
-the JAX package have no counterpart here: this package has none of
-those modules.
+panel show one picture. The fleet, HA and worker-host rules of the JAX
+package have no counterpart here: this package has none of those
+modules.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 
 from ollamamq_tpu_torch.telemetry import schema as tm
 from ollamamq_tpu_torch.telemetry.attribution import phase_of
+from ollamamq_tpu_torch.telemetry.journal import check_invariants
 
 log = logging.getLogger("ollamamq.health")
 
@@ -254,6 +258,7 @@ class HealthMonitor:
             "request_phase")
 
         self._check_preempt_storm()
+        self._check_journal_invariants()
 
         slo = getattr(self.engine, "slo", None)
         if slo is not None:
@@ -300,6 +305,28 @@ class HealthMonitor:
                 "recompute is eating throughput)", source="watchdog")
         else:
             alerts.resolve("preempt_storm")
+
+    def _check_journal_invariants(self) -> None:
+        """The invariant sweep over the decision journal's ring: a
+        violation is a live scheduler bug, alerted loudly; the alert
+        resolves once the offending records age out of the ring."""
+        alerts = getattr(self.engine, "alerts", None)
+        journal = getattr(self.engine, "journal", None)
+        if alerts is None or journal is None:
+            return
+        try:
+            bad = check_invariants(journal.tail(None))
+        except Exception:  # noqa: BLE001 — the sweep must not kill the monitor
+            log.exception("journal invariant sweep failed")
+            return
+        if bad:
+            log.error("scheduler invariant violation(s): %s", "; ".join(bad[:3]))
+            alerts.fire(
+                "journal_invariant", "page",
+                f"{len(bad)} scheduler invariant violation(s) in the "
+                f"decision journal; first: {bad[0]}", source="watchdog")
+        else:
+            alerts.resolve("journal_invariant")
 
     def status(self) -> dict:
         alerts = getattr(self.engine, "alerts", None)

@@ -12,7 +12,7 @@ import enum
 import queue
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 from ollamamq_tpu_torch.ops.sampling import SamplingParams
 
@@ -56,10 +56,20 @@ class TokenStream:
         # trace with a stream_stall event when the backlog crosses it,
         # well before a full queue turns into a disconnect.
         self.high_water = max(1, maxsize // 2)
+        # Durability tap (durability/manager.py): sees every pushed item
+        # without consuming it (the WAL's token log and the resumable
+        # stream registry read here), even when the queue overflows.
+        self.tap: Optional[Callable[[StreamItem], None]] = None
 
     def push(self, item: StreamItem) -> None:
         if self._closed:
             return
+        tap = self.tap
+        if tap is not None:
+            try:
+                tap(item)
+            except Exception:  # noqa: BLE001 — a broken tap drops itself,
+                self.tap = None  # never the engine thread
         terminal = item.kind in ("done", "error")
         try:
             self._q.put_nowait(item)
@@ -84,6 +94,12 @@ class TokenStream:
     def get(self, timeout: Optional[float] = None) -> Optional[StreamItem]:
         try:
             return self._q.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def get_nowait(self) -> Optional[StreamItem]:
+        try:
+            return self._q.get_nowait()
         except queue.Empty:
             return None
 
@@ -122,6 +138,7 @@ class Request:
         prompt_tokens: Sequence[int],
         sampling: Optional[SamplingParams] = None,
         kind: str = "generate",  # "generate" | "embed"
+        raw_prompt: str = "",
     ):
         self.req_id = req_id
         self.user = user
@@ -129,6 +146,8 @@ class Request:
         self.prompt_tokens = list(prompt_tokens)
         self.sampling = sampling or SamplingParams()
         self.kind = kind
+        # The client's prompt text, as the WAL logs it for recovery.
+        self.raw_prompt = raw_prompt
         self.stream = TokenStream()
         self.stats = RequestStats(prompt_tokens=len(self.prompt_tokens))
         self.cancelled = threading.Event()

@@ -22,9 +22,12 @@ methods and status codes; "*" accepts any method:
     /debug/requests, /debug/requests/{req_id} (latency attribution),
     /debug/bundle (every section error-contained), /debug/stepprof,
     /debug/hbm, GET|POST /debug/prefix_cache, POST /debug/profile (a
-    torch.profiler capture exported as a Chrome trace).
-Left out with the modules they serve: the fleet, journal, WAL and HA
-routes. Every route but /health answers 403 to a blocked user or IP. A
+    torch.profiler capture exported as a Chrome trace), GET
+    /debug/journal (the decision journal's ring, filtered);
+  with a WAL (--wal-dir): GET /api/stream/{req_id}?from=N, the
+    resumable stream, across a restart too.
+Left out with the modules they serve: the fleet and HA routes. Every
+route but /health answers 403 to a blocked user or IP. A
 request naming a model the registry does not hold (never pulled, or
 deleted) answers 404, as Ollama does.
 
@@ -51,7 +54,7 @@ from urllib.parse import parse_qs
 from ollamamq_tpu_torch import __version__
 from ollamamq_tpu_torch.config import get_model_config
 from ollamamq_tpu_torch.core.mqcore import BlockedError, Family
-from ollamamq_tpu_torch.engine.engine import QueueFullError
+from ollamamq_tpu_torch.engine.engine import QueueFullError, TokenIdError
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
 from ollamamq_tpu_torch.ops.cuda import launch_counts
@@ -60,6 +63,7 @@ from ollamamq_tpu_torch.server.registry import ModelRegistry
 from ollamamq_tpu_torch.server.templates import render_chat, template_owns_bos
 from ollamamq_tpu_torch.telemetry import REGISTRY, attribution, stepprof, tracing
 from ollamamq_tpu_torch.telemetry import schema as tm
+from ollamamq_tpu_torch.telemetry.journal import EVENTS
 
 log = logging.getLogger("ollamamq.torch.server")
 
@@ -133,6 +137,7 @@ class Handler(BaseHTTPRequestHandler):
         ("GET", "/health"): "health",
         ("*", "/"): "root",
         ("*", "/api/generate"): "api_generate",
+        ("GET", "/api/stream/{req_id}"): "api_stream_resume",
         ("*", "/api/chat"): "api_chat",
         ("*", "/api/embed"): "api_embed",
         ("*", "/api/embeddings"): "api_embeddings_legacy",
@@ -159,6 +164,7 @@ class Handler(BaseHTTPRequestHandler):
         ("GET", "/debug/requests"): "debug_requests",
         ("GET", "/debug/requests/{req_id}"): "debug_request",
         ("GET", "/debug/bundle"): "debug_bundle",
+        ("GET", "/debug/journal"): "debug_journal",
         ("POST", "/debug/profile"): "debug_profile",
         ("GET", "/debug/stepprof"): "debug_stepprof",
         ("GET", "/debug/hbm"): "debug_hbm",
@@ -296,12 +302,16 @@ class Handler(BaseHTTPRequestHandler):
         return tok.encode(text, add_bos=add_bos)
 
     def _enqueue(self, user, ip, model, family, tokens, sampling,
-                 kind: str = "generate") -> Request:
+                 kind: str = "generate", raw_prompt: str = "",
+                 context_ids=None) -> Request:
         try:
             return self.server.engine.enqueue_request(
-                user, ip, model, family, tokens, sampling, kind=kind)
+                user, ip, model, family, tokens, sampling, kind=kind,
+                raw_prompt=raw_prompt, context_ids=context_ids)
         except BlockedError as e:
             raise ApiError(403, str(e))
+        except TokenIdError as e:
+            raise ApiError(400, str(e))
         except QueueFullError as e:
             # Per-user cap => 429 (this client backs off); global cap =>
             # 503 (the service is saturated).
@@ -365,10 +375,15 @@ class Handler(BaseHTTPRequestHandler):
         engine's stats. Open to blocked users."""
         eng = self.server.engine
         active = [a.to_dict() for a in eng.alerts.active()]
-        self._send_json(200, {**eng.stats(),
-                              "status": "degraded" if active else "ok",
-                              "alerts": active, "device": str(eng.device),
-                              "kernel_launches": launch_counts()})
+        payload = {**eng.stats(), "status": "degraded" if active else "ok",
+                   "alerts": active, "device": str(eng.device),
+                   "kernel_launches": launch_counts()}
+        if eng.durability is not None:
+            # Not ready while the WAL recovery pass is still re-admitting.
+            payload["wal"] = eng.durability.status()
+            if payload["wal"]["recovering"]:
+                payload["status"] = "recovering"
+        self._send_json(200, payload)
 
     # -- telemetry -----------------------------------------------------------
     def metrics(self) -> None:
@@ -409,6 +424,23 @@ class Handler(BaseHTTPRequestHandler):
             raise ApiError(404, f"no trace for request {rid} (expired "
                                 "from the ring, or never existed)")
         self._send_json(200, tracing.merged_chrome(spans, root_origin=tracer.origin))
+
+    def debug_journal(self) -> None:
+        """The decision journal's ring, newest last, each record with the
+        inputs of its decision. Filters: `?n=` (default 200), `?req_id=`,
+        `?user=`, `?kind=` (an unknown kind is a 400 naming the
+        vocabulary)."""
+        self._ident()
+        n = self._int_query("n", 200)
+        req_id = (self._int_query("req_id", 0)
+                  if self.query.get("req_id") is not None else None)
+        kind = self.query.get("kind")
+        if kind is not None and kind not in EVENTS:
+            raise ApiError(400, f"unknown event kind '{kind}' "
+                                f"(vocabulary: {', '.join(EVENTS)})")
+        journal = self.server.engine.journal
+        self._send_json(200, {**journal.snapshot(), "events": journal.tail(
+            n=n, req_id=req_id, user=self.query.get("user"), kind=kind)})
 
     def debug_stepprof(self) -> None:
         """The step profiler's ring: per-mode/per-phase p50/p99, the
@@ -588,7 +620,8 @@ class Handler(BaseHTTPRequestHandler):
             tokens = self._tokenize(model, t)
             counts.append(len(tokens))
             reqs.append(self._enqueue(user, ip, model, Family.OLLAMA, tokens,
-                                      SamplingParams(), kind="embed"))
+                                      SamplingParams(), kind="embed",
+                                      raw_prompt=t))
         out = []
         for req in reqs:
             items = list(self._items(req))
@@ -637,8 +670,17 @@ class Handler(BaseHTTPRequestHandler):
         model, _cfg = self._model(body)
         sampling = SamplingParams.from_ollama_options(
             body.get("options"), self.server.engine.ecfg.max_new_tokens)
-        tokens = self._tokenize(model, body.get("prompt", ""))
-        req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling)
+        prompt = body.get("prompt", "")
+        tokens = self._tokenize(model, prompt)
+        # Ollama's `context`: ids from an earlier turn. The engine
+        # prefills prompt + these ids and continues after them;
+        # num_predict still budgets new tokens only.
+        context = body.get("context") or []
+        if context and not (isinstance(context, list) and all(
+                isinstance(t, int) and not isinstance(t, bool) for t in context)):
+            raise ApiError(400, "'context' must be a list of token ids")
+        req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling,
+                            raw_prompt=prompt, context_ids=context or None)
         self._ollama_reply(req, model, chat=False,
                            stream=body.get("stream", True))
 
@@ -650,7 +692,8 @@ class Handler(BaseHTTPRequestHandler):
             body.get("options"), self.server.engine.ecfg.max_new_tokens)
         prompt = render_chat(body.get("messages", []), cfg)
         tokens = self._tokenize(model, prompt, add_bos=not template_owns_bos(cfg))
-        req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling)
+        req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling,
+                            raw_prompt=prompt)
         self._ollama_reply(req, model, chat=True,
                            stream=body.get("stream", True))
 
@@ -697,6 +740,73 @@ class Handler(BaseHTTPRequestHandler):
 
         self._stream(req, "application/x-ndjson", frames)
 
+    def api_stream_resume(self, rid: str) -> None:
+        """Reattach to a stream by the req_id its NDJSON frames carried:
+        every frame from token index `?from=N` (default 0) out of the
+        durability registry, then the live ones up to the terminal.
+        Works across a restart (the recovery pass keys the registry by
+        the pre-crash id). An observer: disconnecting cancels nothing.
+        404 without a WAL, as the route does not exist there."""
+        self._ident()
+        dur = self.server.engine.durability
+        if dur is None:
+            raise ApiError(404, f"no route for GET /api/stream/{rid}")
+        try:
+            rid = int(rid)
+        except ValueError:
+            raise ApiError(400, "request id must be an integer")
+        try:
+            from_n = int(self.query.get("from", "0"))
+        except ValueError:
+            raise ApiError(400, "'from' must be an integer token index")
+        if from_n < 0:
+            raise ApiError(400, "'from' must be >= 0")
+        entry = dur.registry.find(rid)
+        if entry is None:
+            raise ApiError(404, f"no resumable stream for request {rid} "
+                                "(unknown id, or expired from the stream "
+                                "archive)")
+
+        def frame(**fields) -> bytes:
+            p = {"model": "", "created_at": _now_iso(), "req_id": entry.rid,
+                 **fields}
+            return (json.dumps(p) + "\n").encode()
+
+        deadline = time.monotonic() + self.server.timeout_s
+        sent = 0         # frames consumed from the entry
+        tokens_seen = 0  # id-carrying frames passed (the ?from cursor)
+        try:
+            self._start_chunked("application/x-ndjson")
+            while True:
+                frames, terminal = entry.snapshot(sent)
+                for tid, text in frames:
+                    sent += 1
+                    skip = tokens_seen < from_n
+                    if tid >= 0:
+                        tokens_seen += 1
+                    if skip:
+                        continue  # inside the prefix the client has
+                    extra = {"token_ids": [tid]} if tid >= 0 else {}
+                    self._chunk(frame(done=False, response=text, **extra))
+                # The snapshot is atomic and a terminal is final: every
+                # frame has been sent by now.
+                if terminal is not None:
+                    extra = ({"error": terminal["error"]}
+                             if terminal.get("error") else {})
+                    self._chunk(frame(done=True, response="",
+                                      done_reason=terminal.get("reason", "stop"),
+                                      **extra))
+                    break
+                if time.monotonic() > deadline:
+                    self._chunk(frame(done=True, done_reason="error",
+                                      error="resume timeout"))
+                    break
+                time.sleep(0.02)
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError):
+            raise _ClientGone()
+
     def v1_chat_completions(self) -> None:
         user, ip = self._ident()
         body = self._read_body()
@@ -705,7 +815,8 @@ class Handler(BaseHTTPRequestHandler):
             body, self.server.engine.ecfg.max_new_tokens)
         prompt = render_chat(body.get("messages", []), cfg)
         tokens = self._tokenize(model, prompt, add_bos=not template_owns_bos(cfg))
-        req = self._enqueue(user, ip, model, Family.OPENAI, tokens, sampling)
+        req = self._enqueue(user, ip, model, Family.OPENAI, tokens, sampling,
+                            raw_prompt=prompt)
         self._openai_reply(req, model, f"chatcmpl-{uuid.uuid4().hex[:24]}",
                            chat=True, stream=body.get("stream", False))
 
@@ -724,11 +835,13 @@ class Handler(BaseHTTPRequestHandler):
             if len(prompts) > 1:
                 raise ApiError(400, "streaming with multiple prompts is not supported")
             req = self._enqueue(user, ip, model, Family.OPENAI,
-                                self._tokenize(model, prompts[0]), sampling)
+                                self._tokenize(model, prompts[0]), sampling,
+                                raw_prompt=prompts[0])
             self._openai_reply(req, model, rid, chat=False, stream=True)
             return
         reqs = [self._enqueue(user, ip, model, Family.OPENAI,
-                              self._tokenize(model, p), sampling) for p in prompts]
+                              self._tokenize(model, p), sampling, raw_prompt=p)
+                for p in prompts]
         choices, usage_p, usage_c = [], 0, 0
         for i, req in enumerate(reqs):
             items = self._final_items(req)
@@ -815,11 +928,33 @@ class Handler(BaseHTTPRequestHandler):
             rid = int(rid)
         except ValueError:
             raise ApiError(400, "request id must be an integer")
+        journal = self.server.engine.journal
         tr = self.server.engine.tracer.find(rid)
         if tr is None:
+            # A WAL-recovered stream asked for by its pre-crash id: the
+            # recovery pass journaled which id it was re-admitted under.
+            alias = _recovered_as(journal, rid)
+            if alias is not None:
+                self._send_json(200, {
+                    "req_id": rid, "state": "recovered",
+                    "recovered_as": alias,
+                    "timeline": f"/debug/requests/{alias}",
+                    "note": ("this id predates a restart; the WAL recovery "
+                             f"pass re-admitted the stream as request {alias}")})
+                return
             raise ApiError(404, f"no trace for request {rid} (expired from "
                                 "the ring, or never existed)")
-        self._send_json(200, attribution.timeline(tr))
+        out = attribution.timeline(tr)
+        # The request's slice of the journal (why it was admitted, batched,
+        # preempted), and the WAL cross-links both ways.
+        out["journal"] = journal.tail(n=100, req_id=rid)
+        for rec in journal.tail(None, kind="recover_replay"):
+            if rec.get("req_id") == rid and rec.get("wal_rid") is not None:
+                out["wal_rid"] = rec["wal_rid"]
+                out["pre_crash_timeline"] = f"/debug/requests/{rec['wal_rid']}"
+            elif rec.get("wal_rid") == rid:
+                out["recovered_as"] = rec.get("req_id")
+        self._send_json(200, out)
 
     def debug_bundle(self) -> None:
         """One-shot diagnostics: config, models, stats, health, alerts,
@@ -853,7 +988,18 @@ class Handler(BaseHTTPRequestHandler):
         section("hbm", lambda: stepprof.PROFILER.hbm_tail(64))
         section("requests", lambda: attribution.summarize(eng.tracer, recent=50))
         section("prefix_cache", eng.prefix_cache_stats)
+        section("journal", lambda: _redact(
+            {**eng.journal.snapshot(), "events": eng.journal.tail(n=200)}))
         self._send_json(200, bundle)
+
+
+def _recovered_as(journal, rid: int):
+    """The id a WAL'd pre-crash `rid` was re-admitted under, off the
+    journal's recover_replay records (None: no such recovery)."""
+    for rec in journal.tail(None, kind="recover_replay"):
+        if rec.get("wal_rid") == rid:
+            return rec.get("req_id")
+    return None
 
 
 def render_prometheus(engine) -> str:

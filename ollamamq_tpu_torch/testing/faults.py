@@ -4,10 +4,10 @@ A copy of the JAX package's module (ollamamq_tpu/testing/faults.py) with
 the same SITES, KINDS and plan schema, so one plan file drives either
 engine. A FaultPlan is a seeded, schema-checked list of rules injected
 into the engine's dispatch seams (ModelRuntime._fault at the top of the
-ragged, spec_verify and decode dispatches) and allocation seams (page
-alloc / decode-time extend). Sites that the PyTorch engine has no seam
-for yet (prefill, chunk, the fleet's and the WAL's) are accepted and
-never fire. Every degradation path — preemption-with-recompute, retry with
+ragged, spec_verify and decode dispatches, FakeRuntime.step), allocation
+seams (page alloc / decode-time extend) and the durability WAL's flush
+seam. Sites that the PyTorch engine has no seam for yet (prefill, chunk
+and the fleet's) are accepted and never fire. Every degradation path — preemption-with-recompute, retry with
 backoff, poisoning, load shedding under allocation pressure, watchdog
 stalls — becomes testable and chaos-benchable without a flaky device:
 the same plan file replays the same faults in the same order.

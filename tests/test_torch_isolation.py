@@ -3,9 +3,12 @@ serves a request (bf16/f32, then int8 weights and int8 KV pages, then
 with the prefix cache, speculation and an injected ragged fault that is
 retried, then under srpt with token fairness and a /metrics scrape, then
 several models: an encoder pulled, embedded with and deleted over HTTP,
-and a safetensors checkpoint written and served) with JAX, the JAX
-package, safetensors and tokenizers all blocked from import, and
-without a GPU the engine refuses to start unless the CPU is asked for.
+and a safetensors checkpoint written and served, then the fake engine
+with a WAL and a journal spill, whose stream is recovered after a crash
+and whose spill the journal tool checks) with JAX, the JAX package,
+safetensors and tokenizers all blocked from import, and without a GPU
+the engine refuses to start unless the CPU is asked for. The journal
+tool's --help runs under the same block.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -100,6 +103,40 @@ weights.save_safetensors(srv.engine.runtimes["test-tiny"].params,
 stop_server(srv)
 body_ckpt, _ = serve_one(cfg, models={"test-tiny": ckpt})
 
+import shutil, time
+from ollamamq_tpu_torch.engine.fake import FakeEngine
+from ollamamq_tpu_torch.ops.sampling import SamplingParams
+from ollamamq_tpu_torch.telemetry.journal import check_invariants
+from ollamamq_tpu_torch.tools.journal import main as journal_main
+wal = tempfile.mkdtemp()
+fake = FakeEngine(EngineConfig(model="test-tiny", wal_dir=wal + "/a",
+                               wal_fsync_ms=1.0, journal_file=wal + "/j.jsonl"),
+                  blocklist_path=None, token_latency_s=0.02)
+fake.start()
+live = fake.enqueue_request("w", "", "test-tiny", prompt_tokens=[1, 2],
+                            sampling=SamplingParams(max_tokens=8))
+while len(live.generated_ids) < 3:
+    time.sleep(0.005)
+fake._running = False  # a crash: the loop dies, nothing is flushed
+time.sleep(0.1)
+wal_ = fake.durability.wal
+wal_._stop.set()
+with wal_._cond:
+    wal_._cond.notify_all()
+wal_._flusher.join(timeout=5)
+shutil.copytree(wal + "/a", wal + "/b")
+fake.stop()
+fake = FakeEngine(EngineConfig(model="test-tiny", wal_dir=wal + "/b",
+                               wal_fsync_ms=1.0), blocklist_path=None)
+fake.start()
+entry = fake.durability.registry.find(live.req_id)
+while entry.terminal is None:
+    time.sleep(0.01)
+recovered = "".join(t for _, t in entry.snapshot(0)[0])
+fake_clean = check_invariants(fake.journal.tail(None))
+fake.stop()
+check_rc = journal_main(["check", wal + "/j.jsonl"])
+
 refused = None
 if not torch.cuda.is_available():
     try:
@@ -120,6 +157,7 @@ print(json.dumps({
     "ttft_count": ttft,
     "pull": pull, "embed_dims": [len(v) for v in emb], "deleted": deleted,
     "models_after_delete": models_after, "eval_count_ckpt": body_ckpt["eval_count"],
+    "recovered": recovered, "fake_clean": fake_clean, "check_rc": check_rc,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu",
                                              "safetensors", "tokenizers")),
@@ -129,11 +167,15 @@ print(json.dumps({
 """
 
 
-def test_port_imports_and_serves_without_jax():
+def _env():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO + (os.pathsep + os.environ["PYTHONPATH"]
                                 if os.environ.get("PYTHONPATH") else "")
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    return env
+
+
+def test_port_imports_and_serves_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=_env(),
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -151,6 +193,8 @@ def test_port_imports_and_serves_without_jax():
     assert out["embed_dims"] == [64, 64] and out["deleted"] == {"status": "success"}
     assert out["models_after_delete"] == ["test-tiny"]
     assert out["eval_count_ckpt"] == 4
+    assert out["recovered"] == "".join(f"word{i} " for i in range(8))
+    assert out["fake_clean"] == [] and out["check_rc"] == 0
     expected = {"ollamamq_tpu_torch.engine.engine", "ollamamq_tpu_torch.server.app",
                 "ollamamq_tpu_torch.ops.cuda.paged_attention",
                 "ollamamq_tpu_torch.ops.cuda.ragged_attention",
@@ -164,9 +208,29 @@ def test_port_imports_and_serves_without_jax():
                 "ollamamq_tpu_torch.telemetry.attribution",
                 "ollamamq_tpu_torch.telemetry.tracing",
                 "ollamamq_tpu_torch.telemetry.stepprof", "ollamamq_tpu_torch.telemetry.slo",
-                "ollamamq_tpu_torch.server.registry", "ollamamq_tpu_torch.engine.tokenizer"}
+                "ollamamq_tpu_torch.server.registry", "ollamamq_tpu_torch.engine.tokenizer",
+                "ollamamq_tpu_torch.engine.fake", "ollamamq_tpu_torch.telemetry.journal",
+                "ollamamq_tpu_torch.tools.journal", "ollamamq_tpu_torch.durability",
+                "ollamamq_tpu_torch.durability.wal",
+                "ollamamq_tpu_torch.durability.manager"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
         assert out["refused"] and "no CUDA device" in out["refused"]
     assert torch.cuda.is_available() == out["cuda"]
+
+
+def test_journal_tool_help_without_jax():
+    """`python -m ollamamq_tpu_torch.tools.journal --help` with JAX and
+    the JAX package blocked from import."""
+    blocker = SCRIPT.split("import importlib")[0]
+    code = blocker + (
+        "import runpy\n"
+        "sys.argv = ['ollamamq_tpu_torch.tools.journal', '--help']\n"
+        "runpy.run_module('ollamamq_tpu_torch.tools.journal', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for cmd in ("tail", "explain", "stats", "merge", "check", "record",
+                "replay", "simulate"):
+        assert cmd in proc.stdout
