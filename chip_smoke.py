@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about five minutes
+    python3 chip_smoke.py            # one card, about six minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -161,9 +161,46 @@ Phases, each printing JSON lines; any failure exits non-zero:
            fsync p50/p99, ollamamq_recovered_streams_total, seconds from
            restart to the first resumed frame, journal records per
            request. Server logs and WAL dirs under chiprun_out/chip_smoke.
+  serve-fleet
+           the fleet router and KV page migration: llama3.2:1b at full
+           width (seeded), members of 4 slots and 72 pages built as the
+           CLI builds them (an engine_factory each, no caps, WAL or
+           journal spill), page size 32, 16 pages a sequence, k_steps 8,
+           the prefix cache on, placement affinity. (a) two bf16 members
+           r0, r1 behind the port's FleetRouter and HTTP server: two
+           warm-ups (the second, a 2-page system prompt, lands on r0 and
+           caches there), then 6 users' greedy 160-token streams in two
+           waves, 2 plain ones and, once they hold 64 tokens, 2 plain and
+           the 2 users sharing the system prompt; once every stream holds
+           32 tokens, POST /admin/drain/r0. Gates: every reply stop or
+           length; ollamamq_fleet_migrations_total{outcome="migrated"}
+           grew by r0's in-flight streams at the drain (>= 1); no
+           replica_failover; ollamamq_fleet_migrate_bytes_total grew by
+           kv_page_bytes x the pages of every migrate_export and prefix
+           shipment; check_no_dropped_streams clean on the router's and
+           both members' journals; 0 pages used on both members; r0
+           healthy again in GET /admin/fleet; both bf16 kernels launched.
+           Then one stream alone, unmigrated and migrated at 16 tokens
+           (bf16: the first differing index printed, not gated). (b)
+           float32, TF32 off: one stream migrated at 16 and at 64 tokens
+           gives the unmigrated run's ids. (c) int8 KV: one stream
+           migrated between two int8-KV members; the target's page run,
+           read right after the import, equals the shipped int8 payload
+           and f32 scale planes bit for bit, the stream completes and the
+           int8 decode kernel runs on the target. (d) a member
+           subprocess (`python -m ollamamq_tpu_torch.cli --device cuda`)
+           joined as h0 beside a local r0, drained while it streams: the
+           stream migrates over /admin/migrate/export, /import, /commit
+           into r0, the bytes as in (a), and the subprocess's exit line
+           shows both bf16 kernels launched. Records the handoff ms per
+           migrated stream (export to commit) in process and over the
+           wire, the placement overhead p50/p99, TTFT p50 through the
+           router (its enqueue to the member's first token) and (a)'s
+           tokens/s. The member's log is under chiprun_out/chip_smoke.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
-serve window of the row's pool format plus serve-durable's, counted in
+serve window of the row's pool format plus serve-durable's and
+serve-fleet's, counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
 ms go uncounted; the others' whole windows from the counts they log at
@@ -2212,6 +2249,646 @@ def serve_durable_phase(report) -> None:
         raise SystemExit(f"serve-durable gates failed: {gates}")
 
 
+# -- serve-fleet: the fleet router, its members and KV page migration -------
+FLEET_MODEL = "llama3.2:1b"
+FLEET_NEW = 160
+FLEET_ARGS = ["--max-slots", "4", "--num-pages", str(4 * 16 + 8), "--page-size", "32",
+              "--max-pages-per-seq", "16", "--max-batch-tokens", "512",
+              "--token-granule", "16", "--decode-steps", "8", "--seed", "0",
+              "--max-new-tokens", str(FLEET_NEW), "--prefix-cache",
+              "--placement", "affinity"]
+# The device flag of the member subprocess (the CLI's default is cuda).
+FLEET_DEVICE_ARGS = ["--device", "cuda"]
+# 75 bytes plus BOS: two full 32-token pages of shared system prompt.
+FLEET_SYSTEM = ("System: you are the careful assistant of a shared GPU cluster; "
+                "answer briefly. ")
+# A second tenant's system prompt (70 bytes plus BOS: two full pages),
+# seen by one member only before the prefix-ship wave.
+FLEET_SYSTEM_2 = "System: you speak for the second tenant; cite the manual, be terse. "
+FLEET_USERS = {"ada": "Tell me about fair queues. ", "bob": "Why page the KV cache? ",
+               "cyd": "Explain the decode kernel. ", "dee": "What is a drain? ",
+               "sys-a": FLEET_SYSTEM + "Who goes first?",
+               "sys-b": FLEET_SYSTEM + "What does a drain do?"}
+
+
+def _fleet_router(dtype="bfloat16", kv_dtype="bfloat16", params=None,
+                  n_local=2, urls=()):
+    """The CLI's own fleet (cli.build_fleet) from FLEET_ARGS: `n_local`
+    TorchEngine members r0, ... and HTTP members h0, ... at `urls`, at
+    the CLI's defaults (the router's 3 s heartbeat eject bound among
+    them). Only the engine factory differs from the CLI's: the members
+    share one seeded weight tree. Returns (router, its EngineConfig,
+    params)."""
+    from ollamamq_tpu_torch import cli
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    args = cli.build_parser().parse_args(
+        FLEET_ARGS + ["--model", FLEET_MODEL, "--dtype", dtype, "--kv-dtype", kv_dtype,
+                      "--replicas", str(n_local), "--replica-urls", ",".join(urls),
+                      "--blocklist", os.path.join(OUT_DIR, "blocked-fleet-router.json")])
+    ecfg = cli.engine_config(args)
+    held = {"params": params}
+
+    def make(cfg):
+        eng = TorchEngine(cfg, params=held["params"])
+        held["params"] = eng.runtimes[FLEET_MODEL].params
+        return eng
+
+    router = cli.build_fleet(args, ecfg, make)
+    return router, ecfg, held["params"]
+
+
+class _HeartbeatWatch:
+    """The longest heartbeat age each member showed while healthy, sampled
+    every 5 ms over a window: its margin under the router's eject bound
+    (a drained member's restart is not counted)."""
+
+    def __init__(self, router):
+        self.router, self.max_age = router, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            for m in list(self.router.members):
+                if m.state == "healthy":
+                    age = m.heartbeat_age()
+                    self.max_age[m.name] = max(age, self.max_age.get(m.name, 0.0))
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self.max_age
+
+
+def _ejects(router):
+    return [r for r in router.journal.tail(None) if r["kind"] == "replica_eject"]
+
+
+def _flight(router, user, budget=300.0, placed=True):
+    deadline = time.monotonic() + budget
+    while time.monotonic() < deadline:
+        for f in list(router.flights):
+            if f.user == user and (f.member is not None or not placed):
+                return f
+        time.sleep(0.005)
+    raise SystemExit(f"serve-fleet: {user}'s stream was never placed")
+
+
+def _wait_tokens(router, users, n, budget=300.0):
+    """Until each user's live attempt (an in-process member's) holds n
+    generated ids."""
+    deadline = time.monotonic() + budget
+    while time.monotonic() < deadline:
+        fl = {f.user: f for f in list(router.flights)}
+        if all(u in fl and fl[u].attempt is not None
+               and len(fl[u].attempt.req.generated_ids) >= n for u in users):
+            return
+        time.sleep(0.005)
+    raise SystemExit(f"serve-fleet: {users} never reached {n} tokens")
+
+
+def _fleet_metrics():
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    out = {o: tm.FLEET_MIGRATIONS_TOTAL.labels(outcome=o).value
+           for o in ("migrated", "aborted", "prefix")}
+    out["bytes"] = tm.FLEET_MIGRATE_BYTES_TOTAL.value
+    out["failovers"] = tm.FLEET_FAILOVERS_TOTAL.value
+    return out
+
+
+def _delta(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _handoffs(recs):
+    """Per migrated stream: ms from the export's start to the commit (the
+    router journals migrate_import after the source's commit), pages."""
+    exports = {}
+    out = []
+    for r in recs:
+        if r["kind"] == "migrate_export":
+            exports[r["req_id"]] = r
+        elif r["kind"] == "migrate_import" and r.get("what") != "prefix":
+            e = exports.get(r["req_id"])
+            if e is not None:
+                out.append({"req_id": r["req_id"], "from": r["replica"],
+                            "to": r["to_replica"], "tokens": r["tokens"],
+                            "pages": r["pages"], "bytes": r["bytes"],
+                            "ms": (r["t"] - e["t"]) * 1e3 + e["overhead_ms"]})
+    return out
+
+
+def _shipped_pages(recs):
+    """Pages the router shipped: every migrate_export's run plus every
+    prefix shipment (the migrate-bytes counter counts both)."""
+    return (sum(r["pages"] for r in recs if r["kind"] == "migrate_export")
+            + sum(r["pages"] for r in recs
+                  if r["kind"] == "migrate_import" and r.get("what") == "prefix"))
+
+
+def _stream_ids(router, user, prompt, max_tokens, drain_at=None, budget=600.0):
+    """One greedy stream through the router in process: its token ids and
+    finish; with `drain_at`, its member is drained once it holds that many
+    tokens (the stream migrates). Returns (ids, done item, migrated depth
+    or None)."""
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    rt = router.resolve_runtime(FLEET_MODEL)
+    req = router.enqueue_request(user, "", FLEET_MODEL,
+                                 prompt_tokens=rt.tokenizer.encode(prompt),
+                                 sampling=SamplingParams(max_tokens=max_tokens),
+                                 raw_prompt=prompt)
+    depth = None
+    if drain_at is not None:
+        f = _flight(router, user)
+        _wait_tokens(router, [user], drain_at)
+        src = f.member
+        depth = len(f.attempt.req.generated_ids)
+        router.drain_replica(src.name)
+        deadline = time.monotonic() + budget
+        while f.member is src and not f.done and time.monotonic() < deadline:
+            time.sleep(0.002)
+    items = _collect(req, timeout=budget)
+    ids = [i.token_id for i in items if i.kind == "token" and i.token_id >= 0]
+    deadline = time.monotonic() + 60
+    while router.fleet_counts()["healthy"] < len(router.members) \
+            and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return ids, items[-1], depth
+
+
+def _blob_bytes(rt, page_bytes, pages, streams):
+    """What the migrate-bytes counter must show: every shipped page, plus
+    each migrated stream's penalty-ring row (the blob's other array)."""
+    return page_bytes * pages + streams * rt.recent.shape[1] * rt.recent.element_size()
+
+
+def _fleet_in_process(card):
+    """(a) two bf16 members behind the HTTP server, r0 drained mid-stream;
+    then the holder of the system prompt filled so that one more system
+    stream misses it and the prefix is shipped; then one stream alone,
+    unmigrated and migrated (bf16, not gated)."""
+    from ollamamq_tpu_torch.engine import kv_cache as kvc
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.tools.journal import check_no_dropped_streams
+
+    router, ecfg, params = _fleet_router()
+    srv = serve_in_thread(router, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    try:
+        # Warm-ups: the first placement of a fresh router goes to r1, the
+        # second (a tie again) to r0, which then caches the system prompt.
+        for user, prompt in (("warm", "Warm up the card."),
+                             ("sys", FLEET_SYSTEM + "Hello.")):
+            _post(port, "/api/generate", {"model": FLEET_MODEL, "prompt": prompt,
+                                          "stream": False,
+                                          "options": {"temperature": 0,
+                                                      "num_predict": 8}}, user)
+        holder = router.journal.tail(None, kind="place")[-1]["runtime"]
+        sys_tokens = router.resolve_runtime(FLEET_MODEL).tokenizer.encode(FLEET_SYSTEM)
+        cached = {m.name: m.affinity_pages(FLEET_MODEL, sys_tokens)
+                  for m in router.members}
+        m0 = _fleet_metrics()
+        seq0 = router.journal.seq
+        mseq0 = {m.name: m.engine.journal.seq for m in router.members}
+        hits0 = {m.name: m.engine.prefix_cache_stats()["models"][FLEET_MODEL]["hits"]
+                 for m in router.members}
+        from ollamamq_tpu_torch.telemetry import schema as tm
+
+        aff0 = tm.FLEET_AFFINITY_HITS_TOTAL.value
+        reset_launch_counts()
+        watch = _HeartbeatWatch(router)
+        results, errors = {}, []
+
+        def run(user):
+            body = {"model": FLEET_MODEL, "prompt": FLEET_USERS[user],
+                    "options": {"temperature": 0, "num_predict": FLEET_NEW}}
+            try:
+                frames = [json.loads(x) for x in
+                          _ndjson(port, "POST", "/api/generate", body, user)]
+                results[user] = ([t for f in frames for t in f.get("token_ids", [])],
+                                 frames[-1])
+            except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                errors.append(f"{user}: {e}")
+
+        t0 = time.monotonic()
+        # Wave A starts 64 tokens ahead of wave B: at the drain r1 has one
+        # free slot for r0's oldest stream, and wave A finishing frees the
+        # two r1 slots r0's last two streams then migrate into.
+        threads = {u: threading.Thread(target=run, args=(u,)) for u in FLEET_USERS}
+        for u in ("ada", "bob"):
+            threads[u].start()
+        for u in ("ada", "bob"):
+            _flight(router, u)
+        _wait_tokens(router, ["ada", "bob"], 64)
+        for u in ("cyd", "dee", "sys-a", "sys-b"):
+            threads[u].start()
+        for u in FLEET_USERS:
+            _flight(router, u)
+        _wait_tokens(router, list(FLEET_USERS), 32)
+        placed = {f.user: f.member.name for f in list(router.flights)}
+        _, data = _post(port, "/admin/drain/r0", {}, "admin")
+        drain = json.loads(data)
+        for t in threads.values():
+            t.join(timeout=600)
+        seconds = time.monotonic() - t0
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            fleet = json.loads(_get(port, "/admin/fleet"))
+            if fleet["counts"]["healthy"] == 2:
+                break
+            time.sleep(0.05)
+        window_recs = [r for r in router.journal.tail(None) if r["seq"] >= seq0]
+        hits = {m.name: m.engine.prefix_cache_stats()["models"][FLEET_MODEL]["hits"]
+                - hits0[m.name] for m in router.members}
+
+        # The prefix ship: both members now hold the first system prompt
+        # (r0 from the warm-up, r1 from the streams that migrated there),
+        # so a second tenant's prompt is cached on one member by a
+        # warm-up; then max_slots of its streams fill the holder (affinity),
+        # and one more, sent once every slot there is decoding, misses it:
+        # the router ships the cached prefix to the other member, whose
+        # admission then hits its cache.
+        _post(port, "/api/generate", {"model": FLEET_MODEL, "stream": False,
+                                      "prompt": FLEET_SYSTEM_2 + "Hello.",
+                                      "options": {"temperature": 0,
+                                                  "num_predict": 8}}, "sys2")
+        tok = router.resolve_runtime(FLEET_MODEL).tokenizer
+        holders = {m.name: m.affinity_pages(FLEET_MODEL, tok.encode(FLEET_SYSTEM_2))
+                   for m in router.members}
+        hits1 = {m.name: m.engine.prefix_cache_stats()["models"][FLEET_MODEL]["hits"]
+                 for m in router.members}
+        holder_rt = next(m for m in router.members
+                         if holders[m.name]).engine.runtimes[FLEET_MODEL]
+
+        def send(i, n):
+            p = FLEET_SYSTEM_2 + f"Question {i}?"
+            return router.enqueue_request(f"sys2-{i}", "", FLEET_MODEL,
+                                          prompt_tokens=tok.encode(p),
+                                          sampling=SamplingParams(max_tokens=n),
+                                          raw_prompt=p)
+
+        ship_reqs = [send(i, 48) for i in range(ecfg.max_slots)]
+        deadline = time.monotonic() + 120
+        while holder_rt.free_slots() and time.monotonic() < deadline:
+            time.sleep(0.002)
+        ship_reqs.append(send(ecfg.max_slots, 16))
+        ship_ends = [_collect(r)[-1] for r in ship_reqs]
+        ship_hits = {m.name: m.engine.prefix_cache_stats()["models"][FLEET_MODEL]["hits"]
+                     - hits1[m.name] for m in router.members}
+        max_age = watch.stop()
+        counts = launch_counts()
+        m1 = _delta(_fleet_metrics(), m0)
+        recs = [r for r in router.journal.tail(None) if r["seq"] >= seq0]
+        ships = [r for r in recs if r["kind"] == "migrate_import"
+                 and r.get("what") == "prefix"]
+        member_recs = {m.name: [r for r in m.engine.journal.tail(None)
+                                if r["seq"] >= mseq0[m.name]] for m in router.members}
+        rt0 = router.members[0].engine.runtimes[FLEET_MODEL]
+        page_bytes = kvc.kv_page_bytes(rt0.cfg, ecfg.page_size, 2)
+        shipped = _shipped_pages(recs)
+        used = {m.name: m.engine.runtimes[FLEET_MODEL].alloc.used_pages
+                for m in router.members}
+        enq = {r["user"]: r["t"] for r in window_recs if r["kind"] == "enqueue"}
+        installs = {}  # a stream's first install: its first token
+        for rs in member_recs.values():
+            for r in rs:
+                if r["kind"] == "install" and r.get("user") in enq:
+                    installs[r["user"]] = min(r["t"], installs.get(r["user"], r["t"]))
+        ttft = sorted((installs[u] - enq[u]) * 1e3 for u in installs)
+        overhead = router.router_overhead_stats()["sites"]
+        tokens = sum(len(ids) for ids, _ in results.values())
+
+        # The same prompt alone, unmigrated and then migrated at 16 tokens
+        # (bf16: printed, not gated).
+        lone = "A lone stream to migrate: tell me about pages. "
+        ref_ids, _, _ = _stream_ids(router, "lone", lone, 96)
+        mig_ids, mig_end, mig_depth = _stream_ids(router, "lone", lone, 96, drain_at=16)
+    finally:
+        stop_server(srv)
+    gates = {
+        "replies": not errors and len(results) == len(FLEET_USERS)
+        and all(fr.get("done") and fr.get("done_reason") in ("stop", "length")
+                and "error" not in fr for _, fr in results.values()),
+        "migrated_all_of_r0": m1["migrated"] == drain["inflight"] >= 1,
+        "no_failover": m1["failovers"] == 0
+        and not any(r["kind"] == "replica_failover" for r in recs),
+        "no_eject": not any(r["kind"] == "replica_eject" for r in recs),
+        "bytes": m1["bytes"] == _blob_bytes(rt0, page_bytes, shipped, m1["migrated"])
+        and shipped > 0,
+        "prefix_shipped": m1["prefix"] >= 1 and len(ships) == m1["prefix"]
+        and all(ship_hits[r["to_replica"]] >= 1 for r in ships)
+        and all(e.kind == "done" for e in ship_ends),
+        "no_dropped": check_no_dropped_streams(recs) == []
+        and all(check_no_dropped_streams(rs) == [] for rs in member_recs.values()),
+        "no_used_pages": all(v == 0 for v in used.values()),
+        "r0_healthy": any(r["name"] == "r0" and r["state"] == "healthy"
+                          for r in fleet["replicas"]),
+        "kernels": counts["ragged_paged_attention"] > 0
+        and counts["paged_decode_attention"] > 0,
+    }
+    handoffs = _handoffs(recs)
+    line = {"phase": "serve-fleet", "part": "a-in-process-bf16", "model": FLEET_MODEL,
+            "members": 2, "slots_per_member": ecfg.max_slots, "users": len(FLEET_USERS),
+            "max_new_tokens": FLEET_NEW, "seconds": seconds,
+            "tokens_per_s": tokens / seconds, "placed": placed,
+            "system_prompt_holder": holder, "system_pages_cached": cached,
+            "prefix_hits": hits, "affinity_hits": tm.FLEET_AFFINITY_HITS_TOTAL.value - aff0,
+            "prefix_holders_before_ship": holders, "prefix_ships": ships,
+            "prefix_hits_during_ship": ship_hits,
+            "max_heartbeat_age_s": max_age, "eject_heartbeat_s": router.eject_heartbeat_s,
+            "drain": drain, "metrics": m1, "page_bytes": page_bytes,
+            "pages_shipped": shipped, "handoffs": handoffs,
+            "handoff_ms": [h["ms"] for h in handoffs],
+            "ttft_ms_router_enqueue_to_first_token": ttft,
+            "ttft_p50_ms": ttft[len(ttft) // 2] if ttft else None,
+            "router_overhead_ms": {s: {k: v[k] for k in ("count", "p50_ms", "p99_ms")}
+                                   for s, v in overhead.items()},
+            "journal_kinds": sorted({r["kind"] for r in recs}),
+            "launches": counts, "used_pages": used,
+            "bf16_lone": {"migrated_at": mig_depth, "tokens": len(mig_ids),
+                          "done": mig_end.finish_reason.value if mig_end.finish_reason
+                          else mig_end.kind,
+                          "first_diff_vs_unmigrated": _first_diff(mig_ids, ref_ids)},
+            "card": card, "gates": gates}
+    emit(line)
+    del router, srv
+    return line, params
+
+
+def _fleet_f32(card):
+    """(b) float32, TF32 off: one stream migrated at 16 and then at 64
+    tokens must give the unmigrated run's ids."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    router, _, params = _fleet_router(dtype="float32")
+    router.start()
+    reset_launch_counts()
+    watch = _HeartbeatWatch(router)
+    prompt = "The quick brown fox jumps over the lazy dog; migrate me, please."
+    t0 = time.monotonic()
+    try:
+        ref, end, _ = _stream_ids(router, "f32", prompt, 96)
+        runs = {}
+        for at in (16, 64):
+            ids, e, depth = _stream_ids(router, "f32", prompt, 96, drain_at=at)
+            runs[at] = {"migrated_at": depth, "tokens": len(ids),
+                        "identical": ids == ref,
+                        "first_diff": _first_diff(ids, ref),
+                        "done": e.finish_reason.value if e.finish_reason else e.kind}
+        migrations = router.migration_count
+        failovers = router.failover_count
+        ejects = _ejects(router)
+    finally:
+        max_age = watch.stop()
+        router.stop()
+    del router, params
+    gates = {"f32_identical": all(r["identical"] for r in runs.values()),
+             "f32_migrated": migrations == 2 and failovers == 0 and not ejects,
+             "f32_done": end.kind == "done"
+             and all(r["done"] in ("stop", "length") for r in runs.values())}
+    line = {"phase": "serve-fleet", "part": "b-f32", "tf32": False,
+            "tokens": len(ref), "runs": runs, "seconds": time.monotonic() - t0,
+            "max_heartbeat_age_s": max_age,
+            "launches": launch_counts(), "card": card, "gates": gates}
+    emit(line)
+    return line
+
+
+def _fleet_int8(card, params):
+    """(c) int8 KV pages: one stream migrated between two int8-KV members;
+    the target's page run right after the import equals the shipped
+    payload and scale planes bit for bit, and the int8 decode kernel runs
+    on the target."""
+    import torch
+
+    from ollamamq_tpu_torch.engine import kv_cache as kvc
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    router, _, _ = _fleet_router(kv_dtype="int8", params=params)
+    captured = []
+    for mem in router.members:
+        rt = mem.engine.runtimes[FLEET_MODEL]
+
+        def spy(blob, req, rt=rt, orig=rt.import_request):
+            ok = orig(blob, req)  # on the loop thread, before any dispatch
+            if ok:
+                slot = next(i for i, r in enumerate(rt.slot_req) if r is req)
+                captured.append((blob, kvc.gather_page_run(
+                    rt.kc, rt.vc, rt.slot_pages[slot], rt.ecfg.page_size)))
+            return ok
+
+        rt.import_request = spy
+    router.start()
+    watch = _HeartbeatWatch(router)
+    t0 = time.monotonic()
+    try:
+        from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+        prompt = "Migrate an int8 page run between two members, please."
+        rt = router.resolve_runtime(FLEET_MODEL)
+        req = router.enqueue_request("i8", "", FLEET_MODEL,
+                                     prompt_tokens=rt.tokenizer.encode(prompt),
+                                     sampling=SamplingParams(max_tokens=96),
+                                     raw_prompt=prompt)
+        f = _flight(router, "i8")
+        _wait_tokens(router, ["i8"], 16)
+        src = f.member
+        router.drain_replica(src.name)
+        deadline = time.monotonic() + 120
+        while f.member is src and not f.done and time.monotonic() < deadline:
+            time.sleep(0.002)
+        # From here the source is idle: every launch is the target's.
+        reset_launch_counts()
+        target = f.member.name
+        items = _collect(req)
+        counts = launch_counts()
+        ejects = _ejects(router)
+    finally:
+        max_age = watch.stop()
+        router.stop()
+    del router
+
+    def raw(t):
+        return t.contiguous().view(torch.uint8)
+
+    keys = ("k_pages", "v_pages", "k_scale", "v_scale")
+    equal = bool(captured) and all(
+        torch.equal(raw(got[k]), raw(blob[k])) for blob, got in captured for k in keys)
+    gates = {"int8_pages_bit_equal": equal and len(captured) == 1,
+             "int8_done": items[-1].kind == "done" and not ejects,
+             "int8_decode_on_target": counts["paged_decode_attention_int8"] > 0
+             and counts["paged_decode_attention"] == 0}
+    line = {"phase": "serve-fleet", "part": "c-int8-kv", "source": src.name,
+            "target": target, "pages": int(captured[0][0]["n_pages"]) if captured else 0,
+            "payload_dtypes": ({k: str(captured[0][0][k].dtype) for k in keys}
+                               if captured else None),
+            "tokens": sum(1 for i in items if i.kind == "token"),
+            "seconds": time.monotonic() - t0, "target_launches": counts,
+            "max_heartbeat_age_s": max_age,
+            "card": card, "gates": gates}
+    emit(line)
+    return line
+
+
+def _fleet_wire(card, params):
+    """(d) a member subprocess joined through --replica-urls as h0, drained
+    while it streams: the stream migrates over /admin/migrate/export ->
+    import -> commit into the local member r0."""
+    from ollamamq_tpu_torch.engine import kv_cache as kvc
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.tools.journal import check_no_dropped_streams
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    port = _free_port()
+    log = open(os.path.join(OUT_DIR, "serve-fleet-h0.log"), "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", *FLEET_ARGS,
+         *FLEET_DEVICE_ARGS, "--model", FLEET_MODEL, "--port", str(port),
+         "--no-tui", "--timeout-s", "600", "--stop-grace-s", "60",
+         "--blocklist", os.path.join(OUT_DIR, "blocked-fleet.json")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT)
+    router = None
+    t0 = time.monotonic()
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            if proc.poll() is not None:
+                raise SystemExit(f"serve-fleet: member exited {proc.returncode} "
+                                 f"(log {log.name})")
+            try:
+                _get(port, "/health")
+                break
+            except (OSError, RuntimeError):
+                if time.monotonic() > deadline:
+                    raise SystemExit("serve-fleet: the member never answered")
+                time.sleep(0.2)
+        spawn_s = time.monotonic() - t0
+        # Members [r0, h0]: the first placement of a fresh router goes to
+        # the second member, h0.
+        router, ecfg, _ = _fleet_router(params=params, n_local=1,
+                                        urls=[f"http://127.0.0.1:{port}"])
+        router.start()
+        watch = _HeartbeatWatch(router)
+        m0 = _fleet_metrics()
+        prompt = "Stream from the member process, then move to the router's."
+        rt = router.resolve_runtime(FLEET_MODEL)
+        req = router.enqueue_request("wire", "", FLEET_MODEL,
+                                     prompt_tokens=rt.tokenizer.encode(prompt),
+                                     sampling=SamplingParams(max_tokens=FLEET_NEW),
+                                     raw_prompt=prompt)
+        f = _flight(router, "wire")
+        h0 = f.member
+        # Decoding on h0: its journal holds the install, and its stream
+        # id is known (the X-Request-ID header).
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            evs = json.loads(_get(port, "/debug/journal?user=wire&kind=install"))
+            if evs["events"] and f.attempt.member_rid is not None:
+                break
+            time.sleep(0.01)
+        time.sleep(0.3)
+        drain = router.drain_replica(h0.name)
+        deadline = time.monotonic() + 120
+        while f.member is h0 and not f.done and time.monotonic() < deadline:
+            time.sleep(0.002)
+        items = _collect(req)
+        m1 = _delta(_fleet_metrics(), m0)
+        recs = router.journal.tail(None)
+        handoffs = _handoffs(recs)
+        rt0 = router.members[0].engine.runtimes[FLEET_MODEL]
+        page_bytes = kvc.kv_page_bytes(rt0.cfg, ecfg.page_size, 2)
+        shipped = _shipped_pages(recs)
+        r0_used = rt0.alloc.used_pages
+        max_age = watch.stop()
+    finally:
+        if router is not None:
+            router.stop()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=60)
+        log.close()
+    exit_counts = _exit_launches(log.name)
+    gates = {
+        "wire_migrated": m1["migrated"] == drain["inflight"] == 1
+        and any(h["from"] == "h0" and h["to"] == "r0" for h in handoffs),
+        "wire_no_failover": m1["failovers"] == 0
+        and not any(r["kind"] == "replica_eject" for r in recs),
+        "wire_bytes": m1["bytes"] == _blob_bytes(rt0, page_bytes, shipped, m1["migrated"])
+        and shipped > 0,
+        "wire_done": items[-1].kind == "done"
+        and check_no_dropped_streams(recs) == [] and r0_used == 0,
+        "member_kernels": exit_counts["ragged_paged_attention"] > 0
+        and exit_counts["paged_decode_attention"] > 0,
+        "member_exit_0": rc == 0,
+    }
+    line = {"phase": "serve-fleet", "part": "d-over-the-wire", "member_spawn_s": spawn_s,
+            "drain": drain, "metrics": m1, "pages_shipped": shipped,
+            "page_bytes": page_bytes, "handoffs": handoffs,
+            "handoff_ms": [h["ms"] for h in handoffs],
+            "tokens": sum(1 for i in items if i.kind == "token"),
+            "seconds": time.monotonic() - t0, "member_launches": exit_counts,
+            "max_heartbeat_age_s": max_age,
+            "card": card, "gates": gates}
+    emit(line)
+    return line
+
+
+def serve_fleet_phase(report) -> None:
+    """The fleet router, its members and KV page migration on the card
+    (module docstring, serve-fleet)."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.monotonic()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, params = _fleet_in_process(card)
+    window = dict(a["launches"])
+    b = _fleet_f32(card)
+    c = _fleet_int8(card, params)
+    reset_launch_counts()
+    d = _fleet_wire(card, params)
+    d_local = launch_counts()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The phase's windows: (a)'s serving, (b) and (c) whole ((c) counted
+    # from its target's first step after the import), (d)'s local member
+    # and the member subprocess's whole run.
+    launches = {k: window[k] + b["launches"][k] + c["target_launches"][k]
+                + d_local[k] + d["member_launches"][k] for k in window}
+    gates = {**a["gates"], **b["gates"], **c["gates"], **d["gates"]}
+    line = {"phase": "serve-fleet", "seconds": time.monotonic() - t_phase,
+            "handoff_ms_in_process": a["handoff_ms"], "handoff_ms_wire": d["handoff_ms"],
+            "router_overhead_place_ms": a["router_overhead_ms"].get("place"),
+            "ttft_p50_ms": a["ttft_p50_ms"], "tokens_per_s": a["tokens_per_s"],
+            "prefix_ships": len(a["prefix_ships"]),
+            "max_heartbeat_age_s": {p["part"]: p["max_heartbeat_age_s"] for p in (a, b, c, d)},
+            "launches": launches, "card": card, "gates": gates}
+    emit(line)
+    report["serve_fleet"] = line
+    if not all(gates.values()):
+        raise SystemExit(f"serve-fleet gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -2377,6 +3054,7 @@ def main(argv=None) -> int:
     serve_sched_phase(report)
     serve_models_phase(report)
     serve_durable_phase(report)
+    serve_fleet_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]
@@ -2386,7 +3064,8 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": (report[serve]["launches"][name]
-                            + report["serve_durable"]["launches"][name]),
+                            + report["serve_durable"]["launches"][name]
+                            + report["serve_fleet"]["launches"][name]),
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

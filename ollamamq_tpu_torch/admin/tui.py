@@ -7,9 +7,11 @@ and quitting the TUI ends the whole process. All admin actions
 (VIP/boost/block/unblock) mutate the shared native core directly — the
 scheduler sees them on its next pop. The card's name and memory come
 from the engine's chip rows (torch.cuda.mem_get_info on a CUDA device).
-The last-decision line reads the decision journal. The JAX package's
-fleet, HA and tier chips have no source in this package and are not
-sent.
+The last-decision line reads the decision journal. Serving a fleet
+router adds the replicas chip (healthy / ejected / draining) and the
+router-overhead chip (the placement p99 against its budget). The JAX
+package's HA and fleet-size chips wait for router HA and the
+autoscaler.
 """
 
 from __future__ import annotations
@@ -113,6 +115,28 @@ def _engine_stats_brief(engine) -> dict:
     sp = stepprof.PROFILER.brief()
     if sp is not None:
         out["stepprof"] = sp
+    # Fleet replicas chip (N healthy / M ejected / K draining): present
+    # only when the engine is a fleet router.
+    fleet = getattr(engine, "fleet_counts", None)
+    if fleet is not None:
+        try:
+            out["replicas"] = fleet()
+        except Exception:
+            pass
+    # Router-overhead chip (fleet router only): the windowed placement
+    # p99 against its budget, red in the renderer when the router's hot
+    # path eats the latency budget.
+    overhead = getattr(engine, "router_overhead_p99_ms", None)
+    if overhead is not None:
+        try:
+            p99 = overhead()
+            out["router_overhead"] = {
+                "p99_ms": round(p99, 3) if p99 is not None else None,
+                "budget_ms": getattr(engine.ecfg,
+                                     "router_overhead_budget_ms", 0.0),
+            }
+        except Exception:
+            pass
     return out
 
 

@@ -11,6 +11,8 @@
     python -m ollamamq_tpu_torch.cli --wal-dir /var/lib/ollamamq/wal \
         --journal-file /var/log/ollamamq/journal.jsonl
     python -m ollamamq_tpu_torch.cli --fake-engine --model test-tiny
+    python -m ollamamq_tpu_torch.cli --replicas 2 --placement affinity \
+        --prefix-cache --replica-urls http://127.0.0.1:11500
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
 start when no CUDA device is found. Weights are seeded random (--seed)
@@ -24,6 +26,15 @@ to --stop-grace-s, flush the journal and the WAL and exit 0; a second
 signal exits at once, and unfinished streams stay in the WAL for the
 next start. --fake-engine serves deterministic words without a model
 (FAKE_TOKEN_LATENCY_S slows each token).
+
+--replicas N (N > 1) and --replica-urls serve a fleet: a router over N
+in-process engines (r0, r1, ...) and the HTTP engines at the URLs (h0,
+h1, ...), with health-driven ejection, KV page migration on drain and
+failover (recompute replay when a transfer cannot land), and the
+/admin/fleet, /admin/drain and /admin/preempt routes. The router owns
+the caps, the WAL and the journal spill; its members run without them.
+--tiers, --autoscale, --ha and --standby-of are refused (exit 2): their
+modules are not ported yet.
 """
 
 from __future__ import annotations
@@ -167,6 +178,62 @@ def build_parser() -> argparse.ArgumentParser:
                         "admission stops, in-flight streams drain for up to "
                         "this long, the journal and WAL are flushed, and "
                         "the process exits 0")
+    # The fleet router (fleet/router.py).
+    p.add_argument("--replicas", type=int,
+                   default=int(os.environ.get("REPLICAS", 1)),
+                   help="in-process engine replicas behind the fleet router "
+                        "(1 = one engine, no router): health-driven "
+                        "ejection with backoff re-probe, mid-stream "
+                        "migration or failover, POST /admin/drain/{replica} "
+                        "rolling restarts")
+    p.add_argument("--replica-urls", default=os.environ.get("REPLICA_URLS", ""),
+                   help="comma-separated base URLs of engines speaking this "
+                        "HTTP API, joined to the fleet as members h0, h1, "
+                        "...; combines with --replicas local members")
+    p.add_argument("--placement", choices=("affinity", "least_loaded"),
+                   default=os.environ.get("PLACEMENT", d.placement),
+                   help="'affinity' routes to the replica whose prefix-cache "
+                        "radix tree holds the prompt's prefix, else "
+                        "least-loaded; 'least_loaded' skips the probe")
+    p.add_argument("--drain-timeout-s", type=float,
+                   default=float(os.environ.get("DRAIN_TIMEOUT_S",
+                                                d.drain_timeout_s)),
+                   help="drain budget: a draining replica's streams that "
+                        "neither migrated nor finished by then fail over")
+    p.add_argument("--no-migrate", action="store_true",
+                   default=os.environ.get("MIGRATE", "").lower()
+                   in ("0", "false", "no"),
+                   help="no KV page migration: failover and drain replay "
+                        "prompt + emitted tokens instead of shipping KV "
+                        "pages, and affinity misses ship no prefix")
+    p.add_argument("--migrate-timeout-s", type=float,
+                   default=float(os.environ.get("MIGRATE_TIMEOUT_S",
+                                                d.migrate_timeout_s)),
+                   help="a transfer (export, ship, import ack) past this "
+                        "aborts and the stream replays by recompute")
+    p.add_argument("--preemptible", default=os.environ.get("PREEMPTIBLE", ""),
+                   help="comma-separated member names (r0, h1, ...) that "
+                        "accept a termination notice (POST "
+                        "/admin/preempt/{replica}): their streams migrate "
+                        "off within the notice window, then they retire")
+    p.add_argument("--router-overhead-budget-ms", type=float,
+                   default=float(os.environ.get("ROUTER_OVERHEAD_BUDGET_MS",
+                                                d.router_overhead_budget_ms)),
+                   help="bound on the placement decision's windowed p99; "
+                        "above it the router_overhead alert fires. 0 "
+                        "disables the alert (the timers stay on)")
+    p.add_argument("--no-federate-metrics", action="store_true",
+                   default=os.environ.get("FEDERATE_METRICS", "").lower()
+                   in ("0", "false", "no"),
+                   help="the router's /metrics stops re-exporting the HTTP "
+                        "members' series under a replica label")
+    # The fleet's policy layers, refused until they are ported.
+    for flag, kind in (("--tiers", str), ("--autoscale", bool),
+                       ("--ha", bool), ("--standby-of", str)):
+        if kind is bool:
+            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, default="", help=argparse.SUPPRESS)
     p.add_argument("--fake-engine", action="store_true",
                    help="serve deterministic fake tokens (no model, no "
                         "device; for tests)")
@@ -214,7 +281,37 @@ def validate(args) -> str:
         return f"--journal-sample must be in (0, 1], got {args.journal_sample}"
     if args.wal_fsync_ms < 0 or args.stop_grace_s < 0:
         return "--wal-fsync-ms / --stop-grace-s must be >= 0"
+    for flag, module in (("tiers", "fleet/tiering.py"),
+                         ("autoscale", "fleet/autoscaler.py"),
+                         ("ha", "fleet/ha.py"), ("standby_of", "fleet/ha.py")):
+        if getattr(args, flag):
+            return (f"--{flag.replace('_', '-')} is not ported yet "
+                    f"({module} comes with a later slice)")
+    urls = replica_urls(args)
+    if args.replicas < 0 or (args.replicas == 0 and not urls):
+        return "--replicas must be >= 1 (0 only with --replica-urls)"
+    if args.drain_timeout_s <= 0:
+        return "--drain-timeout-s must be > 0"
+    if args.migrate_timeout_s <= 0:
+        return "--migrate-timeout-s must be > 0"
+    if args.router_overhead_budget_ms < 0:
+        return ("--router-overhead-budget-ms must be >= 0 "
+                "(0 disables the alert)")
+    if args.preemptible:
+        if args.replicas <= 1 and not urls:
+            return "--preemptible needs a fleet (--replicas > 1 or --replica-urls)"
+        roster = ([f"r{i}" for i in range(args.replicas)]
+                  + [f"h{j}" for j in range(len(urls))])
+        unknown = sorted({s.strip() for s in args.preemptible.split(",")
+                          if s.strip()} - set(roster))
+        if unknown:
+            return (f"--preemptible names unknown members: "
+                    f"{', '.join(unknown)} (fleet: {', '.join(roster)})")
     return ""
+
+
+def replica_urls(args) -> list:
+    return [u.strip() for u in args.replica_urls.split(",") if u.strip()]
 
 
 def engine_config(args) -> EngineConfig:
@@ -238,7 +335,12 @@ def engine_config(args) -> EngineConfig:
         journal_rotate_mb=args.journal_rotate_mb, journal_keep=args.journal_keep,
         journal_sample=args.journal_sample,
         wal_dir=None if args.no_wal else (args.wal_dir or None),
-        wal_fsync_ms=args.wal_fsync_ms)
+        wal_fsync_ms=args.wal_fsync_ms, replicas=args.replicas,
+        placement=args.placement, drain_timeout_s=args.drain_timeout_s,
+        migrate=not args.no_migrate, migrate_timeout_s=args.migrate_timeout_s,
+        router_overhead_budget_ms=args.router_overhead_budget_ms,
+        federate_metrics=not args.no_federate_metrics,
+        preemptible=args.preemptible or None)
 
 
 def _fake_latency() -> float:
@@ -297,6 +399,37 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
     signal.signal(signal.SIGINT, handler)
 
 
+def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
+    """The FleetRouter that `main` serves for --replicas N > 1 or
+    --replica-urls: in-process members r0..r{N-1}, each an
+    `engine_factory(member_cfg)` that the drain's hot restart calls
+    again, then HTTP members h0, h1, ... at the URLs. Members serve
+    uncapped what the router placed (the router owns the caps), keep no
+    blocklist (the router blocks at ingress) and leave the journal spill
+    and the WAL to the router (a member WAL would record and recover
+    every stream twice)."""
+    import dataclasses
+
+    from ollamamq_tpu_torch.core.mqcore import Fairness
+    from ollamamq_tpu_torch.fleet import FleetRouter, HttpMember, LocalMember
+
+    member_cfg = dataclasses.replace(
+        ecfg, max_queued=0, max_queued_per_user=0, journal_file=None,
+        wal_dir=None)
+
+    def factory(tp=None):  # noqa: ARG001 — one width: no tensor parallelism
+        return engine_factory(member_cfg)
+
+    members = [LocalMember(f"r{i}", factory(), engine_factory=factory)
+               for i in range(args.replicas)]
+    members += [HttpMember(f"h{j}", url, timeout_s=args.timeout_s)
+                for j, url in enumerate(replica_urls(args))]
+    return FleetRouter(members, ecfg, blocklist_path=args.blocklist,
+                       fairness=fairness or Fairness.REQUESTS,
+                       placement=args.placement,
+                       drain_timeout_s=args.drain_timeout_s)
+
+
 def main(argv=None) -> int:
     # An unknown --weights-dtype / --kv-dtype fails in argparse, and the
     # other invalid values in validate(), before any device work.
@@ -317,16 +450,23 @@ def main(argv=None) -> int:
     from ollamamq_tpu_torch.server.app import OllamaServer
 
     fairness = Fairness.TOKENS if args.token_fairness else Fairness.REQUESTS
-    if args.fake_engine:
-        from ollamamq_tpu_torch.engine.fake import FakeEngine
+    ecfg = engine_config(args)
 
-        engine = FakeEngine(engine_config(args), models=model_table(args),
-                            blocklist_path=args.blocklist, fairness=fairness,
-                            token_latency_s=_fake_latency())
+    def build_engine(cfg, blocklist):
+        if args.fake_engine:
+            from ollamamq_tpu_torch.engine.fake import FakeEngine
+
+            return FakeEngine(cfg, models=model_table(args),
+                              blocklist_path=blocklist, fairness=fairness,
+                              token_latency_s=_fake_latency())
+        return TorchEngine(cfg, device=args.device, blocklist_path=blocklist,
+                           fairness=fairness, models=model_table(args))
+
+    if args.replicas > 1 or replica_urls(args):
+        engine = build_fleet(args, ecfg, lambda cfg: build_engine(cfg, None),
+                             fairness)
     else:
-        engine = TorchEngine(engine_config(args), device=args.device,
-                             blocklist_path=args.blocklist, fairness=fairness,
-                             models=model_table(args))
+        engine = build_engine(ecfg, args.blocklist)
     engine.start()  # a WAL's recovery pass runs here, before serving
     server = OllamaServer(engine, args.host, args.port, args.timeout_s)
     log.info("serving %s on %s:%d (device %s, tui=%s)",

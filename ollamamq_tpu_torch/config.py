@@ -252,6 +252,41 @@ class EngineConfig:
     # its record is on disk; a restart replays unfinished requests.
     wal_dir: Optional[str] = None
     wal_fsync_ms: float = 20.0
+    # -- fleet router (fleet/router.py) --------------------------------------
+    # Engine replicas behind the router (1 = one engine, no router). The
+    # router owns the fair-share queues and the bounded-admission caps;
+    # members serve uncapped what the router placed.
+    replicas: int = 1
+    # "affinity": route to the replica whose prefix-cache radix tree
+    # holds the prompt's prefix, else least-loaded; "least_loaded" skips
+    # the affinity probe.
+    placement: str = "affinity"
+    # POST /admin/drain/{replica}: in-flight streams get this long before
+    # the stragglers fail over to healthy replicas.
+    drain_timeout_s: float = 30.0
+    # KV page migration: failover and drain first SHIP a stream's KV
+    # pages and request state to a healthy member (zero recomputed
+    # tokens), and fall back to recompute replay when the source cannot
+    # export or the transfer fails; an affinity miss may ship the cached
+    # prefix to the chosen member. Off: recompute replay only.
+    migrate: bool = True
+    # A transfer (export, ship, import ack) past this budget aborts and
+    # falls back to recompute.
+    migrate_timeout_s: float = 10.0
+    # The router times every placement decision
+    # (ollamamq_router_overhead_ms{site="place"}); a windowed p99 above
+    # this budget fires the router_overhead alert. 0 disables the alert
+    # (the timers stay on).
+    router_overhead_budget_ms: float = 50.0
+    # Re-export every HTTP member's series from the router's /metrics
+    # with a `replica` label (scraped on the member health heartbeat).
+    # In-process members share the router's registry regardless.
+    federate_metrics: bool = True
+    # Comma-separated member names flagged preemptible (spot-style
+    # capacity): POST /admin/preempt/{replica}, or the fault plan's
+    # "preempt" site, serves them a termination notice: migrate off,
+    # then retire, within the notice window.
+    preemptible: Optional[str] = None
 
     @property
     def max_context(self) -> int:

@@ -164,11 +164,14 @@ class MQCore:
                                          1 if kind == "embed" else 0)
         return self._check_rid(rid, user, ip)
 
-    def next(self, eligible_models: Optional[Iterable[str]] = None
+    def next(self, eligible_models: Optional[Iterable[str]] = None,
+             eligible_embed: Optional[Iterable[str]] = None
              ) -> Optional[Tuple[int, str, str]]:
         """Pop per policy: (req_id, user, model), or None when empty.
-        Raises StuckQueue if the pick's model isn't servable now."""
-        return self._next2(eligible_models, None)
+        Raises StuckQueue if the pick's model isn't servable now.
+        `eligible_embed` gates embed-kind tasks apart from generate ones
+        (None: one list for both)."""
+        return self._next2(eligible_models, eligible_embed)
 
     def _next2(self, eligible_models, eligible_embed):
         ubuf = ctypes.create_string_buffer(512)

@@ -63,9 +63,14 @@ decoded token. With a WAL directory (durability/) every generation
 request is fsynced before enqueue_request returns and a restart replays
 the unfinished ones token-exact.
 
-Not carried over yet (later slices): KV migration, the bucketed prefill
-path of pp > 1, multi-device layouts (data-parallel replicas, sequence
-parallelism) and the fleet.
+KV page migration is the fleet's seam (fleet/router.py): a decode slot
+exports as a blob of its pages and cursor, parks until the target's
+import is acknowledged, and continues on the target with no token
+recomputed.
+
+Not carried over yet (later slices): the bucketed prefill path of
+pp > 1 and multi-device layouts (data-parallel replicas, sequence
+parallelism).
 """
 
 from __future__ import annotations
@@ -91,9 +96,9 @@ from ollamamq_tpu_torch.engine.scheduler import make_policy
 from ollamamq_tpu_torch.engine.tokenizer import load_tokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
-from ollamamq_tpu_torch.ops.sampling import (accept_prefix, maybe_apply_penalties,
-                                             row_uniforms, sample_tokens_rowwise,
-                                             sampling_flags)
+from ollamamq_tpu_torch.ops.sampling import (SamplingParams, accept_prefix,
+                                             maybe_apply_penalties, row_uniforms,
+                                             sample_tokens_rowwise, sampling_flags)
 from ollamamq_tpu_torch.telemetry import mfu as mfu_model
 from ollamamq_tpu_torch.telemetry import schema as tm
 from ollamamq_tpu_torch.telemetry import stepprof
@@ -275,6 +280,89 @@ class TokenIdError(ValueError):
     outside the model's vocabulary. On the card such an id indexes the
     embedding table past its end: a device-side assert that poisons the
     CUDA context for every user, so it is refused at the door."""
+
+
+def check_token_ids(cfg, model: str, **named_ids) -> None:
+    """Raise TokenIdError unless every id of each named list lies in
+    [0, vocab_size) of `cfg` (None: nothing to check against)."""
+    if cfg is None:
+        return
+    for what, ids in named_ids.items():
+        ids = [int(t) for t in ids] if ids is not None else []
+        if ids and not (0 <= min(ids) and max(ids) < cfg.vocab_size):
+            raise TokenIdError(
+                f"'{what}' holds a token id outside [0, "
+                f"{cfg.vocab_size}) of model '{model}'")
+
+
+class MigrationError(RuntimeError):
+    """A KV migration import could not land (no slot, no pages, a shape
+    mismatch, a malformed blob). The caller falls back to recompute
+    replay: a failed transfer degrades, it never drops."""
+
+
+def request_migration_state(req: Request) -> dict:
+    """Everything of a Request that the TARGET of a KV migration needs
+    to continue the stream seamlessly: the token history, the
+    detokenizer's text and emitted watermark (stop-string holdback
+    included), the degradation budgets and the sampling params verbatim.
+    The JAX package's wire keys."""
+    s = req.sampling
+    return {
+        "user": req.user, "model": req.model, "kind": req.kind,
+        "raw_prompt": req.raw_prompt,
+        "prompt_tokens": [int(t) for t in req.prompt_tokens],
+        "generated_ids": [int(t) for t in req.generated_ids],
+        "replay_gen": int(req._replay_gen),
+        "emitted_len": int(req.emitted_len),
+        "detok_text": req._detok_text,
+        "preemptions": int(req.preemptions),
+        "retries": int(req.retries),
+        "sampling": {
+            "temperature": s.temperature, "top_k": s.top_k,
+            "top_p": s.top_p, "repeat_penalty": s.repeat_penalty,
+            "presence_penalty": s.presence_penalty,
+            "frequency_penalty": s.frequency_penalty,
+            "seed": s.seed, "max_tokens": s.max_tokens,
+            "stop": list(s.stop), "deadline_ms": s.deadline_ms,
+        },
+    }
+
+
+def request_from_migration_state(rid: int, state: dict) -> Request:
+    """Rebuild a migrated Request. Sampling fields are set raw: the seed
+    was folded on the source, and __post_init__ would fold it again and
+    fork the sampled stream."""
+    sp = SamplingParams()
+    for key, val in (state.get("sampling") or {}).items():
+        setattr(sp, key, val)
+    sp.stop = tuple(sp.stop or ())
+    req = Request(rid, state["user"], state.get("model", ""),
+                  [int(t) for t in state.get("prompt_tokens", ())], sp,
+                  kind=state.get("kind", "generate"),
+                  raw_prompt=state.get("raw_prompt", ""))
+    req.generated_ids = [int(t) for t in state.get("generated_ids", ())]
+    req._replay_gen = int(state.get("replay_gen", 0))
+    req.emitted_len = int(state.get("emitted_len", 0))
+    req._detok_text = state.get("detok_text", "")
+    req.preemptions = int(state.get("preemptions", 0))
+    req.retries = int(state.get("retries", 0))
+    return req
+
+
+def merge_prefix_cache_stats(stats_list) -> Optional[dict]:
+    """Sum per-replica prefix-cache stat dicts (None entries: replicas
+    without a cache), the fleet router's view over its members. None
+    when no replica caches."""
+    live = [s for s in stats_list if s]
+    if not live:
+        return None
+    keys = ("hits", "misses", "evictions", "tokens_saved", "cached_pages",
+            "evictable_pages", "pinned_pages")
+    merged = {k: sum(s.get(k, 0) for s in live) for k in keys}
+    total = merged["hits"] + merged["misses"]
+    merged["hit_ratio"] = round(merged["hits"] / total, 4) if total else 0.0
+    return merged
 
 
 def poison_text(req: Request, msg: str) -> str:
@@ -771,6 +859,190 @@ class ModelRuntime(JournaledRuntime):
         if n_freed > 0:
             self._jrec("page_free", n=n_freed, slot=slot, **self._page_state())
         self.page_table[slot, :] = kvc.TRASH_PAGE
+
+    # -- KV page migration (fleet export/import; loop thread only) ---------
+    def export_request(self, rid: int):
+        """Snapshot and DETACH one installed decode slot for migration.
+        (handle, blob), or None when `rid` holds no installed slot (queued
+        or mid-prefill work replays cheaply by recompute: only written
+        decode state is worth shipping). The detached slot keeps its
+        pages, reserved and undispatchable, until release_export resolves
+        the two-phase handoff. Runs between a decode collect and the next
+        dispatch, so seq_lens and last_tokens agree with the pages."""
+        for slot, req in enumerate(self.slot_req):
+            if req is not None and req.req_id == rid:
+                break
+        else:
+            return None
+        blob = self._migration_snapshot(slot, req)
+        self.slot_req[slot] = None
+        self.reserved_slots.add(slot)
+        self._stalled_slots.discard(slot)
+        return {"slot": slot, "req": req}, blob
+
+    def _migration_snapshot(self, slot: int, req: Request) -> dict:
+        """The portable state of one decode slot: its page run (the int8
+        payload and scale rows of an int8 pool), the decode cursor (the
+        written kv_len and the pending last token, the install
+        convention), the penalty ring row, the request state and the
+        scheduler predictor's view of the user."""
+        pages = list(self.slot_pages[slot])
+        data = kvc.gather_page_run(self.kc, self.vc, pages,
+                                   self.ecfg.page_size)
+        blob = {
+            "version": 1, "kind": "stream", "model": self.name,
+            "kv_dtype": self.kv_dtype, "page_size": self.ecfg.page_size,
+            "num_layers": self.cfg.num_layers,
+            "num_kv_heads": self.cfg.num_kv_heads,
+            "head_dim": self.cfg.head_dim,
+            "kv_len": int(self.seq_lens[slot]),
+            "last_token": int(self.last_tokens[slot]),
+            "n_pages": len(pages),
+            "recent": self.recent[slot].cpu().numpy(),
+            "request": request_migration_state(req),
+            # In process the live incremental detokenizer rides along
+            # (exact stream continuity); the wire packer drops it and the
+            # importer builds a fresh one.
+            "_inc_decode": req._inc_decode,
+            **data,
+        }
+        pol = self.policy
+        if pol is not None:
+            blob["predictor"] = pol.predictor.export_user(req.user)
+        return blob
+
+    def release_export(self, handle: dict) -> None:
+        """Resolve a detached export (commit OR abort): the pages go the
+        way a finished slot's do, full prompt pages into the prefix
+        cache (a recompute fallback then replays mostly from cache), the
+        rest to the free list."""
+        slot, req = handle["slot"], handle["req"]
+        self.reserved_slots.discard(slot)
+        self._release_slot_pages(slot, req)
+        self._clear_slot(slot)
+
+    def _blob_fits(self, blob: dict, kind: str) -> bool:
+        if kind == "stream" and not (
+                np.shape(blob.get("recent")) == (self.recent.shape[1],)
+                and 0 <= int(blob.get("kv_len", -1))
+                <= int(blob.get("n_pages", 0)) * self.ecfg.page_size):
+            return False
+        return (blob.get("kind") == kind
+                and int(blob.get("page_size", -1)) == self.ecfg.page_size
+                and blob.get("kv_dtype") == self.kv_dtype
+                and int(blob.get("num_layers", -1)) == self.cfg.num_layers
+                and int(blob.get("num_kv_heads", -1)) == self.cfg.num_kv_heads
+                and int(blob.get("head_dim", -1)) == self.cfg.head_dim)
+
+    def check_migration_ids(self, blob: dict, req: Request) -> None:
+        """Raise TokenIdError unless every id a migrated stream brings
+        lies in this model's vocabulary: its prompt and generated ids,
+        the pending last token and the penalty ring's entries (-1 marks
+        an empty one). A blob may come from any caller of the import
+        route, and on the card an id past the table's end is a
+        device-side assert that poisons the context for every member of
+        the process."""
+        ring = np.asarray(blob.get("recent", ()), np.int64).reshape(-1)
+        check_token_ids(self.cfg, self.name, prompt=req.prompt_tokens,
+                        generated=req.generated_ids,
+                        last_token=[blob.get("last_token", -1)],
+                        recent=ring[ring != -1].tolist())
+
+    def import_request(self, blob: dict, req: Request) -> bool:
+        """Install a migrated stream into a fresh slot: allocate a run of
+        the same length, copy the shipped pages into this pool in place,
+        set the slot's penalty ring and page-table row, and resume the
+        decode cursor where the source froze it. No token is recomputed:
+        the next decode step reads the copied pages. False when the
+        blob's shape does not fit this runtime or capacity is gone (the
+        caller falls back to recompute); TokenIdError when it carries an
+        id outside the vocabulary."""
+        if not self._blob_fits(blob, "stream"):
+            return False
+        self.check_migration_ids(blob, req)
+        n = int(blob["n_pages"])
+        if n <= 0 or n > self.alloc.max_pages_per_seq:
+            return False
+        slot = self._claim_slot()
+        if slot is None:
+            return False
+        pages = self._alloc_tail(0, n * self.ecfg.page_size)
+        if pages is None:
+            return False
+        kvc.scatter_page_run(self.kc, self.vc, pages, self.ecfg.page_size,
+                             blob)
+        self.recent[slot] = torch.as_tensor(
+            np.asarray(blob["recent"], np.int32), device=self.device)
+        self.slot_pages[slot] = pages
+        self.slot_pins[slot] = []
+        self.page_table[slot, :] = kvc.make_page_table_row(
+            pages, self.ecfg.max_pages_per_seq)
+        s = req.sampling
+        self.seq_lens[slot] = int(blob["kv_len"])
+        self.last_tokens[slot] = int(blob["last_token"])
+        self.temp[slot] = s.temperature
+        self.top_k[slot] = s.top_k
+        self.top_p[slot] = s.top_p
+        self.rep_pen[slot] = s.repeat_penalty
+        self.pres_pen[slot] = s.presence_penalty
+        self.freq_pen[slot] = s.frequency_penalty
+        self.seeds[slot] = s.seed
+        if req._inc_decode is None:
+            req._inc_decode = self.tokenizer.make_incremental_decoder()
+        pol = self.policy
+        if pol is not None and blob.get("predictor"):
+            pol.predictor.import_user(req.user, blob["predictor"])
+        # Dispatchable from here on: every row above is set.
+        self.slot_req[slot] = req
+        self._jrec("install", req, slot=slot,
+                   n_prompt=len(req.prompt_tokens))
+        return True
+
+    def export_prefix(self, tokens: List[int]):
+        """Affinity-miss prefix shipping, source side: the longest cached
+        full-page prefix of `tokens` as a blob (its pages pinned only for
+        the device-to-host copy). None when nothing is cached."""
+        pc = self.prefix_cache
+        if pc is None:
+            return None
+        nodes, pages = pc.match(list(tokens))
+        if not pages:
+            return None
+        pc.pin(nodes)
+        try:
+            data = kvc.gather_page_run(self.kc, self.vc, pages,
+                                       self.ecfg.page_size)
+        finally:
+            pc.release(nodes)
+        ps = self.ecfg.page_size
+        return {
+            "version": 1, "kind": "prefix", "model": self.name,
+            "kv_dtype": self.kv_dtype, "page_size": ps,
+            "num_layers": self.cfg.num_layers,
+            "num_kv_heads": self.cfg.num_kv_heads,
+            "head_dim": self.cfg.head_dim,
+            "n_pages": len(pages),
+            "prefix_tokens": [int(t) for t in tokens[:len(pages) * ps]],
+            **data,
+        }
+
+    def import_prefix(self, blob: dict) -> int:
+        """Affinity-miss prefix shipping, target side: land shipped prefix
+        pages in this pool and merge them into the radix tree, so the
+        request admitted next prefills only its tail. Plain alloc_n (no
+        eviction backstop): a remote prefix never evicts cache earned
+        here. Returns the pages adopted (0: nothing done)."""
+        pc = self.prefix_cache
+        if pc is None or not self._blob_fits(blob, "prefix"):
+            return 0
+        n = int(blob["n_pages"])
+        pages = self.alloc.alloc_n(n) if n > 0 else None
+        if pages is None:
+            return 0
+        self._jrec("page_alloc", n=n, **self._page_state())
+        kvc.scatter_page_run(self.kc, self.vc, pages, self.ecfg.page_size,
+                             blob)
+        return pc.insert([int(t) for t in blob["prefix_tokens"]], pages)
 
     # -- speculative decoding ----------------------------------------------
     def _spec_eligible(self, req: Request) -> bool:
@@ -1919,6 +2191,10 @@ class TorchEngine:
         # Calls that must run on the loop thread, in order with dispatches.
         self._engine_calls: collections.deque = collections.deque()
         self._engine_retries = 0  # retries issued by _retry_or_error
+        # In-flight KV migration exports: rid -> (runtime, handle). A
+        # detached slot parks here between export_stream and the commit
+        # or abort that resolves the two-phase handoff.
+        self._migrations: Dict[int, tuple] = {}
         # Failure recovery: failed runtimes are rebuilt on this cadence.
         self._failed_runtimes: List[ModelRuntime] = []
         self._recovering: set = set()  # id(rt) with a rebuild in flight
@@ -2006,7 +2282,8 @@ class TorchEngine:
     def enqueue_request(self, user: str, ip: str, model: str,
                         family: Family = Family.UNKNOWN, prompt_tokens=None,
                         sampling=None, kind: str = "generate",
-                        raw_prompt: str = "", context_ids=None) -> Request:
+                        raw_prompt: str = "", context_ids=None,
+                        trace_ctx=None) -> Request:
         """Enqueue into the native core AND register the Request under one
         lock, so the loop can never pop an id it doesn't know. Raises
         BlockedError for blocked users/IPs and QueueFullError at a
@@ -2017,7 +2294,8 @@ class TorchEngine:
         into the prompt with generated_ids pre-filled, the preemption
         replay's convention, so decoding continues right after them and
         max_tokens still budgets new tokens only. With a WAL the
-        admission is on disk before this returns."""
+        admission is on disk before this returns. `trace_ctx` (a fleet
+        router's `traceparent`) makes the trace a span of that context."""
         cfg = self.ecfg
         n_prompt = len(prompt_tokens or [])
         if not self.accepting:
@@ -2046,7 +2324,8 @@ class TorchEngine:
                 req.generated_ids = list(ctx)
                 req._replay_gen = len(ctx)
                 req.stats.prompt_tokens = len(req.prompt_tokens)
-            req.trace = self.tracer.begin(rid, user, model, kind=kind)
+            req.trace = self.tracer.begin(rid, user, model, kind=kind,
+                                          ctx=trace_ctx)
             self.pending[rid] = req
         self.journal.record(
             "enqueue", req=req, n_prompt=len(req.prompt_tokens),
@@ -2072,14 +2351,8 @@ class TorchEngine:
         if kind != "generate":
             return
         rt = self.resolve_runtime(model, kind)
-        cfg = getattr(rt, "cfg", None) or get_model_config(model)
-        if cfg is None:
-            return
-        for what, ids in (("prompt", prompt_tokens), ("context", context_ids)):
-            if ids and not (0 <= min(ids) and max(ids) < cfg.vocab_size):
-                raise TokenIdError(
-                    f"'{what}' holds a token id outside [0, "
-                    f"{cfg.vocab_size}) of model '{model}'")
+        check_token_ids(getattr(rt, "cfg", None) or get_model_config(model),
+                        model, prompt=prompt_tokens, context=context_ids)
 
     def _shed(self, user: str, model: str, reason: str, queued: int,
               limit: int, retry_after_s: float, n_prompt: int,
@@ -2121,7 +2394,7 @@ class TorchEngine:
     def inflight_count(self) -> int:
         """Queued plus admitted-but-unfinished requests: what a graceful
         shutdown waits on."""
-        return self.core.total_queued() + sum(
+        return self.core.total_queued() + len(self._migrations) + sum(
             len(rt.held_requests()) for rt in list(self.runtimes.values()))
 
     def _requeue_front(self, req: Request, why: Optional[str] = None) -> bool:
@@ -2205,6 +2478,12 @@ class TorchEngine:
                 req.finish(FinishReason.CANCELLED)
             self.notify()
             return
+        for _rt, handle in list(self._migrations.values()):
+            if handle["req"].req_id == req_id:
+                # Mid-migration: detached from every slot, parked in the
+                # two-phase handoff table until resolve_export.
+                handle["req"].cancelled.set()
+                return
         for rt in list(self.runtimes.values()):
             for cand in (rt.held_requests()
                          + list(getattr(rt, "inflight_prefill", ()))):
@@ -2212,6 +2491,202 @@ class TorchEngine:
                     cand.cancelled.set()
                     self.notify()
                     return
+
+    # -- the fleet's seams ----------------------------------------------------
+    def inject_request(self, req: Request, ip: str = "", family=None,
+                       trace_ctx=None, trace_meter: bool = True) -> Request:
+        """Enqueue AND register a pre-built Request under one lock: the
+        fleet router's attempts, which may carry replayed generation state
+        (generated_ids, the detokenizer, the penalty context folded into
+        the prompt) that enqueue_request cannot build. Bypasses bounded
+        admission on purpose: the router owns the fleet-wide caps.
+        `trace_ctx` traces the attempt under the router's fleet context;
+        `trace_meter` False for an in-process member, whose router trace
+        already meters the stream in the shared registry. Raises
+        TokenIdError, as enqueue_request does, for an id outside the
+        model's vocabulary (the prompt, or replayed generated ids)."""
+        self._check_token_ids(req.model, req.kind, req.prompt_tokens,
+                              req.generated_ids)
+        with self._pending_lock:
+            rid = self.core.enqueue(
+                req.user, ip, req.model,
+                family if family is not None else Family.UNKNOWN,
+                kind=req.kind)
+            req.req_id = rid
+            if trace_ctx is not None and req.trace is None:
+                req.trace = self.tracer.begin(
+                    rid, req.user, req.model, kind=req.kind,
+                    ctx=trace_ctx, metered=trace_meter)
+            self.pending[rid] = req
+        self.journal.record(
+            "enqueue", req=req, n_prompt=len(req.prompt_tokens),
+            queued=self.core.total_queued(), kind_req=req.kind,
+            max_tokens=req.sampling.max_tokens)
+        self.notify()
+        return req
+
+    def prefix_match_pages(self, model: str, tokens) -> int:
+        """Longest cached-prefix match (in full pages) the runtime of
+        `model` holds for this prompt: the router's affinity probe. An
+        advisory read from another thread (the radix walk only follows
+        dict gets under the GIL): a racing loop mutation can at worst
+        give a stale count, a placement-quality issue, never a
+        correctness one. 0 when nothing caches."""
+        rt = self.resolve_runtime(model)
+        pc = getattr(rt, "prefix_cache", None)
+        if pc is None:
+            return 0
+        try:
+            _nodes, pages = pc.match(list(tokens))
+        except Exception:  # noqa: BLE001 — advisory probe only
+            return 0
+        return len(pages)
+
+    def export_stream(self, rid: int, deadline: Optional[float] = None):
+        """Phase 1 of the two-phase handoff: snapshot and detach `rid`'s
+        decode slot into a blob, parking the source state until
+        resolve_export commits or aborts. Runs on the loop thread, whose
+        engine calls drain at the top of a tick: after the previous
+        tick's decode collect, never between a dispatch and its collect.
+        A late-running export past `deadline` is a no-op, so the caller's
+        recompute fallback never races a zombie detach. None: not
+        exportable."""
+        def _do():
+            if deadline is not None and time.monotonic() > deadline:
+                return None
+            for rt in list(self.runtimes.values()):
+                export = getattr(rt, "export_request", None)
+                out = export(rid) if export is not None else None
+                if out is None:
+                    continue
+                handle, blob = out
+                self._migrations[rid] = (rt, handle)
+                req = handle["req"]
+                self.journal.record(
+                    "migrate_export", req=req,
+                    tokens=len(req.generated_ids),
+                    kv_len=blob.get("kv_len"), pages=blob.get("n_pages"))
+                return blob
+            return None
+
+        timeout = (max(0.05, deadline - time.monotonic())
+                   if deadline is not None else 30.0)
+        if not self._running:
+            # A crashed member: call_on_loop runs the export inline, but
+            # the loop thread may still be inside its last iteration,
+            # mutating the slot state the snapshot reads. Wait for it to
+            # die first; one that outlives the budget means recompute,
+            # never a torn snapshot.
+            t = self._thread
+            if t is not None and t.is_alive():
+                t.join(timeout=timeout)
+                if t.is_alive():
+                    return None
+        try:
+            return self.call_on_loop(_do, timeout=timeout)
+        except TimeoutError:
+            return None  # wedged loop: the guarded fn no-ops if it runs
+
+    def resolve_export(self, rid: int, commit: bool = True,
+                       why: str = "") -> bool:
+        """Phase 2: release the parked source state. Commit and abort free
+        alike (full prompt pages merge into the prefix cache); an abort
+        journals WHY and the caller recomputes. The parked request
+        finishes CANCELLED either way, so its handler and stream
+        consumers unblock. False when nothing is parked under `rid`."""
+        def _do():
+            ent = self._migrations.pop(rid, None)
+            if ent is None:
+                return False
+            rt, handle = ent
+            req = handle["req"]
+            try:
+                rt.release_export(handle)
+            except Exception:  # noqa: BLE001 — a release must not wedge
+                log.exception("release of migrated slot failed (%s)",
+                              getattr(rt, "name", "?"))
+            if not commit:
+                self.journal.record("migrate_abort", req=req,
+                                    why=why or "transfer_failed")
+            self.core.mark_dropped(req.user)
+            # The finish names the freed slot, so the journal's slot
+            # story stays whole: the next install there is a reuse.
+            extra = {"slot": handle["slot"]} if "slot" in handle else {}
+            self.journal.record("finish", req=req, reason="cancelled",
+                                tokens=len(req.generated_ids),
+                                model=getattr(rt, "name", None), **extra)
+            req.finish(FinishReason.CANCELLED)
+            self.notify()
+            return True
+
+        return self.call_on_loop(_do)
+
+    def import_stream(self, blob: dict, ip: str = "", family=None,
+                      deadline: Optional[float] = None, trace_ctx=None,
+                      trace_meter: bool = True) -> Request:
+        """Target side of a migration: rebuild the Request and install it
+        DIRECTLY into a decode slot from the shipped pages: no queue
+        wait, no re-prefill. Raises MigrationError when it cannot land
+        (the caller recomputes), and TokenIdError when the blob carries
+        an id outside the model's vocabulary. Bypasses bounded admission
+        like inject_request: the router already admitted."""
+        state = blob.get("request") or {}
+        if not state.get("user"):
+            raise MigrationError("malformed migration blob (no request)")
+
+        def _do():
+            rid = self.core.enqueue(
+                state["user"], ip, state.get("model"),
+                family if family is not None else Family.UNKNOWN)
+            # Only the id is wanted: the stream resumes mid-decode and
+            # never waits in this member's queue.
+            self.core.cancel(rid)
+            req = request_from_migration_state(rid, state)
+            req._inc_decode = blob.get("_inc_decode")
+            req.deadline = deadline
+            if trace_ctx is not None:
+                req.trace = self.tracer.begin(
+                    rid, req.user, req.model, kind=req.kind,
+                    ctx=trace_ctx, metered=trace_meter)
+            rt = self.resolve_runtime(state.get("model"), kind="generate")
+            if rt is None:
+                raise MigrationError(
+                    f"model not loaded: {state.get('model')}")
+            import_fn = getattr(rt, "import_request", None)
+            if import_fn is None or not import_fn(blob, req):
+                raise MigrationError("no slot/pages for migrated stream")
+            self.core.mark_started(req.user)
+            req.started = True
+            self.journal.record(
+                "migrate_import", req=req, tokens=len(req.generated_ids),
+                pages=blob.get("n_pages"))
+            self.notify()
+            return req
+
+        return self.call_on_loop(_do)
+
+    def export_prefix(self, model: str, tokens) -> Optional[dict]:
+        """Affinity-miss prefix shipping, source side (the router's
+        seam)."""
+        def _do():
+            fn = getattr(self.resolve_runtime(model), "export_prefix", None)
+            return fn(list(tokens)) if fn is not None else None
+
+        try:
+            return self.call_on_loop(_do, timeout=10.0)
+        except TimeoutError:
+            return None
+
+    def import_prefix(self, model: str, blob: dict) -> int:
+        """Affinity-miss prefix shipping, target side: pages adopted."""
+        def _do():
+            fn = getattr(self.resolve_runtime(model), "import_prefix", None)
+            return fn(blob) if fn is not None else 0
+
+        try:
+            return self.call_on_loop(_do, timeout=10.0)
+        except TimeoutError:
+            return 0
 
     def resolve_runtime(self, model: str, kind: str = "generate"):
         """The runtime serving `model` (smart_match), or None. With no

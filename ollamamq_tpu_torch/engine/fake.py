@@ -11,10 +11,9 @@ FakeEngine's, record for record, so a trace recorded by either
 package's tool replays under the other's.
 
 It holds no tensors and runs on the CPU whatever the host has;
-TorchEngine itself still defaults to CUDA.
-
-Left out until the fleet's KV migration is ported: FakeRuntime's
-export_request / import_request / release_export.
+TorchEngine itself still defaults to CUDA. Its KV migration ships the
+word cursor in place of pages, so the fleet's drain and failover run the
+whole two-phase handoff on fake members.
 """
 
 from __future__ import annotations
@@ -26,7 +25,8 @@ from typing import Dict, List, Optional
 
 from ollamamq_tpu_torch.config import EngineConfig, get_model_config
 from ollamamq_tpu_torch.engine.engine import (JournaledRuntime, TorchEngine,
-                                              drop_expired)
+                                              drop_expired,
+                                              request_migration_state)
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
 from ollamamq_tpu_torch.telemetry import schema as tm
@@ -243,6 +243,39 @@ class FakeRuntime(JournaledRuntime):
             self._finish_served(req, core, FinishReason.LENGTH)
             return True
         return False
+
+    # -- KV page migration (fake shape: no pages, the word cursor) ---------
+    def export_request(self, rid: int):
+        """ModelRuntime's export contract over fake state: the word
+        cursor IS the KV."""
+        for req in self.active:
+            if req.req_id == rid:
+                break
+        else:
+            return None
+        blob = {
+            "version": 1, "kind": "fake", "model": self.name,
+            "fake_idx": int(req._fake_idx),
+            "fake_remaining": int(req._fake_remaining),
+            "request": request_migration_state(req),
+            "_inc_decode": req._inc_decode,
+        }
+        self.active.remove(req)
+        return {"req": req}, blob
+
+    def release_export(self, handle: dict) -> None:
+        pass  # a fake holds no pages
+
+    def import_request(self, blob: dict, req: Request) -> bool:
+        if blob.get("kind") != "fake" \
+                or len(self.active) >= self.ecfg.max_slots:
+            return False
+        req._fake_idx = int(blob["fake_idx"])
+        req._fake_remaining = int(blob["fake_remaining"])
+        self._jrec("install", req, slot=-1,
+                   n_prompt=len(req.prompt_tokens))
+        self.active.append(req)
+        return True
 
     def _fake_embedding(self, req: Request) -> list:
         # A deterministic unit vector derived from the prompt ids.

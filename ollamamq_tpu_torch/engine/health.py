@@ -18,7 +18,10 @@ The JAX package's watchdog on the engine's torch device:
     rule has no counterpart: eager PyTorch compiles nothing per shape;
   - scheduler invariants: the decision journal's ring swept by
     check_invariants (pages conserved, no slot held twice, the VIP
-    never a victim, sheds only over their bounds, no starvation).
+    never a victim, sheds only over their bounds, no starvation);
+  - on a fleet router: replicas heartbeat-stale or ejected
+    (replica_stale), and a placement-overhead p99 over its budget
+    (router_overhead).
 
 HBM headroom (`device_memory`) reads torch.cuda.mem_get_info and the
 caching allocator's counters; the engine's HBM timeline and chip rows
@@ -27,9 +30,8 @@ and the admin TUI read it.
 Every detection raises a named alert through the engine's AlertManager
 (telemetry/slo.py) — the same table the SLO burn-rate evaluator feeds —
 so /health, /metrics (`ollamamq_slo_alerts_firing`) and the TUI alerts
-panel show one picture. The fleet, HA and worker-host rules of the JAX
-package have no counterpart here: this package has none of those
-modules.
+panel show one picture. The tiering, autoscaler, HA and worker-host
+rules of the JAX package wait for those modules.
 """
 
 from __future__ import annotations
@@ -257,7 +259,18 @@ class HealthMonitor:
              f"'{stuck[0][1]}' for {stuck[0][2]:.0f}s") if stuck else "",
             "request_phase")
 
+        # Fleet routers only (fleet/router.py stale_replicas): replicas
+        # whose heartbeat went stale or that the router ejected.
+        reps_fn = getattr(self.engine, "stale_replicas", None)
+        stale_reps = (reps_fn() or []) if reps_fn is not None else []
+        self._alert(
+            "replica_stale", bool(stale_reps), "page",
+            f"fleet replica(s) {stale_reps} heartbeat-stale or ejected "
+            "from rotation (in-flight streams fail over; capacity is "
+            "reduced until they heal)", "replica")
+
         self._check_preempt_storm()
+        self._check_router_overhead()
         self._check_journal_invariants()
 
         slo = getattr(self.engine, "slo", None)
@@ -305,6 +318,35 @@ class HealthMonitor:
                 "recompute is eating throughput)", source="watchdog")
         else:
             alerts.resolve("preempt_storm")
+
+    def _check_router_overhead(self) -> None:
+        """Overhead-storm rule (fleet routers only: the engine exposes
+        router_overhead_p99_ms). A windowed placement p99 above
+        --router-overhead-budget-ms means the router's hot path itself
+        eats the latency budget. Degradation pressure like the preempt
+        storm: it bypasses _alert and its stall counter, and resolves as
+        the window ages the spike out."""
+        alerts = getattr(self.engine, "alerts", None)
+        p99_fn = getattr(self.engine, "router_overhead_p99_ms", None)
+        if alerts is None or p99_fn is None:
+            return
+        budget = getattr(getattr(self.engine, "ecfg", None),
+                         "router_overhead_budget_ms", None)
+        if not budget:
+            return
+        try:
+            p99 = p99_fn()
+        except Exception:  # noqa: BLE001
+            log.exception("router overhead read failed")
+            return
+        if p99 is not None and p99 > budget:
+            alerts.fire(
+                "router_overhead", "warn",
+                f"router overhead storm: placement p99 {p99:.2f}ms over "
+                f"the {budget:g}ms budget — the router hot path itself "
+                "is eating the latency budget", source="watchdog")
+        else:
+            alerts.resolve("router_overhead")
 
     def _check_journal_invariants(self) -> None:
         """The invariant sweep over the decision journal's ring: a

@@ -25,15 +25,28 @@ methods and status codes; "*" accepts any method:
     torch.profiler capture exported as a Chrome trace), GET
     /debug/journal (the decision journal's ring, filtered);
   with a WAL (--wal-dir): GET /api/stream/{req_id}?from=N, the
-    resumable stream, across a restart too.
-Left out with the modules they serve: the fleet and HA routes. Every
-route but /health answers 403 to a blocked user or IP. A
+    resumable stream, across a restart too;
+  serving a fleet router: GET /admin/fleet, POST /admin/drain/{replica},
+    POST /admin/preempt/{replica}; /metrics federates the HTTP members'
+    series with a `replica` label, /debug/bundle gathers a section per
+    member and /debug/trace/{req_id} stitches every member's spans;
+  serving an engine (a fleet member): the KV migration wire, POST
+    /admin/migrate/export, /import (a packed blob in; the continuation
+    streams out as /api/generate NDJSON), /commit and /abort; GET
+    /debug/trace?ctx= exports the spans of one fleet trace context.
+Left out with the modules they serve: /admin/tiers, /admin/retier,
+/admin/ha/* and the member-side epoch fence. Every route but /health
+answers 403 to a blocked user or IP. A
+request's `traceparent` header (a fleet router's) makes its trace a
+span of that context, and X-Deadline-Ms sets its deadline; a streamed
+reply's X-Request-ID header names the request id its frames carry. A
 request naming a model the registry does not hold (never pulled, or
 deleted) answers 404, as Ollama does.
 
 Bounded admission answers 429 (this user's queue is full) or 503 (the
 whole queue is full) with a Retry-After from the observed completion
-rate, and the JAX package's body.
+rate, and the JAX package's body. A body over MAX_BODY (1 GB, the JAX
+package's limit) answers 413 unread.
 """
 
 from __future__ import annotations
@@ -54,7 +67,9 @@ from urllib.parse import parse_qs
 from ollamamq_tpu_torch import __version__
 from ollamamq_tpu_torch.config import get_model_config
 from ollamamq_tpu_torch.core.mqcore import BlockedError, Family
-from ollamamq_tpu_torch.engine.engine import QueueFullError, TokenIdError
+from ollamamq_tpu_torch.engine import kv_cache as kvc
+from ollamamq_tpu_torch.engine.engine import (MigrationError, QueueFullError,
+                                              TokenIdError)
 from ollamamq_tpu_torch.engine.request import FinishReason, Request, StreamItem
 from ollamamq_tpu_torch.engine.tokenizer import ByteTokenizer
 from ollamamq_tpu_torch.ops.cuda import launch_counts
@@ -66,6 +81,8 @@ from ollamamq_tpu_torch.telemetry import schema as tm
 from ollamamq_tpu_torch.telemetry.journal import EVENTS
 
 log = logging.getLogger("ollamamq.torch.server")
+
+MAX_BODY = 1024 * 1024 * 1024  # 1 GB, the JAX package's client_max_size
 
 
 class ApiError(Exception):
@@ -171,6 +188,20 @@ class Handler(BaseHTTPRequestHandler):
         ("GET", "/debug/prefix_cache"): "debug_prefix_cache",
         ("POST", "/debug/prefix_cache"): "debug_prefix_cache_flush",
     }
+    # Fleet admin: only when the engine IS a fleet router.
+    FLEET_ROUTES = {
+        ("GET", "/admin/fleet"): "admin_fleet",
+        ("POST", "/admin/drain/{replica}"): "admin_drain",
+        ("POST", "/admin/preempt/{replica}"): "admin_preempt",
+    }
+    # The KV migration wire: only when the engine is an engine (a fleet
+    # member); the router's HttpMember speaks it.
+    MIGRATE_ROUTES = {
+        ("POST", "/admin/migrate/export"): "admin_migrate_export",
+        ("POST", "/admin/migrate/import"): "admin_migrate_import",
+        ("POST", "/admin/migrate/commit"): "admin_migrate_commit",
+        ("POST", "/admin/migrate/abort"): "admin_migrate_abort",
+    }
 
     # -- plumbing ------------------------------------------------------------
     def do_GET(self):
@@ -191,7 +222,13 @@ class Handler(BaseHTTPRequestHandler):
     def _route(self, method: str, path: str):
         """(handler, path parameter or None), or raise 404 / 405."""
         allowed = False
-        for (m, pattern), name in self.ROUTES.items():
+        routes = dict(self.ROUTES)
+        eng = self.server.engine
+        if hasattr(eng, "drain_replica"):
+            routes.update(self.FLEET_ROUTES)
+        if hasattr(eng, "export_stream"):
+            routes.update(self.MIGRATE_ROUTES)
+        for (m, pattern), name in routes.items():
             head, brace, _ = pattern.partition("{")
             if brace:
                 arg = path[len(head):] if path.startswith(head) else ""
@@ -210,9 +247,24 @@ class Handler(BaseHTTPRequestHandler):
 
     def _dispatch(self, method: str) -> None:
         self.method = method
+        try:
+            n = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            n = -1
+        if n < 0 or n > MAX_BODY:
+            # Refused unread (nothing is allocated for it); the unread body
+            # ends the connection.
+            self.close_connection = True
+            status, msg = ((413, f"request body of {n} bytes exceeds the "
+                                 f"{MAX_BODY}-byte limit") if n > 0
+                           else (400, "invalid Content-Length"))
+            try:
+                self._send_json(status, {"error": msg})
+            except _ClientGone:
+                pass
+            return
         # The body is read whatever the route does with it: one left unread
         # would be parsed as the connection's next request.
-        n = int(self.headers.get("Content-Length") or 0)
         self._raw = self.rfile.read(n) if n > 0 else b""
         path, _, query = self.path.partition("?")
         self.query = {k: v[-1] for k, v in parse_qs(query).items()}
@@ -260,10 +312,13 @@ class Handler(BaseHTTPRequestHandler):
         except ValueError:
             raise ApiError(400, f"'{name}' must be an integer")
 
-    def _start_chunked(self, content_type: str) -> None:
+    def _start_chunked(self, content_type: str,
+                       headers: Optional[dict] = None) -> None:
         self.send_response(200)
         self.send_header("Content-Type", content_type)
         self.send_header("Cache-Control", "no-cache")
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
         self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
 
@@ -301,13 +356,36 @@ class Handler(BaseHTTPRequestHandler):
         tok = rt.tokenizer if rt is not None else ByteTokenizer()
         return tok.encode(text, add_bos=add_bos)
 
+    def _trace_ctx(self) -> Optional[str]:
+        """The propagated fleet trace context (`traceparent`): a fleet
+        router stamps it on member requests so every process's spans
+        stitch under the client's request id. None mints a fresh one."""
+        ctx = self.headers.get(tracing.TRACEPARENT_HEADER)
+        return ctx if ctx and tracing.valid_ctx(ctx) else None
+
+    def _apply_deadline(self, sampling) -> None:
+        """X-Deadline-Ms (milliseconds from arrival) wins over the body's
+        deadline_ms; junk is a 400, never ignored."""
+        hdr = self.headers.get("X-Deadline-Ms")
+        if hdr is None:
+            return
+        try:
+            ms = float(hdr)
+        except ValueError:
+            raise ApiError(400, "X-Deadline-Ms must be a number "
+                                "(milliseconds from arrival)")
+        if ms <= 0:
+            raise ApiError(400, "X-Deadline-Ms must be > 0")
+        sampling.deadline_ms = ms
+
     def _enqueue(self, user, ip, model, family, tokens, sampling,
                  kind: str = "generate", raw_prompt: str = "",
                  context_ids=None) -> Request:
         try:
             return self.server.engine.enqueue_request(
                 user, ip, model, family, tokens, sampling, kind=kind,
-                raw_prompt=raw_prompt, context_ids=context_ids)
+                raw_prompt=raw_prompt, context_ids=context_ids,
+                trace_ctx=self._trace_ctx())
         except BlockedError as e:
             raise ApiError(403, str(e))
         except TokenIdError as e:
@@ -339,9 +417,12 @@ class Handler(BaseHTTPRequestHandler):
 
     def _stream(self, req: Request, content_type: str, frames) -> None:
         """Write `frames(item)` for every stream item as a chunked body;
-        a vanished client cancels the request."""
+        a vanished client cancels the request. X-Request-ID carries the
+        request id from the start: frames carry it only with text, and a
+        fleet router's /admin/migrate export needs it before any."""
         try:
-            self._start_chunked(content_type)
+            self._start_chunked(content_type,
+                                {"X-Request-ID": str(req.req_id)})
             for item in self._items(req):
                 for data in frames(item):
                     self._chunk(data)
@@ -405,21 +486,38 @@ class Handler(BaseHTTPRequestHandler):
 
     def debug_trace(self) -> None:
         """Request-lifecycle traces as Chrome trace-event JSON (load in
-        chrome://tracing or Perfetto)."""
+        chrome://tracing or Perfetto). `?ctx=<traceparent>` returns this
+        process's raw spans of that fleet trace context instead: the
+        stitching wire a fleet router reads."""
         self._ident()
-        self._send_json(200, self.server.engine.tracer.export_chrome())
+        tracer = self.server.engine.tracer
+        ctx = self.query.get("ctx")
+        if ctx is not None:
+            if not tracing.valid_ctx(ctx):
+                raise ApiError(400, "'ctx' must be a traceparent-shaped "
+                                    "trace context")
+            self._send_json(200, {"ctx": ctx, "spans": tracer.export_spans(
+                tracer.find_ctx(ctx))})
+            return
+        self._send_json(200, tracer.export_chrome())
 
     def debug_trace_one(self, rid: str) -> None:
         """One request's timeline as Chrome trace-event JSON, with the
-        `stitched` phase summary (one process: no fleet stitching)."""
+        `stitched` phase summary; on a fleet router, every member's spans
+        of the stream's context stitched under the router's root."""
         self._ident()
         try:
             rid = int(rid)
         except ValueError:
             raise ApiError(400, "request id must be an integer")
-        tracer = self.server.engine.tracer
-        tr = tracer.find(rid)
-        spans = tracer.export_spans([tr]) if tr is not None else []
+        eng = self.server.engine
+        tracer = eng.tracer
+        spans_fn = getattr(eng, "fleet_trace_spans", None)
+        if spans_fn is not None:
+            spans = spans_fn(rid)
+        else:
+            tr = tracer.find(rid)
+            spans = tracer.export_spans([tr]) if tr is not None else []
         if not spans:
             raise ApiError(404, f"no trace for request {rid} (expired "
                                 "from the ring, or never existed)")
@@ -670,6 +768,7 @@ class Handler(BaseHTTPRequestHandler):
         model, _cfg = self._model(body)
         sampling = SamplingParams.from_ollama_options(
             body.get("options"), self.server.engine.ecfg.max_new_tokens)
+        self._apply_deadline(sampling)
         prompt = body.get("prompt", "")
         tokens = self._tokenize(model, prompt)
         # Ollama's `context`: ids from an earlier turn. The engine
@@ -690,6 +789,7 @@ class Handler(BaseHTTPRequestHandler):
         model, cfg = self._model(body)
         sampling = SamplingParams.from_ollama_options(
             body.get("options"), self.server.engine.ecfg.max_new_tokens)
+        self._apply_deadline(sampling)
         prompt = render_chat(body.get("messages", []), cfg)
         tokens = self._tokenize(model, prompt, add_bos=not template_owns_bos(cfg))
         req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling,
@@ -911,6 +1011,136 @@ class Handler(BaseHTTPRequestHandler):
 
         self._stream(req, "text/event-stream", frames)
 
+    # -- fleet admin (a fleet router) ----------------------------------------
+    def _positive_float(self, body: dict, key: str) -> Optional[float]:
+        if key not in body:
+            return None
+        try:
+            val = float(body[key])
+        except (TypeError, ValueError):
+            raise ApiError(400, f"'{key}' must be a number")
+        if val <= 0:
+            raise ApiError(400, f"'{key}' must be > 0")
+        return val
+
+    def admin_fleet(self) -> None:
+        """Fleet status: each replica's state (healthy, ejected,
+        draining), heartbeat age, in-flight streams and firing alerts,
+        plus the placement policy and the failover and migration counts."""
+        self._ident()
+        self._send_json(200, self.server.engine.fleet_status())
+
+    def admin_drain(self, replica: str) -> None:
+        """Quiesce one replica: no new placements, its live streams
+        migrate off (stragglers past the drain timeout fail over), then
+        it hot-restarts and rejoins. 404 for an unknown replica, 409 for
+        an ejected one. Poll GET /admin/fleet until it is healthy."""
+        self._ident()
+        timeout_s = self._positive_float(self._read_body(), "timeout_s")
+        try:
+            out = self.server.engine.drain_replica(replica,
+                                                   timeout_s=timeout_s)
+        except KeyError as e:
+            raise ApiError(404, str(e.args[0]) if e.args else str(e))
+        except RuntimeError as e:
+            raise ApiError(409, str(e))
+        self._send_json(200, {"status": "success", **out})
+
+    def admin_preempt(self, replica: str) -> None:
+        """Serve a preemptible replica a termination notice (spot
+        reclamation): its live streams migrate off within the notice
+        window, then it leaves the fleet. Body: {"notice_s": N?}
+        (default: the drain timeout). 400 for a replica not flagged
+        preemptible."""
+        self._ident()
+        notice_s = self._positive_float(self._read_body(), "notice_s")
+        try:
+            out = self.server.engine.preempt_replica(replica,
+                                                     notice_s=notice_s)
+        except KeyError as e:
+            raise ApiError(404, str(e.args[0]) if e.args else str(e))
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        except RuntimeError as e:
+            raise ApiError(409, str(e))
+        self._send_json(200, {"status": "success", **out})
+
+    # -- the KV migration wire (a fleet member) ------------------------------
+    def _migrate_rid(self, body: dict) -> int:
+        try:
+            return int(body["req_id"])
+        except (KeyError, TypeError, ValueError):
+            raise ApiError(400, "'req_id' must be an integer")
+
+    def admin_migrate_export(self) -> None:
+        """Phase 1 of the two-phase handoff, source side: snapshot and
+        PARK one live stream's decode slot and ship it as a binary blob.
+        The parked state waits for /admin/migrate/commit (the target
+        acknowledged) or /abort (recompute). 409 when the request holds
+        no migratable decode state."""
+        self._ident()
+        body = self._read_body()
+        rid = self._migrate_rid(body)
+        try:
+            budget = min(60.0, max(0.1, float(body.get("timeout_s", 10.0))))
+        except (TypeError, ValueError):
+            raise ApiError(400, "'timeout_s' must be a number")
+        blob = self.server.engine.export_stream(
+            rid, time.monotonic() + budget)
+        if blob is None:
+            raise ApiError(409, f"request {rid} holds no migratable decode "
+                                "state")
+        self._send(200, kvc.pack_migration_blob(blob),
+                   "application/octet-stream")
+
+    def admin_migrate_import(self) -> None:
+        """Target side: install a shipped stream straight into a decode
+        slot and stream its continuation as /api/generate NDJSON. The 200
+        status line is the import acknowledgement the source's commit
+        waits on, sent only once the slot is installed. 400 on a foreign
+        blob (an id outside the model's vocabulary included), 409 when
+        nothing landed (the caller recomputes)."""
+        _user, ip = self._ident()
+        try:
+            blob = kvc.unpack_migration_blob(self._raw)
+        except ValueError as e:
+            raise ApiError(400, f"bad migration blob: {e}")
+        deadline = None
+        hdr = self.headers.get("X-Deadline-Ms")
+        if hdr is not None:
+            try:
+                deadline = time.monotonic() + max(1.0, float(hdr)) / 1e3
+            except ValueError:
+                raise ApiError(400, "X-Deadline-Ms must be a number")
+        try:
+            req = self.server.engine.import_stream(
+                blob, ip=ip, deadline=deadline, trace_ctx=self._trace_ctx())
+        except TokenIdError as e:
+            raise ApiError(400, f"bad migration blob: {e}")
+        except MigrationError as e:
+            raise ApiError(409, f"migration import failed: {e}")
+        model = req.model or (blob.get("request") or {}).get("model", "")
+        self._ollama_reply(req, model, chat=False, stream=True)
+
+    def admin_migrate_commit(self) -> None:
+        self._migrate_resolve(commit=True)
+
+    def admin_migrate_abort(self) -> None:
+        self._migrate_resolve(commit=False)
+
+    def _migrate_resolve(self, commit: bool) -> None:
+        """Phase 2: release the parked source state (commit and abort
+        free alike; abort journals why). 404 when nothing is parked under
+        that id."""
+        self._ident()
+        body = self._read_body()
+        rid = self._migrate_rid(body)
+        why = str(body.get("why") or "transfer_failed")
+        if not self.server.engine.resolve_export(rid, commit=commit, why=why):
+            raise ApiError(404, f"no parked migration export for request "
+                                f"{rid}")
+        self._send_json(200, {"status": "success", "req_id": rid})
+
     # -- latency attribution and the incident bundle -----------------------
     def debug_requests(self) -> None:
         """Every in-flight request (its current phase and how long it has
@@ -990,6 +1220,12 @@ class Handler(BaseHTTPRequestHandler):
         section("prefix_cache", eng.prefix_cache_stats)
         section("journal", lambda: _redact(
             {**eng.journal.snapshot(), "events": eng.journal.tail(n=200)}))
+        if hasattr(eng, "fleet_status"):
+            section("fleet", eng.fleet_status)
+        if hasattr(eng, "member_bundles"):
+            # One section per member, each error-contained: a dead
+            # replica does not cost the rest of the fleet's bundle.
+            section("members", lambda: _redact(eng.member_bundles()))
         self._send_json(200, bundle)
 
 
@@ -1021,7 +1257,16 @@ def render_prometheus(engine) -> str:
     tm.SLO_ALERTS_FIRING.clear()
     for a in engine.alerts.active():
         tm.SLO_ALERTS_FIRING.labels(alert=a.name, severity=a.severity).set(1)
-    return REGISTRY.render()
+    # A fleet router re-exports every HTTP member's scraped snapshot with
+    # a `replica` label: one scrape sees the fleet.
+    federated = []
+    fed_fn = getattr(engine, "member_metric_federation", None)
+    if fed_fn is not None:
+        try:
+            federated = fed_fn()
+        except Exception:  # noqa: BLE001 — the local series still render
+            log.exception("member metric federation failed")
+    return REGISTRY.render(federated=federated)
 
 
 def capture_profile(out_dir: str, seconds: float, device) -> str:

@@ -9,7 +9,8 @@ The port's server reads the field and TorchEngine folds it the same way:
 the same prompt and context give the same greedy ids through the port's
 HTTP route as through TPUEngine (test-tiny, float32, weights bridged).
 A `context` that is not a list of ints, or that holds an id outside the
-model's vocabulary, is a 400.
+model's vocabulary, is a 400: at a single engine, at a fleet router, and
+in a KV migration blob sent to /admin/migrate/import.
 """
 
 import json
@@ -26,7 +27,11 @@ from ollamamq_tpu.config import EngineConfig as JaxEngineConfig
 from ollamamq_tpu.engine.engine import TPUEngine
 from ollamamq_tpu.ops.sampling import SamplingParams as JaxSampling
 from ollamamq_tpu_torch.config import MODEL_CONFIGS, EngineConfig
-from ollamamq_tpu_torch.engine.engine import TokenIdError, TorchEngine
+from ollamamq_tpu_torch.engine import kv_cache as kvc
+from ollamamq_tpu_torch.engine.engine import (TokenIdError, TorchEngine,
+                                              request_migration_state)
+from ollamamq_tpu_torch.engine.request import Request
+from ollamamq_tpu_torch.fleet import FleetRouter, LocalMember
 from ollamamq_tpu_torch.models.weights import from_jax_numpy
 from ollamamq_tpu_torch.ops.sampling import SamplingParams
 from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
@@ -160,3 +165,102 @@ def test_engine_refuses_out_of_vocab_ids(port):
             eng.enqueue_request("ctx", "", "test-tiny",
                                 sampling=SamplingParams(max_tokens=2), **bad)
     assert eng.core.queue_len("ctx") == 0
+
+
+@pytest.fixture(scope="module")
+def fleet(jax_reference):
+    """A FleetRouter over two in-process TorchEngine members, served."""
+    members = [LocalMember(f"r{i}", TorchEngine(
+        EngineConfig(**TINY), device="cpu", dtype=torch.float32,
+        params=jax_reference[1], blocklist_path=None)) for i in range(2)]
+    srv = serve_in_thread(FleetRouter(members, EngineConfig(**TINY),
+                                      blocklist_path=None))
+    yield f"http://127.0.0.1:{srv.server_address[1]}", srv.engine
+    stop_server(srv)
+
+
+@pytest.mark.parametrize("context", [[512], [-1], [5, 999999999]])
+def test_out_of_vocab_context_is_400_at_the_fleet_router(fleet, context):
+    """The router checks ids at its door as a single engine does: on the
+    card every in-process member shares one CUDA context, which one
+    out-of-table id would poison. Nothing is left queued, no member saw
+    the request, and the fleet serves the next one."""
+    base, router = fleet
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _generate(base, {"model": "test-tiny", "prompt": "x",
+                         "context": context, "stream": False})
+    assert e.value.code == 400
+    assert "outside [0, 512)" in json.loads(e.value.read())["error"]
+    assert router.core.queue_len("ctx") == 0
+    assert not router.pending
+    reply = json.loads(_generate(base, {
+        "model": "test-tiny", "prompt": PROMPT, "stream": False,
+        "options": {"temperature": 0, "num_predict": 3}}).read())
+    assert reply["done"] and reply["done_reason"] == "length"
+
+
+def test_member_refuses_out_of_vocab_injected_request(fleet):
+    """inject_request, the router's seam into a member, checks the
+    prompt and the replayed generated ids too."""
+    _base, router = fleet
+    eng = router.members[0].engine
+    for prompt, gen in (([1, 512], []), ([1, 70], [70, -2])):
+        req = Request(0, "ctx", "test-tiny", prompt,
+                      SamplingParams(max_tokens=2))
+        req.generated_ids = gen
+        with pytest.raises(TokenIdError):
+            eng.inject_request(req)
+    assert eng.core.queue_len("ctx") == 0 and not eng.pending
+
+
+def _stream_blob(eng, **bad) -> bytes:
+    """A wire blob of one decode slot for `eng`'s test-tiny runtime: a
+    3-token prompt, one generated token pending (kv_len 3), zero pages;
+    `bad` overrides the last token, the ring, or the request's ids."""
+    rt = eng.runtimes["test-tiny"]
+    cfg, ps, n = rt.cfg, rt.ecfg.page_size, 1
+    req = Request(0, "imp", "test-tiny", bad.get("prompt", [1, 70, 80]),
+                  SamplingParams(max_tokens=3))
+    req.generated_ids = bad.get("generated", [90])
+    ring = np.full(rt.recent.shape[1], -1, np.int32)
+    ring[:4] = bad.get("recent", [1, 70, 80, 90])
+    shape = (cfg.num_layers, n * ps, cfg.num_kv_heads, cfg.head_dim)
+    return kvc.pack_migration_blob({
+        "version": 1, "kind": "stream", "model": "test-tiny",
+        "kv_dtype": rt.kv_dtype, "page_size": ps,
+        "num_layers": cfg.num_layers, "num_kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "kv_len": 3,
+        "last_token": bad.get("last_token", 90), "n_pages": n,
+        "recent": ring, "request": request_migration_state(req),
+        "k_pages": np.zeros(shape, np.float32),
+        "v_pages": np.zeros(shape, np.float32)})
+
+
+def _import(base, raw: bytes):
+    req = urllib.request.Request(
+        base + "/admin/migrate/import", data=raw,
+        headers={"X-User-ID": "imp",
+                 "Content-Type": "application/octet-stream"})
+    return urllib.request.urlopen(req, timeout=120)
+
+
+@pytest.mark.parametrize("bad", [dict(last_token=512),
+                                 dict(recent=[1, 70, 600, 90]),
+                                 dict(generated=[90, 10**9]),
+                                 dict(prompt=[1, -5, 80])],
+                         ids=["last_token", "recent", "generated", "prompt"])
+def test_out_of_vocab_migration_blob_is_400_and_engine_serves_on(port, bad):
+    """/admin/migrate/import takes a blob from any caller: an id outside
+    the vocabulary in its last token, penalty ring, generated or prompt
+    ids is a 400 before a page is allocated, and the same blob with good
+    ids then lands and streams to its end."""
+    base, eng = port
+    rt = eng.runtimes["test-tiny"]
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _import(base, _stream_blob(eng, **bad))
+    assert e.value.code == 400
+    assert "outside [0, 512)" in json.loads(e.value.read())["error"]
+    assert rt.alloc.used_pages == 0
+    assert all(r is None for r in rt.slot_req)
+    frames = [json.loads(line) for line in _import(base, _stream_blob(eng))]
+    assert frames[-1]["done"] and frames[-1]["done_reason"] == "length"

@@ -6,19 +6,28 @@ several models: an encoder pulled, embedded with and deleted over HTTP,
 and a safetensors checkpoint written and served, then the fake engine
 with a WAL and a journal spill, whose stream is recovered after a crash
 and whose spill the journal tool checks) with JAX, the JAX package,
-safetensors and tokenizers all blocked from import, and without a GPU
-the engine refuses to start unless the CPU is asked for. The journal
-tool's --help runs under the same block.
+safetensors, tokenizers and ml_dtypes (bf16 migration blobs go without
+it) all blocked from import, and without a GPU the engine refuses to
+start unless the CPU is asked for. The journal tool's --help runs under
+the same block, and so does the CLI serving a
+two-member fleet (a stream, then GET /admin/fleet, then SIGTERM) and
+refusing the fleet's policy layers that are not ported yet.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
 
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
+import urllib.request
 
+import pytest
 import torch
+
+from testutil import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,7 +39,7 @@ class _Blocked:
     # Importing any of these fails: the port needs none of them.
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu", "safetensors",
-                                  "tokenizers"):
+                                  "tokenizers", "ml_dtypes"):
             raise ImportError(f"blocked: {name}")
         return None
 
@@ -160,7 +169,8 @@ print(json.dumps({
     "recovered": recovered, "fake_clean": fake_clean, "check_rc": check_rc,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "ollamamq_tpu",
-                                             "safetensors", "tokenizers")),
+                                             "safetensors", "tokenizers",
+                                             "ml_dtypes")),
     "refused": refused,
     "cuda": torch.cuda.is_available(),
 }))
@@ -212,7 +222,9 @@ def test_port_imports_and_serves_without_jax():
                 "ollamamq_tpu_torch.engine.fake", "ollamamq_tpu_torch.telemetry.journal",
                 "ollamamq_tpu_torch.tools.journal", "ollamamq_tpu_torch.durability",
                 "ollamamq_tpu_torch.durability.wal",
-                "ollamamq_tpu_torch.durability.manager"}
+                "ollamamq_tpu_torch.durability.manager",
+                "ollamamq_tpu_torch.fleet", "ollamamq_tpu_torch.fleet.members",
+                "ollamamq_tpu_torch.fleet.router"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
@@ -234,3 +246,74 @@ def test_journal_tool_help_without_jax():
     for cmd in ("tail", "explain", "stats", "merge", "check", "record",
                 "replay", "simulate"):
         assert cmd in proc.stdout
+
+
+def _blocked_cli(args):
+    """`python -m ollamamq_tpu_torch.cli ARGS` with the JAX block."""
+    blocker = SCRIPT.split("import importlib")[0]
+    code = blocker + (
+        "import runpy\n"
+        f"sys.argv = ['ollamamq_tpu_torch.cli'] + {list(args)!r}\n"
+        "runpy.run_module('ollamamq_tpu_torch.cli', run_name='__main__')\n")
+    return [sys.executable, "-c", code]
+
+
+def test_cli_serves_a_fleet_without_jax(tmp_path):
+    """`--device cpu --replicas 2` serves a stream through the router and
+    answers GET /admin/fleet, with JAX and the JAX package blocked; a
+    SIGTERM drains it and exits 0."""
+    port = free_port()
+    log = open(tmp_path / "cli.log", "w")
+    proc = subprocess.Popen(
+        _blocked_cli(["--model", "test-tiny", "--device", "cpu", "--replicas",
+                      "2", "--port", str(port), "--no-tui", "--max-slots", "2",
+                      "--num-pages", "32", "--page-size", "8",
+                      "--max-pages-per-seq", "8", "--blocklist",
+                      str(tmp_path / "blocked.json")]),
+        cwd=str(tmp_path), env=_env(), stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            assert proc.poll() is None, (tmp_path / "cli.log").read_text()[-3000:]
+            try:
+                urllib.request.urlopen(base + "/health", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.2)
+        req = urllib.request.Request(
+            base + "/api/generate",
+            data=json.dumps({"model": "test-tiny", "prompt": "hi",
+                             "stream": False,
+                             "options": {"num_predict": 4}}).encode(),
+            headers={"X-User-ID": "solo"})
+        body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert body["done"] and body["eval_count"] == 4
+        fleet = json.loads(urllib.request.urlopen(base + "/admin/fleet",
+                                                  timeout=10).read())
+        assert [r["name"] for r in fleet["replicas"]] == ["r0", "r1"]
+        assert fleet["counts"] == {"healthy": 2, "ejected": 0, "draining": 0}
+        assert fleet["migrate"] is True and fleet["placement"] == "affinity"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (tmp_path / "cli.log").read_text()
+    assert "blocked:" not in text and "graceful shutdown complete" in text
+
+
+@pytest.mark.parametrize("flag,module", [
+    (["--tiers", "interactive=r0;bulk=r1"], "fleet/tiering.py"),
+    (["--autoscale"], "fleet/autoscaler.py"),
+    (["--ha"], "fleet/ha.py"),
+], ids=["tiers", "autoscale", "ha"])
+def test_cli_refuses_unported_fleet_layers(flag, module):
+    proc = subprocess.run(
+        _blocked_cli(["--model", "test-tiny", "--device", "cpu", "--no-tui",
+                      "--replicas", "2"] + flag),
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2, proc.stderr[-2000:]
+    assert f"{flag[0]} is not ported yet ({module}" in proc.stderr
