@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about six minutes
+    python3 chip_smoke.py            # one card, about seven minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -197,10 +197,58 @@ Phases, each printing JSON lines; any failure exits non-zero:
            wire, the placement overhead p50/p99, TTFT p50 through the
            router (its enqueue to the member's first token) and (a)'s
            tokens/s. The member's log is under chiprun_out/chip_smoke.
+  serve-tiers
+           SLO-aware replica tiers: the CLI's fleet (cli.build_fleet) of
+           three bf16 members as serve-fleet builds them, with --tiers
+           "interactive=r0;bulk=r1,r2" and a whole-phase journal ring,
+           behind the HTTP server. A warm-up per tier, then 7 greedy
+           160-token streams in two waves 64 tokens apart: a VIP user, a
+           boosted user and a request with deadline_ms (interactive), and
+           4 plain users (bulk); once every stream holds 32 tokens, POST
+           /admin/retier/r2 {"tier": "interactive"} while bulk streams
+           are live on r2. Gates: every reply stop or length; every
+           interactive-class tier_place names the interactive tier and a
+           member of it, every bulk one the bulk tier; tier_regroup start
+           then done, paired, and GET /admin/tiers lists r0 and r2 as
+           interactive; every stream live on r2 migrated to r1 (no
+           failover, no aborted handoff); check_no_dropped_streams and
+           check_invariants clean on the router's and every member's
+           journal; 0 pages used on every member; every member launched
+           both bf16 kernels (each made ragged dispatches and decode
+           steps, and the window's launch counts equal the layers times
+           the members' dispatches summed); a --tiers spec declaring
+           @tp2 exits the CLI with 2. Then float32 (TF32 off) through a
+           tiered fleet: one bulk stream, unmigrated, then its member
+           retiered once it holds 16 tokens: the ids must not change.
+           Records the regroup seconds (start to done in the journal),
+           TTFT p50 per tier (the router's enqueue to the member's first
+           token, from the journals) and tokens/s.
+  serve-autoscale
+           the autoscaler: the CLI's fleet of one bf16 member of 2 slots
+           with --autoscale --min-replicas 1 --max-replicas 2
+           --scale-cooldown-s 1.5 --slo-ttft-ms 60000, behind the HTTP
+           server. A warm-up, then 6 users' greedy 96-token streams
+           arriving 0.15 s apart: the router's backlog (more than one
+           member's slots, held 0.5 s) makes the LocalProvisioner build
+           a0 on the card from the CLI's member factory (the same
+           weights). The router times TTFT to a stream's first text,
+           which the seeded model's ids rarely decode to, so the TTFT
+           objective is set far above this traffic: on that noise a low
+           one fires and its 5-minute window holds the scale-down off.
+           The idle fleet then retires a0 (drain, migrate off, retire).
+           Gates: every reply stop or length; scale_up start then done
+           for a0; a0 served a stream of the burst and launched both
+           bf16 kernels while it served; scale_down done for a0 with why
+           "idle"; the fleet back to 1; check_scale_pairing and
+           check_no_dropped_streams clean; 0 pages used; no scale_storm
+           alert; the window's launches equal r0's and a0's dispatches.
+           Records seconds from the scale-up decision to a0's join, the
+           scaler's wake_wait_s, and torch.cuda.memory_allocated before
+           a0's provision against after its retire.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
-serve window of the row's pool format plus serve-durable's and
-serve-fleet's, counted in
+serve window of the row's pool format plus serve-durable's,
+serve-fleet's, serve-tiers' and serve-autoscale's, counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
 ms go uncounted; the others' whole windows from the counts they log at
@@ -224,6 +272,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -2272,13 +2321,13 @@ FLEET_USERS = {"ada": "Tell me about fair queues. ", "bob": "Why page the KV cac
 
 
 def _fleet_router(dtype="bfloat16", kv_dtype="bfloat16", params=None,
-                  n_local=2, urls=()):
-    """The CLI's own fleet (cli.build_fleet) from FLEET_ARGS: `n_local`
-    TorchEngine members r0, ... and HTTP members h0, ... at `urls`, at
-    the CLI's defaults (the router's 3 s heartbeat eject bound among
-    them). Only the engine factory differs from the CLI's: the members
-    share one seeded weight tree. Returns (router, its EngineConfig,
-    params)."""
+                  n_local=2, urls=(), extra=()):
+    """The CLI's own fleet (cli.build_fleet) from FLEET_ARGS and `extra`
+    flags: `n_local` TorchEngine members r0, ... and HTTP members h0, ...
+    at `urls`, at the CLI's defaults (the router's 3 s heartbeat eject
+    bound among them). Only the engine factory differs from the CLI's:
+    the members (and any the autoscaler provisions) share one seeded
+    weight tree. Returns (router, its EngineConfig, params)."""
     from ollamamq_tpu_torch import cli
     from ollamamq_tpu_torch.engine.engine import TorchEngine
 
@@ -2286,7 +2335,11 @@ def _fleet_router(dtype="bfloat16", kv_dtype="bfloat16", params=None,
     args = cli.build_parser().parse_args(
         FLEET_ARGS + ["--model", FLEET_MODEL, "--dtype", dtype, "--kv-dtype", kv_dtype,
                       "--replicas", str(n_local), "--replica-urls", ",".join(urls),
-                      "--blocklist", os.path.join(OUT_DIR, "blocked-fleet-router.json")])
+                      "--blocklist", os.path.join(OUT_DIR, "blocked-fleet-router.json"),
+                      *extra])
+    err = cli.validate(args)
+    if err:
+        raise SystemExit(f"fleet flags refused: {err}")
     ecfg = cli.engine_config(args)
     held = {"params": params}
 
@@ -2889,6 +2942,436 @@ def serve_fleet_phase(report) -> None:
         raise SystemExit(f"serve-fleet gates failed: {gates}")
 
 
+TIERS_SPEC = "interactive=r0;bulk=r1,r2"
+TIERS_USERS = {"vip-a": ("vip", "Tell me about fair queues. "),
+               "vip-b": ("boost", "Why page the KV cache? "),
+               "dl": ("deadline", "Explain the decode kernel. "),
+               "b1": ("default", "What is a drain? "),
+               "b2": ("default", "How does a regroup move a member? "),
+               "b3": ("default", "Why two tiers of replicas? "),
+               "b4": ("default", "What does the balancer watch? ")}
+
+
+def _member_dispatches(router, model):
+    """{member: (ragged dispatches, decode steps)} of each local member's
+    runtime: with the window's launch counts, the proof that every member
+    launched both kernels (one launch per layer per ragged dispatch and
+    per decode step)."""
+    return {m.name: (m.engine.runtimes[model].ragged_dispatches,
+                     m.engine.runtimes[model].decode_steps)
+            for m in router.local_members}
+
+
+def _kernels_per_member(before, after, counts, layers, names):
+    """(per-member launches implied by its dispatches, the gate): each
+    named member made at least one ragged dispatch and one decode step,
+    and the window's bf16 launch counts equal layers x the members'
+    dispatches summed (no launch from anywhere else, no int8 launch)."""
+    per = {n: {"ragged_paged_attention": layers * (after[n][0] - before.get(n, (0, 0))[0]),
+               "paged_decode_attention": layers * (after[n][1] - before.get(n, (0, 0))[1])}
+           for n in names}
+    ok = (all(v["ragged_paged_attention"] > 0 and v["paged_decode_attention"] > 0
+              for v in per.values())
+          and counts["ragged_paged_attention"]
+          == sum(v["ragged_paged_attention"] for v in per.values())
+          and counts["paged_decode_attention"]
+          == sum(v["paged_decode_attention"] for v in per.values())
+          and counts["ragged_paged_attention_int8"] == 0
+          and counts["paged_decode_attention_int8"] == 0)
+    return per, ok
+
+
+def _tiers_f32(card):
+    """One float32 stream (TF32 off) through a tiered fleet: unmigrated,
+    then its bulk member retiered to interactive once it holds 16 tokens
+    (the stream migrates in-tier): the ids must not change."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    router, _, params = _fleet_router(dtype="float32", n_local=3,
+                                      extra=["--tiers", TIERS_SPEC])
+    router.start()
+    prompt = "The quick brown fox jumps over the lazy dog; regroup me, please."
+    try:
+        ref, end, _ = _stream_ids(router, "f32", prompt, 96)
+        rt = router.resolve_runtime(FLEET_MODEL)
+        req = router.enqueue_request("f32", "", FLEET_MODEL,
+                                     prompt_tokens=rt.tokenizer.encode(prompt),
+                                     sampling=SamplingParams(max_tokens=96),
+                                     raw_prompt=prompt)
+        f = _flight(router, "f32")
+        _wait_tokens(router, ["f32"], 16)
+        src = f.member
+        depth = len(f.attempt.req.generated_ids)
+        router.retier_replica(src.name, "interactive", why="smoke")
+        items = _collect(req)
+        ids = [i.token_id for i in items if i.kind == "token" and i.token_id >= 0]
+        deadline = time.monotonic() + 60
+        while src.tier != "interactive" and time.monotonic() < deadline:
+            time.sleep(0.01)
+        recs = router.journal.tail(None)
+    finally:
+        router.stop()
+    del router, params
+    migrated = [r for r in recs if r["kind"] == "migrate_import"
+                and r.get("what") != "prefix"]
+    phases = [r["phase"] for r in recs if r["kind"] == "tier_regroup"]
+    gates = {"f32_retier_identical": ids == ref and end.kind == "done"
+             and items[-1].kind == "done",
+             "f32_retier_migrated": len(migrated) == 1
+             and migrated[0]["replica"] == src.name
+             and migrated[0]["to_replica"] != src.name
+             and phases == ["start", "done"]
+             and not any(r["kind"] == "replica_failover" for r in recs)}
+    line = {"phase": "serve-tiers", "part": "f32-retier", "tf32": False,
+            "member": src.name, "migrated_at": depth, "tokens": len(ref),
+            "first_diff": _first_diff(ids, ref), "card": card, "gates": gates}
+    emit(line)
+    return line
+
+
+def serve_tiers_phase(report) -> None:
+    """SLO-aware replica tiers on the card (module docstring, serve-tiers)."""
+    import torch
+
+    from ollamamq_tpu_torch import cli
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.telemetry.journal import check_invariants
+    from ollamamq_tpu_torch.tools.journal import (check_no_dropped_streams,
+                                                  check_regroup_pairing)
+
+    t_phase = time.monotonic()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    router, ecfg, params = _fleet_router(
+        n_local=3, extra=["--tiers", TIERS_SPEC, "--journal-ring", "1000000"])
+    srv = serve_in_thread(router, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    layers = router.resolve_runtime(FLEET_MODEL).cfg.num_layers
+    try:
+        router.core.set_vip("vip-a")
+        router.core.set_boost("vip-b")
+        # One warm-up per tier (a deadline makes it interactive).
+        for user, opts in (("warm-i", {"deadline_ms": 600000}), ("warm-b", {})):
+            _post(port, "/api/generate", {"model": FLEET_MODEL, "prompt": "Warm up.",
+                                          "stream": False,
+                                          "options": {"temperature": 0,
+                                                      "num_predict": 8, **opts}}, user)
+        seq0 = router.journal.seq
+        mseq0 = {m.name: m.engine.journal.seq for m in router.members}
+        before = _member_dispatches(router, FLEET_MODEL)
+        reset_launch_counts()
+        results, errors = {}, []
+
+        def run(user):
+            cls, prompt = TIERS_USERS[user]
+            opts = {"temperature": 0, "num_predict": FLEET_NEW}
+            if cls == "deadline":
+                opts["deadline_ms"] = 600000
+            try:
+                frames = [json.loads(x) for x in
+                          _ndjson(port, "POST", "/api/generate",
+                                  {"model": FLEET_MODEL, "prompt": prompt,
+                                   "options": opts}, user) if x.strip()]
+                results[user] = ([t for f in frames for t in f.get("token_ids", [])],
+                                 frames[-1])
+            except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                errors.append(f"{user}: {e}")
+
+        t0 = time.monotonic()
+        threads = {u: threading.Thread(target=run, args=(u,)) for u in TIERS_USERS}
+        wave_a, wave_b = ("vip-a", "b1", "b2"), ("vip-b", "dl", "b3", "b4")
+        for u in wave_a:
+            threads[u].start()
+        for u in wave_a:
+            _flight(router, u)
+        _wait_tokens(router, list(wave_a), 64)
+        for u in wave_b:
+            threads[u].start()
+        for u in wave_b:
+            _flight(router, u)
+        _wait_tokens(router, list(TIERS_USERS), 32)
+        placed = {f.user: f.member.name for f in list(router.flights)}
+        on_r2 = sorted(u for u, m in placed.items() if m == "r2")
+        _, data = _post(port, "/admin/retier/r2", {"tier": "interactive"}, "admin")
+        retier = json.loads(data)
+        for t in threads.values():
+            t.join(timeout=600)
+        seconds = time.monotonic() - t0
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            tiers = json.loads(_get(port, "/admin/tiers"))
+            if any(m["name"] == "r2" and m["state"] == "healthy"
+                   for m in tiers["tiers"]["interactive"]["members"]):
+                break
+            time.sleep(0.05)
+        counts = launch_counts()
+        after = _member_dispatches(router, FLEET_MODEL)
+        recs = [r for r in router.journal.tail(None) if r["seq"] >= seq0]
+        member_recs = {m.name: [r for r in m.engine.journal.tail(None)
+                                if r["seq"] >= mseq0[m.name]] for m in router.members}
+        used = {m.name: m.engine.runtimes[FLEET_MODEL].alloc.used_pages
+                for m in router.members}
+    finally:
+        stop_server(srv)
+    del router, srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A tier declaring a width above 1 is refused before any device work.
+    tp2_rc = cli.main(["--model", FLEET_MODEL, "--replicas", "2", "--no-tui",
+                       "--tiers", "interactive@tp2=r0;bulk=r1"])
+    f32 = _tiers_f32(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    places = [r for r in recs if r["kind"] == "tier_place"]
+    regroup = [r for r in recs if r["kind"] == "tier_regroup"]
+    imports = [r for r in recs if r["kind"] == "migrate_import"
+               and r.get("what") != "prefix"]
+    per_member, kernels_ok = _kernels_per_member(before, after, counts, layers,
+                                                 ["r0", "r1", "r2"])
+    # TTFT: the router's enqueue to the member's first install (its first
+    # token), both journals on this process's clock.
+    enq = {r["user"]: r["t"] for r in recs if r["kind"] == "enqueue"}
+    first = {}
+    for rs in member_recs.values():
+        for r in rs:
+            if r["kind"] == "install" and r.get("user") in TIERS_USERS:
+                first[r["user"]] = min(r["t"], first.get(r["user"], r["t"]))
+    ttft = {u: (first[u] - enq[u]) * 1e3 for u in first if u in enq}
+    by_tier = {t: sorted(ms for u, ms in ttft.items()
+                         if (TIERS_USERS[u][0] == "default") == (t == "bulk"))
+               for t in ("interactive", "bulk")}
+    regroup_s = (regroup[-1]["t"] - regroup[0]["t"]
+                 if len(regroup) == 2 else None)
+    gates = {
+        "replies": not errors and len(results) == len(TIERS_USERS)
+        and all(fr.get("done") and fr.get("done_reason") in ("stop", "length")
+                and "error" not in fr for _, fr in results.values()),
+        "interactive_in_tier": all(
+            r["tier"] == "interactive" and r["replica"] in ("r0", "r2")
+            and not r.get("overflow")
+            for r in places if r["cls"] != "default" and r["user"] in TIERS_USERS)
+        and {r["user"] for r in places if r["cls"] != "default"} >= {"vip-a", "vip-b", "dl"},
+        "bulk_in_tier": all(r["tier"] == "bulk" and r["replica"] in ("r1", "r2")
+                            for r in places if r["cls"] == "default"),
+        "regroup_done": [r["phase"] for r in regroup] == ["start", "done"]
+        and check_regroup_pairing(recs) == []
+        and sorted(m["name"] for m in tiers["tiers"]["interactive"]["members"])
+        == ["r0", "r2"],
+        "r2_streams_migrated": len(on_r2) >= 1
+        and sorted(r["user"] for r in imports if r["replica"] == "r2") == on_r2
+        and all(r["to_replica"] == "r1" for r in imports)
+        and not any(r["kind"] in ("replica_failover", "migrate_abort") for r in recs),
+        "no_dropped": check_no_dropped_streams(recs) == []
+        and all(check_no_dropped_streams(rs) == [] for rs in member_recs.values()),
+        "invariants": check_invariants(recs) == []
+        and all(check_invariants(rs) == [] for rs in member_recs.values()),
+        "no_used_pages": all(v == 0 for v in used.values()),
+        "kernels_every_member": kernels_ok,
+        "tp2_refused": tp2_rc == 2,
+        **f32["gates"],
+    }
+    tokens = sum(len(ids) for ids, _ in results.values())
+    line = {"phase": "serve-tiers", "model": FLEET_MODEL, "members": 3,
+            "slots_per_member": ecfg.max_slots, "tiers": TIERS_SPEC,
+            "users": {u: c for u, (c, _) in TIERS_USERS.items()},
+            "max_new_tokens": FLEET_NEW, "placed": placed, "live_on_r2": on_r2,
+            "retier": retier, "regroup_s": regroup_s,
+            "ttft_ms": ttft,
+            "ttft_p50_ms": {t: (v[len(v) // 2] if v else None) for t, v in by_tier.items()},
+            "tokens": tokens, "seconds": seconds, "tokens_per_s": tokens / seconds,
+            "migrated": [{k: r[k] for k in ("user", "replica", "to_replica", "tokens",
+                                             "pages", "bytes")} for r in imports],
+            "launches": counts, "launches_per_member": per_member,
+            "used_pages": used, "f32": {k: f32[k] for k in ("member", "migrated_at",
+                                                           "tokens", "first_diff")},
+            "phase_seconds": time.monotonic() - t_phase, "card": card, "gates": gates}
+    emit(line)
+    report["serve_tiers"] = line
+    if not all(gates.values()):
+        raise SystemExit(f"serve-tiers gates failed: {gates}")
+
+
+AUTOSCALE_USERS = ("au-1", "au-2", "au-3", "au-4", "au-5", "au-6")
+AUTOSCALE_NEW = 96
+# The router times TTFT to a stream's first text, and the seeded model's
+# ids rarely decode to text under the byte tokenizer: a low objective
+# fires on the few streams whose first text comes late, and its 5-minute
+# window then holds the scale-down off. The phase's scale-up rides the
+# router's backlog; the TTFT objective stays far above this traffic.
+AUTOSCALE_SLO_TTFT_MS = 60000
+
+
+def serve_autoscale_phase(report) -> None:
+    """The autoscaler on the card (module docstring, serve-autoscale)."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.tools.journal import (check_no_dropped_streams,
+                                                  check_scale_pairing)
+
+    t_phase = time.monotonic()
+    card = card_line()
+    gc.collect()
+    torch.cuda.empty_cache()
+    router, ecfg, params = _fleet_router(
+        n_local=1, extra=["--max-slots", "2", "--autoscale", "--min-replicas", "1",
+                          "--max-replicas", "2", "--scale-cooldown-s", "1.5",
+                          "--slo-ttft-ms", str(AUTOSCALE_SLO_TTFT_MS),
+                          "--journal-ring", "1000000"])
+    srv = serve_in_thread(router, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    scaler = router.autoscaler
+    layers = router.resolve_runtime(FLEET_MODEL).cfg.num_layers
+    a0 = None
+    try:
+        _post(port, "/api/generate", {"model": FLEET_MODEL, "prompt": "Warm up.",
+                                      "stream": False,
+                                      "options": {"temperature": 0, "num_predict": 8}},
+              "warm")
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        seq0 = router.journal.seq
+        before = _member_dispatches(router, FLEET_MODEL)
+        reset_launch_counts()
+        results, errors = {}, []
+
+        def run(user, n, prompt):
+            body = {"model": FLEET_MODEL, "prompt": prompt,
+                    "options": {"temperature": 0, "num_predict": n}}
+            try:
+                frames = [json.loads(x) for x in
+                          _ndjson(port, "POST", "/api/generate", body, user)
+                          if x.strip()]
+                results[user] = frames[-1]
+            except Exception as e:  # noqa: BLE001 — reported, fails the phase
+                errors.append(f"{user}: {e}")
+
+        t0 = time.monotonic()
+        burst = [threading.Thread(target=run, args=(u, AUTOSCALE_NEW,
+                                                     f"{u} asks: what scales a fleet? "))
+                 for u in AUTOSCALE_USERS]
+        # Six users arrive 0.15 s apart: r0's two slots fill, the rest
+        # queue at the router (the backlog the scaler reads) until a slot
+        # frees or a0 joins.
+        for t in burst:
+            t.start()
+            time.sleep(0.15)
+        deadline = time.monotonic() + 120
+        while a0 is None and time.monotonic() < deadline:
+            a0 = next((m for m in router.members if m.name == "a0"), None)
+            time.sleep(0.01)
+        if a0 is None:
+            raise SystemExit("serve-autoscale: the burst provisioned no member")
+        for t in burst:
+            t.join(timeout=600)
+        burst_s = time.monotonic() - t0
+        a0_served = {r["user"] for r in router.journal.tail(None, kind="place")
+                     if r["seq"] >= seq0 and r["runtime"] == "a0"}
+        a0_disp = _member_dispatches(router, FLEET_MODEL).get("a0")
+        fleet_peak = len(router.members)
+        ttft_obs = scaler.objective.counts.totals(3600.0)
+        burn_fired = scaler._burn_state(None)[0]
+        wake_wait = scaler.wake_wait_s()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and not any(
+                r["phase"] == "done" and r["replica"] == "a0"
+                for r in router.journal.tail(None, kind="scale_down")):
+            time.sleep(0.05)
+        recs = [r for r in router.journal.tail(None) if r["seq"] >= seq0]
+        counts = launch_counts()
+        after = _member_dispatches(router, FLEET_MODEL)
+        a0_rt = a0.engine.runtimes[FLEET_MODEL]
+        after["a0"] = (a0_rt.ragged_dispatches, a0_rt.decode_steps)
+        a0_kv_bytes = a0_rt.stats()["kv_bytes"]
+        used = {m.name: m.engine.runtimes[FLEET_MODEL].alloc.used_pages
+                for m in [*router.members, a0]}
+        alerts = [a.name for a in router.alerts.active()]
+        status = scaler.status()
+        # The card's memory once the retired member is gone (r0 serving
+        # on): its engine must be garbage, its KV pool and buffers freed,
+        # the shared weights kept. What stays allocated is then read
+        # again with the cuBLAS workspaces dropped (PyTorch keeps one per
+        # thread that ran a GEMM: a0's loop, its spawn and its probe).
+        a0_engine = weakref.ref(a0.engine)
+        a0 = a0_rt = None
+        gc.collect()
+        a0_freed = a0_engine() is None
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        mem_after_ws = None
+        if clear is not None:
+            clear()
+            mem_after_ws = torch.cuda.memory_allocated()
+    finally:
+        stop_server(srv)
+    del router, srv, params, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ups = [r for r in recs if r["kind"] == "scale_up"]
+    downs = [r for r in recs if r["kind"] == "scale_down"]
+    up_start = next((r for r in ups if r["phase"] == "start"), None)
+    up_done = next((r for r in ups if r["phase"] == "done"), None)
+    down_done = next((r for r in downs if r["phase"] == "done"), None)
+    # a0's dispatches over its whole life: both bf16 kernels launched on
+    # a0 while it served the burst (a0_disp, read before the scale-down),
+    # and the window's counts hold nothing any other source launched.
+    per_member, kernels_ok = _kernels_per_member(before, after, counts, layers,
+                                                 ["r0", "a0"])
+    gates = {
+        "replies": not errors and len(results) == len(AUTOSCALE_USERS)
+        and all(fr.get("done") and fr.get("done_reason") in ("stop", "length")
+                and "error" not in fr for fr in results.values()),
+        "scaled_up_a0": up_start is not None and up_done is not None
+        and up_done["replica"] == "a0" and fleet_peak == 2,
+        "a0_served_and_launched": bool(a0_served & set(AUTOSCALE_USERS))
+        and a0_disp is not None and a0_disp[0] > 0 and a0_disp[1] > 0,
+        "scaled_down_a0": down_done is not None and down_done["replica"] == "a0"
+        and down_done["why"] == "idle",
+        "fleet_back_to_1": status["fleet"] == 1,
+        "scale_pairing": check_scale_pairing(recs) == [],
+        "no_dropped": check_no_dropped_streams(recs) == [],
+        "no_used_pages": all(v == 0 for v in used.values()),
+        "no_scale_storm": "scale_storm" not in alerts,
+        "a0_freed": a0_freed,
+        "kernels_every_member": kernels_ok,
+    }
+    line = {"phase": "serve-autoscale", "model": FLEET_MODEL,
+            "slots_per_member": ecfg.max_slots, "burst_users": len(AUTOSCALE_USERS),
+            "max_new_tokens": AUTOSCALE_NEW, "slo_ttft_ms": ecfg.slo_ttft_ms,
+            "scale_cooldown_s": ecfg.scale_cooldown_s,
+            "scale_up_why": up_start["why"] if up_start else None,
+            "decision_to_join_s": (up_done["t"] - up_start["t"]
+                                   if up_start and up_done else None),
+            "spawn_ms": up_done.get("spawn_ms") if up_done else None,
+            "scale_down_s_after_join": (down_done["t"] - up_done["t"]
+                                        if down_done and up_done else None),
+            "a0_served": sorted(a0_served), "burst_s": burst_s,
+            "ttft_good_bad_after_burst": ttft_obs, "burn_fired": burn_fired,
+            "wake_wait_s": wake_wait,
+            "memory_allocated_before_provision": mem_before,
+            "memory_allocated_after_retire": mem_after,
+            "memory_allocated_after_retire_cublas_workspaces_cleared": mem_after_ws,
+            "a0_kv_bytes": a0_kv_bytes,
+            "launches": counts, "launches_per_member": per_member,
+            "scale_events": status["scale_events"], "alerts": alerts,
+            "member_hours": status["member_hours"],
+            "phase_seconds": time.monotonic() - t_phase, "card": card, "gates": gates}
+    emit(line)
+    report["serve_autoscale"] = line
+    if not all(gates.values()):
+        raise SystemExit(f"serve-autoscale gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -3055,6 +3538,8 @@ def main(argv=None) -> int:
     serve_models_phase(report)
     serve_durable_phase(report)
     serve_fleet_phase(report)
+    serve_tiers_phase(report)
+    serve_autoscale_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]
@@ -3064,8 +3549,9 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": (report[serve]["launches"][name]
-                            + report["serve_durable"]["launches"][name]
-                            + report["serve_fleet"]["launches"][name]),
+                            + sum(report[p]["launches"][name]
+                                  for p in ("serve_durable", "serve_fleet",
+                                            "serve_tiers", "serve_autoscale"))),
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

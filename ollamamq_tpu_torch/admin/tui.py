@@ -9,9 +9,9 @@ scheduler sees them on its next pop. The card's name and memory come
 from the engine's chip rows (torch.cuda.mem_get_info on a CUDA device).
 The last-decision line reads the decision journal. Serving a fleet
 router adds the replicas chip (healthy / ejected / draining) and the
-router-overhead chip (the placement p99 against its budget). The JAX
-package's HA and fleet-size chips wait for router HA and the
-autoscaler.
+router-overhead chip (the placement p99 against its budget); a tiered
+one the tiers line and an elastic one the fleet-size chip. The JAX
+package's HA chip waits for router HA.
 """
 
 from __future__ import annotations
@@ -123,6 +123,14 @@ def _engine_stats_brief(engine) -> dict:
             out["replicas"] = fleet()
         except Exception:
             pass
+    # Fleet-size chip (elastic fleets only): `fleet N (+P preemptible)`
+    # with the autoscaler's min/max bounds.
+    scaler = getattr(engine, "autoscaler", None)
+    if scaler is not None:
+        try:
+            out["fleet_size"] = scaler.brief()
+        except Exception:
+            pass
     # Router-overhead chip (fleet router only): the windowed placement
     # p99 against its budget, red in the renderer when the router's hot
     # path eats the latency budget.
@@ -135,6 +143,15 @@ def _engine_stats_brief(engine) -> dict:
                 "budget_ms": getattr(engine.ecfg,
                                      "router_overhead_budget_ms", 0.0),
             }
+        except Exception:
+            pass
+    # Tiers line (tiered fleets only): healthy/total per tier — the C++
+    # side renders it red when any tier has ZERO healthy members (that
+    # tier's traffic is running cross-tier until a member heals in).
+    tiers = getattr(engine, "tiers", None)
+    if tiers is not None:
+        try:
+            out["tiers"] = tiers.counts()
         except Exception:
             pass
     return out

@@ -13,6 +13,10 @@
     python -m ollamamq_tpu_torch.cli --fake-engine --model test-tiny
     python -m ollamamq_tpu_torch.cli --replicas 2 --placement affinity \
         --prefix-cache --replica-urls http://127.0.0.1:11500
+    python -m ollamamq_tpu_torch.cli --replicas 3 \
+        --tiers "interactive=r0;bulk=r1,r2"
+    python -m ollamamq_tpu_torch.cli --replicas 1 --autoscale \
+        --min-replicas 1 --max-replicas 2 --scale-cooldown-s 10
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
 start when no CUDA device is found. Weights are seeded random (--seed)
@@ -25,7 +29,9 @@ admission (later requests get 503), let in-flight streams finish for up
 to --stop-grace-s, flush the journal and the WAL and exit 0; a second
 signal exits at once, and unfinished streams stay in the WAL for the
 next start. --fake-engine serves deterministic words without a model
-(FAKE_TOKEN_LATENCY_S slows each token).
+(FAKE_TOKEN_LATENCY_S slows each token). --log-file writes JSON lines
+(rotated at --log-rotate-mb); --fault-plan injects the faults of a
+testing/faults.py plan, checked before any device work.
 
 --replicas N (N > 1) and --replica-urls serve a fleet: a router over N
 in-process engines (r0, r1, ...) and the HTTP engines at the URLs (h0,
@@ -33,8 +39,14 @@ h1, ...), with health-driven ejection, KV page migration on drain and
 failover (recompute replay when a transfer cannot land), and the
 /admin/fleet, /admin/drain and /admin/preempt routes. The router owns
 the caps, the WAL and the journal spill; its members run without them.
---tiers, --autoscale, --ha and --standby-of are refused (exit 2): their
-modules are not ported yet.
+--tiers splits the members into an interactive and a bulk tier
+(/admin/tiers, /admin/retier/{replica}); every member runs at TP width
+1, so a tier declaring @tpN with N > 1 is refused (exit 2), as is --tp
+other than 1. --autoscale grows and shrinks the fleet between
+--min-replicas and --max-replicas (in-process members from the same
+factory; --fake-engine members as `python -m ollamamq_tpu_torch.cli`
+subprocesses), and implies a fleet even with --replicas 1. --ha and
+--standby-of are refused (exit 2): router HA is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,7 +58,9 @@ import os
 import sys
 
 from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
-                                       get_model_config, validate_scheduler)
+                                       assign_tiers, get_model_config,
+                                       validate_autoscale, validate_scheduler,
+                                       validate_tiers)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -227,13 +241,50 @@ def build_parser() -> argparse.ArgumentParser:
                    in ("0", "false", "no"),
                    help="the router's /metrics stops re-exporting the HTTP "
                         "members' series under a replica label")
-    # The fleet's policy layers, refused until they are ported.
-    for flag, kind in (("--tiers", str), ("--autoscale", bool),
-                       ("--ha", bool), ("--standby-of", str)):
-        if kind is bool:
-            p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, default="", help=argparse.SUPPRESS)
+    p.add_argument("--tp", type=int, default=d.tp,
+                   help="tensor-parallel width of each engine; only 1 (one "
+                        "device per engine): tensor parallelism is not "
+                        "ported yet")
+    p.add_argument("--tiers", default=os.environ.get("TIERS", ""),
+                   help="SLO-aware replica tiers for the fleet router "
+                        "(needs --replicas/--replica-urls): "
+                        "'interactive=r0;bulk=r1,r2' maps members to "
+                        "tiers by name (or tpN for every member at that "
+                        "TP width; an @tpN suffix declares the width a "
+                        "retiered member restarts at, here only tp1). "
+                        "VIP/boost users and deadlined requests place on "
+                        "the interactive tier, everything else on bulk; "
+                        "cross-tier placement only under journaled SLO "
+                        "burn-rate overflow or an empty tier, and a "
+                        "balancer retiers members (drain -> migrate -> "
+                        "restart -> rejoin) as the class mix shifts")
+    p.add_argument("--autoscale", action="store_true",
+                   default=os.environ.get("AUTOSCALE", "").lower()
+                   in ("1", "true", "yes"),
+                   help="elastic fleet sizing: a per-tier control loop "
+                        "watches sustained SLO burn + queue backlog and "
+                        "scales the fleet one member at a time (scale-down "
+                        "is always drain -> migrate -> retire). The bulk "
+                        "tier may scale to zero: its queued work parks at "
+                        "the router and wakes the tier. Implies a fleet "
+                        "even with --replicas 1")
+    p.add_argument("--min-replicas", type=int,
+                   default=int(os.environ.get("MIN_REPLICAS", d.min_replicas)),
+                   help="scale-down floor for the interactive tier (and "
+                        "an untiered elastic fleet); the bulk tier's is 0")
+    p.add_argument("--max-replicas", type=int,
+                   default=int(os.environ.get("MAX_REPLICAS", d.max_replicas)),
+                   help="fleet-wide scale-up ceiling")
+    p.add_argument("--scale-cooldown-s", type=float,
+                   default=float(os.environ.get("SCALE_COOLDOWN_S",
+                                                d.scale_cooldown_s)),
+                   help="anti-flap cooldown between scale events; pressure "
+                        "must hold a third of it before a scale-up, "
+                        "idleness all of it before a scale-down. Waking a "
+                        "scaled-to-zero tier bypasses it")
+    # Router HA, refused until it is ported.
+    p.add_argument("--ha", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--standby-of", default="", help=argparse.SUPPRESS)
     p.add_argument("--fake-engine", action="store_true",
                    help="serve deterministic fake tokens (no model, no "
                         "device; for tests)")
@@ -242,9 +293,101 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--blocklist", default="blocked_items.json",
                    help="blocklist persistence path")
     p.add_argument("--no-tui", action="store_true", help="disable the admin TUI")
-    p.add_argument("--timeout-s", type=float, default=300.0)
+    p.add_argument("--allow-all-routes", action="store_true",
+                   help="answer unhandled paths with 501 (there is no "
+                        "backend to proxy them to) instead of 404")
+    p.add_argument("--timeout", "--timeout-s", dest="timeout", type=float,
+                   default=float(os.environ.get("TIMEOUT", 300)),
+                   help="per-request timeout in seconds (default 300)")
+    p.add_argument("--fault-plan", default="",
+                   help="deterministic fault-injection plan (a JSON file; "
+                        "see ollamamq_tpu_torch/testing/faults.py) wired "
+                        "into the dispatch and allocation seams; a "
+                        "malformed plan fails start-up")
+    p.add_argument("--metrics-buckets", default="",
+                   help="comma-separated upper bounds (ms) of the latency "
+                        "histograms on /metrics (ttft/tpot/step/prefill); "
+                        "default is a 1 ms..30 s ladder")
+    p.add_argument("--log-file", default=os.environ.get("OLLAMAMQ_LOG_FILE", ""),
+                   help="write logs to this file as JSON lines (one object "
+                        "per line; request-scoped lines carry req_id). "
+                        "Default: ollamamq.log when the TUI owns the "
+                        "terminal, stdout otherwise")
+    p.add_argument("--log-rotate-mb", type=float, default=64.0,
+                   help="rotate --log-file at this size (MB); 0 never")
+    p.add_argument("--log-keep", type=int, default=3,
+                   help="rotated --log-file generations kept")
     p.add_argument("--log-level", default="INFO")
     return p
+
+
+class JsonLineFormatter(logging.Formatter):
+    """Structured log lines: one JSON object per line. Request-scoped
+    records (logged with extra={"req_id": N}) carry the id, so a log line
+    correlates directly with GET /debug/requests/{id}."""
+
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "ts": self.formatTime(record, "%Y-%m-%dT%H:%M:%S")
+            + f".{int(record.msecs):03d}Z",
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        rid = getattr(record, "req_id", None)
+        if rid is not None:
+            out["req_id"] = rid
+        if record.exc_info:
+            out["exc"] = self.formatException(record.exc_info)
+        return json.dumps(out, ensure_ascii=False)
+
+
+def setup_logging(use_tui: bool, log_file: str = "", rotate_mb: float = 64.0,
+                  keep: int = 3, level: str = "INFO") -> None:
+    """JSON lines to `log_file` (rotated at `rotate_mb`, `keep`
+    generations), or to ollamamq.log when the TUI owns the terminal and
+    no file was named; human-readable stdout otherwise."""
+    if not log_file and use_tui:
+        log_file = "ollamamq.log"
+    if log_file:
+        if rotate_mb and rotate_mb > 0:
+            from logging.handlers import RotatingFileHandler
+
+            handler: logging.Handler = RotatingFileHandler(
+                log_file, maxBytes=int(rotate_mb * 1e6),
+                backupCount=max(1, keep))
+        else:
+            handler = logging.FileHandler(log_file)
+        handler.setFormatter(JsonLineFormatter())
+    else:
+        handler = logging.StreamHandler(sys.stdout)
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    logging.basicConfig(level=getattr(logging, level.upper(), logging.INFO),
+                        handlers=[handler])
+
+
+def latency_buckets(spec: str) -> tuple:
+    """The --metrics-buckets bounds; ValueError for a malformed list."""
+    try:
+        bounds = tuple(float(b) for b in spec.split(",") if b.strip())
+    except ValueError:
+        raise ValueError(f"invalid --metrics-buckets {spec!r} (want "
+                         "comma-separated numbers)")
+    if not bounds:
+        raise ValueError("--metrics-buckets must name at least one bound")
+    return bounds
+
+
+def fleet_roster(args) -> list:
+    """(name, TP width) of the fleet's starting members: r0.. in process
+    at --tp, then h0.. at the --replica-urls (width unknown)."""
+    return ([(f"r{i}", args.tp) for i in range(max(0, args.replicas))]
+            + [(f"h{j}", None) for j in range(len(replica_urls(args)))])
+
+
+def is_fleet(args) -> bool:
+    return args.replicas > 1 or bool(replica_urls(args)) or args.autoscale
 
 
 def model_table(args) -> dict:
@@ -273,20 +416,22 @@ def validate(args) -> str:
         return "--max-queued / --max-queued-per-user / --preempt-max must be >= 0"
     if args.trace_ring < 1:
         return "--trace-ring must be >= 1"
-    if args.journal_ring < 1 or args.journal_keep < 1:
-        return "--journal-ring / --journal-keep must be >= 1"
-    if args.journal_rotate_mb < 0:
-        return "--journal-rotate-mb must be >= 0 (0 disables rotation)"
+    if args.journal_ring < 1 or args.journal_keep < 1 or args.log_keep < 1:
+        return "--journal-ring / --journal-keep / --log-keep must be >= 1"
+    if args.journal_rotate_mb < 0 or args.log_rotate_mb < 0:
+        return ("--journal-rotate-mb / --log-rotate-mb must be >= 0 "
+                "(0 disables rotation)")
     if not 0.0 < args.journal_sample <= 1.0:
         return f"--journal-sample must be in (0, 1], got {args.journal_sample}"
     if args.wal_fsync_ms < 0 or args.stop_grace_s < 0:
         return "--wal-fsync-ms / --stop-grace-s must be >= 0"
-    for flag, module in (("tiers", "fleet/tiering.py"),
-                         ("autoscale", "fleet/autoscaler.py"),
-                         ("ha", "fleet/ha.py"), ("standby_of", "fleet/ha.py")):
+    for flag in ("ha", "standby_of"):
         if getattr(args, flag):
             return (f"--{flag.replace('_', '-')} is not ported yet "
-                    f"({module} comes with a later slice)")
+                    "(fleet/ha.py comes with a later slice)")
+    if args.tp != 1:
+        return (f"--tp {args.tp}: tensor parallelism is not ported yet; "
+                "every engine runs on one device (--tp 1)")
     urls = replica_urls(args)
     if args.replicas < 0 or (args.replicas == 0 and not urls):
         return "--replicas must be >= 1 (0 only with --replica-urls)"
@@ -297,16 +442,46 @@ def validate(args) -> str:
     if args.router_overhead_budget_ms < 0:
         return ("--router-overhead-budget-ms must be >= 0 "
                 "(0 disables the alert)")
+    if args.autoscale:
+        err = validate_autoscale(args.min_replicas, args.max_replicas,
+                                 args.scale_cooldown_s,
+                                 replicas=args.replicas + len(urls))
+        if err:
+            return err
+    roster = [name for name, _ in fleet_roster(args)]
     if args.preemptible:
-        if args.replicas <= 1 and not urls:
-            return "--preemptible needs a fleet (--replicas > 1 or --replica-urls)"
-        roster = ([f"r{i}" for i in range(args.replicas)]
-                  + [f"h{j}" for j in range(len(urls))])
+        if not is_fleet(args):
+            return ("--preemptible needs a fleet (--replicas > 1, "
+                    "--replica-urls or --autoscale)")
         unknown = sorted({s.strip() for s in args.preemptible.split(",")
                           if s.strip()} - set(roster))
         if unknown:
             return (f"--preemptible names unknown members: "
                     f"{', '.join(unknown)} (fleet: {', '.join(roster)})")
+    if args.tiers:
+        if args.replicas <= 1 and not urls:
+            return "--tiers needs a fleet (--replicas > 1 and/or --replica-urls)"
+        err = validate_tiers(args.tiers, fleet_roster(args))
+        if err:
+            return f"invalid --tiers: {err}"
+        _, widths = assign_tiers(args.tiers, fleet_roster(args))
+        wide = sorted(t for t, w in widths.items() if w not in (None, 1))
+        if wide:
+            return (f"invalid --tiers: tier {wide[0]!r} declares TP width "
+                    f"{widths[wide[0]]}; tensor parallelism is not ported "
+                    "yet, so every member runs at tp1")
+    if args.metrics_buckets:
+        try:
+            latency_buckets(args.metrics_buckets)
+        except ValueError as e:
+            return str(e)
+    if args.fault_plan:
+        from ollamamq_tpu_torch.testing.faults import FaultPlan, FaultPlanError
+
+        try:
+            FaultPlan.load(args.fault_plan)
+        except FaultPlanError as e:
+            return f"invalid --fault-plan: {e}"
     return ""
 
 
@@ -340,7 +515,11 @@ def engine_config(args) -> EngineConfig:
         migrate=not args.no_migrate, migrate_timeout_s=args.migrate_timeout_s,
         router_overhead_budget_ms=args.router_overhead_budget_ms,
         federate_metrics=not args.no_federate_metrics,
-        preemptible=args.preemptible or None)
+        preemptible=args.preemptible or None, tp=args.tp,
+        tiers=args.tiers or None, autoscale=args.autoscale,
+        min_replicas=args.min_replicas, max_replicas=args.max_replicas,
+        scale_cooldown_s=args.scale_cooldown_s,
+        fault_plan=args.fault_plan or None)
 
 
 def _fake_latency() -> float:
@@ -400,14 +579,17 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
 
 
 def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
-    """The FleetRouter that `main` serves for --replicas N > 1 or
-    --replica-urls: in-process members r0..r{N-1}, each an
-    `engine_factory(member_cfg)` that the drain's hot restart calls
-    again, then HTTP members h0, h1, ... at the URLs. Members serve
-    uncapped what the router placed (the router owns the caps), keep no
-    blocklist (the router blocks at ingress) and leave the journal spill
-    and the WAL to the router (a member WAL would record and recover
-    every stream twice)."""
+    """The FleetRouter that `main` serves for --replicas N > 1,
+    --replica-urls or --autoscale: in-process members r0..r{N-1}, each
+    an `engine_factory(member_cfg)` that the drain's hot restart, a
+    tier regroup and the autoscaler's LocalProvisioner call again, then
+    HTTP members h0, h1, ... at the URLs. Members serve uncapped what
+    the router placed (the router owns the caps), keep no blocklist (the
+    router blocks at ingress) and leave the journal spill, the WAL and
+    the policy layers to the router (a member WAL would record and
+    recover every stream twice). Under --autoscale with --fake-engine,
+    scale-ups spawn `python -m ollamamq_tpu_torch.cli --fake-engine`
+    subprocesses joined as HTTP members instead."""
     import dataclasses
 
     from ollamamq_tpu_torch.core.mqcore import Fairness
@@ -415,19 +597,41 @@ def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
 
     member_cfg = dataclasses.replace(
         ecfg, max_queued=0, max_queued_per_user=0, journal_file=None,
-        wal_dir=None)
+        wal_dir=None, tiers=None, autoscale=False)
 
-    def factory(tp=None):  # noqa: ARG001 — one width: no tensor parallelism
+    def factory(tp=None):
+        # One device per engine: any other width is refused, never built
+        # at width 1 under a wider tier's label (the regroup aborts and
+        # the member keeps its tier).
+        if tp not in (None, 1):
+            raise ValueError(f"TP width {tp}: tensor parallelism is not "
+                             "ported yet (every engine runs at tp1)")
         return engine_factory(member_cfg)
 
     members = [LocalMember(f"r{i}", factory(), engine_factory=factory)
                for i in range(args.replicas)]
-    members += [HttpMember(f"h{j}", url, timeout_s=args.timeout_s)
+    members += [HttpMember(f"h{j}", url, timeout_s=args.timeout)
                 for j, url in enumerate(replica_urls(args))]
+    provisioner = None
+    if args.autoscale:
+        from ollamamq_tpu_torch.fleet.autoscaler import (LocalProvisioner,
+                                                         SubprocessProvisioner)
+
+        if args.fake_engine:
+            # The member config rides as argv; the router-owned caps, WAL
+            # and journal spill stay off member-side.
+            provisioner = SubprocessProvisioner([
+                "--fake-engine", "--models", ",".join(model_table(args)),
+                "--scheduler", args.scheduler,
+                "--max-slots", str(args.max_slots),
+                "--max-new-tokens", str(args.max_new_tokens)])
+        else:
+            provisioner = LocalProvisioner(factory)
     return FleetRouter(members, ecfg, blocklist_path=args.blocklist,
                        fairness=fairness or Fairness.REQUESTS,
                        placement=args.placement,
-                       drain_timeout_s=args.drain_timeout_s)
+                       drain_timeout_s=args.drain_timeout_s,
+                       provisioner=provisioner)
 
 
 def main(argv=None) -> int:
@@ -435,14 +639,17 @@ def main(argv=None) -> int:
     # other invalid values in validate(), before any device work.
     args = build_parser().parse_args(argv)
     use_tui = not args.no_tui and sys.stdout.isatty()
-    logging.basicConfig(level=args.log_level.upper(),
-                        filename="ollamamq.log" if use_tui else None,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    setup_logging(use_tui, args.log_file, args.log_rotate_mb, args.log_keep,
+                  args.log_level)
     log = logging.getLogger("ollamamq.torch")
     err = validate(args)
     if err:
         log.error("%s", err)
         return 2
+    if args.metrics_buckets:
+        from ollamamq_tpu_torch.telemetry import schema as tm
+
+        tm.configure_latency_buckets(latency_buckets(args.metrics_buckets))
     import threading
 
     from ollamamq_tpu_torch.core.mqcore import Fairness
@@ -462,13 +669,14 @@ def main(argv=None) -> int:
         return TorchEngine(cfg, device=args.device, blocklist_path=blocklist,
                            fairness=fairness, models=model_table(args))
 
-    if args.replicas > 1 or replica_urls(args):
+    if is_fleet(args):
         engine = build_fleet(args, ecfg, lambda cfg: build_engine(cfg, None),
                              fairness)
     else:
         engine = build_engine(ecfg, args.blocklist)
     engine.start()  # a WAL's recovery pass runs here, before serving
-    server = OllamaServer(engine, args.host, args.port, args.timeout_s)
+    server = OllamaServer(engine, args.host, args.port, args.timeout,
+                          args.allow_all_routes)
     log.info("serving %s on %s:%d (device %s, tui=%s)",
              ",".join(engine.loaded_models()), args.host,
              server.server_address[1], engine.device, use_tui)

@@ -287,6 +287,41 @@ class EngineConfig:
     # "preempt" site, serves them a termination notice: migrate off,
     # then retire, within the notice window.
     preemptible: Optional[str] = None
+    # Tensor-parallel width of one engine. This package serves one
+    # device per engine, so 1 is the only width it builds; tier specs
+    # select and declare widths with it (tpN).
+    tp: int = 1
+    # -- tiered fleet (fleet/tiering.py) -------------------------------------
+    # Replica-tier spec: latency-sensitive traffic (VIP/boost users,
+    # deadlined requests) places on the `interactive` tier, everything
+    # else on `bulk`, with affinity/least-loaded preserved WITHIN a
+    # tier and cross-tier placement only under journaled overflow
+    # (per-tier SLO burn) or an empty tier. Syntax:
+    #   "interactive=r0;bulk=r1,r2"          by member name
+    #   "interactive@tp1=tp1;bulk=r2"        by TP width (tpN matches
+    #                                        every member at width N);
+    # the optional @tpN suffix declares the tier's TARGET width — the
+    # TierBalancer hot-restarts a retiered LocalMember at it. Members no
+    # selector matches default to bulk. None = untiered fleet.
+    tiers: Optional[str] = None
+    # -- elastic fleet (fleet/autoscaler.py) ---------------------------------
+    # SLO-burn-driven autoscaler: a per-tier control loop that watches
+    # sustained burn + queue backlog and resizes the fleet one member at
+    # a time through a MemberProvisioner. Scale-down is always drain ->
+    # migrate-off -> retire (never a kill); the bulk tier may scale to
+    # zero (queued bulk work parks at the router and wakes it), while
+    # `interactive` keeps the min_replicas floor. Off = fixed fleet.
+    autoscale: bool = False
+    # Fleet-size bounds for the scaler: min_replicas is the floor for
+    # the interactive tier (and untiered fleets); max_replicas caps the
+    # whole fleet.
+    min_replicas: int = 1
+    max_replicas: int = 4
+    # Hysteresis: after any scale event the scaler holds its fire this
+    # long (the burn/idle signal must also be SUSTAINED, with sustain
+    # windows derived from this knob). Waking a scaled-to-zero tier with
+    # parked work bypasses the cooldown.
+    scale_cooldown_s: float = 30.0
 
     @property
     def max_context(self) -> int:
@@ -319,4 +354,134 @@ def validate_quant_config(weights_dtype: str, kv_dtype: str) -> Optional[str]:
                 f"got {weights_dtype!r}")
     if kv_dtype not in QUANT_DTYPES:
         return f"--kv-dtype must be one of {QUANT_DTYPES}, got {kv_dtype!r}"
+    return None
+
+
+def validate_autoscale(min_replicas: int, max_replicas: int,
+                       scale_cooldown_s: float,
+                       replicas: int) -> Optional[str]:
+    """--autoscale validation before any device work: an error string,
+    or None when valid."""
+    if min_replicas < 1:
+        return (f"--min-replicas must be >= 1 (the interactive floor), "
+                f"got {min_replicas}")
+    if max_replicas < min_replicas:
+        return (f"--max-replicas ({max_replicas}) must be >= "
+                f"--min-replicas ({min_replicas})")
+    if scale_cooldown_s <= 0:
+        return (f"--scale-cooldown-s must be > 0, got {scale_cooldown_s}")
+    if replicas > max_replicas:
+        return (f"starting fleet size --replicas {replicas} exceeds "
+                f"--max-replicas {max_replicas}")
+    return None
+
+
+# Closed tier vocabulary (fleet/tiering.py): `interactive` serves the
+# latency-sensitive classes (VIP/boost users, deadlined requests), `bulk`
+# everything else. The journal schema, metrics labels, and the TUI tiers
+# line all read this tuple.
+TIER_NAMES = ("interactive", "bulk")
+
+
+class TiersError(ValueError):
+    """Malformed --tiers spec / unresolvable tier assignment."""
+
+
+def parse_tiers(spec: str) -> dict:
+    """Parse a --tiers spec: `tier[@tpW]=sel[,sel...];tier=...` where a
+    selector is a member name (`r0`, `h1`) or `tpN` (every member whose
+    TP width is N). Returns {tier: {"tp": Optional[int],
+    "selectors": [str, ...]}}; raises TiersError on syntax/vocabulary
+    problems (assignment problems surface in assign_tiers, which knows
+    the members)."""
+    out: dict = {}
+    for part in (spec or "").split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise TiersError(
+                f"tier entry {part!r} is not of the form "
+                "tier[@tpN]=member[,member...]")
+        head, sels = part.split("=", 1)
+        head = head.strip()
+        tp = None
+        if "@" in head:
+            head, width = head.split("@", 1)
+            head = head.strip()
+            width = width.strip()
+            if not width.startswith("tp") or not width[2:].isdigit() \
+                    or int(width[2:]) < 1:
+                raise TiersError(
+                    f"tier width {width!r} must be tpN with N >= 1")
+            tp = int(width[2:])
+        if head not in TIER_NAMES:
+            raise TiersError(
+                f"unknown tier name {head!r} (tiers: {TIER_NAMES})")
+        if head in out:
+            raise TiersError(f"tier {head!r} specified twice")
+        selectors = [s.strip() for s in sels.split(",") if s.strip()]
+        if not selectors:
+            raise TiersError(f"tier {head!r} names no members")
+        out[head] = {"tp": tp, "selectors": selectors}
+    if not out:
+        raise TiersError("--tiers spec is empty")
+    return out
+
+
+def assign_tiers(spec: str, members) -> tuple:
+    """Resolve a --tiers spec against the fleet roster. `members` is a
+    list of (name, tp_width_or_None) pairs. Returns (assignment, widths):
+    assignment maps member name -> tier, widths maps tier -> declared
+    target TP width (None = re-label only on regroup). Members no
+    selector matches default to `bulk`. Raises TiersError when a
+    selector names no member, a member lands in two tiers, or a tier
+    ends up with no members — the fail-fast contract the CLI and the
+    router share."""
+    parsed = parse_tiers(spec)
+    by_name = {name: tp for name, tp in members}
+    assignment: dict = {}
+    for tier, entry in parsed.items():
+        for sel in entry["selectors"]:
+            if sel.startswith("tp") and sel[2:].isdigit():
+                width = int(sel[2:])
+                matched = [n for n, tp in members if tp == width]
+                if not matched:
+                    raise TiersError(
+                        f"tier {tier!r} selector {sel!r} matches no "
+                        f"member (members: {sorted(by_name)})")
+            elif sel in by_name:
+                matched = [sel]
+            else:
+                raise TiersError(
+                    f"tier {tier!r} selector {sel!r} names no member "
+                    f"(members: {sorted(by_name)})")
+            for name in matched:
+                prev = assignment.get(name)
+                if prev is not None and prev != tier:
+                    raise TiersError(
+                        f"member {name!r} assigned to both {prev!r} "
+                        f"and {tier!r}")
+                assignment[name] = tier
+    for name in by_name:
+        assignment.setdefault(name, "bulk")
+    widths = {tier: entry["tp"] for tier, entry in parsed.items()}
+    for tier in TIER_NAMES:
+        widths.setdefault(tier, None)
+        if not any(t == tier for t in assignment.values()):
+            raise TiersError(
+                f"tier {tier!r} has no members — a tiered fleet needs "
+                f"at least one member per tier (assignment: {assignment})")
+    return assignment, widths
+
+
+def validate_tiers(spec: Optional[str], members) -> Optional[str]:
+    """--tiers validation before any device work: an error string, or
+    None when valid. Shared by the CLI and the fleet router."""
+    if not spec:
+        return None
+    try:
+        assign_tiers(spec, members)
+    except TiersError as e:
+        return str(e)
     return None

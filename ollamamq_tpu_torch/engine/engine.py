@@ -301,6 +301,13 @@ class MigrationError(RuntimeError):
     replay: a failed transfer degrades, it never drops."""
 
 
+def _decoder_pending(decode) -> List[int]:
+    """The ids whose bytes an incremental decoder holds back (none for a
+    request without one)."""
+    pending = getattr(decode, "pending_ids", None)
+    return [int(t) for t in pending()] if pending is not None else []
+
+
 def request_migration_state(req: Request) -> dict:
     """Everything of a Request that the TARGET of a KV migration needs
     to continue the stream seamlessly: the token history, the
@@ -901,9 +908,11 @@ class ModelRuntime(JournaledRuntime):
             "recent": self.recent[slot].cpu().numpy(),
             "request": request_migration_state(req),
             # In process the live incremental detokenizer rides along
-            # (exact stream continuity); the wire packer drops it and the
-            # importer builds a fresh one.
+            # (exact stream continuity); the wire packer drops it, and
+            # the ids whose bytes it holds back cross the wire instead:
+            # the importer primes a fresh decoder with them.
             "_inc_decode": req._inc_decode,
+            "decoder_pending": _decoder_pending(req._inc_decode),
             **data,
         }
         pol = self.policy
@@ -937,8 +946,8 @@ class ModelRuntime(JournaledRuntime):
     def check_migration_ids(self, blob: dict, req: Request) -> None:
         """Raise TokenIdError unless every id a migrated stream brings
         lies in this model's vocabulary: its prompt and generated ids,
-        the pending last token and the penalty ring's entries (-1 marks
-        an empty one). A blob may come from any caller of the import
+        the pending last token, the penalty ring's entries (-1 marks
+        an empty one) and the ids its decoder held back. A blob may come from any caller of the import
         route, and on the card an id past the table's end is a
         device-side assert that poisons the context for every member of
         the process."""
@@ -946,7 +955,8 @@ class ModelRuntime(JournaledRuntime):
         check_token_ids(self.cfg, self.name, prompt=req.prompt_tokens,
                         generated=req.generated_ids,
                         last_token=[blob.get("last_token", -1)],
-                        recent=ring[ring != -1].tolist())
+                        recent=ring[ring != -1].tolist(),
+                        decoder_pending=blob.get("decoder_pending"))
 
     def import_request(self, blob: dict, req: Request) -> bool:
         """Install a migrated stream into a fresh slot: allocate a run of
@@ -988,7 +998,12 @@ class ModelRuntime(JournaledRuntime):
         self.freq_pen[slot] = s.frequency_penalty
         self.seeds[slot] = s.seed
         if req._inc_decode is None:
+            # Over the wire: a fresh decoder, primed with the bytes the
+            # source's decoder held back (a blob from the JAX package
+            # carries none, and its stream continues as it did there).
             req._inc_decode = self.tokenizer.make_incremental_decoder()
+            for tok in blob.get("decoder_pending") or ():
+                req._inc_decode(int(tok))
         pol = self.policy
         if pol is not None and blob.get("predictor"):
             pol.predictor.import_user(req.user, blob["predictor"])

@@ -20,8 +20,9 @@ The JAX package's watchdog on the engine's torch device:
     check_invariants (pages conserved, no slot held twice, the VIP
     never a victim, sheds only over their bounds, no starvation);
   - on a fleet router: replicas heartbeat-stale or ejected
-    (replica_stale), and a placement-overhead p99 over its budget
-    (router_overhead).
+    (replica_stale), a placement-overhead p99 over its budget
+    (router_overhead), tier regroups or autoscaler events flapping
+    (regroup_storm, scale_storm).
 
 HBM headroom (`device_memory`) reads torch.cuda.mem_get_info and the
 caching allocator's counters; the engine's HBM timeline and chip rows
@@ -30,8 +31,8 @@ and the admin TUI read it.
 Every detection raises a named alert through the engine's AlertManager
 (telemetry/slo.py) — the same table the SLO burn-rate evaluator feeds —
 so /health, /metrics (`ollamamq_slo_alerts_firing`) and the TUI alerts
-panel show one picture. The tiering, autoscaler, HA and worker-host
-rules of the JAX package wait for those modules.
+panel show one picture. The HA and worker-host rules of the JAX
+package wait for those modules.
 """
 
 from __future__ import annotations
@@ -64,6 +65,22 @@ REQUEST_STALL_S = 120.0
 # (alert "preempt_storm", resolves when the rate drops).
 PREEMPT_STORM_PER_MIN = 30.0
 PREEMPT_STORM_WINDOW_S = 60.0
+# Regroup-storm rule (tiered fleets): each tier regroup costs a drain +
+# stream migrations + an engine restart — a healthy balancer regroups
+# occasionally as the class mix shifts; this many per minute means the
+# hysteresis is mis-tuned (or the mix is adversarial) and the fleet is
+# burning capacity on churn (alert "regroup_storm", resolves when the
+# rate drops).
+REGROUP_STORM_PER_MIN = 4.0
+# Scale-storm rule (elastic fleets): the autoscaler's hysteresis exists
+# so an oscillating load produces ZERO scale events — sustained churn
+# above this rate means the cooldown/sustain windows are mis-tuned for
+# the workload and the fleet is paying spawn + drain + migration costs
+# in a loop (alert "scale_storm", resolves when the rate drops). Unlike
+# the preempt/regroup storms this one counts into
+# ollamamq_watchdog_stalls_total{kind="scale"}: a flapping scaler is a
+# watchdog-grade malfunction, not graceful degradation.
+SCALE_STORM_PER_MIN = 6.0
 
 
 def device_memory(device) -> Optional[dict]:
@@ -270,6 +287,8 @@ class HealthMonitor:
             "reduced until they heal)", "replica")
 
         self._check_preempt_storm()
+        self._check_regroup_storm()
+        self._check_scale_storm()
         self._check_router_overhead()
         self._check_journal_invariants()
 
@@ -318,6 +337,52 @@ class HealthMonitor:
                 "recompute is eating throughput)", source="watchdog")
         else:
             alerts.resolve("preempt_storm")
+
+    def _check_regroup_storm(self) -> None:
+        """AlertManager rule for tier-regroup storms (tiered fleets
+        only: the engine exposes a TierManager at `.tiers`). Like the
+        preemption storm, this is degradation pressure rather than a
+        watchdog stall, so it bypasses _alert and its stall counter."""
+        alerts = getattr(self.engine, "alerts", None)
+        tiers = getattr(self.engine, "tiers", None)
+        if alerts is None or tiers is None:
+            return
+        try:
+            rate = tiers.regroup_rate_per_min()
+        except Exception:  # noqa: BLE001
+            log.exception("regroup-rate read failed")
+            return
+        if rate > REGROUP_STORM_PER_MIN:
+            alerts.fire(
+                "regroup_storm", "warn",
+                f"tier regroup storm: {rate:.0f} regroups/min — the "
+                "balancer is flapping members between tiers (hysteresis "
+                "mis-tuned for this class mix); each regroup costs a "
+                "drain + migrations + a restart", source="watchdog")
+        else:
+            alerts.resolve("regroup_storm")
+
+    def _check_scale_storm(self) -> None:
+        """Watchdog rule for autoscaler flap (elastic fleets only: the
+        engine exposes an AutoscalerManager at `.autoscaler`). Routed
+        through _alert — each fire transition counts into
+        ollamamq_watchdog_stalls_total{kind="scale"} — because a scaler
+        churning members is a control-loop malfunction the operator
+        must tune out, not load the fleet absorbs gracefully."""
+        scaler = getattr(self.engine, "autoscaler", None)
+        if scaler is None:
+            return
+        try:
+            rate = scaler.scale_rate_per_min()
+        except Exception:  # noqa: BLE001
+            log.exception("scale-rate read failed")
+            return
+        self._alert(
+            "scale_storm", rate > SCALE_STORM_PER_MIN, "warn",
+            f"scale storm: {rate:.0f} scale events/min — the autoscaler "
+            "is flapping fleet size (cooldown/sustain mis-tuned for "
+            "this load); each flap costs a spawn or a drain + "
+            "migrations", "scale")
 
     def _check_router_overhead(self) -> None:
         """Overhead-storm rule (fleet routers only: the engine exposes

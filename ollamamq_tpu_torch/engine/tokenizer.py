@@ -14,7 +14,9 @@ class ByteTokenizer:
     """Reversible byte-level tokenizer: id = byte + 3; 0=pad, 1=bos, 2=eos.
 
     Incremental decode holds back incomplete UTF-8 tails so streamed
-    chunks never contain mojibake.
+    chunks never contain mojibake. Each incremental decoder's
+    `pending_ids()` names the ids whose bytes it holds back: a stream
+    migrated to another process primes a fresh decoder with them.
     """
 
     pad_id = 0
@@ -42,6 +44,7 @@ class ByteTokenizer:
                 return ""
             return dec.decode(bytes([token_id - 3]))
 
+        step.pending_ids = lambda: [b + 3 for b in dec.getstate()[0]]
         return step
 
 
@@ -79,9 +82,10 @@ class HFTokenizer:
     def make_incremental_decoder(self):
         prev_ids: List[int] = []
         prev_text = ""
+        emitted = 0  # ids whose text has been returned
 
         def step(token_id: int) -> str:
-            nonlocal prev_text
+            nonlocal prev_text, emitted
             prev_ids.append(token_id)
             text = self._tok.decode(prev_ids, skip_special_tokens=True)
             # A trailing U+FFFD is an incomplete multibyte piece: hold it
@@ -90,8 +94,10 @@ class HFTokenizer:
                 return ""
             new = text[len(prev_text):]
             prev_text = text
+            emitted = len(prev_ids)
             return new
 
+        step.pending_ids = lambda: prev_ids[emitted:]
         return step
 
 

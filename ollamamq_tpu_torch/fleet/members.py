@@ -20,9 +20,9 @@ The JAX package's fleet/members.py. Two shapes, one protocol:
 The router is the ONLY consumer of an attempt's TokenStream: member-side
 terminal items (including the CANCELLED ack of an eviction) are routing
 signals, not client output; the router decides what the client sees.
-The tier, retire and epoch fields are read by the fleet's policy layers
-(tiering, the autoscaler, router HA), which this package does not have
-yet: without them they keep their defaults.
+The tier and retire fields are read by the fleet's policy layers
+(fleet/tiering.py, fleet/autoscaler.py); the epoch field waits for
+router HA, which this package does not have yet.
 """
 
 from __future__ import annotations

@@ -40,11 +40,12 @@ The router presents the same surface the HTTP server expects of an
 engine (core / enqueue_request / cancel / stats / alerts / journal /
 tracer / health ...), so server/app.py serves a fleet unchanged.
 
-This is the JAX package's fleet/router.py. Its policy layers over the
-router, tiering (fleet/tiering.py), the autoscaler
-(fleet/autoscaler.py) and router HA (fleet/ha.py), are not in this
-package yet: asking for one raises ValueError at construction.
-Preemptible members work without the autoscaler, as in the JAX package.
+This is the JAX package's fleet/router.py, with two of its policy
+layers: replica tiers (fleet/tiering.py, under `tiers`) and the
+autoscaler (fleet/autoscaler.py, under `engine_cfg.autoscale`). Router
+HA (fleet/ha.py) is not in this package yet: asking for it raises
+ValueError at construction. Preemptible members work without the
+autoscaler, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ class _Flight:
                  "raw_prompt", "prompt_tokens", "sampling", "member",
                  "attempt", "resume", "failed_from", "evac_since",
                  "evac_deadline", "begin_failures", "done",
-                 "migrate_tried", "ctx", "place_ms")
+                 "migrate_tried", "tier", "cls", "ctx", "place_ms")
 
     def __init__(self, req: Request, ip: str, family) -> None:
         self.req = req
@@ -119,6 +120,11 @@ class _Flight:
         self.begin_failures = 0
         self.done = False
         self.migrate_tried = False  # one migration attempt per drain
+        # Tiered fleet: the request's class (vip/boost/deadline/default)
+        # and home tier, set at first placement and carried through
+        # failover/migration so evacuated streams land back IN-TIER.
+        self.tier: Optional[str] = None
+        self.cls: Optional[str] = None
 
 
 class FleetRouter:
@@ -135,20 +141,16 @@ class FleetRouter:
                  evac_grace_s: float = EVAC_GRACE_S,
                  migrate: Optional[bool] = None,
                  migrate_timeout_s: Optional[float] = None,
-                 tiers: Optional[str] = None):
+                 tiers: Optional[str] = None,
+                 tiering_kw: Optional[dict] = None,
+                 provisioner=None,
+                 autoscale_kw: Optional[dict] = None):
         assert members, "a fleet needs at least one member"
-        # The policy layers still to port: refused by name, never
-        # quietly served as an untiered, fixed, single-router fleet.
-        for asked, what, module in (
-                (tiers or getattr(engine_cfg, "tiers", None),
-                 "tiered fleets (--tiers)", "fleet/tiering.py"),
-                (getattr(engine_cfg, "autoscale", False),
-                 "the autoscaler (--autoscale)", "fleet/autoscaler.py"),
-                (getattr(engine_cfg, "ha", False),
-                 "router HA (--ha)", "fleet/ha.py"),
-        ):
-            if asked:
-                raise ValueError(f"{what}: {module} is not ported yet")
+        # The policy layer still to port: refused by name, never quietly
+        # served as a single-router fleet.
+        if getattr(engine_cfg, "ha", False):
+            raise ValueError("router HA (--ha): fleet/ha.py is not "
+                             "ported yet")
         if placement not in ("affinity", "least_loaded"):
             raise ValueError(f"unknown placement policy {placement!r} "
                              "(want 'affinity' or 'least_loaded')")
@@ -201,8 +203,12 @@ class FleetRouter:
         # runtimes record into its own SLOEngine) to avoid double-counting
         # the global ollamamq_slo_* series.
         self.slo = SLOEngine(self.alerts)
+        tiers_spec = (getattr(engine_cfg, "tiers", None)
+                      if tiers is None else tiers)
         meta = {"fleet": len(self.members), "placement": placement,
                 "model": engine_cfg.model}
+        if tiers_spec:
+            meta["tiers"] = tiers_spec
         self.journal = Journal(
             capacity=engine_cfg.journal_ring,
             path=engine_cfg.journal_file,
@@ -215,7 +221,8 @@ class FleetRouter:
         # ollamamq_router_overhead_ms{site="journal"} — the "journal"
         # half of ROADMAP's "router overhead (placement + journal)
         # measured and bounded". Wrapped at the instance so every
-        # record site is covered without touching them.
+        # record site (and TierManager, which shares this journal)
+        # is covered without touching them.
         _record = self.journal.record
         _jhist = tm.ROUTER_OVERHEAD_MS.labels(site="journal")
 
@@ -256,6 +263,17 @@ class FleetRouter:
             self.durability = DurabilityManager(
                 engine_cfg, journal=self.journal, alerts=self.alerts,
                 fault_plan=self.fault_plan)
+        # Tiered fleet (fleet/tiering.py): class-aware placement, per-
+        # tier SLO burn overflow, and the adaptive-regrouping balancer.
+        # None = untiered (every member interchangeable).
+        self.tiers = None
+        if tiers_spec:
+            from ollamamq_tpu_torch.fleet.tiering import TierManager
+
+            self.tiers = TierManager(self.members, tiers_spec,
+                                     core=self.core, journal=self.journal,
+                                     ecfg=engine_cfg,
+                                     **(tiering_kw or {}))
         # Preemptible members: flagged members accept a termination
         # notice (POST /admin/preempt/{replica} or the fault plan's
         # "preempt" site) -> migrate-off-then-retire within the notice
@@ -273,6 +291,23 @@ class FleetRouter:
             for mem in self.members:
                 if mem.name in want:
                     mem.preemptible = True
+        # Elastic fleet (fleet/autoscaler.py): SLO-burn-driven sizing
+        # behind --autoscale. None = fixed fleet.
+        self.autoscaler = None
+        if getattr(engine_cfg, "autoscale", False):
+            from ollamamq_tpu_torch.fleet.autoscaler import (
+                AutoscalerManager, LocalProvisioner)
+
+            if provisioner is None:
+                factory = getattr(self.members[0], "engine_factory", None)
+                if factory is None:
+                    raise ValueError(
+                        "--autoscale needs a MemberProvisioner (none "
+                        "given, and the seed members carry no engine "
+                        "factory to build a LocalProvisioner from)")
+                provisioner = LocalProvisioner(factory)
+            self.autoscaler = AutoscalerManager(
+                self, provisioner, **(autoscale_kw or {}))
         for mem in self.members:
             self.journal.record("replica_join", replica=mem.name,
                                 why="start")
@@ -447,15 +482,25 @@ class FleetRouter:
         finishes land in the router tracer's window, so the estimate
         tracks the whole fleet's drain rate (and degrades honestly when
         a replica is ejected) instead of one member's share overstating
-        the wait."""
+        the wait.
+
+        Scaled-to-zero wrinkle: with a tier parked at zero members its
+        completion rate is a stale window (or nothing), and a
+        Retry-After computed from it tells clients to hammer a fleet
+        that first has to WAKE — so when the autoscaler has a tier at
+        zero, the estimate adds the wake + spawn time on top of the
+        queue estimate."""
         queued = max(1, self.core.total_queued())
+        wake = (self.autoscaler.wake_wait_s()
+                if self.autoscaler is not None else 0.0)
         window = self.tracer.finish_times
         if window and len(window) >= 2:
             span = window[-1] - window[0]
             if span > 0:
                 rate = (len(window) - 1) / span
-                return float(min(300.0, max(1.0, queued / rate)))
-        return float(min(10.0, max(2.0, float(queued))))
+                return float(min(300.0, wake + max(1.0, queued / rate)))
+        return float(min(300.0,
+                         wake + min(10.0, max(2.0, float(queued)))))
 
     # -------------------------------------------------------------- ingress
     def enqueue_request(self, user: str, ip: str, model: str, family=None,
@@ -594,6 +639,15 @@ class FleetRouter:
         self.last_tick_at = time.monotonic()
         self.journal.tick += 1
         self._probe()
+        if self.tiers is not None:
+            # Balancer tick: retier ONE member toward the observed class
+            # mix once the hysteresis clears (no-op most ticks).
+            self.tiers.maybe_balance(self)
+        if self.autoscaler is not None:
+            # Elastic sizing AFTER the balancer: regroup/retire are
+            # mutually exclusive, and the scaler parks while any
+            # balancer move is in flight.
+            self.autoscaler.tick()
         # Drain BEFORE admission: a draining member's migrating streams
         # get first claim on slots other members just freed — fresh
         # placements must not starve the evacuation that unblocks the
@@ -609,6 +663,10 @@ class FleetRouter:
     def _load_of(self, mem) -> int:
         return sum(1 for f in self.flights
                    if f.member is mem and not f.done)
+
+    def _slot_cap(self, mem) -> int:
+        cap = mem.slot_cap() if hasattr(mem, "slot_cap") else 0
+        return cap or self.ecfg.max_slots
 
     def _can_place(self, mem, model: str, kind: str) -> bool:
         if mem.state != "healthy":
@@ -647,6 +705,12 @@ class FleetRouter:
     def _choose_member(self, flight: _Flight):
         elig = [m for m in self.members
                 if self._can_place(m, flight.model, flight.kind)]
+        tinfo = None
+        if self.tiers is not None and flight.kind == "generate" and elig:
+            # Tier filter FIRST: affinity and least-loaded then operate
+            # WITHIN the home tier (plus any journaled overflow targets).
+            elig, tinfo = self.tiers.placement_filter(
+                flight, elig, self._load_of, self._slot_cap)
         if not elig:
             return None
         # Never fail BACK to the member that just dropped this stream —
@@ -674,6 +738,8 @@ class FleetRouter:
                 self._rr = (self._rr + off) % n
                 cand = c
                 break
+        if tinfo is not None:
+            self.tiers.journal_place(flight, cand, tinfo)
         return cand
 
     def _admit(self) -> int:
@@ -715,10 +781,12 @@ class FleetRouter:
                 continue
             mem = self._choose_member_timed(flight)
             if mem is None:
-                # Capacity raced away between the gate and the pick:
-                # wait in the queue, FIFO preserved; keep admitting
-                # OTHER users this pass, breaking once the same flight
-                # cycles back.
+                # Capacity raced away between the gate and the pick — or
+                # the flight's home TIER is full (tier isolation: it
+                # waits rather than leaking cross-tier). Wait-in-queue,
+                # FIFO preserved; keep admitting OTHER users this pass
+                # (a full bulk tier must not park the interactive queue
+                # behind it), breaking once the same flight cycles back.
                 self._requeue(flight, why="unplaceable")
                 if id(flight) in unplaceable:
                     break
@@ -844,6 +912,16 @@ class FleetRouter:
             flight.req.stats.first_token_at = time.monotonic()
             flight.req.trace_event(
                 "first_token", ttft_ms=round(flight.req.stats.ttft_ms, 3))
+            if self.tiers is not None and flight.tier is not None:
+                # Feed the per-tier burn-rate engine: TTFT is recorded
+                # against the stream's HOME tier — the tier whose SLO
+                # the placement policy is protecting.
+                self.tiers.record_ttft(flight.tier,
+                                       flight.req.stats.ttft_ms)
+            elif self.autoscaler is not None:
+                # Untiered elastic fleet: the scaler's own objective is
+                # the burn signal the tier engine would otherwise give.
+                self.autoscaler.record_ttft(flight.req.stats.ttft_ms)
         # Empty-text items still forward: they carry the sampled token
         # ids the NDJSON writer folds into the next written frame.
         flight.req.stream.push(item)
@@ -895,13 +973,22 @@ class FleetRouter:
     # ------------------------------------------------------------- migration
     def _choose_migration_target(self, flight: _Flight, source):
         """Healthy member to receive a shipped stream: least-loaded
-        among those that can take the model and speak import."""
+        among those that can take the model and speak import. Tiered
+        fleets prefer the victim's HOME tier — an evacuated stream
+        lands back in-tier, not just least-loaded fleet-wide — and
+        only fall cross-tier (journaled by the caller) when the tier
+        has no import-capable capacity."""
         elig = [m for m in self.members
                 if m is not source
                 and getattr(m, "import_stream", None) is not None
                 and self._can_place(m, flight.model, "generate")]
         if not elig:
             return None
+        if self.tiers is not None and flight.tier is not None:
+            same = [m for m in elig
+                    if getattr(m, "tier", None) == flight.tier]
+            if same:
+                elig = same
         return min(elig, key=self._load_of)
 
     def _try_migrate(self, flight: _Flight, source, why: str) -> str:
@@ -1041,6 +1128,10 @@ class FleetRouter:
         self.migration_count += 1
         tm.FLEET_MIGRATIONS_TOTAL.labels(outcome="migrated").inc()
         tm.FLEET_MIGRATE_BYTES_TOTAL.inc(nbytes)
+        if self.tiers is not None:
+            # A migration that had to land cross-tier (home tier full)
+            # is still an overflow — journaled, never silent.
+            self.tiers.journal_failover_overflow(flight, target)
         self.journal.record(
             "migrate_import", req_id=flight.rid0, user=flight.user,
             model=flight.model or None, replica=source.name,
@@ -1052,6 +1143,13 @@ class FleetRouter:
                             runtime=target.name)
         flight.req.trace_event("migrate", src=source.name,
                                dst=target.name, why=why)
+        if why == "retier":
+            # A regroup's drain evacuated this stream: its trace says so
+            # explicitly (the router-span vocabulary's "regroup" row).
+            flight.req.trace_event("regroup", src=source.name,
+                                   dst=target.name,
+                                   to_tier=getattr(source, "retier_to",
+                                                   None))
         log.warning("req %d migrated %s -> %s (%s): %d token(s) shipped, "
                     "0 recomputed", flight.rid0, source.name, target.name,
                     why, n_gen)
@@ -1242,9 +1340,16 @@ class FleetRouter:
         mem.eject_count += 1
         mem.backoff_s = self.reprobe_backoff_s
         mem.next_probe_at = time.monotonic() + mem.backoff_s
+        if mem.retier_to is not None:
+            # A crash mid-retier aborts the regroup: the member keeps
+            # (and later rejoins) its ORIGINAL tier; its streams ride
+            # the normal eject ladder below (migrate -> recompute ->
+            # never drop).
+            self._abort_retier(mem, f"eject:{why}")
         if getattr(mem, "retiring", False):
             # A crash mid-retire aborts the retire: the member heals
-            # through the normal re-probe path and stays in rotation.
+            # through the normal re-probe path and stays in rotation;
+            # the scaler re-decides from live signals.
             self._abort_retire(mem, f"eject:{why}")
         self.journal.record(
             "replica_eject", replica=mem.name, why=why,
@@ -1313,6 +1418,8 @@ class FleetRouter:
             counts[mem.state] = counts.get(mem.state, 0) + 1
         for state, n in counts.items():
             tm.FLEET_REPLICAS.labels(state=state).set(n)
+        if self.tiers is not None:
+            self.tiers.update_gauges()
 
     # ---------------------------------------------------------------- drain
     def _member(self, name: str):
@@ -1363,9 +1470,9 @@ class FleetRouter:
                        queued: Optional[int] = None) -> dict:
         """Permanently remove one member: drain (no new placements),
         migrate its live streams off, then drop it from the roster and
-        tear it down — NEVER a kill. Spot preemption lands here (and
-        the autoscaler's scale-down, once ported); callable from any
-        thread (HTTP admin). Journaled as a paired scale_down start -> done/aborted
+        tear it down — NEVER a kill. The autoscaler's scale-down and
+        spot preemption both land here; callable from any thread (HTTP
+        admin). Journaled as a paired scale_down start -> done/aborted
         regardless of who asked, so the journal checker audits every
         retire with one vocabulary."""
         mem = self._member(name)
@@ -1378,6 +1485,9 @@ class FleetRouter:
                 "replicas (eject it from the config instead)")
         if getattr(mem, "retiring", False):
             raise RuntimeError(f"replica {name} is already retiring")
+        if mem.retier_to is not None:
+            raise RuntimeError(f"replica {name} is mid-regroup; retire "
+                               "after the regroup settles")
         serving = [m for m in self.members
                    if m.state != "ejected"
                    and not getattr(m, "retiring", False)]
@@ -1436,16 +1546,30 @@ class FleetRouter:
             "scale_down", replica=mem.name, phase="aborted",
             tier=getattr(mem, "tier", None), why=why,
             fleet=len(self.members))
-        tm.FLEET_SCALE_EVENTS_TOTAL.labels(direction="down",
-                                           outcome="aborted").inc()
+        if self.autoscaler is not None:
+            # note_scale_event owns the metric + the storm/cooldown
+            # bookkeeping when a scaler is running.
+            self.autoscaler.note_scale_event("down", "aborted")
+        else:
+            tm.FLEET_SCALE_EVENTS_TOTAL.labels(direction="down",
+                                               outcome="aborted").inc()
         log.error("replica %s retire ABORTED (%s); member stays in "
                   "rotation", mem.name, why)
 
     def _complete_retire(self, mem) -> None:
         """Retire drain emptied: the member leaves the roster and its
-        provisioner (or stop()) tears it down."""
+        provisioner (or stop()) tears it down. Scale-to-zero lands
+        here too — when the autoscaler removes a tier's last member the
+        tier is marked parked, so its queued work HOLDS at the router
+        (the wake signal) instead of spilling cross-tier."""
         why = getattr(mem, "retire_why", None) or "manual"
         self.members = [m for m in self.members if m is not mem]
+        if self.tiers is not None:
+            # Deliberate zero only under an autoscaler that can wake
+            # the tier back up; a manual retire emptying a tier falls
+            # back to the cross-tier spill path.
+            self.tiers.note_member_removed(
+                mem, to_zero=self.autoscaler is not None)
         try:
             if getattr(mem, "provisioned_by", None) is not None:
                 mem.provisioned_by.retire(mem)
@@ -1459,10 +1583,132 @@ class FleetRouter:
             "scale_down", replica=mem.name, phase="done",
             tier=getattr(mem, "tier", None), why=why,
             fleet=len(self.members))
-        tm.FLEET_SCALE_EVENTS_TOTAL.labels(direction="down",
-                                           outcome="done").inc()
+        if self.autoscaler is not None:
+            self.autoscaler.note_scale_event("down", "done")
+        else:
+            tm.FLEET_SCALE_EVENTS_TOTAL.labels(direction="down",
+                                               outcome="done").inc()
         log.warning("replica %s retired (%s); fleet -> %d member(s)",
                     mem.name, why, len(self.members))
+        self._update_gauges()
+    # ----------------------------------------------------------- regrouping
+    def retier_replica(self, name: str, tier: str,
+                       timeout_s: Optional[float] = None,
+                       why: str = "manual") -> dict:
+        """Move one member to the other tier: drain, migrate its
+        live streams off, hot-restart at the target tier's TP
+        width (LocalMember with a factory) or re-label (HttpMember),
+        rejoin. Callable from any thread (HTTP admin) and from the
+        TierBalancer. The tier label commits only when the restart
+        succeeds — any abort leaves the member in its ORIGINAL tier."""
+        from ollamamq_tpu_torch.config import TIER_NAMES
+
+        if self.tiers is None:
+            raise RuntimeError("fleet is untiered (--tiers not set); "
+                               "retier applies to tiered fleets")
+        mem = self._member(name)
+        if mem is None:
+            raise KeyError(f"no replica named {name!r} "
+                           f"(members: {[m.name for m in self.members]})")
+        if tier not in TIER_NAMES:
+            raise ValueError(f"unknown tier {tier!r} "
+                             f"(tiers: {TIER_NAMES})")
+        if mem.tier == tier:
+            raise RuntimeError(f"replica {name} is already in tier "
+                               f"{tier!r}")
+        if mem.state == "ejected":
+            raise RuntimeError(
+                f"replica {name} is ejected; it must heal before it can "
+                "change tiers")
+        if mem.retier_to is not None or any(
+                m.retier_to is not None for m in self.members):
+            raise RuntimeError("a tier regroup is already in flight; "
+                               "one member moves at a time")
+        donors = [m for m in self.members
+                  if getattr(m, "tier", None) == mem.tier
+                  and m.state != "ejected"]
+        if len(donors) <= 1:
+            raise RuntimeError(
+                f"replica {name} is tier {mem.tier!r}'s last serving "
+                "member; a regroup must never empty a tier")
+        self.journal.record(
+            "tier_regroup", replica=mem.name, phase="start",
+            from_tier=mem.tier, to_tier=tier, why=why,
+            mix=(round(self.tiers.mix_ema, 4)
+                 if self.tiers.mix_ema is not None else None),
+            tp_from=getattr(mem, "tp", None),
+            tp_to=self.tiers.widths.get(tier))
+        log.warning("replica %s regrouping %s -> %s (%s): draining, "
+                    "live streams migrate off, restart at the target "
+                    "width", mem.name, mem.tier, tier, why)
+        mem.retier_to = tier
+        if mem.state != "draining":
+            self._start_drain(mem, timeout_s)
+        return {"replica": mem.name, "state": mem.state,
+                "from_tier": mem.tier, "to_tier": tier}
+
+    def _abort_retier(self, mem, why: str) -> None:
+        """A regroup died before its restart committed: journal the
+        abort; the member keeps its ORIGINAL tier (and rejoins it when
+        it heals)."""
+        target = mem.retier_to
+        mem.retier_to = None
+        self.journal.record(
+            "tier_regroup", replica=mem.name, phase="aborted",
+            from_tier=mem.tier, to_tier=target, why=why)
+        self.tiers.note_regroup("aborted")
+        log.error("replica %s regroup %s -> %s ABORTED (%s); member "
+                  "keeps tier %s", mem.name, mem.tier, target, why,
+                  mem.tier)
+
+    def _complete_retier(self, mem) -> None:
+        """Drain emptied under a pending retier: restart the member at
+        the target tier's width and commit the label. The "replica"
+        fault site is drawn here too — chaos can crash the member
+        mid-retier, which aborts the regroup (original tier) and rides
+        the normal eject/heal path; its streams already migrated off
+        during the drain, so nothing can drop."""
+        target = mem.retier_to
+        if self.fault_plan is not None:
+            try:
+                fired = self.fault_plan.draw("replica")
+            except Exception:  # noqa: BLE001
+                log.exception("fault-plan draw failed")
+                fired = []
+            for kind, rule in fired:
+                if kind == "device_loss" and rule is not None:
+                    self._plan_down.add(mem.name)
+                if kind in ("exception", "device_loss"):
+                    mem.crash()
+                    self._eject(mem, "crash_mid_retier",
+                                mem.heartbeat_age())
+                    return  # _eject aborted the regroup
+                if kind == "slow" and rule is not None:
+                    mem.force_stale(rule.delay_s)
+        try:
+            tp = mem.retier(self.tiers.widths.get(target))
+        except Exception:  # noqa: BLE001 — old-width engine restarted
+            log.exception("retier restart of %s at tier %s width failed",
+                          mem.name, target)
+            self._abort_retier(mem, "restart_failed")
+            mem.state = "healthy" if mem.alive() else mem.state
+            self._update_gauges()
+            return
+        from_tier = mem.tier
+        mem.tier = target
+        mem.retier_to = None
+        mem.state = "healthy"
+        self.journal.record(
+            "tier_regroup", replica=mem.name, phase="done",
+            from_tier=from_tier, to_tier=target,
+            mix=(round(self.tiers.mix_ema, 4)
+                 if self.tiers.mix_ema is not None else None),
+            tp_to=tp)
+        self.journal.record("replica_join", replica=mem.name,
+                            why="retier")
+        self.tiers.note_regroup("done")
+        log.warning("replica %s regrouped -> tier %s (tp %s); back in "
+                    "rotation", mem.name, target, tp)
         self._update_gauges()
 
     def _drain_progress(self) -> None:
@@ -1483,7 +1729,10 @@ class FleetRouter:
             # stream must evacuate (recompute replay) right now.
             for flight in active:
                 if flight.evac_since is None and not flight.migrate_tried:
-                    out = self._try_migrate(flight, mem, why="drain")
+                    out = self._try_migrate(
+                        flight, mem,
+                        why=("retier" if mem.retier_to is not None
+                             else "drain"))
                     if out == "aborted":
                         self._begin_evac(flight)
                     # Only a hard outcome consumes the attempt; capacity
@@ -1497,6 +1746,11 @@ class FleetRouter:
                     # Retire drain emptied: the member leaves the
                     # fleet for good (scale-down / preemption).
                     self._complete_retire(mem)
+                    continue
+                if mem.retier_to is not None:
+                    # Regroup drain emptied: restart at the target
+                    # tier's width and commit (or abort) the move.
+                    self._complete_retier(mem)
                     continue
                 try:
                     mem.hot_restart()
@@ -1618,6 +1872,8 @@ class FleetRouter:
                 "ejects": mem.eject_count,
                 "alerts": [n for n, _ in mem.active_alerts()],
             }
+            if mem.tier is not None:
+                row["tier"] = mem.tier
             if getattr(mem, "preemptible", False):
                 row["preemptible"] = True
             if getattr(mem, "retiring", False):
@@ -1634,10 +1890,10 @@ class FleetRouter:
             "migrations": self.migration_count,
             "migrate_aborts": self.migrate_abort_count,
             "queued": self.core.total_queued(),
-            # The policy layers' blocks (tiering, the autoscaler) are
-            # None until those modules are ported.
-            "tiers": None,
-            "autoscaler": None,
+            "tiers": (self.tiers.status() if self.tiers is not None
+                      else None),
+            "autoscaler": (self.autoscaler.status()
+                           if self.autoscaler is not None else None),
             "router_overhead": self.router_overhead_stats(),
         }
 

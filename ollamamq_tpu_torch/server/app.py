@@ -27,16 +27,22 @@ methods and status codes; "*" accepts any method:
   with a WAL (--wal-dir): GET /api/stream/{req_id}?from=N, the
     resumable stream, across a restart too;
   serving a fleet router: GET /admin/fleet, POST /admin/drain/{replica},
-    POST /admin/preempt/{replica}; /metrics federates the HTTP members'
+    POST /admin/preempt/{replica}, GET /admin/tiers and POST
+    /admin/retier/{replica} (404 on an untiered fleet, 400 for an
+    unknown tier, 409 for a refused move); /metrics federates the HTTP members'
     series with a `replica` label, /debug/bundle gathers a section per
     member and /debug/trace/{req_id} stitches every member's spans;
   serving an engine (a fleet member): the KV migration wire, POST
     /admin/migrate/export, /import (a packed blob in; the continuation
     streams out as /api/generate NDJSON), /commit and /abort; GET
     /debug/trace?ctx= exports the spans of one fleet trace context.
-Left out with the modules they serve: /admin/tiers, /admin/retier,
-/admin/ha/* and the member-side epoch fence. Every route but /health
-answers 403 to a blocked user or IP. A
+Left out with router HA, which this package does not have yet:
+/admin/ha/* and the member-side epoch fence. With --allow-all-routes
+every other path answers 501 (no backend to proxy to), else 404. Every
+route but /health answers 403 to a blocked user or IP. Image inputs
+(`images` on /api/generate and on chat messages, `image_url` content
+parts) are accepted and ignored, and the reply says so in a
+`warnings` field. A
 request's `traceparent` header (a fleet router's) makes its trace a
 span of that context, and X-Deadline-Ms sets its deadline; a streamed
 reply's X-Request-ID header names the request id its frames carry. A
@@ -84,6 +90,11 @@ log = logging.getLogger("ollamamq.torch.server")
 
 MAX_BODY = 1024 * 1024 * 1024  # 1 GB, the JAX package's client_max_size
 
+# No vision path exists: a request's images are ignored, and the reply
+# carries this warning so the text-only answer is never silent.
+_IMAGES_IGNORED = ("images ignored: this deployment has no vision model; "
+                   "the response was generated from text inputs only")
+
 
 class ApiError(Exception):
     def __init__(self, status: int, message: str, headers: Optional[dict] = None):
@@ -115,6 +126,13 @@ def _now_iso() -> str:
 
 def _ns(seconds: float) -> int:
     return int(seconds * 1e9)
+
+
+def _warnings(req: Request) -> dict:
+    """The reply's `warnings` field: present only when the request's
+    images were ignored."""
+    return ({"warnings": [_IMAGES_IGNORED]}
+            if getattr(req, "images_ignored", False) else {})
 
 
 def _done_reason(item: StreamItem) -> str:
@@ -193,6 +211,8 @@ class Handler(BaseHTTPRequestHandler):
         ("GET", "/admin/fleet"): "admin_fleet",
         ("POST", "/admin/drain/{replica}"): "admin_drain",
         ("POST", "/admin/preempt/{replica}"): "admin_preempt",
+        ("GET", "/admin/tiers"): "admin_tiers",
+        ("POST", "/admin/retier/{replica}"): "admin_retier",
     }
     # The KV migration wire: only when the engine is an engine (a fleet
     # member); the router's HttpMember speaks it.
@@ -241,6 +261,9 @@ class Handler(BaseHTTPRequestHandler):
             if m in ("*", method):
                 return getattr(self, name), arg
             allowed = True
+        if self.server.allow_all_routes:
+            # The catch-all route: every method on every other path.
+            return self.fallback, None
         if allowed:
             raise ApiError(405, f"method {method} not allowed for {path}")
         raise ApiError(404, f"no route for {method} {path}")
@@ -444,6 +467,14 @@ class Handler(BaseHTTPRequestHandler):
         return items
 
     # -- routes --------------------------------------------------------------
+    def fallback(self) -> None:
+        """--allow-all-routes: any path without a handler answers 501
+        (there is no backend to proxy it to)."""
+        self._ident()
+        raise ApiError(501, f"route {self.path.partition('?')[0]} has no "
+                            "native handler (--allow-all-routes only exposes "
+                            "the fallback, there is no backend to proxy to)")
+
     def root(self) -> None:
         """Ollama's liveness string (blocked users get 403 here too)."""
         self._ident()
@@ -780,6 +811,8 @@ class Handler(BaseHTTPRequestHandler):
             raise ApiError(400, "'context' must be a list of token ids")
         req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling,
                             raw_prompt=prompt, context_ids=context or None)
+        if body.get("images"):
+            req.images_ignored = True
         self._ollama_reply(req, model, chat=False,
                            stream=body.get("stream", True))
 
@@ -790,10 +823,13 @@ class Handler(BaseHTTPRequestHandler):
         sampling = SamplingParams.from_ollama_options(
             body.get("options"), self.server.engine.ecfg.max_new_tokens)
         self._apply_deadline(sampling)
-        prompt = render_chat(body.get("messages", []), cfg)
+        messages = body.get("messages", [])
+        prompt = render_chat(messages, cfg)
         tokens = self._tokenize(model, prompt, add_bos=not template_owns_bos(cfg))
         req = self._enqueue(user, ip, model, Family.OLLAMA, tokens, sampling,
                             raw_prompt=prompt)
+        if any(isinstance(m, dict) and m.get("images") for m in messages):
+            req.images_ignored = True
         self._ollama_reply(req, model, chat=True,
                            stream=body.get("stream", True))
 
@@ -814,7 +850,7 @@ class Handler(BaseHTTPRequestHandler):
             self._send_json(200, payload(text, done=True,
                                          done_reason=_done_reason(last),
                                          token_ids=list(req.generated_ids),
-                                         **_gen_stats(req)))
+                                         **_gen_stats(req), **_warnings(req)))
             return
 
         pending_ids: list = []
@@ -835,7 +871,7 @@ class Handler(BaseHTTPRequestHandler):
             else:
                 p = payload("", done=True, done_reason=_done_reason(item),
                             req_id=req.req_id, token_ids=pending_ids[:],
-                            **_gen_stats(req))
+                            **_gen_stats(req), **_warnings(req))
             yield (json.dumps(p) + "\n").encode()
 
         self._stream(req, "application/x-ndjson", frames)
@@ -913,10 +949,16 @@ class Handler(BaseHTTPRequestHandler):
         model, cfg = self._model(body)
         sampling = SamplingParams.from_openai(
             body, self.server.engine.ecfg.max_new_tokens)
-        prompt = render_chat(body.get("messages", []), cfg)
+        messages = body.get("messages", [])
+        prompt = render_chat(messages, cfg)
         tokens = self._tokenize(model, prompt, add_bos=not template_owns_bos(cfg))
         req = self._enqueue(user, ip, model, Family.OPENAI, tokens, sampling,
                             raw_prompt=prompt)
+        if any(isinstance(p, dict) and p.get("type") == "image_url"
+               for m in messages if isinstance(m, dict)
+               for p in (m.get("content") if isinstance(m.get("content"),
+                                                        list) else [])):
+            req.images_ignored = True
         self._openai_reply(req, model, f"chatcmpl-{uuid.uuid4().hex[:24]}",
                            chat=True, stream=body.get("stream", False))
 
@@ -976,7 +1018,7 @@ class Handler(BaseHTTPRequestHandler):
                 "id": rid, "object": obj, "created": created, "model": model,
                 "choices": [choice],
                 "usage": {"prompt_tokens": p, "completion_tokens": c,
-                          "total_tokens": p + c}})
+                          "total_tokens": p + c}, **_warnings(req)})
             return
         first = [True]
 
@@ -1004,6 +1046,11 @@ class Handler(BaseHTTPRequestHandler):
                        + "\n\n").encode()
                 yield b"data: [DONE]\n\n"
             else:
+                if getattr(req, "images_ignored", False):
+                    yield ("data: " + json.dumps({
+                        "id": rid, "object": obj + ".chunk" if chat else obj,
+                        "created": created, "model": model, "choices": [],
+                        "warnings": [_IMAGES_IGNORED]}) + "\n\n").encode()
                 fin = {"index": 0, "finish_reason": _done_reason(item)}
                 fin.update({"delta": {}} if chat else {"text": ""})
                 yield sse(fin)
@@ -1057,6 +1104,40 @@ class Handler(BaseHTTPRequestHandler):
         try:
             out = self.server.engine.preempt_replica(replica,
                                                      notice_s=notice_s)
+        except KeyError as e:
+            raise ApiError(404, str(e.args[0]) if e.args else str(e))
+        except ValueError as e:
+            raise ApiError(400, str(e))
+        except RuntimeError as e:
+            raise ApiError(409, str(e))
+        self._send_json(200, {"status": "success", **out})
+
+    def admin_tiers(self) -> None:
+        """Tiered-fleet status: per-tier membership and states, TTFT
+        burn rates and overflow state, the balancer's class-mix EMA,
+        and overflow/regroup counters. 404 on an untiered fleet."""
+        self._ident()
+        tiers = getattr(self.server.engine, "tiers", None)
+        if tiers is None:
+            raise ApiError(404, "fleet is untiered (--tiers not set)")
+        self._send_json(200, tiers.status())
+
+    def admin_retier(self, replica: str) -> None:
+        """Move one replica to the other tier: drain, migrate its live
+        streams off, hot-restart at the target tier's TP width (or
+        re-label an HTTP member), rejoin. Body: {"tier":
+        "interactive"|"bulk", "timeout_s": N?}. Poll GET /admin/tiers
+        until the regroup commits (tier_regroup done in the journal)."""
+        self._ident()
+        body = self._read_body()
+        tier = body.get("tier")
+        if not isinstance(tier, str) or not tier:
+            raise ApiError(400, "'tier' must name the target tier")
+        timeout_s = self._positive_float(body, "timeout_s")
+        try:
+            out = self.server.engine.retier_replica(replica, tier,
+                                                    timeout_s=timeout_s,
+                                                    why="admin")
         except KeyError as e:
             raise ApiError(404, str(e.args[0]) if e.args else str(e))
         except ValueError as e:
@@ -1291,9 +1372,11 @@ class OllamaServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 11434,
-                 timeout_s: float = 300.0):
+                 timeout_s: float = 300.0, allow_all_routes: bool = False):
         super().__init__((host, port), Handler)
         self.engine = engine
+        # --allow-all-routes: unhandled paths answer 501, not 404.
+        self.allow_all_routes = allow_all_routes
         self.registry = ModelRegistry(engine)
         self.timeout_s = timeout_s
         self.profile_lock = threading.Lock()
@@ -1301,12 +1384,12 @@ class OllamaServer(ThreadingHTTPServer):
 
 
 def serve_in_thread(engine, host: str = "127.0.0.1", port: int = 0,
-                    timeout_s: float = 300.0):
+                    timeout_s: float = 300.0, allow_all_routes: bool = False):
     """Start `engine` and an OllamaServer on (host, port) — port 0 picks a
     free one — with serve_forever on a daemon thread. Returns the server;
     server.server_address has the bound port. Stop with stop_server()."""
     engine.start()
-    server = OllamaServer(engine, host, port, timeout_s)
+    server = OllamaServer(engine, host, port, timeout_s, allow_all_routes)
     t = threading.Thread(target=server.serve_forever, name="http", daemon=True)
     t.start()
     server.thread = t

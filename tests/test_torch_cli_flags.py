@@ -1,0 +1,173 @@
+"""The port's CLI flags that the JAX package's CLI has: --timeout (env
+TIMEOUT, with --timeout-s kept as an alias), --fault-plan (its schema
+checked before any device work), --log-file / --log-rotate-mb /
+--log-keep (JSON lines, env OLLAMAMQ_LOG_FILE), --metrics-buckets and
+--allow-all-routes (a 501 for every path without a handler, else 404).
+Each with the JAX package's exit code or behaviour: invalid values exit
+2 before any device work, and one CLI server (a fake engine in a
+subprocess) shows the others at work over HTTP."""
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+
+import pytest
+
+from ollamamq_tpu_torch.cli import build_parser, main
+from ollamamq_tpu_torch.config import EngineConfig
+from ollamamq_tpu_torch.engine.fake import FakeEngine
+from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+from testutil import free_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ----------------------------------------------------------- fail fast
+def test_fault_plan_cli_flag_fails_fast(tmp_path):
+    p = tmp_path / "bad.json"
+    p.write_text(json.dumps({"faults": [{"site": "nope"}]}))
+    assert main(["--fault-plan", str(p), "--no-tui"]) == 2
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--metrics-buckets", "5,fast,500"], "invalid --metrics-buckets"),
+    (["--metrics-buckets", ","], "at least one bound"),
+    (["--log-keep", "0"], "--log-keep must be >= 1"),
+    (["--log-rotate-mb", "-1"], "--log-rotate-mb must be >= 0"),
+], ids=["buckets-junk", "buckets-empty", "log-keep", "log-rotate"])
+def test_invalid_telemetry_flags_exit_2(argv, message, caplog):
+    assert main(argv + ["--no-tui", "--device", "cpu"]) == 2
+    assert message in caplog.text
+
+
+def test_timeout_flag_env_and_alias(monkeypatch):
+    monkeypatch.delenv("TIMEOUT", raising=False)
+    assert build_parser().parse_args([]).timeout == 300.0
+    assert build_parser().parse_args(["--timeout", "12"]).timeout == 12.0
+    assert build_parser().parse_args(["--timeout-s", "7.5"]).timeout == 7.5
+    monkeypatch.setenv("TIMEOUT", "42")
+    assert build_parser().parse_args([]).timeout == 42.0
+    assert build_parser().parse_args(["--timeout", "3"]).timeout == 3.0
+
+
+def test_fallback_route_501_with_allow_all_routes_else_404():
+    cfg = EngineConfig(model="test-tiny", max_slots=2)
+    for allow, want in ((False, 404), (True, 501)):
+        srv = serve_in_thread(FakeEngine(cfg, blocklist_path=None),
+                              allow_all_routes=allow)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            for method in ("GET", "POST", "DELETE"):
+                req = urllib.request.Request(base + "/no/such/route",
+                                             data=b"{}" if method == "POST"
+                                             else None, method=method)
+                with pytest.raises(urllib.error.HTTPError) as e:
+                    urllib.request.urlopen(req, timeout=10)
+                assert e.value.code == want, (allow, method)
+                body = json.loads(e.value.read())
+                if allow:
+                    assert "no native handler" in body["error"]
+            # Routes with handlers answer as before.
+            with urllib.request.urlopen(base + "/api/version",
+                                        timeout=10) as resp:
+                assert resp.status == 200
+        finally:
+            stop_server(srv)
+
+
+# ------------------------------------------------- a CLI server at work
+@pytest.fixture(scope="module")
+def cli_server(tmp_path_factory):
+    """`python -m ollamamq_tpu_torch.cli --fake-engine` with a JSON-line
+    log file, a custom latency-bucket ladder, the fallback route, and
+    TIMEOUT=2 in its environment (the fake engine's tokens take 0.3 s
+    each, so its longest stream, 16 tokens, outlives it)."""
+    tmp = tmp_path_factory.mktemp("cli")
+    port = free_port()
+    log_file = tmp / "server.jsonl"
+    env = dict(os.environ, TIMEOUT="2", FAKE_TOKEN_LATENCY_S="0.3",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--fake-engine",
+         "--model", "test-tiny", "--no-tui", "--port", str(port),
+         "--log-file", str(log_file), "--metrics-buckets", "5,50,500",
+         "--allow-all-routes", "--blocklist", str(tmp / "blocked.json")],
+        cwd=str(tmp), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        try:
+            urllib.request.urlopen(base + "/health", timeout=2).read()
+            break
+        except OSError:
+            time.sleep(0.1)
+    else:
+        proc.kill()
+        raise RuntimeError(proc.communicate()[0].decode()[-2000:])
+    yield {"base": base, "log_file": log_file, "proc": proc}
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _generate(base, n, stream=False):
+    req = urllib.request.Request(
+        base + "/api/generate",
+        data=json.dumps({"model": "test-tiny", "prompt": "hi",
+                         "stream": stream,
+                         "options": {"num_predict": n}}).encode(),
+        headers={"X-User-ID": "flags"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, resp.read()
+
+
+def test_metrics_buckets_set_the_latency_histograms(cli_server):
+    status, _ = _generate(cli_server["base"], 2)
+    assert status == 200
+    with urllib.request.urlopen(cli_server["base"] + "/metrics",
+                                timeout=10) as resp:
+        text = resp.read().decode()
+    bounds = [line.split('le="')[1].split('"')[0] for line in
+              text.splitlines()
+              if line.startswith("ollamamq_ttft_ms_bucket")]
+    assert bounds == ["5", "50", "500", "+Inf"]
+
+
+def test_allow_all_routes_flag_serves_the_501_fallback(cli_server):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(cli_server["base"] + "/api/not-a-route",
+                               timeout=10)
+    assert e.value.code == 501
+
+
+def test_timeout_env_is_honoured(cli_server):
+    """TIMEOUT=2: a request that would take 4.8 s is cut at the server's
+    timeout (cancelled engine-side) and answered as an error."""
+    t0 = time.monotonic()
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _generate(cli_server["base"], 16)
+    assert e.value.code == 500
+    assert "request timeout" in json.loads(e.value.read())["error"]
+    assert time.monotonic() - t0 < 8.0
+
+
+def test_log_file_writes_json_lines(cli_server):
+    status, _ = _generate(cli_server["base"], 2)
+    assert status == 200
+    lines = cli_server["log_file"].read_text().splitlines()
+    assert lines
+    objs = [json.loads(line) for line in lines]  # every line parses
+    for obj in objs:
+        assert set(obj) >= {"ts", "level", "logger", "msg"}
+        assert obj["ts"].endswith("Z")
+    assert any(o["msg"].startswith("serving test-tiny") for o in objs)

@@ -10,8 +10,9 @@ safetensors, tokenizers and ml_dtypes (bf16 migration blobs go without
 it) all blocked from import, and without a GPU the engine refuses to
 start unless the CPU is asked for. The journal tool's --help runs under
 the same block, and so does the CLI serving a
-two-member fleet (a stream, then GET /admin/fleet, then SIGTERM) and
-refusing the fleet's policy layers that are not ported yet.
+two-member fleet (a stream, then GET /admin/fleet, then SIGTERM), a
+tiered elastic fleet (a stream, GET /admin/tiers, the autoscaler's
+status), and refusing what the fleet's layers still lack.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -224,7 +225,9 @@ def test_port_imports_and_serves_without_jax():
                 "ollamamq_tpu_torch.durability.wal",
                 "ollamamq_tpu_torch.durability.manager",
                 "ollamamq_tpu_torch.fleet", "ollamamq_tpu_torch.fleet.members",
-                "ollamamq_tpu_torch.fleet.router"}
+                "ollamamq_tpu_torch.fleet.router",
+                "ollamamq_tpu_torch.fleet.tiering",
+                "ollamamq_tpu_torch.fleet.autoscaler"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
@@ -305,15 +308,75 @@ def test_cli_serves_a_fleet_without_jax(tmp_path):
     assert "blocked:" not in text and "graceful shutdown complete" in text
 
 
-@pytest.mark.parametrize("flag,module", [
-    (["--tiers", "interactive=r0;bulk=r1"], "fleet/tiering.py"),
-    (["--autoscale"], "fleet/autoscaler.py"),
-    (["--ha"], "fleet/ha.py"),
+@pytest.mark.parametrize("flag,message", [
+    (["--tiers", "interactive@tp2=r0;bulk=r1"],
+     "tensor parallelism is not ported yet"),
+    (["--autoscale", "--tp", "2"], "tensor parallelism is not ported yet"),
+    (["--ha"], "--ha is not ported yet (fleet/ha.py"),
 ], ids=["tiers", "autoscale", "ha"])
-def test_cli_refuses_unported_fleet_layers(flag, module):
+def test_cli_refuses_unported_fleet_layers(flag, message):
+    """What the fleet's layers still lack is refused by name, exit 2:
+    tier widths and autoscaled members above TP 1 (tensor parallelism),
+    and router HA."""
     proc = subprocess.run(
         _blocked_cli(["--model", "test-tiny", "--device", "cpu", "--no-tui",
                       "--replicas", "2"] + flag),
         cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2, proc.stderr[-2000:]
-    assert f"{flag[0]} is not ported yet ({module}" in proc.stderr
+    out = proc.stdout + proc.stderr  # the log goes to stdout, as the JAX CLI's
+    assert proc.returncode == 2, out[-2000:]
+    assert message in out
+
+
+def test_cli_serves_a_tiered_elastic_fleet_without_jax(tmp_path):
+    """`--replicas 2 --tiers ... --autoscale` serves a stream through the
+    tiered router with the autoscaler attached, with JAX and the JAX
+    package blocked: the fleet.tiering and fleet.autoscaler modules run
+    on the port alone. A long cooldown keeps the scaler from acting
+    while the test reads it; SIGTERM exits 0."""
+    port = free_port()
+    log = open(tmp_path / "cli.log", "w")
+    proc = subprocess.Popen(
+        _blocked_cli(["--model", "test-tiny", "--device", "cpu", "--replicas",
+                      "2", "--tiers", "interactive=r0;bulk=r1", "--autoscale",
+                      "--max-replicas", "3", "--scale-cooldown-s", "600",
+                      "--port", str(port), "--no-tui", "--max-slots", "2",
+                      "--num-pages", "32", "--page-size", "8",
+                      "--max-pages-per-seq", "8", "--blocklist",
+                      str(tmp_path / "blocked.json")]),
+        cwd=str(tmp_path), env=_env(), stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            assert proc.poll() is None, (tmp_path / "cli.log").read_text()[-3000:]
+            try:
+                urllib.request.urlopen(base + "/health", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.2)
+        req = urllib.request.Request(
+            base + "/api/generate",
+            data=json.dumps({"model": "test-tiny", "prompt": "hi",
+                             "stream": False,
+                             "options": {"num_predict": 4}}).encode(),
+            headers={"X-User-ID": "solo"})
+        body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert body["done"] and body["eval_count"] == 4
+        tiers = json.loads(urllib.request.urlopen(base + "/admin/tiers",
+                                                  timeout=10).read())
+        assert {t: [m["name"] for m in v["members"]]
+                for t, v in tiers["tiers"].items()} == {
+                    "interactive": ["r0"], "bulk": ["r1"]}
+        fleet = json.loads(urllib.request.urlopen(base + "/admin/fleet",
+                                                  timeout=10).read())
+        assert fleet["autoscaler"]["fleet"] == 2
+        assert fleet["autoscaler"]["provisioner"].startswith("local")
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (tmp_path / "cli.log").read_text()
+    assert "blocked:" not in text and "graceful shutdown complete" in text

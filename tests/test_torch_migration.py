@@ -19,6 +19,7 @@
 Tolerances: ids identical, pages bit-equal; no logits are compared.
 """
 
+import codecs
 import itertools
 import time
 
@@ -97,11 +98,15 @@ def test_port_blobs_unpack_in_jax():
             "v_pages": torch.from_numpy(a["f32"]),
             "k_scale": torch.from_numpy(a["s"]),
             "q_pages": torch.from_numpy(a["q"]),
-            "recent": np.arange(8, dtype=np.int32), "_inc_decode": object()}
+            "recent": np.arange(8, dtype=np.int32), "_inc_decode": object(),
+            "decoder_pending": [229, 131]}
     out = jax_kvc.unpack_migration_blob(kvc.pack_migration_blob(blob))
     for key, val in _header(kv_dtype="bfloat16").items():
         assert out[key] == val
     assert "_inc_decode" not in out
+    # The ids the source's decoder held back cross the wire; the JAX
+    # package unpacks them with the header and its importer ignores them.
+    assert out["decoder_pending"] == [229, 131]
     assert out["k_pages"].dtype == ml_dtypes.bfloat16
     assert np.array_equal(out["k_pages"].view(np.int16),
                           bf.view(torch.int16).numpy())
@@ -297,3 +302,111 @@ def test_router_drains_jax_http_member_into_port_member():
     finally:
         router.stop()
         backend.stop()
+
+
+def _holds_bytes(ids) -> bool:
+    """Whether a byte-level decoder fed `ids` holds back an incomplete
+    UTF-8 sequence (ids 3..258 are bytes)."""
+    dec = codecs.getincrementaldecoder("utf-8")(errors="replace")
+    for t in ids:
+        if 3 <= t < 259:
+            dec.decode(bytes([t - 3]))
+    return bool(dec.getstate()[0])
+
+
+def test_port_http_drain_keeps_bytes_the_decoder_held_back():
+    """Port to port over /admin/migrate: the source member's stream is
+    drained at the very token where its decoder holds an incomplete
+    UTF-8 sequence back (the source's loop waits there for the export),
+    and the client's text equals the unmigrated run's, ids included. The
+    blob carries the held-back ids and the target primes its fresh
+    decoder with them; without them the continuation bytes decode as
+    U+FFFD."""
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    cfg = EngineConfig(dtype="float32", **dict(SETTINGS, max_slots=2,
+                                               decode_steps_per_iter=1))
+    prompt = "hello world"
+    golden_eng = TorchEngine(cfg, device="cpu", dtype=torch.float32,
+                             blocklist_path=None)
+    golden_eng.start()
+    try:
+        tok = golden_eng.runtimes["test-tiny"].tokenizer
+        golden = collect(golden_eng.enqueue_request(
+            "g", "", "test-tiny", prompt_tokens=tok.encode(prompt),
+            sampling=SamplingParams(max_tokens=32), raw_prompt=prompt))
+    finally:
+        golden_eng.stop()
+    want_ids = [i.token_id for i in golden if i.kind == "token"]
+    want_text = "".join(i.text for i in golden if i.kind == "token")
+    held = [n for n in range(3, len(want_ids) - 1)
+            if _holds_bytes(want_ids[:n])]
+    assert golden[-1].kind == "done" and held, \
+        "the golden stream never holds bytes back: the test cannot bite"
+
+    engines = [TorchEngine(cfg, device="cpu", dtype=torch.float32,
+                           blocklist_path=None) for _ in range(2)]
+    servers = [serve_in_thread(e, timeout_s=60) for e in engines]
+    members = [HttpMember(f"h{i}", f"http://127.0.0.1:"
+                          f"{srv.server_address[1]}", timeout_s=60,
+                          poll_period_s=0.1)
+               for i, srv in enumerate(servers)]
+    router = FleetRouter(members, EngineConfig(**SETTINGS),
+                         blocklist_path=None, probe_period_s=0.05,
+                         eject_heartbeat_s=30.0, reprobe_backoff_s=0.2,
+                         evac_grace_s=1.0, migrate_timeout_s=60.0)
+    drained = {}
+
+    def hook(eng, name):
+        step = eng._loop_once
+
+        def loop_once():
+            step()
+            if drained:
+                return
+            for req in eng.runtimes["test-tiny"].slot_req:
+                if req is not None and len(req.generated_ids) >= 3 \
+                        and _holds_bytes(req.generated_ids):
+                    drained.update(member=name,
+                                   at=len(req.generated_ids))
+                    router.drain_replica(name)
+                    # Hold the loop until the export call arrives: it
+                    # then runs before the next decode step.
+                    deadline = time.monotonic() + 60
+                    while not eng._engine_calls \
+                            and time.monotonic() < deadline:
+                        time.sleep(0.002)
+                    return
+
+        eng._loop_once = loop_once
+
+    for eng, mem in zip(engines, members):
+        hook(eng, mem.name)
+    router.start()
+    try:
+        req = router.enqueue_request(
+            "m", "", "test-tiny", prompt_tokens=tok.encode(prompt),
+            sampling=SamplingParams(max_tokens=32), raw_prompt=prompt)
+        deadline = time.monotonic() + 60
+        flight = None
+        while flight is None and time.monotonic() < deadline:
+            flight = next((f for f in list(router.flights) if f.req is req),
+                          None)
+        items = collect(req, timeout=120)
+        assert items[-1].kind == "done"
+        assert drained and drained["at"] == held[0]
+        recs = router.journal.tail(None)
+        migrated = [r for r in recs if r["kind"] == "migrate_import"]
+        assert migrated and migrated[-1]["replica"] == drained["member"]
+        assert migrated[-1]["tokens"] == held[0]
+        assert router.failover_count == 0
+        att = flight.attempt
+        assert att.member.name != drained["member"]
+        assert list(att.prior_ids) + list(att.token_ids) == want_ids
+        assert "".join(i.text for i in items if i.kind == "token") \
+            == want_text
+        assert check_no_dropped_streams(recs) == []
+    finally:
+        router.stop()
+        for srv in servers:
+            stop_server(srv)

@@ -127,3 +127,61 @@ def test_two_users_concurrently(server):
     # The fair-share core accounted both users' requests as served.
     users = server.engine.core.snapshot()["users"]
     assert users["dave"]["processed"] == 1 and users["erin"]["processed"] == 1
+
+
+def _sse(data):
+    return [json.loads(line[len("data: "):])
+            for line in data.decode().splitlines()
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+def test_images_ignored_is_loud(server):
+    """Image payloads get an explicit `warnings` field, streamed or not,
+    on each route that takes them (the JAX package's test_api.py case,
+    with the streamed and non-streamed mode of every route): no vision
+    path exists, so a text-only answer is never silent."""
+    png = "aGVsbG8="  # content is irrelevant; presence is the contract
+    opts = {"options": GREEDY}
+    # /api/generate: top-level images.
+    for stream in (False, True):
+        status, _, data = _call(server, "POST", "/api/generate", {
+            "model": "test-tiny", "prompt": "what is this?",
+            "stream": stream, "images": [png], **opts})
+        assert status == 200
+        last = [json.loads(x) for x in data.decode().splitlines()][-1]
+        assert last["done"] and "images ignored" in last["warnings"][0]
+    # /api/chat: a message's images.
+    for stream in (False, True):
+        status, _, data = _call(server, "POST", "/api/chat", {
+            "model": "test-tiny", "stream": stream, **opts,
+            "messages": [{"role": "user", "content": "hi",
+                          "images": [png]}]})
+        assert status == 200
+        lines = [json.loads(x) for x in data.decode().splitlines()]
+        assert any("images ignored" in w
+                   for x in lines for w in x.get("warnings", []))
+        assert "warnings" in lines[-1] and lines[-1]["done"]
+    # /v1/chat/completions: an image_url content part.
+    messages = [{"role": "user", "content": [
+        {"type": "text", "text": "hi"},
+        {"type": "image_url", "image_url": {"url": "data:x"}}]}]
+    status, _, data = _call(server, "POST", "/v1/chat/completions", {
+        "model": "test-tiny", "max_tokens": 4, "messages": messages})
+    assert status == 200
+    assert "images ignored" in json.loads(data)["warnings"][0]
+    status, _, data = _call(server, "POST", "/v1/chat/completions", {
+        "model": "test-tiny", "max_tokens": 4, "stream": True,
+        "messages": messages})
+    assert status == 200
+    chunks = _sse(data)
+    assert any("images ignored" in w
+               for c in chunks for w in c.get("warnings", []))
+    assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+    # No images => no warnings field at all, in either mode.
+    status, _, data = _call(server, "POST", "/api/generate", {
+        "model": "test-tiny", "prompt": "hi", "stream": False, **opts})
+    assert "warnings" not in json.loads(data)
+    status, _, data = _call(server, "POST", "/v1/chat/completions", {
+        "model": "test-tiny", "max_tokens": 4, "stream": True,
+        "messages": [{"role": "user", "content": "hi"}]})
+    assert not any("warnings" in c for c in _sse(data))
