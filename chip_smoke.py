@@ -245,10 +245,45 @@ Phases, each printing JSON lines; any failure exits non-zero:
            Records seconds from the scale-up decision to a0's join, the
            scaler's wake_wait_s, and torch.cuda.memory_allocated before
            a0's provision against after its retire.
+  serve-ha router HA: two `python -m ollamamq_tpu_torch.cli` members on
+           the card (llama3.2:1b, float32, seeded, started in parallel)
+           behind an --ha primary router (--replicas 0 --replica-urls,
+           --wal-fsync-ms 2, --takeover-grace-s 1.0: no engine, no
+           device). One greedy 160-token stream through the primary is
+           the reference; then a standby (--standby-of) catches up
+           through the snapshot and sheds a request; 4 users' greedy
+           160-token streams (one repeats the reference's prompt) run
+           through the primary, observed through GET /api/stream/{rid};
+           once each is 16 tokens in (as its member generated them: the
+           router's frames carry ids only where a member wrote text,
+           which the seeded model's ids rarely decode to) and the
+           standby's replica holds every admission, kill -9 of the
+           primary; each client resumes on the promoted standby from
+           where it stopped reading, then replays from 0. The old primary revives on its WAL dir until the
+           members fence it; a second standby of the promoted router
+           then takes over on a SIGTERM handover and serves a 32-token
+           stream. Gates: catch-up (standby, epoch 1, lag 0, the
+           reference finished in the replica), a 429/503 shed with
+           Retry-After, promotion to epoch 2 with router_takeover done
+           (why primary_dead, takeover_ms), 4 of 4 streams resumed to
+           stop/length, the repeated prompt's ids equal the reference's,
+           every replay equal to what was read before and after, at
+           least one fenced call while the promoted router serves on,
+           the handover (exit 0, done why handover at epoch 3),
+           check_files and check_invariants clean over every spill of
+           the surviving run, no WAL degraded, 0 pages used, and on
+           each member both float32-pool kernels launched over the
+           phase, the ragged one after the kill (the promotion's replay
+           prefill) and the decode one after the orphaned member
+           requests ended (the resumed decode). Records kill to standby
+           serving, takeover_ms, kill to the first resumed token, the
+           sync lag at the kill, SIGTERM to the second standby serving,
+           the 4-stream window's tokens/s (the members' generated-token
+           counters) and the fenced calls.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-durable's,
-serve-fleet's, serve-tiers' and serve-autoscale's, counted in
+serve-fleet's, serve-tiers', serve-autoscale's and serve-ha's, counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
 ms go uncounted; the others' whole windows from the counts they log at
@@ -3372,6 +3407,431 @@ def serve_autoscale_phase(report) -> None:
         raise SystemExit(f"serve-autoscale gates failed: {gates}")
 
 
+# -- serve-ha: router HA over CLI members on the card -----------------------
+HA_NEW = FLEET_NEW
+HA_USERS = {"ha-ada": "Tell me about fair queues. ",
+            "ha-bob": "Why page the KV cache? ",
+            "ha-cyd": "Explain the decode kernel. ",
+            "ha-ref": "Who keeps the fleet up when the router dies? "}
+HA_REF_USER = "ha-ref"  # the 4-stream window repeats the reference's prompt
+HA_GRACE_S = "1.0"
+OWN_F32 = ("ragged_paged_attention", "paged_decode_attention")
+
+
+class _Proc:
+    """`python -m ollamamq_tpu_torch.cli ARGS` in a subprocess, its output
+    in the phase's log file."""
+
+    def __init__(self, name: str, args: list, port: int):
+        self.name, self.port = name, port
+        self.log = open(os.path.join(OUT_DIR, f"serve-ha-{name}.log"), "ab")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--no-tui",
+             "--port", str(port), "--timeout-s", "600",
+             "--blocklist", os.path.join(OUT_DIR, f"blocked-ha-{name}.json"), *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def health(self, ok=lambda h: h.get("status") != "recovering", budget=300.0):
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise SystemExit(f"serve-ha: {self.name} exited {self.proc.returncode} "
+                                 f"(log {self.log.name})")
+            try:
+                h = json.loads(_get(self.port, "/health"))
+                if ok(h):
+                    return h
+            except (OSError, RuntimeError, ValueError):
+                pass
+            time.sleep(0.05)
+        raise SystemExit(f"serve-ha: {self.name} never reached the wanted state")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+    def close(self) -> None:
+        self.kill()
+        self.log.close()
+
+
+class _HaClient:
+    """One user's greedy stream through a router: the /api/generate
+    connection (its X-Request-ID header names the stream) and an observer
+    of its frames through GET /api/stream/{rid}, one frame per token."""
+
+    def __init__(self, port: int, user: str, prompt: str, n: int = HA_NEW):
+        self.user, self.port = user, port
+        self.body = {"model": FLEET_MODEL, "prompt": prompt, "stream": True,
+                     "options": {"temperature": 0, "repeat_penalty": 1.0,
+                                 "num_predict": n}}
+        self.frames, self.done, self.rid, self.gen_done = [], None, None, None
+        self.reading = True
+        self._gen = threading.Thread(target=self._generate, daemon=True)
+        self._gen.start()
+        deadline = time.monotonic() + 300
+        while self.rid is None:
+            if time.monotonic() > deadline or self.gen_done is not None:
+                raise SystemExit(f"serve-ha: {user}'s stream never started: "
+                                 f"{self.gen_done}")
+            time.sleep(0.002)
+        self._obs = threading.Thread(target=self._observe, daemon=True)
+        self._obs.start()
+
+    def _generate(self) -> None:
+        try:
+            r = _ndjson(self.port, "POST", "/api/generate", self.body, self.user)
+            self.rid = int(r.getheader("X-Request-ID"))
+            for raw in r:
+                f = json.loads(raw)
+                if f.get("done"):
+                    self.gen_done = f.get("error") or f["done_reason"]
+                    return
+            self.gen_done = "closed without a done frame"
+        except Exception as e:  # noqa: BLE001 — the router may be killed
+            self.gen_done = f"connection: {type(e).__name__}"
+
+    def _observe(self) -> None:
+        try:
+            for raw in _ndjson(self.port, "GET", f"/api/stream/{self.rid}?from=0",
+                               user=self.user):
+                if not self.reading:
+                    return
+                f = json.loads(raw)
+                if f.get("done"):
+                    self.done = f.get("error") or f["done_reason"]
+                    return
+                self.frames.append((f["token_ids"][0] if f.get("token_ids") else -1,
+                                    f["response"]))
+        except Exception:  # noqa: BLE001 — killed under it
+            return
+
+    def ids(self):
+        return [t for t, _ in self.frames if t >= 0]
+
+    def wait_done(self, budget=600.0):
+        self._obs.join(timeout=budget)
+        return self.done
+
+
+def _generated(members: dict, users) -> dict:
+    """{user: tokens its live member-side request has generated}, from
+    the members' request traces (a decode event every 16 tokens). The
+    router's frames carry ids only where the member wrote text, so its
+    clients read the seeded model's tokens in bursts; the members see
+    every one."""
+    out = {}
+    for mp in members.values():
+        for row in json.loads(_get(mp.port, "/debug/requests?recent=0"))["inflight"]:
+            if row.get("user") not in users:
+                continue
+            tl = json.loads(_get(mp.port, f"/debug/requests/{row['req_id']}"))
+            n = max([e.get("args", {}).get("tokens", 0) for e in tl.get("events", [])
+                     if e["name"] == "decode"]
+                    + [1 for e in tl.get("events", []) if e["name"] == "first_token"]
+                    + [0])
+            out[row["user"]] = max(out.get(row["user"], 0), n)
+    return out
+
+
+def _member_launches(port) -> dict:
+    return json.loads(_get(port, "/health"))["kernel_launches"]
+
+
+def _series_total(port, series: str) -> float:
+    m = _parse_prometheus(_get(port, "/metrics").decode())
+    return sum(v for (name, _), v in m.items() if name == series)
+
+
+def _fenced(port) -> float:
+    return _series_total(port, "ollamamq_ha_fenced_calls_total")
+
+
+def _spill_records(path):
+    from ollamamq_tpu_torch.telemetry.journal import load_jsonl
+
+    return load_jsonl(path)[1]
+
+
+def serve_ha_phase(report) -> None:
+    """Router HA on the card (module docstring, serve-ha)."""
+    from ollamamq_tpu_torch.durability import load_wal_records
+    from ollamamq_tpu_torch.telemetry.journal import check_invariants
+    from ollamamq_tpu_torch.tools.journal import check_files
+
+    t_phase = time.monotonic()
+    card = card_line()
+    root = os.path.join(OUT_DIR, "ha")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def path(name):
+        return os.path.join(root, name)
+
+    member_args = [*FLEET_ARGS, *FLEET_DEVICE_ARGS, "--model", FLEET_MODEL,
+                   "--dtype", "float32", "--stop-grace-s", "60"]
+    members = {m: _Proc(f"member-{m}", member_args + ["--journal-file", path(f"m{m}.jsonl")],
+                        _free_port()) for m in ("a", "b")}
+    urls = ",".join(f"http://127.0.0.1:{p.port}" for p in members.values())
+    router_args = ["--model", FLEET_MODEL, "--replicas", "0", "--replica-urls", urls,
+                   "--max-new-tokens", str(HA_NEW), "--wal-fsync-ms", "2",
+                   "--takeover-grace-s", HA_GRACE_S, "--stop-grace-s", "60"]
+    ports = {k: _free_port() for k in ("p", "s1", "s2")}
+
+    def primary(tag=""):
+        return _Proc(f"primary{tag}", router_args + [
+            "--ha", "--wal-dir", path("wal-p"), "--journal-file", path(f"primary{tag}.jsonl")],
+            ports["p"])
+
+    def standby(name, of):
+        return _Proc(name, router_args + [
+            "--standby-of", f"http://127.0.0.1:{ports[of]}", "--wal-dir", path(f"wal-{name}"),
+            "--journal-file", path(f"{name}.jsonl")], ports[name])
+
+    procs = list(members.values())
+    try:
+        t0 = time.monotonic()
+        for m in members.values():
+            m.health()
+        members_up_s = time.monotonic() - t0
+        k0 = {m: _member_launches(p.port) for m, p in members.items()}
+        p = primary()
+        procs.append(p)
+        p.health(lambda h: h.get("role") == "primary")
+        # 1. The reference: one uninterrupted greedy stream, before the
+        # standby exists (its catch-up then goes through the snapshot).
+        ref = _HaClient(ports["p"], HA_REF_USER, HA_USERS[HA_REF_USER])
+        ref_done = ref.wait_done()
+        ref_ids = ref.ids()
+        # 2. The standby: caught up through the snapshot, shedding.
+        s1 = standby("s1", "p")
+        procs.append(s1)
+        t_s1 = time.monotonic()
+        h_s1 = s1.health(lambda h: h.get("sync_lag_records") == 0)
+        catchup_s = time.monotonic() - t_s1
+        replica = load_wal_records(os.path.join(path("wal-s1"), "wal.jsonl"))[0]
+        shed = _post_status(ports["s1"], {"model": FLEET_MODEL, "prompt": "hi",
+                                          "stream": False}, "shed")
+        # 3. Four users' greedy streams through the primary.
+        gen0 = sum(_series_total(mp.port, "ollamamq_tokens_generated_total")
+                   for mp in members.values())
+        t_win = time.monotonic()
+        clients = [_HaClient(ports["p"], u, prompt) for u, prompt in HA_USERS.items()]
+        # 4. Kill -9 once every stream is 16 tokens in (as its member
+        # generated them: the router's clients read the seeded model's
+        # ids in bursts, where its member wrote text) and the standby's
+        # replica holds every admission (replication is asynchronous: a
+        # stream admitted inside the last poll window is the primary's
+        # alone).
+        deadline = time.monotonic() + 300
+        while True:
+            rep = load_wal_records(os.path.join(path("wal-s1"), "wal.jsonl"))[0]
+            gen = _generated(members, HA_USERS)
+            if (len(gen) == len(HA_USERS) and min(gen.values()) >= 16
+                    and all(c.rid in rep for c in clients)):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit("serve-ha: the streams never reached 16 replicated tokens")
+            time.sleep(0.005)
+        for c in clients:
+            c.reading = False
+        pre = {c.user: list(c.frames) for c in clients}
+        window_s = time.monotonic() - t_win
+        lag_standby = json.loads(_get(ports["s1"], "/health"))["sync_lag_records"]
+        lag_primary = json.loads(_get(ports["p"], "/health"))["sync_lag_records"]
+        orphans = {m: {r["req_id"] for r in json.loads(
+            _get(mp.port, "/debug/requests"))["inflight"]} for m, mp in members.items()}
+        gen_at_kill = gen
+        t_kill = time.monotonic()
+        p.kill()
+        window_generated = sum(_series_total(mp.port, "ollamamq_tokens_generated_total")
+                               for mp in members.values()) - gen0
+        k_kill = {m: _member_launches(mp.port) for m, mp in members.items()}
+        h_prom = s1.health(lambda h: h.get("role") == "primary"
+                           and h.get("status") != "recovering", budget=120)
+        kill_to_serving_s = time.monotonic() - t_kill
+        resumed, firsts = {}, {}
+
+        def resume(c):
+            n = sum(1 for t, _ in pre[c.user] if t >= 0)
+            resumed[c.user] = _resume(ports["s1"], c.user, c.rid, n)
+
+        threads = [threading.Thread(target=resume, args=(c,)) for c in clients]
+        for t in threads:
+            t.start()
+        # The members' pre-kill requests (orphans: their client died
+        # with the primary) end once their server notices; from then on,
+        # the promotion done, the members decode only what it
+        # re-admitted (read at that point: k_clear).
+        deadline = time.monotonic() + 300
+        while True:
+            live = {m: {r["req_id"] for r in json.loads(
+                _get(mp.port, "/debug/requests"))["inflight"]} for m, mp in members.items()}
+            if not any(live[m] & orphans[m] for m in members):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit("serve-ha: the orphaned member requests never ended")
+            time.sleep(0.01)
+        k_clear = {m: _member_launches(mp.port) for m, mp in members.items()}
+        resumed_live_at_clear = sum(len(v - orphans[m]) for m, v in live.items())
+        for t in threads:
+            t.join(timeout=600)
+        k_resumed = {m: _member_launches(mp.port) for m, mp in members.items()}
+        replay = {c.user: _resume(ports["s1"], c.user, c.rid, 0)[0] for c in clients}
+        for c in clients:
+            firsts[c.user] = resumed[c.user][2]
+        # 5. The zombie: the old primary revived on its WAL dir until the
+        # members fence one of its calls.
+        z = primary("-zombie")
+        procs.append(z)
+        f0 = sum(_fenced(mp.port) for mp in members.values())
+        deadline = time.monotonic() + 120
+        while sum(_fenced(mp.port) for mp in members.values()) - f0 < 1:
+            if time.monotonic() > deadline or z.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        fenced = {m: _fenced(mp.port) for m, mp in members.items()}
+        z.kill()
+        after_zombie = _HaClient(ports["s1"], "ha-after-zombie", "Still serving? ", n=8)
+        after_zombie_done = after_zombie.wait_done()
+        # 6. Chained HA: a standby of the promoted router, then SIGTERM
+        # the promoted router: it hands over and exits 0.
+        s2 = standby("s2", "s1")
+        procs.append(s2)
+        s2.health(lambda h: h.get("sync_lag_records") == 0)
+        health_s1_end = json.loads(_get(ports["s1"], "/health"))
+        t_term = time.monotonic()
+        s1.proc.send_signal(signal.SIGTERM)
+        s1_rc = s1.proc.wait(timeout=120)
+        h_s2 = s2.health(lambda h: h.get("role") == "primary"
+                         and h.get("status") != "recovering", budget=120)
+        term_to_serving_s = time.monotonic() - t_term
+        last = _HaClient(ports["s2"], "ha-last", "And after the handover? ", n=32)
+        last_done = last.wait_done()
+        health_s2_end = json.loads(_get(ports["s2"], "/health"))
+        s2.proc.send_signal(signal.SIGTERM)
+        s2_rc = s2.proc.wait(timeout=120)
+        deadline = time.monotonic() + 120
+        while True:
+            mh = {m: json.loads(_get(mp.port, "/health")) for m, mp in members.items()}
+            used = {m: sum(r["pages_used"] for r in h["runtimes"]) for m, h in mh.items()}
+            if not any(used.values()) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        k_end = {m: h["kernel_launches"] for m, h in mh.items()}
+        member_rc = {}
+        for m, mp in members.items():
+            mp.proc.send_signal(signal.SIGTERM)
+            member_rc[m] = mp.proc.wait(timeout=180)
+        exit_launches = {m: _exit_launches(mp.log.name) for m, mp in members.items()}
+    finally:
+        for pr in procs:
+            pr.close()
+
+    def grew(a, b, keys=OWN_F32):
+        return {k: b[k] - a[k] for k in keys}
+
+    takeovers = {n: [r for r in _spill_records(path(f"{n}.jsonl"))
+                     if r.get("kind") == "router_takeover"] for n in ("s1", "s2")}
+    done1 = next((r for r in takeovers["s1"] if r.get("phase") == "done"), None)
+    done2 = next((r for r in takeovers["s2"] if r.get("phase") == "done"), None)
+    spills = [path(n) for n in ("primary.jsonl", "s1.jsonl", "s2.jsonl", "ma.jsonl", "mb.jsonl",
+                                os.path.join("wal-s1", "primary-journal.jsonl"),
+                                os.path.join("wal-s2", "primary-journal.jsonl"))]
+    spills = [s for s in spills if os.path.exists(s)]
+    audit_bad, audit_total = check_files(spills)
+    invariants = {os.path.relpath(s, root): check_invariants(_spill_records(s)) for s in spills}
+
+    def joined(frames):
+        return [t for t, _ in frames if t >= 0], "".join(x for _, x in frames)
+
+    streams = {}
+    for c in clients:
+        pre_ids, pre_text = joined(pre[c.user])
+        post_ids, post_text = joined(resumed[c.user][0])
+        rp_ids, rp_text = joined(replay[c.user])
+        streams[c.user] = {"rid": c.rid, "read_before_kill": len(pre_ids),
+                           "resumed": len(post_ids), "done": resumed[c.user][1],
+                           "replay_equal": rp_ids == pre_ids + post_ids
+                           and rp_text == pre_text + post_text,
+                           "ids": pre_ids + post_ids}
+    rs = streams[HA_REF_USER]
+    ref_row = next((e for e in replica.values()
+                    if e["finished"] is not None and e["admit"].get("user") == HA_REF_USER), None)
+    window_tokens = sum(len(joined(v)[0]) for v in pre.values())
+    per_member = {m: {"phase": grew(k0[m], k_end[m]), "after_kill": grew(k_kill[m], k_resumed[m]),
+                      "after_orphans": grew(k_clear[m], k_resumed[m])} for m in members}
+    launches = {k: sum(exit_launches[m][k] for m in members) for k in exit_launches["a"]}
+    gates = {
+        "catch_up": h_s1["status"] == "standby" and h_s1["epoch"] == 1
+        and h_s1["sync_lag_records"] == 0 and ref_row is not None
+        and ref_row["finished"] == ref_done,
+        "reference": ref_done in ("stop", "length") and len(ref_ids) > 16,
+        "shed": shed[0] in (429, 503) and shed[1] is not None,
+        "promoted_epoch_2": h_prom["role"] == "primary" and h_prom["epoch"] == 2,
+        "takeover_done": done1 is not None and done1["why"] == "primary_dead"
+        and done1["epoch"] == 2 and done1.get("takeover_ms") is not None,
+        "resumed_4_of_4": all(s["done"] in ("stop", "length") for s in streams.values())
+        and all(s["resumed"] > 0 for s in streams.values())
+        and all(n >= 16 for n in gen_at_kill.values()),
+        "repeated_prompt_identical": rs["ids"] == ref_ids,
+        "replays_equal": all(s["replay_equal"] for s in streams.values()),
+        "zombie_fenced": sum(fenced.values()) - f0 >= 1
+        and after_zombie_done in ("stop", "length"),
+        "handover": s1_rc == 0 and done2 is not None and done2["why"] == "handover"
+        and done2["epoch"] == 3 and h_s2["epoch"] == 3
+        and last_done in ("stop", "length") and len(last.ids()) > 0,
+        "audits": audit_bad == [] and audit_total > 0
+        and all(v == [] for v in invariants.values()),
+        "wal_healthy": all(not h["wal"]["wal"]["dead"] and not any(
+            a["name"] == "wal_degraded" for a in h["alerts"])
+            for h in (h_prom, health_s1_end, health_s2_end)),
+        "no_used_pages": not any(used.values()),
+        "kernels_every_member": all(v > 0 for m in members
+                                    for v in per_member[m]["phase"].values()),
+        # After the kill only the promotion's re-admitted streams
+        # prefill (the orphans are past theirs), and once the orphans
+        # ended (k_clear, read after the promotion) only they decode.
+        "kernels_after_promotion": sum(per_member[m]["after_kill"]["ragged_paged_attention"]
+                                       for m in members) > 0
+        and sum(per_member[m]["after_orphans"]["paged_decode_attention"]
+                for m in members) > 0,
+        "exits_0": s2_rc == 0 and all(rc == 0 for rc in member_rc.values()),
+    }
+    line = {"phase": "serve-ha", "model": FLEET_MODEL, "dtype": "float32",
+            "max_new_tokens": HA_NEW, "users": len(HA_USERS),
+            "takeover_grace_s": float(HA_GRACE_S), "members_up_s": members_up_s,
+            "standby_catchup_s": catchup_s,
+            "kill_to_standby_serving_s": kill_to_serving_s,
+            "takeover_ms": done1.get("takeover_ms") if done1 else None,
+            "kill_to_first_resumed_token_s": (min(t for t in firsts.values() if t)
+                                              - t_kill if any(firsts.values()) else None),
+            "sync_lag_at_kill": {"standby": lag_standby, "primary": lag_primary},
+            "sigterm_to_second_standby_serving_s": term_to_serving_s,
+            "window_tokens_per_s_with_standby": window_generated / window_s,
+            "window_s": window_s, "window_tokens_generated": window_generated,
+            "window_tokens_read_by_clients": window_tokens,
+            "fenced_calls": {m: fenced[m] for m in members},
+            "generated_at_kill": gen_at_kill,
+            "streams": {u: {k: v for k, v in s.items() if k != "ids"}
+                        for u, s in streams.items()},
+            "reference_tokens": len(ref_ids),
+            "first_diff_vs_reference": _first_diff(rs["ids"], ref_ids),
+            "takeovers": {n: [{k: r.get(k) for k in ("phase", "why", "epoch", "from_epoch",
+                                                     "streams", "takeover_ms", "lag")}
+                              for r in recs] for n, recs in takeovers.items()},
+            "audit_records": audit_total, "audit_violations": audit_bad[:5],
+            "resumed_live_when_orphans_ended": resumed_live_at_clear,
+            "launches": launches, "launches_per_member": per_member,
+            "seconds": time.monotonic() - t_phase, "card": card, "gates": gates}
+    emit(line)
+    report["serve_ha"] = line
+    if not all(gates.values()):
+        raise SystemExit(f"serve-ha gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -3540,6 +4000,7 @@ def main(argv=None) -> int:
     serve_fleet_phase(report)
     serve_tiers_phase(report)
     serve_autoscale_phase(report)
+    serve_ha_phase(report)
 
     card = card_line()
     s = report["kernel_summary"]
@@ -3551,7 +4012,8 @@ def main(argv=None) -> int:
                "launches": (report[serve]["launches"][name]
                             + sum(report[p]["launches"][name]
                                   for p in ("serve_durable", "serve_fleet",
-                                            "serve_tiers", "serve_autoscale"))),
+                                            "serve_tiers", "serve_autoscale",
+                                            "serve_ha"))),
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

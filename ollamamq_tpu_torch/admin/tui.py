@@ -10,8 +10,8 @@ from the engine's chip rows (torch.cuda.mem_get_info on a CUDA device).
 The last-decision line reads the decision journal. Serving a fleet
 router adds the replicas chip (healthy / ejected / draining) and the
 router-overhead chip (the placement p99 against its budget); a tiered
-one the tiers line and an elastic one the fleet-size chip. The JAX
-package's HA chip waits for router HA.
+one the tiers line, an elastic one the fleet-size chip and an HA one
+the ha chip (role, epoch, sync lag).
 """
 
 from __future__ import annotations
@@ -143,6 +143,20 @@ def _engine_stats_brief(engine) -> dict:
                 "budget_ms": getattr(engine.ecfg,
                                      "router_overhead_budget_ms", 0.0),
             }
+        except Exception:
+            pass
+    # HA role chip (HA fleets only): `ha primary/3` = role + fencing
+    # epoch. The C++ side renders it red while "promoting" (takeover in
+    # flight) and for a standby that has lost its primary feed.
+    ha_fn = getattr(engine, "ha_status", None)
+    if ha_fn is not None:
+        try:
+            hs = ha_fn()
+            if hs is not None:
+                out["ha"] = {"role": hs.get("role", "?"),
+                             "epoch": hs.get("epoch", 0),
+                             "lag": hs.get("sync_lag_records"),
+                             "synced": hs.get("synced", True)}
         except Exception:
             pass
     # Tiers line (tiered fleets only): healthy/total per tier — the C++

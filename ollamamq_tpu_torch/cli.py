@@ -17,6 +17,10 @@
         --tiers "interactive=r0;bulk=r1,r2"
     python -m ollamamq_tpu_torch.cli --replicas 1 --autoscale \
         --min-replicas 1 --max-replicas 2 --scale-cooldown-s 10
+    python -m ollamamq_tpu_torch.cli --replicas 0 --replica-urls URL,URL \
+        --ha --wal-dir /var/lib/ollamamq/primary
+    python -m ollamamq_tpu_torch.cli --replicas 0 --replica-urls URL,URL \
+        --standby-of http://primary:11434 --wal-dir /var/lib/ollamamq/standby
 
 Runs on the CUDA device unless --device cpu is given, and refuses to
 start when no CUDA device is found. Weights are seeded random (--seed)
@@ -45,8 +49,17 @@ the caps, the WAL and the journal spill; its members run without them.
 other than 1. --autoscale grows and shrinks the fleet between
 --min-replicas and --max-replicas (in-process members from the same
 factory; --fake-engine members as `python -m ollamamq_tpu_torch.cli`
-subprocesses), and implies a fleet even with --replicas 1. --ha and
---standby-of are refused (exit 2): router HA is not ported yet.
+subprocesses), and implies a fleet even with --replicas 1.
+
+--ha runs a fleet router as the HA primary: it replicates its WAL and
+its decision journal over GET /admin/ha/sync, stamps every member call
+with its epoch, and on SIGTERM hands the fleet to a caught-up standby
+instead of draining. --standby-of URL runs a warm standby of that
+primary over the same members: it tails the sync stream into replicas
+in its own --wal-dir, sheds clients (503 + Retry-After), and after
+--takeover-grace-s without a heartbeat promotes at a higher epoch that
+fences the old primary out of the members. --replicas 0 with
+--replica-urls is a router that builds no engine and touches no device.
 """
 
 from __future__ import annotations
@@ -59,8 +72,8 @@ import sys
 
 from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
                                        assign_tiers, get_model_config,
-                                       validate_autoscale, validate_scheduler,
-                                       validate_tiers)
+                                       validate_autoscale, validate_ha,
+                                       validate_scheduler, validate_tiers)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -282,9 +295,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "must hold a third of it before a scale-up, "
                         "idleness all of it before a scale-down. Waking a "
                         "scaled-to-zero tier bypasses it")
-    # Router HA, refused until it is ported.
-    p.add_argument("--ha", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--standby-of", default="", help=argparse.SUPPRESS)
+    # Router HA (fleet/ha.py): a warm-standby router with epoch fencing.
+    p.add_argument("--ha", action="store_true",
+                   default=os.environ.get("HA", "").lower()
+                   in ("1", "true", "yes"),
+                   help="run this fleet router as the HA primary: expose "
+                        "the replication stream (GET /admin/ha/sync: WAL "
+                        "records, decision-journal events and the shadow "
+                        "placement state) a --standby-of router tails, "
+                        "stamp every member-facing call with the router "
+                        "epoch, and on SIGTERM hand the fleet to the "
+                        "caught-up standby instead of draining. Requires "
+                        "--wal-dir and a fleet")
+    p.add_argument("--standby-of", default=os.environ.get("STANDBY_OF", ""),
+                   help="run as the warm standby of the primary router at "
+                        "this base URL: tail its replication stream into "
+                        "local WAL and journal replicas, shed clients with "
+                        "503 + Retry-After meanwhile, and after "
+                        "--takeover-grace-s of heartbeat loss promote: "
+                        "bump the epoch (fencing the old primary if it "
+                        "revives), re-register the members, replay every "
+                        "unfinished stream through recovery, then serve. "
+                        "Requires --wal-dir and --replica-urls naming the "
+                        "same members the primary serves")
+    p.add_argument("--takeover-grace-s", type=float,
+                   default=float(os.environ.get("TAKEOVER_GRACE_S", 3.0)),
+                   help="standby heartbeat-loss grace before promotion; "
+                        "sync polls run at grace/4 (floored at 50ms)")
     p.add_argument("--fake-engine", action="store_true",
                    help="serve deterministic fake tokens (no model, no "
                         "device; for tests)")
@@ -425,10 +462,15 @@ def validate(args) -> str:
         return f"--journal-sample must be in (0, 1], got {args.journal_sample}"
     if args.wal_fsync_ms < 0 or args.stop_grace_s < 0:
         return "--wal-fsync-ms / --stop-grace-s must be >= 0"
-    for flag in ("ha", "standby_of"):
-        if getattr(args, flag):
-            return (f"--{flag.replace('_', '-')} is not ported yet "
-                    "(fleet/ha.py comes with a later slice)")
+    err = validate_ha(args.ha, args.standby_of or None, args.takeover_grace_s,
+                      None if args.no_wal else (args.wal_dir or None),
+                      args.replica_urls or None)
+    if err:
+        return err
+    if args.ha and not is_fleet(args):
+        return ("--ha needs a fleet (--replicas > 1, --replica-urls, or "
+                "--autoscale): the standby re-registers those members at "
+                "takeover")
     if args.tp != 1:
         return (f"--tp {args.tp}: tensor parallelism is not ported yet; "
                 "every engine runs on one device (--tp 1)")
@@ -510,7 +552,9 @@ def engine_config(args) -> EngineConfig:
         journal_rotate_mb=args.journal_rotate_mb, journal_keep=args.journal_keep,
         journal_sample=args.journal_sample,
         wal_dir=None if args.no_wal else (args.wal_dir or None),
-        wal_fsync_ms=args.wal_fsync_ms, replicas=args.replicas,
+        wal_fsync_ms=args.wal_fsync_ms, ha=args.ha,
+        standby_of=args.standby_of or None,
+        takeover_grace_s=args.takeover_grace_s, replicas=args.replicas,
         placement=args.placement, drain_timeout_s=args.drain_timeout_s,
         migrate=not args.no_migrate, migrate_timeout_s=args.migrate_timeout_s,
         router_overhead_budget_ms=args.router_overhead_budget_ms,
@@ -545,6 +589,26 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
     fired = threading.Event()
 
     def run(signum: int) -> None:
+        # HA primary: hand the fleet to the caught-up standby (it
+        # promotes with why="handover") instead of draining the world.
+        # ha_handover quiesces first either way and returns only once
+        # the standby's confirm reply is on its socket; False (no
+        # standby, or it never confirmed) falls through to the drain.
+        handover = getattr(engine, "ha_handover", None)
+        if handover is not None:
+            try:
+                if handover(timeout_s=min(10.0, max(1.0, grace_s))):
+                    log.warning("signal %d: fleet handed over to the "
+                                "standby; exiting 0", signum)
+                    engine.stop()
+                    os._exit(0)
+            except Exception:  # noqa: BLE001
+                log.exception("HA handover failed; draining instead")
+        # An unpromoted standby stops tailing before it stops: it must
+        # not promote while this process shuts down.
+        standby_stop = getattr(getattr(engine, "ha", None), "stop", None)
+        if standby_stop is not None:
+            standby_stop()
         log.warning("signal %d: graceful shutdown; admission stopped, "
                     "draining in-flight work (grace %.0fs)", signum, grace_s)
         engine.quiesce()
@@ -597,7 +661,8 @@ def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
 
     member_cfg = dataclasses.replace(
         ecfg, max_queued=0, max_queued_per_user=0, journal_file=None,
-        wal_dir=None, tiers=None, autoscale=False)
+        wal_dir=None, tiers=None, autoscale=False, ha=False,
+        standby_of=None)
 
     def factory(tp=None):
         # One device per engine: any other width is refused, never built
@@ -627,11 +692,19 @@ def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
                 "--max-new-tokens", str(args.max_new_tokens)])
         else:
             provisioner = LocalProvisioner(factory)
-    return FleetRouter(members, ecfg, blocklist_path=args.blocklist,
-                       fairness=fairness or Fairness.REQUESTS,
-                       placement=args.placement,
-                       drain_timeout_s=args.drain_timeout_s,
-                       provisioner=provisioner)
+    # A standby's router attaches no primary-side coordinator at
+    # construction: it becomes one only at promotion.
+    router = FleetRouter(
+        members, dataclasses.replace(ecfg, ha=False) if args.standby_of else ecfg,
+        blocklist_path=args.blocklist, fairness=fairness or Fairness.REQUESTS,
+        placement=args.placement, drain_timeout_s=args.drain_timeout_s,
+        provisioner=provisioner)
+    if args.standby_of:
+        from ollamamq_tpu_torch.fleet.ha import HAStandby
+
+        router.ha = HAStandby(router, args.standby_of)
+        router.accepting = False  # shed until promotion opens the gate
+    return router
 
 
 def main(argv=None) -> int:
@@ -674,7 +747,15 @@ def main(argv=None) -> int:
                              fairness)
     else:
         engine = build_engine(ecfg, args.blocklist)
-    engine.start()  # a WAL's recovery pass runs here, before serving
+    if args.standby_of:
+        # The standby's router stays unstarted until promotion (no member
+        # probes, no placements, just the replication tail); clients shed
+        # with 503 + Retry-After meanwhile.
+        engine.ha.start()
+        log.warning("warm standby: tailing primary %s (takeover grace "
+                    "%.1fs)", args.standby_of, args.takeover_grace_s)
+    else:
+        engine.start()  # a WAL's recovery pass runs here, before serving
     server = OllamaServer(engine, args.host, args.port, args.timeout,
                           args.allow_all_routes)
     log.info("serving %s on %s:%d (device %s, tui=%s)",

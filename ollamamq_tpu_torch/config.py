@@ -252,6 +252,23 @@ class EngineConfig:
     # its record is on disk; a restart replays unfinished requests.
     wal_dir: Optional[str] = None
     wal_fsync_ms: float = 20.0
+    # -- router HA (fleet/ha.py) ---------------------------------------------
+    # Primary role: replicate WAL records + journal decision events to a
+    # connected warm standby over GET /admin/ha/sync (batched, sequence-
+    # numbered; the standby's poll position is the ack). Requires a WAL
+    # (--wal-dir): the replicated WAL is what a takeover recovers from.
+    ha: bool = False
+    # Standby role: the primary router's base URL to tail. The process
+    # builds the full fleet (same member URLs) but serves nothing until
+    # the primary's heartbeat is lost past the takeover grace — then it
+    # PROMOTES: epoch bump, member re-registration (stale-epoch callers
+    # fenced), WAL-replica recovery re-admission. Mutually exclusive
+    # with --ha.
+    standby_of: Optional[str] = None
+    # Heartbeat-loss window before the standby declares the primary dead
+    # and promotes; also the sync poll cadence's upper bound (the
+    # standby polls at grace/4, floor 50ms).
+    takeover_grace_s: float = 3.0
     # -- fleet router (fleet/router.py) --------------------------------------
     # Engine replicas behind the router (1 = one engine, no router). The
     # router owns the fair-share queues and the bounded-admission caps;
@@ -373,6 +390,34 @@ def validate_autoscale(min_replicas: int, max_replicas: int,
     if replicas > max_replicas:
         return (f"starting fleet size --replicas {replicas} exceeds "
                 f"--max-replicas {max_replicas}")
+    return None
+
+
+def validate_ha(ha: bool, standby_of: Optional[str],
+                takeover_grace_s: float, wal_dir: Optional[str],
+                fleet: Optional[str]) -> Optional[str]:
+    """--ha/--standby-of validation before any device work: an error
+    string, or None when valid."""
+    if not ha and not standby_of:
+        return None
+    if ha and standby_of:
+        return ("--ha and --standby-of are mutually exclusive: a process "
+                "is the primary or the standby, never both")
+    if takeover_grace_s <= 0:
+        return (f"--takeover-grace-s must be > 0, got {takeover_grace_s}")
+    if not wal_dir:
+        flag = "--ha" if ha else "--standby-of"
+        return (f"{flag} requires --wal-dir: the replicated WAL is what "
+                "a takeover recovers unfinished streams from")
+    if standby_of:
+        if not (standby_of.startswith("http://")
+                or standby_of.startswith("https://")):
+            return (f"--standby-of must be the primary router's http(s) "
+                    f"base URL, got {standby_of!r}")
+        if not fleet:
+            return ("--standby-of requires --replica-urls with the SAME "
+                    "member URLs the primary serves: promotion "
+                    "re-registers those members under the new epoch")
     return None
 
 

@@ -210,6 +210,12 @@ class DurabilityManager:
             self._drainer = None
         self.wal.close()
 
+    def wal_snapshot(self, mark=None) -> List[str]:
+        """(HA) The current WAL generation's raw lines after a forced
+        flush, the standby's cold catch-up payload. `mark` runs at the
+        snapshot edge (see RequestWAL.snapshot_lines)."""
+        return self.wal.snapshot_lines(mark=mark)
+
     def _on_degrade(self, msg: str) -> None:
         if self.alerts is not None:
             try:

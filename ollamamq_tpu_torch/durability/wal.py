@@ -31,6 +31,15 @@ become no-ops, serving continues un-journaled.
 
 The record keys and value types are the JAX package's, line for line,
 so either package recovers the other's WAL.
+
+Router HA (fleet/ha.py) taps the WAL twice: `mirror` sees every record
+as it is buffered (the replication ring), and `snapshot_lines(mark=)`
+hands a cold standby the whole file. Lock order is `_io_lock`, then
+`_lock`, then the coordinator's lock: the mirror runs under `_lock`, and
+the snapshot holds `_io_lock` from its flush through its file read and
+calls `mark` in the same `_lock` section that swaps the buffer out, so
+the mark is exactly the snapshot's edge (every record at or below it is
+in the lines, every one past it is not).
 """
 
 from __future__ import annotations
@@ -118,6 +127,20 @@ class RequestWAL:
         self._flusher: Optional[threading.Thread] = None
         self.bytes_written = 0
         self.fsyncs = 0
+        # Optional replication mirror (fleet/ha.py): called under `_lock`
+        # with each record dict as it is buffered, so a warm standby's
+        # replica tracks this WAL within a sync batch. Exceptions are
+        # contained: replication trouble must not break the ACK path.
+        self.mirror = None
+
+    def _mirrored(self, rec: dict) -> dict:
+        m = self.mirror
+        if m is not None:
+            try:
+                m(rec)
+            except Exception:  # noqa: BLE001
+                pass
+        return rec
 
     # -- lifecycle ---------------------------------------------------------
     def read_existing(self) -> Tuple[Dict[int, dict], int]:
@@ -182,7 +205,7 @@ class RequestWAL:
             return 0.0
         t0 = time.monotonic()
         with self._cond:
-            self._buf.append(json.dumps(rec))
+            self._buf.append(json.dumps(self._mirrored(rec)))
             self._appended += 1
             target = self._appended
             if self._fh is None:
@@ -205,8 +228,8 @@ class RequestWAL:
         if self.dead or not items:
             return
         with self._lock:
-            self._buf.append(json.dumps(
-                {"k": "tok", "rid": rid, "items": items}))
+            self._buf.append(json.dumps(self._mirrored(
+                {"k": "tok", "rid": rid, "items": items})))
             self._appended += 1
             self._cond.notify()  # wake an idle flusher
 
@@ -214,10 +237,30 @@ class RequestWAL:
         if self.dead:
             return
         with self._lock:
-            self._buf.append(json.dumps(
-                {"k": "fin", "rid": rid, "reason": reason}))
+            self._buf.append(json.dumps(self._mirrored(
+                {"k": "fin", "rid": rid, "reason": reason})))
             self._appended += 1
             self._cond.notify()
+
+    def snapshot_lines(self, mark=None) -> List[str]:
+        """(HA cold catch-up) Flush everything buffered, then return the
+        current generation's raw JSONL lines. `_io_lock` is held from the
+        flush to the end of the read, so no other flush lands lines past
+        the edge in between; `mark` (optional callback) runs under
+        `_lock` in the section that swaps the buffer out, where mirror
+        calls also run: a replication head captured there is exactly the
+        snapshot's edge. Records at or before it are in these lines,
+        records after it are in the ring, never both."""
+        with self._io_lock:
+            self._flush_io(mark)
+            lines: List[str] = []
+            try:
+                if os.path.exists(self.path):
+                    with open(self.path, encoding="utf-8") as f:
+                        lines = [ln.rstrip("\n") for ln in f if ln.strip()]
+            except OSError:
+                lines = []
+            return lines
 
     # -- flusher -----------------------------------------------------------
     def _flush(self) -> None:
@@ -226,34 +269,41 @@ class RequestWAL:
         write: the engine thread's token appends never wait on an fsync
         (`_io_lock` keeps writers in order)."""
         with self._io_lock:
-            with self._cond:
-                if self._fh is None or self.dead:
-                    self._synced = self._appended
-                    self._cond.notify_all()
-                    return
-                if not self._buf:
-                    return
-                lines, self._buf = self._buf, []
-                target = self._appended
-            t0 = time.monotonic()
-            try:
-                if self.fault_plan is not None:
-                    self.fault_plan.check("wal")
-                data = "\n".join(lines) + "\n"
-                self._fh.write(data)
-                self._fh.flush()
-                os.fsync(self._fh.fileno())
-                self.bytes_written += len(data)
-                self.fsyncs += 1
-                tm.WAL_FSYNC_MS.observe((time.monotonic() - t0) * 1e3)
-                err = None
-            except Exception as e:  # noqa: BLE001 — disk trouble degrades
-                err = e
-            with self._cond:
-                if err is not None:
-                    self._degrade(f"WAL write failed: {err}")
-                self._synced = max(self._synced, target)
+            self._flush_io()
+
+    def _flush_io(self, mark=None) -> None:
+        """(`_io_lock` held) The body of _flush. `mark` runs under `_lock`
+        in the section that takes the buffer (snapshot_lines)."""
+        with self._cond:
+            if mark is not None:
+                mark()
+            if self._fh is None or self.dead:
+                self._synced = self._appended
                 self._cond.notify_all()
+                return
+            if not self._buf:
+                return
+            lines, self._buf = self._buf, []
+            target = self._appended
+        t0 = time.monotonic()
+        try:
+            if self.fault_plan is not None:
+                self.fault_plan.check("wal")
+            data = "\n".join(lines) + "\n"
+            self._fh.write(data)
+            self._fh.flush()
+            os.fsync(self._fh.fileno())
+            self.bytes_written += len(data)
+            self.fsyncs += 1
+            tm.WAL_FSYNC_MS.observe((time.monotonic() - t0) * 1e3)
+            err = None
+        except Exception as e:  # noqa: BLE001 — disk trouble degrades
+            err = e
+        with self._cond:
+            if err is not None:
+                self._degrade(f"WAL write failed: {err}")
+            self._synced = max(self._synced, target)
+            self._cond.notify_all()
 
     def _flush_loop(self) -> None:
         """Sleep until a record is buffered, flush, then hold off one

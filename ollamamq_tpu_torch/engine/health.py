@@ -22,7 +22,9 @@ The JAX package's watchdog on the engine's torch device:
   - on a fleet router: replicas heartbeat-stale or ejected
     (replica_stale), a placement-overhead p99 over its budget
     (router_overhead), tier regroups or autoscaler events flapping
-    (regroup_storm, scale_storm).
+    (regroup_storm, scale_storm);
+  - router HA: a standby trailing the primary or gone silent
+    (standby_lag), a promotion in flight too long (takeover_stuck).
 
 HBM headroom (`device_memory`) reads torch.cuda.mem_get_info and the
 caching allocator's counters; the engine's HBM timeline and chip rows
@@ -31,8 +33,8 @@ and the admin TUI read it.
 Every detection raises a named alert through the engine's AlertManager
 (telemetry/slo.py) — the same table the SLO burn-rate evaluator feeds —
 so /health, /metrics (`ollamamq_slo_alerts_firing`) and the TUI alerts
-panel show one picture. The HA and worker-host rules of the JAX
-package wait for those modules.
+panel show one picture. The worker-host rules of the JAX package wait
+for the multi-host layers.
 """
 
 from __future__ import annotations
@@ -81,6 +83,15 @@ REGROUP_STORM_PER_MIN = 4.0
 # ollamamq_watchdog_stalls_total{kind="scale"}: a flapping scaler is a
 # watchdog-grade malfunction, not graceful degradation.
 SCALE_STORM_PER_MIN = 6.0
+# Router-HA rules (--ha primaries): a standby whose replication cursor
+# trails the primary by more than this many records — or that stopped
+# polling entirely — would lose that much admitted/progress state at
+# takeover (alert "standby_lag", kind "standby"). And a promotion that
+# has been in flight longer than this is wedged, not slow: recovery
+# re-admission is hung while the fleet has no serving router (alert
+# "takeover_stuck", kind "takeover").
+STANDBY_LAG_ALERT_RECORDS = 2048
+TAKEOVER_STUCK_S = 30.0
 
 
 def device_memory(device) -> Optional[dict]:
@@ -290,6 +301,7 @@ class HealthMonitor:
         self._check_regroup_storm()
         self._check_scale_storm()
         self._check_router_overhead()
+        self._check_ha()
         self._check_journal_invariants()
 
         slo = getattr(self.engine, "slo", None)
@@ -412,6 +424,40 @@ class HealthMonitor:
                 "is eating the latency budget", source="watchdog")
         else:
             alerts.resolve("router_overhead")
+
+    def _check_ha(self) -> None:
+        """Router-HA watchdog rules (engines exposing ha_status; None =
+        HA off). Both route through _alert — a lagging/lost standby and
+        a wedged promotion are exactly the failures HA exists to
+        prevent, so each fire transition counts into
+        ollamamq_watchdog_stalls_total{kind="standby"|"takeover"}."""
+        hs_fn = getattr(self.engine, "ha_status", None)
+        hs = hs_fn() if hs_fn is not None else None
+        if hs is None:
+            return
+        role = hs.get("role")
+        if role == "primary":
+            lag = hs.get("sync_lag_records")
+            # lag None = no standby has EVER polled (single-router HA
+            # primary is a config choice, not a fault); once one has,
+            # losing it or trailing past the threshold is alert-worthy.
+            bad = lag is not None and (
+                lag > STANDBY_LAG_ALERT_RECORDS
+                or not hs.get("standby_connected", True))
+            self._alert(
+                "standby_lag", bad, "warn",
+                (f"standby replication lag {lag} record(s) (threshold "
+                 f"{STANDBY_LAG_ALERT_RECORDS}) or standby disconnected "
+                 "— a takeover NOW would replay from that far behind"),
+                "standby")
+        stuck = (role == "promoting"
+                 and hs.get("promote_elapsed_s", 0.0) > TAKEOVER_STUCK_S)
+        self._alert(
+            "takeover_stuck", stuck, "page",
+            (f"router takeover in flight for "
+             f"{hs.get('promote_elapsed_s', 0):.0f}s (budget "
+             f"{TAKEOVER_STUCK_S:g}s) — recovery re-admission is wedged "
+             "while the fleet has no serving router"), "takeover")
 
     def _check_journal_invariants(self) -> None:
         """The invariant sweep over the decision journal's ring: a

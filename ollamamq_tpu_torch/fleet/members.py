@@ -21,8 +21,9 @@ The router is the ONLY consumer of an attempt's TokenStream: member-side
 terminal items (including the CANCELLED ack of an eviction) are routing
 signals, not client output; the router decides what the client sees.
 The tier and retire fields are read by the fleet's policy layers
-(fleet/tiering.py, fleet/autoscaler.py); the epoch field waits for
-router HA, which this package does not have yet.
+(fleet/tiering.py, fleet/autoscaler.py), the epoch and fenced fields by
+router HA (fleet/ha.py): every member-facing call carries the router's
+epoch, and a member that fenced it fails its streams terminally.
 """
 
 from __future__ import annotations
@@ -762,15 +763,24 @@ class HttpMember(_MemberBase):
                     stream.push(StreamItem("error", finish_reason=reason,
                                            error=str(obj["error"])))
                     return
-                ids = obj.get("token_ids") or ()
-                att.token_ids.extend(int(t) for t in ids)
+                ids = [int(t) for t in obj.get("token_ids") or ()]
+                att.token_ids.extend(ids)
                 txt = obj.get("response", "")
                 if txt:
                     att.n_items += 1
                     att.text_parts.append(txt)
+                # One token item per id, the frame's text on the last: a
+                # frame carries the ids of the text-less tokens before
+                # it (and the done frame the rest), and the router's WAL
+                # and stream registry must hold every id for a recovery
+                # to replay in token space. A frame without ids is one
+                # text item (-1), as the JAX package reads every frame.
+                for t in ids[:-1]:
+                    stream.push(StreamItem("token", text="", token_id=t))
+                if ids or txt:
                     stream.push(StreamItem(
                         "token", text=txt,
-                        token_id=int(ids[0]) if len(ids) == 1 else -1))
+                        token_id=ids[-1] if ids else -1))
                 if obj.get("done"):
                     reason = _REASONS.get(obj.get("done_reason", "stop"),
                                           FinishReason.STOP)

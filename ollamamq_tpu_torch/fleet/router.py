@@ -40,12 +40,13 @@ The router presents the same surface the HTTP server expects of an
 engine (core / enqueue_request / cancel / stats / alerts / journal /
 tracer / health ...), so server/app.py serves a fleet unchanged.
 
-This is the JAX package's fleet/router.py, with two of its policy
-layers: replica tiers (fleet/tiering.py, under `tiers`) and the
-autoscaler (fleet/autoscaler.py, under `engine_cfg.autoscale`). Router
-HA (fleet/ha.py) is not in this package yet: asking for it raises
-ValueError at construction. Preemptible members work without the
-autoscaler, as in the JAX package.
+This is the JAX package's fleet/router.py, with its policy layers:
+replica tiers (fleet/tiering.py, under `tiers`), the autoscaler
+(fleet/autoscaler.py, under `engine_cfg.autoscale`) and router HA
+(fleet/ha.py: `epoch` stamps every member-facing call; `engine_cfg.ha`
+attaches the primary's replication coordinator, a standby process gets
+an HAStandby attached by the CLI instead). Preemptible members work
+without the autoscaler, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -146,11 +147,6 @@ class FleetRouter:
                  provisioner=None,
                  autoscale_kw: Optional[dict] = None):
         assert members, "a fleet needs at least one member"
-        # The policy layer still to port: refused by name, never quietly
-        # served as a single-router fleet.
-        if getattr(engine_cfg, "ha", False):
-            raise ValueError("router HA (--ha): fleet/ha.py is not "
-                             "ported yet")
         if placement not in ("affinity", "least_loaded"):
             raise ValueError(f"unknown placement policy {placement!r} "
                              "(want 'affinity' or 'least_loaded')")
@@ -308,6 +304,18 @@ class FleetRouter:
                 provisioner = LocalProvisioner(factory)
             self.autoscaler = AutoscalerManager(
                 self, provisioner, **(autoscale_kw or {}))
+        # Router HA (fleet/ha.py): `epoch` stamps every member-facing
+        # call (members adopt newer epochs and fence older ones, so a
+        # zombie ex-primary can't split-brain the fleet). --ha attaches
+        # the primary-side replication coordinator here; a standby
+        # process gets an HAStandby attached by the CLI instead and
+        # stays unstarted until promotion.
+        self.epoch = 1
+        self.ha = None
+        if getattr(engine_cfg, "ha", False):
+            from ollamamq_tpu_torch.fleet.ha import HACoordinator
+
+            self.ha = HACoordinator(self)
         for mem in self.members:
             self.journal.record("replica_join", replica=mem.name,
                                 why="start")
@@ -321,6 +329,10 @@ class FleetRouter:
         try:
             for mem in self.members:
                 mem.start()  # member starts are idempotent
+            if self.ha is not None and hasattr(self.ha, "on_router_start"):
+                # Stamp every member with our epoch before placements
+                # land.
+                self.ha.on_router_start()
             self._thread = threading.Thread(target=self._loop,
                                             name="fleet", daemon=True)
             self._thread.start()
@@ -333,9 +345,10 @@ class FleetRouter:
                 # survived.
                 self.durability.start(self)
         except Exception:
-            # A partial start must stay retryable: clear the running
-            # flag so a retry re-runs the ladder instead of no-opping,
-            # and wake the fleet thread (if it got up) so it exits.
+            # A partial start must stay retryable (HA promotion retries
+            # start() after an abort): clear the running flag so the
+            # retry re-runs the ladder instead of no-opping, and wake
+            # the fleet thread (if it got up) so it exits.
             self._running = False
             self.notify()
             raise
@@ -450,6 +463,22 @@ class FleetRouter:
                 out.append(mem.name)
         return out
 
+    def ha_status(self) -> Optional[dict]:
+        """Role/epoch/sync-lag readout (None = HA off): /health's role
+        block, the TUI ha chip, and the health watchdog's standby-lag /
+        stuck-takeover rules all read this one dict."""
+        return self.ha.status() if self.ha is not None else None
+
+    def ha_handover(self, timeout_s: float = 10.0) -> bool:
+        """Graceful SIGTERM on an HA primary: quiesce, then hand the
+        fleet to the caught-up standby (it promotes with why="handover")
+        instead of draining the world. False = no standby ever synced or
+        it never confirmed — the caller falls back to a normal drain."""
+        if self.ha is None or not hasattr(self.ha, "request_handover"):
+            return False
+        self.quiesce()
+        return self.ha.request_handover(timeout_s)
+
     def preemption_count(self) -> int:
         return sum(mem.engine.preemption_count()
                    for mem in self.local_members)
@@ -518,6 +547,13 @@ class FleetRouter:
         if not self.accepting:
             self._count_shed("queue_full")
             retry_s = 5.0
+            if self.ha is not None:
+                # Promotion shed: tell clients when the takeover is
+                # EXPECTED to let them in (the measured takeover-cost
+                # EMA), not a blind cold-start clamp.
+                eta = self.ha.promote_eta_s()
+                if eta is not None:
+                    retry_s = eta
             self.journal.record(
                 "shed", user=user, model=model or None, reason="queue_full",
                 queued=self.core.total_queued(), limit=0,

@@ -35,10 +35,17 @@ methods and status codes; "*" accepts any method:
   serving an engine (a fleet member): the KV migration wire, POST
     /admin/migrate/export, /import (a packed blob in; the continuation
     streams out as /api/generate NDJSON), /commit and /abort; GET
-    /debug/trace?ctx= exports the spans of one fleet trace context.
-Left out with router HA, which this package does not have yet:
-/admin/ha/* and the member-side epoch fence. With --allow-all-routes
-every other path answers 501 (no backend to proxy to), else 404. Every
+    /debug/trace?ctx= exports the spans of one fleet trace context;
+  router HA: GET /admin/ha/sync?seq=N[&snap=1][&confirm=1] on a router
+    (409 unless it is an HA primary right now), POST /admin/ha/register
+    on a member, and the member-side epoch fence: a call carrying
+    X-Router-Epoch adopts a higher epoch and gets 409 below the adopted
+    one (/api/generate, /api/embed and the migration wire), persisted in
+    <wal-dir>/member_epoch.json. /health carries the role block (role,
+    epoch, sync lag; a standby reports status "standby" or "promoting")
+    or, on a member, the adopted epoch.
+With --allow-all-routes every other path answers 501 (no backend to
+proxy to), else 404. Every
 route but /health answers 403 to a blocked user or IP. Image inputs
 (`images` on /api/generate and on chat messages, `image_url` content
 parts) are accepted and ignored, and the reply says so in a
@@ -213,6 +220,10 @@ class Handler(BaseHTTPRequestHandler):
         ("POST", "/admin/preempt/{replica}"): "admin_preempt",
         ("GET", "/admin/tiers"): "admin_tiers",
         ("POST", "/admin/retier/{replica}"): "admin_retier",
+        # Router HA: the warm standby's replication poll. Answered on
+        # every router, 409 unless the engine is an HA primary right now
+        # (a promoted standby serves it without a new server).
+        ("GET", "/admin/ha/sync"): "admin_ha_sync",
     }
     # The KV migration wire: only when the engine is an engine (a fleet
     # member); the router's HttpMember speaks it.
@@ -221,6 +232,9 @@ class Handler(BaseHTTPRequestHandler):
         ("POST", "/admin/migrate/import"): "admin_migrate_import",
         ("POST", "/admin/migrate/commit"): "admin_migrate_commit",
         ("POST", "/admin/migrate/abort"): "admin_migrate_abort",
+        # Router HA: a (newly promoted) router claims this member under
+        # its epoch; older epochs are fenced from here on.
+        ("POST", "/admin/ha/register"): "admin_ha_register",
     }
 
     # -- plumbing ------------------------------------------------------------
@@ -360,6 +374,12 @@ class Handler(BaseHTTPRequestHandler):
             raise ApiError(403, f"ip '{ip}' is blocked")
         return user, ip
 
+    def _check_epoch(self, kind: str) -> None:
+        """The epoch fence on a member-facing placement or migration
+        call (OllamaServer.check_epoch)."""
+        self.server.check_epoch(self.headers.get("X-Router-Epoch"), kind,
+                                self.path.partition("?")[0])
+
     def _model(self, body: dict):
         """(name, architecture) of the body's model: 400 when missing, 404
         when the registry does not hold it (never pulled, or deleted), as
@@ -495,6 +515,22 @@ class Handler(BaseHTTPRequestHandler):
             payload["wal"] = eng.durability.status()
             if payload["wal"]["recovering"]:
                 payload["status"] = "recovering"
+        # Router HA role block. A standby answers status "standby" (not
+        # "degraded"): an idle standby is healthy; during promotion the
+        # status says so.
+        hs_fn = getattr(eng, "ha_status", None)
+        hs = hs_fn() if hs_fn is not None else None
+        if hs is not None:
+            payload["role"] = hs.get("role")
+            payload["epoch"] = hs.get("epoch")
+            payload["sync_lag_records"] = hs.get("sync_lag_records")
+            if hs.get("role") in ("standby", "promoting"):
+                payload["status"] = hs["role"]
+        elif self.server.ha_epoch:
+            # Member side: the adopted fencing epoch, so the router's
+            # heartbeat can spot a restarted member that regressed below
+            # the fleet epoch and re-register it.
+            payload["epoch"] = self.server.ha_epoch
         self._send_json(200, payload)
 
     # -- telemetry -----------------------------------------------------------
@@ -760,14 +796,16 @@ class Handler(BaseHTTPRequestHandler):
             out.append(req.embedding or [])
         return out, counts
 
-    def _embed_inputs(self):
+    def _embed_inputs(self, fence: bool = False):
         user, ip = self._ident()
+        if fence:
+            self._check_epoch("placement")
         body = self._read_body()
         model, _cfg = self._model(body)
         return user, ip, model, body
 
     def api_embed(self) -> None:
-        user, ip, model, body = self._embed_inputs()
+        user, ip, model, body = self._embed_inputs(fence=True)
         inputs = body.get("input", "")
         texts = [inputs] if isinstance(inputs, str) else list(inputs)
         vectors, counts = self._embed_batch(user, ip, model, texts)
@@ -795,6 +833,8 @@ class Handler(BaseHTTPRequestHandler):
     # -- generation --------------------------------------------------------
     def api_generate(self) -> None:
         user, ip = self._ident()
+        # A fenced ex-primary must not place work here (member side).
+        self._check_epoch("placement")
         body = self._read_body()
         model, _cfg = self._model(body)
         sampling = SamplingParams.from_ollama_options(
@@ -1146,6 +1186,41 @@ class Handler(BaseHTTPRequestHandler):
             raise ApiError(409, str(e))
         self._send_json(200, {"status": "success", **out})
 
+    # -- router HA -----------------------------------------------------------
+    def admin_ha_sync(self) -> None:
+        """The warm standby's replication poll: `?seq=N` acks everything
+        through N and fetches what follows (records, or a whole-file WAL
+        snapshot on cold start / ring overrun) plus the shadow-state
+        blob. `snap=1` is the standby's one-time initial-snapshot
+        request, `confirm=1` its caught-up handover ack (the only poll
+        that releases a SIGTERM wait). 409 unless this router is an HA
+        primary right now: a standby polled by mistake must not serve an
+        empty stream as truth."""
+        self._ident()
+        ha = getattr(self.server.engine, "ha", None)
+        if ha is None or not hasattr(ha, "sync_batch"):
+            raise ApiError(409, "not an HA primary (no replication "
+                                "stream here)")
+        seq = self._int_query("seq", 0)
+        resp = ha.sync_batch(seq, want_snapshot=self.query.get("snap") == "1",
+                             confirm_handover=self.query.get("confirm") == "1")
+        self._send_json(200, resp)
+        ha.sync_reply_sent(resp)
+
+    def admin_ha_register(self) -> None:
+        """A router (usually a freshly promoted standby) claims this
+        member under its epoch. Equal-or-higher adopts; lower is the
+        zombie ex-primary and fences (409 + journal + metric)."""
+        self._ident()
+        body = self._read_body()
+        try:
+            epoch = int(body["epoch"])
+        except (KeyError, TypeError, ValueError):
+            raise ApiError(400, "'epoch' must be an integer")
+        self.server.check_epoch(epoch, "register",
+                                self.path.partition("?")[0])
+        self._send_json(200, {"ok": True, "epoch": epoch})
+
     # -- the KV migration wire (a fleet member) ------------------------------
     def _migrate_rid(self, body: dict) -> int:
         try:
@@ -1160,6 +1235,7 @@ class Handler(BaseHTTPRequestHandler):
         acknowledged) or /abort (recompute). 409 when the request holds
         no migratable decode state."""
         self._ident()
+        self._check_epoch("migrate")
         body = self._read_body()
         rid = self._migrate_rid(body)
         try:
@@ -1182,6 +1258,7 @@ class Handler(BaseHTTPRequestHandler):
         blob (an id outside the model's vocabulary included), 409 when
         nothing landed (the caller recomputes)."""
         _user, ip = self._ident()
+        self._check_epoch("migrate")
         try:
             blob = kvc.unpack_migration_blob(self._raw)
         except ValueError as e:
@@ -1214,6 +1291,7 @@ class Handler(BaseHTTPRequestHandler):
         free alike; abort journals why). 404 when nothing is parked under
         that id."""
         self._ident()
+        self._check_epoch("migrate")
         body = self._read_body()
         rid = self._migrate_rid(body)
         why = str(body.get("why") or "transfer_failed")
@@ -1381,6 +1459,85 @@ class OllamaServer(ThreadingHTTPServer):
         self.timeout_s = timeout_s
         self.profile_lock = threading.Lock()
         self.profiling = False
+        # Router HA epoch fencing (member side): the highest
+        # X-Router-Epoch this member has seen. A call carrying a higher
+        # or equal epoch adopts it (the new primary owns us even if its
+        # explicit /admin/ha/register never arrived); a lower one is a
+        # zombie ex-primary and gets 409. 0 = HA never seen; header-less
+        # callers always pass. Persisted next to the WAL when one exists,
+        # so a member restart cannot regress the fence; WAL-less members
+        # re-adopt through the router heartbeat instead. Handler threads
+        # run concurrently: one lock covers the compare, the adopt and
+        # the persist, so the persisted epoch never goes down and a call
+        # below the epoch adopted at that moment is always fenced.
+        self._epoch_lock = threading.Lock()
+        self._ha_epoch = 0
+        self._epoch_path = None
+        wal_dir = getattr(getattr(engine, "ecfg", None), "wal_dir", None)
+        if wal_dir:
+            self._epoch_path = os.path.join(wal_dir, "member_epoch.json")
+            try:
+                with open(self._epoch_path, encoding="utf-8") as f:
+                    self._ha_epoch = max(0, int(json.load(f)["epoch"]))
+            except (OSError, KeyError, TypeError, ValueError,
+                    json.JSONDecodeError):
+                pass
+
+    @property
+    def ha_epoch(self) -> int:
+        return self._ha_epoch
+
+    def check_epoch(self, got, kind: str, path: str) -> None:
+        """The member-side epoch fence: None (no X-Router-Epoch header)
+        passes; an epoch at or above the adopted one is adopted; a lower
+        one is fenced (journal epoch_fence, count, 409)."""
+        if got is None:
+            return
+        try:
+            got = int(got)
+        except ValueError:
+            raise ApiError(400, "X-Router-Epoch must be an integer")
+        with self._epoch_lock:
+            cur = self._ha_epoch
+            if got >= cur:
+                self._adopt_locked(got)
+                return
+        journal = getattr(self.engine, "journal", None)
+        if journal is not None:
+            try:
+                journal.record("epoch_fence", epoch=cur, stale_epoch=got,
+                               path=path, caller=kind)
+            except Exception:  # noqa: BLE001
+                log.exception("epoch_fence journal failed")
+        tm.HA_FENCED_CALLS_TOTAL.labels(kind=kind).inc()
+        log.warning("fenced stale-epoch router call: epoch %d < %d (%s)",
+                    got, cur, path)
+        raise ApiError(409, f"stale router epoch {got} (current {cur}): this "
+                            "member was taken over by a newer router")
+
+    def _adopt_epoch(self, epoch: int) -> None:
+        with self._epoch_lock:
+            self._adopt_locked(int(epoch))
+
+    def _adopt_locked(self, epoch: int) -> None:
+        """(`_epoch_lock` held) Adopt a higher router epoch, durably when
+        a WAL dir exists: write-new-then-rename + fsync, so a restart
+        revives at the fence it held, not at 0."""
+        if epoch <= self._ha_epoch:
+            return
+        self._ha_epoch = epoch
+        if self._epoch_path is None:
+            return
+        tmp = self._epoch_path + ".new"
+        try:
+            os.makedirs(os.path.dirname(self._epoch_path), exist_ok=True)
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({"epoch": int(epoch)}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self._epoch_path)
+        except OSError:
+            log.exception("member epoch persist failed (epoch %d)", epoch)
 
 
 def serve_in_thread(engine, host: str = "127.0.0.1", port: int = 0,

@@ -4,8 +4,8 @@ Everything the process exports lives here, so the engine/server grab
 handles instead of re-declaring names inline. The set is exactly the
 JAX package's (same names, types, labels, help text and buckets), so
 the README's Observability table covers both packages; a series whose
-module this package lacks (the fleet, HA) stays registered and is
-never set, as in a JAX-package process without that module.
+module a process does not run stays registered and is never set, as
+in a JAX-package process without that module.
 
 Naming: `ollamamq_` prefix; latencies in milliseconds carry an `_ms`
 suffix; counters carry `_total`. Per-model series are labeled

@@ -556,15 +556,14 @@ def test_fleet_metrics_and_stats_surface():
     (["--replicas", "2", "--tiers", "gold=r0"], "unknown tier name 'gold'"),
     (["--replicas", "2", "--autoscale", "--min-replicas", "0"],
      "--min-replicas must be >= 1"),
-    (["--replicas", "2", "--ha"], "--ha is not ported yet"),
-    (["--standby-of", "http://127.0.0.1:1"], "--standby-of is not ported yet"),
+    (["--replicas", "2", "--ha"], "--ha requires --wal-dir"),
+    (["--standby-of", "http://127.0.0.1:1"], "--standby-of requires --wal-dir"),
 ], ids=["zero", "negative", "drain", "migrate", "migrate-neg", "budget",
         "preempt-nofleet", "preempt-unknown", "tiers", "autoscale", "ha",
         "standby"])
 def test_cli_fleet_flag_validation(argv, message, caplog):
     """Each invalid fleet flag exits 2 before any device work (a bad
-    tier spec, a bad autoscaler bound), the policy layer still to port
-    (router HA) by name."""
+    tier spec, a bad autoscaler bound, an HA role without its WAL)."""
     from ollamamq_tpu_torch.cli import main
 
     assert main(argv + ["--no-tui"]) == 2
@@ -572,15 +571,15 @@ def test_cli_fleet_flag_validation(argv, message, caplog):
 
 
 def test_fleet_router_refuses_unported_policy_layers():
-    """Router HA is refused by name at construction. The ported layers
-    refuse only what they cannot serve: a tier spec that leaves a tier
-    empty, and an autoscaler with no provisioner and no member factory
-    to build one from."""
+    """The policy layers refuse only what they cannot serve: an HA
+    primary without the WAL it replicates, a tier spec that leaves a
+    tier empty, and an autoscaler with no provisioner and no member
+    factory to build one from."""
     ecfg = EngineConfig(**TINY)
     member = LocalMember("r0", FakeEngine(ecfg, blocklist_path=None))
-    cfg = type("Cfg", (), {**vars(ecfg), "ha": True})()
-    with pytest.raises(ValueError, match="fleet/ha.py is not ported"):
-        FleetRouter([member], cfg, blocklist_path=None)
+    with pytest.raises(ValueError, match="--ha requires --wal-dir"):
+        FleetRouter([member], dataclasses.replace(ecfg, ha=True),
+                    blocklist_path=None)
     with pytest.raises(ValueError, match="tier 'bulk' has no members"):
         FleetRouter([member], ecfg, blocklist_path=None,
                     tiers="interactive=r0")

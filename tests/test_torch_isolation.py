@@ -12,7 +12,9 @@ start unless the CPU is asked for. The journal tool's --help runs under
 the same block, and so does the CLI serving a
 two-member fleet (a stream, then GET /admin/fleet, then SIGTERM), a
 tiered elastic fleet (a stream, GET /admin/tiers, the autoscaler's
-status), and refusing what the fleet's layers still lack.
+status), an HA primary and its warm standby (a stream, the standby's
+catch-up, a SIGTERM handover, a stream through the promoted standby),
+and refusing what the fleet's layers still lack.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -227,7 +229,8 @@ def test_port_imports_and_serves_without_jax():
                 "ollamamq_tpu_torch.fleet", "ollamamq_tpu_torch.fleet.members",
                 "ollamamq_tpu_torch.fleet.router",
                 "ollamamq_tpu_torch.fleet.tiering",
-                "ollamamq_tpu_torch.fleet.autoscaler"}
+                "ollamamq_tpu_torch.fleet.autoscaler",
+                "ollamamq_tpu_torch.fleet.ha"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
@@ -312,12 +315,13 @@ def test_cli_serves_a_fleet_without_jax(tmp_path):
     (["--tiers", "interactive@tp2=r0;bulk=r1"],
      "tensor parallelism is not ported yet"),
     (["--autoscale", "--tp", "2"], "tensor parallelism is not ported yet"),
-    (["--ha"], "--ha is not ported yet (fleet/ha.py"),
+    (["--ha"], "--ha requires --wal-dir"),
 ], ids=["tiers", "autoscale", "ha"])
 def test_cli_refuses_unported_fleet_layers(flag, message):
     """What the fleet's layers still lack is refused by name, exit 2:
-    tier widths and autoscaled members above TP 1 (tensor parallelism),
-    and router HA."""
+    tier widths and autoscaled members above TP 1 (tensor parallelism);
+    and router HA, now ported, refuses a primary without its WAL with
+    the JAX package's message."""
     proc = subprocess.run(
         _blocked_cli(["--model", "test-tiny", "--device", "cpu", "--no-tui",
                       "--replicas", "2"] + flag),
@@ -380,3 +384,87 @@ def test_cli_serves_a_tiered_elastic_fleet_without_jax(tmp_path):
         log.close()
     text = (tmp_path / "cli.log").read_text()
     assert "blocked:" not in text and "graceful shutdown complete" in text
+
+
+def test_cli_serves_ha_primary_and_standby_without_jax(tmp_path):
+    """An HA primary and its warm standby (fleet.ha, the server's sync
+    and register routes, the CLI's standby lifecycle) over one member,
+    all three CLI processes with JAX and the JAX package blocked: a
+    stream through the primary, the standby caught up, a SIGTERM
+    handover (the primary exits 0), a stream through the promoted
+    standby."""
+    ports = {k: free_port() for k in ("m", "p", "s")}
+    common = ["--fake-engine", "--model", "test-tiny", "--no-tui",
+              "--blocklist", str(tmp_path / "blocked.json")]
+    member_url = f"http://127.0.0.1:{ports['m']}"
+    argv = {
+        "m": common + ["--port", str(ports["m"])],
+        "p": common + ["--port", str(ports["p"]), "--replicas", "0",
+                       "--replica-urls", member_url, "--ha",
+                       "--takeover-grace-s", "1.0",
+                       "--wal-dir", str(tmp_path / "wal-p")],
+        "s": common + ["--port", str(ports["s"]), "--replicas", "0",
+                       "--replica-urls", member_url,
+                       "--standby-of", f"http://127.0.0.1:{ports['p']}",
+                       "--takeover-grace-s", "1.0",
+                       "--wal-dir", str(tmp_path / "wal-s")],
+    }
+    procs, logs = {}, {}
+
+    def health(key, ok, budget=120):
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            assert procs[key].poll() is None, \
+                (tmp_path / f"{key}.log").read_text()[-3000:]
+            try:
+                body = json.loads(urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports[key]}/health", timeout=2).read())
+                if ok(body):
+                    return body
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise TimeoutError(f"{key} never reached the wanted state")
+
+    def generate(key):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ports[key]}/api/generate",
+            data=json.dumps({"model": "test-tiny", "prompt": "hi",
+                             "stream": False,
+                             "options": {"num_predict": 4}}).encode(),
+            headers={"X-User-ID": "solo"})
+        return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+    def spawn(key):
+        logs[key] = open(tmp_path / f"{key}.log", "w")
+        procs[key] = subprocess.Popen(
+            _blocked_cli(argv[key]), cwd=str(tmp_path), env=_env(),
+            stdout=logs[key], stderr=subprocess.STDOUT)
+
+    try:
+        spawn("m")
+        health("m", lambda b: True)
+        spawn("p")
+        assert health("p", lambda b: b.get("role") == "primary")["epoch"] == 1
+        body = generate("p")
+        assert body["done"] and body["eval_count"] == 4
+        spawn("s")
+        sb = health("s", lambda b: b.get("sync_lag_records") == 0)
+        assert sb["status"] == "standby" and sb["epoch"] == 1
+        procs["p"].send_signal(signal.SIGTERM)
+        assert procs["p"].wait(timeout=60) == 0
+        assert health("s", lambda b: b.get("role") == "primary")["epoch"] == 2
+        body = generate("s")
+        assert body["done"] and body["eval_count"] == 4
+        procs["s"].send_signal(signal.SIGTERM)
+        assert procs["s"].wait(timeout=60) == 0
+    finally:
+        for key, proc in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logs[key].close()
+    texts = {k: (tmp_path / f"{k}.log").read_text() for k in procs}
+    assert not any("blocked:" in t for t in texts.values())
+    assert "fleet handed over to the standby" in texts["p"]
+    assert "why=handover" in texts["s"]
