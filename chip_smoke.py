@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about seven minutes
+    python3 chip_smoke.py            # one card, about eight minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -61,6 +61,35 @@ Phases, each printing JSON lines; any failure exits non-zero:
   quant-guardrail
            greedy token-match rate and logit error of the int8 llama3.2:1b
            tree against its bf16 source at full width; printed, not gated.
+  serve-moe
+           the mixture-of-experts family: mixtral:8x7b at full width (d
+           4096, f 14336, 32 heads over 8 KV heads, hd 128, 8 experts,
+           top-2, vocab 32,000, untied), depth cut from 32 to 16 layers
+           (registered in this process as mixtral:8x7b-16l; 46.96 GB of
+           seeded bf16 weights; 32 layers would not fit in 80 GB and the
+           reference refuses int8 weights for MoE), 8 slots, 136 pages,
+           page 32, token budget 512, k_steps 8, through TorchEngine and
+           the HTTP server: 4 greedy /api/chat streams of 64 tokens from 3
+           users (prompts of 100 to 300 tokens), then one prompt twice
+           alone. Gates: every reply stop/length; the repeated prompt's
+           ids identical; the window launched exactly 16 bf16 ragged
+           kernels per dispatch and 16 decode kernels per step, no int8;
+           every attention call of one prefill and one decode step
+           through the kernels within 2e-2 of the plain version on the
+           same q and pools (the end-to-end logits are printed with the
+           router decisions that differ between the two paths: a bf16
+           rounding difference can flip a near-tie of the top-k, so they
+           are not gated); layer 0's moe_mlp in float32 at full width
+           over 64 tokens with capacity factor E / K (no drops) within
+           1e-4 relative of a per-token loop; param_bytes
+           46,964,940,800; `python -m ollamamq_tpu_torch.cli --model
+           mixtral:8x7b --weights-dtype int8` exits 2 with the
+           reference's message; memory_allocated back to its level
+           before the phase (128 MiB of cuBLAS workspaces allowed).
+           Records tokens/s, TTFT p50/p99, phase seconds, peak memory,
+           one decode step's time between CUDA events against its byte
+           bound (every weight but the embedding table over 3.35 TB/s),
+           and with --profile its device time and a profiled burst.
   serve-runtime
            llama3.2:1b in bf16 through the HTTP server with the prefix
            cache, speculation (k 4), default preemption on a 44-page pool
@@ -282,7 +311,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
            counters) and the fenced calls.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
-serve window of the row's pool format plus serve-durable's,
+serve window of the row's pool format plus serve-moe's, serve-durable's,
 serve-fleet's, serve-tiers', serve-autoscale's and serve-ha's, counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
@@ -858,9 +887,7 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
     import torch
 
     from ollamamq_tpu_torch.config import EngineConfig
-    from ollamamq_tpu_torch.engine import kv_cache as kvc
     from ollamamq_tpu_torch.engine.engine import TorchEngine
-    from ollamamq_tpu_torch.models import llama
     from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
 
@@ -989,9 +1016,27 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
     if int8 and line["kv_bytes_vs_bf16"] > line["kv_bytes_vs_bf16_limit"]:
         raise SystemExit(f"int8 KV pool did not shrink enough: {line}")
 
-    # One prompt's prefill and first decode step through the kernels vs
-    # the plain attention path, on the serving weights (outside the
-    # counted window).
+    kernel_vs_plain_logits(report, phase, rt, text, quant)
+
+
+def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False) -> None:
+    """One prompt's prefill and first decode step through the kernels vs
+    the plain attention path, on the serving weights (outside the counted
+    window): logits within TOL["bfloat16"] of the plain path's max.
+
+    per_call=True (an MoE model) gates each attention call of the kernel
+    run instead, against the plain version on the same q and pools: the
+    end-to-end logits are recorded, not gated, because a bf16 rounding
+    difference can flip a near-tie of the router's top-k in some layer
+    and then that token's FFN output differs by a whole expert. The
+    routing decisions that differ between the two runs are counted."""
+    import torch
+
+    from ollamamq_tpu_torch.config import EngineConfig
+    from ollamamq_tpu_torch.engine import kv_cache as kvc
+    from ollamamq_tpu_torch.models import llama, moe
+
+    model, ecfg = rt.name, rt.ecfg
     cfg, ps = rt.cfg, ecfg.page_size
     n = 77
     prompt = torch.tensor(rt.tokenizer.encode(text)[:n], dtype=torch.int32, device="cuda")
@@ -1006,17 +1051,46 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
     ws = torch.where(tok_pos >= 0, pt[0, (tok_pos.clamp_min(0) // ps).long()] * ps
                      + tok_pos.clamp_min(0) % ps, torch.zeros_like(tok_pos))
     meta = [torch.tensor([v], dtype=torch.int32, device="cuda") for v in (0, n, n)]
-    logits = {}
+    logits, calls, routes = {}, {"ragged": [], "decode": []}, {}
+    dispatch = (llama.ragged_attention_any, llama.paged_decode_attention_any)
+
+    def beside_plain(orig, kind):
+        def attend(impl, *args):
+            out = orig(impl, *args)
+            ref = orig("plain", *args)
+            scale = float(ref.float().abs().max())
+            err = float((out.float() - ref.float()).abs().max())
+            calls[kind].append((err, scale, bool(torch.isfinite(out).all())))
+            return out
+        return attend
+
+    route = moe.route
     for impl in ("kernel", "plain"):
-        kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda", kv_dtype=quant)
-        pre, _, _ = llama.forward_ragged(
-            rt.params, cfg, tokens, tok_seq, tok_pos, ws,
-            torch.tensor([n - 1], device="cuda"), kc, vc, pt, *meta, ps,
-            attn_impl=impl)
-        nxt = pre.argmax(-1).to(torch.int32)
-        dec, _, _ = llama.forward_decode(
-            rt.params, cfg, nxt, torch.tensor([n], dtype=torch.int32, device="cuda"),
-            kc, vc, pt, ps, attn_impl=impl)
+        routes[impl] = []
+
+        def recorded(*args, log=routes[impl]):
+            out = route(*args)
+            log.append(out[1].reshape(-1, out[1].shape[-1]))
+            return out
+
+        if per_call:
+            moe.route = recorded
+        if per_call and impl == "kernel":
+            llama.ragged_attention_any = beside_plain(dispatch[0], "ragged")
+            llama.paged_decode_attention_any = beside_plain(dispatch[1], "decode")
+        try:
+            kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda", kv_dtype=quant)
+            pre, _, _ = llama.forward_ragged(
+                rt.params, cfg, tokens, tok_seq, tok_pos, ws,
+                torch.tensor([n - 1], device="cuda"), kc, vc, pt, *meta, ps,
+                attn_impl=impl)
+            nxt = pre.argmax(-1).to(torch.int32)
+            dec, _, _ = llama.forward_decode(
+                rt.params, cfg, nxt, torch.tensor([n], dtype=torch.int32, device="cuda"),
+                kc, vc, pt, ps, attn_impl=impl)
+        finally:
+            moe.route = route
+            llama.ragged_attention_any, llama.paged_decode_attention_any = dispatch
         logits[impl] = (pre, dec)
         del kc, vc
     torch.cuda.synchronize()
@@ -1033,10 +1107,26 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
             "weights_dtype": quant, "kv_dtype": quant,
             "tol": f"max |kernel - plain| <= {TOL['bfloat16']} * max |plain|",
             **checks}
+    gated = [] if per_call else list(checks.values())
+    if per_call:
+        for kind, got in calls.items():
+            c = {"calls": len(got),
+                 "max_rel_err": max((e / s for e, s, _ in got), default=None),
+                 "ok": len(got) == cfg.num_layers and all(
+                     fin and e <= TOL["bfloat16"] * s for e, s, fin in got)}
+            line[f"{kind}_per_call"] = c
+            gated.append(c)
+        # Real rows only: the prompt's n rows at each prefill layer, row 0
+        # at each decode layer.
+        line["routing_rows_differing"] = [
+            int((a[:n if j < cfg.num_layers else 1] != b[:n if j < cfg.num_layers else 1])
+                .any(-1).sum())
+            for j, (a, b) in enumerate(zip(routes["kernel"], routes["plain"]))]
+        line["gated"] = "per_call"
     emit(line)
     report[phase.replace("-", "_") + "_logits"] = line
-    if not all(c["ok"] for c in checks.values()):
-        raise SystemExit(f"kernel path logits disagree with the plain path: {checks}")
+    if not all(c["ok"] for c in gated):
+        raise SystemExit(f"kernel path disagrees with the plain path: {line}")
 
 
 def _first_diff(a, b):
@@ -3832,6 +3922,277 @@ def serve_ha_phase(report) -> None:
         raise SystemExit(f"serve-ha gates failed: {gates}")
 
 
+MOE_MODEL = "mixtral:8x7b-16l"
+MOE_LAYERS = 16
+MOE_PARAM_BYTES = 46_964_940_800  # 16 layers of mixtral:8x7b in bf16
+MOE_NEW = 64
+MOE_STREAMS = (("moe-ada", 100), ("moe-bob", 180), ("moe-cyd", 240),
+               ("moe-ada", 300))  # (user, prompt tokens): 3 users, 4 streams
+MOE_TEXT = ("Experts route each token to two of eight feed-forward blocks, "
+            "and the router's capacity decides who waits. ")
+# cuBLAS keeps a workspace per thread's handle (32 MiB each on this
+# card), cached after the engine's threads end.
+MOE_MEMORY_SLACK = 128 << 20
+
+
+def _moe_reference(cfg, lp, h):
+    """Per-token loop (the torch form of tests/test_moe.py:29-48): softmax
+    over the experts, top-k, renormalise, sum of the chosen experts'
+    SwiGLU outputs. No capacity limit."""
+    import torch
+
+    out = torch.zeros_like(h)
+    probs = torch.softmax(h @ lp["w_router"], dim=-1)
+    for n in range(h.shape[0]):
+        p, top = torch.topk(probs[n], cfg.num_experts_per_tok)
+        for g, e in zip((p / p.sum()).tolist(), top.tolist()):
+            gate = h[n] @ lp["we_gate"][e]
+            up = h[n] @ lp["we_up"][e]
+            out[n] += g * ((torch.nn.functional.silu(gate) * up) @ lp["we_down"][e])
+    return out
+
+
+def _moe_layer_check(cfg, lp) -> dict:
+    """Layer 0's moe_mlp in float32 (TF32 off) at full width over 64
+    seeded tokens, with capacity factor E / K (no token can be dropped),
+    against the per-token loop: max error <= TOL["float32"] x max |ref|."""
+    import dataclasses
+
+    import torch
+
+    from ollamamq_tpu_torch.models.moe import moe_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lp32 = {k: lp[k].float() for k in ("w_router", "we_gate", "we_up", "we_down")}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h = torch.randn(64, cfg.hidden_size, generator=gen, device="cuda")
+    roomy = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+    got = moe_mlp(roomy, lp32, h)
+    ref = _moe_reference(roomy, lp32, h)
+    torch.cuda.synchronize()
+    scale, err = float(ref.abs().max()), float((got - ref).abs().max())
+    return {"tokens": 64, "capacity_factor": roomy.moe_capacity_factor,
+            "max_abs_err": err, "ref_max_abs": scale, "rel_err": err / scale,
+            "tol": f"max |moe_mlp - per-token loop| <= {TOL['float32']} * max |ref|",
+            "ok": bool(torch.isfinite(got).all()) and err <= TOL["float32"] * scale}
+
+
+def _decode_step_ms(rt, profile, B=8, ctx=200, iters=5) -> dict:
+    """One forward_decode over B live rows at context `ctx` on the
+    serving weights (a private pool): its time between CUDA events
+    (eager, so the host's launch gaps count), with `profile` its device
+    time by torch.profiler, and the bound: the bytes the step must move
+    over 3.35 TB/s, i.e. every weight but the embedding table (the dense
+    dispatch reads each expert), B embedding rows, the K/V it reads and
+    writes."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from ollamamq_tpu_torch.config import EngineConfig
+    from ollamamq_tpu_torch.engine import kv_cache as kvc
+    from ollamamq_tpu_torch.models import llama
+
+    cfg, ps = rt.cfg, rt.ecfg.page_size
+    per_seq = -(-(ctx + iters + 3) // ps)
+    small = EngineConfig(model=rt.name, num_pages=B * per_seq + 1, page_size=ps,
+                         max_pages_per_seq=per_seq)
+    kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda")
+    pt = (1 + torch.arange(B * per_seq, dtype=torch.int32, device="cuda")).reshape(B, per_seq)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(3, cfg.vocab_size, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    active = torch.ones(B, dtype=torch.int32, device="cuda")
+
+    def step(i):
+        pos = torch.full((B,), ctx + i, dtype=torch.int32, device="cuda")
+        llama.forward_decode(rt.params, cfg, tokens, pos, kc, vc, pt, ps,
+                             active=active)
+
+    times = []
+    for i in range(iters + 2):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        step(i)
+        t1.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(t0.elapsed_time(t1))
+    out = {"decode_step_event_ms": sorted(times)[len(times) // 2],
+           "decode_step_device_ms": None}
+    if profile:
+        with torch.profiler.profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                step(i)
+            torch.cuda.synchronize()
+        dev_us = sum(getattr(ev, "device_time_total", 0) for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA)
+        out["decode_step_device_ms"] = dev_us / 1e3 / iters
+    del kc, vc
+    kv = 2 * B * (ctx + 1) * cfg.num_layers * cfg.kv_dim * 2
+    embed = rt.params["embed"]
+    bytes_ = (rt.param_bytes - embed.numel() * embed.element_size()
+              + B * cfg.hidden_size * embed.element_size() + kv)
+    out["decode_step_bound_ms"] = bytes_ / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def serve_moe_phase(report, profile: bool) -> None:
+    """Mixtral 8x7b at full width (d 4096, f 14336, 32 heads over 8 KV
+    heads, 8 experts, top-2), depth cut to 16 layers, seeded bf16 weights,
+    through TorchEngine and the HTTP server; see the module docstring."""
+    import dataclasses
+
+    import torch
+
+    from ollamamq_tpu_torch.config import MODEL_CONFIGS, EngineConfig
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    t_phase = time.monotonic()
+    # The CLI's int8 refusal runs beside the phase: it exits before any
+    # device work.
+    refusal = subprocess.Popen(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", "mixtral:8x7b",
+         "--weights-dtype", "int8", "--no-tui"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    full = MODEL_CONFIGS["mixtral:8x7b"]
+    MODEL_CONFIGS[MOE_MODEL] = dataclasses.replace(full, name=MOE_MODEL,
+                                                   num_layers=MOE_LAYERS)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ecfg = EngineConfig(model=MOE_MODEL, max_slots=8, num_pages=136,
+                            page_size=32, max_pages_per_seq=16,
+                            max_batch_tokens=512, token_granule=16,
+                            max_new_tokens=MOE_NEW, decode_steps_per_iter=8,
+                            dtype="bfloat16", seed=0)
+        t0 = time.monotonic()
+        engine = TorchEngine(ecfg)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        rt = engine.runtimes[MOE_MODEL]
+        srv = serve_in_thread(engine, port=0, timeout_s=600)
+        port = srv.server_address[1]
+        line = _serve_moe_traffic(rt, port)
+        line.update(init_s=init_s, param_bytes=rt.param_bytes, kv_bytes=rt.kv_bytes,
+                    param_bytes_expected=MOE_PARAM_BYTES)
+        if profile:
+            line["profile"] = profile_window(port, MOE_MODEL, MOE_TEXT * 3, rt)
+        stop_server(srv)
+        line["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        line.update(_decode_step_ms(rt, profile))
+        kernel_vs_plain_logits(report, "serve-moe", rt, MOE_TEXT * 2, "bfloat16",
+                               per_call=True)
+        line["moe_layer0_f32"] = _moe_layer_check(rt.cfg, rt.params["layers"][0])
+        del engine, rt, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        line["memory_allocated_before"] = mem_before
+        line["memory_allocated_after"] = torch.cuda.memory_allocated()
+    finally:
+        del MODEL_CONFIGS[MOE_MODEL]
+    out, _ = refusal.communicate(timeout=120)
+    line["cli_int8_exit"] = refusal.returncode
+    line["cli_int8_message"] = next(
+        (ln.split(": ", 1)[-1] for ln in out.splitlines() if "MoE" in ln), out[-300:])
+    line["phase_s"] = time.monotonic() - t_phase
+    emit(line)
+    report["serve_moe"] = line
+    gates = {
+        "replies": all(r["done_reason"] in ("stop", "length")
+                       for r in line["replies"].values()),
+        "greedy_repeat_identical": line["greedy_repeat_identical"],
+        "kernels": line["kernels_exact"],
+        "moe_layer0_f32": line["moe_layer0_f32"]["ok"],
+        "param_bytes": line["param_bytes"] == MOE_PARAM_BYTES,
+        "cli_int8_exit_2": (line["cli_int8_exit"] == 2
+                            and "does not cover MoE expert stacks" in out),
+        "memory_back": (line["memory_allocated_after"]
+                        <= line["memory_allocated_before"] + MOE_MEMORY_SLACK),
+    }
+    emit({"phase": "serve-moe-gates", **gates})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-moe: gates failed: {gates}")
+
+
+def _serve_moe_traffic(rt, port) -> dict:
+    """serve-moe's window: 4 greedy /api/chat streams of 64 tokens from
+    3 users (prompts of 100 to 300 tokens), then one prompt twice, alone.
+    Returns the phase line's serving fields."""
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    ttft = tm.TTFT_MS.labels(model=MOE_MODEL)
+    ttft0 = list(ttft.counts)
+    greedy = {"temperature": 0, "num_predict": MOE_NEW}
+
+    def body(n_tokens, tag):
+        # The byte tokenizer: one token per byte, plus the template's.
+        text = (f"[{tag}] " + MOE_TEXT * 8)[:n_tokens - 16]
+        return {"model": MOE_MODEL, "options": greedy,
+                "messages": [{"role": "user", "content": text}]}
+
+    results, errors = {}, []
+
+    def run(key, user, b):
+        try:
+            results[key] = _ollama_result(*_post(port, "/api/chat", b, user))
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{key}: {e}")
+
+    before = dict(rt.stats())
+    reset_launch_counts()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(f"{u}/{n}", u, body(n, i)))
+               for i, (u, n) in enumerate(MOE_STREAMS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    burst_s = time.monotonic() - t0
+    mid = dict(rt.stats())
+    repeat = []
+    for i in range(2):
+        run(f"repeat{i}", "moe-bob", body(160, "repeat"))
+        repeat.append(results.get(f"repeat{i}", ([], None))[0])
+    counts = launch_counts()
+    serve_s = time.monotonic() - t0
+    after = dict(rt.stats())
+    if errors or len(results) != len(MOE_STREAMS) + 2:
+        raise SystemExit(f"serve-moe requests failed: {errors}")
+    ragged = after["ragged_dispatches"] - before["ragged_dispatches"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    layers = rt.cfg.num_layers
+    own = {"ragged_paged_attention": layers * ragged,
+           "paged_decode_attention": layers * steps}
+    exact = (ragged > 0 and steps > 0
+             and all(counts[k] == own.get(k, 0) for k in counts))
+    burst_tokens = mid["tokens_generated"] - before["tokens_generated"]
+    return {"phase": "serve-moe", "model": MOE_MODEL, "layers": layers,
+            "reduced": {"num_layers": [32, layers]},
+            "width": {"hidden": rt.cfg.hidden_size,
+                      "intermediate": rt.cfg.intermediate_size,
+                      "heads": rt.cfg.num_heads, "kv_heads": rt.cfg.num_kv_heads,
+                      "head_dim": rt.cfg.head_dim, "experts": rt.cfg.num_experts,
+                      "top_k": rt.cfg.num_experts_per_tok,
+                      "vocab": rt.cfg.vocab_size},
+            "dtype": "bfloat16", "streams": len(MOE_STREAMS), "users": 3,
+            "serve_s": serve_s, "burst_s": burst_s,
+            "tokens": after["tokens_generated"] - before["tokens_generated"],
+            "burst_tokens": burst_tokens,
+            "burst_tokens_per_s": burst_tokens / burst_s,
+            "ttft_ms": _delta_quantiles(ttft, ttft0, (0.5, 0.99)),
+            "replies": {k: {"tokens": len(ids), "done_reason": why}
+                        for k, (ids, why) in results.items()},
+            "greedy_repeat_identical": repeat[0] == repeat[1] and len(repeat[0]) > 0,
+            "ragged_dispatches": ragged, "decode_steps": steps,
+            "launches": counts, "launches_expected": own, "kernels_exact": exact}
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -3992,6 +4353,7 @@ def main(argv=None) -> int:
     serve_phase(report, args.profile)
     serve_phase(report, args.profile, int8=True)
     guardrail_phase(report)
+    serve_moe_phase(report, args.profile)
     serve_runtime_phase(report)
     serve_runtime_f32_phase(report)
     serve_sched_phase(report)
@@ -4011,9 +4373,9 @@ def main(argv=None) -> int:
                "replaces": replaces,
                "launches": (report[serve]["launches"][name]
                             + sum(report[p]["launches"][name]
-                                  for p in ("serve_durable", "serve_fleet",
-                                            "serve_tiers", "serve_autoscale",
-                                            "serve_ha"))),
+                                  for p in ("serve_moe", "serve_durable",
+                                            "serve_fleet", "serve_tiers",
+                                            "serve_autoscale", "serve_ha"))),
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

@@ -73,6 +73,7 @@ import sys
 from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
                                        assign_tiers, get_model_config,
                                        validate_autoscale, validate_ha,
+                                       validate_quant_config,
                                        validate_scheduler, validate_tiers)
 
 
@@ -444,7 +445,9 @@ def validate(args) -> str:
     for name in model_table(args):
         if get_model_config(name) is None:
             return f"unknown model architecture: {name}"
-    err = validate_scheduler(args.scheduler)
+    err = (validate_quant_config(args.weights_dtype, args.kv_dtype,
+                                 model_names=list(model_table(args)))
+           or validate_scheduler(args.scheduler))
     if err:
         return err
     if not 0.0 < args.slo_target < 1.0:

@@ -3,8 +3,9 @@
 The dense decoder architectures (Llama 3.x, Qwen2.5 with attention bias,
 Qwen3 with per-head q/k norm), a bidirectional encoder for embedding
 models (nomic-embed-text class), and the engine fields the single-device
-serving path reads, with the JAX package's defaults. Mixture-of-experts
-models are not served by this package yet.
+serving path reads, with the JAX package's defaults, and the
+mixture-of-experts family (Mixtral: routed SwiGLU experts, models/moe.py)
+on one device.
 """
 
 from __future__ import annotations
@@ -35,6 +36,14 @@ class ModelConfig:
     qk_norm: bool = False
     # Bidirectional attention + mean pooling => embedding encoder, not a LM.
     is_encoder: bool = False
+    # Mixture-of-experts (Mixtral family): 0 = dense FFN. When > 0, each
+    # layer's FFN becomes num_experts independent SwiGLU experts with
+    # top-(num_experts_per_tok) routing (models/moe.py).
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # Static per-expert token capacity = ceil(tokens * k / E) * factor;
+    # overflow tokens fall through to the residual (their FFN delta is 0).
+    moe_capacity_factor: float = 2.0
 
     @property
     def q_dim(self) -> int:
@@ -47,8 +56,11 @@ class ModelConfig:
     def param_count(self) -> int:
         """Approximate parameter count (for device-memory budgeting)."""
         d, f, v = self.hidden_size, self.intermediate_size, self.vocab_size
+        mlp = 3 * d * f
+        if self.num_experts:
+            mlp = self.num_experts * 3 * d * f + d * self.num_experts
         per_layer = (d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-                     + 3 * d * f + 2 * d)
+                     + mlp + 2 * d)
         embed = v * d * (1 if self.tie_embeddings else 2)
         return self.num_layers * per_layer + embed + d
 
@@ -123,6 +135,19 @@ MODEL_CONFIGS = {
         intermediate_size=12_288, num_layers=36, num_heads=32,
         num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0,
         max_seq_len=32_768, qk_norm=True,
+    ),
+    # Mixture-of-experts family (Mixtral 8x7b architecture description).
+    "mixtral:8x7b": ModelConfig(
+        name="mixtral:8x7b", vocab_size=32_000, hidden_size=4096,
+        intermediate_size=14_336, num_layers=32, num_heads=32,
+        num_kv_heads=8, head_dim=128, rope_theta=1_000_000.0,
+        max_seq_len=32_768, num_experts=8, num_experts_per_tok=2,
+    ),
+    "test-tiny-moe": ModelConfig(
+        name="test-tiny-moe", vocab_size=512, hidden_size=64,
+        intermediate_size=96, num_layers=2, num_heads=4, num_kv_heads=2,
+        head_dim=16, rope_theta=10_000.0, max_seq_len=512,
+        num_experts=4, num_experts_per_tok=2,
     ),
 }
 
@@ -360,17 +385,24 @@ def validate_scheduler(name: str) -> Optional[str]:
     return None
 
 
-def validate_quant_config(weights_dtype: str, kv_dtype: str) -> Optional[str]:
+def validate_quant_config(weights_dtype: str, kv_dtype: str,
+                          model_names=()) -> Optional[str]:
     """Check the quantization flags before any device work: an error
-    string, or None when valid. ModelRuntime calls it at build (the CLI's
-    argparse choices already restrict the flags to QUANT_DTYPES).
-    (The JAX package's copy also rejects int8 KV with pp/sp and int8
-    weights for MoE models; this package serves neither yet.)"""
+    string, or None when valid. The CLI calls it with every model it
+    serves and ModelRuntime at build with its own (argparse choices
+    already restrict the flags to QUANT_DTYPES). (The JAX package's copy
+    also rejects int8 KV with pp/sp; this package serves neither yet.)"""
     if weights_dtype not in QUANT_DTYPES:
         return (f"--weights-dtype must be one of {QUANT_DTYPES}, "
                 f"got {weights_dtype!r}")
     if kv_dtype not in QUANT_DTYPES:
         return f"--kv-dtype must be one of {QUANT_DTYPES}, got {kv_dtype!r}"
+    if weights_dtype == "int8":
+        for name in model_names:
+            cfg = get_model_config(name)
+            if cfg is not None and cfg.num_experts:
+                return (f"--weights-dtype=int8 does not cover MoE expert "
+                        f"stacks (model {name}); load it in bfloat16")
     return None
 
 

@@ -437,7 +437,8 @@ class ModelRuntime(JournaledRuntime):
                  params: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None):
         # An unsupported quantization fails here, before any device work.
-        err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype)
+        err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
+                                    model_names=(name,))
         if err is not None:
             raise ValueError(err)
         self.name = name
@@ -1866,7 +1867,7 @@ class ModelRuntime(JournaledRuntime):
         for j in range(k_steps):
             logits, _, _ = llama.forward_decode(
                 self.params, self.cfg, tokens, positions, self.kc, self.vc,
-                pt_d, self.ecfg.page_size)
+                pt_d, self.ecfg.page_size, active=act_d)
             ring = self.recent[:S]
             pen_logits = maybe_apply_penalties(logits, ring, pen_d, pres_d,
                                                freq_d, need_pen)
@@ -2024,7 +2025,8 @@ class EncoderRuntime(JournaledRuntime):
                  engine_cfg: EngineConfig, device=None, dtype=None,
                  params: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None):
-        err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype)
+        err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
+                                    model_names=(name,))
         if err is not None:
             raise ValueError(err)
         self.name = name

@@ -1,4 +1,4 @@
-"""Llama/Qwen-family decoder forwards in PyTorch.
+"""Llama/Qwen/Mixtral-family decoder forwards in PyTorch.
 
 Parameters are a plain dict: "embed" [V, D], "final_norm" [D], optional
 "lm_head" [V, D] (absent for tied embeddings and for encoders), and "layers", a list with one dict per layer whose
@@ -7,7 +7,9 @@ H*hd], wo [H*hd, D], ...). Activations are flattened to [tokens, D]; the
 KV pools [L, S, Hk, hd] are written IN PLACE (the JAX forwards return
 fresh pools from donated buffers) and returned for symmetry with them.
 Matmuls run in the weights' dtype, norms, RoPE, softmax and logits in
-float32, as in the JAX package.
+float32, as in the JAX package. A mixture-of-experts layer holds
+w_router and the expert stacks we_gate / we_up / we_down
+(models/moe.py) in place of w_gate / w_up / w_down.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ollamamq_tpu_torch.config import ModelConfig
+from ollamamq_tpu_torch.models.moe import init_moe_layer_params, moe_mlp
 from ollamamq_tpu_torch.ops.attention import (bidirectional_attention,
                                               causal_attention,
                                               paged_decode_attention_any,
@@ -42,7 +45,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device="cpu") -> dict:
     """Random-init parameters: N(0, 1/fan_in) matmul weights drawn in
-    float32 from `generator` (on `device`), unit norms, zero biases."""
+    float32 from `generator` (on `device`), unit norms, zero biases; an
+    MoE model's layers get routed experts instead of the dense FFN."""
     d, qd, kvd, f = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
 
     def w(shape, fan_in):
@@ -60,8 +64,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             "wq": w((d, qd), d), "wk": w((d, kvd), d), "wv": w((d, kvd), d),
             "wo": w((qd, d), qd),
             "mlp_norm": ones(d),
-            "w_gate": w((d, f), d), "w_up": w((d, f), d), "w_down": w((f, d), f),
         }
+        if cfg.num_experts:
+            lp.update(init_moe_layer_params(cfg, generator, dtype, device))
+        else:
+            lp.update(w_gate=w((d, f), d), w_up=w((d, f), d),
+                      w_down=w((f, d), f))
         if cfg.attn_bias:
             for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
                 lp[name] = torch.zeros(n, dtype=dtype, device=device)
@@ -101,15 +109,25 @@ def _mlp(lp: dict, h: torch.Tensor) -> torch.Tensor:
     return qeinsum("nf,fd->nd", F.silu(gate) * up, lp["w_down"])
 
 
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor, valid=None) -> torch.Tensor:
+    """Dense SwiGLU or routed mixture-of-experts, by model family.
+    `valid` (bool, one per row of h) marks real tokens; only MoE routing
+    reads it (padding and parked rows must not claim expert capacity)."""
+    if cfg.num_experts:
+        return moe_mlp(cfg, lp, h, valid=valid)
+    return _mlp(lp, h)
+
+
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
     return logits_head(x, params.get("lm_head", params["embed"]))
 
 
 def layer_step(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-               positions: torch.Tensor, attend) -> torch.Tensor:
+               positions: torch.Tensor, attend, valid=None) -> torch.Tensor:
     """One decoder layer: norm, qkv, RoPE, `attend(q, k, v)` -> [N, H,
-    hd], output projection and the SwiGLU MLP, with residuals."""
+    hd], output projection and the FFN (dense SwiGLU or routed experts
+    over the `valid` rows), with residuals."""
     N = x.shape[0]
     h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = _qkv(cfg, lp, h)
@@ -118,10 +136,11 @@ def layer_step(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     attn = attend(q, k, v)
     x = x + qeinsum("ne,ed->nd", attn.reshape(N, cfg.q_dim), lp["wo"])
     h2 = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + _mlp(lp, h2)
+    return x + _ffn(cfg, lp, h2, valid)
 
 
-def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend):
+def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend,
+            valid=None):
     """The paged layer stack: each layer writes its K/V BEFORE attention
     (a token sees its own K/V), then attends through `attend(layer, q)`.
     `k_cache[layer]` is that layer's pool, a tensor or a QuantKV."""
@@ -131,7 +150,7 @@ def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend):
             kv_write(v_cache[layer], write_slots, v)
             return attend(layer, q)
 
-        x = layer_step(cfg, lp, x, positions, paged)
+        x = layer_step(cfg, lp, x, positions, paged, valid)
     return x
 
 
@@ -167,7 +186,7 @@ def forward_ragged(
             tok_seq, tok_pos, kv_len, q_start, q_len, page_size)
 
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
-                attend)
+                attend, valid=tok_pos >= 0)
     return _logits(params, cfg, x[out_idx.long()]), k_cache, v_cache
 
 
@@ -181,9 +200,11 @@ def forward_decode(
     page_table: torch.Tensor,  # [B, max_pages] int32
     page_size: int,
     attn_impl: str = "kernel",  # "kernel" (serving) | "plain" (reference)
+    active=None,  # [B] int32/bool live decode slots (None = all live)
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for the whole batch; returns (logits [B, V] in
-    float32, k_cache, v_cache)."""
+    float32, k_cache, v_cache). `active` feeds MoE routing only: parked
+    slots carry garbage tokens that must not claim expert capacity."""
     B = tokens.shape[0]
     x = embed_lookup(params["embed"], tokens, _adtype(params))  # [B, D]
     pos = positions.long()
@@ -197,8 +218,9 @@ def forward_decode(
             attn_impl, q, k_cache[layer], v_cache[layer], page_table,
             seq_lens, page_size)
 
+    valid = None if active is None else active > 0
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
-                attend)
+                attend, valid)
     return _logits(params, cfg, x), k_cache, v_cache
 
 
@@ -212,6 +234,8 @@ def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_lookup(params["embed"], tokens.reshape(-1), _adtype(params))
     positions = torch.arange(T, dtype=torch.int32,
                              device=tokens.device).repeat(B)
+    valid = (positions.reshape(B, T)
+             < seq_lens.to(tokens.device)[:, None]).reshape(-1)
 
     def attend(q, k, v):
         out = attention(q.reshape(B, T, *q.shape[1:]),
@@ -220,11 +244,10 @@ def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         return out.reshape(B * T, *q.shape[1:])
 
     for lp in params["layers"]:
-        x = layer_step(cfg, lp, x, positions, attend)
+        x = layer_step(cfg, lp, x, positions, attend, valid)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps).float()
     x = x.reshape(B, T, -1)
-    pos = torch.arange(T, device=tokens.device)
-    mask = (pos[None, :] < seq_lens.to(tokens.device)[:, None]).float()[..., None]
+    mask = valid.reshape(B, T).float()[..., None]
     pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1.0)
     return pooled / torch.linalg.norm(pooled, dim=-1, keepdim=True).clamp_min(1e-9)
 

@@ -7,7 +7,8 @@ wq, ...); this package keeps one dict per layer with the same [in, out]
 orientation.
 
 Checkpoints are HF-layout safetensors directories (Llama/Qwen2/Qwen3
-tensor names), read and written with the standard library and numpy:
+tensor names, and Mixtral's block_sparse_moe router and experts), read
+and written with the standard library and numpy:
 the format is an 8-byte little-endian header length, a JSON header of
 {name: {dtype, shape, data_offsets}} and the raw bytes. An orbax
 checkpoint (the JAX package's own format) needs JAX to read it.
@@ -53,7 +54,11 @@ _HF_LAYER_MAP = {
     "mlp.gate_proj.weight": ("w_gate", True),
     "mlp.up_proj.weight": ("w_up", True),
     "mlp.down_proj.weight": ("w_down", True),
+    "block_sparse_moe.gate.weight": ("w_router", True),
 }
+# Mixtral's per-expert HF names (experts.{e}.w1 / w3 / w2: gate / up /
+# down, each [out, in]) -> our stacked [E, in, out] layer keys.
+_HF_EXPERT_MAP = {"w1": "we_gate", "w3": "we_up", "w2": "we_down"}
 
 # safetensors dtype -> (numpy storage dtype, torch dtype). bf16 is read as
 # its uint16 bit pattern and viewed as bf16 in torch.
@@ -131,16 +136,19 @@ def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
     """Load an HF-layout safetensors checkpoint (every *.safetensors file
     of the directory, in sorted order) into this package's params dict,
     cast to `dtype` on `device`. HF projections are [out, in]; ours are
-    [in, out]. Tied-embedding configs get no lm_head."""
+    [in, out]. Tied-embedding configs get no lm_head. A Mixtral-layout
+    checkpoint loads into an MoE config: each layer's experts stack to
+    [E, in, out] in `dtype` as they are read, and their raw tensors are
+    dropped at once (the expert stacks are ~90% of an 8x7b)."""
     files = _safetensors_files(path)
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {path}")
     raw: Dict[str, torch.Tensor] = {}
     for f in files:
         raw.update(read_safetensors(f))
-    if any(".block_sparse_moe." in k for k in raw):
+    if not cfg.num_experts and any(".block_sparse_moe." in k for k in raw):
         raise ValueError(f"{path} is a mixture-of-experts (Mixtral layout) "
-                         "checkpoint; this package serves dense models only")
+                         f"checkpoint; model {cfg.name} is dense")
 
     def grab(name: str, transpose: bool = False) -> torch.Tensor:
         t = raw[name].to(device=device).to(dtype)
@@ -152,12 +160,24 @@ def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
         raise ValueError(f"checkpoint has {n_layers} layers, config {cfg.num_layers}")
     present = [(hf, ours, tr) for hf, (ours, tr) in _HF_LAYER_MAP.items()
                if f"model.layers.0.{hf}" in raw]
+    layers = [{ours: grab(f"model.layers.{i}.{hf}", tr)
+               for hf, ours, tr in present} for i in range(cfg.num_layers)]
+    if cfg.num_experts:
+        for i, lp in enumerate(layers):
+            p = f"model.layers.{i}.block_sparse_moe."
+            for hf, ours in _HF_EXPERT_MAP.items():
+                names = [f"{p}experts.{e}.{hf}.weight"
+                         for e in range(cfg.num_experts)]
+                out_dim, in_dim = raw[names[0]].shape
+                stack = torch.empty((cfg.num_experts, in_dim, out_dim),
+                                    dtype=dtype, device=device)
+                for e, n in enumerate(names):
+                    stack[e] = raw.pop(n).to(device=device).to(dtype).t()
+                lp[ours] = stack
     params = {
         "embed": grab("model.embed_tokens.weight"),
         "final_norm": grab("model.norm.weight"),
-        "layers": [{ours: grab(f"model.layers.{i}.{hf}", tr)
-                    for hf, ours, tr in present}
-                   for i in range(cfg.num_layers)],
+        "layers": layers,
     }
     if "lm_head.weight" in raw and not cfg.tie_embeddings:
         params["lm_head"] = grab("lm_head.weight")
@@ -173,12 +193,18 @@ def save_safetensors(params: dict, cfg: ModelConfig, path: str) -> str:
         raise ValueError("save_safetensors writes unquantized weights; "
                          "save the tree before quantize_params_int8")
     inverse = {ours: (hf, tr) for hf, (ours, tr) in _HF_LAYER_MAP.items()}
+    experts = {ours: hf for hf, ours in _HF_EXPERT_MAP.items()}
     out = {"model.embed_tokens.weight": params["embed"],
            "model.norm.weight": params["final_norm"]}
     if "lm_head" in params:
         out["lm_head.weight"] = params["lm_head"]
     for i, lp in enumerate(params["layers"]):
         for ours, t in lp.items():
+            if ours in experts:
+                for e in range(t.shape[0]):
+                    out[f"model.layers.{i}.block_sparse_moe.experts.{e}."
+                        f"{experts[ours]}.weight"] = t[e].t()
+                continue
             hf, tr = inverse[ours]
             out[f"model.layers.{i}.{hf}"] = t.t() if tr else t
     if len(params["layers"]) != cfg.num_layers:
@@ -224,7 +250,10 @@ def quantize_params_int8(params: dict) -> dict:
     scales; norms, biases and q/k norms stay as they are). Each quantized
     leaf becomes a QuantTensor with the weight's shape, which qeinsum,
     embed_lookup and logits_head take unchanged. Returns a new dict; the
-    input is not modified."""
+    input is not modified. MoE expert stacks are refused."""
+    if any("we_gate" in lp for lp in params["layers"]):
+        raise ValueError("int8 weight quantization does not cover MoE expert "
+                         "stacks; load the model with --weights-dtype=bfloat16")
     out = dict(params)
     out["layers"] = [
         {k: quantize_tensor(v, axis=-1) if k in QUANT_LAYER_KEYS else v

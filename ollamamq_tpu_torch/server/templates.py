@@ -25,7 +25,7 @@ def chat_family(cfg: Optional[ModelConfig]) -> str:
         return "llama3"
     if cfg.attn_bias:  # Qwen2 family marker
         return "chatml"
-    if cfg.vocab_size > 100_000:
+    if not cfg.is_encoder and cfg.num_experts == 0 and cfg.vocab_size > 100_000:
         return "llama3"
     return "plain"
 

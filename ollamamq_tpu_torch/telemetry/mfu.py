@@ -50,7 +50,7 @@ def active_param_count(cfg) -> int:
     router, not the full expert bank; dense models = param_count."""
     d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     mlp = 3 * d * f
-    if getattr(cfg, "num_experts", 0):
+    if cfg.num_experts:
         mlp = cfg.num_experts_per_tok * 3 * d * f + d * cfg.num_experts
     per_layer = (
         d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d

@@ -14,7 +14,9 @@ two-member fleet (a stream, then GET /admin/fleet, then SIGTERM), a
 tiered elastic fleet (a stream, GET /admin/tiers, the autoscaler's
 status), an HA primary and its warm standby (a stream, the standby's
 catch-up, a SIGTERM handover, a stream through the promoted standby),
-and refusing what the fleet's layers still lack.
+the mixture-of-experts model test-tiny-moe (a chat stream and an embed,
+then SIGTERM; int8 weights for Mixtral exit 2), and refusing what the
+fleet's layers still lack.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -300,6 +302,61 @@ def test_cli_serves_a_fleet_without_jax(tmp_path):
         assert [r["name"] for r in fleet["replicas"]] == ["r0", "r1"]
         assert fleet["counts"] == {"healthy": 2, "ejected": 0, "draining": 0}
         assert fleet["migrate"] is True and fleet["placement"] == "affinity"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (tmp_path / "cli.log").read_text()
+    assert "blocked:" not in text and "graceful shutdown complete" in text
+
+
+def test_cli_serves_moe_without_jax(tmp_path):
+    """`--model test-tiny-moe --device cpu` answers /api/chat and
+    /api/embed with JAX and the JAX package blocked, and drains on
+    SIGTERM; `--model mixtral:8x7b --weights-dtype int8` exits 2 with
+    the JAX package's message before any device work."""
+    proc = subprocess.run(
+        _blocked_cli(["--model", "mixtral:8x7b", "--weights-dtype", "int8",
+                      "--no-tui"]),
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=120)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode == 2, out[-2000:]
+    assert ("--weights-dtype=int8 does not cover MoE expert stacks "
+            "(model mixtral:8x7b); load it in bfloat16") in out
+    port = free_port()
+    log = open(tmp_path / "cli.log", "w")
+    proc = subprocess.Popen(
+        _blocked_cli(["--model", "test-tiny-moe", "--device", "cpu",
+                      "--port", str(port), "--no-tui", "--max-slots", "2",
+                      "--num-pages", "32", "--page-size", "8",
+                      "--max-pages-per-seq", "8", "--blocklist",
+                      str(tmp_path / "blocked.json")]),
+        cwd=str(tmp_path), env=_env(), stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+
+    def post(path, body):
+        req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                     headers={"X-User-ID": "moe"})
+        return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            assert proc.poll() is None, (tmp_path / "cli.log").read_text()[-3000:]
+            try:
+                urllib.request.urlopen(base + "/health", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.2)
+        body = post("/api/chat", {"model": "test-tiny-moe", "stream": False,
+                                  "messages": [{"role": "user", "content": "hi"}],
+                                  "options": {"num_predict": 4, "temperature": 0}})
+        assert body["done"] and body["eval_count"] == 4
+        emb = post("/api/embed", {"model": "test-tiny-moe", "input": ["a", "bc"]})
+        assert [len(v) for v in emb["embeddings"]] == [64, 64]
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0
     finally:

@@ -1,6 +1,6 @@
 """The PyTorch port's model forwards against the JAX package's, on the
-test-tiny dense configs, with the same weights bridged through
-from_jax_numpy.
+test-tiny configs (the dense ones and test-tiny-moe), with the same
+weights bridged through from_jax_numpy.
 
 Float32 on the CPU; tolerance atol = rtol = 1e-4 (the two frameworks sum
 matmuls in different orders). The pools are compared everywhere except
@@ -25,6 +25,7 @@ from ollamamq_tpu_torch.models.weights import from_jax_numpy, to_jax_numpy
 TOL = dict(rtol=1e-4, atol=1e-4)
 PS, MP, NPAGES = 8, 8, 24
 DENSE_TINY = ["test-tiny", "test-tiny-gqa", "test-tiny-qwen", "test-tiny-qwen3"]
+TINY = DENSE_TINY + ["test-tiny-moe"]
 
 
 def _np_params(name, seed=0):
@@ -59,7 +60,7 @@ def _ragged_meta(spans, T, B):
     return tok_seq, tok_pos, q_start, q_len, kv_len
 
 
-@pytest.mark.parametrize("name", DENSE_TINY)
+@pytest.mark.parametrize("name", TINY)
 def test_forwards_match_jax(name):
     cfg = MODEL_CONFIGS[name]
     pnp = _np_params(name)
@@ -125,7 +126,7 @@ def test_forwards_match_jax(name):
         pools_match()
 
 
-@pytest.mark.parametrize("name", DENSE_TINY)
+@pytest.mark.parametrize("name", TINY)
 def test_bridge_round_trip(name):
     """from_jax_numpy then to_jax_numpy gives back the JAX arrays
     exactly, and the layer dicts carry every stacked key."""

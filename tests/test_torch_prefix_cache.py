@@ -18,6 +18,7 @@ The lockstep driver here is shared by test_torch_spec.py and
 test_torch_degradation.py.
 """
 
+import dataclasses
 import itertools
 import random
 
@@ -35,7 +36,7 @@ from ollamamq_tpu.engine.kv_cache import PageAllocator as JaxAllocator
 from ollamamq_tpu.engine.prefix_cache import PrefixCache as JaxPrefixCache
 from ollamamq_tpu.engine.request import Request as JaxRequest
 from ollamamq_tpu.ops.sampling import SamplingParams as JaxSampling
-from ollamamq_tpu_torch.config import MODEL_CONFIGS, EngineConfig
+from ollamamq_tpu_torch.config import EngineConfig, ModelConfig
 from ollamamq_tpu_torch.core.mqcore import MQCore
 from ollamamq_tpu_torch.engine.engine import ModelRuntime
 from ollamamq_tpu_torch.engine.kv_cache import PageAllocator
@@ -54,28 +55,34 @@ _IDS = itertools.count(1)
 
 
 # -- shared lockstep driver ---------------------------------------------------
-def jax_runtime(copy_map=False, **kw):
-    """A JAX ModelRuntime (float32, EOS off). copy_map zeroes the residual
-    output projections (tests/test_spec_decoding.py's trick: greedy
-    generation cycles, so n-gram drafts verify)."""
-    rt = JaxRuntime("test-tiny", JAX_CONFIGS["test-tiny"],
-                    JaxEngineConfig(prefill_buckets=(16, 64), **{**BASE, **kw}),
+def jax_runtime(copy_map=False, cfg=None, **kw):
+    """A JAX ModelRuntime (float32, EOS off) of the JAX ModelConfig `cfg`
+    (test-tiny by default). copy_map zeroes the residual output
+    projections (tests/test_spec_decoding.py's trick: greedy generation
+    cycles, so n-gram drafts verify)."""
+    cfg = cfg or JAX_CONFIGS["test-tiny"]
+    rt = JaxRuntime(cfg.name, cfg,
+                    JaxEngineConfig(prefill_buckets=(16, 64),
+                                    **{**BASE, "model": cfg.name, **kw}),
                     dtype=jnp.float32)
     rt.tokenizer.eos_id = -1
     if copy_map:
-        for key in ("wo", "w_down"):
-            rt.params["layers"][key] = jax.tree_util.tree_map(
-                jnp.zeros_like, rt.params["layers"][key])
+        for key in ("wo", "w_down", "we_down"):
+            if key in rt.params["layers"]:
+                rt.params["layers"][key] = jax.tree_util.tree_map(
+                    jnp.zeros_like, rt.params["layers"][key])
     return rt
 
 
 def torch_runtime(jrt, **kw):
-    """The port's ModelRuntime with the same settings and jrt's weights."""
+    """The port's ModelRuntime with the same settings, model config and
+    weights as jrt."""
     pnp = jax.tree_util.tree_map(np.asarray, jrt.params)
-    rt = ModelRuntime("test-tiny", MODEL_CONFIGS["test-tiny"],
-                      EngineConfig(**{**BASE, **kw}), device="cpu",
-                      dtype=torch.float32,
-                      params=from_jax_numpy(pnp, MODEL_CONFIGS["test-tiny"]))
+    cfg = ModelConfig(**dataclasses.asdict(jrt.cfg))
+    rt = ModelRuntime(cfg.name, cfg,
+                      EngineConfig(**{**BASE, "model": cfg.name, **kw}),
+                      device="cpu", dtype=torch.float32,
+                      params=from_jax_numpy(pnp, cfg))
     rt.tokenizer.eos_id = -1
     return rt
 
@@ -133,10 +140,10 @@ def lockstep(jrt, trt, prompts, arrivals=None, max_ticks=3000, **sampling):
     made the same dispatch, the same page decisions and the same tokens.
     Returns the port's streams."""
     def jreq(rid, user, p):
-        return JaxRequest(rid, user, "test-tiny", p, JaxSampling(**sampling))
+        return JaxRequest(rid, user, jrt.name, p, JaxSampling(**sampling))
 
     def treq(rid, user, p):
-        return Request(rid, user, "test-tiny", p, SamplingParams(**sampling))
+        return Request(rid, user, trt.name, p, SamplingParams(**sampling))
 
     want, jtrace = drive(jrt, JaxMQCore(None), jreq, prompts, arrivals, max_ticks)
     got, ttrace = drive(trt, MQCore(None), treq, prompts, arrivals, max_ticks)

@@ -5,8 +5,10 @@ the port's: int8 payloads must be EQUAL and scales within rtol 1e-6
 (both compute amax / 127 and round half to even in float32). Then the
 round-trip bounds of tests/test_quantization.py on the port, the int8
 pool format and its per-layer indexing, the weight bridge with
-QuantTensor leaves, the byte math, the fail-fast config checks and the
-quantization guardrail on the JAX tests' real-shaped config.
+QuantTensor leaves, the byte math, the fail-fast config checks (the
+MoE refusals of tests/test_quantization.py:128, :371, :381 and :404
+included) and the quantization guardrail on the JAX tests' real-shaped
+config.
 """
 
 import jax
@@ -181,8 +183,16 @@ def test_validate_quant_config_matches_jax():
              ("fp8", "fp8")]
     for w, kv in cases:
         assert validate_quant_config(w, kv) == jax_validate(w, kv), (w, kv)
+        for names in (["mixtral:8x7b"], ["test-tiny", "test-tiny-moe"],
+                      ["test-tiny"], ["Mixtral"], ["unknown-model"]):
+            assert (validate_quant_config(w, kv, model_names=names)
+                    == jax_validate(w, kv, model_names=names)), (w, kv, names)
     assert validate_quant_config("int8", "int8") is None
     assert "fp8" in validate_quant_config("fp8", "bfloat16")
+    assert "MoE" in validate_quant_config("int8", "bfloat16",
+                                          model_names=["mixtral:8x7b"])
+    assert validate_quant_config("bfloat16", "int8",
+                                 model_names=["mixtral:8x7b"]) is None
 
 
 def test_cli_and_runtime_fail_fast(monkeypatch):
@@ -203,6 +213,46 @@ def test_cli_and_runtime_fail_fast(monkeypatch):
         with pytest.raises(ValueError):
             ModelRuntime("test-tiny", MODEL_CONFIGS["test-tiny"],
                          EngineConfig(num_pages=8, page_size=8, **bad), device="cpu")
+
+
+@pytest.mark.parametrize("where", ["load_params", "quantize", "runtime", "cli"])
+def test_moe_int8_weights_refused(monkeypatch, where):
+    """int8 weights for an MoE model are refused: by the quantizer, and
+    by the CLI and ModelRuntime before any weight is drawn or engine
+    built, with the JAX package's message."""
+    from ollamamq_tpu_torch.engine import engine as eng
+
+    cfg = MODEL_CONFIGS["test-tiny-moe"]
+    if where == "load_params":
+        with pytest.raises(ValueError, match="MoE expert stacks"):
+            weights.load_params(cfg, None, dtype=torch.float32, weights_dtype="int8")
+    elif where == "quantize":
+        with pytest.raises(ValueError, match="MoE expert stacks"):
+            weights.quantize_params_int8(
+                weights.init_random(cfg, dtype=torch.float32))
+    elif where == "runtime":
+        def no_weights(*a, **k):
+            raise AssertionError("weights were drawn for an invalid flag")
+
+        monkeypatch.setattr(weights, "load_params", no_weights)
+        with pytest.raises(ValueError) as exc:
+            ModelRuntime("test-tiny-moe", cfg,
+                         EngineConfig(model="test-tiny-moe", max_slots=2,
+                                      num_pages=16, page_size=8,
+                                      max_pages_per_seq=8, weights_dtype="int8"),
+                         device="cpu")
+        assert str(exc.value) == jax_validate("int8", "bfloat16",
+                                              model_names=["test-tiny-moe"])
+    else:
+        def no_engine(*a, **k):
+            raise AssertionError("an engine was built for an invalid flag")
+
+        monkeypatch.setattr(eng, "TorchEngine", no_engine)
+        argv = ["--no-tui", "--device", "cpu", "--models", "test-tiny,mixtral:8x7b",
+                "--weights-dtype", "int8"]
+        assert cli.validate(cli.build_parser().parse_args(argv)) == jax_validate(
+            "int8", "bfloat16", model_names=["test-tiny", "mixtral:8x7b"])
+        assert cli.main(argv) == 2
 
 
 def test_quant_guardrail_real_shaped():

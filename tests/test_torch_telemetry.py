@@ -87,7 +87,13 @@ def test_same_ops_render_byte_identical_text():
 
 def test_flops_per_token_agrees_on_shared_configs():
     shared = sorted(set(MODEL_CONFIGS) & set(JAX_CONFIGS))
-    assert {"llama3.2:1b", "llama3:8b", "qwen3:8b", "test-tiny"} <= set(shared)
+    assert {"llama3.2:1b", "llama3:8b", "qwen3:8b", "test-tiny",
+            "mixtral:8x7b", "test-tiny-moe"} <= set(shared)
+    # MoE counts the routed-active experts only (tests/test_telemetry.py:238).
+    for name in ("mixtral:8x7b", "test-tiny-moe"):
+        moe = MODEL_CONFIGS[name]
+        assert mfu.active_param_count(moe) < moe.param_count()
+        assert moe.param_count() == JAX_CONFIGS[name].param_count()
     for name in shared:
         p, j = MODEL_CONFIGS[name], JAX_CONFIGS[name]
         assert mfu.active_param_count(p) == jax_mfu.active_param_count(j), name

@@ -37,7 +37,9 @@ from testutil import collect
 
 
 def _fake_hf_checkpoint(cfg, tmp_path, with_bias=False, np_dtype=np.float32):
-    """tests/test_weights.py's HF-layout checkpoint, in `np_dtype`."""
+    """tests/test_weights.py's HF-layout checkpoint, in `np_dtype`; an MoE
+    config gets Mixtral's block_sparse_moe router and experts in place
+    of the dense MLP (tests/test_weights.py:109)."""
     rng = np.random.default_rng(0)
     d, qd, kvd, f, v = (cfg.hidden_size, cfg.q_dim, cfg.kv_dim,
                         cfg.intermediate_size, cfg.vocab_size)
@@ -58,9 +60,17 @@ def _fake_hf_checkpoint(cfg, tmp_path, with_bias=False, np_dtype=np.float32):
         tensors[p + "self_attn.k_proj.weight"] = w(kvd, d)
         tensors[p + "self_attn.v_proj.weight"] = w(kvd, d)
         tensors[p + "self_attn.o_proj.weight"] = w(d, qd)
-        tensors[p + "mlp.gate_proj.weight"] = w(f, d)
-        tensors[p + "mlp.up_proj.weight"] = w(f, d)
-        tensors[p + "mlp.down_proj.weight"] = w(d, f)
+        if cfg.num_experts:
+            tensors[p + "block_sparse_moe.gate.weight"] = w(cfg.num_experts, d)
+            for e in range(cfg.num_experts):
+                ep = p + f"block_sparse_moe.experts.{e}."
+                tensors[ep + "w1.weight"] = w(f, d)
+                tensors[ep + "w2.weight"] = w(d, f)
+                tensors[ep + "w3.weight"] = w(f, d)
+        else:
+            tensors[p + "mlp.gate_proj.weight"] = w(f, d)
+            tensors[p + "mlp.up_proj.weight"] = w(f, d)
+            tensors[p + "mlp.down_proj.weight"] = w(d, f)
         if with_bias:
             tensors[p + "self_attn.q_proj.bias"] = w(qd)
             tensors[p + "self_attn.k_proj.bias"] = w(kvd)
@@ -121,7 +131,7 @@ def _assert_trees_bit_equal(tp, jp, num_layers):
 
 
 @pytest.mark.parametrize("dt", ["bfloat16", "float32"])
-@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-qwen"])
+@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-qwen", "test-tiny-moe"])
 def test_reader_bit_equal_with_jax_loader(tmp_path, name, dt):
     """A checkpoint written by safetensors.numpy.save_file (bf16 through
     ml_dtypes) reads bit-equal through the port's stdlib reader and the
@@ -133,10 +143,17 @@ def test_reader_bit_equal_with_jax_loader(tmp_path, name, dt):
     jp = jweights.load_safetensors(JAX_CONFIGS[name], str(tmp_path),
                                    dtype=getattr(jnp, dt))
     _assert_trees_bit_equal(tp, jp, cfg.num_layers)
+    if cfg.num_experts:  # Mixtral: experts stack [E, in, out], no dense MLP
+        E, d, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+        lp = tp["layers"][1]
+        assert lp["w_router"].shape == (d, E) and "w_gate" not in lp
+        assert lp["we_gate"].shape == lp["we_up"].shape == (E, d, f)
+        assert lp["we_down"].shape == (E, f, d)
 
 
 @pytest.mark.parametrize("dt", ["bfloat16", "float32"])
-@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-qwen3", "test-tiny-embed"])
+@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-qwen3", "test-tiny-embed",
+                                  "test-tiny-moe"])
 def test_writer_read_by_safetensors_and_jax(tmp_path, name, dt):
     """save_safetensors' file: the safetensors package reads every tensor
     back bit-equal, and the JAX loader builds the same tree."""
@@ -150,6 +167,11 @@ def test_writer_read_by_safetensors_and_jax(tmp_path, name, dt):
             _bits(params["layers"][1]["wq"].t().contiguous()))
         np.testing.assert_array_equal(_bits(f.get_tensor("model.embed_tokens.weight")),
                                       _bits(params["embed"]))
+        if cfg.num_experts:
+            np.testing.assert_array_equal(
+                _bits(f.get_tensor("model.layers.1.block_sparse_moe.experts.2.w2.weight")),
+                _bits(params["layers"][1]["we_down"][2].t().contiguous()))
+            assert not any(".mlp." in n for n in names)
     assert ("lm_head.weight" in names) == ("lm_head" in params)
     jp = jweights.load_safetensors(JAX_CONFIGS[name], str(tmp_path),
                                    dtype=getattr(jnp, dt))
