@@ -18,7 +18,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            llama3.2:1b and llama3:8b attention shapes, a 512-token
            llama3.2:1b prefill (ragged only), a serving decode step of
            llama3.2:1b (8 sequences of 20 to 140 tokens; decode only),
-           the CPU tests' edge cases (GQA, MQA, group 1, empty rows,
+           the one-rank shapes of tensor parallelism at tp 2 (llama3:8b
+           and llama3.2:1b with 16 query heads over 4 KV heads), the
+           CPU tests' edge cases (GQA, MQA, group 1, empty rows,
            contexts past max_pages), the ragged kernel's query-tiling
            edges (a span starting mid-page, spans of QT, QT + 1 and
            2 QT + 3 rows, groups 3 and 7, long tail padding, a prefill
@@ -309,10 +311,46 @@ Phases, each printing JSON lines; any failure exits non-zero:
            sync lag at the kill, SIGTERM to the second standby serving,
            the 4-stream window's tokens/s (the members' generated-token
            counters) and the fenced calls.
+  serve-tp tensor parallelism: two ranks (processes of this script,
+           --tp-rank) share cuda:0 over gloo (NCCL refuses two ranks on
+           one GPU); rank 0 runs SPMDEngine and the HTTP server, rank 1
+           run_worker, each holding half the heads, FFN columns and
+           vocabulary rows and half the KV pool. Four windows, each its
+           own pair of processes: (1) llama3:8b at full width (32 layers,
+           d 4096, 32 heads over 8 KV heads, hd 128, f 14,336, vocab
+           128,256, untied; seeded bf16 weights, 8 slots, 136 pages of
+           32): 4 greedy /api/chat streams of 64 tokens from 3 users
+           (prompts of 100 to 300 tokens), then one prompt twice alone;
+           gates: every reply stop/length, the repeat identical, both
+           ranks' digests of every dispatch output equal, each rank
+           exactly 32 ragged launches per ragged dispatch and 32 decode
+           launches per decode step and no int8 launch, param_bytes
+           8,030,527,488 and kv_bytes 285,212,672 on each rank, every
+           attention call of rank 0 (its slice alone, 16 heads over 4)
+           within 2e-2 x max |plain|; records tokens/s, TTFT, init
+           seconds, each rank's peak memory, rank 0's all_reduce ms per
+           forward and the wire's ms per dispatch over one more burst,
+           and with --profile a profiled burst. (2) llama3.2:1b in
+           float32 (TF32 off): 4 greedy 32-token streams at tp 2 and at
+           tp 1 on the same seed, queued before the loop starts: ids
+           identical, the first forward's logits within 1e-4 x max
+           |logit|, both f32 kernels launched on each rank. (3)
+           llama3.2:1b with int8 weights and int8 KV: 2 greedy streams
+           of 32 tokens; both int8 kernels exactly per dispatch on each
+           rank, per-call agreement as in (1), each rank's kv_bytes half
+           serve-int8's. (4) kill -9 of the worker while 4 streams
+           decode: every request ends with an error within 18 s (3 s of
+           heartbeat staleness plus slack), /health answers 200 with
+           worker_stale firing and the runtime failed. Besides: a world
+           of one NCCL rank runs the TP all-reduce helper on the card,
+           and `python -m ollamamq_tpu_torch.cli --model llama3.2:1b
+           --tp 2` exits 2 naming cuda:1. Rank logs go to
+           chiprun_out/chip_smoke/serve_tp_*.log.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
-serve-fleet's, serve-tiers', serve-autoscale's and serve-ha's, counted in
+serve-fleet's, serve-tiers', serve-autoscale's, serve-ha's and
+serve-tp's (both ranks of each window), counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
 ms go uncounted; the others' whole windows from the counts they log at
@@ -343,7 +381,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Kernel shapes timed with q in bf16 (the rest are checked, not timed).
 TIMED_SHAPES = ("llama3.2:1b", "llama3:8b-attn", "llama3.2:1b-prefill512",
-                "llama3.2:1b-serve8")
+                "llama3.2:1b-serve8", "llama3:8b-tp2", "llama3.2:1b-tp2")
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 # Kernel -> (source, the TPU kernel it replaces, the serve phase whose
 # window counts its launches).
@@ -692,6 +730,12 @@ def timed_cases(dtype, int8):
         ("ragged", ragged_case("llama3:8b-attn", 4, mixed, 64, 320, 32, 8, 128, 32, 16, **d)),
         ("ragged", ragged_case("llama3.2:1b-prefill512", 22, [(512, 512)], 8, 512, 32, 8, 64, 32, 16, **d)),
         ("decode", decode_case("llama3.2:1b-serve8", 31, 8, 32, 8, 64, 32, 16, ctx8, **d)),
+        # One rank's heads at tensor-parallel width 2 (serve-tp): 16 query
+        # heads over 4 KV heads, group 4 as at tp 1.
+        ("decode", decode_case("llama3:8b-tp2", 36, 64, 16, 4, 128, 32, 16, ctx64, **d)),
+        ("ragged", ragged_case("llama3:8b-tp2", 37, mixed, 64, 320, 16, 4, 128, 32, 16, **d)),
+        ("decode", decode_case("llama3.2:1b-tp2", 38, 64, 16, 4, 64, 32, 16, ctx64, **d)),
+        ("ragged", ragged_case("llama3.2:1b-tp2", 39, mixed, 64, 320, 16, 4, 64, 32, 16, **d)),
     ]
 
 
@@ -1019,7 +1063,8 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
     kernel_vs_plain_logits(report, phase, rt, text, quant)
 
 
-def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False) -> None:
+def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False,
+                           tp=1) -> None:
     """One prompt's prefill and first decode step through the kernels vs
     the plain attention path, on the serving weights (outside the counted
     window): logits within TOL["bfloat16"] of the plain path's max.
@@ -1029,7 +1074,12 @@ def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False) -> No
     end-to-end logits are recorded, not gated, because a bf16 rounding
     difference can flip a near-tie of the router's top-k in some layer
     and then that token's FFN output differs by a whole expert. The
-    routing decisions that differ between the two runs are counted."""
+    routing decisions that differ between the two runs are counted.
+
+    tp > 1: `rt` holds rank 0's slice of a tp-way mesh; the forwards run
+    on that slice alone (no collectives, pools of its own KV heads), so
+    each attention call sees the rank's own q and pools at the TP-local
+    head counts. Only the per-call check means anything there."""
     import torch
 
     from ollamamq_tpu_torch.config import EngineConfig
@@ -1079,7 +1129,8 @@ def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False) -> No
             llama.ragged_attention_any = beside_plain(dispatch[0], "ragged")
             llama.paged_decode_attention_any = beside_plain(dispatch[1], "decode")
         try:
-            kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda", kv_dtype=quant)
+            kc, vc = kvc.alloc_kv_pool(cfg, small, torch.bfloat16, "cuda", kv_dtype=quant,
+                                       tp=tp)
             pre, _, _ = llama.forward_ragged(
                 rt.params, cfg, tokens, tok_seq, tok_pos, ws,
                 torch.tensor([n - 1], device="cuda"), kc, vc, pt, *meta, ps,
@@ -4193,6 +4244,585 @@ def _serve_moe_traffic(rt, port) -> dict:
             "launches": counts, "launches_expected": own, "kernels_exact": exact}
 
 
+# -- serve-tp: tensor parallelism over two ranks --------------------------------
+TP_MODEL = "llama3:8b"
+TP_SMALL = "llama3.2:1b"
+TP_DEVICE = "cuda"
+TP_PARAM_BYTES = 8_030_527_488  # each rank's bf16 slice of llama3:8b
+TP_KV_BYTES = 285_212_672  # each rank's pool: 32 layers x 4352 slots x 4 heads
+TP_NEW = 64
+TP_STREAMS = (("tp-ada", 100), ("tp-bob", 180), ("tp-cyd", 240), ("tp-ada", 300))
+TP_TEXT = ("Tensor parallelism splits each layer's heads and feed-forward "
+           "columns over ranks that sum their partial outputs. ")
+TP_HB = {"OLLAMAMQ_SPMD_HB_EVERY": "0.5", "OLLAMAMQ_SPMD_HB_STALE": "3"}
+TP_KILL_BOUND_S = 3.0 + 15.0  # heartbeat staleness + transport slack
+
+
+def _tp_ecfg(spec):
+    from ollamamq_tpu_torch.config import EngineConfig
+
+    return EngineConfig(model=spec["model"], max_slots=8, num_pages=136,
+                        page_size=32, max_pages_per_seq=16,
+                        max_batch_tokens=512, token_granule=16,
+                        max_new_tokens=spec.get("new", TP_NEW),
+                        decode_steps_per_iter=8, dtype=spec["dtype"],
+                        weights_dtype=spec.get("quant", "bfloat16"),
+                        kv_dtype=spec.get("quant", "bfloat16"), seed=0)
+
+
+def _tp_wait(req, budget=600.0):
+    deadline = time.monotonic() + budget
+    while time.monotonic() < deadline:
+        item = req.stream.get(timeout=0.5)
+        if item and item.kind in ("done", "error"):
+            return item
+    return None
+
+
+def _tp_exact(counts, ops, layers, suffix):
+    """One rank's kernel launches against its own dispatches: `layers`
+    ragged launches per ragged (or verify) dispatch, `layers` decode
+    launches per decode step, nothing of the other pool format."""
+    own = {"ragged_paged_attention" + suffix: layers * (ops["ragged"] + ops["spec"]),
+           "paged_decode_attention" + suffix: layers * ops["decode_steps"]}
+    return (all(v > 0 for v in own.values())
+            and all(counts[k] == own.get(k, 0) for k in counts)), own
+
+
+def _tp_traffic(rt, port, model):
+    """serve-tp's gated window: 4 greedy /api/chat streams of TP_NEW tokens
+    from 3 users (prompts of 100 to 300 tokens), then one prompt twice,
+    alone. Rank 0's launches are counted over the window."""
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    ttft = tm.TTFT_MS.labels(model=model)
+    ttft0 = list(ttft.counts)
+    greedy = {"temperature": 0, "num_predict": TP_NEW}
+
+    def body(n_tokens, tag):
+        text = (f"[{tag}] " + TP_TEXT * 8)[:n_tokens - 16]  # byte tokenizer
+        return {"model": model, "options": greedy,
+                "messages": [{"role": "user", "content": text}]}
+
+    results, errors = {}, []
+
+    def run(key, user, b):
+        try:
+            results[key] = _ollama_result(*_post(port, "/api/chat", b, user))
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{key}: {e}")
+
+    before = dict(rt.stats())
+    reset_launch_counts()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(f"{u}/{n}", u, body(n, i)))
+               for i, (u, n) in enumerate(TP_STREAMS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    burst_s = time.monotonic() - t0
+    mid = dict(rt.stats())
+    repeat = []
+    for i in range(2):
+        run(f"repeat{i}", "tp-bob", body(160, "repeat"))
+        repeat.append(results.get(f"repeat{i}", ([], None))[0])
+    counts = launch_counts()
+    serve_s = time.monotonic() - t0
+    after = dict(rt.stats())
+    if errors or len(results) != len(TP_STREAMS) + 2:
+        raise SystemExit(f"serve-tp requests failed: {errors}")
+    ops = {"ragged": after["ragged_dispatches"] - before["ragged_dispatches"],
+           "spec": 0, "decode_steps": after["decode_steps"] - before["decode_steps"]}
+    exact, own = _tp_exact(counts, ops, rt.cfg.num_layers, "")
+    burst_tokens = mid["tokens_generated"] - before["tokens_generated"]
+    return {"serve_s": serve_s, "burst_s": burst_s,
+            "tokens": after["tokens_generated"] - before["tokens_generated"],
+            "burst_tokens": burst_tokens,
+            "burst_tokens_per_s": burst_tokens / burst_s,
+            "ttft_ms": _delta_quantiles(ttft, ttft0, (0.5, 0.99)),
+            "replies": {k: {"tokens": len(ids), "done_reason": why}
+                        for k, (ids, why) in results.items()},
+            "greedy_repeat_identical": repeat[0] == repeat[1] and len(repeat[0]) > 0,
+            "ragged_dispatches": ops["ragged"], "decode_steps": ops["decode_steps"],
+            "launches": counts, "launches_expected": own, "kernels_exact": exact}
+
+
+def _tp_layer_ms(rt, port, model) -> dict:
+    """The TP layer's own costs over one more 2-stream burst: every
+    all_reduce of rank 0 (the two row-parallel sums per layer, the
+    embedding's and the logits' vocab gather) timed between device
+    synchronizations, and the wire (the step plan's store write and the
+    status sync) per dispatch. The synchronizations slow the burst; its
+    wall time is not a serving number."""
+    import torch
+
+    from ollamamq_tpu_torch.engine import spmd
+
+    def sync():
+        if rt.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    acc = {"allreduce_s": 0.0, "allreduce_calls": 0, "send_s": 0.0, "sync_s": 0.0}
+    group, send, bus_sync = rt.tp, spmd._send, spmd._bus.sync
+    reduce = group.all_reduce
+
+    def timed_reduce(x):
+        sync()
+        t = time.perf_counter()
+        out = reduce(x)
+        sync()
+        acc["allreduce_s"] += time.perf_counter() - t
+        acc["allreduce_calls"] += 1
+        return out
+
+    def timed_send(*a, **kw):
+        t = time.perf_counter()
+        send(*a, **kw)
+        acc["send_s"] += time.perf_counter() - t
+
+    def timed_sync(ok):
+        t = time.perf_counter()
+        out = bus_sync(ok)
+        acc["sync_s"] += time.perf_counter() - t
+        return out
+
+    before = rt.stats()
+    group.all_reduce, spmd._send, spmd._bus.sync = timed_reduce, timed_send, timed_sync
+    try:
+        body = {"model": model, "prompt": TP_TEXT * 2, "stream": False,
+                "options": {"temperature": 0, "num_predict": 32}}
+        threads = [threading.Thread(target=_post, args=(port, "/api/generate", body, u))
+                   for u in ("tp-m1", "tp-m2")]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+    finally:
+        del group.all_reduce
+        spmd._send = send
+        del spmd._bus.sync
+    after = rt.stats()
+    forwards = ((after["ragged_dispatches"] - before["ragged_dispatches"])
+                + (after["decode_steps"] - before["decode_steps"]))
+    dispatches = ((after["ragged_dispatches"] - before["ragged_dispatches"])
+                  + (after["decode_dispatches"] - before["decode_dispatches"]))
+    return {"forwards": forwards, "dispatches": dispatches, "wall_s": wall,
+            "allreduce_calls_per_forward": acc["allreduce_calls"] / max(1, forwards),
+            "allreduce_ms_per_forward": acc["allreduce_s"] * 1e3 / max(1, forwards),
+            "wire_send_ms_per_dispatch": acc["send_s"] * 1e3 / max(1, dispatches),
+            "status_sync_ms_per_dispatch": acc["sync_s"] * 1e3 / max(1, dispatches),
+            "wall_ms_per_forward": wall * 1e3 / max(1, forwards)}
+
+
+def _tp_leader_bf16(spec, mesh, profile):
+    import torch
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model = spec["model"]
+    ecfg = _tp_ecfg(spec)
+    t0 = time.monotonic()
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rt = eng.runtimes[model]
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    line = _tp_traffic(rt, port, model)
+    line["tp_layer"] = _tp_layer_ms(rt, port, model)
+    if profile:
+        line["profile"] = profile_window(port, model, TP_TEXT * 3, rt)
+    stop_server(srv)
+    line.update(init_s=init_s, param_bytes=rt.param_bytes, kv_bytes=rt.kv_bytes,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                n_chips=rt.n_chips, trace=eng.spmd_report(),
+                workers=eng.worker_reports)
+    calls = {}
+    kernel_vs_plain_logits(calls, "serve-tp", rt, TP_TEXT * 2, "bfloat16",
+                           per_call=True, tp=2)
+    line["per_call"] = calls["serve_tp_logits"]
+    return line
+
+
+def _tp_first_forward(capture):
+    """Wrap llama.forward_ragged so the first call's logits land in
+    `capture` (on the host)."""
+    from ollamamq_tpu_torch.models import llama
+
+    orig = llama.forward_ragged
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        if "logits" not in capture:
+            capture["logits"] = out[0].float().cpu()
+            capture["rows"] = int((a[11] > 0).sum())  # q_len > 0: real rows
+        return out
+
+    llama.forward_ragged = wrapped
+    return orig
+
+
+def _tp_leader_f32(spec, mesh, profile):
+    """f32 identity: 4 greedy streams of 32 tokens at tp 2, then the same
+    requests on a one-rank engine of the same seed; every request is
+    queued before the loop starts, so both first dispatches hold the same
+    4 prefill spans."""
+    import torch
+
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.models import llama
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    prompts = [f"[{i}] " + TP_TEXT[:40 + 17 * i] for i in range(4)]
+
+    def run(eng):
+        capture = {}
+        orig = _tp_first_forward(capture)
+        try:
+            tok = eng.runtimes[model].tokenizer
+            reqs = [eng.enqueue_request(f"f32-{i}", "", model,
+                                        prompt_tokens=tok.encode(p),
+                                        sampling=SamplingParams(max_tokens=32,
+                                                                temperature=0.0))
+                    for i, p in enumerate(prompts)]
+            eng.start()
+            items = [_tp_wait(r) for r in reqs]
+        finally:
+            llama.forward_ragged = orig
+        eng.stop()
+        ok = all(it is not None and it.kind == "done" for it in items)
+        return [r.generated_ids for r in reqs], capture, ok
+
+    reset_launch_counts()
+    tp_eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    ids2, cap2, ok2 = run(tp_eng)
+    counts = launch_counts()
+    worker = tp_eng.worker_reports
+    del tp_eng
+    one = TorchEngine(ecfg, device=mesh.device, blocklist_path=None)
+    ids1, cap1, ok1 = run(one)
+    n = cap2["rows"]
+    a, b = cap2["logits"][:n], cap1["logits"][:n]
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return {"ids_tp2": ids2, "ids_tp1": ids1, "done": ok1 and ok2,
+            "ids_identical": ids1 == ids2 and all(len(x) > 0 for x in ids2),
+            "first_forward": {"rows": n, "max_abs_err": err, "ref_max_abs": scale,
+                              "rel_err": err / scale,
+                              "tol": f"max |tp2 - tp1| <= {TOL['float32']} * max |tp1|",
+                              "ok": err <= TOL["float32"] * scale},
+            "launches": counts, "workers": worker}
+
+
+def _tp_leader_int8(spec, mesh, profile):
+    import torch
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    rt = eng.runtimes[model]
+    tok = rt.tokenizer
+    before = rt.stats()
+    reset_launch_counts()
+    eng.start()
+    reqs = [eng.enqueue_request(f"int8-{i}", "", model,
+                                prompt_tokens=tok.encode(TP_TEXT * (i + 1)),
+                                sampling=SamplingParams(max_tokens=32, temperature=0.0))
+            for i in range(2)]
+    items = [_tp_wait(r) for r in reqs]
+    counts = launch_counts()
+    eng.stop()
+    after = rt.stats()
+    ops = {"ragged": after["ragged_dispatches"] - before["ragged_dispatches"],
+           "spec": 0, "decode_steps": after["decode_steps"] - before["decode_steps"]}
+    exact, own = _tp_exact(counts, ops, rt.cfg.num_layers, "_int8")
+    calls = {}
+    kernel_vs_plain_logits(calls, "serve-tp-int8", rt, TP_TEXT * 2, "int8",
+                           per_call=True, tp=2)
+    torch.cuda.synchronize()
+    return {"done": all(it is not None and it.kind == "done" for it in items),
+            "tokens": [len(r.generated_ids) for r in reqs],
+            "launches": counts, "launches_expected": own, "kernels_exact": exact,
+            "param_bytes": rt.param_bytes, "kv_bytes": rt.kv_bytes,
+            "per_call": calls["serve_tp_int8_logits"], "trace": eng.spmd_report(),
+            "workers": eng.worker_reports}
+
+
+def _tp_leader_kill(spec, mesh, profile):
+    """kill -9 of the worker rank while 4 streams decode: every request
+    must end with an error within the heartbeat bound, and /health keep
+    answering (runtime failed, worker_stale firing)."""
+    import urllib.request
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    tok = eng.runtimes[model].tokenizer
+    reqs = [eng.enqueue_request(f"kill-{i}", "", model,
+                                prompt_tokens=tok.encode(TP_TEXT),
+                                sampling=SamplingParams(max_tokens=400, temperature=0.0))
+            for i in range(4)]
+    deadline = time.monotonic() + 300
+    while (min(len(r.generated_ids) for r in reqs) < 16
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    in_flight = [len(r.generated_ids) for r in reqs]
+    pid = int(distributed.store().get("chip_smoke/pid/1"))
+    os.kill(pid, signal.SIGKILL)
+    t_kill = time.monotonic()
+    items, ends = [], []
+    for r in reqs:
+        items.append(_tp_wait(r, budget=120))
+        ends.append(time.monotonic() - t_kill)
+    time.sleep(3.5)  # past the heartbeat's staleness
+    eng.health.check_once()
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/health",
+                                timeout=30) as resp:
+        status, health = resp.status, json.loads(resp.read())
+    stop_server(srv)
+    return {"tokens_at_kill": in_flight,
+            "kinds": [it.kind if it else "timeout" for it in items],
+            "errors": [(it.error or "")[:160] if it else "" for it in items],
+            "seconds_to_error": ends, "bound_s": TP_KILL_BOUND_S,
+            "health_http": status, "health_status": health["status"],
+            "alerts": [a["name"] for a in health["alerts"]],
+            "runtime_failed": [r["failed"] for r in health["runtimes"]]}
+
+
+TP_WINDOWS = {"bf16": _tp_leader_bf16, "f32": _tp_leader_f32,
+              "int8": _tp_leader_int8, "kill": _tp_leader_kill}
+
+
+def tp_rank_main(args) -> int:
+    """One rank of a serve-tp window (`--tp-rank`): both ranks share the
+    card over gloo; rank 1 replays, rank 0 runs the window and prints its
+    result line. Either exits non-zero on any failure."""
+    import traceback
+
+    spec = json.loads(args.tp_spec)
+    rank = args.tp_rank
+    try:
+        import torch
+
+        from ollamamq_tpu_torch.engine import spmd
+        from ollamamq_tpu_torch.ops.cuda import build
+        from ollamamq_tpu_torch.parallel import distributed
+        from ollamamq_tpu_torch.parallel.mesh import make_mesh
+
+        device = "cuda:0" if spec["device"] == "cuda" else "cpu"
+        if device != "cpu":
+            for name in build.KERNELS:  # the parent built them: load only
+                build.kernel_fn(name)
+        distributed.initialize(f"127.0.0.1:{args.tp_port}", 2, rank,
+                               backend="gloo", devices=[device, device],
+                               timeout_s=120)
+        distributed.store().set(f"chip_smoke/pid/{rank}", str(os.getpid()))
+        mesh = make_mesh(tp=2)
+        if rank == 1:
+            steps = spmd.run_worker({spec["model"]: None}, _tp_ecfg(spec), mesh)
+            print("TP-RESULT " + json.dumps({"rank": 1, "steps": steps}), flush=True)
+        else:
+            out = TP_WINDOWS[args.tp_window](spec, mesh, spec.get("profile", False))
+            print("TP-RESULT " + json.dumps(out), flush=True)
+        sys.stdout.flush()
+        os._exit(0)  # the gloo group of a killed peer must not block teardown
+    except BaseException:  # noqa: BLE001 — every failure exits non-zero
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _tp_window(window, spec, timeout_s=900.0):
+    """Run one serve-tp window in two rank processes (logs under OUT_DIR);
+    returns (rank 0's result, the return codes)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    port = _free_port()
+    env = dict(os.environ, **TP_HB)
+    paths = [os.path.join(OUT_DIR, f"serve_tp_{window}_rank{r}.log") for r in (0, 1)]
+    logs = [open(p, "w") for p in paths]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "chip_smoke.py"), "--tp-rank", str(r),
+         "--tp-port", str(port), "--tp-window", window, "--tp-spec", json.dumps(spec)],
+        cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+    try:
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    text = open(paths[0]).read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("TP-RESULT ")]
+    if not lines:
+        raise SystemExit(f"serve-tp {window}: rank 0 printed no result "
+                         f"(rc {[p.returncode for p in procs]}):\n{text[-4000:]}")
+    return json.loads(lines[-1][10:]), [p.returncode for p in procs], paths
+
+
+def _tp_nccl_check() -> dict:
+    """A world-size-1 NCCL group (the backend initialize() picks for a CUDA
+    rank) runs the port's TP all-reduce helper on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.parallel.mesh import TensorGroup
+
+    distributed.initialize("127.0.0.1:0", 1, 0, devices=["cuda:0"], timeout_s=60)
+    try:
+        backend = dist.get_backend()
+        x = torch.arange(4096, dtype=torch.bfloat16, device="cuda")
+        y = TensorGroup(1, 0, dist.group.WORLD).all_reduce(x.clone())
+        torch.cuda.synchronize()
+        ok = backend == "nccl" and bool(torch.equal(x, y))
+    finally:
+        distributed.shutdown()
+    return {"backend": backend, "ok": ok}
+
+
+def serve_tp_phase(report, profile: bool) -> None:
+    """Tensor parallelism over two ranks sharing the card (gloo; NCCL
+    refuses two ranks on one GPU): llama3:8b at full width in bf16, then
+    llama3.2:1b in float32 against one rank, in int8, and under a kill -9
+    of the worker; see the module docstring."""
+    import torch
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    refusal = subprocess.run(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", TP_SMALL,
+         "--tp", "2", "--no-tui"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=120)
+    refusal_text = refusal.stdout + refusal.stderr
+    nccl = _tp_nccl_check()
+    base = {"device": TP_DEVICE, "profile": profile}
+    windows, rcs = {}, {}
+    for window, spec in (("bf16", {"model": TP_MODEL, "dtype": "bfloat16"}),
+                         ("f32", {"model": TP_SMALL, "dtype": "float32"}),
+                         ("int8", {"model": TP_SMALL, "dtype": "bfloat16",
+                                   "quant": "int8"}),
+                         ("kill", {"model": TP_SMALL, "dtype": "bfloat16"})):
+        t0 = time.monotonic()
+        out, rc, _ = _tp_window(window, {**base, **spec})
+        out["window_s"] = time.monotonic() - t0
+        windows[window], rcs[window] = out, rc
+    bf16, f32, int8, kill = (windows[w] for w in ("bf16", "f32", "int8", "kill"))
+    (w_bf16,), (w_f32,), (w_int8,) = bf16["workers"], f32["workers"], int8["workers"]
+    cfg_layers = {"bf16": 32, "small": 16}
+    worker_exact = {
+        "bf16": _tp_exact(w_bf16["launches"], w_bf16["ops"], cfg_layers["bf16"], "")[0],
+        "int8": _tp_exact(w_int8["launches"], w_int8["ops"], cfg_layers["small"], "_int8")[0]}
+    launches = {k: 0 for k in KERNEL_ROWS}
+    for counts in (bf16["launches"], w_bf16["launches"], f32["launches"],
+                   w_f32["launches"], int8["launches"], w_int8["launches"]):
+        for k, v in counts.items():
+            launches[k] += v
+    line = {"phase": "serve-tp", "model": TP_MODEL, "tp": 2, "backend": "gloo",
+            "ranks_on": "cuda:0 (both)", "layers": 32,
+            "width": {"hidden": 4096, "heads": 32, "kv_heads": 8, "head_dim": 128,
+                      "intermediate": 14336, "vocab": 128256,
+                      "per_rank": {"heads": 16, "kv_heads": 4}},
+            "dtype": "bfloat16", "streams": len(TP_STREAMS), "users": 3,
+            **{k: bf16[k] for k in ("serve_s", "burst_s", "tokens", "burst_tokens",
+                                    "burst_tokens_per_s", "ttft_ms", "replies",
+                                    "greedy_repeat_identical", "ragged_dispatches",
+                                    "decode_steps", "launches_expected", "init_s",
+                                    "n_chips", "tp_layer", "per_call")},
+            "param_bytes": {"rank0": bf16["param_bytes"],
+                            "rank1": w_bf16["runtimes"][TP_MODEL]["param_bytes"],
+                            "expected": TP_PARAM_BYTES},
+            "kv_bytes": {"rank0": bf16["kv_bytes"],
+                         "rank1": w_bf16["runtimes"][TP_MODEL]["kv_bytes"],
+                         "expected": TP_KV_BYTES},
+            "max_memory_allocated": {"rank0": bf16["max_memory_allocated"],
+                                     "rank1": w_bf16.get("max_memory_allocated")},
+            "digests_equal": bf16["trace"]["digest"] == w_bf16["digest"],
+            "ops": {"rank0": bf16["trace"]["ops"], "rank1": w_bf16["ops"]},
+            "launches_rank0_window": bf16["launches"],
+            "launches_rank1": w_bf16["launches"],
+            "f32": {k: f32[k] for k in ("ids_identical", "first_forward", "done")},
+            "f32_launches": {"rank0": f32["launches"], "rank1": w_f32["launches"]},
+            "int8": {"model": TP_SMALL, "done": int8["done"], "tokens": int8["tokens"],
+                     "launches": {"rank0": int8["launches"], "rank1": w_int8["launches"]},
+                     "kernels_exact": {"rank0": int8["kernels_exact"],
+                                       "rank1": worker_exact["int8"]},
+                     "kv_bytes": {"rank0": int8["kv_bytes"],
+                                  "rank1": w_int8["runtimes"][TP_SMALL]["kv_bytes"],
+                                  "tp1_serve_int8": report["serve_int8"]["kv_bytes"]},
+                     "digests_equal": int8["trace"]["digest"] == w_int8["digest"],
+                     "per_call": int8["per_call"]},
+            "kill": kill, "nccl_ws1": nccl,
+            "cli_tp2_exit": refusal.returncode,
+            "cli_tp2_message": next((ln.split(": ", 1)[-1] for ln in refusal_text.splitlines()
+                                     if "cuda:1" in ln), refusal_text[-300:]),
+            "return_codes": rcs, "launches": launches,
+            "windows_s": {w: windows[w]["window_s"] for w in windows}}
+    line["phase_s"] = time.monotonic() - t_phase
+    emit(line)
+    report["serve_tp"] = line
+    f32_rank = lambda c: all(c[k] > 0 for k in ("ragged_paged_attention",  # noqa: E731
+                                                "paged_decode_attention"))
+    half = report["serve_int8"]["kv_bytes"] / 2
+    gates = {
+        "replies": all(r["done_reason"] in ("stop", "length")
+                       for r in line["replies"].values()),
+        "greedy_repeat_identical": line["greedy_repeat_identical"],
+        "ranks_ids_equal": line["digests_equal"] and line["int8"]["digests_equal"],
+        "kernels_bf16_exact": bf16["kernels_exact"] and worker_exact["bf16"],
+        "param_bytes": (line["param_bytes"]["rank0"] == TP_PARAM_BYTES
+                        and line["param_bytes"]["rank1"] == TP_PARAM_BYTES),
+        "kv_bytes": line["kv_bytes"]["rank0"] == line["kv_bytes"]["rank1"] == TP_KV_BYTES,
+        "per_call_bf16": all(line["per_call"][k]["ok"]
+                             for k in ("ragged_per_call", "decode_per_call")),
+        "f32_ids_identical": f32["done"] and f32["ids_identical"],
+        "f32_first_forward": f32["first_forward"]["ok"],
+        "f32_kernels_both_ranks": f32_rank(f32["launches"]) and f32_rank(w_f32["launches"]),
+        "int8_done": int8["done"],
+        "int8_kernels_exact": int8["kernels_exact"] and worker_exact["int8"],
+        "int8_per_call": all(int8["per_call"][k]["ok"]
+                             for k in ("ragged_per_call", "decode_per_call")),
+        "int8_kv_half": (line["int8"]["kv_bytes"]["rank0"] == half
+                         and line["int8"]["kv_bytes"]["rank1"] == half),
+        "nccl_ws1": nccl["ok"],
+        "cli_tp2_exit_2": refusal.returncode == 2 and "cuda:1" in refusal_text,
+        "kill_errors": kill["kinds"] == ["error"] * 4,
+        "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
+        "kill_health": (kill["health_http"] == 200 and "worker_stale" in kill["alerts"]
+                        and kill["runtime_failed"] == [True]),
+        "exit_codes": (all(rc == [0, 0] for w, rc in rcs.items() if w != "kill")
+                       and rcs["kill"] == [0, -9]),
+    }
+    emit({"phase": "serve-tp-gates", **gates})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-tp: gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -4318,6 +4948,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile a serving burst of each serve phase "
                          "(chiprun_out/chip_smoke/)")
+    # One rank of a serve-tp window (the phase starts these itself).
+    ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-window", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-spec", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 
@@ -4329,6 +4964,8 @@ def main(argv=None) -> int:
         print("chip_smoke: run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    if args.tp_rank is not None:
+        return tp_rank_main(args)
     from ollamamq_tpu_torch.ops.cuda import build
 
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4363,6 +5000,7 @@ def main(argv=None) -> int:
     serve_tiers_phase(report)
     serve_autoscale_phase(report)
     serve_ha_phase(report)
+    serve_tp_phase(report, args.profile)
 
     card = card_line()
     s = report["kernel_summary"]
@@ -4375,7 +5013,9 @@ def main(argv=None) -> int:
                             + sum(report[p]["launches"][name]
                                   for p in ("serve_moe", "serve_durable",
                                             "serve_fleet", "serve_tiers",
-                                            "serve_autoscale", "serve_ha"))),
+                                            "serve_autoscale", "serve_ha",
+                                            "serve_tp"))),
+               "launches_serve_tp": report["serve_tp"]["launches"][name],
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

@@ -46,7 +46,7 @@ the caps, the WAL and the journal spill; its members run without them.
 --tiers splits the members into an interactive and a bulk tier
 (/admin/tiers, /admin/retier/{replica}); every member runs at TP width
 1, so a tier declaring @tpN with N > 1 is refused (exit 2), as is --tp
-other than 1. --autoscale grows and shrinks the fleet between
+other than 1 with a fleet. --autoscale grows and shrinks the fleet between
 --min-replicas and --max-replicas (in-process members from the same
 factory; --fake-engine members as `python -m ollamamq_tpu_torch.cli`
 subprocesses), and implies a fleet even with --replicas 1.
@@ -60,6 +60,18 @@ in its own --wal-dir, sheds clients (503 + Retry-After), and after
 --takeover-grace-s without a heartbeat promotes at a higher epoch that
 fences the old primary out of the members. --replicas 0 with
 --replica-urls is a router that builds no engine and touches no device.
+
+--tp N (N > 1) serves one engine over N ranks on this host, one process
+per device: this process is rank 0 (scheduler, HTTP front) on cuda:0 and
+starts N - 1 worker processes, rank r on cuda:r (all on the CPU with
+--device cpu), which replay its step plans (engine/spmd.py) with their
+slice of the weights and KV pool, and are reaped when it exits, whatever
+the cause. Ranks talk over gloo on the CPU and NCCL on CUDA. --spmd
+spreads the ranks over hosts instead: every host runs the same command
+with MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK (and LOCAL_RANK) set;
+rank 0 serves, the others replay, and with no --tp every rank joins the
+tensor axis. A tp that does not divide the model's heads, or a --tp
+whose devices this host lacks, exits 2 before any device work.
 """
 
 from __future__ import annotations
@@ -256,9 +268,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the router's /metrics stops re-exporting the HTTP "
                         "members' series under a replica label")
     p.add_argument("--tp", type=int, default=d.tp,
-                   help="tensor-parallel width of each engine; only 1 (one "
-                        "device per engine): tensor parallelism is not "
-                        "ported yet")
+                   help="tensor-parallel width: ranks (processes, one per "
+                        "device) one engine spreads over; fleet members "
+                        "stay at 1")
+    p.add_argument("--spmd", action="store_true",
+                   default=os.environ.get("SPMD", "").lower() in ("1", "true"),
+                   help="multi-host tensor parallelism: rank 0 runs the "
+                        "scheduler+HTTP and broadcasts step plans; the "
+                        "other ranks replay them (MASTER_ADDR, MASTER_PORT, "
+                        "WORLD_SIZE, RANK env)")
     p.add_argument("--tiers", default=os.environ.get("TIERS", ""),
                    help="SLO-aware replica tiers for the fleet router "
                         "(needs --replicas/--replica-urls): "
@@ -474,10 +492,22 @@ def validate(args) -> str:
         return ("--ha needs a fleet (--replicas > 1, --replica-urls, or "
                 "--autoscale): the standby re-registers those members at "
                 "takeover")
-    if args.tp != 1:
-        return (f"--tp {args.tp}: tensor parallelism is not ported yet; "
-                "every engine runs on one device (--tp 1)")
     urls = replica_urls(args)
+    if args.spmd and args.fake_engine:
+        return "--spmd and --fake-engine are mutually exclusive"
+    if args.spmd and (args.replicas > 1 or urls or args.autoscale):
+        return ("--replicas/--replica-urls/--autoscale and --spmd are "
+                "mutually exclusive (the SPMD engine already owns its worker "
+                "ranks; run the fleet router over separate SPMD services via "
+                "--replica-urls from a non-SPMD front-end instead)")
+    if args.tp != 1 and (args.replicas != 1 or urls or args.autoscale):
+        return (f"--tp {args.tp} with a fleet: tensor parallelism is not "
+                "ported yet for fleet members, which run on one device "
+                "(--tp 1); serve --tp from a single engine")
+    if args.tp != 1 or args.spmd:
+        err = validate_tp(args)
+        if err:
+            return err
     if args.replicas < 0 or (args.replicas == 0 and not urls):
         return "--replicas must be >= 1 (0 only with --replica-urls)"
     if args.drain_timeout_s <= 0:
@@ -527,6 +557,40 @@ def validate(args) -> str:
             FaultPlan.load(args.fault_plan)
         except FaultPlanError as e:
             return f"invalid --fault-plan: {e}"
+    return ""
+
+
+def validate_tp(args) -> str:
+    """--tp / --spmd errors that need no device work: the width against
+    every model's heads, and a local --tp's devices on this host."""
+    from ollamamq_tpu_torch.parallel.distributed import multiprocess_configured
+    from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
+
+    if args.spmd and not os.environ.get("OLLAMAMQ_TP_WORKER") \
+            and not multiprocess_configured():
+        return ("--spmd needs the world in the env: MASTER_ADDR, "
+                "MASTER_PORT, WORLD_SIZE and RANK")
+    if args.tp < 1 and not (args.spmd and args.tp == -1):
+        return f"--tp must be >= 1, got {args.tp}"
+    if args.fake_engine:
+        return "--tp needs a model engine; --fake-engine runs none"
+    if args.tp > 1:
+        for name in model_table(args):
+            cfg = get_model_config(name)
+            try:
+                validate_tp_for_model(args.tp, cfg.num_kv_heads, cfg.num_heads)
+            except ValueError as e:
+                return f"--tp {args.tp} for {name}: {e}"
+    if args.tp > 1 and not args.spmd and args.device != "cpu":
+        import torch
+
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < args.tp:
+            missing = ", ".join(f"cuda:{i}" for i in range(have, args.tp))
+            return (f"--tp {args.tp} runs one rank per device, cuda:0.."
+                    f"cuda:{args.tp - 1}, but {missing} is missing (this host "
+                    f"has {have} CUDA device(s)); no rank falls back to "
+                    "another device")
     return ""
 
 
@@ -645,6 +709,50 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
     signal.signal(signal.SIGINT, handler)
 
 
+def start_ranks(args, argv, log):
+    """Bring up the rank world of --tp / --spmd. Returns (mesh, worker
+    processes this process started). --tp N on one host: this process
+    is rank 0 and starts ranks 1..N-1 as `python -m ollamamq_tpu_torch.cli`
+    with the same flags (env OLLAMAMQ_TP_WORKER=1, RANK, WORLD_SIZE,
+    MASTER_ADDR/PORT of the store this process hosts), each dying with
+    it. --spmd, or a started worker: the env describes the world."""
+    import subprocess
+
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = args.device == "cpu"
+    procs = []
+    if args.spmd or os.environ.get("OLLAMAMQ_TP_WORKER"):
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        distributed.initialize(devices=["cpu"] * world if cpu else None)
+        tp = args.tp if args.tp not in (1, -1) or not args.spmd else -1
+        return make_mesh(tp=tp), procs
+
+    def spawn(port: int) -> None:
+        for r in range(1, args.tp):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(args.tp), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), OLLAMAMQ_TP_WORKER="1")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ollamamq_tpu_torch.cli", *argv],
+                env=env, preexec_fn=distributed.die_with_parent))
+        log.info("started %d worker rank(s): pids %s", len(procs),
+                 [p.pid for p in procs])
+
+    devices = (["cpu"] * args.tp if cpu
+               else [f"cuda:{r}" for r in range(args.tp)])
+    try:
+        distributed.initialize("127.0.0.1:0", args.tp, 0, devices=devices,
+                               on_store=spawn)
+        return make_mesh(tp=args.tp, devices=devices), procs
+    except BaseException:
+        for p in procs:
+            p.kill()
+        distributed.reap(procs)
+        raise
+
+
 def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
     """The FleetRouter that `main` serves for --replicas N > 1,
     --replica-urls or --autoscale: in-process members r0..r{N-1}, each
@@ -713,6 +821,7 @@ def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
 def main(argv=None) -> int:
     # An unknown --weights-dtype / --kv-dtype fails in argparse, and the
     # other invalid values in validate(), before any device work.
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     use_tui = not args.no_tui and sys.stdout.isatty()
     setup_logging(use_tui, args.log_file, args.log_rotate_mb, args.log_keep,
@@ -734,6 +843,18 @@ def main(argv=None) -> int:
 
     fairness = Fairness.TOKENS if args.token_fairness else Fairness.REQUESTS
     ecfg = engine_config(args)
+    workers = []
+    if args.tp != 1 or args.spmd:
+        from ollamamq_tpu_torch.engine import spmd
+        from ollamamq_tpu_torch.parallel import distributed
+
+        mesh, workers = start_ranks(args, argv, log)
+        if not distributed.is_primary():
+            # Worker rank: replay rank 0's step plans until shutdown.
+            log.info("tensor-parallel worker rank %d starting for %s",
+                     distributed.rank(), ",".join(model_table(args)))
+            spmd.run_worker(model_table(args), ecfg, mesh)
+            return 0
 
     def build_engine(cfg, blocklist):
         if args.fake_engine:
@@ -742,14 +863,27 @@ def main(argv=None) -> int:
             return FakeEngine(cfg, models=model_table(args),
                               blocklist_path=blocklist, fairness=fairness,
                               token_latency_s=_fake_latency())
+        if workers or args.spmd:
+            eng = spmd.SPMDEngine(cfg, mesh=mesh, blocklist_path=blocklist,
+                                  fairness=fairness, models=model_table(args))
+            eng.worker_procs = workers
+            return eng
         return TorchEngine(cfg, device=args.device, blocklist_path=blocklist,
                            fairness=fairness, models=model_table(args))
 
-    if is_fleet(args):
-        engine = build_fleet(args, ecfg, lambda cfg: build_engine(cfg, None),
-                             fairness)
-    else:
-        engine = build_engine(ecfg, args.blocklist)
+    try:
+        if is_fleet(args):
+            engine = build_fleet(args, ecfg,
+                                 lambda cfg: build_engine(cfg, None), fairness)
+        else:
+            engine = build_engine(ecfg, args.blocklist)
+    except BaseException:
+        from ollamamq_tpu_torch.parallel import distributed
+
+        for p in workers:  # a leader that cannot serve takes its ranks down
+            p.kill()
+        distributed.reap(workers)
+        raise
     if args.standby_of:
         # The standby's router stays unstarted until promotion (no member
         # probes, no placements, just the replication tail); clients shed

@@ -231,8 +231,18 @@ class DurabilityManager:
         enqueue ACK returns, and start capturing its stream. `prompt_tokens`
         is the PRISTINE client prompt (before any context fold — the
         caller has it in hand; recovery re-folds explicitly)."""
+        self.commit(req, self.capture(req, prompt_tokens))
+
+    def capture(self, req, prompt_tokens=None):
+        """The first half of admit(): install the stream tap and queue the
+        admission record, without waiting on the disk. A front-end calls
+        this while it still holds the lock that makes `req` visible to its
+        loop, so no token can be emitted before the tap is in place (a
+        request the loop served before its tap went in would reach its
+        terminal with the registry and the WAL never told). Returns the
+        ticket commit() takes."""
         if req.kind != "generate":
-            return  # embeds recompute cheaply and carry no stream
+            return None  # embeds recompute cheaply and carry no stream
         key = self._recover_key
         if key is not None:
             # Recovery re-admission: the WAL entry (old rid, folded
@@ -242,7 +252,7 @@ class DurabilityManager:
             if entry is not None:
                 self.registry.alias(req.req_id, entry)
                 self._install_tap(req, entry, key)
-                return
+                return None
         rid = int(req.req_id)
         pristine = [int(t) for t in (prompt_tokens
                                      if prompt_tokens is not None
@@ -257,12 +267,24 @@ class DurabilityManager:
             "max_tokens_total": int(req.sampling.max_tokens),
         }
         entry = self.registry.create(rid)
+        # The admission line is buffered before the tap can buffer any
+        # token line of this request.
+        target = self.wal.buffer_admit(rec)
         self._install_tap(req, entry, rid)
-        fsync_ms = self.wal.admit(rec)
+        return (target, time.monotonic(), len(pristine))
+
+    def commit(self, req, ticket) -> None:
+        """The second half of admit(): wait for the fsync covering the
+        admission (the enqueue ACK gate) and journal it."""
+        if ticket is None:
+            return
+        target, t0, n_prompt = ticket
+        self.wal.wait_synced(target)
         if self.journal is not None:
             self.journal.record("wal_admit", req=req,
-                                fsync_ms=round(fsync_ms, 3),
-                                n_prompt=len(pristine))
+                                fsync_ms=round((time.monotonic() - t0)
+                                               * 1e3, 3),
+                                n_prompt=n_prompt)
 
     def _install_tap(self, req, entry: StreamEntry, wal_rid: int) -> None:
         wal = self.wal

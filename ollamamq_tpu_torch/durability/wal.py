@@ -201,26 +201,37 @@ class RequestWAL:
     def admit(self, rec: dict) -> float:
         """Durably record one admission; BLOCKS until the covering fsync
         lands (the enqueue ACK gate). Returns the wait in ms."""
-        if self.dead:
-            return 0.0
         t0 = time.monotonic()
+        self.wait_synced(self.buffer_admit(rec))
+        return (time.monotonic() - t0) * 1e3
+
+    def buffer_admit(self, rec: dict) -> Optional[int]:
+        """The non-blocking half of admit(): queue the record ahead of
+        any token line of its request and return the append ordinal that
+        wait_synced() waits for (None when nothing will be waited on)."""
+        if self.dead:
+            return None
         with self._cond:
             self._buf.append(json.dumps(self._mirrored(rec)))
             self._appended += 1
-            target = self._appended
             if self._fh is None:
                 # Not begun yet (recovery in flight): the record rides
                 # the compaction fsync in begin(); don't park the caller.
-                return 0.0
+                return None
             if self.fsync_ms > 0:
                 self._cond.notify_all()  # wake the flusher early
+            return self._appended
+
+    def wait_synced(self, target: Optional[int]) -> None:
+        """Block until the fsync covering append ordinal `target` lands."""
+        if target is None:
+            return
         if self.fsync_ms <= 0:
             self._flush()
         with self._cond:
             while self._synced < target and not self.dead:
                 if not self._cond.wait(timeout=5.0):
                     break  # wedged disk: degrade-by-timeout, serve on
-        return (time.monotonic() - t0) * 1e3
 
     def append_tokens(self, rid: int, items: List[list]) -> None:
         """Buffer emitted-token progress ([id, text] pairs); the flusher

@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import logging
 import threading
 import time
@@ -96,6 +97,7 @@ from ollamamq_tpu_torch.engine.scheduler import make_policy
 from ollamamq_tpu_torch.engine.tokenizer import load_tokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
+from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
 from ollamamq_tpu_torch.ops.sampling import (SamplingParams, accept_prefix,
                                              maybe_apply_penalties, row_uniforms,
                                              sample_tokens_rowwise, sampling_flags)
@@ -237,8 +239,9 @@ def serve_embed_batch(rt, core: MQCore, pending, max_len: int, dispatch,
     except Exception as e:
         retry = getattr(rt, "_retry_embed", None)
         msg = f"embed failed: {e}"
+        desync = isinstance(e, WorkerDesyncError)
         for r in batch:
-            if retry is not None and retry(r, msg):
+            if not desync and retry is not None and retry(r, msg):
                 continue
             core.mark_dropped(r.user)
             jfinish(r, "error")
@@ -293,6 +296,20 @@ def check_token_ids(cfg, model: str, **named_ids) -> None:
             raise TokenIdError(
                 f"'{what}' holds a token id outside [0, "
                 f"{cfg.vocab_size}) of model '{model}'")
+
+
+class WorkerDesyncError(RuntimeError):
+    """A tensor-parallel status sync reported a worker rank's replay
+    failure: device state diverged across ranks. Unlike a local batch
+    failure this is never absorbed by a fail-only-this-batch handler:
+    the runtime is failed, its requests end with an error, and it is
+    reloaded on every rank (engine/spmd.py raises it)."""
+
+
+class PeerDeadError(WorkerDesyncError):
+    """A peer rank's heartbeat went stale mid-sync: the rank is presumed
+    dead (process kill, host loss), so the barrier would only time out;
+    the in-flight work fails loudly now instead."""
 
 
 class MigrationError(RuntimeError):
@@ -435,7 +452,7 @@ class ModelRuntime(JournaledRuntime):
     def __init__(self, name: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None, dtype=None,
                  params: Optional[dict] = None,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None, mesh=None):
         # An unsupported quantization fails here, before any device work.
         err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
                                     model_names=(name,))
@@ -443,23 +460,41 @@ class ModelRuntime(JournaledRuntime):
             raise ValueError(err)
         self.name = name
         self.cfg = model_cfg
+        # Pristine config: a replicated-group mesh rewrites num_kv_heads
+        # below, and a rebuild must start from the unmutated one.
+        self._orig_cfg = model_cfg
         self.ecfg = engine_cfg
         self.weights_dtype = engine_cfg.weights_dtype
         self.kv_dtype = engine_cfg.kv_dtype
-        self.device = resolve_device(device)
+        self.mesh, self.tp, tp_size = _tensor_axis(mesh, model_cfg)
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
         self.tokenizer = load_tokenizer(checkpoint_path)
         # Params passed in are used as given (already quantized or not);
         # a checkpoint or the seed's weights are quantized at build time
-        # for int8, as the JAX package's load_params does.
+        # for int8, as the JAX package's load_params does. On a tensor-
+        # parallel mesh this rank keeps its slice (whole trees passed in
+        # are cut here).
+        rank = self.tp.rank if self.tp is not None else 0
         if params is None:
             params = weights.load_params(model_cfg, checkpoint_path,
                                          engine_cfg.seed, self.dtype,
-                                         self.weights_dtype, self.device)
+                                         self.weights_dtype, self.device,
+                                         tp=tp_size, rank=rank)
+        else:
+            params = weights.tp_slice(params, model_cfg, tp_size, rank)
+        if tp_size > model_cfg.num_kv_heads:
+            # Replicated-group KV (e.g. qwen2.5's 4 KV heads on tp=8):
+            # every rank owns one duplicated head.
+            self.cfg = model_cfg = dataclasses.replace(
+                model_cfg, num_kv_heads=tp_size)
+            log.info("replicated KV heads x%d for tp=%d (%s)",
+                     tp_size // self._orig_cfg.num_kv_heads, tp_size, name)
         self.params = params
         self.kc, self.vc = kvc.alloc_kv_pool(model_cfg, engine_cfg,
                                              self.dtype, self.device,
-                                             kv_dtype=self.kv_dtype)
+                                             kv_dtype=self.kv_dtype,
+                                             tp=tp_size)
         S, MP = engine_cfg.max_slots, engine_cfg.max_pages_per_seq
         # Repeat-penalty ring of each slot's last-W context token ids
         # (-1 = empty). Row S is a trash row for padding rows' writes.
@@ -568,6 +603,9 @@ class ModelRuntime(JournaledRuntime):
             log.warning("%s: no bf16 peak known for %r; MFU publishes 0 "
                         "(set OLLAMAMQ_PEAK_FLOPS)", name, kind)
         self.mfu = 0.0
+        # MFU divides by the distinct devices under the mesh: two ranks
+        # sharing one card are one card's peak.
+        self.n_chips = mesh.n_devices if mesh is not None else 1
         tm.FLOPS_PER_TOKEN.labels(model=name).set(mfu_model.flops_per_token(model_cfg))
         self._tm_occupancy.set(0.0)
         self._tm_mfu.set(0.0)
@@ -1659,7 +1697,7 @@ class ModelRuntime(JournaledRuntime):
         # MFU over EVERY real token the dispatch processed (prefill spans
         # do the same per-token matmuls as decode rows).
         self.mfu = mfu_model.mfu(self.cfg, T_real, dt, self.peak_flops,
-                                 context_len=mean_ctx)
+                                 n_chips=self.n_chips, context_len=mean_ctx)
         self._tm_mfu.set(self.mfu)
         _sp.mark("detok")
         _sp.mode = "spec_verify" if spec_rows else "ragged"
@@ -1710,7 +1748,7 @@ class ModelRuntime(JournaledRuntime):
         logits, _, _ = llama.forward_ragged(
             self.params, self.cfg, tokens_d, tok_seq_d, tok_pos_d, ws_d,
             out_idx, self.kc, self.vc, pt_d, qs_d, ql_d, kv_d,
-            self.ecfg.page_size)
+            self.ecfg.page_size, tp=self.tp)
         if k_cap:
             greedy_all = logits.argmax(-1).to(torch.int32)  # [S, k_cap + 1]
             # Draft j + 1 sits right after the span's input token.
@@ -1780,6 +1818,10 @@ class ModelRuntime(JournaledRuntime):
         log.exception("ragged mixed dispatch failed (%d rows)", len(rows),
                       exc_info=e)
         msg = f"ragged dispatch failed: {e}"
+        # A worker desync is no local fault: its rows end with an error,
+        # and the exception propagates so the runtime is failed and
+        # reloaded on every rank.
+        desync = isinstance(e, WorkerDesyncError)
         for kind, slot, req, _cpos, _span in rows:
             if kind == "prefill":
                 self._drop_chunking(req)
@@ -1797,9 +1839,11 @@ class ModelRuntime(JournaledRuntime):
                 req.prompt_tokens = replay
                 req._replay_gen = len(req.generated_ids)
                 self._clear_slot(slot)
-            if not self._retry_requeue(req, msg):
+            if desync or not self._retry_requeue(req, msg):
                 core.mark_dropped(req.user)
                 req.finish(FinishReason.ERROR, error=self._poison_msg(req, msg))
+        if desync:
+            raise e
 
     # -- decode tick -------------------------------------------------------
     def step_decode(self, core: MQCore, k_steps: int = 1) -> int:
@@ -1855,25 +1899,41 @@ class ModelRuntime(JournaledRuntime):
             self.temp, self.top_k, self.top_p, self.rep_pen, self.pres_pen,
             self.freq_pen)
         _sp.mark("host_prep")
+        out = self._dispatch_decode(
+            k_steps, self.last_tokens, self.seq_lens, active_mask,
+            self.page_table, self.temp, self.top_k, self.top_p, self.rep_pen,
+            self.pres_pen, self.freq_pen, self.seeds.copy())
+        self.decode_dispatches += 1
+        self.decode_steps += k_steps
+        _sp.mark("dispatch")
+        self._sp_decode = _sp
+        return out, active, k_steps, t0
+
+    def _dispatch_decode(self, k_steps, last_tokens, seq_lens, active_mask,
+                         page_table, temp, top_k, top_p, pen, pres, freq,
+                         seeds) -> torch.Tensor:
+        """Issue k_steps fused decode steps from these host arrays (every
+        input of the device work, so a tensor-parallel worker replays the
+        same call): the device tensor of sampled tokens [k_steps, S]."""
         self._fault("decode")
+        S = self.ecfg.max_slots
+        need_pen, need_mask, need_sample = sampling_flags(
+            temp, top_k, top_p, pen, pres, freq)
         tokens, positions, act_d, pt_d, tk_d = self._to_dev(
-            [self.last_tokens, self.seq_lens, active_mask, self.page_table,
-             self.top_k], np.int32)
+            [last_tokens, seq_lens, active_mask, page_table, top_k], np.int32)
         temp_d, tp_d, pen_d, pres_d, freq_d = self._to_dev(
-            [self.temp, self.top_p, self.rep_pen, self.pres_pen,
-             self.freq_pen], np.float32)
-        seeds = self.seeds.copy()
+            [temp, top_p, pen, pres, freq], np.float32)
         steps = []
         for j in range(k_steps):
             logits, _, _ = llama.forward_decode(
                 self.params, self.cfg, tokens, positions, self.kc, self.vc,
-                pt_d, self.ecfg.page_size, active=act_d)
+                pt_d, self.ecfg.page_size, active=act_d, tp=self.tp)
             ring = self.recent[:S]
             pen_logits = maybe_apply_penalties(logits, ring, pen_d, pres_d,
                                                freq_d, need_pen)
             # Seeded rows draw at the position being SAMPLED (one past
             # the incoming token's).
-            u = (row_uniforms(self.gen, seeds, self.seq_lens + j + 1,
+            u = (row_uniforms(self.gen, seeds, seq_lens + j + 1,
                               logits.shape[1], self.device)
                  if need_sample else None)
             nxt = sample_tokens_rowwise(pen_logits, u, temp_d, tk_d, tp_d,
@@ -1883,12 +1943,7 @@ class ModelRuntime(JournaledRuntime):
             self.recent[:S] = torch.where(act_d[:, None] > 0, rolled, ring)
             steps.append(nxt)
             tokens, positions = nxt, positions + 1
-        self.decode_dispatches += 1
-        self.decode_steps += k_steps
-        out = torch.stack(steps)
-        _sp.mark("dispatch")
-        self._sp_decode = _sp
-        return out, active, k_steps, t0
+        return torch.stack(steps)
 
     def step_decode_collect(self, handle, core: MQCore) -> int:
         """Read a dispatched decode chunk's tokens back (this blocks until
@@ -1927,7 +1982,7 @@ class ModelRuntime(JournaledRuntime):
                     self.last_tokens[i] = tok
         self._note_occupancy()
         self.mfu = mfu_model.mfu(self.cfg, emitted, t_done - t0, self.peak_flops,
-                                 context_len=mean_ctx)
+                                 n_chips=self.n_chips, context_len=mean_ctx)
         self._tm_mfu.set(self.mfu)
         if _sp is not None:
             _sp.mark("detok")
@@ -1950,7 +2005,7 @@ class ModelRuntime(JournaledRuntime):
     def _dispatch_embed(self, B, bucket, tokens, lens) -> torch.Tensor:
         self._fault("embed")
         toks, n = self._to_dev([tokens, lens], np.int32)
-        return llama.forward_embed(self.params, self.cfg, toks, n)
+        return llama.forward_embed(self.params, self.cfg, toks, n, tp=self.tp)
 
     def step_embed(self, core: MQCore) -> bool:
         """Serve pending embed requests: stateless forwards (no KV write),
@@ -1962,6 +2017,8 @@ class ModelRuntime(JournaledRuntime):
         try:
             return serve_embed_batch(self, core, self.pending_embed, max_len,
                                      self._dispatch_embed)
+        except WorkerDesyncError:
+            raise  # diverged ranks: the loop fails and reloads the runtime
         except Exception:  # noqa: BLE001 — contained to the batch
             log.exception("embed forward failed on %s", self.name)
             return True
@@ -2024,22 +2081,28 @@ class EncoderRuntime(JournaledRuntime):
     def __init__(self, name: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None, dtype=None,
                  params: Optional[dict] = None,
-                 checkpoint_path: Optional[str] = None):
+                 checkpoint_path: Optional[str] = None, mesh=None):
         err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
                                     model_names=(name,))
         if err is not None:
             raise ValueError(err)
         self.name = name
         self.cfg = model_cfg
+        self._orig_cfg = model_cfg
         self.ecfg = engine_cfg
         self.weights_dtype = engine_cfg.weights_dtype
-        self.device = resolve_device(device)
+        self.mesh, self.tp, tp_size = _tensor_axis(mesh, model_cfg)
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
         self.tokenizer = load_tokenizer(checkpoint_path)
+        rank = self.tp.rank if self.tp is not None else 0
         if params is None:
             params = weights.load_params(model_cfg, checkpoint_path,
                                          engine_cfg.seed, self.dtype,
-                                         self.weights_dtype, self.device)
+                                         self.weights_dtype, self.device,
+                                         tp=tp_size, rank=rank)
+        else:
+            params = weights.tp_slice(params, model_cfg, tp_size, rank)
         self.params = params
         self.pending: collections.deque = collections.deque()
         self._block_ver = -1  # first tick sweeps the loaded blocklist
@@ -2080,7 +2143,7 @@ class EncoderRuntime(JournaledRuntime):
             self.fault_plan.check("encode")
         toks = torch.from_numpy(tokens).to(self.device)
         n = torch.from_numpy(lens).to(self.device)
-        return llama.forward_encoder(self.params, self.cfg, toks, n)
+        return llama.forward_encoder(self.params, self.cfg, toks, n, tp=self.tp)
 
     def step(self, core: MQCore) -> None:
         """Encode pending requests in padded batches. A dispatch failure
@@ -2107,16 +2170,29 @@ class EncoderRuntime(JournaledRuntime):
                 "failed": self._failed}
 
 
+def _tensor_axis(mesh, model_cfg: ModelConfig):
+    """(mesh, TensorGroup or None, tp) of a runtime; tp is validated
+    against the model's heads."""
+    if mesh is None or mesh.tp == 1:
+        return mesh, None, 1
+    validate_tp_for_model(mesh.tp, model_cfg.num_kv_heads, model_cfg.num_heads)
+    return mesh, mesh.tensor, mesh.tp
+
+
 def build_model_runtimes(name: str, cfg: ModelConfig, engine_cfg: EngineConfig,
                          device, dtype, checkpoint_path: Optional[str] = None,
-                         params: Optional[dict] = None) -> list:
+                         params: Optional[dict] = None, mesh=None,
+                         runtime_class=None, encoder_runtime_class=None) -> list:
     """The runtimes serving one model: THE construction path of
-    TorchEngine.load_model and of a failed runtime's rebuild. One runtime
-    per model here (the reference's data-parallel replicas wait for
-    multi-device layouts)."""
-    cls = EncoderRuntime if cfg.is_encoder else ModelRuntime
+    TorchEngine.load_model, of a failed runtime's rebuild and of a
+    tensor-parallel worker's replicas (engine/spmd.py passes its runtime
+    classes, so every rank builds the same computation). One runtime per
+    model here (the reference's data-parallel replicas are not ported
+    yet)."""
+    cls = ((encoder_runtime_class or EncoderRuntime) if cfg.is_encoder
+           else (runtime_class or ModelRuntime))
     return [cls(name, cfg, engine_cfg, device, dtype, params=params,
-                checkpoint_path=checkpoint_path)]
+                checkpoint_path=checkpoint_path, mesh=mesh)]
 
 
 class TorchEngine:
@@ -2134,17 +2210,25 @@ class TorchEngine:
     # allocator and free memory, for GET /debug/hbm.
     HBM_SAMPLE_PERIOD_S = 1.0
     _hbm_last_sample = 0.0
+    # The runtime classes load_model builds (engine/spmd.py mirrors their
+    # dispatches on every rank).
+    runtime_class = None
+    encoder_runtime_class = None
 
     def __init__(self, engine_cfg: EngineConfig, device=None, dtype=None,
                  blocklist_path: Optional[str] = None,
                  params: Optional[dict] = None,
                  fairness: Fairness = Fairness.REQUESTS,
-                 models: Optional[Dict[str, Optional[str]]] = None):
+                 models: Optional[Dict[str, Optional[str]]] = None,
+                 mesh=None):
         self.ecfg = engine_cfg
         # The scheduling policy is built before any device work, so an
         # unknown --scheduler fails at start-up.
         self.policy = make_policy(engine_cfg)
-        self.device = resolve_device(device)
+        # A rank mesh (parallel/mesh.py) puts every runtime on this rank's
+        # device and slice of a tensor-parallel layout.
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.dtype = dtype
         models = dict(models) if models is not None else {engine_cfg.model: None}
         for name in models:
@@ -2247,7 +2331,9 @@ class TorchEngine:
         if name in self.runtimes:
             return
         (rt,) = build_model_runtimes(name, cfg, self.ecfg, self.device,
-                                     self.dtype, checkpoint_path, params)
+                                     self.dtype, checkpoint_path, params,
+                                     self.mesh, self.runtime_class,
+                                     self.encoder_runtime_class)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # loaded = resident, not queued
         self._attach_hooks(rt)
@@ -2343,6 +2429,13 @@ class TorchEngine:
                 req.stats.prompt_tokens = len(req.prompt_tokens)
             req.trace = self.tracer.begin(rid, user, model, kind=kind,
                                           ctx=trace_ctx)
+            ticket = None
+            if self.durability is not None:
+                # The stream tap goes in while the loop cannot see the
+                # request yet, with the prompt as the client sent it
+                # (recovery re-folds).
+                ticket = self.durability.capture(
+                    req, prompt_tokens=prompt_tokens or [])
             self.pending[rid] = req
         self.journal.record(
             "enqueue", req=req, n_prompt=len(req.prompt_tokens),
@@ -2350,9 +2443,8 @@ class TorchEngine:
             max_tokens=req.sampling.max_tokens,
             deadline_ms=req.sampling.deadline_ms or None)
         if self.durability is not None:
-            # Durable admission: the WAL fsync lands BEFORE this returns,
-            # with the prompt as the client sent it (recovery re-folds).
-            self.durability.admit(req, prompt_tokens=prompt_tokens or [])
+            # Durable admission: the WAL fsync lands BEFORE this returns.
+            self.durability.commit(req, ticket)
         self.notify()
         return req
 
@@ -2896,17 +2988,27 @@ class TorchEngine:
         holds, drop its device buffers (the rebuild must fit beside the
         other runtimes) and queue it for a rebuild."""
         log.error("runtime %s step failed: %s", rt.name, exc, exc_info=exc)
-        self._fail_runtime(rt, f"engine step failed: {exc}")
+        # Diverged tensor-parallel ranks: no retry can land before the
+        # reload, so the requests end loudly now.
+        self._fail_runtime(rt, f"engine step failed: {exc}",
+                           retry=not isinstance(exc, WorkerDesyncError),
+                           queued=isinstance(exc, PeerDeadError))
         rt._failed = True
         rt.params = rt.kc = rt.vc = rt.recent = None
         self._failed_runtimes.append(rt)
 
-    def _fail_runtime(self, rt, msg: str) -> None:
+    def _fail_runtime(self, rt, msg: str, retry: bool = True,
+                      queued: bool = False) -> None:
         """Each implicated request is retried ONCE on a fresh dispatch
         (mid-decode victims replay prompt + generated so their streams
         resume after the rebuild); one that keeps failing is poisoned.
         Every runtime kind: slots (ModelRuntime), the active list
-        (FakeRuntime), then the pending queues."""
+        (FakeRuntime), then the pending queues. retry=False: every
+        request in a slot or mid-prefill ends with an error at once, and
+        with queued=True (a dead rank: no reload can succeed) every
+        queued one too."""
+        if not retry:
+            return self._error_runtime_requests(rt, msg, queued)
         if isinstance(rt, ModelRuntime):
             for i, req in enumerate(rt.slot_req):
                 if req is not None:
@@ -2927,6 +3029,37 @@ class TorchEngine:
                 rt._release_slot_pages(slot)
             rt.reserved_slots.clear()
 
+    def _error_runtime_requests(self, rt, msg: str, queued: bool) -> None:
+        """Requests that reached the failed runtime's device state (slots,
+        prefills in flight) end with an error; queued ones too when
+        `queued`, else they wait for the reload (the queues survive into
+        the rebuilt runtime)."""
+        def error(req: Request) -> None:
+            self.core.mark_dropped(req.user, started=getattr(req, "started", True))
+            self.journal.record("finish", req=req, reason="error")
+            req.finish(FinishReason.ERROR, error=msg)
+
+        if isinstance(rt, ModelRuntime):
+            for i, req in enumerate(rt.slot_req):
+                if req is not None:
+                    rt._release_slot_pages(i)
+                    rt.seq_lens[i] = 0
+                    rt.slot_req[i] = None
+                    error(req)
+            rt._stalled_slots.clear()
+            while rt.chunking:
+                req = rt.chunking.popleft()
+                if not req.stats.finished_at:
+                    error(req)
+            for slot in list(rt.reserved_slots):
+                rt._release_slot_pages(slot)
+            rt.reserved_slots.clear()
+        if queued:
+            for attr in ("pending_prefill", "pending_embed", "pending"):
+                q = getattr(rt, attr, None)
+                while q:
+                    error(q.popleft())
+
     def _try_recover(self) -> None:
         """Start a background rebuild of each failed runtime."""
         self._last_recover_attempt = time.monotonic()
@@ -2944,9 +3077,10 @@ class TorchEngine:
         own weights source and post it for the loop thread to swap in."""
         try:
             (fresh,) = build_model_runtimes(
-                rt.name, rt.cfg, self.ecfg, self.device, self.dtype,
-                self._model_sources.get(rt.name),
-                self._model_params.get(rt.name))
+                rt.name, getattr(rt, "_orig_cfg", rt.cfg), self.ecfg,
+                self.device, self.dtype, self._model_sources.get(rt.name),
+                self._model_params.get(rt.name), self.mesh,
+                self.runtime_class, self.encoder_runtime_class)
         except Exception:  # noqa: BLE001 — retried on the next interval
             log.exception("rebuild of %s failed; retrying in %.0fs",
                           rt.name, self.recover_interval)

@@ -33,8 +33,9 @@ and the admin TUI read it.
 Every detection raises a named alert through the engine's AlertManager
 (telemetry/slo.py) — the same table the SLO burn-rate evaluator feeds —
 so /health, /metrics (`ollamamq_slo_alerts_firing`) and the TUI alerts
-panel show one picture. The worker-host rules of the JAX package wait
-for the multi-host layers.
+panel show one picture. On a tensor-parallel engine (engine/spmd.py)
+worker ranks whose heartbeat went stale raise worker_stale, the JAX
+package's worker-host rule.
 """
 
 from __future__ import annotations
@@ -286,6 +287,15 @@ class HealthMonitor:
             (f"{len(stuck)} request(s) stuck; worst: req {stuck[0][0]} in "
              f"'{stuck[0][1]}' for {stuck[0][2]:.0f}s") if stuck else "",
             "request_phase")
+
+        # Tensor-parallel engines only (engine/spmd.py): worker ranks
+        # whose heartbeat stopped advancing.
+        hosts_fn = getattr(self.engine, "stale_worker_hosts", None)
+        stale = (hosts_fn() or []) if hosts_fn is not None else []
+        self._alert(
+            "worker_stale", bool(stale), "page",
+            f"SPMD worker host(s) {stale} stopped publishing registry "
+            "snapshots/heartbeats", "worker_host")
 
         # Fleet routers only (fleet/router.py stale_replicas): replicas
         # whose heartbeat went stale or that the router ejected.

@@ -121,13 +121,22 @@ def make_page_table_row(pages: List[int], max_pages: int) -> np.ndarray:
     return row
 
 
+def local_kv_heads(model_cfg: ModelConfig, tp: int = 1) -> int:
+    """KV heads one rank of a tp-way tensor-parallel mesh holds: its
+    share of the heads, or one replicated head when tp > kv heads
+    (parallel/sharding.py cuts the pool on kv_heads)."""
+    return max(1, model_cfg.num_kv_heads // tp)
+
+
 def alloc_kv_pool(model_cfg: ModelConfig, engine_cfg: EngineConfig,
-                  dtype=torch.bfloat16, device="cpu", kv_dtype: str = "bfloat16"):
+                  dtype=torch.bfloat16, device="cpu", kv_dtype: str = "bfloat16",
+                  tp: int = 1):
     """Allocate the K/V slot pools on `device`: zeros in `dtype`, or, for
     kv_dtype="int8", QuantKV pools of an int8 zero payload and f32 scales
-    of ONE per (layer, slot, kv head), as the JAX package allocates them."""
+    of ONE per (layer, slot, kv head), as the JAX package allocates them.
+    With tp > 1, this rank's pools: local_kv_heads of them."""
     S = engine_cfg.num_pages * engine_cfg.page_size
-    shape = (model_cfg.num_layers, S, model_cfg.num_kv_heads,
+    shape = (model_cfg.num_layers, S, local_kv_heads(model_cfg, tp),
              model_cfg.head_dim)
     if kv_dtype == "int8":
         return tuple(QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -139,13 +148,15 @@ def alloc_kv_pool(model_cfg: ModelConfig, engine_cfg: EngineConfig,
 
 
 def kv_page_bytes(model_cfg: ModelConfig, page_size: int,
-                  bytes_per_el=2, kv_dtype: str = "bfloat16") -> int:
+                  bytes_per_el=2, kv_dtype: str = "bfloat16", tp: int = 1) -> int:
     """Bytes ONE page costs (K and V, all layers), the unit of equal-memory
     pool sizing: each (slot, kv head) row holds hd elements of
-    bytes_per_el, or hd int8 bytes plus a 4-byte f32 scale."""
+    bytes_per_el, or hd int8 bytes plus a 4-byte f32 scale. With tp > 1,
+    one rank's share."""
     per_row = (model_cfg.head_dim + 4 if kv_dtype == "int8"
                else model_cfg.head_dim * bytes_per_el)
-    return 2 * model_cfg.num_layers * page_size * model_cfg.num_kv_heads * per_row
+    return (2 * model_cfg.num_layers * page_size
+            * local_kv_heads(model_cfg, tp) * per_row)
 
 
 def kv_pool_bytes(model_cfg: ModelConfig, engine_cfg: EngineConfig,

@@ -1,0 +1,1074 @@
+"""Tensor-parallel serving over ranks: one engine, many processes.
+
+The JAX package runs one SPMD program: params and KV pools are sharded
+over a mesh and each jitted step runs on every host's shard. Here each
+rank of the mesh (parallel/mesh.py) is a process holding its slice of
+the weights and KV pool, and each forward calls its collectives itself
+(models/llama.py). Rank 0 owns the scheduler, the HTTP front and every
+admission decision. Before every device step it ships a "step plan" —
+a fixed-shape header (opcode + static dims + routing ordinals) plus the
+op payload (token ids, page tables, sampling params and the raw state
+of the engine generator the step's unseeded draws consume) — over the
+coordinator's TCPStore as a monotonic key stream (`_Wire`). Workers sit
+in `run_worker`, long-poll the stream, and issue the SAME dispatch with
+their own shards. Every value feeding the computation travels on the
+wire, never recomputed locally, so all ranks run identical steps and
+sample identical ids from identical full logits. The control plane is
+deliberately the store, not a device collective: a broadcast would share
+the transport with the model's collectives, and any reordering between
+the two corrupts it; store traffic cannot.
+
+Opcode header (int32[5]: [op, a, b, model_ordinal, replica_ordinal]),
+the JAX package's numbers:
+    OP_SHUTDOWN = 0              -> workers report and exit (no payload)
+    OP_PREFILL  = 1, OP_CHUNK = 2, OP_PREFILL_SP = 5
+                                    reserved: the pp / sp dispatches, not
+                                    ported yet
+    OP_DECODE   = 3, a=k_steps   (fused decode steps of every slot)
+    OP_ENCODE   = 4, a=B, b=bucket (embedding batch forward, stateless)
+    OP_RELOAD   = 6              -> rebuild runtime [mi][ri] from pristine
+                                    config (failure recovery)
+    OP_LOAD     = 7, a=n_replicas; payload carries (name, ckpt) strings
+                                    (runtime /api/pull on every rank)
+    OP_EVICT    = 8; payload carries name (runtime /api/delete)
+    OP_EMBED    = 9, a=B, b=bucket (embed batch on a GENERATIVE runtime)
+    OP_RAGGED   = 10, a=T_pad      (ragged mixed batch: prefill spans +
+                                    decode rows in one flattened stream)
+    OP_SPEC     = 11, a=T_pad, b=k_cap (the ragged payload plus the
+                                    per-row is_spec flag)
+
+Desync detection: after every replayed op, all ranks exchange a status
+flag OUT-OF-BAND via the store (`status_sync`), a host-side barrier that
+cannot deadlock behind the very computation whose failure it reports. A
+worker whose replay failed has diverged KV state, so the primary fails
+the runtime LOUDLY (its requests end with an error) and the recovery
+path broadcasts OP_RELOAD, rebuilding it on every rank. The sync is one
+small store round-trip per dispatch; OLLAMAMQ_SPMD_STATUS_EVERY=N syncs
+every Nth data op instead. Liveness: every rank bumps a heartbeat key
+(`start_heartbeat`); a rank whose heartbeat stops changing for
+OLLAMAMQ_SPMD_HB_STALE seconds is presumed dead, so a sync waiting on it
+raises PeerDeadError within that bound, and a collective waiting on it
+fails at the process group's timeout at the latest.
+"""
+
+from __future__ import annotations
+
+import datetime
+import hashlib
+import json
+import logging
+import os
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ollamamq_tpu_torch.config import EngineConfig
+from ollamamq_tpu_torch.engine.engine import (EncoderRuntime, ModelRuntime,
+                                              PeerDeadError, TorchEngine,
+                                              WorkerDesyncError, chip_stats)
+from ollamamq_tpu_torch.parallel import distributed
+
+log = logging.getLogger("ollamamq.torch.spmd")
+
+OP_SHUTDOWN = 0
+OP_PREFILL = 1  # reserved: pipeline-parallel prefill (not ported yet)
+OP_CHUNK = 2  # reserved: pipeline-parallel chunked prefill
+OP_DECODE = 3
+OP_ENCODE = 4
+OP_PREFILL_SP = 5  # reserved: sequence-parallel prefill
+OP_RELOAD = 6
+OP_LOAD = 7
+OP_EVICT = 8
+OP_EMBED = 9  # a=B, b=bucket: embed batch on a GENERATIVE runtime
+OP_RAGGED = 10  # a=T_pad: ragged mixed batch (prefill spans + decode rows)
+OP_SPEC = 11  # a=T_pad, b=k_cap: ragged mixed batch + speculative spans
+
+NAME_LEN = 128  # utf-8 bytes, zero-padded, for OP_LOAD/OP_EVICT names
+PATH_LEN = 256  # utf-8 bytes for checkpoint paths ("" = None)
+DATA_OPS = (OP_DECODE, OP_ENCODE, OP_EMBED, OP_RAGGED, OP_SPEC)
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
+def _status_every() -> int:
+    # Clamped to bound the failure-detection delay.
+    return min(256, max(1, int(_env_float("OLLAMAMQ_SPMD_STATUS_EVERY", 1))))
+
+
+def _status_timeout_s() -> float:
+    return _env_float("OLLAMAMQ_SPMD_STATUS_TIMEOUT", 900.0)
+
+
+def _hb_every() -> float:
+    return _env_float("OLLAMAMQ_SPMD_HB_EVERY", 3.0)
+
+
+def _hb_stale() -> float:
+    return _env_float("OLLAMAMQ_SPMD_HB_STALE", 10.0)
+
+
+def _client():
+    return distributed.store()
+
+
+def _is_deadline(e: Exception) -> bool:
+    return (isinstance(e, torch.distributed.DistStoreError)
+            and "timeout" in str(e).lower())
+
+
+def _try_get(client, key: str) -> Optional[str]:
+    return client.get(key).decode() if client.check([key]) else None
+
+
+def _wait_get(client, key: str, seconds: float) -> bytes:
+    """The value of `key` once it exists; DistStoreError on a timeout."""
+    client.wait([key], datetime.timedelta(seconds=seconds))
+    return client.get(key)
+
+
+class _HeartbeatMonitor:
+    """Peer liveness from the store, clock-skew-free: a peer is stale
+    when ITS heartbeat value has not changed for > _hb_stale() seconds of
+    OUR monotonic clock (never compares cross-host timestamps). A peer
+    that has never written a heartbeat is treated as alive: liveness is
+    opt-in per rank, so a starting deployment can't false-positive."""
+
+    def __init__(self):
+        self._seen = {}  # rank -> (value, first observed at, our clock)
+
+    def observe(self, pid: int, value: Optional[str], now: float) -> bool:
+        """Record one reading; returns True if the peer is stale."""
+        if value is None:
+            return False
+        prev = self._seen.get(pid)
+        if prev is None or prev[0] != value:
+            self._seen[pid] = (value, now)
+            return False
+        return (now - prev[1]) > _hb_stale()
+
+    def stale_peers(self, pids) -> list:
+        client = _client()
+        now = time.monotonic()
+        out = []
+        for pid in pids:
+            try:
+                v = _try_get(client, f"ollamamq/hb/{pid}")
+            except Exception:  # noqa: BLE001 — unreadable: never written
+                v = None
+            if self.observe(pid, v, now):
+                out.append(pid)
+        return out
+
+
+_hb_monitor = _HeartbeatMonitor()
+_hb_stop = threading.Event()
+
+
+def start_heartbeat() -> None:
+    """Advertise this rank's liveness (`ollamamq/hb/<rank>`, bumped every
+    _hb_every() seconds) and its device rows (`ollamamq/chips/<rank>`),
+    so peers stop waiting on us within ~_hb_stale() s of our death
+    instead of the full status-sync timeout."""
+    pid = distributed.rank()
+    _hb_stop.clear()
+
+    def run():
+        client = _client()  # this thread's own connection
+        n = 0
+        while not _hb_stop.is_set():
+            try:
+                client.set(f"ollamamq/hb/{pid}", str(n))
+                dev = distributed.device()
+                rows = chip_stats(dev) if dev is not None else []
+                for row in rows:
+                    row["process"] = pid
+                client.set(f"ollamamq/chips/{pid}", json.dumps(rows))
+            except Exception:  # noqa: BLE001 — coordinator gone: exiting
+                return
+            n += 1
+            _hb_stop.wait(_hb_every())
+
+    threading.Thread(target=run, daemon=True, name="spmd-heartbeat").start()
+
+
+def stop_heartbeat() -> None:
+    _hb_stop.set()
+
+
+def status_sync(ok: bool, seq: int) -> np.ndarray:
+    """Exchange one ok/fail flag per rank via the store; returns
+    int32[world] (1 = that rank's op failed). Host-side only: the failure
+    being reported may be a computation one side issued and the other
+    didn't, so the report must never be a device collective. Every rank
+    calls this at the same point in the op stream (`seq` is the shared
+    sync ordinal).
+
+    A POLLED barrier: between short waits the peers' heartbeats are
+    checked, so a rank that died surfaces as PeerDeadError in
+    ~_hb_stale() s instead of blocking for OLLAMAMQ_SPMD_STATUS_TIMEOUT."""
+    client = _client()
+    n, pid = distributed.world_size(), distributed.rank()
+    client.set(f"ollamamq/st/{seq}/{pid}", "ok" if ok else "fail")
+    deadline = time.monotonic() + _status_timeout_s()
+    flags = np.zeros(n, np.int32)
+    for i in range(n):
+        while True:
+            try:
+                v = _wait_get(client, f"ollamamq/st/{seq}/{i}", 2.0).decode()
+                break
+            except Exception as e:
+                if not _is_deadline(e):
+                    raise
+                dead = _hb_monitor.stale_peers(
+                    [p for p in range(n) if p != pid])
+                if dead:
+                    raise PeerDeadError(
+                        f"rank(s) {dead} heartbeat went stale at sync "
+                        f"{seq}: presumed dead; failing in-flight work "
+                        "loudly") from None
+                if time.monotonic() > deadline:
+                    raise
+        flags[i] = 0 if v == "ok" else 1
+    # Everyone passed the PREVIOUS sync before writing this sync's key,
+    # so our previous-sync key has been read by all: safe to clean up.
+    if seq > 0:
+        try:
+            client.delete_key(f"ollamamq/st/{seq - 1}/{pid}")
+        except Exception:  # noqa: BLE001
+            pass
+    return flags
+
+
+def _encode_str(s: Optional[str], n: int) -> np.ndarray:
+    raw = (s or "").encode("utf-8")
+    if len(raw) > n:
+        raise ValueError(f"string too long for SPMD wire field ({len(raw)} > {n})")
+    out = np.zeros((n,), np.int32)
+    out[: len(raw)] = np.frombuffer(raw, np.uint8)
+    return out
+
+
+def _decode_str(arr) -> str:
+    b = bytes(int(x) for x in np.asarray(arr).tolist() if int(x) != 0)
+    return b.decode("utf-8")
+
+
+def payload_spec(op, a, b, S, MP, W, K):
+    """[(shape, dtype), ...] for an opcode's payload — the ONE place the
+    wire order lives. Senders cast their positional values to this spec;
+    workers decode with it. `W` is the repeat-penalty window (a first
+    span's ring seed row), `K` the byte length of the engine generator's
+    state (the step's `key`: what its unseeded draws consume)."""
+
+    def samp(n):  # temp, top_k, top_p, repeat, presence, frequency, seed
+        return [((n,), np.float32), ((n,), np.int32), ((n,), np.float32),
+                ((n,), np.float32), ((n,), np.float32), ((n,), np.float32),
+                ((n,), np.int32)]
+
+    key = [((K,), np.uint8)]
+    if op == OP_DECODE:
+        # last tokens, positions, active mask, page table
+        return [((S,), np.int32), ((S,), np.int32), ((S,), np.int32),
+                ((S, MP), np.int32)] + samp(S) + key
+    if op == OP_RAGGED:
+        T = a
+        # tokens, tok_seq, tok_pos, write_slots; then per-sequence
+        # q_start, q_len, kv_len, ring_len, is_first, append, slot_ids,
+        # seed_rows, page tables, sampling, key.
+        return ([((T,), np.int32)] * 4
+                + [((S,), np.int32)] * 7
+                + [((S, W), np.int32), ((S, MP), np.int32)]
+                + samp(S) + key)
+    if op == OP_SPEC:
+        # The RAGGED payload plus the per-row is_spec flag (the seventh
+        # [S] vector, after append / before slot_ids); k_cap rides the
+        # header's b.
+        T = a
+        return ([((T,), np.int32)] * 4
+                + [((S,), np.int32)] * 8
+                + [((S, W), np.int32), ((S, MP), np.int32)]
+                + samp(S) + key)
+    if op in (OP_ENCODE, OP_EMBED):
+        B, bucket = a, b
+        return [((B, bucket), np.int32), ((B,), np.int32)]
+    if op in (OP_RELOAD, OP_SHUTDOWN):
+        return []
+    if op == OP_LOAD:
+        return [((NAME_LEN,), np.int32), ((PATH_LEN,), np.int32)]
+    if op == OP_EVICT:
+        return [((NAME_LEN,), np.int32)]
+    if op in (OP_PREFILL, OP_CHUNK, OP_PREFILL_SP):
+        raise ValueError(f"opcode {op} carries a pipeline- or sequence-"
+                         "parallel dispatch, which is not ported yet")
+    raise ValueError(f"no payload spec for opcode {op}")
+
+
+class _Wire:
+    """Primary→worker op stream over the coordinator's store.
+
+    Keys are `ollamamq/op/<seq>`: the primary writes them monotonically;
+    each worker long-polls its own cursor. Cleanup horizon: workers
+    process the stream serially and every completed status barrier sits
+    at a deterministic position in it, so when a barrier completes on the
+    primary, every worker has consumed ALL ops sent before it — keys
+    below that barrier's send-seq are safe to delete."""
+
+    def __init__(self):
+        self.seq = 0
+        # All keys < consumed have been read by every worker (set at each
+        # completed barrier); keys < deleted are already removed.
+        self.consumed = 0
+        self.deleted = 0
+
+
+_wire = _Wire()
+
+_HDR = 5 * 4  # int32[5] header bytes
+
+
+def _pack_payload(cast) -> bytes:
+    if not cast:
+        return b""
+    return b"".join(np.ascontiguousarray(v).tobytes() for v in cast)
+
+
+def _unpack_payload(raw: bytes, spec):
+    out = []
+    off = 0
+    for shape, dt in spec:
+        nb = int(np.prod(shape)) * np.dtype(dt).itemsize
+        out.append(np.frombuffer(raw[off:off + nb], dt).reshape(shape))
+        off += nb
+    if off != len(raw):
+        raise ValueError(f"payload of {len(raw)} bytes, spec wants {off}")
+    return tuple(out)
+
+
+def _send(op, a, b, index, replica, values, S, MP, W, K):
+    spec = payload_spec(op, a, b, S, MP, W, K)
+    assert len(values) == len(spec)
+    cast = []
+    for v, (shape, dt) in zip(values, spec):
+        v = np.asarray(v, dt)
+        # Shape drift would desync the wire decode on workers with an
+        # opaque error; fail at the send site instead.
+        assert v.shape == shape, (op, v.shape, shape)
+        cast.append(v)
+    header = np.asarray([op, a, b, index, replica], np.int32).tobytes()
+    client = _client()
+    client.set(f"ollamamq/op/{_wire.seq}", header + _pack_payload(cast))
+    _wire.seq += 1
+    # Reclaim keys every worker has provably consumed (barrier horizon).
+    while _wire.deleted < _wire.consumed:
+        try:
+            client.delete_key(f"ollamamq/op/{_wire.deleted}")
+        except Exception:  # noqa: BLE001
+            pass
+        _wire.deleted += 1
+
+
+def _recv_op(seq: int, timeout_s: float = 10.0):
+    """Worker side: block for op `seq`; returns (header int32[5], raw
+    payload bytes). Retries on poll timeout (an idle engine sends nothing
+    for arbitrarily long), but a primary whose heartbeat went stale will
+    never send again: exit loudly instead of idling forever. A store
+    that is gone (the primary exited) raises at once."""
+    client = _client()
+    while True:
+        try:
+            blob = _wait_get(client, f"ollamamq/op/{seq}", timeout_s)
+            break
+        except Exception as e:
+            if _is_deadline(e):
+                if _hb_monitor.stale_peers([0]):
+                    raise PeerDeadError(
+                        "primary rank heartbeat went stale; worker "
+                        "exiting") from None
+                continue
+            raise
+    header = np.frombuffer(blob[:_HDR], np.int32)
+    return header, blob[_HDR:]
+
+
+def broadcast_shutdown() -> None:
+    """Release the worker ranks. Sent exactly ONCE per deployment (the
+    worker loop exits on the first shutdown header)."""
+    if distributed.world_size() > 1:
+        _send(OP_SHUTDOWN, 0, 0, 0, 0, (), 0, 0, 0, 0)
+
+
+class _SyncBus:
+    """Global barrier ordinal for status syncs. Sync points derive
+    deterministically from the shared op stream, so every rank executes
+    the same syncs in the same order and `seq` stays aligned without any
+    extra wire traffic; barrier ids are never reused."""
+
+    def __init__(self):
+        self.seq = 0
+
+    def sync(self, ok: bool) -> np.ndarray:
+        flags = status_sync(ok, self.seq)
+        self.seq += 1
+        # Barrier complete: on the primary, every op sent so far has been
+        # consumed by every worker — advance the wire-key cleanup
+        # horizon. On workers _wire.seq is 0 (no-op).
+        _wire.consumed = _wire.seq
+        return flags
+
+
+_bus = _SyncBus()
+
+
+def _reset_wire() -> None:
+    """A fresh op stream and barrier ordinal: each world (each store)
+    starts its wire at 0 on every rank."""
+    global _wire, _bus
+    _wire, _bus = _Wire(), _SyncBus()
+    _trace.reset()
+
+
+class _OpCadence:
+    """Per-RUNTIME data-op counter for the status-sync cadence, so a
+    carried-forward off-cadence failure is always reported at a sync
+    belonging to the SAME runtime. Replays mirror dispatches per runtime,
+    so both sides' counts agree; a reload builds a fresh runtime and
+    therefore a fresh zeroed cadence on every rank."""
+
+    def __init__(self):
+        self.count = 0
+        self._pending_fail = False  # off-cadence failure carried forward
+
+    def after_op(self, ok: bool) -> Optional[np.ndarray]:
+        self.count += 1
+        if self.count % _status_every() != 0:
+            self._pending_fail = self._pending_fail or not ok
+            return None
+        flags = _bus.sync(ok and not self._pending_fail)
+        self._pending_fail = False
+        return flags
+
+
+class _OpTrace:
+    """What this rank ran on the wire: data ops by kind and a digest of
+    every data op's output in order. Ranks that replayed the same plans
+    and produced the same ids hold the same digest."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.ops = {"ragged": 0, "spec": 0, "decode": 0, "decode_steps": 0,
+                    "embed": 0, "encode": 0}
+        self._h = hashlib.sha256()
+
+    def record(self, op: int, a: int, out) -> None:
+        kind = _OP_SITE[op] if op != OP_SPEC else "spec"
+        self.ops[kind] += 1
+        if op == OP_DECODE:
+            self.ops["decode_steps"] += a
+        # Sampled ids (int32) and embeddings (float32).
+        self._h.update(out.detach().to("cpu").contiguous().numpy().tobytes())
+
+    def report(self) -> dict:
+        from ollamamq_tpu_torch.ops.cuda import launch_counts
+
+        return {"rank": distributed.rank(), "ops": dict(self.ops),
+                "digest": self._h.hexdigest(), "launches": launch_counts()}
+
+
+_trace = _OpTrace()
+
+
+def _raise_on_worker_failure(flags: Optional[np.ndarray], name: str) -> None:
+    if flags is not None and flags.any():
+        bad = np.nonzero(flags)[0].tolist()
+        raise WorkerDesyncError(
+            f"tensor-parallel rank(s) {bad} failed replaying a dispatch for "
+            f"{name}; KV state diverged — failing runtime for reload")
+
+
+_OP_SITE = {OP_DECODE: "decode", OP_RAGGED: "ragged", OP_SPEC: "spec_verify",
+            OP_EMBED: "embed", OP_ENCODE: "encode"}
+
+
+def _mirrored_dispatch(rt, op, a, b, values, dispatch):
+    """Ship the plan, run the local dispatch, then join this runtime's
+    status sync. The status sync runs even when the local dispatch raised
+    (skipping it would strand the other ranks at the barrier). Shared by
+    the generative and encoder runtimes so the sync protocol can't drift
+    between them."""
+    if rt.fault_plan is not None:
+        # Fault-injection seam, BEFORE the broadcast: an injected failure
+        # fires while no worker has replayed anything, so the containment
+        # path sees a recoverable fault (after the broadcast it would be
+        # real divergence, the desync path's job).
+        rt.fault_plan.check(_OP_SITE.get(op, "decode"))
+    if rt.journal is not None:
+        # Workers replay this exact wire sequence: a desync postmortem
+        # lines the journal's wire_seq up against each rank's position.
+        rt.journal.record("broadcast", model=rt.name,
+                          op=_OP_SITE.get(op, str(op)), wire_seq=_wire.seq)
+    _send(op, a, b, rt.spmd_index, rt.spmd_replica, values,
+          rt.ecfg.max_slots, rt.ecfg.max_pages_per_seq,
+          rt.ecfg.repeat_last_n, rt.key_bytes)
+    ok = False
+    try:
+        out = dispatch()
+        _trace.record(op, a, out)
+        ok = True
+        return out
+    finally:
+        flags = rt._cadence.after_op(ok)
+        if ok:
+            _raise_on_worker_failure(flags, rt.name)
+
+
+def _key_of(rt) -> np.ndarray:
+    """The engine generator's state the next dispatch starts from."""
+    return rt.gen.get_state().numpy().copy() if rt.gen is not None else \
+        np.zeros(0, np.uint8)
+
+
+class _SPMDMixin:
+    """The rank bookkeeping both SPMD runtime kinds carry."""
+
+    def _spmd_init(self) -> None:
+        self._spmd = distributed.world_size() > 1
+        # Ordinals agreed with workers via the shared --models ordering,
+        # carried in the opcode header so multi-model pods stay in step.
+        self.spmd_index = 0
+        self.spmd_replica = 0
+        self._cadence = _OpCadence()
+        gen = getattr(self, "gen", None)
+        self.key_bytes = int(gen.get_state().numel()) if gen is not None else 0
+
+
+class SPMDModelRuntime(_SPMDMixin, ModelRuntime):
+    """ModelRuntime whose device dispatches are mirrored on every rank.
+    A one-rank world behaves exactly like ModelRuntime."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._spmd_init()
+
+    def _mirrored(self, op, a, b, values, dispatch):
+        return _mirrored_dispatch(self, op, a, b, values, dispatch)
+
+    def _fault(self, site):
+        # Multi-rank: the check already ran pre-broadcast in
+        # _mirrored_dispatch; firing again would double-count the plan's
+        # per-site call stream.
+        if not self._spmd:
+            super()._fault(site)
+
+    # KV migration is a fleet-member feature; on a multi-rank runtime the
+    # pool gather/scatter would run on rank 0 alone and desync the
+    # workers' replay state, so it refuses (the CLI already forbids
+    # --replicas with --tp; this guards /admin/migrate too).
+    def export_request(self, rid):
+        return None if self._spmd else super().export_request(rid)
+
+    def import_request(self, blob, req):
+        return False if self._spmd else super().import_request(blob, req)
+
+    def export_prefix(self, tokens):
+        return None if self._spmd else super().export_prefix(tokens)
+
+    def import_prefix(self, blob):
+        return 0 if self._spmd else super().import_prefix(blob)
+
+    def _ragged_dispatch(self, T_pad, k_cap, tokens, tok_seq, tok_pos,
+                         write_slots, q_start, q_len, kv_len, ring_len,
+                         is_first, append, is_spec, seed_rows, slot_ids,
+                         pt_rows, temp, top_k, top_p, pen, pres, freq, seeds):
+        args = (T_pad, k_cap, tokens, tok_seq, tok_pos, write_slots, q_start,
+                q_len, kv_len, ring_len, is_first, append, is_spec, seed_rows,
+                slot_ids, pt_rows, temp, top_k, top_p, pen, pres, freq, seeds)
+        if not self._spmd:
+            return super()._ragged_dispatch(*args)
+        key = _key_of(self)
+        # Plain mixed batches keep the OP_RAGGED wire shape; only
+        # dispatches carrying verify spans ship is_spec (OP_SPEC, b=k_cap).
+        head = (tokens, tok_seq, tok_pos, write_slots, q_start, q_len,
+                kv_len, ring_len, is_first, append)
+        tail = (slot_ids, seed_rows, pt_rows, temp, top_k, top_p, pen, pres,
+                freq, seeds, key)
+        op, payload = ((OP_SPEC, head + (is_spec,) + tail) if k_cap
+                       else (OP_RAGGED, head + tail))
+        return self._mirrored(op, T_pad, k_cap, payload,
+                              lambda: ModelRuntime._ragged_dispatch(self, *args))
+
+    def _dispatch_decode(self, k_steps, last_tokens, seq_lens, active_mask,
+                         page_table, temp, top_k, top_p, pen, pres, freq,
+                         seeds):
+        args = (k_steps, last_tokens, seq_lens, active_mask, page_table, temp,
+                top_k, top_p, pen, pres, freq, seeds)
+        if not self._spmd:
+            return super()._dispatch_decode(*args)
+        return self._mirrored(
+            OP_DECODE, k_steps, 0, args[1:] + (_key_of(self),),
+            lambda: ModelRuntime._dispatch_decode(self, *args))
+
+    def _dispatch_embed(self, B, bucket, tokens, lens):
+        if not self._spmd:
+            return super()._dispatch_embed(B, bucket, tokens, lens)
+        return self._mirrored(
+            OP_EMBED, B, bucket, (tokens, lens),
+            lambda: ModelRuntime._dispatch_embed(self, B, bucket, tokens, lens))
+
+
+class SPMDEncoderRuntime(_SPMDMixin, EncoderRuntime):
+    """EncoderRuntime whose batch-encode dispatches are mirrored on every
+    rank (OP_ENCODE), so embedding models serve under tensor parallelism
+    too."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self._spmd_init()
+
+    def _dispatch_encode(self, B, bucket, tokens, lens):
+        if not self._spmd:
+            return super()._dispatch_encode(B, bucket, tokens, lens)
+        return _mirrored_dispatch(
+            self, OP_ENCODE, B, bucket, (tokens, lens),
+            lambda: EncoderRuntime._dispatch_encode(self, B, bucket, tokens,
+                                                    lens))
+
+
+def _build_runtimes(name, ckpt, engine_cfg, mesh, dtype):
+    """Worker-side replica list for one model: the SAME construction path
+    the primary's load_model uses, with the SPMD runtime classes."""
+    from ollamamq_tpu_torch.config import get_model_config
+    from ollamamq_tpu_torch.engine.engine import build_model_runtimes
+
+    cfg = get_model_config(name)
+    if cfg is None:
+        raise ValueError(f"model {name} not replayable under SPMD")
+    return build_model_runtimes(name, cfg, engine_cfg, mesh.device, dtype,
+                                ckpt, None, mesh, SPMDModelRuntime,
+                                SPMDEncoderRuntime)
+
+
+class SPMDEngine(TorchEngine):
+    """The primary rank's engine: a TorchEngine whose runtimes broadcast
+    their dispatches, whose model load/evict/reload control operations
+    broadcast as opcodes serialized on the engine thread, and which
+    releases the workers on stop (collecting each worker's report)."""
+
+    runtime_class = SPMDModelRuntime
+    encoder_runtime_class = SPMDEncoderRuntime
+
+    def __init__(self, engine_cfg: EngineConfig, mesh=None, **kw):
+        if distributed.world_size() > 1 and not distributed.is_primary():
+            raise RuntimeError("SPMDEngine runs on rank 0; workers run "
+                               "run_worker")
+        _reset_wire()
+        self.worker_reports: list = []
+        self._released = False
+        super().__init__(engine_cfg, mesh=mesh, **kw)
+        self._renumber()
+        if self._multi():
+            start_heartbeat()
+
+    @staticmethod
+    def _multi() -> bool:
+        return distributed.world_size() > 1
+
+    def _renumber(self) -> None:
+        """Re-derive the model ordinal of every runtime from the dict
+        order, the same order the worker keeps its mirrored list in."""
+        for mi, rt in enumerate(self.runtimes.values()):
+            rt.spmd_index = mi
+            rt.spmd_replica = 0
+
+    def _send_control(self, op, a, index, values) -> None:
+        e = self.ecfg
+        _send(op, a, 0, index, 0, values, e.max_slots, e.max_pages_per_seq,
+              e.repeat_last_n, 0)
+
+    def load_model(self, name, checkpoint_path=None, params=None):
+        if name in self.runtimes:
+            return
+        if not (self._running and self._multi()):
+            super().load_model(name, checkpoint_path, params)
+            self._renumber()
+            return
+        from ollamamq_tpu_torch.config import get_model_config
+
+        if get_model_config(name) is None:
+            # Validate BEFORE broadcasting: a post-broadcast failure would
+            # leave worker ordinal lists with an entry the primary lacks.
+            raise KeyError(f"unknown model architecture: {name}")
+        if params is not None:
+            raise NotImplementedError(
+                "weights passed in cannot reach the worker ranks; load a "
+                "checkpoint or the seeded weights")
+
+        def _do():
+            if name in self.runtimes:
+                # A concurrent pull of the same model won the race; a
+                # second OP_LOAD would desync worker ordinals for good.
+                return
+            self._send_control(OP_LOAD, 1, len(self.runtimes),
+                               (_encode_str(name, NAME_LEN),
+                                _encode_str(checkpoint_path, PATH_LEN)))
+            ok = False
+            try:
+                TorchEngine.load_model(self, name, checkpoint_path)
+                self._renumber()
+                ok = True
+            finally:
+                flags = _bus.sync(ok)
+                if ok and flags.any():
+                    # The worker holds a dead placeholder at this ordinal;
+                    # the first dispatch fails loudly and the reload path
+                    # rebuilds it.
+                    raise RuntimeError(
+                        f"worker rank(s) {np.nonzero(flags)[0].tolist()} "
+                        f"failed loading {name}; serving deferred to reload "
+                        "recovery")
+
+        return self.call_on_loop(_do)
+
+    def evict_model(self, name):
+        if not (name in self.runtimes and self._running and self._multi()):
+            out = super().evict_model(name)
+            self._renumber()
+            return out
+
+        def _do():
+            rt = self.runtimes.get(name)
+            if rt is None:
+                return False
+            if rt.has_work():
+                # Validate BEFORE broadcasting so no worker evicts what
+                # the primary kept.
+                raise RuntimeError(f"model {name} has in-flight work")
+            mi = list(self.runtimes).index(name)
+            self._send_control(OP_EVICT, 0, mi, (_encode_str(name, NAME_LEN),))
+            ok = False
+            try:
+                out = TorchEngine.evict_model(self, name)
+                self._renumber()
+                ok = True
+                return out
+            finally:
+                flags = _bus.sync(ok)
+                if ok and flags.any():
+                    log.critical(
+                        "worker rank(s) %s refused evicting %s: ordinal "
+                        "tables diverged BEFORE this op; restart the "
+                        "deployment", np.nonzero(flags)[0].tolist(), name)
+
+        return self.call_on_loop(_do)
+
+    def _start_rebuild(self, rt):
+        if not self._multi():
+            return super()._start_rebuild(rt)
+        dead = self.stale_worker_hosts()
+        if dead:
+            # No reload can succeed without every rank: keep the runtime
+            # failed (worker_stale says why) and look again next interval.
+            log.error("worker rank(s) %s dead: %s stays failed", dead, rt.name)
+            self._recovering.discard(id(rt))
+            return
+        # Engine thread: broadcast the reload and rebuild INLINE so the
+        # weight reload and the pool allocation happen at the same point
+        # of the op stream on every rank. Serving pauses for the reload.
+        log.warning("SPMD reload of %s (model %d) on all ranks", rt.name,
+                    rt.spmd_index)
+        self._send_control(OP_RELOAD, 0, rt.spmd_index, ())
+        ok = False
+        try:
+            ok = self._rebuild_runtime(rt)
+        finally:
+            try:
+                flags = _bus.sync(ok)
+            except PeerDeadError:
+                flags = np.ones(1, np.int32)
+                log.error("a worker rank is dead: %s stays failed", rt.name)
+            if ok and flags.any():
+                log.error("worker rank(s) failed the reload of %s; the next "
+                          "attempt retries", rt.name)
+                with self._rebuilt_lock:
+                    self._rebuilt = [(d, f) for d, f in self._rebuilt
+                                     if d is not rt]
+                self._recovering.discard(id(rt))
+        self._swap_rebuilt()
+        for fresh in self.runtimes.values():
+            if fresh.name == rt.name:
+                fresh.spmd_index = rt.spmd_index
+
+    def chip_stats(self):
+        chips = super().chip_stats()
+        if self._multi():
+            client = _client()
+            for p in range(1, distributed.world_size()):
+                try:
+                    v = _try_get(client, f"ollamamq/chips/{p}")
+                    if v:
+                        chips.extend(json.loads(v))
+                except Exception:  # noqa: BLE001 — not publishing yet (or dead)
+                    pass
+        return chips
+
+    def stale_worker_hosts(self):
+        """Worker ranks whose heartbeat value stopped advancing (the same
+        staleness rule the status sync uses: one module-level monitor, so
+        the watchdog and the sync can never disagree)."""
+        if not self._multi():
+            return []
+        try:
+            return _hb_monitor.stale_peers(range(1, distributed.world_size()))
+        except Exception:  # noqa: BLE001 — the sync path surfaces it
+            return []
+
+    @staticmethod
+    def _worker_report(p: int, deadline: float) -> Optional[dict]:
+        """Rank p's shutdown report, or None once it is past `deadline`
+        or its heartbeat is stale (a dead worker files none)."""
+        client = _client()
+        while time.monotonic() < deadline:
+            try:
+                return json.loads(_wait_get(client, f"ollamamq/report/{p}", 1.0))
+            except Exception as e:
+                if not _is_deadline(e):
+                    raise
+                if _hb_monitor.stale_peers([p]):
+                    break
+        log.error("worker rank %d filed no report", p)
+        return None
+
+    def spmd_report(self) -> dict:
+        """This rank's wire trace: data ops by kind, the digest of their
+        outputs, the kernel launch counts."""
+        return _trace.report()
+
+    # Worker processes this process started (cli --tp): reaped on stop.
+    worker_procs: list = []
+
+    def stop(self, report_timeout_s: float = 30.0) -> None:
+        super().stop()
+        if not self._multi() or self._released:
+            return
+        self._released = True
+        try:
+            broadcast_shutdown()  # exactly once, after dispatches ended
+            self.worker_reports = []
+            deadline = time.monotonic() + report_timeout_s
+            for p in range(1, distributed.world_size()):
+                report = self._worker_report(p, deadline)
+                if report is not None:
+                    self.worker_reports.append(report)
+        except Exception:  # noqa: BLE001 — the store is gone
+            log.exception("worker reports incomplete")
+        finally:
+            stop_heartbeat()
+            distributed.reap(self.worker_procs)
+
+
+class _DeadReplica:
+    """Placeholder for an ordinal whose runtime failed to build: keeps the
+    slot's status-sync cadence alive (the primary's runtime still
+    dispatches and syncs on ITS cadence until the reload lands) and makes
+    any routed replay fail loudly."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._cadence = _OpCadence()
+
+
+def _slot(runtimes, specs, mi):
+    """The holder at ordinal mi, growing the mirrored list with dead
+    placeholders when the primary references an ordinal we never built
+    (a protocol bug: kept loud but sync-aligned)."""
+    while len(runtimes) <= mi:
+        runtimes.append(_DeadReplica("?"))
+        specs.append(("?", None))
+    return runtimes[mi]
+
+
+def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
+               max_steps: Optional[int] = None) -> int:
+    """Worker-rank loop (rank != 0): replay the primary's dispatches.
+
+    `models`: {name: checkpoint_path_or_None} in the SAME order as the
+    primary's --models list; the opcode header routes by that ordinal.
+    Returns the number of ops replayed. `max_steps` bounds the loop for
+    tests; production workers run until OP_SHUTDOWN, when they file
+    their report (`ollamamq/report/<rank>`: ops, output digest, kernel
+    launches, each runtime's weight and KV bytes, peak device memory)
+    for the primary.
+
+    A replay failure is answered over the status sync: the primary fails
+    that runtime loudly and sends OP_RELOAD, which rebuilds it here from
+    pristine config — no silently-diverged serving."""
+    from ollamamq_tpu_torch.config import get_model_config, validate_quant_config
+
+    err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
+                                model_names=list(models))
+    if err is not None:
+        raise ValueError(err)
+    _reset_wire()
+    start_heartbeat()
+    runtimes = []  # [model ordinal] -> runtime | _DeadReplica
+    specs = []  # [model ordinal] -> (name, ckpt)
+    for name, ckpt in models.items():
+        (rt,) = _build_runtimes(name, ckpt, engine_cfg, mesh, dtype)
+        runtimes.append(rt)
+        specs.append((name, ckpt))
+    steps = 0
+    S = engine_cfg.max_slots
+    MP = engine_cfg.max_pages_per_seq
+    W = engine_cfg.repeat_last_n
+    wire_seq = 0
+    try:
+        while max_steps is None or steps < max_steps:
+            header, raw = _recv_op(wire_seq)
+            wire_seq += 1
+            op, a, b, mi, ri = (int(x) for x in header)
+            if op == OP_SHUTDOWN:
+                report = _trace.report()
+                report["runtimes"] = {
+                    rt.name: {"param_bytes": rt.param_bytes,
+                              "kv_bytes": rt.kv_bytes}
+                    for rt in runtimes if not isinstance(rt, _DeadReplica)}
+                if mesh.device.type == "cuda":
+                    report["max_memory_allocated"] = \
+                        torch.cuda.max_memory_allocated(mesh.device)
+                _client().set(f"ollamamq/report/{distributed.rank()}",
+                              json.dumps(report))
+                break
+            ok = True
+            payload = None
+            try:
+                if op in DATA_OPS:
+                    rt = _slot(runtimes, specs, mi)
+                    if isinstance(rt, _DeadReplica):
+                        raise RuntimeError(
+                            f"no live runtime at ordinal {mi} for op {op}")
+                    payload = _unpack_payload(
+                        raw, payload_spec(op, a, b, S, MP, W, rt.key_bytes))
+                    out = _replay(rt, op, a, b, payload)
+                    _trace.record(op, a, out)
+                elif op == OP_RELOAD:
+                    name, ckpt = specs[mi]
+                    old = _slot(runtimes, specs, mi)
+                    # Free the old device memory before the reload; the
+                    # dead placeholder holds the slot (and a fresh
+                    # cadence, mirroring the primary's fresh runtime) if
+                    # the rebuild below raises.
+                    runtimes[mi] = _DeadReplica(name)
+                    del old
+                    (runtimes[mi],) = _build_runtimes(name, ckpt, engine_cfg,
+                                                      mesh, dtype)
+                    log.warning("worker reloaded %s (model %d)", name, mi)
+                elif op == OP_LOAD:
+                    payload = _unpack_payload(
+                        raw, payload_spec(op, a, b, S, MP, W, 0))
+                    name = _decode_str(payload[0])
+                    ckpt = _decode_str(payload[1]) or None
+                    specs.append((name, ckpt))
+                    try:
+                        (rt,) = _build_runtimes(name, ckpt, engine_cfg, mesh,
+                                                dtype)
+                        runtimes.append(rt)
+                    except Exception:
+                        # Keep ordinals aligned; OP_RELOAD rebuilds holes.
+                        runtimes.append(_DeadReplica(name))
+                        raise
+                elif op == OP_EVICT:
+                    payload = _unpack_payload(
+                        raw, payload_spec(op, a, b, S, MP, W, 0))
+                    name = _decode_str(payload[0])
+                    if mi >= len(specs) or specs[mi][0] != name:
+                        raise RuntimeError(
+                            f"evict ordinal {mi} names "
+                            f"{specs[mi][0] if mi < len(specs) else '<none>'}"
+                            f", primary said {name}")
+                    # Deletion is DEFERRED to after the status sync: if the
+                    # primary's own evict fails post-broadcast it keeps its
+                    # runtime, and deleting ours here would desync every
+                    # ordinal > mi.
+                else:
+                    log.error("unknown opcode %d; shutting down", op)
+                    break
+            except Exception:
+                ok = False
+                log.exception("worker op failed (op=%d mi=%d ri=%d); "
+                              "reporting desync", op, mi, ri)
+            # Status sync: data ops ride the TARGET RUNTIME's cadence
+            # (matching the primary's per-runtime cadence); control ops
+            # always sync (the primary waits on the result).
+            if op in DATA_OPS:
+                _slot(runtimes, specs, mi)._cadence.after_op(ok)
+            else:
+                flags = _bus.sync(ok)
+                if op == OP_LOAD and flags[0]:
+                    # The primary's own load failed AFTER broadcasting: it
+                    # never added the model, so drop ours to realign.
+                    runtimes.pop()
+                    specs.pop()
+                elif op == OP_EVICT and ok:
+                    if flags[0]:
+                        log.error("primary failed evicting %s; keeping our "
+                                  "runtime to stay aligned",
+                                  _decode_str(payload[0]))
+                    else:
+                        del runtimes[mi]
+                        del specs[mi]
+            steps += 1
+    finally:
+        stop_heartbeat()
+    return steps
+
+
+def _replay(rt, op, a, b, payload):
+    """Execute one data op against a worker runtime, mirroring the
+    primary's dispatch exactly (same call, same inputs, the generator
+    state the primary's draws started from). Returns the output, read
+    back so the op has finished on this rank's device."""
+    if op in (OP_RAGGED, OP_SPEC):
+        T_pad, k_cap = a, (b if op == OP_SPEC else 0)
+        if op == OP_SPEC:
+            (tokens, tok_seq, tok_pos, write_slots, q_start, q_len, kv_len,
+             ring_len, is_first, append, is_spec, slot_ids, seed_rows, pt,
+             temp, tk, tp, pen, pres, freq, seeds, key) = payload
+        else:
+            (tokens, tok_seq, tok_pos, write_slots, q_start, q_len, kv_len,
+             ring_len, is_first, append, slot_ids, seed_rows, pt, temp, tk,
+             tp, pen, pres, freq, seeds, key) = payload
+            # No verify spans on this wire shape.
+            is_spec = np.zeros_like(q_start)
+        rt.gen.set_state(torch.from_numpy(key.copy()))
+        out = ModelRuntime._ragged_dispatch(
+            rt, T_pad, k_cap, tokens, tok_seq, tok_pos, write_slots, q_start,
+            q_len, kv_len, ring_len, is_first, append, is_spec, seed_rows,
+            slot_ids, pt, temp, tk, tp, pen, pres, freq, seeds)
+    elif op == OP_DECODE:
+        (tokens, positions, active, pt, temp, tk, tp, pen, pres, freq,
+         seeds, key) = payload
+        rt.gen.set_state(torch.from_numpy(key.copy()))
+        out = ModelRuntime._dispatch_decode(
+            rt, a, tokens, positions, active, pt, temp, tk, tp, pen, pres,
+            freq, np.array(seeds))
+    elif op == OP_ENCODE:
+        tokens, lens = payload
+        out = EncoderRuntime._dispatch_encode(rt, a, b, np.array(tokens),
+                                              np.array(lens))
+    elif op == OP_EMBED:
+        tokens, lens = payload
+        out = ModelRuntime._dispatch_embed(rt, a, b, tokens, lens)
+    else:  # pragma: no cover — guarded by the caller's DATA_OPS check
+        raise ValueError(f"not a data op: {op}")
+    if rt.device.type == "cuda":
+        torch.cuda.synchronize(rt.device)
+    return out

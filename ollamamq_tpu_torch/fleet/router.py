@@ -615,6 +615,11 @@ class FleetRouter:
                                  "n_gen": len(req.generated_ids),
                                  "inc": None, "detok": "", "emitted": 0,
                                  "text": ""}
+            ticket = None
+            if self.durability is not None:
+                # The tap goes in before the loop can see the flight.
+                ticket = self.durability.capture(
+                    req, prompt_tokens=prompt_tokens or [])
             self.pending[rid] = flight
         self.journal.record(
             "enqueue", req_id=flight.rid0, user=user, model=model or None,
@@ -629,8 +634,7 @@ class FleetRouter:
             # router hot-path cost: measured always-on.
             t0 = time.perf_counter_ns()
             try:
-                self.durability.admit(req,
-                                      prompt_tokens=prompt_tokens or [])
+                self.durability.commit(req, ticket)
             finally:
                 tm.ROUTER_OVERHEAD_MS.labels(site="wal_fsync").observe(
                     (time.perf_counter_ns() - t0) / 1e6)

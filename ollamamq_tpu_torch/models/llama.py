@@ -7,7 +7,16 @@ H*hd], wo [H*hd, D], ...). Activations are flattened to [tokens, D]; the
 KV pools [L, S, Hk, hd] are written IN PLACE (the JAX forwards return
 fresh pools from donated buffers) and returned for symmetry with them.
 Matmuls run in the weights' dtype, norms, RoPE, softmax and logits in
-float32, as in the JAX package. A mixture-of-experts layer holds
+float32, as in the JAX package. Under tensor parallelism (`tp`, a
+parallel.mesh.TensorGroup) each rank holds its slice of the weights
+(parallel/sharding.py): H/tp query heads and its share of the KV heads,
+F/tp of the FFN, V/tp vocabulary rows. The layer code reads head counts
+from the tensors, not from cfg, and the forwards call the collectives
+GSPMD inserts in the JAX package: an all_reduce (sum) after wo and after
+the FFN's down projection, the vocab-parallel embedding (ids outside the
+rank's rows give zeros, then all_reduce) and the vocab gather of the
+logits, so every rank holds the full [N, V] logits and samples the same
+ids. A mixture-of-experts layer holds
 w_router and the expert stacks we_gate / we_up / we_down
 (models/moe.py) in place of w_gate / w_up / w_down.
 """
@@ -43,10 +52,14 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> dict:
+                dtype=torch.bfloat16, device="cpu", prepare_layer=None,
+                prepare_top=None) -> dict:
     """Random-init parameters: N(0, 1/fan_in) matmul weights drawn in
     float32 from `generator` (on `device`), unit norms, zero biases; an
-    MoE model's layers get routed experts instead of the dense FFN."""
+    MoE model's layers get routed experts instead of the dense FFN.
+    `prepare_layer(layer)` and `prepare_top(name, tensor)` (embed,
+    lm_head) transform each piece right after it is drawn, in draw
+    order (a tensor-parallel rank keeps its slice and frees the rest)."""
     d, qd, kvd, f = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
 
     def w(shape, fan_in):
@@ -76,16 +89,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.qk_norm:
             lp["q_norm"] = ones(cfg.head_dim)
             lp["k_norm"] = ones(cfg.head_dim)
-        layers.append(lp)
-    params = {"embed": w((cfg.vocab_size, d), d), "final_norm": ones(d),
-              "layers": layers}
+        layers.append(prepare_layer(lp) if prepare_layer else lp)
+
+    def top(name, t):
+        return prepare_top(name, t) if prepare_top else t
+
+    params = {"embed": top("embed", w((cfg.vocab_size, d), d)),
+              "final_norm": ones(d), "layers": layers}
     if not cfg.tie_embeddings and not cfg.is_encoder:
-        params["lm_head"] = w((cfg.vocab_size, d), d)
+        params["lm_head"] = top("lm_head", w((cfg.vocab_size, d), d))
     return params
 
 
 def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor):
-    """Project hidden [N, D] -> q [N, H, hd], k, v [N, Hk, hd]."""
+    """Project hidden [N, D] -> q [N, H, hd], k, v [N, Hk, hd] (this
+    rank's heads under tensor parallelism)."""
     N = h.shape[0]
     q = qeinsum("nd,de->ne", h, lp["wq"])
     k = qeinsum("nd,de->ne", h, lp["wk"])
@@ -94,9 +112,9 @@ def _qkv(cfg: ModelConfig, lp: dict, h: torch.Tensor):
         q = q + lp["bq"]
         k = k + lp["bk"]
         v = v + lp["bv"]
-    q = q.reshape(N, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(N, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(N, cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(N, -1, cfg.head_dim)
+    k = k.reshape(N, -1, cfg.head_dim)
+    v = v.reshape(N, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, lp["q_norm"], cfg.rms_norm_eps)
         k = rmsnorm(k, lp["k_norm"], cfg.rms_norm_eps)
@@ -118,29 +136,53 @@ def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor, valid=None) -> torch.Tenso
     return _mlp(lp, h)
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps)
-    return logits_head(x, params.get("lm_head", params["embed"]))
+    local = logits_head(x, params.get("lm_head", params["embed"]))
+    return local if tp is None else tp.gather_vocab(local, cfg.vocab_size)
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           tp=None) -> torch.Tensor:
+    """Embedding rows [N, D] in the activation dtype; vocab-parallel
+    under `tp`: a rank gathers the ids inside its rows, zeros elsewhere,
+    and the all_reduce sums the one nonzero row of each id (exact)."""
+    dtype = _adtype(params)
+    if tp is None:
+        return embed_lookup(params["embed"], tokens, dtype)
+    lo, hi = tp.vocab_range(cfg.vocab_size)
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < hi - lo)
+    x = embed_lookup(params["embed"], torch.where(mine, local, 0), dtype)
+    return tp.all_reduce(x * mine[:, None].to(dtype))
+
+
+def _reduce(x: torch.Tensor, tp) -> torch.Tensor:
+    return x if tp is None else tp.all_reduce(x)
 
 
 def layer_step(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-               positions: torch.Tensor, attend, valid=None) -> torch.Tensor:
+               positions: torch.Tensor, attend, valid=None,
+               tp=None) -> torch.Tensor:
     """One decoder layer: norm, qkv, RoPE, `attend(q, k, v)` -> [N, H,
     hd], output projection and the FFN (dense SwiGLU or routed experts
-    over the `valid` rows), with residuals."""
+    over the `valid` rows), with residuals. Under `tp` the two row-
+    parallel outputs are summed over the tensor axis before their
+    residual adds."""
     N = x.shape[0]
     h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = _qkv(cfg, lp, h)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     attn = attend(q, k, v)
-    x = x + qeinsum("ne,ed->nd", attn.reshape(N, cfg.q_dim), lp["wo"])
+    x = x + _reduce(qeinsum("ne,ed->nd", attn.reshape(N, -1), lp["wo"]), tp)
     h2 = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + _ffn(cfg, lp, h2, valid)
+    return x + _reduce(_ffn(cfg, lp, h2, valid), tp)
 
 
 def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend,
-            valid=None):
+            valid=None, tp=None):
     """The paged layer stack: each layer writes its K/V BEFORE attention
     (a token sees its own K/V), then attends through `attend(layer, q)`.
     `k_cache[layer]` is that layer's pool, a tensor or a QuantKV."""
@@ -150,7 +192,7 @@ def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend,
             kv_write(v_cache[layer], write_slots, v)
             return attend(layer, q)
 
-        x = layer_step(cfg, lp, x, positions, paged, valid)
+        x = layer_step(cfg, lp, x, positions, paged, valid, tp)
     return x
 
 
@@ -170,6 +212,7 @@ def forward_ragged(
     kv_len: torch.Tensor,  # [B] int32 context length incl. the span
     page_size: int,
     attn_impl: str = "kernel",  # "kernel" (serving) | "plain" (reference)
+    tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ONE forward over a ragged mixed batch of prefill spans and decode
     tokens sharing a flattened [T] stream. Each layer writes the
@@ -177,7 +220,7 @@ def forward_ragged(
     its own sequence's paged context. Returns (logits [B, V] or
     [B, O, V] in float32, k_cache, v_cache); padding rows' logits are
     garbage the caller ignores."""
-    x = embed_lookup(params["embed"], tokens, _adtype(params))  # [T, D]
+    x = _embed(params, cfg, tokens, tp)  # [T, D]
     positions = tok_pos.clamp_min(0)
 
     def attend(layer, q):
@@ -186,8 +229,8 @@ def forward_ragged(
             tok_seq, tok_pos, kv_len, q_start, q_len, page_size)
 
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
-                attend, valid=tok_pos >= 0)
-    return _logits(params, cfg, x[out_idx.long()]), k_cache, v_cache
+                attend, valid=tok_pos >= 0, tp=tp)
+    return _logits(params, cfg, x[out_idx.long()], tp), k_cache, v_cache
 
 
 def forward_decode(
@@ -201,12 +244,13 @@ def forward_decode(
     page_size: int,
     attn_impl: str = "kernel",  # "kernel" (serving) | "plain" (reference)
     active=None,  # [B] int32/bool live decode slots (None = all live)
+    tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for the whole batch; returns (logits [B, V] in
     float32, k_cache, v_cache). `active` feeds MoE routing only: parked
     slots carry garbage tokens that must not claim expert capacity."""
     B = tokens.shape[0]
-    x = embed_lookup(params["embed"], tokens, _adtype(params))  # [B, D]
+    x = _embed(params, cfg, tokens, tp)  # [B, D]
     pos = positions.long()
     rows = torch.arange(B, device=tokens.device)
     write_slots = (page_table[rows, pos // page_size].long() * page_size
@@ -220,18 +264,19 @@ def forward_decode(
 
     valid = None if active is None else active > 0
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
-                attend, valid)
-    return _logits(params, cfg, x), k_cache, v_cache
+                attend, valid, tp)
+    return _logits(params, cfg, x, tp), k_cache, v_cache
 
 
 def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                      seq_lens: torch.Tensor, attention) -> torch.Tensor:
+                      seq_lens: torch.Tensor, attention,
+                      tp=None) -> torch.Tensor:
     """Stateless [B, T] forward with `attention(q, k, v, seq_lens)` over
     dense [B, T, H, hd] tensors (no KV write), then a masked mean pool of
     the final-norm states in float32 and L2 normalisation. Rows with
     seq_len 0 pool to zeros."""
     B, T = tokens.shape
-    x = embed_lookup(params["embed"], tokens.reshape(-1), _adtype(params))
+    x = _embed(params, cfg, tokens.reshape(-1), tp)
     positions = torch.arange(T, dtype=torch.int32,
                              device=tokens.device).repeat(B)
     valid = (positions.reshape(B, T)
@@ -244,7 +289,7 @@ def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         return out.reshape(B * T, *q.shape[1:])
 
     for lp in params["layers"]:
-        x = layer_step(cfg, lp, x, positions, attend, valid)
+        x = layer_step(cfg, lp, x, positions, attend, valid, tp)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps).float()
     x = x.reshape(B, T, -1)
     mask = valid.reshape(B, T).float()[..., None]
@@ -253,17 +298,18 @@ def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward_embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  seq_lens: torch.Tensor) -> torch.Tensor:
+                  seq_lens: torch.Tensor, tp=None) -> torch.Tensor:
     """Embeddings from a GENERATIVE model: causal forward with no KV
     write, masked mean pool of the final-norm states, L2 norm (llama.cpp's
     default pooling for causal models). tokens [B, T], seq_lens [B] ->
     [B, D] float32."""
-    return _pooled_embedding(params, cfg, tokens, seq_lens, causal_attention)
+    return _pooled_embedding(params, cfg, tokens, seq_lens, causal_attention,
+                             tp)
 
 
 def forward_encoder(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                    seq_lens: torch.Tensor) -> torch.Tensor:
+                    seq_lens: torch.Tensor, tp=None) -> torch.Tensor:
     """Embedding encoder: bidirectional attention, masked mean pool, L2
     norm. tokens [B, T], seq_lens [B] -> [B, D] float32."""
     return _pooled_embedding(params, cfg, tokens, seq_lens,
-                             bidirectional_attention)
+                             bidirectional_attention, tp)

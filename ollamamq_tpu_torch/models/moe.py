@@ -16,6 +16,11 @@ ladder padding, all max_slots decode rows, the [B*T] embed batch. Only
 
 One layer's experts are stacked on axis 0: we_gate / we_up [E, D, F],
 we_down [E, F, D]; the router w_router is [D, E].
+
+Under tensor parallelism each rank holds every expert's F / tp slice and
+the whole router: routing (and so every capacity drop) is identical on
+every rank, each rank's combine yields a partial sum over its F slice,
+and the caller's all_reduce after the FFN (llama.layer_step) adds them.
 """
 
 from __future__ import annotations

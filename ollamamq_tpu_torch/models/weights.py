@@ -218,31 +218,139 @@ def save_safetensors(params: dict, cfg: ModelConfig, path: str) -> str:
 
 def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
                 seed: int = 0, dtype=torch.bfloat16,
-                weights_dtype: str = "bfloat16", device="cpu") -> dict:
+                weights_dtype: str = "bfloat16", device="cpu",
+                tp: int = 1, rank: int = 0) -> dict:
     """Resolve weights: an HF safetensors directory or seeded random init,
     then int8 quantization when `weights_dtype` is "int8". A directory
-    with no .safetensors file (an orbax checkpoint) is refused."""
+    with no .safetensors file (an orbax checkpoint) is refused.
+
+    With tp > 1 the result is rank `rank`'s slice of a tp-way tensor-
+    parallel mesh (parallel/sharding.py), taken after the KV heads are
+    replicated (tp > kv heads) and after int8 quantization of the whole
+    tensors, so every rank's slice equals the same slice of the one-rank
+    tree. The seeded tree is drawn, prepared and cut one layer at a time
+    on `device` (the whole tree never sits on it); a checkpoint is read
+    whole on the host, cut there, and only the slice moves."""
+    int8 = weights_dtype == "int8"
+    if int8 and cfg.num_experts:
+        raise ValueError("int8 weight quantization does not cover MoE expert "
+                         "stacks; load the model with --weights-dtype=bfloat16")
+    if tp > 1:
+        from ollamamq_tpu_torch.parallel.sharding import shard_layer, shard_leaf
+
+        r = tp // cfg.num_kv_heads if tp > cfg.num_kv_heads else 1
+
+        def layer(lp: dict) -> dict:
+            if r > 1:
+                lp = replicate_kv_layer(lp, cfg, r)
+            if int8:
+                lp = quantize_layer_int8(lp)
+            return shard_layer(lp, tp, rank)
+
+        def top(name: str, t):
+            if int8 and name in QUANT_ROW_KEYS:
+                t = quantize_tensor(t, axis=0)
+            return shard_leaf(name, t, tp, rank)
+    else:
+        layer = top = None
     if checkpoint_path:
         if not _safetensors_files(checkpoint_path):
             raise ValueError(
                 f"{checkpoint_path} holds no .safetensors file; an orbax "
                 "checkpoint needs the JAX package (ollamamq_tpu) to read it: "
                 "convert it to HF safetensors first")
-        params = load_safetensors(cfg, checkpoint_path, dtype=dtype, device=device)
-    else:
+        if tp == 1:
+            params = load_safetensors(cfg, checkpoint_path, dtype=dtype,
+                                      device=device)
+            return quantize_params_int8(params) if int8 else params
+        params = load_safetensors(cfg, checkpoint_path, dtype=dtype)
+        params["layers"] = [layer(lp) for lp in params["layers"]]
+        params.update({k: top(k, v) for k, v in params.items()
+                       if k != "layers"})
+        return _to_device(params, device)
+    if tp == 1:
         params = init_random(cfg, seed=seed, dtype=dtype, device=device)
-    if weights_dtype == "int8":
-        params = quantize_params_int8(params)
-    return params
+        return quantize_params_int8(params) if int8 else params
+    return init_random(cfg, seed=seed, dtype=dtype, device=device,
+                       prepare_layer=layer, prepare_top=top)
+
+
+def _to_device(params: dict, device) -> dict:
+    def move(t):
+        if isinstance(t, QuantTensor):
+            return QuantTensor(t.q.to(device), t.s.to(device))
+        return t.to(device)
+
+    out = {k: move(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: move(v) for k, v in lp.items()}
+                     for lp in params["layers"]]
+    return out
+
+
+def replicate_kv_layer(lp: dict, cfg: ModelConfig, r: int) -> dict:
+    """One layer of replicate_kv_heads."""
+    Hk, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def rep_w(w):  # [d, Hk*hd] -> [d, r*Hk*hd]
+        if isinstance(w, QuantTensor):
+            # Per-channel scales live on the duplicated axis: replicate
+            # payload and scales in lockstep, numerics exactly preserved.
+            return QuantTensor(rep_w(w.q), rep_b(w.s))
+        d = w.shape[0]
+        return w.reshape(d, Hk, hd).repeat_interleave(r, dim=1).reshape(
+            d, r * Hk * hd)
+
+    def rep_b(b):  # [Hk*hd] -> [r*Hk*hd]
+        return b.reshape(Hk, hd).repeat_interleave(r, dim=0).reshape(-1)
+
+    out = dict(lp)
+    out["wk"], out["wv"] = rep_w(lp["wk"]), rep_w(lp["wv"])
+    if "bk" in lp:
+        out["bk"], out["bv"] = rep_b(lp["bk"]), rep_b(lp["bv"])
+    return out
+
+
+def replicate_kv_heads(params: dict, cfg: ModelConfig, r: int) -> dict:
+    """Duplicate each KV head r times (consecutively) so num_kv_heads grows
+    to r * cfg.num_kv_heads — the replicated-group sharding for
+    tp > num_kv_heads: every tensor-parallel shard then owns exactly one
+    (duplicated) KV head. Numerics are exactly preserved: q head i maps to
+    kv' head i // (H/Hk') and kv'[j] == kv[j // r], which composes to the
+    original i // (H/Hk) assignment. Costs r x KV-cache memory."""
+    out = dict(params)
+    out["layers"] = [replicate_kv_layer(lp, cfg, r) for lp in params["layers"]]
+    return out
+
+
+def tp_slice(params: dict, cfg: ModelConfig, tp: int, rank: int) -> dict:
+    """Rank `rank`'s slice of a whole params tree (quantized or not, as
+    given): KV heads replicated when tp > kv heads, then cut."""
+    if tp == 1:
+        return params
+    from ollamamq_tpu_torch.parallel.sharding import shard_params
+
+    if tp > cfg.num_kv_heads:
+        params = replicate_kv_heads(params, cfg, tp // cfg.num_kv_heads)
+    return shard_params(params, tp, rank)
 
 
 def init_random(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cpu") -> dict:
+                device="cpu", prepare_layer=None, prepare_top=None) -> dict:
     """Seeded random weights, drawn on `device` from a torch.Generator
-    (the numbers differ from jax.random's for the same seed)."""
+    (the numbers differ from jax.random's for the same seed).
+    `prepare_layer(layer)` / `prepare_top(name, tensor)` transform each
+    layer dict and the embed / lm_head as they are drawn."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return llama.init_params(cfg, gen, dtype=dtype, device=device)
+    return llama.init_params(cfg, gen, dtype=dtype, device=device,
+                             prepare_layer=prepare_layer,
+                             prepare_top=prepare_top)
+
+
+def quantize_layer_int8(lp: dict) -> dict:
+    """One layer of quantize_params_int8."""
+    return {k: quantize_tensor(v, axis=-1) if k in QUANT_LAYER_KEYS else v
+            for k, v in lp.items()}
 
 
 def quantize_params_int8(params: dict) -> dict:
@@ -255,10 +363,7 @@ def quantize_params_int8(params: dict) -> dict:
         raise ValueError("int8 weight quantization does not cover MoE expert "
                          "stacks; load the model with --weights-dtype=bfloat16")
     out = dict(params)
-    out["layers"] = [
-        {k: quantize_tensor(v, axis=-1) if k in QUANT_LAYER_KEYS else v
-         for k, v in lp.items()}
-        for lp in params["layers"]]
+    out["layers"] = [quantize_layer_int8(lp) for lp in params["layers"]]
     for k in QUANT_ROW_KEYS:
         if k in out:
             out[k] = quantize_tensor(out[k], axis=0)

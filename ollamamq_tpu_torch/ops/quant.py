@@ -125,7 +125,9 @@ def embed_lookup(embed, tokens: torch.Tensor,
 
 def logits_head(x: torch.Tensor, head) -> torch.Tensor:
     """lm_head / tied-embedding logits ("...d,vd->...v") in float32; an
-    int8 head multiplies the logit columns by its row scales."""
+    int8 head multiplies the logit columns by its row scales. Over a
+    tensor-parallel rank's vocab shard (its rows, and an int8 head's
+    scales of those rows) this gives that shard's logit columns."""
     if isinstance(head, QuantTensor):
         y = torch.matmul(x.to(torch.float32), head.q.to(torch.float32).t())
         return y * head.s

@@ -1,0 +1,112 @@
+"""Partition rules for model params and the KV pool: rank r's slice.
+
+The JAX package's Megatron-style layout (its PartitionSpecs) as plain
+functions. A spec is the dim cut over the tensor axis, or None for a
+replicated leaf; shard_params cuts rank r's slice out of a host (or
+device) tree. This package's layer dicts carry no stacked layer axis, so
+dims are named from the right:
+
+  - wq/wk/wv, bq/bk/bv  [D, heads*hd]  -> column-parallel: output (head)
+                                          dim
+  - wo                  [heads*hd, D]  -> row-parallel: input (head) dim;
+                                          the forward sums the partial
+                                          outputs (all_reduce)
+  - w_gate/w_up [D, F], w_down [F, D]  -> F
+  - we_gate/we_up [E, D, F], we_down [E, F, D] -> each expert's F
+  - embed, lm_head      [V, D]         -> vocab rows
+  - norms, q/k norms, the MoE router   -> replicated
+  - KV pool [L, S, kv_heads, hd] and its int8 scale rows [L, S, kv_heads]
+                                       -> kv_heads
+
+A QuantTensor's scales follow the channel they scale: cut with
+column-parallel payloads and with vocab rows, replicated for the
+row-parallel wo / w_down (their output channel is not cut). Weights are
+quantized BEFORE they are cut, so every rank holds the scales of the
+whole tensor's channels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ollamamq_tpu_torch.ops.quant import QuantTensor
+from ollamamq_tpu_torch.parallel.mesh import shard_range
+
+COLUMN = ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv",
+          "we_gate", "we_up")
+ROW = ("wo", "w_down", "we_down")
+VOCAB = ("embed", "lm_head")
+
+
+def spec_for(name: str, leaf):
+    """The dim of `leaf` cut over the tensor axis (None = replicated); a
+    QuantTensor gets a QuantTensor of its payload's and scales' specs."""
+    if isinstance(leaf, QuantTensor):
+        q = spec_for(name, leaf.q)
+        if name in COLUMN:
+            return QuantTensor(q, -1)
+        if name in VOCAB:
+            return QuantTensor(q, 0)  # per-row scales follow the rows
+        return QuantTensor(q, None)
+    if name in COLUMN:
+        return -1
+    if name in ROW:
+        return -2
+    if name in VOCAB:
+        return 0
+    return None  # norms, the router: replicated
+
+
+def param_partition_specs(params: dict) -> dict:
+    """The spec of every leaf of a params dict, in its structure."""
+    out = {k: spec_for(k, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: spec_for(k, v) for k, v in lp.items()}
+                     for lp in params["layers"]]
+    return out
+
+
+def shard_tensor(t: torch.Tensor, dim: Optional[int], tp: int,
+                 rank: int) -> torch.Tensor:
+    """Rank `rank`'s slice of t along `dim` (a private copy, so the whole
+    tensor can be freed), or t itself when replicated."""
+    if dim is None or tp == 1:
+        return t
+    lo, hi = shard_range(t.shape[dim], tp, rank)
+    return t.narrow(dim, lo, hi - lo).clone()
+
+
+def shard_leaf(name: str, leaf, tp: int, rank: int):
+    spec = spec_for(name, leaf)
+    if isinstance(leaf, QuantTensor):
+        return QuantTensor(shard_tensor(leaf.q, spec.q, tp, rank),
+                           shard_tensor(leaf.s, spec.s, tp, rank))
+    return shard_tensor(leaf, spec, tp, rank)
+
+
+def shard_layer(lp: dict, tp: int, rank: int) -> dict:
+    return {k: shard_leaf(k, v, tp, rank) for k, v in lp.items()}
+
+
+def shard_params(params: dict, tp: int, rank: int) -> dict:
+    """Rank `rank`'s params of a tp-way tensor-parallel mesh. Head and
+    FFN dims must divide by tp (validate_tp_for_model); the vocabulary
+    is cut in ceil(V / tp) rows per rank."""
+    if tp == 1:
+        return params
+    out = {k: shard_leaf(k, v, tp, rank) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [shard_layer(lp, tp, rank) for lp in params["layers"]]
+    return out
+
+
+def kv_cache_spec() -> int:
+    """KV slot pool [L, S, kv_heads, hd]: kv_heads on the tensor axis."""
+    return 2
+
+
+def kv_scale_spec() -> int:
+    """Quantized-pool scale rows [L, S, kv_heads]: the payload's layout
+    minus head_dim, so each rank owns its own heads' scales."""
+    return 2

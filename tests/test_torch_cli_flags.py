@@ -5,7 +5,10 @@ checked before any device work), --log-file / --log-rotate-mb /
 --allow-all-routes (a 501 for every path without a handler, else 404).
 Each with the JAX package's exit code or behaviour: invalid values exit
 2 before any device work, and one CLI server (a fake engine in a
-subprocess) shows the others at work over HTTP."""
+subprocess) shows the others at work over HTTP. Then --tp and --spmd:
+their refusals exit 2 before any device work, `--tp 2 --device cpu`
+serves through the CLI's own worker rank (gloo) and leaves no process
+behind, on SIGTERM or when the leader is killed."""
 
 import json
 import os
@@ -17,6 +20,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from ollamamq_tpu_torch.cli import build_parser, main
 from ollamamq_tpu_torch.config import EngineConfig
@@ -171,3 +175,124 @@ def test_log_file_writes_json_lines(cli_server):
         assert set(obj) >= {"ts", "level", "logger", "msg"}
         assert obj["ts"].endswith("Z")
     assert any(o["msg"].startswith("serving test-tiny") for o in objs)
+
+
+# ------------------------------------------------- tensor parallelism
+@pytest.mark.parametrize("argv,message", [
+    (["--tp", "3", "--device", "cpu"], "num_heads=4 not divisible by tp=3"),
+    (["--tp", "0", "--device", "cpu"], "--tp must be >= 1"),
+    (["--tp", "2"], "cuda:1"),
+    (["--tp", "2", "--fake-engine", "--device", "cpu"], "--fake-engine runs none"),
+    (["--tp", "2", "--replicas", "2", "--device", "cpu"],
+     "tensor parallelism is not ported yet"),
+    (["--spmd", "--fake-engine"], "--spmd and --fake-engine are mutually exclusive"),
+    (["--spmd", "--replicas", "2"], "and --spmd are mutually exclusive"),
+], ids=["heads", "zero", "missing-device", "fake", "fleet", "spmd-fake",
+        "spmd-fleet"])
+def test_tp_flags_exit_2(argv, message, caplog):
+    """A tp that does not divide the heads, a local --tp whose devices the
+    host lacks (named; no fallback to fewer devices), and the fleet and
+    fake-engine combinations exit 2 before any device work."""
+    if argv == ["--tp", "2"] and torch.cuda.device_count() >= 2:
+        argv = ["--tp", "64", "--model", "llama3:8b"]
+        message = "cuda:63"
+    assert main(argv + ["--no-tui", "--model", "test-tiny"]
+                if "--model" not in argv else argv + ["--no-tui"]) == 2
+    assert message in caplog.text
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _tp2_cli(tmp_path):
+    """`--tp 2 --device cpu` in a subprocess, serving; returns (proc,
+    base URL, worker pid, log path)."""
+    port = free_port()
+    log = tmp_path / "tp2.log"
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", "test-tiny",
+         "--device", "cpu", "--tp", "2", "--dtype", "float32", "--no-tui",
+         "--port", str(port), "--max-slots", "2", "--num-pages", "32",
+         "--page-size", "8", "--max-pages-per-seq", "8",
+         "--blocklist", str(tmp_path / "blocked.json")],
+        cwd=str(tmp_path), env=env, stdout=open(log, "w"),
+        stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        assert proc.poll() is None, log.read_text()[-3000:]
+        try:
+            urllib.request.urlopen(base + "/health", timeout=2).read()
+            break
+        except OSError:
+            time.sleep(0.2)
+    line = next(ln for ln in log.read_text().splitlines()
+                if "started 1 worker rank(s)" in ln)
+    return proc, base, int(line.split("[")[-1].rstrip("]")), log
+
+
+def test_tp2_cpu_serves_through_the_cli_and_reaps_its_worker(tmp_path):
+    """`--tp 2 --device cpu` starts one worker rank, streams the greedy ids
+    of the port at tp 1 (float32, seeded weights), reports both ranks'
+    devices, and on SIGTERM drains, releases the worker and exits 0 with
+    no process left behind."""
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    proc, base, worker, log = _tp2_cli(tmp_path)
+    try:
+        assert _alive(worker)
+        req = urllib.request.Request(
+            base + "/api/generate",
+            data=json.dumps({"model": "test-tiny", "prompt": "tensor ranks",
+                             "stream": False,
+                             "options": {"num_predict": 6,
+                                         "temperature": 0}}).encode(),
+            headers={"X-User-ID": "tp"})
+        body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert body["done"] and body["eval_count"] == 6
+        health = json.loads(urllib.request.urlopen(base + "/health",
+                                                   timeout=10).read())
+        assert [c["process"] for c in health["chips"]] == [0, 1]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert not _alive(worker), log.read_text()[-3000:]
+    assert "graceful shutdown complete" in log.read_text()
+    eng = TorchEngine(EngineConfig(model="test-tiny", max_slots=2, num_pages=32,
+                                   page_size=8, max_pages_per_seq=8,
+                                   dtype="float32"),
+                      device="cpu", blocklist_path=None)
+    eng.start()
+    try:
+        r = eng.enqueue_request("tp", "", "test-tiny",
+                                prompt_tokens=eng.runtimes["test-tiny"]
+                                .tokenizer.encode("tensor ranks"),
+                                sampling=SamplingParams(max_tokens=6,
+                                                        temperature=0.0))
+        while not r.stats.finished_at:
+            time.sleep(0.05)
+        assert r.generated_ids == body["token_ids"]
+    finally:
+        eng.stop()
+
+
+def test_tp2_worker_dies_with_a_killed_leader(tmp_path):
+    """kill -9 of the --tp leader leaves no worker rank behind."""
+    proc, _, worker, log = _tp2_cli(tmp_path)
+    proc.kill()
+    proc.wait()
+    deadline = time.monotonic() + 20
+    while _alive(worker) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert not _alive(worker), log.read_text()[-3000:]

@@ -1070,6 +1070,72 @@ def test_recovery_crash_point_soak(tmp_path):
             eng2.stop()
 
 
+class _TapCheckedPending(dict):
+    """A front-end's pending table that records, at the moment a request
+    becomes visible to the loop, whether its durability tap is in
+    place."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __setitem__(self, rid, val):
+        req = getattr(val, "req", val)  # the router's table holds flights
+        self.seen.append(req.kind != "generate" or req.stream.tap is not None)
+        super().__setitem__(rid, val)
+
+
+@pytest.mark.parametrize("front", ["engine", "router"])
+def test_tap_in_place_before_the_loop_sees_the_request(front, tmp_path):
+    """The race behind the crash-point soak's hang: a front-end published
+    a request to its loop before DurabilityManager.admit installed the
+    stream tap, so a loop that served it first (a short recovered stream
+    under load) left the registry without its terminal. The tap and the
+    admission line now go in under the pending lock; a recovered stream
+    too (its re-admission takes the same enqueue path)."""
+    import dataclasses
+
+    from ollamamq_tpu_torch.fleet import FleetRouter, LocalMember
+
+    if front == "engine":
+        eng = _fake(tmp_path)
+    else:
+        ecfg = EngineConfig(model="test-tiny", max_slots=4,
+                            wal_dir=str(tmp_path / "wal"), wal_fsync_ms=2.0)
+        member = LocalMember("r0", FakeEngine(
+            dataclasses.replace(ecfg, wal_dir=None), blocklist_path=None))
+        eng = FleetRouter([member], ecfg, blocklist_path=None)
+        eng.start()
+    try:
+        table = _TapCheckedPending()
+        table.update(eng.pending)
+        eng.pending = table
+        reqs = [eng.enqueue_request("tap", "", "test-tiny", prompt_tokens=[1, 2],
+                                    sampling=SamplingParams(max_tokens=3))
+                for _ in range(3)]
+        eng.enqueue_request("tap", "", "test-tiny", prompt_tokens=[1],
+                            kind="embed", sampling=SamplingParams())
+        assert table.seen == [True] * 4
+        for r in reqs:
+            entry = eng.durability.registry.find(r.req_id)
+            deadline = time.monotonic() + 30
+            while entry.terminal is None and time.monotonic() < deadline:
+                time.sleep(0.01)
+            assert entry.terminal == {"reason": "length", "error": ""}
+            assert entry.token_count() == 3
+    finally:
+        eng.stop()
+    # The admission line precedes every token line of its request.
+    path = os.path.join(eng.ecfg.wal_dir, "wal.jsonl")
+    first = {}
+    for i, line in enumerate(open(path)):
+        rec = json.loads(line)
+        first.setdefault((rec["rid"], rec["k"]), i)
+    for r in reqs:
+        if (r.req_id, "tok") in first:
+            assert first[(r.req_id, "admit")] < first[(r.req_id, "tok")]
+
+
 def test_jax_load_reads_port_wal(tmp_path):
     """The JAX loader reads a port WAL into the same live state."""
     eng = _fake(tmp_path)

@@ -15,8 +15,10 @@ tiered elastic fleet (a stream, GET /admin/tiers, the autoscaler's
 status), an HA primary and its warm standby (a stream, the standby's
 catch-up, a SIGTERM handover, a stream through the promoted standby),
 the mixture-of-experts model test-tiny-moe (a chat stream and an embed,
-then SIGTERM; int8 weights for Mixtral exit 2), and refusing what the
-fleet's layers still lack.
+then SIGTERM; int8 weights for Mixtral exit 2), tensor parallelism over
+two ranks (`--tp 2 --device cpu`: the leader and the worker rank it
+starts both run with the block, installed by a sitecustomize the worker
+inherits), and refusing what the fleet's layers still lack.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -232,7 +234,11 @@ def test_port_imports_and_serves_without_jax():
                 "ollamamq_tpu_torch.fleet.router",
                 "ollamamq_tpu_torch.fleet.tiering",
                 "ollamamq_tpu_torch.fleet.autoscaler",
-                "ollamamq_tpu_torch.fleet.ha"}
+                "ollamamq_tpu_torch.fleet.ha", "ollamamq_tpu_torch.parallel",
+                "ollamamq_tpu_torch.parallel.mesh",
+                "ollamamq_tpu_torch.parallel.distributed",
+                "ollamamq_tpu_torch.parallel.sharding",
+                "ollamamq_tpu_torch.engine.spmd"}
     assert expected <= set(out["modules"])
     if not out["cuda"]:
         # No GPU and no device="cpu": the engine raises, never falls back.
@@ -525,3 +531,56 @@ def test_cli_serves_ha_primary_and_standby_without_jax(tmp_path):
     assert not any("blocked:" in t for t in texts.values())
     assert "fleet handed over to the standby" in texts["p"]
     assert "why=handover" in texts["s"]
+
+
+def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):
+    """`--tp 2 --device cpu` serves a stream with JAX and the JAX package
+    blocked in BOTH ranks: the block is a sitecustomize on PYTHONPATH,
+    so the worker rank the CLI starts inherits it. SIGTERM exits 0."""
+    site = tmp_path / "site"
+    site.mkdir()
+    blocker = SCRIPT.split("import importlib")[0]
+    (site / "sitecustomize.py").write_text(blocker)
+    env = _env()
+    env["PYTHONPATH"] = str(site) + os.pathsep + env["PYTHONPATH"]
+    env["OMP_NUM_THREADS"] = "1"
+    probe = subprocess.run([sys.executable, "-c", "import jax"], env=env,
+                           capture_output=True, text=True, timeout=60)
+    assert probe.returncode != 0 and "blocked: jax" in probe.stderr
+    port = free_port()
+    log = open(tmp_path / "cli.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", "test-tiny",
+         "--device", "cpu", "--tp", "2", "--port", str(port), "--no-tui",
+         "--max-slots", "2", "--num-pages", "32", "--page-size", "8",
+         "--max-pages-per-seq", "8", "--blocklist", str(tmp_path / "b.json")],
+        cwd=str(tmp_path), env=env, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            assert proc.poll() is None, (tmp_path / "cli.log").read_text()[-3000:]
+            try:
+                urllib.request.urlopen(base + "/health", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.2)
+        req = urllib.request.Request(
+            base + "/api/generate",
+            data=json.dumps({"model": "test-tiny", "prompt": "hi",
+                             "stream": False,
+                             "options": {"num_predict": 4}}).encode(),
+            headers={"X-User-ID": "tp"})
+        body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert body["done"] and body["eval_count"] == 4
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    text = (tmp_path / "cli.log").read_text()
+    assert "blocked:" not in text and "graceful shutdown complete" in text
+    assert "tensor-parallel worker rank 1 starting" in text
+    assert "import jax" not in text
