@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about eight minutes
+    python3 chip_smoke.py            # one card, about ten minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
 
 Phases, each printing JSON lines; any failure exits non-zero:
@@ -15,7 +15,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            any one number.
   kernels  each kernel against its plain PyTorch version on the card, q in
            bf16 (atol = rtol = 2e-2) and float32 (1e-4), at the
-           llama3.2:1b and llama3:8b attention shapes, a 512-token
+           llama3.2:1b and llama3:8b attention shapes, one
+           microbatch of a pipeline stage's llama3:8b decode (decode
+           only: 4 rows, 24 pages a sequence), a 512-token
            llama3.2:1b prefill (ragged only), a serving decode step of
            llama3.2:1b (8 sequences of 20 to 140 tokens; decode only),
            the one-rank shapes of tensor parallelism at tp 2 (llama3:8b
@@ -346,11 +348,44 @@ Phases, each printing JSON lines; any failure exits non-zero:
            and `python -m ollamamq_tpu_torch.cli --model llama3.2:1b
            --tp 2` exits 2 naming cuda:1. Rank logs go to
            chiprun_out/chip_smoke/serve_tp_*.log.
+  serve-pp pipeline parallelism: ranks (processes of this script,
+           --tp-rank, as serve-tp's) share cuda:0 over gloo, one
+           pipeline stage each (times tp ranks a stage). First a probe:
+           does gloo's raw send/recv take a CUDA tensor (recorded, not
+           gated; the pipe group stages through pinned host buffers).
+           Then five windows: (1) llama3:8b at full width and depth
+           over 2 stages (16 layers each, the embedding, head and final
+           norm on both; seeded bf16 weights, 8 slots, 136 pages of 32,
+           24 pages a sequence, buckets 32/64/128/256, k_steps 8, 2
+           decode microbatches of 4): serve-tp's 4 greedy /api/chat
+           streams of 64 tokens plus a 600-token prompt from a fourth
+           user (the chunked path), then one prompt twice alone; gates:
+           every reply stop/length, the repeat identical, both ranks'
+           output digests equal, a bucketed prefill and >= 3 chunks
+           ran, each rank exactly 16 x 2 decode launches per decode
+           step and no ragged or int8 launch, param_bytes 9,080,938,496
+           and kv_bytes 285,212,672 on each rank (from the config's
+           shapes), every attention call of stage 0 within 2e-2 x max
+           |plain|; records tokens/s, TTFT, each rank's peak memory,
+           the hand-off ms per forward (staging, sends, receives) and
+           each stage's receive share against the schedule's bubble.
+           (2) llama3.2:1b in float32 at pp 2 and (3) at pp 2 x tp 2
+           (four ranks) against one rank: ids identical, request 0's
+           first logits within 1e-4 x max, only the f32 decode kernel
+           on every rank. (4) llama3.2:1b with int8 weights and bf16
+           pages at pp 2: replies stop/length, exactly 8 x 2 bf16
+           decode launches a step on each rank, no int8 kernel. (5)
+           kill -9 of the last stage while 4 streams decode: every
+           request errors within 18 s, /health 200 with worker_stale
+           and the runtime failed. Besides: `python -m
+           ollamamq_tpu_torch.cli --pp 2 --kv-dtype int8` exits 2 with
+           the reference's message. Rank logs go to
+           chiprun_out/chip_smoke/serve_pp_*.log.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
-serve-fleet's, serve-tiers', serve-autoscale's, serve-ha's and
-serve-tp's (both ranks of each window), counted in
+serve-fleet's, serve-tiers', serve-autoscale's, serve-ha's,
+serve-tp's and serve-pp's (every rank of each window), counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
 ms go uncounted; the others' whole windows from the counts they log at
@@ -362,6 +397,7 @@ of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import gzip
 import http.client
@@ -381,7 +417,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # Kernel shapes timed with q in bf16 (the rest are checked, not timed).
 TIMED_SHAPES = ("llama3.2:1b", "llama3:8b-attn", "llama3.2:1b-prefill512",
-                "llama3.2:1b-serve8", "llama3:8b-tp2", "llama3.2:1b-tp2")
+                "llama3.2:1b-serve8", "llama3:8b-tp2", "llama3.2:1b-tp2",
+                "llama3:8b-pp2")
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 # Kernel -> (source, the TPU kernel it replaces, the serve phase whose
 # window counts its launches).
@@ -722,6 +759,7 @@ def timed_cases(dtype, int8):
     decode_spans = [(1, rnd.randint(1, 512)) for _ in range(48)]
     mixed = decode_spans + [(128, 128), (96, 352), (32, 32)]  # 304 rows
     ctx8 = [rnd.randint(20, 140) for _ in range(8)]  # a serving decode step
+    ctx_pp = [rnd.randint(100, 360) for _ in range(4)]
     d = dict(dtype=dtype, int8=int8)
     return [
         ("decode", decode_case("llama3.2:1b", 1, 64, 32, 8, 64, 32, 16, ctx64, **d)),
@@ -736,6 +774,10 @@ def timed_cases(dtype, int8):
         ("ragged", ragged_case("llama3:8b-tp2", 37, mixed, 64, 320, 16, 4, 128, 32, 16, **d)),
         ("decode", decode_case("llama3.2:1b-tp2", 38, 64, 16, 4, 64, 32, 16, ctx64, **d)),
         ("ragged", ragged_case("llama3.2:1b-tp2", 39, mixed, 64, 320, 16, 4, 64, 32, 16, **d)),
+        # One microbatch of a pipeline stage's decode call (serve-pp:
+        # llama3:8b, 8 slots in 2 microbatches of 4 rows, 24 pages a
+        # sequence), contexts of a serving step.
+        ("decode", decode_case("llama3:8b-pp2", 40, 4, 32, 8, 128, 32, 24, ctx_pp, **d)),
     ]
 
 
@@ -1079,7 +1121,9 @@ def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False,
     tp > 1: `rt` holds rank 0's slice of a tp-way mesh; the forwards run
     on that slice alone (no collectives, pools of its own KV heads), so
     each attention call sees the rank's own q and pools at the TP-local
-    head counts. Only the per-call check means anything there."""
+    head counts. Only the per-call check means anything there; so too for
+    a pipeline stage's `rt`, whose layers are the stage's own (one call
+    per layer it holds)."""
     import torch
 
     from ollamamq_tpu_torch.config import EngineConfig
@@ -1163,14 +1207,15 @@ def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False,
         for kind, got in calls.items():
             c = {"calls": len(got),
                  "max_rel_err": max((e / s for e, s, _ in got), default=None),
-                 "ok": len(got) == cfg.num_layers and all(
+                 "ok": len(got) == len(rt.params["layers"]) and all(
                      fin and e <= TOL["bfloat16"] * s for e, s, fin in got)}
             line[f"{kind}_per_call"] = c
             gated.append(c)
         # Real rows only: the prompt's n rows at each prefill layer, row 0
         # at each decode layer.
+        L = len(rt.params["layers"])
         line["routing_rows_differing"] = [
-            int((a[:n if j < cfg.num_layers else 1] != b[:n if j < cfg.num_layers else 1])
+            int((a[:n if j < L else 1] != b[:n if j < L else 1])
                 .any(-1).sum())
             for j, (a, b) in enumerate(zip(routes["kernel"], routes["plain"]))]
         line["gated"] = "per_call"
@@ -4259,15 +4304,20 @@ TP_KILL_BOUND_S = 3.0 + 15.0  # heartbeat staleness + transport slack
 
 
 def _tp_ecfg(spec):
+    """A serve-tp or serve-pp window's engine: 8 slots, 136 pages of 32,
+    token budget 512, k_steps 8; serve-pp's specs set pp, 24 pages a
+    sequence (a 600-token prompt and its reply fit) and the KV dtype."""
     from ollamamq_tpu_torch.config import EngineConfig
 
     return EngineConfig(model=spec["model"], max_slots=8, num_pages=136,
-                        page_size=32, max_pages_per_seq=16,
+                        page_size=32, max_pages_per_seq=spec.get("mp", 16),
                         max_batch_tokens=512, token_granule=16,
+                        prefill_buckets=PP_BUCKETS,
                         max_new_tokens=spec.get("new", TP_NEW),
                         decode_steps_per_iter=8, dtype=spec["dtype"],
                         weights_dtype=spec.get("quant", "bfloat16"),
-                        kv_dtype=spec.get("quant", "bfloat16"), seed=0)
+                        kv_dtype=spec.get("kv", spec.get("quant", "bfloat16")),
+                        pp=spec.get("pp", 1), seed=0)
 
 
 def _tp_wait(req, budget=600.0):
@@ -4611,10 +4661,16 @@ TP_WINDOWS = {"bf16": _tp_leader_bf16, "f32": _tp_leader_f32,
               "int8": _tp_leader_int8, "kill": _tp_leader_kill}
 
 
+def _world(spec) -> int:
+    """Ranks of a serve-tp / serve-pp window: tp per stage x pp stages."""
+    return spec.get("tp", 2) * spec.get("pp", 1)
+
+
 def tp_rank_main(args) -> int:
-    """One rank of a serve-tp window (`--tp-rank`): both ranks share the
-    card over gloo; rank 1 replays, rank 0 runs the window and prints its
-    result line. Either exits non-zero on any failure."""
+    """One rank of a serve-tp or serve-pp window (`--tp-rank`): every
+    rank shares the card over gloo; the others replay, rank 0 runs the
+    window and prints its result line. Any rank exits non-zero on any
+    failure."""
     import traceback
 
     spec = json.loads(args.tp_spec)
@@ -4631,16 +4687,22 @@ def tp_rank_main(args) -> int:
         if device != "cpu":
             for name in build.KERNELS:  # the parent built them: load only
                 build.kernel_fn(name)
-        distributed.initialize(f"127.0.0.1:{args.tp_port}", 2, rank,
-                               backend="gloo", devices=[device, device],
+        world = _world(spec)
+        if args.tp_window == "pp-p2p":
+            print("TP-RESULT " + json.dumps(_pp_p2p_probe(rank, args.tp_port, device)),
+                  flush=True)
+            os._exit(0)
+        distributed.initialize(f"127.0.0.1:{args.tp_port}", world, rank,
+                               backend="gloo", devices=[device] * world,
                                timeout_s=120)
         distributed.store().set(f"chip_smoke/pid/{rank}", str(os.getpid()))
-        mesh = make_mesh(tp=2)
-        if rank == 1:
+        mesh = make_mesh(tp=spec.get("tp", 2), pp=spec.get("pp", 1))
+        if rank != 0:
             steps = spmd.run_worker({spec["model"]: None}, _tp_ecfg(spec), mesh)
-            print("TP-RESULT " + json.dumps({"rank": 1, "steps": steps}), flush=True)
+            print("TP-RESULT " + json.dumps({"rank": rank, "steps": steps}), flush=True)
         else:
-            out = TP_WINDOWS[args.tp_window](spec, mesh, spec.get("profile", False))
+            out = {**TP_WINDOWS, **PP_WINDOWS}[args.tp_window](
+                spec, mesh, spec.get("profile", False))
             print("TP-RESULT " + json.dumps(out), flush=True)
         sys.stdout.flush()
         os._exit(0)  # the gloo group of a killed peer must not block teardown
@@ -4651,18 +4713,21 @@ def tp_rank_main(args) -> int:
 
 
 def _tp_window(window, spec, timeout_s=900.0):
-    """Run one serve-tp window in two rank processes (logs under OUT_DIR);
-    returns (rank 0's result, the return codes)."""
+    """Run one serve-tp or serve-pp window in its rank processes (logs
+    under OUT_DIR); returns (rank 0's result, the return codes, the log
+    paths)."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(OUT_DIR, exist_ok=True)
     port = _free_port()
     env = dict(os.environ, **TP_HB)
-    paths = [os.path.join(OUT_DIR, f"serve_tp_{window}_rank{r}.log") for r in (0, 1)]
+    phase = "pp" if window.startswith("pp-") else "tp"
+    ranks = range(_world(spec))
+    paths = [os.path.join(OUT_DIR, f"serve_{phase}_{window}_rank{r}.log") for r in ranks]
     logs = [open(p, "w") for p in paths]
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "chip_smoke.py"), "--tp-rank", str(r),
          "--tp-port", str(port), "--tp-window", window, "--tp-spec", json.dumps(spec)],
-        cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+        cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in ranks]
     try:
         deadline = time.monotonic() + timeout_s
         for p in procs:
@@ -4679,7 +4744,7 @@ def _tp_window(window, spec, timeout_s=900.0):
     text = open(paths[0]).read()
     lines = [ln for ln in text.splitlines() if ln.startswith("TP-RESULT ")]
     if not lines:
-        raise SystemExit(f"serve-tp {window}: rank 0 printed no result "
+        raise SystemExit(f"serve-{phase} {window}: rank 0 printed no result "
                          f"(rc {[p.returncode for p in procs]}):\n{text[-4000:]}")
     return json.loads(lines[-1][10:]), [p.returncode for p in procs], paths
 
@@ -4821,6 +4886,442 @@ def serve_tp_phase(report, profile: bool) -> None:
     emit({"phase": "serve-tp-gates", **gates})
     if not all(gates.values()):
         raise SystemExit(f"serve-tp: gates failed: {gates}")
+
+
+PP_MODEL = "llama3:8b"
+PP_SMALL = "llama3.2:1b"
+PP_BUCKETS = (32, 64, 128, 256)
+PP_MP = 24  # pages a sequence: a 600-token prompt and its reply fit in 768
+# serve-tp's 4 streams, then a prompt past the largest bucket: 3 chunks.
+PP_STREAMS = TP_STREAMS + (("pp-dee", 600),)
+
+
+def _pp_param_bytes(cfg, pp: int, nbytes: int = 2) -> int:
+    """A stage's weight bytes from the config's shapes: its L/pp layers
+    and, as in the JAX package's layout, the whole embedding, final norm
+    and head."""
+    d, q, kv, f = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+    layer = 2 * d + d * q + 2 * d * kv + q * d + 3 * d * f
+    layer += (q + 2 * kv) * cfg.attn_bias + 2 * cfg.head_dim * cfg.qk_norm
+    top = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    return (layer * (cfg.num_layers // pp) + top) * nbytes
+
+
+def _pp_kv_bytes(cfg, pp: int, nbytes: int = 2) -> int:
+    """A stage's K and V pools: its L/pp layers of 136 pages of 32."""
+    return 2 * (cfg.num_layers // pp) * 136 * 32 * cfg.num_kv_heads * cfg.head_dim * nbytes
+
+
+def _pp_exact(counts, decode_steps, local_layers, micro):
+    """One rank's launches on the pipeline path: the bf16 decode kernel
+    once per layer the stage holds, per microbatch, per decode step; no
+    other kernel (the bucketed prefill and the chunks attend in plain
+    PyTorch)."""
+    own = {"paged_decode_attention": local_layers * micro * decode_steps}
+    return (own["paged_decode_attention"] > 0
+            and all(counts[k] == own.get(k, 0) for k in counts)), own
+
+
+def _pp_handoffs(stats, pp: int, micro: int) -> dict:
+    """A rank's hand-off costs per forward from its PipeGroup stats."""
+    n = max(1, stats["forwards"])
+    return {"forwards": stats["forwards"],
+            "handoff_ms_per_forward": (stats["send_s"] + stats["recv_s"]
+                                       + stats["staging_s"]) * 1e3 / n,
+            "staging_ms_per_forward": stats["staging_s"] * 1e3 / n,
+            "recv_ms_per_forward": stats["recv_s"] * 1e3 / n,
+            "forward_ms": stats["forward_s"] * 1e3 / n,
+            "bytes_per_forward": stats["bytes"] / n,
+            "recv_share": stats["recv_s"] / max(1e-9, stats["forward_s"]),
+            "schedule_bubble_share": (pp - 1) / (micro + pp - 1)}
+
+
+def _pp_traffic(rt, port, model):
+    """serve-pp's gated window: PP_STREAMS' 5 greedy /api/chat streams
+    of TP_NEW tokens from 4 users (the last one's 600-token prompt takes
+    the chunked path), then one prompt twice, alone. Rank 0's launches
+    and pipe hand-offs are counted over the window."""
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    ttft = tm.TTFT_MS.labels(model=model)
+    ttft0 = list(ttft.counts)
+    greedy = {"temperature": 0, "num_predict": TP_NEW}
+
+    def body(n_tokens, tag):
+        text = (f"[{tag}] " + TP_TEXT * 8)[:n_tokens - 16]  # byte tokenizer
+        return {"model": model, "options": greedy,
+                "messages": [{"role": "user", "content": text}]}
+
+    results, errors = {}, []
+
+    def run(key, user, b):
+        try:
+            results[key] = _ollama_result(*_post(port, "/api/chat", b, user))
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{key}: {e}")
+
+    keys = ("prefill_dispatches", "chunk_dispatches", "ragged_dispatches",
+            "decode_dispatches", "decode_steps", "tokens_generated")
+    before = {k: rt.stats()[k] for k in keys}
+    pipe0 = dict(rt.pipe.stats)
+    reset_launch_counts()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(f"{u}/{n}", u, body(n, i)))
+               for i, (u, n) in enumerate(PP_STREAMS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    burst_s = time.monotonic() - t0
+    mid = rt.stats()["tokens_generated"]
+    repeat = []
+    for i in range(2):
+        run(f"repeat{i}", "tp-bob", body(160, "repeat"))
+        repeat.append(results.get(f"repeat{i}", ([], None))[0])
+    counts = launch_counts()
+    serve_s = time.monotonic() - t0
+    after = {k: rt.stats()[k] for k in keys}
+    if errors or len(results) != len(PP_STREAMS) + 2:
+        raise SystemExit(f"serve-pp requests failed: {errors}")
+    ops = {k: after[k] - before[k] for k in keys}
+    burst_tokens = mid - before["tokens_generated"]
+    pipe = {k: v - pipe0[k] for k, v in rt.pipe.stats.items()}
+    return {"serve_s": serve_s, "burst_s": burst_s, "tokens": ops["tokens_generated"],
+            "burst_tokens": burst_tokens, "burst_tokens_per_s": burst_tokens / burst_s,
+            "ttft_ms": _delta_quantiles(ttft, ttft0, (0.5, 0.99)),
+            "replies": {k: {"tokens": len(ids), "done_reason": why}
+                        for k, (ids, why) in results.items()},
+            "greedy_repeat_identical": repeat[0] == repeat[1] and len(repeat[0]) > 0,
+            "ops": ops, "launches": counts, "pipe_window": pipe}
+
+
+def _pp_leader_bf16(spec, mesh, profile):
+    import torch
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.parallel.pipeline import n_microbatches
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model = spec["model"]
+    ecfg = _tp_ecfg(spec)
+    t0 = time.monotonic()
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rt = eng.runtimes[model]
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    line = _pp_traffic(rt, srv.server_address[1], model)
+    if profile:
+        line["profile"] = profile_window(srv.server_address[1], model, TP_TEXT * 3, rt)
+    stop_server(srv)
+    micro = n_microbatches(ecfg.max_slots, mesh.pp)
+    line["kernels_exact"], line["launches_expected"] = _pp_exact(
+        line["launches"], line["ops"]["decode_steps"], len(rt.params["layers"]), micro)
+    line.update(init_s=init_s, param_bytes=rt.param_bytes, kv_bytes=rt.kv_bytes,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                n_chips=rt.n_chips, micro=micro, layers=len(rt.params["layers"]),
+                handoffs=_pp_handoffs(line["pipe_window"], mesh.pp, micro),
+                trace=eng.spmd_report(), workers=eng.worker_reports)
+    calls = {}
+    kernel_vs_plain_logits(calls, "serve-pp", rt, TP_TEXT * 2, "bfloat16",
+                           per_call=True)
+    line["per_call"] = calls["serve_pp_logits"]
+    return line
+
+
+def _pp_first_prefill(capture):
+    """Wrap the pipelined prefill so its first call's logits land in
+    `capture` (on the host)."""
+    from ollamamq_tpu_torch.parallel import pipeline
+
+    orig = pipeline.pp_forward_prefill
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        capture.setdefault("logits", out[0].float().cpu())
+        return out
+
+    pipeline.pp_forward_prefill = wrapped
+    return orig
+
+
+def _pp_leader_f32(spec, mesh, profile):
+    """f32 identity (TF32 off): 4 greedy streams of 32 tokens on the
+    pipelined engine (pp 2, or pp 2 x tp 2), then the same requests on a
+    one-rank engine of the same seed, every request queued before the
+    loop starts; request 0's first logits (row 0 of the first prefill,
+    bucketed on one side and ragged on the other) compared."""
+    import torch
+
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.models import llama
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.parallel import pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    prompts = [f"[{i}] " + TP_TEXT[:40 + 17 * i] for i in range(4)]
+
+    def run(eng, wrap):
+        capture = {}
+        orig = wrap(capture)
+        try:
+            tok = eng.runtimes[model].tokenizer
+            reqs = [eng.enqueue_request(f"f32-{i}", "", model,
+                                        prompt_tokens=tok.encode(p),
+                                        sampling=SamplingParams(max_tokens=32,
+                                                                temperature=0.0))
+                    for i, p in enumerate(prompts)]
+            eng.start()
+            items = [_tp_wait(r) for r in reqs]
+        finally:
+            if wrap is _pp_first_prefill:
+                pipeline.pp_forward_prefill = orig
+            else:
+                llama.forward_ragged = orig
+        eng.stop()
+        ok = all(it is not None and it.kind == "done" for it in items)
+        return [r.generated_ids for r in reqs], capture, ok
+
+    reset_launch_counts()
+    pp_eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    idsp, capp, okp = run(pp_eng, _pp_first_prefill)
+    counts = launch_counts()
+    worker = pp_eng.worker_reports
+    del pp_eng
+    one = TorchEngine(dataclasses.replace(ecfg, pp=1), device=mesh.device,
+                      blocklist_path=None)
+    ids1, cap1, ok1 = run(one, _tp_first_forward)
+    a, b = capp["logits"][0], cap1["logits"][0]
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return {"ids_pp": idsp, "ids_one": ids1, "done": ok1 and okp,
+            "ids_identical": ids1 == idsp and all(len(x) > 0 for x in idsp),
+            "first_logits": {"max_abs_err": err, "ref_max_abs": scale,
+                             "rel_err": err / scale,
+                             "tol": f"max |pp - one| <= {TOL['float32']} * max |one|",
+                             "ok": err <= TOL["float32"] * scale},
+            "launches": counts, "workers": worker}
+
+
+def _pp_leader_int8(spec, mesh, profile):
+    """int8 weights over bf16 pages at pp 2: 2 greedy streams of 32
+    tokens; the bf16 decode kernel exactly per stage layer, microbatch
+    and step, nothing else."""
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.parallel.pipeline import n_microbatches
+
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    rt = eng.runtimes[model]
+    tok = rt.tokenizer
+    before = rt.stats()
+    reset_launch_counts()
+    eng.start()
+    reqs = [eng.enqueue_request(f"int8-{i}", "", model,
+                                prompt_tokens=tok.encode(TP_TEXT * (i + 1)),
+                                sampling=SamplingParams(max_tokens=32, temperature=0.0))
+            for i in range(2)]
+    items = [_tp_wait(r) for r in reqs]
+    counts = launch_counts()
+    eng.stop()
+    micro = n_microbatches(ecfg.max_slots, mesh.pp)
+    steps = rt.stats()["decode_steps"] - before["decode_steps"]
+    exact, own = _pp_exact(counts, steps, len(rt.params["layers"]), micro)
+    return {"done": all(it is not None and it.kind == "done" for it in items),
+            "reasons": [it.finish_reason.value if it and it.finish_reason else None
+                        for it in items],
+            "tokens": [len(r.generated_ids) for r in reqs], "decode_steps": steps,
+            "launches": counts, "launches_expected": own, "kernels_exact": exact,
+            "param_bytes": rt.param_bytes, "micro": micro,
+            "layers": len(rt.params["layers"]), "trace": eng.spmd_report(),
+            "workers": eng.worker_reports}
+
+
+def _pp_p2p_probe(rank: int, port: int, device: str) -> dict:
+    """Does gloo's send/recv take CUDA tensors as they are? Two ranks
+    on the card try it once (the pipe group stages through pinned host
+    buffers instead; this records what the raw call does)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", port, 2, is_master=rank == 0,
+                          timeout=datetime.timedelta(seconds=60),
+                          wait_for_workers=False)
+    dist.init_process_group("gloo", store=dist.PrefixStore("pg", store), rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=60))
+    x = torch.arange(4096, dtype=torch.float32, device=device)
+    out = {"rank": rank}
+    try:
+        if rank == 0:
+            dist.send(x, 1)
+        else:
+            y = torch.zeros_like(x)
+            dist.recv(y, 0)
+            out["equal"] = bool(torch.equal(x, y))
+        out["ok"] = True
+    except Exception as e:  # noqa: BLE001 — the probe's answer
+        out.update(ok=False, error=f"{type(e).__name__}: {str(e)[:300]}")
+    store.set(f"p2p/{rank}", json.dumps(out))
+    if rank == 0:
+        try:
+            store.wait(["p2p/1"], datetime.timedelta(seconds=30))
+            out["peer"] = json.loads(store.get("p2p/1"))
+        except Exception as e:  # noqa: BLE001 — the peer died in the call
+            out["peer"] = {"error": f"{type(e).__name__}: {str(e)[:200]}"}
+    return out
+
+
+PP_WINDOWS = {"pp-bf16": _pp_leader_bf16, "pp-f32": _pp_leader_f32,
+              "pp-tp-f32": _pp_leader_f32, "pp-int8": _pp_leader_int8,
+              "pp-kill": _tp_leader_kill}
+
+
+def serve_pp_phase(report, profile: bool) -> None:
+    """Pipeline parallelism over ranks sharing the card (gloo): llama3:8b
+    at full width and depth over two stages in bf16, then llama3.2:1b at
+    pp 2 and pp 2 x tp 2 in float32 against one rank, with int8 weights,
+    and under a kill -9 of the last stage; see the module docstring."""
+    import torch
+
+    from ollamamq_tpu_torch.config import get_model_config
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    refusal = subprocess.run(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", PP_SMALL,
+         "--pp", "2", "--kv-dtype", "int8", "--no-tui"], cwd=here,
+        capture_output=True, text=True, timeout=120)
+    refusal_text = refusal.stdout + refusal.stderr
+    t0 = time.monotonic()
+    try:  # recorded, not gated: a rank may die inside the raw call
+        probe, probe_rc, _ = _tp_window("pp-p2p", {"device": TP_DEVICE, "tp": 2},
+                                        timeout_s=120)
+    except SystemExit as e:
+        probe, probe_rc = {"error": str(e)[-600:]}, None
+    probe["window_s"] = time.monotonic() - t0
+    base = {"device": TP_DEVICE, "profile": profile, "tp": 1, "pp": 2, "mp": PP_MP}
+    windows, rcs = {}, {}
+    for window, spec in (("pp-bf16", {"model": PP_MODEL, "dtype": "bfloat16"}),
+                         ("pp-f32", {"model": PP_SMALL, "dtype": "float32",
+                                     "new": 32}),
+                         ("pp-tp-f32", {"model": PP_SMALL, "dtype": "float32",
+                                        "new": 32, "tp": 2}),
+                         ("pp-int8", {"model": PP_SMALL, "dtype": "bfloat16",
+                                      "quant": "int8", "kv": "bfloat16"}),
+                         ("pp-kill", {"model": PP_SMALL, "dtype": "bfloat16"})):
+        t0 = time.monotonic()
+        out, rc, _ = _tp_window(window, {**base, **spec})
+        out["window_s"] = time.monotonic() - t0
+        windows[window], rcs[window] = out, rc
+    bf16, f32, f32tp, int8, kill = (windows[w] for w in
+                                    ("pp-bf16", "pp-f32", "pp-tp-f32", "pp-int8", "pp-kill"))
+    (w_bf16,), (w_int8,) = bf16["workers"], int8["workers"]
+    cfg8, cfg1 = get_model_config(PP_MODEL), get_model_config(PP_SMALL)
+    param_bytes = _pp_param_bytes(cfg8, 2)
+    kv_bytes = _pp_kv_bytes(cfg8, 2)
+    w_exact = {
+        "bf16": _pp_exact(w_bf16["launches"], w_bf16["ops"]["decode_steps"],
+                          bf16["layers"], bf16["micro"])[0],
+        "int8": _pp_exact(w_int8["launches"], w_int8["ops"]["decode_steps"],
+                          int8["layers"], int8["micro"])[0]}
+    f32_ranks = [c for c in [f32["launches"], f32tp["launches"]]
+                 + [w["launches"] for w in f32["workers"] + f32tp["workers"]]]
+    launches = {k: 0 for k in KERNEL_ROWS}
+    for counts in ([bf16["launches"], w_bf16["launches"], int8["launches"],
+                    w_int8["launches"]] + f32_ranks):
+        for k, v in counts.items():
+            launches[k] += v
+    w_pipe = w_bf16["runtimes"][PP_MODEL]["pipe"]
+    line = {"phase": "serve-pp", "model": PP_MODEL, "pp": 2, "tp": 1, "backend": "gloo",
+            "ranks_on": "cuda:0 (both)", "layers": 32, "layers_per_stage": bf16["layers"],
+            "microbatches": bf16["micro"],
+            "width": {"hidden": 4096, "heads": 32, "kv_heads": 8, "head_dim": 128,
+                      "intermediate": 14336, "vocab": 128256},
+            "dtype": "bfloat16", "streams": len(PP_STREAMS), "users": 4,
+            "buckets": list(PP_BUCKETS), "pages_per_seq": PP_MP,
+            **{k: bf16[k] for k in ("serve_s", "burst_s", "tokens", "burst_tokens",
+                                    "burst_tokens_per_s", "ttft_ms", "replies",
+                                    "greedy_repeat_identical", "ops", "init_s",
+                                    "n_chips", "per_call", "launches_expected",
+                                    "handoffs")},
+            "param_bytes": {"rank0": bf16["param_bytes"],
+                            "rank1": w_bf16["runtimes"][PP_MODEL]["param_bytes"],
+                            "expected": param_bytes},
+            "kv_bytes": {"rank0": bf16["kv_bytes"],
+                         "rank1": w_bf16["runtimes"][PP_MODEL]["kv_bytes"],
+                         "expected": kv_bytes},
+            "max_memory_allocated": {"rank0": bf16["max_memory_allocated"],
+                                     "rank1": w_bf16.get("max_memory_allocated")},
+            "handoffs_rank1_whole_run": _pp_handoffs(w_pipe, 2, bf16["micro"]),
+            "digests_equal": bf16["trace"]["digest"] == w_bf16["digest"],
+            "ops_ranks": {"rank0": bf16["trace"]["ops"], "rank1": w_bf16["ops"]},
+            "launches_rank0_window": bf16["launches"],
+            "launches_rank1": w_bf16["launches"],
+            "f32": {k: f32[k] for k in ("ids_identical", "first_logits", "done")},
+            "f32_pp2_tp2": {k: f32tp[k] for k in ("ids_identical", "first_logits", "done")},
+            "int8_weights": {k: int8[k] for k in ("done", "reasons", "tokens",
+                                                  "decode_steps", "launches",
+                                                  "launches_expected", "param_bytes")},
+            "int8_workers_launches": w_int8["launches"],
+            "kill": kill, "p2p_probe": {**probe, "rc": probe_rc},
+            "cli_pp2_kv_int8_exit": refusal.returncode,
+            "cli_pp2_kv_int8_message": next(
+                (ln.split(": ", 1)[-1] for ln in refusal_text.splitlines()
+                 if "--kv-dtype=int8" in ln), refusal_text[-300:]),
+            "return_codes": rcs, "launches": launches,
+            "windows_s": {w: windows[w]["window_s"] for w in windows}}
+    line["phase_s"] = time.monotonic() - t_phase
+    emit(line)
+    report["serve_pp"] = line
+    f32_rank = lambda c: c["paged_decode_attention"] > 0 and all(  # noqa: E731
+        v == 0 for k, v in c.items() if k != "paged_decode_attention")
+    gates = {
+        "replies": all(r["done_reason"] in ("stop", "length")
+                       for r in line["replies"].values()),
+        "greedy_repeat_identical": line["greedy_repeat_identical"],
+        "ranks_ids_equal": line["digests_equal"],
+        "chunk_path_ran": line["ops"]["chunk_dispatches"] >= 3,
+        "bucketed_prefill_ran": line["ops"]["prefill_dispatches"] >= 1,
+        "kernels_bf16_exact": bf16["kernels_exact"] and w_exact["bf16"],
+        "ragged_and_int8_zero": all(
+            c[k] == 0 for c in (bf16["launches"], w_bf16["launches"])
+            for k in c if k != "paged_decode_attention"),
+        "param_bytes": (line["param_bytes"]["rank0"] == param_bytes
+                        and line["param_bytes"]["rank1"] == param_bytes),
+        "kv_bytes": line["kv_bytes"]["rank0"] == line["kv_bytes"]["rank1"] == kv_bytes,
+        "per_call_bf16": all(line["per_call"][k]["ok"]
+                             for k in ("ragged_per_call", "decode_per_call")),
+        "f32_ids_identical": f32["done"] and f32["ids_identical"],
+        "f32_first_logits": f32["first_logits"]["ok"],
+        "f32_pp2_tp2_ids_identical": f32tp["done"] and f32tp["ids_identical"],
+        "f32_kernels_every_rank": all(f32_rank(c) for c in f32_ranks),
+        "int8_weights_done": int8["done"] and all(
+            r in ("stop", "length") for r in int8["reasons"]),
+        "int8_weights_exact": (int8["kernels_exact"] and w_exact["int8"]
+                               and int8["param_bytes"] < _pp_param_bytes(cfg1, 2)),
+        "cli_pp2_kv_int8_exit_2": (refusal.returncode == 2
+                                   and "--kv-dtype=int8 needs the ragged" in refusal_text),
+        "kill_errors": kill["kinds"] == ["error"] * 4,
+        "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
+        "kill_health": (kill["health_http"] == 200 and "worker_stale" in kill["alerts"]
+                        and kill["runtime_failed"] == [True]),
+        "exit_codes": (all(all(c == 0 for c in rc) for w, rc in rcs.items()
+                           if w != "pp-kill") and rcs["pp-kill"] == [0, -9]),
+    }
+    emit({"phase": "serve-pp-gates", **gates})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-pp: gates failed: {gates}")
 
 
 def guardrail_phase(report) -> None:
@@ -5001,6 +5502,7 @@ def main(argv=None) -> int:
     serve_autoscale_phase(report)
     serve_ha_phase(report)
     serve_tp_phase(report, args.profile)
+    serve_pp_phase(report, args.profile)
 
     card = card_line()
     s = report["kernel_summary"]
@@ -5014,13 +5516,24 @@ def main(argv=None) -> int:
                                   for p in ("serve_moe", "serve_durable",
                                             "serve_fleet", "serve_tiers",
                                             "serve_autoscale", "serve_ha",
-                                            "serve_tp"))),
+                                            "serve_tp", "serve_pp"))),
                "launches_serve_tp": report["serve_tp"]["launches"][name],
+               "launches_serve_pp": report["serve_pp"]["launches"][name],
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}
         if name.endswith("_int8"):
             row["variant"] = "quantized=True"
+        if name == "paged_decode_attention":
+            # The call inside a pipeline stage (parallel/pipeline.py):
+            # one microbatch of serve-pp's llama3:8b decode.
+            pp = s[name]["llama3:8b-pp2"]
+            row["pp_stage"] = {
+                "replaces": "ollamamq_tpu/parallel/pipeline.py:343 (call :382)",
+                "shape": "H 32, Hk 8, hd 128, B 4, page 32, 24 pages",
+                **{k: pp[k] for k in ("max_abs_err", "bound_ms", "bound_by",
+                                      "plain_ms")},
+                "ms": pp["kernel_ms"], "library_ms": pp["sdpa_dense_ms"]}
         kernels.append(row)
     report["card"] = card
     os.makedirs(OUT_DIR, exist_ok=True)

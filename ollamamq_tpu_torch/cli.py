@@ -72,6 +72,16 @@ with MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK (and LOCAL_RANK) set;
 rank 0 serves, the others replay, and with no --tp every rank joins the
 tensor axis. A tp that does not divide the model's heads, or a --tp
 whose devices this host lacks, exits 2 before any device work.
+
+--pp N (N > 1) splits the model's layers over N pipeline stages
+(parallel/pipeline.py), one rank each, times --tp ranks per stage: the
+ranks start as for --tp (one per device, cuda:0.. on this host, or all
+on the CPU with --device cpu), stage 0 holds rank 0. The runtime serves
+generate only, through the bucketed prefill, the chunked long-prompt
+path and the pipelined decode, in --pp-microbatches GPipe microbatches
+(default one per stage). A pp that does not divide a model's layers, pp
+with a mixture-of-experts model, --kv-dtype int8 with pp, and --pp with
+a fleet exit 2.
 """
 
 from __future__ import annotations
@@ -271,6 +281,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tensor-parallel width: ranks (processes, one per "
                         "device) one engine spreads over; fleet members "
                         "stay at 1")
+    p.add_argument("--pp", type=int, default=d.pp,
+                   help="pipeline-parallel stages (layers split across "
+                        "chip groups; for models beyond one group's HBM)")
+    p.add_argument("--pp-microbatches", type=int, default=0,
+                   help="GPipe microbatches per pp dispatch (0 = one per "
+                        "stage; sweep on hardware — prefill wants more, "
+                        "weight-bound decode may want fewer)")
     p.add_argument("--spmd", action="store_true",
                    default=os.environ.get("SPMD", "").lower() in ("1", "true"),
                    help="multi-host tensor parallelism: rank 0 runs the "
@@ -464,7 +481,7 @@ def validate(args) -> str:
         if get_model_config(name) is None:
             return f"unknown model architecture: {name}"
     err = (validate_quant_config(args.weights_dtype, args.kv_dtype,
-                                 model_names=list(model_table(args)))
+                                 pp=args.pp, model_names=list(model_table(args)))
            or validate_scheduler(args.scheduler))
     if err:
         return err
@@ -500,11 +517,13 @@ def validate(args) -> str:
                 "mutually exclusive (the SPMD engine already owns its worker "
                 "ranks; run the fleet router over separate SPMD services via "
                 "--replica-urls from a non-SPMD front-end instead)")
-    if args.tp != 1 and (args.replicas != 1 or urls or args.autoscale):
-        return (f"--tp {args.tp} with a fleet: tensor parallelism is not "
-                "ported yet for fleet members, which run on one device "
-                "(--tp 1); serve --tp from a single engine")
-    if args.tp != 1 or args.spmd:
+    for flag, n, kind in (("--tp", args.tp, "tensor"),
+                          ("--pp", args.pp, "pipeline")):
+        if n != 1 and (args.replicas != 1 or urls or args.autoscale):
+            return (f"{flag} {n} with a fleet: {kind} parallelism is not "
+                    "ported yet for fleet members, which run on one device "
+                    f"({flag} 1); serve {flag} from a single engine")
+    if args.tp != 1 or args.pp != 1 or args.spmd:
         err = validate_tp(args)
         if err:
             return err
@@ -561,8 +580,9 @@ def validate(args) -> str:
 
 
 def validate_tp(args) -> str:
-    """--tp / --spmd errors that need no device work: the width against
-    every model's heads, and a local --tp's devices on this host."""
+    """--tp / --pp / --spmd errors that need no device work: the widths
+    against every model's heads and layers, and the devices of a local
+    world (tp x pp ranks) on this host."""
     from ollamamq_tpu_torch.parallel.distributed import multiprocess_configured
     from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
 
@@ -572,8 +592,21 @@ def validate_tp(args) -> str:
                 "MASTER_PORT, WORLD_SIZE and RANK")
     if args.tp < 1 and not (args.spmd and args.tp == -1):
         return f"--tp must be >= 1, got {args.tp}"
+    if args.pp < 1:
+        return f"--pp must be >= 1, got {args.pp}"
+    if args.pp_microbatches < 0:
+        return f"--pp-microbatches must be >= 0, got {args.pp_microbatches}"
     if args.fake_engine:
-        return "--tp needs a model engine; --fake-engine runs none"
+        return "--tp / --pp need a model engine; --fake-engine runs none"
+    if args.pp > 1:
+        for name in model_table(args):
+            cfg = get_model_config(name)
+            if cfg.num_layers % args.pp:
+                return (f"pp={args.pp} must divide num_layers="
+                        f"{cfg.num_layers} ({name})")
+            if cfg.num_experts:
+                return ("pp with an MoE model is not supported: the pipeline "
+                        f"stage body runs the dense FFN ({name})")
     if args.tp > 1:
         for name in model_table(args):
             cfg = get_model_config(name)
@@ -581,17 +614,25 @@ def validate_tp(args) -> str:
                 validate_tp_for_model(args.tp, cfg.num_kv_heads, cfg.num_heads)
             except ValueError as e:
                 return f"--tp {args.tp} for {name}: {e}"
-    if args.tp > 1 and not args.spmd and args.device != "cpu":
+    world = local_world(args)
+    if world > 1 and not args.spmd and args.device != "cpu":
         import torch
 
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < args.tp:
-            missing = ", ".join(f"cuda:{i}" for i in range(have, args.tp))
-            return (f"--tp {args.tp} runs one rank per device, cuda:0.."
-                    f"cuda:{args.tp - 1}, but {missing} is missing (this host "
+        if have < world:
+            flags = " ".join(f"{f} {n}" for f, n in (("--tp", args.tp),
+                                                    ("--pp", args.pp)) if n != 1)
+            missing = ", ".join(f"cuda:{i}" for i in range(have, world))
+            return (f"{flags} runs one rank per device, cuda:0.."
+                    f"cuda:{world - 1}, but {missing} is missing (this host "
                     f"has {have} CUDA device(s)); no rank falls back to "
                     "another device")
     return ""
+
+
+def local_world(args) -> int:
+    """Ranks of a one-host --tp / --pp world: tp per stage times pp."""
+    return max(1, args.tp) * args.pp
 
 
 def replica_urls(args) -> list:
@@ -626,7 +667,8 @@ def engine_config(args) -> EngineConfig:
         migrate=not args.no_migrate, migrate_timeout_s=args.migrate_timeout_s,
         router_overhead_budget_ms=args.router_overhead_budget_ms,
         federate_metrics=not args.no_federate_metrics,
-        preemptible=args.preemptible or None, tp=args.tp,
+        preemptible=args.preemptible or None, tp=args.tp, pp=args.pp,
+        pp_microbatches=args.pp_microbatches or None,
         tiers=args.tiers or None, autoscale=args.autoscale,
         min_replicas=args.min_replicas, max_replicas=args.max_replicas,
         scale_cooldown_s=args.scale_cooldown_s,
@@ -710,9 +752,10 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
 
 
 def start_ranks(args, argv, log):
-    """Bring up the rank world of --tp / --spmd. Returns (mesh, worker
-    processes this process started). --tp N on one host: this process
-    is rank 0 and starts ranks 1..N-1 as `python -m ollamamq_tpu_torch.cli`
+    """Bring up the rank world of --tp / --pp / --spmd. Returns (mesh,
+    worker processes this process started). --tp N --pp P on one host
+    (N x P ranks): this process is rank 0 and starts the others as
+    `python -m ollamamq_tpu_torch.cli`
     with the same flags (env OLLAMAMQ_TP_WORKER=1, RANK, WORLD_SIZE,
     MASTER_ADDR/PORT of the store this process hosts), each dying with
     it. --spmd, or a started worker: the env describes the world."""
@@ -727,12 +770,14 @@ def start_ranks(args, argv, log):
         world = int(os.environ.get("WORLD_SIZE", "1"))
         distributed.initialize(devices=["cpu"] * world if cpu else None)
         tp = args.tp if args.tp not in (1, -1) or not args.spmd else -1
-        return make_mesh(tp=tp), procs
+        return make_mesh(tp=tp, pp=args.pp), procs
+
+    world = local_world(args)
 
     def spawn(port: int) -> None:
-        for r in range(1, args.tp):
+        for r in range(1, world):
             env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
-                       WORLD_SIZE=str(args.tp), MASTER_ADDR="127.0.0.1",
+                       WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                        MASTER_PORT=str(port), OLLAMAMQ_TP_WORKER="1")
             procs.append(subprocess.Popen(
                 [sys.executable, "-m", "ollamamq_tpu_torch.cli", *argv],
@@ -740,12 +785,12 @@ def start_ranks(args, argv, log):
         log.info("started %d worker rank(s): pids %s", len(procs),
                  [p.pid for p in procs])
 
-    devices = (["cpu"] * args.tp if cpu
-               else [f"cuda:{r}" for r in range(args.tp)])
+    devices = (["cpu"] * world if cpu
+               else [f"cuda:{r}" for r in range(world)])
     try:
-        distributed.initialize("127.0.0.1:0", args.tp, 0, devices=devices,
+        distributed.initialize("127.0.0.1:0", world, 0, devices=devices,
                                on_store=spawn)
-        return make_mesh(tp=args.tp, devices=devices), procs
+        return make_mesh(tp=max(1, args.tp), pp=args.pp, devices=devices), procs
     except BaseException:
         for p in procs:
             p.kill()
@@ -844,14 +889,15 @@ def main(argv=None) -> int:
     fairness = Fairness.TOKENS if args.token_fairness else Fairness.REQUESTS
     ecfg = engine_config(args)
     workers = []
-    if args.tp != 1 or args.spmd:
+    if args.tp != 1 or args.pp != 1 or args.spmd:
         from ollamamq_tpu_torch.engine import spmd
         from ollamamq_tpu_torch.parallel import distributed
 
         mesh, workers = start_ranks(args, argv, log)
         if not distributed.is_primary():
             # Worker rank: replay rank 0's step plans until shutdown.
-            log.info("tensor-parallel worker rank %d starting for %s",
+            log.info("%s worker rank %d starting for %s",
+                     "pipeline-parallel" if args.pp > 1 else "tensor-parallel",
                      distributed.rank(), ",".join(model_table(args)))
             spmd.run_worker(model_table(args), ecfg, mesh)
             return 0

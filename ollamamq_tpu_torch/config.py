@@ -189,6 +189,10 @@ class EngineConfig:
     page_size: int = 32
     # Max pages a single sequence may hold (=> max context length).
     max_pages_per_seq: int = 16
+    # Prefill length buckets of the pipeline-parallel (pp > 1) path: a
+    # prompt prefills padded to the smallest bucket that holds it, and a
+    # prompt past the largest one streams through chunks of it.
+    prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024, 2048)
     # Token budget of one ragged dispatch: one token per live decode slot
     # plus as many prefill-span tokens as fit. Clamped up to
     # max_slots + token_granule so a full decode batch always fits.
@@ -229,8 +233,18 @@ class EngineConfig:
     # Decode steps run per dispatch when no admission could land between
     # steps (one Python loop of forward_decode + sampling per step).
     decode_steps_per_iter: int = 8
+    # Bucketed prefill forwards admitted per engine tick (pp > 1): TTFT
+    # first, but bounded so an arrival storm cannot starve the decode
+    # streams. Chunked prefills run one chunk per tick besides.
+    prefill_batches_per_tick: int = 2
     # Repeat-penalty window (llama.cpp repeat_last_n).
     repeat_last_n: int = 64
+    # Pipeline-parallel stages of one engine (layers and their KV pages
+    # split over ranks; parallel/pipeline.py) and the GPipe microbatches
+    # of one pp dispatch (None: one per stage; rounded down to a divisor
+    # of the batch).
+    pp: int = 1
+    pp_microbatches: Optional[int] = None
     dtype: str = "bfloat16"
     # "int8": per-channel symmetric int8 weights, quantized when the
     # runtime builds them (f32 scales; norms and biases stay in `dtype`).
@@ -386,17 +400,26 @@ def validate_scheduler(name: str) -> Optional[str]:
 
 
 def validate_quant_config(weights_dtype: str, kv_dtype: str,
+                          pp: int = 1, sp: int = 1,
                           model_names=()) -> Optional[str]:
     """Check the quantization flags before any device work: an error
     string, or None when valid. The CLI calls it with every model it
     serves and ModelRuntime at build with its own (argparse choices
-    already restrict the flags to QUANT_DTYPES). (The JAX package's copy
-    also rejects int8 KV with pp/sp; this package serves neither yet.)"""
+    already restrict the flags to QUANT_DTYPES). int8 KV needs the ragged
+    path, which pp > 1 runtimes leave; int8 weights serve at any pp."""
     if weights_dtype not in QUANT_DTYPES:
         return (f"--weights-dtype must be one of {QUANT_DTYPES}, "
                 f"got {weights_dtype!r}")
     if kv_dtype not in QUANT_DTYPES:
         return f"--kv-dtype must be one of {QUANT_DTYPES}, got {kv_dtype!r}"
+    if kv_dtype == "int8" and pp > 1:
+        return ("--kv-dtype=int8 needs the ragged attention path; pp > 1 "
+                "runtimes serve the stage-scheduled bucketed prefill whose "
+                "pipeline forwards read bf16 pages")
+    if kv_dtype == "int8" and sp > 1:
+        return ("--kv-dtype=int8 is unsupported with sequence-parallel "
+                "prefill (its all-layer KV scatter bypasses the quantized "
+                "page writer)")
     if weights_dtype == "int8":
         for name in model_names:
             cfg = get_model_config(name)

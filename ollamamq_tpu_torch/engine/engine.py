@@ -68,9 +68,17 @@ exports as a blob of its pages and cursor, parks until the target's
 import is acknowledged, and continues on the target with no token
 recomputed.
 
-Not carried over yet (later slices): the bucketed prefill path of
-pp > 1 and multi-device layouts (data-parallel replicas, sequence
-parallelism).
+Under pipeline parallelism (a mesh with pipe > 1, parallel/pipeline.py)
+a runtime leaves the ragged path, as the reference's does: prompts
+prefill in batches padded to a length bucket (step_prefill), a prompt
+past the largest bucket streams through one chunk per tick
+(step_chunk), decode runs the pipelined forward, speculation is off and
+the runtime serves generate only. The loop bounds the bucketed
+prefills per tick (prefill_batches_per_tick) so a burst of arrivals
+cannot starve the decode streams.
+
+Not carried over yet (later slices): data-parallel replicas and
+sequence parallelism.
 """
 
 from __future__ import annotations
@@ -97,6 +105,7 @@ from ollamamq_tpu_torch.engine.scheduler import make_policy
 from ollamamq_tpu_torch.engine.tokenizer import load_tokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
+from ollamamq_tpu_torch.parallel import pipeline
 from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
 from ollamamq_tpu_torch.ops.sampling import (SamplingParams, accept_prefix,
                                              maybe_apply_penalties, row_uniforms,
@@ -454,10 +463,44 @@ class ModelRuntime(JournaledRuntime):
                  params: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None, mesh=None):
         # An unsupported quantization fails here, before any device work.
+        pp = mesh.pp if mesh is not None else 1
         err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
+                                    pp=pp,
+                                    sp=mesh.shape["seq"] if mesh is not None else 1,
                                     model_names=(name,))
         if err is not None:
             raise ValueError(err)
+        # Pipeline parallelism: this rank holds one stage's layers and
+        # their KV pages; the forwards run the GPipe schedule
+        # (parallel/pipeline.py).
+        self._pp = pp
+        self.pipe = mesh.pipe if mesh is not None else None
+        if pp > 1:
+            if model_cfg.num_layers % pp:
+                raise ValueError(f"pp={pp} must divide num_layers="
+                                 f"{model_cfg.num_layers} ({name})")
+            if mesh.shape["seq"] > 1:
+                raise ValueError(
+                    "pp and sp cannot combine on one runtime: pipeline "
+                    "stages and sequence shards contend for the same "
+                    "activation layout (use pp x tp, or sp x tp)")
+            if model_cfg.num_experts:
+                raise ValueError(
+                    "pp with an MoE model is not supported: the pipeline "
+                    "stage body runs the dense FFN (use ep x tp for MoE)")
+            # A stage holds only its layers: an embedding forward would
+            # need every stage's. Serve generate only; embeds get the
+            # kind gate's clean error.
+            self.SERVES = ("generate",)
+            log.info("%s: pp=%d runtime serves generate only (embed needs "
+                     "every stage's layers)", name, pp)
+            want = engine_cfg.pp_microbatches
+            micro = pipeline.n_microbatches(engine_cfg.max_slots, pp, want)
+            if want and micro != want:
+                log.warning("%s: --pp-microbatches %d rounded down to %d, the "
+                            "largest divisor of the %d decode slots not above "
+                            "it", name, want, micro, engine_cfg.max_slots)
+        stage = self.pipe.stage if self.pipe is not None else 0
         self.name = name
         self.cfg = model_cfg
         # Pristine config: a replicated-group mesh rewrites num_kv_heads
@@ -480,9 +523,12 @@ class ModelRuntime(JournaledRuntime):
             params = weights.load_params(model_cfg, checkpoint_path,
                                          engine_cfg.seed, self.dtype,
                                          self.weights_dtype, self.device,
-                                         tp=tp_size, rank=rank)
+                                         tp=tp_size, rank=rank, pp=pp,
+                                         stage=stage)
         else:
-            params = weights.tp_slice(params, model_cfg, tp_size, rank)
+            params = weights.tp_slice(
+                weights.stage_slice(params, model_cfg, pp, stage), model_cfg,
+                tp_size, rank)
         if tp_size > model_cfg.num_kv_heads:
             # Replicated-group KV (e.g. qwen2.5's 4 KV heads on tp=8):
             # every rank owns one duplicated head.
@@ -494,7 +540,8 @@ class ModelRuntime(JournaledRuntime):
         self.kc, self.vc = kvc.alloc_kv_pool(model_cfg, engine_cfg,
                                              self.dtype, self.device,
                                              kv_dtype=self.kv_dtype,
-                                             tp=tp_size)
+                                             tp=tp_size,
+                                             layers=model_cfg.num_layers // pp)
         S, MP = engine_cfg.max_slots, engine_cfg.max_pages_per_seq
         # Repeat-penalty ring of each slot's last-W context token ids
         # (-1 = empty). Row S is a trash row for padding rows' writes.
@@ -556,9 +603,19 @@ class ModelRuntime(JournaledRuntime):
             v *= 2
         ladder.append(self._ragged_budget)
         self._ragged_ladder = ladder
+        # The ragged span path is single-stage: a pp > 1 runtime serves
+        # the bucketed prefill, the chunks and the pipelined decode.
+        self.ragged = pp == 1
+        if not self.ragged:
+            log.warning("%s: pp=%d serves the bucketed prefill path (the "
+                        "ragged forward is single-stage)", name, pp)
         # Speculative decoding: n-gram drafts verified on the span path;
         # user -> [proposed, accepted] feeds the per-user throttle.
-        self.spec = bool(engine_cfg.spec) and engine_cfg.spec_k > 0
+        self.spec = (bool(engine_cfg.spec) and self.ragged
+                     and engine_cfg.spec_k > 0)
+        if engine_cfg.spec and not self.ragged:
+            log.warning("%s: --spec needs the ragged attention path; "
+                        "speculation disabled on this runtime", name)
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_rollbacks = 0
@@ -567,6 +624,8 @@ class ModelRuntime(JournaledRuntime):
         # Counters (host side).
         self.tokens_generated = 0
         self.ragged_dispatches = 0
+        self.prefill_dispatches = 0
+        self.chunk_dispatches = 0
         self.decode_dispatches = 0
         self.decode_steps = 0
         self.preempt_count = 0
@@ -681,9 +740,9 @@ class ModelRuntime(JournaledRuntime):
         return out
 
     # -- slot lifecycle ----------------------------------------------------
-    def _claim_slot(self) -> Optional[int]:
+    def _claim_slot(self, exclude=()) -> Optional[int]:
         for i, r in enumerate(self.slot_req):
-            if r is None and i not in self.reserved_slots:
+            if r is None and i not in self.reserved_slots and i not in exclude:
                 return i
         return None
 
@@ -1845,6 +1904,365 @@ class ModelRuntime(JournaledRuntime):
         if desync:
             raise e
 
+    # -- bucketed prefill and chunks (the pp > 1 path) ---------------------
+    # Same-bucket prompts prefill together, padded to this many rows
+    # when more than one is ready (each bucket then runs at B 1 or 4).
+    MAX_PREFILL_BATCH = 4
+
+    def _bucket_for(self, n: int) -> int:
+        """Smallest prefill bucket covering n tokens. A piece past the
+        largest bucket must have been routed to the chunked path by the
+        caller: answering the largest bucket would truncate the
+        forward's view of the prompt, so it fails loudly."""
+        for b in self.ecfg.prefill_buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"piece of {n} tokens exceeds the largest prefill bucket "
+            f"{self.ecfg.prefill_buckets[-1]}; oversize prompts must take "
+            "the chunked prefill path")
+
+    def _sample_rows(self, logits, rows, positions, temp, top_k, top_p, pen,
+                     pres, freq, seeds):
+        """Penalties over each row's ring `rows` [B, W], then one token
+        per row: the sampling of a prefill or a chunk dispatch. Seeded
+        rows draw at `positions` (host), the position being sampled."""
+        need_pen, need_mask, need_sample = sampling_flags(
+            temp, top_k, top_p, pen, pres, freq)
+        tk_d, = self._to_dev([top_k], np.int32)
+        temp_d, tp_d, pen_d, pres_d, freq_d = self._to_dev(
+            [temp, top_p, pen, pres, freq], np.float32)
+        pen_logits = maybe_apply_penalties(logits, rows, pen_d, pres_d,
+                                           freq_d, need_pen)
+        u = (row_uniforms(self.gen, seeds, positions, logits.shape[1],
+                          self.device) if need_sample else None)
+        return sample_tokens_rowwise(pen_logits, u, temp_d, tk_d, tp_d,
+                                     need_mask, need_sample)
+
+    def _dispatch_prefill(self, bucket, B, tokens, lens, slot_ids, pt_rows,
+                          temp, top_k, top_p, pen, pres, freq,
+                          seeds) -> torch.Tensor:
+        """One bucketed prefill of B prompts padded to `bucket` (every
+        input of the device work, so a worker rank replays the same
+        call): forward, the penalty ring opened from each prompt's last W
+        tokens, one sampled token per row. Returns the tokens [B] on the
+        device."""
+        self._fault("prefill")
+        tokens_d, lens_d, slots_d, pt_d = self._to_dev(
+            [tokens, lens, slot_ids, pt_rows], np.int32)
+        ps = self.ecfg.page_size
+        if self._pp > 1:
+            logits, _, _ = pipeline.pp_forward_prefill(
+                self.params, self.cfg, tokens_d, lens_d, self.kc, self.vc,
+                pt_d, ps, self.mesh, n_micro=self.ecfg.pp_microbatches)
+        else:
+            logits, _, _ = llama.forward_prefill(
+                self.params, self.cfg, tokens_d, lens_d, self.kc, self.vc,
+                pt_d, ps, tp=self.tp)
+        W = self.recent.shape[1]
+        # Ring rows: the last W prompt tokens of each sequence.
+        idx = lens_d[:, None] - W + torch.arange(W, device=self.device)[None, :]
+        gathered = torch.gather(tokens_d, 1, idx.clamp(0, bucket - 1).long())
+        rows = torch.where(idx >= 0, gathered, -1)
+        tok = self._sample_rows(logits, rows, lens, temp, top_k, top_p, pen,
+                                pres, freq, seeds)
+        self.recent[slots_d.long()] = torch.cat([rows[:, 1:], tok[:, None]], 1)
+        return tok
+
+    def _dispatch_chunk(self, chunk, tokens, start, cl, slot_id, is_final,
+                        is_first, seed_row, pt_row, temp, top_k, top_p, pen,
+                        pres, freq, seeds) -> torch.Tensor:
+        """One chunk of one long prompt (B = 1, so the pipeline runs a
+        single microbatch): its K/V written, attention over the prefix
+        and the chunk, the ring slid by the chunk's tokens (opened from
+        `seed_row` on a request's first chunk) and, on the final chunk,
+        the sampled token rolled in. The token [1] is meaningful only
+        for the final chunk."""
+        self._fault("chunk")
+        tokens_d, start_d, cl_d, pt_d = self._to_dev(
+            [tokens, start, cl, pt_row], np.int32)
+        ps = self.ecfg.page_size
+        if self._pp > 1:
+            logits, _, _ = pipeline.pp_forward_prefill_chunk(
+                self.params, self.cfg, tokens_d, start_d, cl_d, self.kc,
+                self.vc, pt_d, ps, self.mesh,
+                n_micro=self.ecfg.pp_microbatches)
+        else:
+            logits, _, _ = llama.forward_prefill_chunk(
+                self.params, self.cfg, tokens_d, start_d, cl_d, self.kc,
+                self.vc, pt_d, ps, tp=self.tp)
+        slot, n_valid = int(slot_id[0]), int(cl[0])
+        W = self.recent.shape[1]
+        row = (torch.from_numpy(np.asarray(seed_row[0], np.int32)).to(self.device)
+               if int(is_first[0]) else self.recent[slot])
+        # Slide the window: the ring ++ this chunk's valid tokens, last W.
+        row = torch.cat([row, tokens_d[0, :n_valid]])[n_valid:n_valid + W]
+        tok = self._sample_rows(logits, row[None], np.asarray(start) + cl,
+                                temp, top_k, top_p, pen, pres, freq, seeds)
+        if int(is_final[0]):
+            row = torch.cat([row[1:], tok])
+        self.recent[slot] = row
+        return tok
+
+    def step_prefill(self, core: MQCore) -> bool:
+        """Admit pending prompts into free slots: same-bucket prompts
+        prefill TOGETHER in one forward (up to MAX_PREFILL_BATCH), which
+        collapses the time to first token of a burst of arrivals. A
+        prompt past the largest bucket, or one whose prefix is cached,
+        hands off to the chunked path. True if anything ran."""
+        if self.policy is not None:
+            # Decision point (a): slot-admission order (fcfs: FIFO).
+            self.policy.reorder_pending(self.pending_prefill)
+        batch: List[tuple] = []  # (req, slot, n)
+        bucket = None
+        claimed: set = set()
+        largest = self.ecfg.prefill_buckets[-1]
+        MP = self.ecfg.max_pages_per_seq
+        while self.pending_prefill and len(batch) < self.MAX_PREFILL_BATCH:
+            req = self.pending_prefill[0]
+            if req.cancelled.is_set():
+                self.pending_prefill.popleft()
+                core.mark_dropped(req.user)
+                self._jrec("finish", req, reason="cancelled")
+                req.finish(FinishReason.CANCELLED)
+                continue
+            if req._retry_at > time.monotonic():
+                break  # the head is backing off after a contained fault
+            if req.expired():
+                self.pending_prefill.popleft()
+                drop_expired(req, core, self.name, journal=self.journal)
+                continue
+            n = len(req.prompt_tokens)
+            max_prompt = min(self.ecfg.max_context - 1, self.cfg.max_seq_len - 1)
+            if n > max_prompt or n == 0:
+                self.pending_prefill.popleft()
+                core.mark_dropped(req.user)
+                self._jrec("finish", req, reason="error")
+                req.finish(FinishReason.ERROR, error=(
+                    f"prompt length {n} exceeds maximum {max_prompt}" if n
+                    else "empty prompt"))
+                continue
+            nodes, shared = ([], []) if self.prefix_cache is None else \
+                self._match_prefix(req.prompt_tokens)
+            if nodes or n > largest:
+                # The chunked path: the uncached tail of a prefix hit, or a
+                # prompt past the largest bucket.
+                if batch:
+                    break  # run the collected batch first; chunk next tick
+                slot = self._claim_slot(claimed)
+                if slot is None:
+                    return False
+                if nodes:
+                    # Pin BEFORE the tail allocation: its eviction backstop
+                    # must never reclaim the pages just matched.
+                    self.prefix_cache.pin(nodes)
+                    tail = self._alloc_tail(len(shared), n + 1)
+                    if tail is None:
+                        self.prefix_cache.release(nodes)
+                        return False  # wait for frees
+                    prefix_len = len(shared) * self.ecfg.page_size
+                    self.slot_pins[slot] = list(nodes)
+                    self.slot_pages[slot] = list(shared) + tail
+                    self.prefix_cache.note_hit(prefix_len)
+                    req.trace_event("prefix_hit", cached_tokens=prefix_len,
+                                    tokens=n)
+                else:
+                    pages = self._alloc_pages(n + 1)
+                    if pages is None:
+                        return False
+                    self._pc_miss()
+                    self.slot_pages[slot] = pages
+                    prefix_len = 0
+                self.pending_prefill.popleft()
+                req.stats.prefill_started_at = time.monotonic()
+                # The row stays OFF the shared page table until the final
+                # chunk installs the slot: decode steps write every slot's
+                # position through self.page_table, and a reserved slot
+                # must keep pointing at the trash page meanwhile.
+                req._pt_row = kvc.make_page_table_row(self.slot_pages[slot], MP)
+                # One chunk per tick so the decode streams keep flowing.
+                req._chunk_pos = req._chunk_base = prefix_len
+                req._prefill_slot = slot
+                self.reserved_slots.add(slot)
+                self.chunking.append(req)
+                return True
+            b = self._bucket_for(n)
+            if bucket is None:
+                bucket = b
+            elif b != bucket:
+                break  # another bucket: next tick's batch
+            slot = self._claim_slot(claimed)
+            if slot is None:
+                break
+            pages = self._alloc_pages(n + 1)
+            if pages is None:
+                break  # pool exhausted; run what we have, retry after frees
+            self.pending_prefill.popleft()
+            self._pc_miss()
+            req.stats.prefill_started_at = time.monotonic()
+            self.slot_pages[slot] = pages
+            self.page_table[slot, :] = kvc.make_page_table_row(pages, MP)
+            claimed.add(slot)
+            batch.append((req, slot, n))
+        if not batch:
+            return False
+
+        # Several prompts pad to MAX_PREFILL_BATCH rows, one to 1: padding
+        # rows carry trash-page tables and zero lengths, their ring rows
+        # the trash row max_slots.
+        S = self.ecfg.max_slots
+        B = 1 if len(batch) == 1 else self.MAX_PREFILL_BATCH
+        pt_rows = np.full((B, MP), kvc.TRASH_PAGE, np.int32)
+        tokens = np.zeros((B, bucket), np.int32)
+        lens = np.zeros(B, np.int32)
+        temp = np.zeros(B, np.float32)
+        top_k = np.zeros(B, np.int32)
+        top_p = np.ones(B, np.float32)
+        pen = np.ones(B, np.float32)
+        pres = np.zeros(B, np.float32)
+        freq = np.zeros(B, np.float32)
+        seeds = np.zeros(B, np.int32)
+        slot_ids = np.full(B, S, np.int32)
+        for i, (req, slot, n) in enumerate(batch):
+            s = req.sampling
+            tokens[i, :n] = req.prompt_tokens
+            lens[i] = n
+            temp[i], top_k[i], top_p[i] = s.temperature, s.top_k, s.top_p
+            pen[i], pres[i], freq[i] = (s.repeat_penalty, s.presence_penalty,
+                                        s.frequency_penalty)
+            seeds[i] = s.seed
+            slot_ids[i] = slot
+            pt_rows[i] = self.page_table[slot]
+            req.trace_event("prefill", bucket=bucket, tokens=n)
+        self.inflight_prefill = [req for req, *_ in batch]
+        real_tokens = int(lens.sum())
+        # Batch-compose record: who shares this forward and the padded
+        # shape it pays for.
+        self._jrec("batch", slots=[slot for _, slot, _ in batch],
+                   reqs=[req.req_id for req, *_ in batch], bucket=bucket,
+                   batch_size=B, tokens=real_tokens,
+                   occupancy=round(self.active_count() / max(1, S), 4),
+                   pending=len(self.pending_prefill),
+                   free_pages=self.alloc.free_pages, mode="bucketed",
+                   padded_tokens=int(bucket * B))
+        self._tm_padding.set(round(1.0 - real_tokens / max(1, bucket * B), 4))
+        t0 = time.monotonic()
+        try:
+            toks = self._dispatch_prefill(
+                bucket, B, tokens, lens, slot_ids, pt_rows, temp, top_k,
+                top_p, pen, pres, freq, seeds).cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — contained to this batch
+            # Free the batch's pages, then give each request one retried
+            # dispatch before poisoning it: one bad input or transient
+            # fault must neither kill bystanders nor crash-loop.
+            log.exception("batched prefill failed (bucket=%d B=%d)", bucket, B)
+            desync = isinstance(e, WorkerDesyncError)
+            msg = f"prefill failed: {e}"
+            for req, slot, _ in batch:
+                self._release_slot_pages(slot)
+                if desync or not self._retry_requeue(req, msg):
+                    core.mark_dropped(req.user)
+                    req.finish(FinishReason.ERROR,
+                               error=self._poison_msg(req, msg))
+            if desync:
+                raise  # diverged ranks: the runtime must fail and reload
+            return True
+        finally:
+            self.inflight_prefill = []
+        self.prefill_dispatches += 1
+        self.prefill_latency_ms = (time.monotonic() - t0) * 1e3
+        self._tm_prefill.observe(self.prefill_latency_ms)
+        for i, (req, slot, n) in enumerate(batch):
+            self._install_slot(slot, req, n, int(toks[i]), core)
+        return True
+
+    def step_chunk(self, core: MQCore) -> bool:
+        """Advance ONE chunk of the oldest long-prompt prefill. True if a
+        chunk ran (the loop interleaves them with decode steps)."""
+        if not self.chunking:
+            return False
+        req = self.chunking[0]
+        slot = req._prefill_slot
+        n = len(req.prompt_tokens)
+        if req.cancelled.is_set() or req.stream.overflowed:
+            self._drop_chunking(req)
+            core.mark_dropped(req.user)
+            self._jrec("finish", req, reason="cancelled")
+            req.finish(FinishReason.CANCELLED)
+            return True
+        if req.expired():
+            # No more chunks for a response nobody will wait for.
+            self._drop_chunking(req)
+            drop_expired(req, core, self.name, journal=self.journal)
+            return True
+        s = req.sampling
+        start = req._chunk_pos
+        # Chunk size: the smallest bucket covering the remainder, so a
+        # short cache-hit tail does not pay a largest-bucket forward.
+        piece = req.prompt_tokens[start:start + self.ecfg.prefill_buckets[-1]]
+        cl = len(piece)
+        chunk = self._bucket_for(cl)
+        tokens = np.zeros((1, chunk), np.int32)
+        tokens[0, :cl] = piece
+        is_first = int(start == req._chunk_base)
+        W = self.ecfg.repeat_last_n
+        seed_row = np.full((1, W), -1, np.int32)
+        if is_first and start > 0:
+            # Prefix-cache hit: the ring opens with the cached prefix's
+            # last W tokens, as a full prefill would set it.
+            prev = req.prompt_tokens[max(0, start - W):start]
+            seed_row[0, W - len(prev):] = prev
+        is_final = int(start + cl >= n)
+        req.trace_event("prefill_chunk", pos=start, tokens=cl)
+        self._jrec("chunk", req, slot=slot, pos=start, tokens=cl,
+                   cached=req._chunk_base)
+        self.inflight_prefill = [req]
+        t0 = time.monotonic()
+        try:
+            tok = self._dispatch_chunk(
+                chunk, tokens, np.asarray([start], np.int32),
+                np.asarray([cl], np.int32), np.asarray([slot], np.int32),
+                np.asarray([is_final], np.int32),
+                np.asarray([is_first], np.int32), seed_row,
+                req._pt_row[None, :],
+                np.asarray([s.temperature], np.float32),
+                np.asarray([s.top_k], np.int32),
+                np.asarray([s.top_p], np.float32),
+                np.asarray([s.repeat_penalty], np.float32),
+                np.asarray([s.presence_penalty], np.float32),
+                np.asarray([s.frequency_penalty], np.float32),
+                np.asarray([s.seed], np.int32))
+            tok = int(tok.cpu().numpy()[0])
+        except Exception as e:  # noqa: BLE001 — contained to this request
+            # Release the reserved slot's pages (and pinned prefix), retry
+            # once from scratch, else poison.
+            log.exception("chunked prefill failed for req %d", req.req_id,
+                          extra={"req_id": req.req_id})
+            self._drop_chunking(req)
+            desync = isinstance(e, WorkerDesyncError)
+            msg = f"prefill failed: {e}"
+            if desync or not self._retry_requeue(req, msg):
+                core.mark_dropped(req.user)
+                req.finish(FinishReason.ERROR, error=self._poison_msg(req, msg))
+            if desync:
+                raise  # diverged ranks: the runtime must fail and reload
+            return True
+        finally:
+            self.inflight_prefill = []
+        self.chunk_dispatches += 1
+        self.prefill_latency_ms = (time.monotonic() - t0) * 1e3
+        self._tm_prefill.observe(self.prefill_latency_ms)
+        req._chunk_pos = start + cl
+        if req._chunk_pos < n:
+            return True  # more chunks next tick
+        # Final chunk: publish the page-table row (decode may write through
+        # it from now on), install the slot, emit the first token.
+        self.chunking.remove(req)
+        self.reserved_slots.discard(slot)
+        self.page_table[slot, :] = req._pt_row
+        self._install_slot(slot, req, n, tok, core)
+        return True
+
     # -- decode tick -------------------------------------------------------
     def step_decode(self, core: MQCore, k_steps: int = 1) -> int:
         """Advance all active slots by up to k_steps tokens; returns the
@@ -1925,9 +2343,16 @@ class ModelRuntime(JournaledRuntime):
             [temp, top_p, pen, pres, freq], np.float32)
         steps = []
         for j in range(k_steps):
-            logits, _, _ = llama.forward_decode(
-                self.params, self.cfg, tokens, positions, self.kc, self.vc,
-                pt_d, self.ecfg.page_size, active=act_d, tp=self.tp)
+            if self._pp > 1:
+                logits, _, _ = pipeline.pp_forward_decode(
+                    self.params, self.cfg, tokens, positions, self.kc,
+                    self.vc, pt_d, self.ecfg.page_size, self.mesh,
+                    n_micro=self.ecfg.pp_microbatches)
+            else:
+                logits, _, _ = llama.forward_decode(
+                    self.params, self.cfg, tokens, positions, self.kc,
+                    self.vc, pt_d, self.ecfg.page_size, active=act_d,
+                    tp=self.tp)
             ring = self.recent[:S]
             pen_logits = maybe_apply_penalties(logits, ring, pen_d, pres_d,
                                                freq_d, need_pen)
@@ -2057,6 +2482,8 @@ class ModelRuntime(JournaledRuntime):
                 "chunking": len(self.chunking),
                 "tokens_generated": self.tokens_generated,
                 "ragged_dispatches": self.ragged_dispatches,
+                "prefill_dispatches": self.prefill_dispatches,
+                "chunk_dispatches": self.chunk_dispatches,
                 "decode_dispatches": self.decode_dispatches,
                 "decode_steps": self.decode_steps,
                 "prefix_cache": (self.prefix_cache.stats()
@@ -2095,6 +2522,8 @@ class EncoderRuntime(JournaledRuntime):
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
         self.tokenizer = load_tokenizer(checkpoint_path)
+        # An encoder holds every layer on every pipeline stage (its
+        # stateless forward is not pipelined): only the tensor cut.
         rank = self.tp.rank if self.tp is not None else 0
         if params is None:
             params = weights.load_params(model_cfg, checkpoint_path,
@@ -3155,8 +3584,22 @@ class TorchEngine:
                         rt.step(self.core)
                         did_work = True
                     continue
-                ran_ragged = rt.step_ragged(self.core)
-                did_work = did_work or ran_ragged
+                ran_ragged = False
+                if rt.ragged:
+                    ran_ragged = rt.step_ragged(self.core)
+                    did_work = did_work or ran_ragged
+                else:
+                    # The pipeline path (pp > 1): bucketed prefills first
+                    # (TTFT), bounded per tick so an arrival storm cannot
+                    # starve the decode streams, then one chunk of a long
+                    # prompt, interleaved with decode below.
+                    budget = self.ecfg.prefill_batches_per_tick
+                    while (budget > 0 and rt.pending_prefill
+                           and rt.step_prefill(self.core)):
+                        budget -= 1
+                        did_work = True
+                    if rt.step_chunk(self.core):
+                        did_work = True
                 # Embeds on a generative model: one stateless batch
                 # forward, no slot or page contention with decode.
                 if rt.pending_embed and rt.step_embed(self.core):
@@ -3228,6 +3671,7 @@ class TorchEngine:
         hbm_total = sum(c["hbm_total"] for c in chips) or None
         return {"queued": self.core.total_queued(),
                 "device": str(self.device),
+                "mesh": dict(self.mesh.shape) if self.mesh is not None else None,
                 "runtimes": runtime_stats,
                 "chips": chips,
                 "hbm_used_bytes": sum(c["hbm_used"] for c in chips) or sum(

@@ -130,14 +130,15 @@ def local_kv_heads(model_cfg: ModelConfig, tp: int = 1) -> int:
 
 def alloc_kv_pool(model_cfg: ModelConfig, engine_cfg: EngineConfig,
                   dtype=torch.bfloat16, device="cpu", kv_dtype: str = "bfloat16",
-                  tp: int = 1):
+                  tp: int = 1, layers: Optional[int] = None):
     """Allocate the K/V slot pools on `device`: zeros in `dtype`, or, for
     kv_dtype="int8", QuantKV pools of an int8 zero payload and f32 scales
     of ONE per (layer, slot, kv head), as the JAX package allocates them.
-    With tp > 1, this rank's pools: local_kv_heads of them."""
+    With tp > 1, this rank's pools: local_kv_heads of them; `layers`
+    (default all) is a pipeline stage's share of the layers."""
     S = engine_cfg.num_pages * engine_cfg.page_size
-    shape = (model_cfg.num_layers, S, local_kv_heads(model_cfg, tp),
-             model_cfg.head_dim)
+    shape = (model_cfg.num_layers if layers is None else layers, S,
+             local_kv_heads(model_cfg, tp), model_cfg.head_dim)
     if kv_dtype == "int8":
         return tuple(QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
                              torch.ones(shape[:-1], dtype=torch.float32,

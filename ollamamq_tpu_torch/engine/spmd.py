@@ -1,10 +1,12 @@
-"""Tensor-parallel serving over ranks: one engine, many processes.
+"""Tensor- and pipeline-parallel serving over ranks: one engine, many
+processes.
 
 The JAX package runs one SPMD program: params and KV pools are sharded
 over a mesh and each jitted step runs on every host's shard. Here each
 rank of the mesh (parallel/mesh.py) is a process holding its slice of
-the weights and KV pool, and each forward calls its collectives itself
-(models/llama.py). Rank 0 owns the scheduler, the HTTP front and every
+the weights and KV pool (its heads, and under pp its stage's layers),
+and each forward calls its collectives and hand-offs itself
+(models/llama.py, parallel/pipeline.py). Rank 0 owns the scheduler, the HTTP front and every
 admission decision. Before every device step it ships a "step plan" —
 a fixed-shape header (opcode + static dims + routing ordinals) plus the
 op payload (token ids, page tables, sampling params and the raw state
@@ -21,11 +23,12 @@ the two corrupts it; store traffic cannot.
 Opcode header (int32[5]: [op, a, b, model_ordinal, replica_ordinal]),
 the JAX package's numbers:
     OP_SHUTDOWN = 0              -> workers report and exit (no payload)
-    OP_PREFILL  = 1, OP_CHUNK = 2, OP_PREFILL_SP = 5
-                                    reserved: the pp / sp dispatches, not
-                                    ported yet
+    OP_PREFILL  = 1, a=bucket, b=B (bucketed prefill of the pp > 1 path)
+    OP_CHUNK    = 2, a=chunk     (one chunk of a long prompt, pp > 1)
     OP_DECODE   = 3, a=k_steps   (fused decode steps of every slot)
     OP_ENCODE   = 4, a=B, b=bucket (embedding batch forward, stateless)
+    OP_PREFILL_SP = 5            reserved: the sequence-parallel prefill,
+                                    not ported yet
     OP_RELOAD   = 6              -> rebuild runtime [mi][ri] from pristine
                                     config (failure recovery)
     OP_LOAD     = 7, a=n_replicas; payload carries (name, ckpt) strings
@@ -74,8 +77,8 @@ from ollamamq_tpu_torch.parallel import distributed
 log = logging.getLogger("ollamamq.torch.spmd")
 
 OP_SHUTDOWN = 0
-OP_PREFILL = 1  # reserved: pipeline-parallel prefill (not ported yet)
-OP_CHUNK = 2  # reserved: pipeline-parallel chunked prefill
+OP_PREFILL = 1  # a=bucket, b=B: bucketed prefill (the pp > 1 path)
+OP_CHUNK = 2  # a=chunk: one chunk of a long prompt (the pp > 1 path)
 OP_DECODE = 3
 OP_ENCODE = 4
 OP_PREFILL_SP = 5  # reserved: sequence-parallel prefill
@@ -88,7 +91,8 @@ OP_SPEC = 11  # a=T_pad, b=k_cap: ragged mixed batch + speculative spans
 
 NAME_LEN = 128  # utf-8 bytes, zero-padded, for OP_LOAD/OP_EVICT names
 PATH_LEN = 256  # utf-8 bytes for checkpoint paths ("" = None)
-DATA_OPS = (OP_DECODE, OP_ENCODE, OP_EMBED, OP_RAGGED, OP_SPEC)
+DATA_OPS = (OP_PREFILL, OP_CHUNK, OP_DECODE, OP_ENCODE, OP_EMBED, OP_RAGGED,
+            OP_SPEC)
 
 
 def _env_float(name: str, default: float) -> float:
@@ -274,6 +278,17 @@ def payload_spec(op, a, b, S, MP, W, K):
                 ((n,), np.int32)]
 
     key = [((K,), np.uint8)]
+    if op == OP_PREFILL:
+        bucket, B = a, b
+        # tokens, lens, slot_ids, page tables
+        return [((B, bucket), np.int32), ((B,), np.int32), ((B,), np.int32),
+                ((B, MP), np.int32)] + samp(B) + key
+    if op == OP_CHUNK:
+        # tokens, start, chunk_len, slot, is_final, is_first, seed_row, pt
+        return [((1, a), np.int32), ((1,), np.int32), ((1,), np.int32),
+                ((1,), np.int32), ((1,), np.int32), ((1,), np.int32),
+                ((1, W), np.int32),
+                ((1, MP), np.int32)] + samp(1) + key
     if op == OP_DECODE:
         # last tokens, positions, active mask, page table
         return [((S,), np.int32), ((S,), np.int32), ((S,), np.int32),
@@ -305,9 +320,9 @@ def payload_spec(op, a, b, S, MP, W, K):
         return [((NAME_LEN,), np.int32), ((PATH_LEN,), np.int32)]
     if op == OP_EVICT:
         return [((NAME_LEN,), np.int32)]
-    if op in (OP_PREFILL, OP_CHUNK, OP_PREFILL_SP):
-        raise ValueError(f"opcode {op} carries a pipeline- or sequence-"
-                         "parallel dispatch, which is not ported yet")
+    if op == OP_PREFILL_SP:
+        raise ValueError(f"opcode {op} carries a sequence-parallel "
+                         "dispatch, which is not ported yet")
     raise ValueError(f"no payload spec for opcode {op}")
 
 
@@ -465,8 +480,8 @@ class _OpTrace:
         self.reset()
 
     def reset(self) -> None:
-        self.ops = {"ragged": 0, "spec": 0, "decode": 0, "decode_steps": 0,
-                    "embed": 0, "encode": 0}
+        self.ops = {"ragged": 0, "spec": 0, "prefill": 0, "chunk": 0,
+                    "decode": 0, "decode_steps": 0, "embed": 0, "encode": 0}
         self._h = hashlib.sha256()
 
     def record(self, op: int, a: int, out) -> None:
@@ -491,12 +506,13 @@ def _raise_on_worker_failure(flags: Optional[np.ndarray], name: str) -> None:
     if flags is not None and flags.any():
         bad = np.nonzero(flags)[0].tolist()
         raise WorkerDesyncError(
-            f"tensor-parallel rank(s) {bad} failed replaying a dispatch for "
+            f"rank(s) {bad} failed replaying a dispatch for "
             f"{name}; KV state diverged — failing runtime for reload")
 
 
-_OP_SITE = {OP_DECODE: "decode", OP_RAGGED: "ragged", OP_SPEC: "spec_verify",
-            OP_EMBED: "embed", OP_ENCODE: "encode"}
+_OP_SITE = {OP_PREFILL: "prefill", OP_CHUNK: "chunk", OP_DECODE: "decode",
+            OP_RAGGED: "ragged", OP_SPEC: "spec_verify", OP_EMBED: "embed",
+            OP_ENCODE: "encode"}
 
 
 def _mirrored_dispatch(rt, op, a, b, values, dispatch):
@@ -605,6 +621,27 @@ class SPMDModelRuntime(_SPMDMixin, ModelRuntime):
                        else (OP_RAGGED, head + tail))
         return self._mirrored(op, T_pad, k_cap, payload,
                               lambda: ModelRuntime._ragged_dispatch(self, *args))
+
+    def _dispatch_prefill(self, bucket, B, tokens, lens, slot_ids, pt_rows,
+                          temp, top_k, top_p, pen, pres, freq, seeds):
+        args = (bucket, B, tokens, lens, slot_ids, pt_rows, temp, top_k,
+                top_p, pen, pres, freq, seeds)
+        if not self._spmd:
+            return super()._dispatch_prefill(*args)
+        return self._mirrored(
+            OP_PREFILL, bucket, B, args[2:] + (_key_of(self),),
+            lambda: ModelRuntime._dispatch_prefill(self, *args))
+
+    def _dispatch_chunk(self, chunk, tokens, start, cl, slot_id, is_final,
+                        is_first, seed_row, pt_row, temp, top_k, top_p, pen,
+                        pres, freq, seeds):
+        args = (chunk, tokens, start, cl, slot_id, is_final, is_first,
+                seed_row, pt_row, temp, top_k, top_p, pen, pres, freq, seeds)
+        if not self._spmd:
+            return super()._dispatch_chunk(*args)
+        return self._mirrored(
+            OP_CHUNK, chunk, 0, args[1:] + (_key_of(self),),
+            lambda: ModelRuntime._dispatch_chunk(self, *args))
 
     def _dispatch_decode(self, k_steps, last_tokens, seq_lens, active_mask,
                          page_table, temp, top_k, top_p, pen, pres, freq,
@@ -905,7 +942,8 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
     Returns the number of ops replayed. `max_steps` bounds the loop for
     tests; production workers run until OP_SHUTDOWN, when they file
     their report (`ollamamq/report/<rank>`: ops, output digest, kernel
-    launches, each runtime's weight and KV bytes, peak device memory)
+    launches, each runtime's weight and KV bytes and pipeline hand-off
+    times, peak device memory)
     for the primary.
 
     A replay failure is answered over the status sync: the primary fails
@@ -914,7 +952,7 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
     from ollamamq_tpu_torch.config import get_model_config, validate_quant_config
 
     err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
-                                model_names=list(models))
+                                pp=mesh.pp, model_names=list(models))
     if err is not None:
         raise ValueError(err)
     _reset_wire()
@@ -939,7 +977,9 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                 report = _trace.report()
                 report["runtimes"] = {
                     rt.name: {"param_bytes": rt.param_bytes,
-                              "kv_bytes": rt.kv_bytes}
+                              "kv_bytes": rt.kv_bytes,
+                              "pipe": (dict(rt.pipe.stats)
+                                       if getattr(rt, "pipe", None) else None)}
                     for rt in runtimes if not isinstance(rt, _DeadReplica)}
                 if mesh.device.type == "cuda":
                     report["max_memory_allocated"] = \
@@ -1053,6 +1093,20 @@ def _replay(rt, op, a, b, payload):
             rt, T_pad, k_cap, tokens, tok_seq, tok_pos, write_slots, q_start,
             q_len, kv_len, ring_len, is_first, append, is_spec, seed_rows,
             slot_ids, pt, temp, tk, tp, pen, pres, freq, seeds)
+    elif op == OP_PREFILL:
+        (tokens, lens, slot_ids, pt, temp, tk, tp, pen, pres, freq, seeds,
+         key) = payload
+        rt.gen.set_state(torch.from_numpy(key.copy()))
+        out = ModelRuntime._dispatch_prefill(
+            rt, a, b, tokens, lens, slot_ids, pt, temp, tk, tp, pen, pres,
+            freq, np.array(seeds))
+    elif op == OP_CHUNK:
+        (tokens, start, cl, slot_id, is_final, is_first, seed_row, pt, temp,
+         tk, tp, pen, pres, freq, seeds, key) = payload
+        rt.gen.set_state(torch.from_numpy(key.copy()))
+        out = ModelRuntime._dispatch_chunk(
+            rt, a, tokens, start, cl, slot_id, is_final, is_first, seed_row,
+            pt, temp, tk, tp, pen, pres, freq, np.array(seeds))
     elif op == OP_DECODE:
         (tokens, positions, active, pt, temp, tk, tp, pen, pres, freq,
          seeds, key) = payload

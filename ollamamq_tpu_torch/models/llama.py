@@ -33,6 +33,8 @@ from ollamamq_tpu_torch.config import ModelConfig
 from ollamamq_tpu_torch.models.moe import init_moe_layer_params, moe_mlp
 from ollamamq_tpu_torch.ops.attention import (bidirectional_attention,
                                               causal_attention,
+                                              flat_slot_indices,
+                                              paged_chunk_attention_blockwise,
                                               paged_decode_attention_any,
                                               ragged_attention_any)
 from ollamamq_tpu_torch.ops.quant import embed_lookup, kv_write, logits_head, qeinsum
@@ -59,7 +61,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     MoE model's layers get routed experts instead of the dense FFN.
     `prepare_layer(layer)` and `prepare_top(name, tensor)` (embed,
     lm_head) transform each piece right after it is drawn, in draw
-    order (a tensor-parallel rank keeps its slice and frees the rest)."""
+    order (a tensor-parallel rank keeps its slice and frees the rest); a
+    layer for which prepare_layer returns None is dropped (a pipeline
+    stage keeps its own layers, drawn in the same order as every other
+    stage's, so the random stream is the same on every rank)."""
     d, qd, kvd, f = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
 
     def w(shape, fan_in):
@@ -89,7 +94,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.qk_norm:
             lp["q_norm"] = ones(cfg.head_dim)
             lp["k_norm"] = ones(cfg.head_dim)
-        layers.append(prepare_layer(lp) if prepare_layer else lp)
+        lp = prepare_layer(lp) if prepare_layer else lp
+        if lp is not None:
+            layers.append(lp)
 
     def top(name, t):
         return prepare_top(name, t) if prepare_top else t
@@ -266,6 +273,103 @@ def forward_decode(
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
                 attend, valid, tp)
     return _logits(params, cfg, x, tp), k_cache, v_cache
+
+
+def last_valid(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """[B, T, D] -> [B, D] at each row's last valid position (row 0's
+    position 0 when a row is empty)."""
+    T = x.shape[1]
+    last = (lens.long() - 1).clamp(0, T - 1)
+    return x[torch.arange(x.shape[0], device=x.device), last]
+
+
+def prefill_layers(cfg: ModelConfig, layers, x, positions, k_cache, v_cache,
+                   slots, attend, valid=None, tp=None):
+    """A stack of layers over a padded [B, T] batch flattened to [B*T, D]:
+    each layer writes the batch's K/V at `slots` [B, T] (padding rows
+    point at the trash page), then `attend(q, k, v, kcl, vcl)` with q, k,
+    v as [B, T, heads, hd] and the layer's pools, returning [B, T, H,
+    hd]. `layers` and the pools' layer dim are the same local slice (a
+    pipeline stage's own layers). THE layer loop of forward_prefill,
+    forward_prefill_chunk and the pipeline stages' prefills."""
+    B, T = slots.shape
+    flat = slots.reshape(-1)
+
+    for i, lp in enumerate(layers):
+        def paged(q, k, v, i=i):
+            kv_write(k_cache[i], flat, k)
+            kv_write(v_cache[i], flat, v)
+            out = attend(q.reshape(B, T, *q.shape[1:]), k.reshape(B, T, *k.shape[1:]),
+                         v.reshape(B, T, *v.shape[1:]), k_cache[i], v_cache[i])
+            return out.reshape(B * T, *q.shape[1:])
+
+        x = layer_step(cfg, lp, x, positions, paged, valid, tp)
+    return x
+
+
+def forward_prefill(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int32, right-padded
+    seq_lens: torch.Tensor,  # [B] valid lengths
+    k_cache,  # [L, S, Hk, hd] tensor or QuantKV, written in place
+    v_cache,
+    page_table: torch.Tensor,  # [B, max_pages]; padding rows: the trash page
+    page_size: int,
+    tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fresh prompts padded to one bucket: every position's K/V goes to
+    its page (padding positions past a row's pages land in the trash
+    page), attention is dense causal over the batch's own K/V. Returns
+    (last-valid-position logits [B, V] float32, k_cache, v_cache)."""
+    B, T = tokens.shape
+    x = _embed(params, cfg, tokens.reshape(-1), tp)  # [B*T, D]
+    pos_b = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
+    slots = flat_slot_indices(page_table, pos_b, page_size)
+    valid = (pos_b < seq_lens[:, None]).reshape(-1)
+
+    def attend(q, k, v, kcl, vcl):
+        return causal_attention(q, k, v, seq_lens)
+
+    x = prefill_layers(cfg, params["layers"], x, pos_b.reshape(-1), k_cache,
+                       v_cache, slots, attend, valid, tp)
+    x_last = last_valid(x.reshape(B, T, -1), seq_lens)
+    return _logits(params, cfg, x_last, tp), k_cache, v_cache
+
+
+def forward_prefill_chunk(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, C] one chunk of the prompt, right-padded
+    start: torch.Tensor,  # [B] global position of the chunk's first token
+    chunk_lens: torch.Tensor,  # [B] valid tokens in this chunk
+    k_cache,  # [L, S, Hk, hd] tensor or QuantKV, written in place
+    v_cache,
+    page_table: torch.Tensor,  # [B, max_pages]: covers prefix AND chunk
+    page_size: int,
+    tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk of a long prompt: writes the chunk's K/V into its pages
+    and attends over the prefix already written plus the chunk itself
+    (paged_chunk_attention_blockwise). Chaining chunks reproduces
+    forward_prefill. Returns (last-valid-position logits [B, V] float32,
+    k_cache, v_cache)."""
+    B, C = tokens.shape
+    x = _embed(params, cfg, tokens.reshape(-1), tp)
+    pos_b = start[:, None] + torch.arange(C, dtype=torch.int32,
+                                          device=tokens.device)[None, :]
+    slots = flat_slot_indices(page_table, pos_b, page_size)
+    valid = (torch.arange(C, device=tokens.device)[None, :]
+             < chunk_lens[:, None]).reshape(-1)
+
+    def attend(q, k, v, kcl, vcl):
+        return paged_chunk_attention_blockwise(q, kcl, vcl, page_table, start,
+                                               chunk_lens, page_size)
+
+    x = prefill_layers(cfg, params["layers"], x, pos_b.reshape(-1), k_cache,
+                       v_cache, slots, attend, valid, tp)
+    x_last = last_valid(x.reshape(B, C, -1), chunk_lens)
+    return _logits(params, cfg, x_last, tp), k_cache, v_cache
 
 
 def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

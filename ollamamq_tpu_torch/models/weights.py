@@ -132,14 +132,16 @@ def _safetensors_files(path: str):
 
 
 def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
-                     device="cpu") -> dict:
+                     device="cpu", layers: Optional[tuple] = None) -> dict:
     """Load an HF-layout safetensors checkpoint (every *.safetensors file
     of the directory, in sorted order) into this package's params dict,
     cast to `dtype` on `device`. HF projections are [out, in]; ours are
     [in, out]. Tied-embedding configs get no lm_head. A Mixtral-layout
     checkpoint loads into an MoE config: each layer's experts stack to
     [E, in, out] in `dtype` as they are read, and their raw tensors are
-    dropped at once (the expert stacks are ~90% of an 8x7b)."""
+    dropped at once (the expert stacks are ~90% of an 8x7b). `layers`
+    (lo, hi) reads only those layers (a pipeline stage's): the memory
+    map leaves the others unread."""
     files = _safetensors_files(path)
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {path}")
@@ -160,10 +162,11 @@ def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
         raise ValueError(f"checkpoint has {n_layers} layers, config {cfg.num_layers}")
     present = [(hf, ours, tr) for hf, (ours, tr) in _HF_LAYER_MAP.items()
                if f"model.layers.0.{hf}" in raw]
+    lo, hi = layers if layers is not None else (0, cfg.num_layers)
     layers = [{ours: grab(f"model.layers.{i}.{hf}", tr)
-               for hf, ours, tr in present} for i in range(cfg.num_layers)]
+               for hf, ours, tr in present} for i in range(lo, hi)]
     if cfg.num_experts:
-        for i, lp in enumerate(layers):
+        for i, lp in enumerate(layers, start=lo):
             p = f"model.layers.{i}.block_sparse_moe."
             for hf, ours in _HF_EXPERT_MAP.items():
                 names = [f"{p}experts.{e}.{hf}.weight"
@@ -219,7 +222,8 @@ def save_safetensors(params: dict, cfg: ModelConfig, path: str) -> str:
 def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
                 seed: int = 0, dtype=torch.bfloat16,
                 weights_dtype: str = "bfloat16", device="cpu",
-                tp: int = 1, rank: int = 0) -> dict:
+                tp: int = 1, rank: int = 0, pp: int = 1,
+                stage: int = 0) -> dict:
     """Resolve weights: an HF safetensors directory or seeded random init,
     then int8 quantization when `weights_dtype` is "int8". A directory
     with no .safetensors file (an orbax checkpoint) is refused.
@@ -230,11 +234,27 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
     tensors, so every rank's slice equals the same slice of the one-rank
     tree. The seeded tree is drawn, prepared and cut one layer at a time
     on `device` (the whole tree never sits on it); a checkpoint is read
-    whole on the host, cut there, and only the slice moves."""
+    whole on the host, cut there, and only the slice moves.
+
+    With pp > 1 the result holds only pipeline stage `stage`'s layers
+    (parallel/sharding.py stage_layers) beside the whole embedding,
+    final norm and head: the seed draws every layer in order on every
+    stage and keeps its own (so they are bit-identical to the same
+    layers of a one-stage tree), a checkpoint is read for those layers
+    only."""
     int8 = weights_dtype == "int8"
     if int8 and cfg.num_experts:
         raise ValueError("int8 weight quantization does not cover MoE expert "
                          "stacks; load the model with --weights-dtype=bfloat16")
+    span = None
+    if pp > 1:
+        from ollamamq_tpu_torch.parallel.sharding import stage_layers
+
+        span = stage_layers(cfg.num_layers, pp, stage)
+        if tp == 1:
+            layer = quantize_layer_int8 if int8 else (lambda lp: lp)
+            top = ((lambda name, t: quantize_tensor(t, axis=0)
+                    if name in QUANT_ROW_KEYS else t) if int8 else None)
     if tp > 1:
         from ollamamq_tpu_torch.parallel.sharding import shard_layer, shard_leaf
 
@@ -251,7 +271,7 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
             if int8 and name in QUANT_ROW_KEYS:
                 t = quantize_tensor(t, axis=0)
             return shard_leaf(name, t, tp, rank)
-    else:
+    elif pp == 1:
         layer = top = None
     if checkpoint_path:
         if not _safetensors_files(checkpoint_path):
@@ -261,18 +281,25 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
                 "convert it to HF safetensors first")
         if tp == 1:
             params = load_safetensors(cfg, checkpoint_path, dtype=dtype,
-                                      device=device)
+                                      device=device, layers=span)
             return quantize_params_int8(params) if int8 else params
-        params = load_safetensors(cfg, checkpoint_path, dtype=dtype)
+        params = load_safetensors(cfg, checkpoint_path, dtype=dtype,
+                                  layers=span)
         params["layers"] = [layer(lp) for lp in params["layers"]]
         params.update({k: top(k, v) for k, v in params.items()
                        if k != "layers"})
         return _to_device(params, device)
-    if tp == 1:
+    if tp == 1 and pp == 1:
         params = init_random(cfg, seed=seed, dtype=dtype, device=device)
         return quantize_params_int8(params) if int8 else params
+    drawn = iter(range(cfg.num_layers))
+
+    def stage_layer(lp):  # this stage's layers, prepared; the rest dropped
+        return layer(lp) if span[0] <= next(drawn) < span[1] else None
+
     return init_random(cfg, seed=seed, dtype=dtype, device=device,
-                       prepare_layer=layer, prepare_top=top)
+                       prepare_layer=layer if span is None else stage_layer,
+                       prepare_top=top)
 
 
 def _to_device(params: dict, device) -> dict:
@@ -320,6 +347,17 @@ def replicate_kv_heads(params: dict, cfg: ModelConfig, r: int) -> dict:
     out = dict(params)
     out["layers"] = [replicate_kv_layer(lp, cfg, r) for lp in params["layers"]]
     return out
+
+
+def stage_slice(params: dict, cfg: ModelConfig, pp: int, stage: int) -> dict:
+    """Pipeline stage `stage`'s part of a whole params tree: its layers
+    and the embedding, final norm and head (held by every stage)."""
+    if pp == 1:
+        return params
+    from ollamamq_tpu_torch.parallel.sharding import stage_layers
+
+    lo, hi = stage_layers(cfg.num_layers, pp, stage)
+    return dict(params, layers=params["layers"][lo:hi])
 
 
 def tp_slice(params: dict, cfg: ModelConfig, tp: int, rank: int) -> dict:
@@ -431,12 +469,14 @@ def _is_quant_leaf(a) -> bool:
 
 
 def from_jax_numpy(params_np: dict, cfg: ModelConfig, dtype=None,
-                   device="cpu") -> dict:
+                   device="cpu", layers: Optional[tuple] = None) -> dict:
     """JAX params (as numpy arrays: layers stacked on axis 0, wq as
     [D, H*hd], embed / lm_head as [V, D]) -> this package's params.
     `dtype` None keeps each array's own dtype; it never applies to int8
     payloads and f32 scales. Quantized leaves ((q, s) pairs with layer
-    scales [L, e]) become per-layer QuantTensors with scales [e]."""
+    scales [L, e]) become per-layer QuantTensors with scales [e].
+    `layers` (lo, hi) converts only those layers (a pipeline stage's
+    slice of the stack)."""
 
     def tensor(a, cast=True):
         t = torch.from_numpy(np.array(a))  # a private, writable copy
@@ -460,7 +500,7 @@ def from_jax_numpy(params_np: dict, cfg: ModelConfig, dtype=None,
         "embed": conv(params_np["embed"]),
         "final_norm": conv(params_np["final_norm"]),
         "layers": [{name: conv(a, i) for name, a in stacked.items()}
-                   for i in range(cfg.num_layers)],
+                   for i in range(*(layers or (0, cfg.num_layers)))],
     }
     if "lm_head" in params_np:
         out["lm_head"] = conv(params_np["lm_head"])

@@ -9,8 +9,12 @@ row[p // page_size] * page_size + p % page_size. A pool may be a QuantKV
 (int8 payload, f32 [S, Hk] scales): the plain versions dequantize at
 the gather, in f32, and the dispatchers route it to the int8 kernels.
 
-The plain versions here define what the hand-written CUDA kernels
-(ops/cuda/) compute and are what those kernels are held against. They
+The chunk attentions of the bucketed and chunked prefill
+(paged_chunk_attention, its blockwise twin) and the dense causal
+attention are plain PyTorch by design, as their JAX counterparts are
+plain jnp outside any Pallas kernel. The other plain versions here
+define what the hand-written CUDA kernels (ops/cuda/) compute and are
+what those kernels are held against. They
 run on the CPU (tests) and in the card-side comparisons; the serving path
 on a card always goes through the kernels.
 """
@@ -179,6 +183,106 @@ def causal_attention(
     causal = pos[None, :] <= pos[:, None]  # [q, k]
     valid = pos[None, None, :] < seq_lens.to(q.device)[:, None, None]  # [B, 1, k]
     return _dense_attention(q, k, v, causal[None, None] & valid[:, None])
+
+
+def flat_slot_indices(
+    page_table: torch.Tensor,  # [B, max_pages] int32 page ids
+    positions: torch.Tensor,  # [B, L] int32 token positions within each seq
+    page_size: int,
+) -> torch.Tensor:
+    """Per-sequence token positions -> flat cache slot indices [B, L]. A
+    position past the table's last page (bucket padding beyond the
+    context cap) maps into the trash page 0."""
+    pos = positions.long()
+    idx = pos // page_size
+    MP = page_table.shape[1]
+    page = torch.gather(page_table.long(), 1, idx.clamp_max(MP - 1))
+    page = torch.where(idx < MP, page, 0)
+    return page * page_size + pos % page_size
+
+
+def paged_chunk_attention(
+    q: torch.Tensor,  # [B, C, H, hd] a chunk of new tokens per sequence
+    k_cache,  # [S, Hk, hd] flat slot pool for ONE layer (tensor or QuantKV)
+    v_cache,
+    page_table: torch.Tensor,  # [B, max_pages]
+    start: torch.Tensor,  # [B] global position of the chunk's first token
+    chunk_lens: torch.Tensor,  # [B] valid tokens in this chunk (<= C)
+    page_size: int,
+) -> torch.Tensor:
+    """Chunked-prefill attention over the whole padded context: the
+    chunk's K/V are already in the pool, so the query at global position
+    start + i attends to cache positions <= start + i that lie before
+    start + chunk_len. Decode attention is the case C == 1."""
+    B, C, H, hd = q.shape
+    L = page_table.shape[1] * page_size
+    positions = torch.arange(L, dtype=torch.int32, device=q.device).expand(B, L)
+    slots = flat_slot_indices(page_table, positions, page_size)  # [B, L]
+    k = kv_gather(k_cache, slots)  # [B, L, Hk, hd] (int8 pools dequantize)
+    v = kv_gather(v_cache, slots)
+    q_pos = start.long()[:, None] + torch.arange(C, device=q.device)[None, :]
+    causal = positions[:, None, :] <= q_pos[:, :, None]  # [B, C, L]
+    in_seq = positions[:, None, :] < (start + chunk_lens).long()[:, None, None]
+    return _dense_attention(q, k, v, (causal & in_seq)[:, None])
+
+
+def paged_chunk_attention_blockwise(
+    q: torch.Tensor,  # [B, C, H, hd] a chunk of new tokens per sequence
+    k_cache,  # [S, Hk, hd] flat slot pool for ONE layer (tensor or QuantKV)
+    v_cache,
+    page_table: torch.Tensor,  # [B, max_pages]
+    start: torch.Tensor,  # [B] global position of the chunk's first token
+    chunk_lens: torch.Tensor,  # [B] valid tokens in this chunk (<= C)
+    page_size: int,
+    block_pages: int = 8,
+) -> torch.Tensor:
+    """paged_chunk_attention without the padded context: the context is
+    walked in blocks of `block_pages` pages with an f32 online softmax,
+    and only as many blocks as the longest sequence needs (the trip count
+    depends on the data), so the reads scale with the real context. The
+    pages of a block are GATHERED at clipped page indices, never sliced: a
+    slice clamped at the table's end would relabel the last partial
+    block's positions, while a clipped gather keeps each position's label
+    and the in_seq mask rejects the clipped rows (their positions are >=
+    max_pages * page_size >= start + chunk_len)."""
+    B, C, H, hd = q.shape
+    max_pages = page_table.shape[1]
+    Hk = k_cache.shape[1]
+    n_rep = H // Hk
+    BLK = block_pages * page_size
+    n_blocks = -(-max_pages // block_pages)
+    end = (start + chunk_lens).long()  # [B]
+    needed = int((-(-end // BLK)).max()) if B else 0  # one host read
+    dev = q.device
+    qf = q.float() * (1.0 / math.sqrt(hd))
+    q_pos = start.long()[:, None] + torch.arange(C, device=dev)[None, :]  # [B, C]
+    m = torch.full((B, H, C), NEG_INF, dtype=torch.float32, device=dev)
+    l_sum = torch.zeros((B, H, C), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, C, hd), dtype=torch.float32, device=dev)
+    pt = page_table.long()
+    in_page = torch.arange(page_size, device=dev)
+    for i in range(min(needed, n_blocks)):
+        pidx = (i * block_pages + torch.arange(block_pages, device=dev)).clamp(
+            0, max_pages - 1)
+        pages = pt[:, pidx]  # [B, block_pages]
+        pos = i * BLK + torch.arange(BLK, device=dev)  # global positions
+        slots = (pages[:, :, None] * page_size + in_page).reshape(B, BLK)
+        k = kv_gather(k_cache, slots).float().repeat_interleave(n_rep, dim=2)
+        v = kv_gather(v_cache, slots).float().repeat_interleave(n_rep, dim=2)
+        logits = torch.einsum("bchd,blhd->bhcl", qf, k)  # [B, H, C, BLK]
+        causal = pos[None, None, None, :] <= q_pos[:, None, :, None]
+        in_seq = pos[None, None, None, :] < end[:, None, None, None]
+        logits = torch.where(causal & in_seq, logits, NEG_INF)
+        new_m = torch.maximum(m, logits.amax(dim=-1))
+        # Keep the exp arguments finite for rows that have seen nothing.
+        p = torch.exp(logits - new_m[..., None])
+        p = torch.where(logits <= NEG_INF / 2, 0.0, p)
+        corr = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - new_m))
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhcl,blhd->bhcd", p, v)
+        m = new_m
+    out = acc / l_sum.clamp_min(1e-30)[..., None]  # [B, H, C, hd]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
 def bidirectional_attention(

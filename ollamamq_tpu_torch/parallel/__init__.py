@@ -1,13 +1,18 @@
 from ollamamq_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT,
                                               AXIS_PIPE, AXIS_SEQ,
-                                              AXIS_TENSOR, RankMesh,
-                                              TensorGroup, make_mesh)
+                                              AXIS_TENSOR, PipeGroup,
+                                              RankMesh, TensorGroup,
+                                              make_mesh)
 from ollamamq_tpu_torch.parallel.sharding import (kv_cache_spec,
+                                                  kv_pipe_spec,
                                                   param_partition_specs,
-                                                  shard_params)
+                                                  pipeline_param_specs,
+                                                  shard_params,
+                                                  stage_layers)
 
 __all__ = [
-    "make_mesh", "RankMesh", "TensorGroup", "AXIS_DATA", "AXIS_EXPERT",
-    "AXIS_PIPE", "AXIS_SEQ", "AXIS_TENSOR", "param_partition_specs",
-    "kv_cache_spec", "shard_params",
+    "make_mesh", "RankMesh", "TensorGroup", "PipeGroup", "AXIS_DATA",
+    "AXIS_EXPERT", "AXIS_PIPE", "AXIS_SEQ", "AXIS_TENSOR",
+    "param_partition_specs", "pipeline_param_specs", "kv_cache_spec",
+    "kv_pipe_spec", "shard_params", "stage_layers",
 ]

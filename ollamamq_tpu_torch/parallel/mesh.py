@@ -7,20 +7,27 @@ process (torch.distributed), the mesh is a grid of ranks with the same
 five axes in the same order,
 
   - "data":   replicas (not ported yet)
-  - "pipe":   pipeline stages (not ported yet)
+  - "pipe":   pipeline stages: each stage holds a contiguous slice of
+              the layers and their KV pages and hands its activations to
+              the next stage point to point (PipeGroup,
+              parallel/pipeline.py)
   - "seq":    sequence shards (not ported yet)
   - "expert": expert shards (not ported yet)
-  - "tensor": tensor parallelism within a replica: attention heads, FFN
+  - "tensor": tensor parallelism within a stage: attention heads, FFN
               hidden dims and the vocabulary sharded; the forwards call
               the collectives themselves (TensorGroup)
 
-and the tensor axis carries a process group. Several ranks may share one
-device (two ranks on one card over gloo); `n_devices` counts the distinct
-devices, which is what MFU divides by.
+Ranks are numbered in that order (the tensor index varies fastest). The
+tensor axis carries one process group per stage and the pipe axis one
+per pipeline (the ranks sharing every other coordinate); every rank
+creates every group, in the same order, as torch.distributed requires.
+Several ranks may share one device (two ranks on one card over gloo);
+`n_devices` counts the distinct devices, which is what MFU divides by.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -81,14 +88,118 @@ class TensorGroup:
         return self.all_reduce(full)
 
 
+class PipeGroup:
+    """The pipe axis as a stage sees it: this rank's stage, the stage
+    count, the global rank of every stage of its pipeline and their
+    process group. Hand-offs are point to point: a stage sends its
+    activations to a later stage and receives from an earlier one, in
+    the same order on both sides.
+
+    A CUDA tensor crosses a gloo group through pinned host buffers,
+    staged here explicitly (gloo moves host memory); an NCCL group sends
+    device memory directly. Sends are asynchronous and `flush` waits for
+    them (the end of each forward), so a send buffer is reused only
+    after its send completed. `stats` sums, in seconds: the hand-offs'
+    host staging copies (staging_s), posting and completing sends
+    (send_s), receives (recv_s: this includes the wait for the sending
+    stage's compute, the pipeline's bubble as this stage sees it) and
+    the wall time of whole forwards (forward_s, parallel/pipeline.py)."""
+
+    def __init__(self, size: int, stage: int, ranks: Sequence[int],
+                 group=None, backend: Optional[str] = None):
+        self.size = size
+        self.stage = stage
+        self.ranks = [int(r) for r in ranks]
+        self.group = group
+        self.backend = backend
+        self._bufs: dict = {}
+        self._pending: list = []
+        self._n = 0  # hand-offs since the last flush: a buffer each
+        self.stats = {"forwards": 0, "forward_s": 0.0, "sends": 0,
+                      "recvs": 0, "send_s": 0.0, "recv_s": 0.0,
+                      "staging_s": 0.0, "bytes": 0}
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.size - 1
+
+    def _staged(self, device: torch.device) -> bool:
+        return device.type == "cuda" and self.backend != "nccl"
+
+    def _host(self, key, shape, dtype) -> torch.Tensor:
+        buf = self._bufs.get(key)
+        if buf is None or buf.shape != shape or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype,
+                              pin_memory=torch.cuda.is_available())
+            self._bufs[key] = buf
+        return buf
+
+    def send(self, x: torch.Tensor, stage: int) -> None:
+        """Post x to `stage` (asynchronous; flush() completes it)."""
+        import torch.distributed as dist
+
+        payload = x.contiguous()
+        if self._staged(x.device):
+            # The copy would wait for the stage's compute anyway; waiting
+            # first keeps that wait out of the staging time.
+            torch.cuda.current_stream(x.device).synchronize()
+            t1 = time.perf_counter()
+            buf = self._host(("send", self._n), x.shape, x.dtype)
+            buf.copy_(payload)
+            self.stats["staging_s"] += time.perf_counter() - t1
+            payload = buf
+        t0 = time.perf_counter()
+        self._n += 1
+        self._pending.append((dist.isend(payload, dst=self.ranks[stage],
+                                         group=self.group), payload))
+        self.stats["sends"] += 1
+        self.stats["bytes"] += payload.numel() * payload.element_size()
+        self.stats["send_s"] += time.perf_counter() - t0
+
+    def recv(self, shape, dtype, stage: int, device) -> torch.Tensor:
+        """Receive the next tensor `stage` sent to this one (blocks)."""
+        import torch.distributed as dist
+
+        device = torch.device(device)
+        t0 = time.perf_counter()
+        if self._staged(device):
+            buf = self._host(("recv", self._n), tuple(shape), dtype)
+            dist.recv(buf, src=self.ranks[stage], group=self.group)
+            t1 = time.perf_counter()
+            self.stats["recv_s"] += t1 - t0
+            out = buf.to(device)
+            self.stats["staging_s"] += time.perf_counter() - t1
+        else:
+            out = torch.empty(shape, dtype=dtype, device=device)
+            dist.recv(out, src=self.ranks[stage], group=self.group)
+            self.stats["recv_s"] += time.perf_counter() - t0
+        self._n += 1
+        self.stats["recvs"] += 1
+        return out
+
+    def flush(self) -> None:
+        """Wait for every posted send (their buffers are then free)."""
+        t0 = time.perf_counter()
+        pending, self._pending = self._pending, []
+        for work, _ in pending:
+            work.wait()
+        self._n = 0
+        self.stats["send_s"] += time.perf_counter() - t0
+
+
 class RankMesh:
     """A (data, pipe, seq, expert, tensor) grid of ranks. `rank` is this
     process's place in it and `devices[r]` rank r's device; `tensor` is
-    the TensorGroup the forwards take (None at tp 1)."""
+    the TensorGroup the forwards take (None at tp 1) and `pipe` the
+    PipeGroup of this rank's pipeline (None at pp 1)."""
 
     def __init__(self, shape: dict, rank: int, devices: Sequence,
                  group=None, backend: Optional[str] = None,
-                 labels: Optional[Sequence[str]] = None):
+                 labels: Optional[Sequence[str]] = None, pipe_group=None):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.axis_names = AXES
         self.rank = rank
@@ -99,8 +210,16 @@ class RankMesh:
         # "host|device" per rank: devices of different hosts are distinct.
         self.labels = list(labels) if labels is not None else [
             str(d) for d in self.devices]
-        tp = self.shape[AXIS_TENSOR]
-        self.tensor = TensorGroup(tp, rank % tp, group) if tp > 1 else None
+        coord = dict(zip(AXES, (int(i) for i in
+                                np.argwhere(self.ranks == rank)[0])))
+        self.coord = coord
+        tp, pp = self.shape[AXIS_TENSOR], self.shape[AXIS_PIPE]
+        self.tensor = (TensorGroup(tp, coord[AXIS_TENSOR], group)
+                       if tp > 1 else None)
+        line = self.ranks[coord[AXIS_DATA], :, coord[AXIS_SEQ],
+                          coord[AXIS_EXPERT], coord[AXIS_TENSOR]]
+        self.pipe = (PipeGroup(pp, coord[AXIS_PIPE], line.tolist(),
+                               pipe_group, backend) if pp > 1 else None)
 
     @property
     def size(self) -> int:
@@ -109,6 +228,10 @@ class RankMesh:
     @property
     def tp(self) -> int:
         return self.shape[AXIS_TENSOR]
+
+    @property
+    def pp(self) -> int:
+        return self.shape[AXIS_PIPE]
 
     @property
     def device(self) -> torch.device:
@@ -132,19 +255,22 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     `tp=-1` means "all ranks not consumed by dp*pp*sp*ep". The ranks are
     the torch.distributed world when one is up (`devices` then lists
     each rank's device, default the one distributed.initialize gave this
-    process for every rank), else `devices` (default one CPU rank). The
-    tensor axis' process group is the world's. An axis other than
-    "tensor" larger than 1 is not ported yet."""
+    process for every rank), else `devices` (default one CPU rank). At
+    pp 1 the tensor axis' process group is the world's; at pp > 1 every
+    rank creates the tensor group of every stage and the pipe group of
+    every pipeline, in that order. The data, seq and expert axes larger
+    than 1 are not ported yet."""
     import torch.distributed as dist
 
     from ollamamq_tpu_torch.parallel import distributed
 
-    for axis, n in ((AXIS_DATA, dp), (AXIS_PIPE, pp), (AXIS_SEQ, sp),
-                    (AXIS_EXPERT, ep)):
+    for axis, n in ((AXIS_DATA, dp), (AXIS_SEQ, sp), (AXIS_EXPERT, ep)):
         if n != 1:
             raise NotImplementedError(
-                f"mesh axis {axis!r} = {n}: only the tensor axis is ported "
-                "yet (data, pipe, seq and expert parallelism are not)")
+                f"mesh axis {axis!r} = {n}: only the tensor and pipe axes "
+                "are ported yet (data, seq and expert parallelism are not)")
+    if pp < 1:
+        raise ValueError(f"pp must be >= 1, got {pp}")
     up = dist.is_available() and dist.is_initialized()
     n = dist.get_world_size() if up else len(devices or ["cpu"])
     labels = ([distributed.device_label(r) for r in range(n)]
@@ -155,13 +281,26 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     if len(devices) != n:
         raise ValueError(f"{len(devices)} devices for a world of {n} ranks")
     if tp == -1:
-        tp = n
-    if tp != n:
-        raise ValueError(f"dp*pp*sp*ep*tp={tp} over {n} ranks: the mesh must "
-                         "span every rank of the world")
+        tp = n // pp if n % pp == 0 else -1
+    if tp * pp != n:
+        raise ValueError(f"dp*pp*sp*ep*tp={tp * pp} over {n} ranks: the mesh "
+                         "must span every rank of the world")
     if rank is None:
         rank = dist.get_rank() if up else 0
-    return RankMesh({AXIS_TENSOR: tp}, rank, devices,
+    shape = {AXIS_PIPE: pp, AXIS_TENSOR: tp}
+    group = pipe_group = None
+    if up and pp > 1:
+        grid = np.arange(n).reshape(pp, tp)
+        for s in range(pp):  # every rank creates every group, in order
+            g = dist.new_group(grid[s].tolist()) if tp > 1 else None
+            if rank in grid[s]:
+                group = g
+        for t in range(tp):
+            g = dist.new_group(grid[:, t].tolist())
+            if rank in grid[:, t]:
+                pipe_group = g
+    return RankMesh(shape, rank, devices,
+                    group=group, pipe_group=pipe_group,
                     backend=dist.get_backend() if up else None,
                     labels=labels)
 

@@ -18,6 +18,13 @@ dims are named from the right:
   - KV pool [L, S, kv_heads, hd] and its int8 scale rows [L, S, kv_heads]
                                        -> kv_heads
 
+Under pipeline parallelism the list of layers, and the KV pool's layer
+dim, are cut over the pipe axis as well: stage s of P holds layers
+[s L/P, (s + 1) L/P) (stage_layers). As in the JAX package, the
+embedding, the final norm and the head are not cut over pipe: every
+stage holds them (stage 0 embeds, every stage computes the logits from
+the last stage's hidden states).
+
 A QuantTensor's scales follow the channel they scale: cut with
 column-parallel payloads and with vocab rows, replicated for the
 row-parallel wo / w_down (their output channel is not cut). Weights are
@@ -27,7 +34,7 @@ whole tensor's channels.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -110,3 +117,30 @@ def kv_scale_spec() -> int:
     """Quantized-pool scale rows [L, S, kv_heads]: the payload's layout
     minus head_dim, so each rank owns its own heads' scales."""
     return 2
+
+
+# Params keys whose leaves are cut over the pipe axis (the per-layer
+# dicts); every other leaf is held whole by every stage.
+PIPE_CUT = ("layers",)
+
+
+def stage_layers(num_layers: int, pp: int, stage: int) -> Tuple[int, int]:
+    """[lo, hi) of the layers pipeline stage `stage` of `pp` holds (pp
+    must divide num_layers, as the runtime checks)."""
+    per = num_layers // pp
+    return stage * per, (stage + 1) * per
+
+
+def pipeline_param_specs(params: dict) -> dict:
+    """The PP(xTP) layout of a params dict: each leaf's tensor-axis spec
+    (param_partition_specs) and, under "pipe", the keys whose leaves are
+    cut over the pipe axis on their layer index."""
+    specs = param_partition_specs(params)
+    specs["pipe"] = PIPE_CUT
+    return specs
+
+
+def kv_pipe_spec() -> int:
+    """KV slot pool [L, S, kv_heads, hd] under pipeline parallelism: the
+    layer dim on the pipe axis (kv_heads stays on tensor)."""
+    return 0

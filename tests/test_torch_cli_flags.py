@@ -201,6 +201,49 @@ def test_tp_flags_exit_2(argv, message, caplog):
     assert message in caplog.text
 
 
+@pytest.mark.parametrize("argv,message", [
+    (["--pp", "4", "--device", "cpu"], "pp=4 must divide num_layers=2 (test-tiny)"),
+    (["--pp", "2", "--device", "cpu", "--model", "test-tiny-moe"],
+     "pp with an MoE model is not supported"),
+    (["--pp", "0", "--device", "cpu"], "--pp must be >= 1"),
+    (["--pp", "2"], "cuda:1"),
+    (["--pp", "2", "--tp", "2", "--device", "cpu", "--model", "test-tiny-gqa",
+      "--pp-microbatches", "-1"], "--pp-microbatches must be >= 0"),
+    (["--pp", "2", "--replicas", "2", "--device", "cpu"],
+     "pipeline parallelism is not ported yet"),
+    (["--pp", "2", "--autoscale", "--device", "cpu"],
+     "pipeline parallelism is not ported yet"),
+    (["--pp", "2", "--replica-urls", "http://127.0.0.1:1", "--device", "cpu"],
+     "pipeline parallelism is not ported yet"),
+    (["--pp", "2", "--kv-dtype", "int8", "--device", "cpu"],
+     "--kv-dtype=int8 needs the ragged attention path"),
+], ids=["layers", "moe", "zero", "missing-device", "microbatches", "fleet",
+        "autoscale", "replica-urls", "int8-kv"])
+def test_pp_flags_exit_2(argv, message, caplog):
+    """--pp's refusals exit 2 before any device work: a pp that does not
+    divide a model's layers, pp with a mixture-of-experts model, a local
+    world whose devices the host lacks (tp x pp ranks, one per device;
+    named, no fallback), pp with a fleet (members stay one rank wide),
+    and int8 KV with pp (the JAX package's message)."""
+    if argv == ["--pp", "2"] and torch.cuda.device_count() >= 2:
+        argv = ["--pp", "32", "--model", "llama3:8b"]
+        message = "cuda:31"
+    assert main(argv + ["--no-tui", "--model", "test-tiny"]
+                if "--model" not in argv else argv + ["--no-tui"]) == 2
+    assert message in caplog.text
+
+
+def test_pp_flags_reach_the_engine_config():
+    """--pp and --pp-microbatches land in EngineConfig (0 microbatches:
+    None, one per stage), with the JAX CLI's defaults."""
+    from ollamamq_tpu_torch.cli import build_parser, engine_config
+
+    d = engine_config(build_parser().parse_args([]))
+    assert (d.pp, d.pp_microbatches) == (1, None)
+    e = engine_config(build_parser().parse_args(["--pp", "2", "--pp-microbatches", "4"]))
+    assert (e.pp, e.pp_microbatches) == (2, 4)
+
+
 def _alive(pid: int) -> bool:
     try:
         with open(f"/proc/{pid}/stat") as f:

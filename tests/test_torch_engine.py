@@ -171,3 +171,133 @@ def test_seeded_sampling_is_reproducible_across_batches():
     alone = run(0)
     assert run(2) == alone
     assert run(3) == alone
+
+
+# ------------------------------------------- the bucketed path (pp > 1)
+def _drive_bucketed(rt, core, make_req, prompts, max_ticks=400):
+    """The pipeline path's tick (TorchEngine._loop_once with ragged off):
+    up to two bucketed prefills, one chunk, then one decode step."""
+    reqs = []
+    for i, p in enumerate(prompts):
+        req = make_req(next(_IDS), f"u{i % 3}", list(p))
+        req._inc_decode = rt.tokenizer.make_incremental_decoder()
+        rt.pending_prefill.append(req)
+        reqs.append(req)
+    kinds = []
+    for _ in range(max_ticks):
+        if all(r.stats.finished_at for r in reqs):
+            break
+        budget = 2
+        while budget and rt.pending_prefill and rt.step_prefill(core):
+            budget -= 1
+            kinds.append("prefill")
+        if rt.step_chunk(core):
+            kinds.append("chunk")
+        if any(r is not None for r in rt.slot_req):
+            rt.step_decode(core, k_steps=1)
+            kinds.append("decode")
+    assert all(r.stats.finished_at for r in reqs), "requests wedged"
+    return [list(r.generated_ids) for r in reqs], kinds
+
+
+@pytest.mark.parametrize("repeat_penalty", [1.0, 1.1],
+                         ids=["greedy", "repeat-penalty"])
+def test_bucketed_path_matches_jax_runtime(repeat_penalty):
+    """The non-ragged path a pp > 1 runtime serves, at pp 1 on both
+    sides (ragged off, as tests/test_correctness_edges.py drives the JAX
+    loop's branch): batched same-bucket prefills padded to
+    MAX_PREFILL_BATCH, prompts past the largest bucket (47, 49 > 32) in
+    chunks, the penalty ring opened by each. Greedy streams and the
+    sequence of steps are identical to the JAX runtime's."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(3, 500, size=n).tolist() for n in PROMPT_LENS]
+    jrt = JaxRuntime("test-tiny", JAX_CONFIGS["test-tiny"],
+                     JaxEngineConfig(prefill_buckets=(16, 32), **SETTINGS),
+                     dtype=jnp.float32)
+    jrt.tokenizer.eos_id = -1
+    jrt.ragged = False
+    pnp = jax.tree_util.tree_map(np.asarray, jrt.params)
+    trt = ModelRuntime("test-tiny", MODEL_CONFIGS["test-tiny"],
+                       EngineConfig(prefill_buckets=(16, 32), **SETTINGS),
+                       device="cpu", dtype=torch.float32,
+                       params=from_jax_numpy(pnp, MODEL_CONFIGS["test-tiny"]))
+    trt.tokenizer.eos_id = -1
+    trt.ragged = False
+
+    def jreq(rid, user, p):
+        return JaxRequest(rid, user, "test-tiny", p, JaxSampling(
+            max_tokens=MAX_TOKENS, repeat_penalty=repeat_penalty))
+
+    def treq(rid, user, p):
+        return Request(rid, user, "test-tiny", p, SamplingParams(
+            max_tokens=MAX_TOKENS, repeat_penalty=repeat_penalty))
+
+    want, jkinds = _drive_bucketed(jrt, JaxMQCore(None), jreq, prompts)
+    got, tkinds = _drive_bucketed(trt, MQCore(None), treq, prompts)
+    assert got == want
+    assert tkinds == jkinds
+    assert {"prefill", "chunk", "decode"} <= set(tkinds)
+    # A step_prefill that hands a long prompt to the chunks runs no
+    # forward: 2 of the steps did (47 and 49 tokens).
+    assert trt.prefill_dispatches == tkinds.count("prefill") - 2
+    assert trt.chunk_dispatches == tkinds.count("chunk")
+    assert trt.ragged_dispatches == 0
+    assert trt.alloc.used_pages == 0
+
+
+def test_prefill_drain_bounded_per_tick():
+    """The mirror of tests/test_correctness_edges.py's: an arrival storm
+    must not starve decode, so _loop_once admits at most
+    prefill_batches_per_tick bucketed prefills (the pipeline path's loop
+    branch, driven here with ragged off) before dispatching decode."""
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+
+    eng = TorchEngine(
+        EngineConfig(model="test-tiny", max_slots=2, num_pages=32,
+                     page_size=8, max_pages_per_seq=8, prefill_buckets=(16,),
+                     decode_steps_per_iter=2, prefill_batches_per_tick=2,
+                     dtype="float32"),
+        device="cpu", blocklist_path=None)
+    rt = eng.runtimes["test-tiny"]
+    rt.ragged = False
+    calls = []
+    rt.step_prefill = lambda core: (calls.append(1), True)[1]
+    rt.pending_prefill.append(
+        Request(1, "edgeF", "test-tiny", [1, 2], SamplingParams(max_tokens=2)))
+    eng._loop_once()
+    assert len(calls) == 2
+    calls.clear()
+    eng.ecfg.prefill_batches_per_tick = 1
+    eng._loop_once()
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("case", ["layers", "moe", "sp"])
+def test_pp_runtime_refusals(case, monkeypatch):
+    """A pp that does not divide the layers, pp with a mixture-of-experts
+    model, and pp with sp are refused at build, before any weight is
+    drawn, in the JAX runtime's words (ollamamq_tpu/engine/engine.py)."""
+    from ollamamq_tpu_torch.models import weights
+    from ollamamq_tpu_torch.parallel.mesh import RankMesh
+
+    def no_weights(*a, **k):
+        raise AssertionError("weights were drawn for an invalid layout")
+
+    monkeypatch.setattr(weights, "load_params", no_weights)
+    name, shape = {"layers": ("test-tiny", {"pipe": 4}),
+                   "moe": ("test-tiny-moe", {"pipe": 2}),
+                   "sp": ("test-tiny", {"pipe": 2, "seq": 2})}[case]
+    n = 1
+    for v in shape.values():
+        n *= v
+    mesh = RankMesh(shape, 0, ["cpu"] * n)
+    want = {"layers": "pp=4 must divide num_layers=2 (test-tiny)",
+            "moe": ("pp with an MoE model is not supported: the pipeline "
+                    "stage body runs the dense FFN (use ep x tp for MoE)"),
+            "sp": ("pp and sp cannot combine on one runtime: pipeline "
+                   "stages and sequence shards contend for the same "
+                   "activation layout (use pp x tp, or sp x tp)")}[case]
+    with pytest.raises(ValueError) as exc:
+        ModelRuntime(name, MODEL_CONFIGS[name],
+                     EngineConfig(model=name, num_pages=8, page_size=8), mesh=mesh)
+    assert str(exc.value) == want

@@ -18,7 +18,8 @@ the mixture-of-experts model test-tiny-moe (a chat stream and an embed,
 then SIGTERM; int8 weights for Mixtral exit 2), tensor parallelism over
 two ranks (`--tp 2 --device cpu`: the leader and the worker rank it
 starts both run with the block, installed by a sitecustomize the worker
-inherits), and refusing what the fleet's layers still lack.
+inherits), pipeline parallelism over two stages (`--pp 2 --device
+cpu`, the same way), and refusing what the fleet's layers still lack.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -533,10 +534,11 @@ def test_cli_serves_ha_primary_and_standby_without_jax(tmp_path):
     assert "why=handover" in texts["s"]
 
 
-def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):
-    """`--tp 2 --device cpu` serves a stream with JAX and the JAX package
-    blocked in BOTH ranks: the block is a sitecustomize on PYTHONPATH,
-    so the worker rank the CLI starts inherits it. SIGTERM exits 0."""
+def _serve_ranks_without_jax(tmp_path, flags):
+    """The CLI with `flags` (a multi-rank world on the CPU) serving one
+    greedy stream with JAX and the JAX package blocked in EVERY rank:
+    the block is a sitecustomize on PYTHONPATH, so the worker ranks the
+    CLI starts inherit it. SIGTERM exits 0. Returns the log."""
     site = tmp_path / "site"
     site.mkdir()
     blocker = SCRIPT.split("import importlib")[0]
@@ -551,7 +553,7 @@ def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):
     log = open(tmp_path / "cli.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", "test-tiny",
-         "--device", "cpu", "--tp", "2", "--port", str(port), "--no-tui",
+         "--device", "cpu", *flags, "--port", str(port), "--no-tui",
          "--max-slots", "2", "--num-pages", "32", "--page-size", "8",
          "--max-pages-per-seq", "8", "--blocklist", str(tmp_path / "b.json")],
         cwd=str(tmp_path), env=env, stdout=log, stderr=subprocess.STDOUT)
@@ -582,5 +584,21 @@ def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):
         log.close()
     text = (tmp_path / "cli.log").read_text()
     assert "blocked:" not in text and "graceful shutdown complete" in text
-    assert "tensor-parallel worker rank 1 starting" in text
     assert "import jax" not in text
+    return text
+
+
+def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):
+    """`--tp 2 --device cpu` serves a stream with JAX and the JAX package
+    blocked in BOTH ranks. SIGTERM exits 0."""
+    text = _serve_ranks_without_jax(tmp_path, ["--tp", "2"])
+    assert "tensor-parallel worker rank 1 starting" in text
+
+
+def test_cli_pp2_stages_run_without_jax(tmp_path):
+    """`--pp 2 --device cpu` serves a stream through both pipeline stages
+    (the bucketed prefill and the pipelined decode) with JAX and the JAX
+    package blocked in both ranks. SIGTERM exits 0."""
+    text = _serve_ranks_without_jax(tmp_path, ["--pp", "2"])
+    assert "pipeline-parallel worker rank 1 starting" in text
+    assert "pp=2 serves the bucketed prefill path" in text

@@ -270,3 +270,45 @@ def test_quant_guardrail_real_shaped():
     assert out["steps"] == 16
     assert out["token_match_rate"] >= 0.85, out
     assert out["rel_logit_err"] <= 0.5, out
+
+
+@pytest.mark.parametrize("where", ["validate", "cli", "runtime"])
+def test_int8_kv_refused_with_pp(monkeypatch, where):
+    """The mirror of test_validate_quant_config_combinations' pp / sp
+    cases and of test_cli_fails_fast_on_invalid_combinations: int8 KV is
+    refused with pp > 1 (and with sp > 1) in the JAX package's words, by
+    the validator, the CLI (exit 2) and ModelRuntime before any weight is
+    drawn; int8 weights with pp are accepted."""
+    from ollamamq_tpu_torch.engine import engine as eng
+    from ollamamq_tpu_torch.parallel.mesh import RankMesh
+
+    if where == "validate":
+        for w, kv, pp, sp in (("bfloat16", "int8", 2, 1), ("bfloat16", "int8", 1, 2),
+                              ("int8", "bfloat16", 2, 1), ("int8", "int8", 1, 1),
+                              ("int8", "int8", 4, 1)):
+            assert (validate_quant_config(w, kv, pp=pp, sp=sp)
+                    == jax_validate(w, kv, pp=pp, sp=sp)), (w, kv, pp, sp)
+        assert "pp" in validate_quant_config("bfloat16", "int8", pp=2)
+        assert "sequence-parallel" in validate_quant_config("bfloat16", "int8", sp=2)
+        assert validate_quant_config("int8", "bfloat16", pp=2) is None
+    elif where == "cli":
+        def no_engine(*a, **k):
+            raise AssertionError("an engine was built for an invalid flag")
+
+        monkeypatch.setattr(eng, "TorchEngine", no_engine)
+        argv = ["--no-tui", "--device", "cpu", "--models", "test-tiny",
+                "--kv-dtype", "int8", "--pp", "2"]
+        assert cli.validate(cli.build_parser().parse_args(argv)) == jax_validate(
+            "bfloat16", "int8", pp=2)
+        assert cli.main(argv) == 2
+    else:
+        def no_weights(*a, **k):
+            raise AssertionError("weights were drawn for an invalid flag")
+
+        monkeypatch.setattr(weights, "load_params", no_weights)
+        mesh = RankMesh({"pipe": 2}, 0, ["cpu", "cpu"])
+        with pytest.raises(ValueError) as exc:
+            ModelRuntime("test-tiny", MODEL_CONFIGS["test-tiny"],
+                         EngineConfig(num_pages=8, page_size=8, kv_dtype="int8"),
+                         mesh=mesh)
+        assert str(exc.value) == jax_validate("bfloat16", "int8", pp=2)

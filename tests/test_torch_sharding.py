@@ -314,11 +314,21 @@ def test_mesh_shapes():
     shared = RankMesh({"tensor": 2}, 0, ["cuda:0", "cuda:0"])
     assert shared.n_devices == 1  # two ranks on one card: one card's peak
     for axis, kw in (("data", {"dp": 2}), ("seq", {"sp": 2}),
-                     ("pipe", {"pp": 2}), ("expert", {"ep": 2})):
+                     ("expert", {"ep": 2})):
         with pytest.raises(NotImplementedError, match=f"'{axis}'"):
             make_mesh(devices=["cpu"] * 4, **kw)
     with pytest.raises(ValueError, match="span every rank"):
         make_mesh(tp=2, devices=["cpu"] * 4)
+    # The pipe axis: ranks in (data, pipe, seq, expert, tensor) order,
+    # tp=-1 filling what pp leaves; rank 3 is stage 1's tensor rank 1.
+    pp = make_mesh(pp=2, devices=["cpu"] * 4, rank=3)
+    assert pp.ranks.shape == (1, 2, 1, 1, 2) and pp.tp == 2 and pp.pp == 2
+    assert pp.pipe.stage == 1 and pp.pipe.ranks == [1, 3] and pp.pipe.last
+    assert pp.tensor.rank == 1 and pp.n_devices == 1
+    assert make_mesh(pp=2, devices=["cpu"] * 2).tensor is None
+    assert make_mesh().pipe is None
+    with pytest.raises(ValueError, match="span every rank"):
+        make_mesh(pp=3, devices=["cpu"] * 4)
 
 
 def _tensor_dim(spec, ndim, stacked):
@@ -417,6 +427,30 @@ def test_rank_slices_match_jax_shards(model, int8, tp):
         for i, lp in enumerate(mine["layers"]):
             for name, t in lp.items():
                 same(t, sharded["layers"][name], r, layer=i)
+
+
+@pytest.mark.parametrize("model", ["test-tiny", "test-tiny-qwen3"])
+def test_pipeline_specs_match_jax(model):
+    """The PP(xTP) layout against the JAX package's pipeline_param_specs
+    and kv_cache_spec(pp=True): exactly the layer leaves are cut over
+    pipe (on their layer index), every leaf keeps its tensor-axis spec,
+    and the pool's layer dim is on pipe with kv_heads on tensor."""
+    from ollamamq_tpu.parallel.sharding import pipeline_param_specs as jax_pp_specs
+    from ollamamq_tpu_torch.parallel import kv_pipe_spec, pipeline_param_specs
+
+    jparams = jax.tree_util.tree_map(jnp.asarray, _np_params(model))
+    jspecs = jax_pp_specs(jparams)
+    tspecs = pipeline_param_specs(from_jax_numpy(_np_params(model), MODEL_CONFIGS[model]))
+    cut = {k for k, v in jspecs.items()
+           if any("pipe" in tuple(sp) for sp in jax.tree_util.tree_leaves(
+               v, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))}
+    assert set(tspecs["pipe"]) == cut == {"layers"}
+    for name, sp in jspecs["layers"].items():
+        assert tuple(sp)[0] == "pipe"
+    assert tspecs["layers"] == param_partition_specs(
+        from_jax_numpy(_np_params(model), MODEL_CONFIGS[model]))["layers"]
+    assert kv_pipe_spec() == list(jax_kv_spec(pp=True)).index("pipe")
+    assert kv_cache_spec() == list(jax_kv_spec(pp=True)).index("tensor")
 
 
 def test_validate_tp_for_model():
