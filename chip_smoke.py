@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about ten minutes
+    python3 chip_smoke.py            # one card, about twelve minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
+    python3 chip_smoke.py --only serve-dp  # the build and one phase (a
+                                           # partial run: no ok line)
 
 Phases, each printing JSON lines; any failure exits non-zero:
 
@@ -382,10 +384,43 @@ Phases, each printing JSON lines; any failure exits non-zero:
            the reference's message. Rank logs go to
            chiprun_out/chip_smoke/serve_pp_*.log.
 
+  serve-dp data parallelism: llama3.2:1b at full width and depth
+           (seeded), 8 slots and 136 pages of 32 a replica, 16 pages a
+           sequence, token budget 512, k_steps 8. In one process, two
+           replicas on cuda:0 (an in-process mesh, dp 2) and, in the same
+           phase, one replica: serve's traffic doubled, 8 greedy
+           /api/generate requests of 48 tokens from 5 users at once,
+           after one warm-up. Gates (bf16, dp 2): every reply stop or
+           length; each replica's kernel launches (the counters' deltas
+           around its own dispatches) exactly 16 ragged per ragged
+           dispatch and 16 decode per decode step, both > 0, no int8, and
+           the replicas' launches sum to the window's; every placement
+           the least-loaded eligible replica, ties rotating after the
+           last pick, and both replicas placed on; the set's param_bytes
+           and kv_bytes exactly twice one replica's and twice the dp-1
+           engine's; a tick with both replicas decoding, and in every
+           tick both decode dispatches before the first collect. float32
+           (TF32 off): two prompts queued before the loop starts, one a
+           replica, give each prompt's ids served alone by one replica;
+           the decision journals hold no invariant violation (each slot
+           record names its replica).
+           Records tokens/s at dp 2 against dp 1 (not gated: both
+           replicas share one card and one host thread). Then dp 2 x tp
+           2 over four ranks (processes of this script, --tp-rank)
+           sharing the card over gloo, float32: the two prompts, one a
+           replica, give the one-replica ids; every rank launched both
+           f32 kernels (each worker posts its counts after a replay);
+           then 4 streams of 96 tokens, 2 a replica, and kill -9 of rank
+           3 (replica 1) once each holds 16 tokens: replica 1's requests
+           error within 18 s, replica 0's finish, only replica 1 is
+           failed, worker_stale fires. Rank logs go to
+           chiprun_out/chip_smoke/serve_dp_*.log.
+
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
 serve-fleet's, serve-tiers', serve-autoscale's, serve-ha's,
-serve-tp's and serve-pp's (every rank of each window), counted in
+serve-tp's, serve-pp's and serve-dp's (every rank of each window),
+counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
 ms go uncounted; the others' whole windows from the counts they log at
@@ -4311,6 +4346,7 @@ def _tp_ecfg(spec):
 
     return EngineConfig(model=spec["model"], max_slots=8, num_pages=136,
                         page_size=32, max_pages_per_seq=spec.get("mp", 16),
+                        dp=spec.get("dp", 1),
                         max_batch_tokens=512, token_granule=16,
                         prefill_buckets=PP_BUCKETS,
                         max_new_tokens=spec.get("new", TP_NEW),
@@ -4662,8 +4698,9 @@ TP_WINDOWS = {"bf16": _tp_leader_bf16, "f32": _tp_leader_f32,
 
 
 def _world(spec) -> int:
-    """Ranks of a serve-tp / serve-pp window: tp per stage x pp stages."""
-    return spec.get("tp", 2) * spec.get("pp", 1)
+    """Ranks of a serve-tp / serve-pp / serve-dp window: tp per stage x pp
+    stages x dp replicas."""
+    return spec.get("dp", 1) * spec.get("tp", 2) * spec.get("pp", 1)
 
 
 def tp_rank_main(args) -> int:
@@ -4696,12 +4733,26 @@ def tp_rank_main(args) -> int:
                                backend="gloo", devices=[device] * world,
                                timeout_s=120)
         distributed.store().set(f"chip_smoke/pid/{rank}", str(os.getpid()))
-        mesh = make_mesh(tp=spec.get("tp", 2), pp=spec.get("pp", 1))
+        mesh = make_mesh(dp=spec.get("dp", 1), tp=spec.get("tp", 2),
+                         pp=spec.get("pp", 1))
+        if rank != 0 and spec.get("dp", 1) > 1:
+            # serve-dp reads every rank's launches before its kill -9.
+            from ollamamq_tpu_torch.ops.cuda import launch_counts
+
+            replay = spmd._replay
+
+            def posted(*a, **kw):
+                out = replay(*a, **kw)
+                distributed.store().set(f"chip_smoke/launches/{rank}",
+                                        json.dumps(launch_counts()))
+                return out
+
+            spmd._replay = posted
         if rank != 0:
             steps = spmd.run_worker({spec["model"]: None}, _tp_ecfg(spec), mesh)
             print("TP-RESULT " + json.dumps({"rank": rank, "steps": steps}), flush=True)
         else:
-            out = {**TP_WINDOWS, **PP_WINDOWS}[args.tp_window](
+            out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS}[args.tp_window](
                 spec, mesh, spec.get("profile", False))
             print("TP-RESULT " + json.dumps(out), flush=True)
         sys.stdout.flush()
@@ -4712,15 +4763,17 @@ def tp_rank_main(args) -> int:
         os._exit(1)
 
 
-def _tp_window(window, spec, timeout_s=900.0):
-    """Run one serve-tp or serve-pp window in its rank processes (logs
-    under OUT_DIR); returns (rank 0's result, the return codes, the log
-    paths)."""
+def _tp_window(window, spec, timeout_s=900.0, after_leader_s=None):
+    """Run one serve-tp, serve-pp or serve-dp window in its rank processes
+    (logs under OUT_DIR); returns (rank 0's result, the return codes, the
+    log paths). `after_leader_s`: once rank 0 has exited, the other ranks
+    get that long before they are killed (a window that kills a rank
+    leaves its peers to fail on their own)."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(OUT_DIR, exist_ok=True)
     port = _free_port()
     env = dict(os.environ, **TP_HB)
-    phase = "pp" if window.startswith("pp-") else "tp"
+    phase = window[:2] if window.startswith(("pp-", "dp-")) else "tp"
     ranks = range(_world(spec))
     paths = [os.path.join(OUT_DIR, f"serve_{phase}_{window}_rank{r}.log") for r in ranks]
     logs = [open(p, "w") for p in paths]
@@ -4730,8 +4783,10 @@ def _tp_window(window, spec, timeout_s=900.0):
         cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in ranks]
     try:
         deadline = time.monotonic() + timeout_s
-        for p in procs:
+        for i, p in enumerate(procs):
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if i == 0 and after_leader_s is not None:
+                deadline = min(deadline, time.monotonic() + after_leader_s)
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -5324,6 +5379,437 @@ def serve_pp_phase(report, profile: bool) -> None:
         raise SystemExit(f"serve-pp: gates failed: {gates}")
 
 
+DP_MODEL = "llama3.2:1b"
+DP_NEW = 48
+DP_USERS = ("dp-ada", "dp-bob", "dp-cyd", "dp-dee", "dp-eve")
+DP_TEXT = ("Data parallelism serves one model as replicas that each hold their "
+           "own weights, pages and slots. ")
+# Two prompts, one per replica, in float32 (TF32 off) against one replica.
+DP_F32_PROMPTS = ("[0] " + DP_TEXT, "[1] " + DP_TEXT[:70])
+DP_KILL_NEW = 96  # tokens of each stream of the world's kill -9
+
+
+def _dp_ecfg(dtype: str, dp: int):
+    """serve's shape: 8 slots and 136 pages of 32 a replica, 16 pages a
+    sequence, token budget 512, k_steps 8."""
+    from ollamamq_tpu_torch.config import EngineConfig
+
+    return EngineConfig(model=DP_MODEL, max_slots=8, num_pages=8 * 16 + 8,
+                        page_size=32, max_pages_per_seq=16, max_batch_tokens=512,
+                        token_granule=16, max_new_tokens=DP_NEW,
+                        decode_steps_per_iter=8, dtype=dtype, dp=dp, seed=0)
+
+
+def _dp_engine(dtype: str, dp: int):
+    """A TorchEngine of dp in-process replicas, all on cuda:0."""
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.parallel.mesh import make_mesh
+
+    device = "cuda:0" if TP_DEVICE == "cuda" else TP_DEVICE
+    mesh = make_mesh(dp=dp, devices=[device] * dp) if dp > 1 else None
+    return TorchEngine(_dp_ecfg(dtype, dp), device=device, mesh=mesh,
+                       blocklist_path=None)
+
+
+def _dp_replicas(eng):
+    from ollamamq_tpu_torch.engine.engine import ReplicaSet
+
+    rt = eng.runtimes[DP_MODEL]
+    return list(rt.replicas) if isinstance(rt, ReplicaSet) else [rt]
+
+
+def _dp_burst(port):
+    """serve's traffic doubled: 8 greedy /api/generate requests of DP_NEW
+    tokens from 5 users at once (prompts of 1 to 3 sentences)."""
+    results, errors = {}, []
+
+    def run(i):
+        body = {"model": DP_MODEL, "prompt": f"[{i}] " + DP_TEXT * (1 + i % 3),
+                "stream": False, "options": {"temperature": 0, "num_predict": DP_NEW}}
+        try:
+            results[i] = _ollama_result(*_post(port, "/api/generate", body,
+                                               DP_USERS[i % len(DP_USERS)]))
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{i}: {e}")
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    seconds = time.monotonic() - t0
+    if errors or len(results) != 8:
+        raise SystemExit(f"serve-dp requests failed: {errors}")
+    return results, seconds
+
+
+def _dp_instrument(eng, reps):
+    """Per-replica accounting over the window: each replica's kernel
+    launches (the process-wide counters' deltas around its own ragged and
+    decode dispatches; the loop thread issues them one at a time), the
+    decode dispatch / collect events by engine tick, and every placement
+    of the set with the loads it saw."""
+    from ollamamq_tpu_torch.ops.cuda import launch_counts
+
+    acct = {"launches": [dict.fromkeys(KERNEL_ROWS, 0) for _ in reps],
+            "events": [], "placements": []}
+    for i, rt in enumerate(reps):
+        for attr in ("_ragged_dispatch", "_dispatch_decode"):
+            orig = getattr(rt, attr)
+
+            def counted(*a, _orig=orig, _i=i, **kw):
+                before = launch_counts()
+                out = _orig(*a, **kw)
+                for k, v in launch_counts().items():
+                    acct["launches"][_i][k] += v - before[k]
+                return out
+
+            setattr(rt, attr, counted)
+        disp, coll = rt.step_decode_dispatch, rt.step_decode_collect
+
+        def dispatch(core, k_steps=1, _orig=disp, _i=i):
+            h = _orig(core, k_steps=k_steps)
+            if h is not None:
+                acct["events"].append((eng.journal.tick, "dispatch", _i))
+            return h
+
+        def collect(handle, core, _orig=coll, _i=i):
+            acct["events"].append((eng.journal.tick, "collect", _i))
+            return _orig(handle, core)
+
+        rt.step_decode_dispatch, rt.step_decode_collect = dispatch, collect
+    rs = eng.runtimes[DP_MODEL]
+    submit = rs.submit
+
+    def placed(req):
+        loads = [rs._load(r) for r in rs.replicas]
+        able = [r.has_capacity(req.kind) for r in rs.replicas]
+        last = rs._last_idx
+        ok = submit(req)
+        acct["placements"].append({"loads": loads, "eligible": able, "last": last,
+                                   "chosen": rs._last_idx if ok else None})
+        return ok
+
+    rs.submit = placed
+    return acct
+
+
+def _dp_least_loaded(p) -> bool:
+    """The pick a least-loaded set must make: the eligible replica of the
+    least load, ties rotating after the previous pick."""
+    eligible = [i for i, ok in enumerate(p["eligible"]) if ok]
+    if not eligible:
+        return p["chosen"] is None
+    best = min(p["loads"][i] for i in eligible)
+    n = len(p["loads"])
+    want = next(i for i in ((p["last"] + off) % n for off in range(1, n + 1))
+                if i in eligible and p["loads"][i] == best)
+    return p["chosen"] == want
+
+
+def _dp_bf16(dp: int) -> dict:
+    """The bf16 burst on a dp-replica engine (after one warm-up request);
+    at dp 2 with per-replica launches, events and placements."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = _dp_engine("bfloat16", dp)
+    reps = _dp_replicas(eng)
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    try:
+        _post(port, "/api/generate", {"model": DP_MODEL, "prompt": "warm",
+                                      "stream": False,
+                                      "options": {"num_predict": 4}}, "dp-warm")
+        acct = _dp_instrument(eng, reps) if dp > 1 else None
+        before = [rt.stats() for rt in reps]
+        reset_launch_counts()
+        results, seconds = _dp_burst(port)
+        counts = launch_counts()
+        after = [rt.stats() for rt in reps]
+    finally:
+        stop_server(srv)
+    from ollamamq_tpu_torch.telemetry.journal import check_invariants
+
+    violations = check_invariants(eng.journal.tail(n=None))
+    tokens = sum(a["tokens_generated"] - b["tokens_generated"]
+                 for a, b in zip(after, before))
+    out = {"dp": dp, "burst_s": seconds, "tokens": tokens,
+           "tokens_per_s": tokens / seconds,
+           "replies": {i: {"tokens": len(ids), "done_reason": why}
+                       for i, (ids, why) in sorted(results.items())},
+           "launches": counts, "journal_violations": violations[:3],
+           "param_bytes": [rt.param_bytes for rt in reps],
+           "kv_bytes": [rt.kv_bytes for rt in reps],
+           "set_param_bytes": eng.runtimes[DP_MODEL].param_bytes,
+           "set_kv_bytes": eng.runtimes[DP_MODEL].kv_bytes,
+           "per_replica": [{k: a[k] - b[k] for k in ("tokens_generated",
+                                                      "ragged_dispatches",
+                                                      "decode_dispatches",
+                                                      "decode_steps")}
+                           for a, b in zip(after, before)]}
+    if acct is not None:
+        layers = reps[0].cfg.num_layers
+        out["replica_launches"] = acct["launches"]
+        out["replica_exact"] = [
+            lc["ragged_paged_attention"] == layers * pr["ragged_dispatches"] > 0
+            and lc["paged_decode_attention"] == layers * pr["decode_steps"] > 0
+            and lc["ragged_paged_attention_int8"] == lc["paged_decode_attention_int8"] == 0
+            for lc, pr in zip(acct["launches"], out["per_replica"])]
+        out["launches_sum_equal"] = all(
+            counts[k] == sum(lc[k] for lc in acct["launches"]) for k in counts)
+        ticks = {}
+        for tick, kind, i in acct["events"]:
+            ticks.setdefault(tick, []).append((kind, i))
+        both = [evs for evs in ticks.values()
+                if {i for kind, i in evs if kind == "dispatch"} == {0, 1}]
+        out["ticks_both_decoding"] = len(both)
+        # Within every tick, no collect before a dispatch.
+        out["dispatches_before_collects"] = all(
+            [k for k, _ in evs] == sorted((k for k, _ in evs),
+                                          key=lambda k: k == "collect")
+            for evs in ticks.values())
+        out["placements"] = acct["placements"]
+        out["placements_least_loaded"] = all(_dp_least_loaded(p)
+                                             for p in acct["placements"])
+        out["placed_on"] = [sum(p["chosen"] == r for p in acct["placements"])
+                            for r in range(dp)]
+    del eng, reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_f32_ids(dp: int) -> dict:
+    """float32 (TF32 off): DP_F32_PROMPTS on a dp-replica engine. At dp 1
+    each prompt alone; at dp 2 both queued before the loop starts, so the
+    replicas take one each, alone in its batch as at dp 1."""
+    import torch
+
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = _dp_engine("float32", dp)
+    reps = _dp_replicas(eng)
+    tok = reps[0].tokenizer
+
+    def enqueue(i):
+        return eng.enqueue_request(f"f32-{i}", "", DP_MODEL,
+                                   prompt_tokens=tok.encode(DP_F32_PROMPTS[i]),
+                                   sampling=SamplingParams(max_tokens=32,
+                                                           temperature=0.0))
+
+    ends = []
+    try:
+        if dp == 1:
+            eng.start()
+            reqs = []
+            for i in range(len(DP_F32_PROMPTS)):
+                reqs.append(enqueue(i))
+                ends.append(_collect(reqs[-1])[-1].kind)
+        else:
+            reqs = [enqueue(i) for i in range(len(DP_F32_PROMPTS))]
+            eng.start()
+            ends = [_collect(r)[-1].kind for r in reqs]
+    finally:
+        eng.stop()
+    out = {"ids": [list(r.generated_ids) for r in reqs],
+           "done": ends == ["done"] * len(reqs),
+           "per_replica_tokens": [rt.tokens_generated for rt in reps]}
+    del eng, reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_world_leader(spec, mesh, profile):
+    """dp 2 x tp 2 over four ranks sharing the card (gloo), float32: the
+    f32 prompts queued before the loop starts (one per replica), every
+    rank's kernel launches, then 4 greedy streams (2 a replica) and kill
+    -9 of rank 3 (replica 1) once each holds 16 tokens: replica 1's
+    requests must error within the heartbeat bound while replica 0's
+    finish."""
+    import urllib.request
+
+    import torch
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.ops.cuda import launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    rs = eng.runtimes[model]
+    tok = rs.tokenizer
+
+    def enqueue(user, prompt, n):
+        return eng.enqueue_request(user, "", model, prompt_tokens=tok.encode(prompt),
+                                   sampling=SamplingParams(max_tokens=n, temperature=0.0))
+
+    def where(reqs):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            got = {id(r): i for i, rt in enumerate(rs.replicas)
+                   for r in rt.held_requests() if any(r is q for q in reqs)}
+            if len(got) == len(reqs):
+                return [got[id(r)] for r in reqs]
+            time.sleep(0.002)
+        raise SystemExit("serve-dp world: requests never placed")
+
+    reqs = [enqueue(f"f32-{i}", p, 32) for i, p in enumerate(DP_F32_PROMPTS)]
+    srv = serve_in_thread(eng, port=0, timeout_s=600)  # starts the loop
+    placed = where(reqs)
+    items = [_tp_wait(r) for r in reqs]
+    f32 = {"ids": [list(r.generated_ids) for r in reqs], "replicas": placed,
+           "done": all(it is not None and it.kind == "done" for it in items),
+           "per_replica_tokens": [rt.tokens_generated for rt in rs.replicas]}
+    client = distributed.store()
+    launches = {0: launch_counts()}
+    for r in range(1, mesh.size):  # each worker posts its own after a replay
+        key = f"chip_smoke/launches/{r}"
+        launches[r] = (json.loads(client.get(key)) if client.check([key])
+                       else dict.fromkeys(KERNEL_ROWS, 0))
+    kill_reqs = [enqueue(f"kill-{i}", DP_TEXT, DP_KILL_NEW) for i in range(4)]
+    kill_on = where(kill_reqs)
+    deadline = time.monotonic() + 300
+    while (min(len(r.generated_ids) for r in kill_reqs) < 16
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    at_kill = [len(r.generated_ids) for r in kill_reqs]
+    os.kill(int(client.get("chip_smoke/pid/3")), signal.SIGKILL)
+    t_kill = time.monotonic()
+    ends = [None] * len(kill_reqs)
+
+    def end(i, r):  # each stream's own end, seconds after the kill
+        it = _tp_wait(r, budget=180)
+        ends[i] = [it.kind if it else "timeout", (it.error or "")[:160] if it else "",
+                   time.monotonic() - t_kill, len(r.generated_ids)]
+
+    waiters = [threading.Thread(target=end, args=(i, r))
+               for i, r in enumerate(kill_reqs)]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join(timeout=200)
+    time.sleep(3.5)  # past the heartbeat's staleness
+    eng.health.check_once()
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/health",
+                                timeout=30) as resp:
+        health = json.loads(resp.read())
+    stop_server(srv)
+    eng.stop(report_timeout_s=5)
+    return {"f32": f32, "launches": launches,
+            "kill": {"replicas": kill_on, "tokens_at_kill": at_kill, "ends": ends,
+                     "bound_s": TP_KILL_BOUND_S,
+                     "failed_replicas": [rt._failed for rt in rs.replicas],
+                     "alerts": [a["name"] for a in health["alerts"]],
+                     "health_status": health["status"]},
+            "workers": eng.worker_reports}
+
+
+DP_WINDOWS = {"dp-world": _dp_world_leader}
+
+
+def serve_dp_phase(report) -> None:
+    """Data parallelism: two replicas of llama3.2:1b at full width in one
+    process on cuda:0 (bf16 gates, tokens/s against one replica, float32
+    ids against one replica), then dp 2 x tp 2 over four ranks sharing
+    the card; see the module docstring."""
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.monotonic()
+    card = card_line()
+    one = _dp_bf16(1)
+    two = _dp_bf16(2)
+    reset_launch_counts()
+    f32_one = _dp_f32_ids(1)
+    f32_two = _dp_f32_ids(2)
+    f32_counts = launch_counts()
+    t0 = time.monotonic()
+    world, rcs, _ = _tp_window("dp-world", {"model": DP_MODEL, "dtype": "float32",
+                                            "dp": 2, "tp": 2, "device": TP_DEVICE},
+                               after_leader_s=30.0)
+    world_s = time.monotonic() - t0
+    launches = {k: 0 for k in KERNEL_ROWS}
+    for counts in ([two["launches"], f32_counts]
+                   + list(world["launches"].values())):
+        for k, v in counts.items():
+            launches[k] += v
+    kill = world["kill"]
+    by_rep = {r: [e for e, on in zip(kill["ends"], kill["replicas"]) if on == r]
+              for r in (0, 1)}
+    f32_kernels = ("ragged_paged_attention", "paged_decode_attention")
+    line = {"phase": "serve-dp", "card": card, "model": DP_MODEL, "layers": 16,
+            "width": {"hidden": 2048, "heads": 32, "kv_heads": 8, "head_dim": 64,
+                      "vocab": 128256},
+            "in_process": {"devices": "cuda:0 (both replicas)", "slots": 8,
+                           "pages": 136, "page_size": 32, "pages_per_seq": 16,
+                           "k_steps": 8, "requests": 8, "users": len(DP_USERS),
+                           "new_tokens": DP_NEW},
+            "bf16_dp1": {k: one[k] for k in ("burst_s", "tokens", "tokens_per_s",
+                                             "param_bytes", "kv_bytes")},
+            "bf16_dp2": two, "dp2_vs_dp1_tokens_per_s": two["tokens_per_s"] / one["tokens_per_s"],
+            "f32": {"dp1_ids": f32_one["ids"], "dp2_ids": f32_two["ids"],
+                    "dp2_per_replica_tokens": f32_two["per_replica_tokens"]},
+            "world": {"ranks": 4, "grid": "dp 2 x tp 2", "backend": "gloo",
+                      "ranks_on": "cuda:0 (all)", "seconds": world_s,
+                      "f32": world["f32"], "launches": world["launches"],
+                      "kill": kill, "return_codes": rcs},
+            "launches": launches}
+    line["phase_s"] = time.monotonic() - t_phase
+    emit(line)
+    report["serve_dp"] = line
+    gates = {
+        "replies": all(r["done_reason"] in ("stop", "length") and r["tokens"] > 0
+                       for out in (one, two) for r in out["replies"].values()),
+        "each_replica_both_bf16_kernels": all(two["replica_exact"]),
+        "launches_per_replica_sum_to_window": two["launches_sum_equal"],
+        "placements_least_loaded": (two["placements_least_loaded"]
+                                    and all(n > 0 for n in two["placed_on"])),
+        "param_bytes_2x": (two["set_param_bytes"] == 2 * two["param_bytes"][0]
+                           == 2 * one["param_bytes"][0]),
+        "kv_bytes_2x": (two["set_kv_bytes"] == 2 * two["kv_bytes"][0]
+                        == 2 * one["kv_bytes"][0]),
+        "dispatches_before_collects": (two["ticks_both_decoding"] > 0
+                                       and two["dispatches_before_collects"]),
+        "f32_ids_equal_dp1": (f32_one["done"] and f32_two["done"]
+                              and f32_two["ids"] == f32_one["ids"]
+                              and all(len(x) > 0 for x in f32_one["ids"])),
+        "f32_both_replicas": all(n > 0 for n in f32_two["per_replica_tokens"]),
+        "world_each_replica_served": (world["f32"]["done"]
+                                      and sorted(world["f32"]["replicas"]) == [0, 1]
+                                      and all(n > 0 for n in
+                                              world["f32"]["per_replica_tokens"])),
+        "world_ids_equal_one_rank": world["f32"]["ids"] == f32_one["ids"],
+        "world_every_rank_kernels": all(c[k] > 0 for c in world["launches"].values()
+                                        for k in f32_kernels),
+        "kill_replica1_errors": (len(by_rep[1]) == 2 and all(
+            e[0] == "error" and e[2] <= TP_KILL_BOUND_S for e in by_rep[1])),
+        "kill_replica0_finishes": (len(by_rep[0]) == 2 and all(
+            e[0] == "done" and e[3] == DP_KILL_NEW for e in by_rep[0])),
+        "kill_only_replica1_failed": kill["failed_replicas"] == [False, True],
+        "kill_worker_stale": "worker_stale" in kill["alerts"],
+        "journals_clean": (not one["journal_violations"] and not two["journal_violations"]
+                           and "journal_invariant" not in kill["alerts"]),
+        "world_exit_codes": rcs[0] == 0 and rcs[1] == 0 and rcs[3] == -9,
+    }
+    emit({"phase": "serve-dp-gates", **gates})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-dp: gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -5444,11 +5930,38 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# Every phase, in the order a run takes them (each takes the report and
+# --profile); `--only NAME` runs one. serve runs its bf16 pass and then
+# its int8 pass, which reads the bf16 one.
+PHASES = {
+    "kernels": lambda r, p: (decode_plan_phase(r), kernel_phase(r)),
+    "serve": lambda r, p: (serve_phase(r, p), serve_phase(r, p, int8=True)),
+    "guardrail": lambda r, p: guardrail_phase(r),
+    "serve-moe": lambda r, p: serve_moe_phase(r, p),
+    "serve-runtime": lambda r, p: serve_runtime_phase(r),
+    "serve-runtime-f32": lambda r, p: serve_runtime_f32_phase(r),
+    "serve-sched": lambda r, p: serve_sched_phase(r),
+    "serve-models": lambda r, p: serve_models_phase(r),
+    "serve-durable": lambda r, p: serve_durable_phase(r),
+    "serve-fleet": lambda r, p: serve_fleet_phase(r),
+    "serve-tiers": lambda r, p: serve_tiers_phase(r),
+    "serve-autoscale": lambda r, p: serve_autoscale_phase(r),
+    "serve-ha": lambda r, p: serve_ha_phase(r),
+    "serve-tp": lambda r, p: serve_tp_phase(r, p),
+    "serve-pp": lambda r, p: serve_pp_phase(r, p),
+    "serve-dp": lambda r, p: serve_dp_phase(r),
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a serving burst of each serve phase "
                          "(chiprun_out/chip_smoke/)")
+    ap.add_argument("--only", default="", choices=("", *PHASES),
+                    help="build the kernels and run this one phase (a "
+                         "partial run: no kernels line and no closing "
+                         "ok line)")
     # One rank of a serve-tp window (the phase starts these itself).
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
@@ -5485,24 +5998,13 @@ def main(argv=None) -> int:
                         for src, b in built.items()}}
     emit(line)
     report["build"] = line
-
-    decode_plan_phase(report)
-    kernel_phase(report)
-    serve_phase(report, args.profile)
-    serve_phase(report, args.profile, int8=True)
-    guardrail_phase(report)
-    serve_moe_phase(report, args.profile)
-    serve_runtime_phase(report)
-    serve_runtime_f32_phase(report)
-    serve_sched_phase(report)
-    serve_models_phase(report)
-    serve_durable_phase(report)
-    serve_fleet_phase(report)
-    serve_tiers_phase(report)
-    serve_autoscale_phase(report)
-    serve_ha_phase(report)
-    serve_tp_phase(report, args.profile)
-    serve_pp_phase(report, args.profile)
+    for name in [args.only] if args.only else PHASES:
+        PHASES[name](report, args.profile)
+    if args.only:
+        print(card_line(), flush=True)
+        print(f"chip_smoke: ran phase {args.only} only; the full run "
+              "prints the kernels line and the closing ok line", flush=True)
+        return 0
 
     card = card_line()
     s = report["kernel_summary"]
@@ -5516,9 +6018,11 @@ def main(argv=None) -> int:
                                   for p in ("serve_moe", "serve_durable",
                                             "serve_fleet", "serve_tiers",
                                             "serve_autoscale", "serve_ha",
-                                            "serve_tp", "serve_pp"))),
+                                            "serve_tp", "serve_pp",
+                                            "serve_dp"))),
                "launches_serve_tp": report["serve_tp"]["launches"][name],
                "launches_serve_pp": report["serve_pp"]["launches"][name],
+               "launches_serve_dp": report["serve_dp"]["launches"][name],
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

@@ -44,9 +44,10 @@ failover (recompute replay when a transfer cannot land), and the
 /admin/fleet, /admin/drain and /admin/preempt routes. The router owns
 the caps, the WAL and the journal spill; its members run without them.
 --tiers splits the members into an interactive and a bulk tier
-(/admin/tiers, /admin/retier/{replica}); every member runs at TP width
-1, so a tier declaring @tpN with N > 1 is refused (exit 2), as is --tp
-other than 1 with a fleet. --autoscale grows and shrinks the fleet between
+(/admin/tiers, /admin/retier/{replica}); fleet members wider than one
+rank are not ported yet, so every member runs at TP width 1: a tier
+declaring @tpN with N > 1 is refused (exit 2), as are --tp and --pp
+other than 1 with a fleet (--dp N members each serve N replicas). --autoscale grows and shrinks the fleet between
 --min-replicas and --max-replicas (in-process members from the same
 factory; --fake-engine members as `python -m ollamamq_tpu_torch.cli`
 subprocesses), and implies a fleet even with --replicas 1.
@@ -82,6 +83,16 @@ path and the pipelined decode, in --pp-microbatches GPipe microbatches
 (default one per stage). A pp that does not divide a model's layers, pp
 with a mixture-of-experts model, --kv-dtype int8 with pp, and --pp with
 a fleet exit 2.
+
+--dp N serves every generative model as N data-parallel replicas, each
+with its own weights, KV pool and slots; a request goes to the
+least-loaded replica. Alone, this one process holds the N replicas, on
+cuda:0..cuda:N-1 (all on the CPU with --device cpu). With --tp or --pp
+each replica is its own tp x pp group of ranks, started as for --tp
+(N x pp x tp ranks, one per device; replica r holds ranks r*pp*tp ..);
+with --spmd the world in the env is cut the same way. A host with fewer
+cards than the replicas need exits 2 naming the missing ones: no replica
+falls back to another device or to the CPU.
 """
 
 from __future__ import annotations
@@ -97,6 +108,10 @@ from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
                                        validate_autoscale, validate_ha,
                                        validate_quant_config,
                                        validate_scheduler, validate_tiers)
+
+
+# What fleets still lack (ROADMAP Queue 1): a member is one rank.
+WIDE_MEMBERS = "fleet members wider than one rank are not ported yet"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -277,6 +292,7 @@ def build_parser() -> argparse.ArgumentParser:
                    in ("0", "false", "no"),
                    help="the router's /metrics stops re-exporting the HTTP "
                         "members' series under a replica label")
+    p.add_argument("--dp", type=int, default=d.dp, help="data-parallel axis size")
     p.add_argument("--tp", type=int, default=d.tp,
                    help="tensor-parallel width: ranks (processes, one per "
                         "device) one engine spreads over; fleet members "
@@ -517,14 +533,18 @@ def validate(args) -> str:
                 "mutually exclusive (the SPMD engine already owns its worker "
                 "ranks; run the fleet router over separate SPMD services via "
                 "--replica-urls from a non-SPMD front-end instead)")
-    for flag, n, kind in (("--tp", args.tp, "tensor"),
-                          ("--pp", args.pp, "pipeline")):
+    for flag, n in (("--tp", args.tp), ("--pp", args.pp)):
         if n != 1 and (args.replicas != 1 or urls or args.autoscale):
-            return (f"{flag} {n} with a fleet: {kind} parallelism is not "
-                    "ported yet for fleet members, which run on one device "
-                    f"({flag} 1); serve {flag} from a single engine")
+            return (f"{flag} {n} with a fleet: {WIDE_MEMBERS} (each member "
+                    f"runs at {flag} 1); serve {flag} from a single engine")
+    if args.dp < 1:
+        return f"--dp must be >= 1, got {args.dp}"
     if args.tp != 1 or args.pp != 1 or args.spmd:
         err = validate_tp(args)
+        if err:
+            return err
+    elif args.dp > 1 and not args.fake_engine:
+        err = validate_devices(args)
         if err:
             return err
     if args.replicas < 0 or (args.replicas == 0 and not urls):
@@ -562,8 +582,8 @@ def validate(args) -> str:
         wide = sorted(t for t, w in widths.items() if w not in (None, 1))
         if wide:
             return (f"invalid --tiers: tier {wide[0]!r} declares TP width "
-                    f"{widths[wide[0]]}; tensor parallelism is not ported "
-                    "yet, so every member runs at tp1")
+                    f"{widths[wide[0]]}; {WIDE_MEMBERS}, so every member "
+                    "runs at tp1")
     if args.metrics_buckets:
         try:
             latency_buckets(args.metrics_buckets)
@@ -614,25 +634,38 @@ def validate_tp(args) -> str:
                 validate_tp_for_model(args.tp, cfg.num_kv_heads, cfg.num_heads)
             except ValueError as e:
                 return f"--tp {args.tp} for {name}: {e}"
-    world = local_world(args)
-    if world > 1 and not args.spmd and args.device != "cpu":
-        import torch
+    return validate_devices(args)
 
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < world:
-            flags = " ".join(f"{f} {n}" for f, n in (("--tp", args.tp),
-                                                    ("--pp", args.pp)) if n != 1)
-            missing = ", ".join(f"cuda:{i}" for i in range(have, world))
-            return (f"{flags} runs one rank per device, cuda:0.."
-                    f"cuda:{world - 1}, but {missing} is missing (this host "
-                    f"has {have} CUDA device(s)); no rank falls back to "
-                    "another device")
-    return ""
+
+def validate_devices(args) -> str:
+    """The cards this host must have: one per rank of a local --tp / --pp
+    world (--dp x --pp x --tp ranks), or one per replica of --dp alone
+    (in-process replicas on cuda:0..). None is missing on the CPU or
+    under --spmd (each host brings its own)."""
+    world = local_world(args)
+    need = world if world > 1 else args.dp
+    if need == 1 or args.spmd or args.device == "cpu":
+        return ""
+    import torch
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have >= need:
+        return ""
+    flags = " ".join(f"{f} {n}" for f, n in (("--dp", args.dp), ("--tp", args.tp),
+                                            ("--pp", args.pp)) if n != 1)
+    unit = "rank" if world > 1 else "replica"
+    missing = ", ".join(f"cuda:{i}" for i in range(have, need))
+    return (f"{flags} runs one {unit} per device, cuda:0..cuda:{need - 1}, "
+            f"but {missing} is missing (this host has {have} CUDA "
+            f"device(s)); no {unit} falls back to another device")
 
 
 def local_world(args) -> int:
-    """Ranks of a one-host --tp / --pp world: tp per stage times pp."""
-    return max(1, args.tp) * args.pp
+    """Ranks of a one-host --tp / --pp world: tp per stage times pp, times
+    --dp replicas of that group (1: no rank world; --dp alone runs its
+    replicas in this process)."""
+    group = max(1, args.tp) * args.pp
+    return args.dp * group if group > 1 else 1
 
 
 def replica_urls(args) -> list:
@@ -668,6 +701,7 @@ def engine_config(args) -> EngineConfig:
         router_overhead_budget_ms=args.router_overhead_budget_ms,
         federate_metrics=not args.no_federate_metrics,
         preemptible=args.preemptible or None, tp=args.tp, pp=args.pp,
+        dp=args.dp,
         pp_microbatches=args.pp_microbatches or None,
         tiers=args.tiers or None, autoscale=args.autoscale,
         min_replicas=args.min_replicas, max_replicas=args.max_replicas,
@@ -770,7 +804,7 @@ def start_ranks(args, argv, log):
         world = int(os.environ.get("WORLD_SIZE", "1"))
         distributed.initialize(devices=["cpu"] * world if cpu else None)
         tp = args.tp if args.tp not in (1, -1) or not args.spmd else -1
-        return make_mesh(tp=tp, pp=args.pp), procs
+        return make_mesh(dp=args.dp, tp=tp, pp=args.pp), procs
 
     world = local_world(args)
 
@@ -790,7 +824,8 @@ def start_ranks(args, argv, log):
     try:
         distributed.initialize("127.0.0.1:0", world, 0, devices=devices,
                                on_store=spawn)
-        return make_mesh(tp=max(1, args.tp), pp=args.pp, devices=devices), procs
+        return make_mesh(dp=args.dp, tp=max(1, args.tp), pp=args.pp,
+                         devices=devices), procs
     except BaseException:
         for p in procs:
             p.kill()
@@ -821,12 +856,12 @@ def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
         standby_of=None)
 
     def factory(tp=None):
-        # One device per engine: any other width is refused, never built
-        # at width 1 under a wider tier's label (the regroup aborts and
-        # the member keeps its tier).
+        # One rank per member: any other width is refused, never built at
+        # width 1 under a wider tier's label (the regroup aborts and the
+        # member keeps its tier).
         if tp not in (None, 1):
-            raise ValueError(f"TP width {tp}: tensor parallelism is not "
-                             "ported yet (every engine runs at tp1)")
+            raise ValueError(f"TP width {tp}: {WIDE_MEMBERS} (every member "
+                             "runs at tp1)")
         return engine_factory(member_cfg)
 
     members = [LocalMember(f"r{i}", factory(), engine_factory=factory)

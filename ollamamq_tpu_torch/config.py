@@ -239,6 +239,11 @@ class EngineConfig:
     prefill_batches_per_tick: int = 2
     # Repeat-penalty window (llama.cpp repeat_last_n).
     repeat_last_n: int = 64
+    # Data-parallel replicas of every generative model (engine.py
+    # ReplicaSet): each holds its own weights, KV pool and slots, in this
+    # process one per device or, over the rank world, one per (pp x tp)
+    # sub-grid of ranks; requests place on the least-loaded replica.
+    dp: int = 1
     # Pipeline-parallel stages of one engine (layers and their KV pages
     # split over ranks; parallel/pipeline.py) and the GPipe microbatches
     # of one pp dispatch (None: one per stage; rounded down to a divisor

@@ -77,8 +77,15 @@ the runtime serves generate only. The loop bounds the bucketed
 prefills per tick (prefill_batches_per_tick) so a burst of arrivals
 cannot starve the decode streams.
 
-Not carried over yet (later slices): data-parallel replicas and
-sequence parallelism.
+Data parallelism (EngineConfig.dp, a mesh with a data axis) serves a
+model as dp replicas (ReplicaSet): each holds its own weights, KV pool,
+slots and generator on its own slice of the mesh (replica_submesh),
+in this process on its own device or, over the rank world, on its own
+ranks. A request goes to the least-loaded replica, ties rotating after
+the last pick, and the loop dispatches every replica's decode before
+it collects any, so replicas on different devices run at once.
+
+Not carried over yet (a later slice): sequence parallelism.
 """
 
 from __future__ import annotations
@@ -106,7 +113,8 @@ from ollamamq_tpu_torch.engine.tokenizer import load_tokenizer
 from ollamamq_tpu_torch.models import llama, weights
 from ollamamq_tpu_torch.ops.quant import nbytes
 from ollamamq_tpu_torch.parallel import pipeline
-from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
+from ollamamq_tpu_torch.parallel.mesh import (make_mesh, replica_submesh,
+                                              validate_tp_for_model)
 from ollamamq_tpu_torch.ops.sampling import (SamplingParams, accept_prefix,
                                              maybe_apply_penalties, row_uniforms,
                                              sample_tokens_rowwise, sampling_flags)
@@ -383,21 +391,6 @@ def request_from_migration_state(rid: int, state: dict) -> Request:
     return req
 
 
-def merge_prefix_cache_stats(stats_list) -> Optional[dict]:
-    """Sum per-replica prefix-cache stat dicts (None entries: replicas
-    without a cache), the fleet router's view over its members. None
-    when no replica caches."""
-    live = [s for s in stats_list if s]
-    if not live:
-        return None
-    keys = ("hits", "misses", "evictions", "tokens_saved", "cached_pages",
-            "evictable_pages", "pinned_pages")
-    merged = {k: sum(s.get(k, 0) for s in live) for k in keys}
-    total = merged["hits"] + merged["misses"]
-    merged["hit_ratio"] = round(merged["hits"] / total, 4) if total else 0.0
-    return merged
-
-
 def poison_text(req: Request, msg: str) -> str:
     """Error text once the retry budget is spent: the client sees that
     retries happened and stopped on purpose."""
@@ -417,7 +410,8 @@ class JournaledRuntime:
         """Journal one decision under this runtime's model name."""
         j = self.journal
         if j is not None:
-            j.record(kind, req=req, model=self.name, **fields)
+            j.record(kind, req=req, model=self.name,
+                     dp_replica=getattr(self, "replica", 0), **fields)
 
     def _poison_msg(self, req: Request, msg: str) -> str:
         """Journal the poisoning and return its error text."""
@@ -457,6 +451,9 @@ class ModelRuntime(JournaledRuntime):
     KV_EXHAUSTED_MSG = ("KV page pool exhausted mid-decode and preemption "
                         "is disabled; retry, shorten the prompt, or raise "
                         "--num-pages")
+
+    # This runtime's place in its model's ReplicaSet (0 alone).
+    replica = 0
 
     def __init__(self, name: str, model_cfg: ModelConfig,
                  engine_cfg: EngineConfig, device=None, dtype=None,
@@ -510,25 +507,9 @@ class ModelRuntime(JournaledRuntime):
         self.weights_dtype = engine_cfg.weights_dtype
         self.kv_dtype = engine_cfg.kv_dtype
         self.mesh, self.tp, tp_size = _tensor_axis(mesh, model_cfg)
-        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self.device = resolve_device(self._home_device(mesh, device))
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
         self.tokenizer = load_tokenizer(checkpoint_path)
-        # Params passed in are used as given (already quantized or not);
-        # a checkpoint or the seed's weights are quantized at build time
-        # for int8, as the JAX package's load_params does. On a tensor-
-        # parallel mesh this rank keeps its slice (whole trees passed in
-        # are cut here).
-        rank = self.tp.rank if self.tp is not None else 0
-        if params is None:
-            params = weights.load_params(model_cfg, checkpoint_path,
-                                         engine_cfg.seed, self.dtype,
-                                         self.weights_dtype, self.device,
-                                         tp=tp_size, rank=rank, pp=pp,
-                                         stage=stage)
-        else:
-            params = weights.tp_slice(
-                weights.stage_slice(params, model_cfg, pp, stage), model_cfg,
-                tp_size, rank)
         if tp_size > model_cfg.num_kv_heads:
             # Replicated-group KV (e.g. qwen2.5's 4 KV heads on tp=8):
             # every rank owns one duplicated head.
@@ -536,17 +517,8 @@ class ModelRuntime(JournaledRuntime):
                 model_cfg, num_kv_heads=tp_size)
             log.info("replicated KV heads x%d for tp=%d (%s)",
                      tp_size // self._orig_cfg.num_kv_heads, tp_size, name)
-        self.params = params
-        self.kc, self.vc = kvc.alloc_kv_pool(model_cfg, engine_cfg,
-                                             self.dtype, self.device,
-                                             kv_dtype=self.kv_dtype,
-                                             tp=tp_size,
-                                             layers=model_cfg.num_layers // pp)
+        self._device_state(params, checkpoint_path, tp_size, pp, stage)
         S, MP = engine_cfg.max_slots, engine_cfg.max_pages_per_seq
-        # Repeat-penalty ring of each slot's last-W context token ids
-        # (-1 = empty). Row S is a trash row for padding rows' writes.
-        self.recent = torch.full((S + 1, engine_cfg.repeat_last_n), -1,
-                                 dtype=torch.int32, device=self.device)
         self.alloc = kvc.PageAllocator(engine_cfg.num_pages,
                                        engine_cfg.page_size, MP)
         self.prefix_cache = (
@@ -668,11 +640,42 @@ class ModelRuntime(JournaledRuntime):
         tm.FLOPS_PER_TOKEN.labels(model=name).set(mfu_model.flops_per_token(model_cfg))
         self._tm_occupancy.set(0.0)
         self._tm_mfu.set(0.0)
-        # Device bytes, payload plus scales for int8 leaves and pools.
-        self.param_bytes = sum(nbytes(t) for t in weights.leaves(self.params))
-        self.kv_bytes = nbytes(self.kc) + nbytes(self.vc)
         tm.HBM_WEIGHT_BYTES.labels(model=name).set(self.param_bytes)
         tm.HBM_KV_BYTES.labels(model=name).set(self.kv_bytes)
+
+    def _home_device(self, mesh, device):
+        """The device this runtime's tensors live on: its rank's."""
+        return mesh.device if mesh is not None else device
+
+    def _device_state(self, params: Optional[dict], checkpoint_path,
+                      tp_size: int, pp: int, stage: int) -> None:
+        """This rank's weights, KV pool and repeat-penalty ring on
+        self.device, and their bytes (payload plus scales for int8 leaves
+        and pools). Params passed in are used as given (already quantized
+        or not); a checkpoint or the seed's weights are quantized at build
+        time for int8, as the JAX package's load_params does. On a tensor-
+        or pipeline-parallel mesh this rank keeps its slice (whole trees
+        passed in are cut here)."""
+        cfg, ecfg = self._orig_cfg, self.ecfg
+        rank = self.tp.rank if self.tp is not None else 0
+        if params is None:
+            params = weights.load_params(cfg, checkpoint_path, ecfg.seed,
+                                         self.dtype, self.weights_dtype,
+                                         self.device, tp=tp_size, rank=rank,
+                                         pp=pp, stage=stage)
+        else:
+            params = weights.tp_slice(weights.stage_slice(params, cfg, pp, stage),
+                                      cfg, tp_size, rank)
+        self.params = params
+        self.kc, self.vc = kvc.alloc_kv_pool(
+            self.cfg, ecfg, self.dtype, self.device, kv_dtype=self.kv_dtype,
+            tp=tp_size, layers=self.cfg.num_layers // pp)
+        # Repeat-penalty ring of each slot's last-W context token ids
+        # (-1 = empty). Row S is a trash row for padding rows' writes.
+        self.recent = torch.full((ecfg.max_slots + 1, ecfg.repeat_last_n), -1,
+                                 dtype=torch.int32, device=self.device)
+        self.param_bytes = sum(nbytes(t) for t in weights.leaves(params))
+        self.kv_bytes = nbytes(self.kc) + nbytes(self.vc)
 
     # -- capacity ----------------------------------------------------------
     def free_slots(self) -> int:
@@ -2608,20 +2611,222 @@ def _tensor_axis(mesh, model_cfg: ModelConfig):
     return mesh, mesh.tensor, mesh.tp
 
 
+def dp_devices(device, dp: int) -> List[str]:
+    """The devices of dp in-process replicas on `device`: the CPU dp
+    times, or dp consecutive cards from its index (cuda -> cuda:0 ..
+    cuda:dp-1). Raises when a card is missing: no replica falls back to
+    another device or to the CPU."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [str(dev)] * dp
+    first = dev.index or 0
+    have = torch.cuda.device_count()
+    if first + dp > have:
+        missing = ", ".join(f"cuda:{i}" for i in range(have, first + dp))
+        raise RuntimeError(
+            f"dp={dp} runs one replica per device, cuda:{first}..cuda:"
+            f"{first + dp - 1}, but {missing} is missing (this host has "
+            f"{have} CUDA device(s)); no replica falls back to another device")
+    return [f"cuda:{first + i}" for i in range(dp)]
+
+
 def build_model_runtimes(name: str, cfg: ModelConfig, engine_cfg: EngineConfig,
                          device, dtype, checkpoint_path: Optional[str] = None,
                          params: Optional[dict] = None, mesh=None,
-                         runtime_class=None, encoder_runtime_class=None) -> list:
+                         runtime_class=None, encoder_runtime_class=None,
+                         remote_runtime_class=None,
+                         replica: Optional[int] = None) -> list:
     """The runtimes serving one model: THE construction path of
     TorchEngine.load_model, of a failed runtime's rebuild and of a
-    tensor-parallel worker's replicas (engine/spmd.py passes its runtime
-    classes, so every rank builds the same computation). One runtime per
-    model here (the reference's data-parallel replicas are not ported
-    yet)."""
-    cls = ((encoder_runtime_class or EncoderRuntime) if cfg.is_encoder
-           else (runtime_class or ModelRuntime))
-    return [cls(name, cfg, engine_cfg, device, dtype, params=params,
-                checkpoint_path=checkpoint_path, mesh=mesh)]
+    parallel worker's replicas (engine/spmd.py passes its runtime
+    classes, so every rank builds the same computation).
+
+    On a mesh with a data axis a generative model gets dp replicas, each
+    on its own slice of the axis (replica_submesh): dp weight copies and
+    KV pools serving at once, the reference's "N backends, least
+    connections" scale-out with backends = replicas. In one process the
+    weights are read, or drawn from the seed, once (on the first
+    replica's device, so they are the weights a one-replica engine
+    draws) and copied to every replica's device; weights passed in are
+    copied to each. Over the rank world every rank builds its own
+    replica's slice (of weights passed in, too); a replica none of whose
+    ranks this process holds is built by `remote_runtime_class` (rank 0:
+    host state only) or skipped when that is None (a worker). `replica`
+    builds that one replica (a rebuild). An encoder serves on the first
+    replica's slice."""
+    dp = mesh.dp if mesh is not None else 1
+    if cfg.is_encoder:
+        sub = replica_submesh(mesh, 0) if dp > 1 else mesh
+        if sub is not None and sub.rank is None:
+            return []
+        return [(encoder_runtime_class or EncoderRuntime)(
+            name, cfg, engine_cfg, device, dtype, params=params,
+            checkpoint_path=checkpoint_path, mesh=sub)]
+    cls = runtime_class or ModelRuntime
+    if dp == 1:
+        return [cls(name, cfg, engine_cfg, device, dtype, params=params,
+                    checkpoint_path=checkpoint_path, mesh=mesh)]
+    in_process = mesh.backend is None
+    reps, host = [], params
+    for r in (range(dp) if replica is None else (replica,)):
+        sub = replica_submesh(mesh, r)
+        if sub.rank is None:
+            if remote_runtime_class is not None:
+                rt = remote_runtime_class(name, cfg, engine_cfg, device, dtype,
+                                          checkpoint_path=checkpoint_path,
+                                          mesh=sub)
+                rt.replica = r
+                reps.append(rt)
+            continue
+        if in_process:
+            mine = weights.clone_to(host, sub.device) if host is not None else None
+        else:
+            mine = params  # this rank cuts its slice, as at dp 1
+        rt = cls(name, cfg, engine_cfg, sub.device, dtype, params=mine,
+                 checkpoint_path=checkpoint_path, mesh=sub)
+        rt.replica = r
+        if in_process and host is None:
+            host = rt.params
+        reps.append(rt)
+    return reps
+
+
+def merge_prefix_cache_stats(stats_list) -> Optional[dict]:
+    """Sum per-replica prefix-cache stat dicts (None entries: replicas
+    without a cache): a ReplicaSet's, and the fleet router's view over
+    its members. None when no replica caches."""
+    live = [s for s in stats_list if s]
+    if not live:
+        return None
+    keys = ("hits", "misses", "evictions", "tokens_saved", "cached_pages",
+            "evictable_pages", "pinned_pages")
+    merged = {k: sum(s.get(k, 0) for s in live) for k in keys}
+    total = merged["hits"] + merged["misses"]
+    merged["hit_ratio"] = round(merged["hits"] / total, 4) if total else 0.0
+    return merged
+
+
+class ReplicaSet:
+    """Data parallelism as replica serving: dp independent ModelRuntimes
+    for one model, each on its own slice of the mesh's data axis, with
+    least-loaded placement and round-robin rotation among ties, the
+    analogue of the reference's least-connections backend pick
+    (dispatcher.rs:475-487). Each replica holds its own weights, KV pool
+    and generator, so replicas step independently (and their decode
+    dispatches overlap on different devices). The server, the TUI,
+    health and telemetry see one runtime: the aggregate surface below."""
+
+    def __init__(self, replicas: List[ModelRuntime]):
+        assert replicas
+        self.replicas = list(replicas)
+        self.name = self.replicas[0].name
+        self.cfg = self.replicas[0].cfg
+        self.ecfg = self.replicas[0].ecfg
+        self._last_idx = 0  # rotation cursor (dispatcher.rs last_backend_idx)
+
+    # -- placement ---------------------------------------------------------
+    @staticmethod
+    def _load(rt: ModelRuntime) -> int:
+        return (rt.active_count() + len(rt.pending_prefill)
+                + len(getattr(rt, "pending_embed", ()))
+                + len(rt.chunking))
+
+    def has_capacity(self, kind: Optional[str] = None) -> bool:
+        return any(r.has_capacity(kind) for r in self.replicas)
+
+    def submit(self, req: Request) -> bool:
+        """Least-loaded replica wins; ties rotate after the previous pick.
+        False when NO replica has capacity (the admission gate raced): the
+        caller returns the request to the native queue, the reference's
+        wait-in-queue semantics (dispatcher.rs:467-473), instead of
+        parking it on a full replica where it would jump the fair-share
+        order."""
+        eligible = [i for i, r in enumerate(self.replicas)
+                    if r.has_capacity(req.kind)]
+        if not eligible:
+            return False
+        best = min(self._load(self.replicas[i]) for i in eligible)
+        ties = {i for i in eligible if self._load(self.replicas[i]) == best}
+        n = len(self.replicas)
+        for off in range(1, n + 1):
+            i = (self._last_idx + off) % n
+            if i in ties:
+                self._last_idx = i
+                return self.replicas[i].submit(req)
+        return False
+
+    def force_submit(self, req: Request) -> None:
+        """Place even with zero capacity (the least-loaded live replica):
+        for requests the native queue cannot hold back (no model named)."""
+        live = ([i for i, r in enumerate(self.replicas) if not r._failed]
+                or list(range(len(self.replicas))))
+        best = min(live, key=lambda i: self._load(self.replicas[i]))
+        self.replicas[best].submit(req)
+
+    # -- the aggregate runtime surface (registry, health, TUI, server) -----
+    @property
+    def SERVES(self):  # noqa: N802 — the runtimes' class attribute
+        return self.replicas[0].SERVES
+
+    @property
+    def _failed(self) -> bool:
+        """Down only when every replica is (one failed replica leaves the
+        others serving while it is rebuilt)."""
+        return all(r._failed for r in self.replicas)
+
+    @property
+    def tokenizer(self):
+        return self.replicas[0].tokenizer
+
+    @property
+    def param_bytes(self) -> int:
+        return sum(r.param_bytes for r in self.replicas)
+
+    @property
+    def kv_bytes(self) -> int:
+        return sum(r.kv_bytes for r in self.replicas)
+
+    @property
+    def tokens_generated(self) -> int:
+        return sum(r.tokens_generated for r in self.replicas)
+
+    def has_work(self) -> bool:
+        return any(r.has_work() for r in self.replicas)
+
+    def active_count(self) -> int:
+        return sum(r.active_count() for r in self.replicas)
+
+    def check_cancellations(self, core: MQCore) -> None:
+        for r in self.replicas:
+            r.check_cancellations(core)
+
+    def stats(self) -> dict:
+        per = [r.stats() for r in self.replicas]
+        agg = dict(per[0])
+        for key in ("active_slots", "max_slots", "pending_prefill",
+                    "pages_used", "pages_total", "tokens_generated",
+                    "preemptions", "retries", "stalled_slots",
+                    "param_bytes", "kv_bytes"):
+            agg[key] = sum(p[key] for p in per)
+        for key in ("step_latency_ms", "step_p50_ms", "step_p99_ms",
+                    "prefill_latency_ms", "ttft_p50_ms", "ttft_p99_ms",
+                    "mfu"):
+            agg[key] = max(p.get(key, 0.0) for p in per)
+        # The port's own counters sum too.
+        for key in ("pending_embed", "chunking", "ragged_dispatches",
+                    "prefill_dispatches", "chunk_dispatches",
+                    "decode_dispatches", "decode_steps", "kv_pages_free",
+                    "kv_pages_cached"):
+            if key in agg:
+                agg[key] = sum(p[key] for p in per)
+        agg["prefix_cache"] = merge_prefix_cache_stats(
+            [p.get("prefix_cache") for p in per])
+        agg["replicas"] = len(per)
+        if "failed" in agg:
+            agg["failed"] = self._failed
+            agg["failed_replicas"] = [i for i, p in enumerate(per)
+                                      if p["failed"]]
+        return agg
 
 
 class TorchEngine:
@@ -2643,6 +2848,9 @@ class TorchEngine:
     # dispatches on every rank).
     runtime_class = None
     encoder_runtime_class = None
+    # The class of a replica whose ranks this process does not hold
+    # (engine/spmd.py: rank 0's host-state view of replica r > 0).
+    remote_runtime_class = None
 
     def __init__(self, engine_cfg: EngineConfig, device=None, dtype=None,
                  blocklist_path: Optional[str] = None,
@@ -2655,7 +2863,11 @@ class TorchEngine:
         # unknown --scheduler fails at start-up.
         self.policy = make_policy(engine_cfg)
         # A rank mesh (parallel/mesh.py) puts every runtime on this rank's
-        # device and slice of a tensor-parallel layout.
+        # device and slice of a parallel layout. dp > 1 with no mesh: dp
+        # in-process replicas, one per device (dp_devices).
+        if mesh is None and engine_cfg.dp > 1:
+            mesh = make_mesh(dp=engine_cfg.dp,
+                             devices=dp_devices(device, engine_cfg.dp))
         self.mesh = mesh
         self.device = resolve_device(mesh.device if mesh is not None else device)
         self.dtype = dtype
@@ -2736,6 +2948,15 @@ class TorchEngine:
             self.load_model(name, ckpt, params=params
                             if name == engine_cfg.model else None)
 
+    def _step_targets(self) -> list:
+        """The individually steppable runtimes: replica sets flatten, so
+        every replica advances every tick (the loop dispatches every
+        runtime's decode before it collects any)."""
+        out = []
+        for rt in list(self.runtimes.values()):
+            out.extend(rt.replicas if isinstance(rt, ReplicaSet) else (rt,))
+        return out
+
     def _attach_hooks(self, rt) -> None:
         rt.fault_plan = self.fault_plan
         rt.journal = self.journal
@@ -2759,13 +2980,16 @@ class TorchEngine:
             raise KeyError(f"unknown model architecture: {name}")
         if name in self.runtimes:
             return
-        (rt,) = build_model_runtimes(name, cfg, self.ecfg, self.device,
-                                     self.dtype, checkpoint_path, params,
-                                     self.mesh, self.runtime_class,
-                                     self.encoder_runtime_class)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # loaded = resident, not queued
-        self._attach_hooks(rt)
+        reps = build_model_runtimes(name, cfg, self.ecfg, self.device,
+                                    self.dtype, checkpoint_path, params,
+                                    self.mesh, self.runtime_class,
+                                    self.encoder_runtime_class,
+                                    self.remote_runtime_class)
+        for d in {r.device for r in reps if r.device.type == "cuda"}:
+            torch.cuda.synchronize(d)  # loaded = resident, not queued
+        for r in reps:
+            self._attach_hooks(r)
+        rt = reps[0] if len(reps) == 1 else ReplicaSet(reps)
 
         def install() -> None:
             if name in self.runtimes:
@@ -2776,7 +3000,9 @@ class TorchEngine:
                 self._model_params[name] = params
 
         self.call_on_loop(install)
-        log.info("loaded model %s (%.1f MB of weights)", name, rt.param_bytes / 1e6)
+        log.info("loaded model %s (%.1f MB of weights%s)", name,
+                 rt.param_bytes / 1e6,
+                 f", {len(reps)} data-parallel replicas" if len(reps) > 1 else "")
         self.notify()
 
     def evict_model(self, name: str) -> bool:
@@ -2793,13 +3019,14 @@ class TorchEngine:
             del self.runtimes[name]
             self._model_sources.pop(name, None)
             self._model_params.pop(name, None)
-            if rt in self._failed_runtimes:
-                self._failed_runtimes.remove(rt)
-            # Drop the device tensors now, whoever still holds the
-            # runtime object.
-            rt.params = None
-            if isinstance(rt, ModelRuntime):
-                rt.kc = rt.vc = rt.recent = None
+            for rep in (rt.replicas if isinstance(rt, ReplicaSet) else (rt,)):
+                if rep in self._failed_runtimes:
+                    self._failed_runtimes.remove(rep)
+                # Drop the device tensors now, whoever still holds the
+                # runtime object.
+                rep.params = None
+                if isinstance(rep, ModelRuntime):
+                    rep.kc = rep.vc = rep.recent = None
             return True
 
         ok = self.call_on_loop(evict)
@@ -2933,7 +3160,7 @@ class TorchEngine:
         """Queued plus admitted-but-unfinished requests: what a graceful
         shutdown waits on."""
         return self.core.total_queued() + len(self._migrations) + sum(
-            len(rt.held_requests()) for rt in list(self.runtimes.values()))
+            len(rt.held_requests()) for rt in self._step_targets())
 
     def _requeue_front(self, req: Request, why: Optional[str] = None) -> bool:
         """Return a request to the FRONT of its user's native queue under a
@@ -3022,7 +3249,7 @@ class TorchEngine:
                 # two-phase handoff table until resolve_export.
                 handle["req"].cancelled.set()
                 return
-        for rt in list(self.runtimes.values()):
+        for rt in self._step_targets():
             for cand in (rt.held_requests()
                          + list(getattr(rt, "inflight_prefill", ()))):
                 if cand.req_id == req_id:
@@ -3071,14 +3298,17 @@ class TorchEngine:
         give a stale count, a placement-quality issue, never a
         correctness one. 0 when nothing caches."""
         rt = self.resolve_runtime(model)
-        pc = getattr(rt, "prefix_cache", None)
-        if pc is None:
-            return 0
-        try:
-            _nodes, pages = pc.match(list(tokens))
-        except Exception:  # noqa: BLE001 — advisory probe only
-            return 0
-        return len(pages)
+        best = 0
+        for rep in (rt.replicas if isinstance(rt, ReplicaSet) else (rt,)):
+            pc = getattr(rep, "prefix_cache", None)
+            if pc is None:
+                continue
+            try:
+                _nodes, pages = pc.match(list(tokens))
+            except Exception:  # noqa: BLE001 — advisory probe only
+                continue
+            best = max(best, len(pages))
+        return best
 
     def export_stream(self, rid: int, deadline: Optional[float] = None):
         """Phase 1 of the two-phase handoff: snapshot and detach `rid`'s
@@ -3092,7 +3322,7 @@ class TorchEngine:
         def _do():
             if deadline is not None and time.monotonic() > deadline:
                 return None
-            for rt in list(self.runtimes.values()):
+            for rt in self._step_targets():
                 export = getattr(rt, "export_request", None)
                 out = export(rid) if export is not None else None
                 if out is None:
@@ -3152,7 +3382,8 @@ class TorchEngine:
             extra = {"slot": handle["slot"]} if "slot" in handle else {}
             self.journal.record("finish", req=req, reason="cancelled",
                                 tokens=len(req.generated_ids),
-                                model=getattr(rt, "name", None), **extra)
+                                model=getattr(rt, "name", None),
+                                dp_replica=getattr(rt, "replica", 0), **extra)
             req.finish(FinishReason.CANCELLED)
             self.notify()
             return True
@@ -3190,8 +3421,11 @@ class TorchEngine:
             if rt is None:
                 raise MigrationError(
                     f"model not loaded: {state.get('model')}")
-            import_fn = getattr(rt, "import_request", None)
-            if import_fn is None or not import_fn(blob, req):
+            for rep in (rt.replicas if isinstance(rt, ReplicaSet) else (rt,)):
+                import_fn = getattr(rep, "import_request", None)
+                if import_fn is not None and import_fn(blob, req):
+                    break
+            else:
                 raise MigrationError("no slot/pages for migrated stream")
             self.core.mark_started(req.user)
             req.started = True
@@ -3207,8 +3441,12 @@ class TorchEngine:
         """Affinity-miss prefix shipping, source side (the router's
         seam)."""
         def _do():
-            fn = getattr(self.resolve_runtime(model), "export_prefix", None)
-            return fn(list(tokens)) if fn is not None else None
+            for rep in self._replicas_of(model):
+                fn = getattr(rep, "export_prefix", None)
+                blob = fn(list(tokens)) if fn is not None else None
+                if blob is not None:
+                    return blob
+            return None
 
         try:
             return self.call_on_loop(_do, timeout=10.0)
@@ -3218,13 +3456,24 @@ class TorchEngine:
     def import_prefix(self, model: str, blob: dict) -> int:
         """Affinity-miss prefix shipping, target side: pages adopted."""
         def _do():
-            fn = getattr(self.resolve_runtime(model), "import_prefix", None)
-            return fn(blob) if fn is not None else 0
+            for rep in self._replicas_of(model):
+                fn = getattr(rep, "import_prefix", None)
+                n = fn(blob) if fn is not None else 0
+                if n:
+                    return n
+            return 0
 
         try:
             return self.call_on_loop(_do, timeout=10.0)
         except TimeoutError:
             return 0
+
+    def _replicas_of(self, model: str) -> list:
+        """The runtimes serving `model`: its replicas, in order."""
+        rt = self.resolve_runtime(model)
+        if rt is None:
+            return []
+        return list(rt.replicas) if isinstance(rt, ReplicaSet) else [rt]
 
     def resolve_runtime(self, model: str, kind: str = "generate"):
         """The runtime serving `model` (smart_match), or None. With no
@@ -3387,7 +3636,15 @@ class TorchEngine:
                 if req.kind == "generate" else
                 f"model {model or rt.name} does not support embeddings"))
             return False
-        rt.submit(req)
+        if not rt.submit(req):
+            if model:
+                # Replica capacity raced away between the native gate and
+                # placement: wait in the queue, as after an eviction (the
+                # gate holds it until capacity returns).
+                return self._requeue(req, user, model)
+            # A request naming no model always passes the native gate, so
+            # a requeue would spin: the least-loaded live replica takes it.
+            rt.force_submit(req)
         req.trace_event("place", runtime=rt.name)
         self.journal.record("place", req=req, runtime=rt.name)
         if not req.started:
@@ -3509,7 +3766,9 @@ class TorchEngine:
                 rt.name, getattr(rt, "_orig_cfg", rt.cfg), self.ecfg,
                 self.device, self.dtype, self._model_sources.get(rt.name),
                 self._model_params.get(rt.name), self.mesh,
-                self.runtime_class, self.encoder_runtime_class)
+                self.runtime_class, self.encoder_runtime_class,
+                self.remote_runtime_class,
+                replica=getattr(rt, "replica", 0))
         except Exception:  # noqa: BLE001 — retried on the next interval
             log.exception("rebuild of %s failed; retrying in %.0fs",
                           rt.name, self.recover_interval)
@@ -3527,10 +3786,15 @@ class TorchEngine:
             items, self._rebuilt = self._rebuilt, []
         for rt, fresh in items:
             self._recovering.discard(id(rt))
-            if self.runtimes.get(rt.name) is not rt:
+            cur = self.runtimes.get(rt.name)
+            if isinstance(cur, ReplicaSet) and rt in cur.replicas:
+                # A rebuilt replica replaces itself inside its set.
+                cur.replicas[cur.replicas.index(rt)] = fresh
+            elif cur is rt:
+                self.runtimes[rt.name] = fresh
+            else:
                 continue  # evicted meanwhile: the rebuild is dropped
             self._attach_hooks(fresh)
-            self.runtimes[rt.name] = fresh
             for r in rt.held_requests():
                 fresh.submit(r)
             if rt in self._failed_runtimes:
@@ -3549,10 +3813,14 @@ class TorchEngine:
             row = {"weight_bytes": int(rt.param_bytes),
                    "kv_bytes": int(rt.kv_bytes),
                    "free": 0, "used": 0, "cached": 0, "pool": 0}
-            if isinstance(rt, ModelRuntime):  # encoders hold no page pool
-                row.update(free=rt.alloc.free_pages, used=rt.alloc.used_pages,
-                           cached=rt.alloc.cached_pages,
-                           pool=rt.alloc.num_pages - 1)
+            # Encoders hold no page pool; a replica set's pools sum.
+            for rep in (rt.replicas if isinstance(rt, ReplicaSet) else (rt,)):
+                if isinstance(rep, ModelRuntime):
+                    a = rep.alloc
+                    row.update(free=row["free"] + a.free_pages,
+                               used=row["used"] + a.used_pages,
+                               cached=row["cached"] + a.cached_pages,
+                               pool=row["pool"] + a.num_pages - 1)
             models[name] = row
         sample = {"models": models}
         mem = device_memory(self.device)  # None on the CPU: no readings
@@ -3572,9 +3840,10 @@ class TorchEngine:
         self._admit()
         did_work = False
         handles = []
-        # Phase 1: ragged ticks and decode DISPATCH for every runtime;
-        # phase 2 collects, so host work overlaps the device.
-        for rt in self.runtimes.values():
+        # Phase 1: ragged ticks and decode DISPATCH for every runtime, each
+        # replica of a set on its own; phase 2 collects, so host work and
+        # the replicas on other devices overlap the device.
+        for rt in self._tick_targets():
             if rt._failed:
                 continue
             try:
@@ -3619,6 +3888,16 @@ class TorchEngine:
             except Exception as e:  # noqa: BLE001 — contain to this runtime
                 self._kill_runtime(rt, e)
                 did_work = True
+        self._collect(handles)
+        if not did_work:
+            self._idle()
+
+    def _tick_targets(self) -> list:
+        """The runtimes phase 1 of a tick walks, in order."""
+        return self._step_targets()
+
+    def _collect(self, handles) -> None:
+        """Phase 2 of a tick: collect the decodes phase 1 dispatched."""
         for rt, h in handles:
             if rt._failed:
                 continue
@@ -3626,30 +3905,36 @@ class TorchEngine:
                 rt.step_decode_collect(h, self.core)
             except Exception as e:  # noqa: BLE001 — contain to this runtime
                 self._kill_runtime(rt, e)
-        if not did_work:
-            with self._cond:
-                self._cond.wait(timeout=0.05)
+
+    def _idle(self) -> None:
+        """A tick that ran nothing naps on the condvar (notify wakes it)."""
+        with self._cond:
+            self._cond.wait(timeout=0.05)
 
     # -- counters ------------------------------------------------------------
     def prefix_cache_stats(self) -> dict:
-        models = {name: rt.prefix_cache.stats()
-                  for name, rt in dict(self.runtimes).items()
-                  if rt.prefix_cache is not None}
-        return {"enabled": bool(models), "models": models}
+        """Per-model prefix-cache stats (replicas summed)."""
+        models: Dict[str, list] = {}
+        for rt in self._step_targets():
+            if rt.prefix_cache is not None:
+                models.setdefault(rt.name, []).append(rt.prefix_cache.stats())
+        merged = {name: merge_prefix_cache_stats(reps)
+                  for name, reps in models.items()}
+        return {"enabled": bool(merged), "models": merged}
 
     def prefix_cache_flush(self) -> int:
         """Evict every unreferenced cached page, on the loop thread (the
         tree and the allocator are loop state)."""
         return self.call_on_loop(lambda: sum(
-            rt.prefix_cache.flush() for rt in self.runtimes.values()
+            rt.prefix_cache.flush() for rt in self._step_targets()
             if rt.prefix_cache is not None))
 
     def preemption_count(self) -> int:
-        return sum(rt.preempt_count for rt in list(self.runtimes.values()))
+        return sum(rt.preempt_count for rt in self._step_targets())
 
     def retry_count(self) -> int:
         return self._engine_retries + sum(rt.retry_count
-                                          for rt in list(self.runtimes.values()))
+                                          for rt in self._step_targets())
 
     def scheduler_stats(self) -> dict:
         """Live policy readout (TUI sched chip, /metrics.json): the active
@@ -3663,7 +3948,11 @@ class TorchEngine:
                 "decisions": p.decisions}
 
     def chip_stats(self) -> List[dict]:
-        return chip_stats(self.device)
+        """A row per distinct device of this process (in-process replicas
+        may span several cards)."""
+        devs = ([self.device] if self.mesh is None or self.mesh.backend
+                else list(dict.fromkeys(self.mesh.devices)))
+        return [row for d in devs for row in chip_stats(d)]
 
     def stats(self) -> dict:
         runtime_stats = [rt.stats() for rt in list(self.runtimes.values())]

@@ -40,24 +40,43 @@ the JAX package's numbers:
     OP_SPEC     = 11, a=T_pad, b=k_cap (the ragged payload plus the
                                     per-row is_spec flag)
 
-Desync detection: after every replayed op, all ranks exchange a status
-flag OUT-OF-BAND via the store (`status_sync`), a host-side barrier that
-cannot deadlock behind the very computation whose failure it reports. A
-worker whose replay failed has diverged KV state, so the primary fails
-the runtime LOUDLY (its requests end with an error) and the recovery
-path broadcasts OP_RELOAD, rebuilding it on every rank. The sync is one
-small store round-trip per dispatch; OLLAMAMQ_SPMD_STATUS_EVERY=N syncs
-every Nth data op instead. Liveness: every rank bumps a heartbeat key
-(`start_heartbeat`); a rank whose heartbeat stops changing for
-OLLAMAMQ_SPMD_HB_STALE seconds is presumed dead, so a sync waiting on it
-raises PeerDeadError within that bound, and a collective waiting on it
-fails at the process group's timeout at the latest.
+Data parallelism over ranks: on a mesh with a data axis each replica is
+its own (pipe x tensor) sub-grid of ranks (parallel/mesh.py
+replica_submesh), and the header's replica_ordinal routes each data op
+to one replica. In the JAX package every process takes part in every
+replica; here the ranks of replica r > 0 do not include rank 0. Rank 0
+keeps the host state of every replica (slots, pages, prefix cache and
+the generator whose state the plan carries) and computes replica 0
+only. For r > 0 it ships the plan, the replica's ranks replay it, and
+the replica's first rank posts the output, its status and the
+generator's state after the op under `ollamamq/res/<wire seq>`, where
+rank 0's collect reads them (SPMDRemoteRuntime). A worker replays only
+its own replica's data ops and applies every control op (LOAD, EVICT,
+RELOAD, SHUTDOWN), so the ordinal tables stay aligned on every rank.
+
+Desync detection: after every replayed op, the ranks that ran it
+exchange a status flag OUT-OF-BAND via the store (`status_sync`), a
+host-side barrier that cannot deadlock behind the very computation
+whose failure it reports; control ops sync every rank. A worker whose
+replay failed has diverged KV state, so the primary fails the runtime
+LOUDLY (its requests end with an error) and the recovery path
+broadcasts OP_RELOAD, rebuilding it on every rank of its replica. The
+sync is one small store round-trip per dispatch;
+OLLAMAMQ_SPMD_STATUS_EVERY=N syncs every Nth data op instead.
+Liveness: every rank bumps a heartbeat key (`start_heartbeat`); a rank
+whose heartbeat stops changing for OLLAMAMQ_SPMD_HB_STALE seconds is
+presumed dead, so a sync or a result wait on it raises PeerDeadError
+within that bound (only the waits of its own replica: a dead rank of
+replica 1 fails replica 1's requests and leaves replica 0 serving), and
+a collective waiting on it fails at the process group's timeout at the
+latest.
 """
 
 from __future__ import annotations
 
 import datetime
 import hashlib
+import io
 import json
 import logging
 import os
@@ -69,10 +88,15 @@ import numpy as np
 import torch
 
 from ollamamq_tpu_torch.config import EngineConfig
+from ollamamq_tpu_torch.engine import kv_cache as kvc
 from ollamamq_tpu_torch.engine.engine import (EncoderRuntime, ModelRuntime,
-                                              PeerDeadError, TorchEngine,
-                                              WorkerDesyncError, chip_stats)
+                                              PeerDeadError, ReplicaSet,
+                                              TorchEngine, WorkerDesyncError,
+                                              chip_stats)
+from ollamamq_tpu_torch.models import weights
+from ollamamq_tpu_torch.ops.quant import nbytes
 from ollamamq_tpu_torch.parallel import distributed
+from ollamamq_tpu_torch.parallel.mesh import replica_of, replica_ranks
 
 log = logging.getLogger("ollamamq.torch.spmd")
 
@@ -207,45 +231,54 @@ def stop_heartbeat() -> None:
     _hb_stop.set()
 
 
-def status_sync(ok: bool, seq: int) -> np.ndarray:
-    """Exchange one ok/fail flag per rank via the store; returns
-    int32[world] (1 = that rank's op failed). Host-side only: the failure
-    being reported may be a computation one side issued and the other
-    didn't, so the report must never be a device collective. Every rank
-    calls this at the same point in the op stream (`seq` is the shared
-    sync ordinal).
+def _wait_polled(client, key: str, ranks, what: str) -> bytes:
+    """The value of `key` once it exists, waiting in short polls between
+    which the heartbeats of `ranks` (other than this one) are checked: a
+    rank that died surfaces as PeerDeadError in ~_hb_stale() s instead of
+    blocking for OLLAMAMQ_SPMD_STATUS_TIMEOUT."""
+    pid = distributed.rank()
+    deadline = time.monotonic() + _status_timeout_s()
+    poll = min(2.0, max(0.2, _hb_stale() / 4))
+    while True:
+        try:
+            return _wait_get(client, key, poll)
+        except Exception as e:
+            if not _is_deadline(e):
+                raise
+            dead = _hb_monitor.stale_peers([p for p in ranks if p != pid])
+            if dead:
+                raise PeerDeadError(
+                    f"rank(s) {dead} heartbeat went stale at {what}: "
+                    "presumed dead; failing in-flight work loudly") from None
+            if time.monotonic() > deadline:
+                raise
 
-    A POLLED barrier: between short waits the peers' heartbeats are
-    checked, so a rank that died surfaces as PeerDeadError in
-    ~_hb_stale() s instead of blocking for OLLAMAMQ_SPMD_STATUS_TIMEOUT."""
+
+def status_sync(ok: bool, seq: int, domain: str = "all",
+                ranks=None) -> np.ndarray:
+    """Exchange one ok/fail flag per rank of `ranks` (default: every
+    rank) via the store; returns int32[world] (1 = that rank's op failed;
+    0 for ranks outside the sync). Host-side only: the failure being
+    reported may be a computation one side issued and the other didn't,
+    so the report must never be a device collective. Every rank of the
+    sync calls this at the same point in the op stream (`seq` is the
+    shared ordinal of the sync's `domain`: every rank for control ops,
+    a replica's ranks for its data ops). A POLLED barrier
+    (_wait_polled): a dead rank of the sync raises PeerDeadError."""
     client = _client()
     n, pid = distributed.world_size(), distributed.rank()
-    client.set(f"ollamamq/st/{seq}/{pid}", "ok" if ok else "fail")
-    deadline = time.monotonic() + _status_timeout_s()
+    ranks = list(range(n)) if ranks is None else list(ranks)
+    client.set(f"ollamamq/st/{domain}/{seq}/{pid}", "ok" if ok else "fail")
     flags = np.zeros(n, np.int32)
-    for i in range(n):
-        while True:
-            try:
-                v = _wait_get(client, f"ollamamq/st/{seq}/{i}", 2.0).decode()
-                break
-            except Exception as e:
-                if not _is_deadline(e):
-                    raise
-                dead = _hb_monitor.stale_peers(
-                    [p for p in range(n) if p != pid])
-                if dead:
-                    raise PeerDeadError(
-                        f"rank(s) {dead} heartbeat went stale at sync "
-                        f"{seq}: presumed dead; failing in-flight work "
-                        "loudly") from None
-                if time.monotonic() > deadline:
-                    raise
+    for i in ranks:
+        v = _wait_polled(client, f"ollamamq/st/{domain}/{seq}/{i}", ranks,
+                         f"sync {domain}/{seq}").decode()
         flags[i] = 0 if v == "ok" else 1
     # Everyone passed the PREVIOUS sync before writing this sync's key,
     # so our previous-sync key has been read by all: safe to clean up.
     if seq > 0:
         try:
-            client.delete_key(f"ollamamq/st/{seq - 1}/{pid}")
+            client.delete_key(f"ollamamq/st/{domain}/{seq - 1}/{pid}")
         except Exception:  # noqa: BLE001
             pass
     return flags
@@ -331,10 +364,13 @@ class _Wire:
 
     Keys are `ollamamq/op/<seq>`: the primary writes them monotonically;
     each worker long-polls its own cursor. Cleanup horizon: workers
-    process the stream serially and every completed status barrier sits
-    at a deterministic position in it, so when a barrier completes on the
-    primary, every worker has consumed ALL ops sent before it — keys
-    below that barrier's send-seq are safe to delete."""
+    process the stream serially and every completed status barrier of
+    every rank sits at a deterministic position in it, so when such a
+    barrier completes on the primary, every worker has consumed ALL ops
+    sent before it — keys below that barrier's send-seq are safe to
+    delete. With data-parallel replicas most barriers cover one replica,
+    so workers also post their cursor (`ollamamq/cursor/<rank>`) every
+    CURSOR_EVERY ops and the primary takes the least of them."""
 
     def __init__(self):
         self.seq = 0
@@ -347,6 +383,12 @@ class _Wire:
 _wire = _Wire()
 
 _HDR = 5 * 4  # int32[5] header bytes
+CURSOR_EVERY = 32  # ops between a worker's cursor posts (dp > 1)
+
+# The ranks of each replica of this world's mesh ([[every rank]] at dp 1)
+# and the status-sync bus of each replica's data ops (_data_bus).
+_layout: list = [None]
+_buses: dict = {}
 
 
 def _pack_payload(cast) -> bytes:
@@ -381,6 +423,8 @@ def _send(op, a, b, index, replica, values, S, MP, W, K):
     client = _client()
     client.set(f"ollamamq/op/{_wire.seq}", header + _pack_payload(cast))
     _wire.seq += 1
+    if len(_layout) > 1 and _wire.seq % (2 * CURSOR_EVERY) == 0:
+        _wire.consumed = max(_wire.consumed, _workers_cursor(client))
     # Reclaim keys every worker has provably consumed (barrier horizon).
     while _wire.deleted < _wire.consumed:
         try:
@@ -388,6 +432,28 @@ def _send(op, a, b, index, replica, values, S, MP, W, K):
         except Exception:  # noqa: BLE001
             pass
         _wire.deleted += 1
+
+
+def _workers_cursor(client) -> int:
+    """The least op cursor the workers posted (0 until each has). The
+    ranks of a replica with a rank whose heartbeat went stale are left
+    out: a rank presumed dead replays nothing more (its replica's live
+    ranks fail their next sync on it and exit), and their frozen cursors
+    would keep every later op key in the store for as long as the other
+    replicas serve."""
+    world = distributed.world_size()
+    dead = set(_hb_monitor.stale_peers(range(1, world)))
+    gone = {p for ranks in _layout if dead & set(ranks) for p in ranks}
+    live = [p for p in range(1, world) if p not in gone]
+    if not live:
+        return _wire.seq
+    keys = [f"ollamamq/cursor/{p}" for p in live]
+    try:
+        if not client.check(keys):
+            return 0
+        return min(int(v) for v in client.multi_get(keys))
+    except Exception:  # noqa: BLE001 — the horizon only waits
+        return 0
 
 
 def _recv_op(seq: int, timeout_s: float = 10.0):
@@ -421,32 +487,51 @@ def broadcast_shutdown() -> None:
 
 
 class _SyncBus:
-    """Global barrier ordinal for status syncs. Sync points derive
-    deterministically from the shared op stream, so every rank executes
-    the same syncs in the same order and `seq` stays aligned without any
-    extra wire traffic; barrier ids are never reused."""
+    """Barrier ordinal of one sync domain: every rank (control ops, and
+    data ops at dp 1) or one replica's ranks (its data ops). Sync points
+    derive deterministically from the shared op stream, so every rank of
+    the domain executes the same syncs in the same order and `seq` stays
+    aligned without any extra wire traffic; barrier ids are never
+    reused."""
 
-    def __init__(self):
+    def __init__(self, domain: str = "all", ranks=None):
         self.seq = 0
+        self.domain = domain
+        self.ranks = ranks  # None: every rank
 
     def sync(self, ok: bool) -> np.ndarray:
-        flags = status_sync(ok, self.seq)
+        flags = status_sync(ok, self.seq, self.domain, self.ranks)
         self.seq += 1
-        # Barrier complete: on the primary, every op sent so far has been
-        # consumed by every worker — advance the wire-key cleanup
-        # horizon. On workers _wire.seq is 0 (no-op).
-        _wire.consumed = _wire.seq
+        if self.ranks is None:
+            # Barrier of every rank complete: on the primary, every op
+            # sent so far has been consumed by every worker — advance the
+            # wire-key cleanup horizon. On workers _wire.seq is 0 (no-op).
+            _wire.consumed = _wire.seq
         return flags
 
 
 _bus = _SyncBus()
 
 
-def _reset_wire() -> None:
-    """A fresh op stream and barrier ordinal: each world (each store)
-    starts its wire at 0 on every rank."""
-    global _wire, _bus
+def _data_bus(replica: int) -> _SyncBus:
+    """The sync bus of replica `replica`'s data ops: the control bus at
+    dp 1 (every rank runs every op), else the replica's own."""
+    if len(_layout) == 1:
+        return _bus
+    if replica not in _buses:
+        _buses[replica] = _SyncBus(f"r{replica}", _layout[replica])
+    return _buses[replica]
+
+
+def _reset_wire(mesh=None) -> None:
+    """A fresh op stream and barrier ordinals: each world (each store)
+    starts its wire at 0 on every rank. `mesh` gives the replicas' ranks
+    (none: one replica of every rank)."""
+    global _wire, _bus, _layout
     _wire, _bus = _Wire(), _SyncBus()
+    _layout = ([replica_ranks(mesh, r) for r in range(mesh.dp)]
+               if mesh is not None and mesh.dp > 1 else [None])
+    _buses.clear()
     _trace.reset()
 
 
@@ -461,12 +546,12 @@ class _OpCadence:
         self.count = 0
         self._pending_fail = False  # off-cadence failure carried forward
 
-    def after_op(self, ok: bool) -> Optional[np.ndarray]:
+    def after_op(self, ok: bool, bus: "_SyncBus") -> Optional[np.ndarray]:
         self.count += 1
         if self.count % _status_every() != 0:
             self._pending_fail = self._pending_fail or not ok
             return None
-        flags = _bus.sync(ok and not self._pending_fail)
+        flags = bus.sync(ok and not self._pending_fail)
         self._pending_fail = False
         return flags
 
@@ -515,12 +600,9 @@ _OP_SITE = {OP_PREFILL: "prefill", OP_CHUNK: "chunk", OP_DECODE: "decode",
             OP_ENCODE: "encode"}
 
 
-def _mirrored_dispatch(rt, op, a, b, values, dispatch):
-    """Ship the plan, run the local dispatch, then join this runtime's
-    status sync. The status sync runs even when the local dispatch raised
-    (skipping it would strand the other ranks at the barrier). Shared by
-    the generative and encoder runtimes so the sync protocol can't drift
-    between them."""
+def _ship(rt, op, a, b, values) -> int:
+    """Ship one step plan for rt (its model and replica ordinals in the
+    header); returns the plan's wire seq."""
     if rt.fault_plan is not None:
         # Fault-injection seam, BEFORE the broadcast: an injected failure
         # fires while no worker has replayed anything, so the containment
@@ -532,9 +614,20 @@ def _mirrored_dispatch(rt, op, a, b, values, dispatch):
         # lines the journal's wire_seq up against each rank's position.
         rt.journal.record("broadcast", model=rt.name,
                           op=_OP_SITE.get(op, str(op)), wire_seq=_wire.seq)
+    seq = _wire.seq
     _send(op, a, b, rt.spmd_index, rt.spmd_replica, values,
           rt.ecfg.max_slots, rt.ecfg.max_pages_per_seq,
           rt.ecfg.repeat_last_n, rt.key_bytes)
+    return seq
+
+
+def _mirrored_dispatch(rt, op, a, b, values, dispatch):
+    """Ship the plan, run the local dispatch, then join this runtime's
+    status sync. The status sync runs even when the local dispatch raised
+    (skipping it would strand the other ranks at the barrier). Shared by
+    the generative and encoder runtimes so the sync protocol can't drift
+    between them."""
+    _ship(rt, op, a, b, values)
     ok = False
     try:
         out = dispatch()
@@ -542,9 +635,110 @@ def _mirrored_dispatch(rt, op, a, b, values, dispatch):
         ok = True
         return out
     finally:
-        flags = rt._cadence.after_op(ok)
+        flags = rt._cadence.after_op(ok, _data_bus(rt.spmd_replica))
         if ok:
             _raise_on_worker_failure(flags, rt.name)
+
+
+def _post_result(seq: int, ok: bool, rt, out) -> None:
+    """(a replica's first rank) Op `seq`'s outcome for rank 0: the status
+    its replica's ranks agreed on, the generator's state after the op
+    (the next plan starts from it) and the output."""
+    buf = io.BytesIO()
+    key = _key_of(rt) if ok else np.zeros(0, np.uint8)
+    buf.write(np.asarray([1 if ok else 0, key.size], np.int32).tobytes())
+    buf.write(key.tobytes())
+    if ok:
+        np.save(buf, out.detach().to("cpu").contiguous().numpy(),
+                allow_pickle=False)
+    _client().set(f"ollamamq/res/{seq}", buf.getvalue())
+
+
+class _RemoteResult:
+    """The output of op `seq` on a replica whose ranks this process does
+    not hold: `cpu()` waits for the replica's first rank to post it (the
+    collect; the dispatch only shipped the plan), restores the runtime's
+    generator to the state after the op and returns the output on the
+    host. Raises WorkerDesyncError when a rank of the replica failed the
+    replay and PeerDeadError when one died. `ready()` asks without
+    waiting, so the engine loop can collect it on a later tick and keep
+    its other replicas stepping meanwhile."""
+
+    HB_CHECK_S = 0.25  # between ready()'s heartbeat reads
+    WAIT_SLICE_S = 0.005  # one store wait of wait()
+
+    def __init__(self, rt, seq: int):
+        self.rt = rt
+        self.seq = seq
+        self._out = None
+        self._since = self._checked = time.monotonic()
+
+    def ready(self) -> bool:
+        if self._out is not None or _client().check(
+                [f"ollamamq/res/{self.seq}"]):
+            return True
+        now = time.monotonic()
+        if now - self._checked >= self.HB_CHECK_S:
+            self._checked = now
+            dead = _hb_monitor.stale_peers(_layout[self.rt.spmd_replica])
+            if dead:
+                raise PeerDeadError(
+                    f"rank(s) {dead} heartbeat went stale at replica "
+                    f"{self.rt.spmd_replica}'s op {self.seq}: presumed dead; "
+                    "failing in-flight work loudly")
+            if now - self._since > _status_timeout_s():
+                raise WorkerDesyncError(
+                    f"replica {self.rt.spmd_replica}'s op {self.seq} posted "
+                    f"no result in {_status_timeout_s():.0f}s")
+        return False
+
+    def wait(self, seconds: float, stop) -> None:
+        """Block until the result is posted, `stop()` turns true or
+        `seconds` pass, in store waits of WAIT_SLICE_S (the store answers
+        a wait the moment its key lands) with `stop()` read between them.
+        Errors are left to ready() and cpu()."""
+        client = _client()
+        key = [f"ollamamq/res/{self.seq}"]
+        deadline = time.monotonic() + seconds
+        while not stop() and time.monotonic() < deadline:
+            try:
+                client.wait(key, datetime.timedelta(seconds=self.WAIT_SLICE_S))
+                return
+            except Exception as e:  # noqa: BLE001
+                if not _is_deadline(e):
+                    return
+
+    def cpu(self) -> torch.Tensor:
+        if self._out is None:
+            rt, key = self.rt, f"ollamamq/res/{self.seq}"
+            client = _client()
+            raw = _wait_polled(client, key, _layout[rt.spmd_replica],
+                               f"replica {rt.spmd_replica}'s op {self.seq}")
+            try:
+                client.delete_key(key)
+            except Exception:  # noqa: BLE001
+                pass
+            ok, n = (int(x) for x in np.frombuffer(raw[:8], np.int32))
+            if not ok:
+                raise WorkerDesyncError(
+                    f"replica {rt.spmd_replica}'s ranks "
+                    f"{_layout[rt.spmd_replica]} failed replaying a dispatch "
+                    f"for {rt.name}; KV state diverged — failing runtime for "
+                    "reload")
+            rt.gen.set_state(torch.from_numpy(
+                np.frombuffer(raw[8:8 + n], np.uint8).copy()))
+            self._out = torch.from_numpy(
+                np.load(io.BytesIO(raw[8 + n:]), allow_pickle=False))
+        return self._out
+
+
+def _remote_dispatch(rt, op, a, b, values, lazy: bool):
+    """Ship a plan to the ranks of rt's replica (none of them this one);
+    the output comes back on the store (_RemoteResult). A decode chunk
+    returns at once (the loop collects it after dispatching every
+    replica); the other ops are read back here."""
+    out = _RemoteResult(rt, _ship(rt, op, a, b, values))
+    return out if lazy else out.cpu()
 
 
 def _key_of(rt) -> np.ndarray:
@@ -662,6 +856,36 @@ class SPMDModelRuntime(_SPMDMixin, ModelRuntime):
             lambda: ModelRuntime._dispatch_embed(self, B, bucket, tokens, lens))
 
 
+class SPMDRemoteRuntime(SPMDModelRuntime):
+    """Rank 0's runtime for a data-parallel replica none of whose ranks
+    it holds: the host state of the replica (slots, pages, prefix cache,
+    the generator the plans carry) and no weights or pool. Its
+    dispatches ship the plan to the replica's ranks and read the output
+    back from the store, so the engine's host logic runs unchanged."""
+
+    def _home_device(self, mesh, device):
+        return device  # rank 0's: the generator the plans carry lives here
+
+    def _device_state(self, params, checkpoint_path, tp_size, pp, stage):
+        """No weights, pool or ring here: the replica's ranks hold them.
+        Their bytes are those of the replica's first rank (the slice rank
+        0 holds of replica 0), from meta tensors of the config's shapes:
+        nothing is drawn, read or allocated."""
+        meta = torch.device("meta")
+        shapes = weights.load_params(self._orig_cfg, None, self.ecfg.seed,
+                                     self.dtype, self.weights_dtype, meta,
+                                     tp=tp_size, rank=0, pp=pp, stage=0)
+        kc, vc = kvc.alloc_kv_pool(self.cfg, self.ecfg, self.dtype, meta,
+                                   kv_dtype=self.kv_dtype, tp=tp_size,
+                                   layers=self.cfg.num_layers // pp)
+        self.params = self.kc = self.vc = self.recent = None
+        self.param_bytes = sum(nbytes(t) for t in weights.leaves(shapes))
+        self.kv_bytes = nbytes(kc) + nbytes(vc)
+
+    def _mirrored(self, op, a, b, values, dispatch):
+        return _remote_dispatch(self, op, a, b, values, lazy=op == OP_DECODE)
+
+
 class SPMDEncoderRuntime(_SPMDMixin, EncoderRuntime):
     """EncoderRuntime whose batch-encode dispatches are mirrored on every
     rank (OP_ENCODE), so embedding models serve under tensor parallelism
@@ -680,18 +904,21 @@ class SPMDEncoderRuntime(_SPMDMixin, EncoderRuntime):
                                                     lens))
 
 
-def _build_runtimes(name, ckpt, engine_cfg, mesh, dtype):
-    """Worker-side replica list for one model: the SAME construction path
-    the primary's load_model uses, with the SPMD runtime classes."""
+def _build_row(name, ckpt, engine_cfg, mesh, dtype, replica=None) -> dict:
+    """Worker side: {replica ordinal: runtime} of one model, holding only
+    this rank's replica (an encoder: replica 0's ranks only), built by
+    the SAME construction path as the primary's load_model, with the
+    SPMD runtime classes; `replica` rebuilds that one."""
     from ollamamq_tpu_torch.config import get_model_config
     from ollamamq_tpu_torch.engine.engine import build_model_runtimes
 
     cfg = get_model_config(name)
     if cfg is None:
         raise ValueError(f"model {name} not replayable under SPMD")
-    return build_model_runtimes(name, cfg, engine_cfg, mesh.device, dtype,
+    reps = build_model_runtimes(name, cfg, engine_cfg, mesh.device, dtype,
                                 ckpt, None, mesh, SPMDModelRuntime,
-                                SPMDEncoderRuntime)
+                                SPMDEncoderRuntime, replica=replica)
+    return {getattr(rt, "replica", 0): rt for rt in reps}
 
 
 class SPMDEngine(TorchEngine):
@@ -702,14 +929,20 @@ class SPMDEngine(TorchEngine):
 
     runtime_class = SPMDModelRuntime
     encoder_runtime_class = SPMDEncoderRuntime
+    remote_runtime_class = SPMDRemoteRuntime
 
     def __init__(self, engine_cfg: EngineConfig, mesh=None, **kw):
         if distributed.world_size() > 1 and not distributed.is_primary():
             raise RuntimeError("SPMDEngine runs on rank 0; workers run "
                                "run_worker")
-        _reset_wire()
+        _reset_wire(mesh)
         self.worker_reports: list = []
         self._released = False
+        # Decode chunks out on another replica's ranks, not collected yet:
+        # id(rt) -> (rt, handle). Set on every notify (an arrival, a loop
+        # call), cleared as a tick admits: it ends an idle wait.
+        self._deferred: dict = {}
+        self._nudged = False
         super().__init__(engine_cfg, mesh=mesh, **kw)
         self._renumber()
         if self._multi():
@@ -720,16 +953,70 @@ class SPMDEngine(TorchEngine):
         return distributed.world_size() > 1
 
     def _renumber(self) -> None:
-        """Re-derive the model ordinal of every runtime from the dict
-        order, the same order the worker keeps its mirrored list in."""
+        """Re-derive (model ordinal, replica ordinal) of every runtime
+        from the dict order and the set's order, the same order the
+        worker keeps its mirrored table in."""
         for mi, rt in enumerate(self.runtimes.values()):
-            rt.spmd_index = mi
-            rt.spmd_replica = 0
+            for rep in (rt.replicas if isinstance(rt, ReplicaSet) else (rt,)):
+                rep.spmd_index = mi
+                rep.spmd_replica = getattr(rep, "replica", 0)
 
-    def _send_control(self, op, a, index, values) -> None:
+    def notify(self) -> None:
+        self._nudged = True
+        super().notify()
+
+    def _admit(self) -> int:
+        self._nudged = False  # a notify from here on ends this tick's wait
+        return super()._admit()
+
+    def _tick_targets(self) -> list:
+        """Phase 1's runtimes: replicas whose ranks this one does not hold
+        first (their decode dispatch is a store write, so their ranks
+        compute while this rank runs its own replica's dispatch and status
+        sync), less those whose decode is still out on their ranks."""
+        targets = [rt for rt in super()._tick_targets()
+                   if id(rt) not in self._deferred]
+        return ([rt for rt in targets if isinstance(rt, SPMDRemoteRuntime)]
+                + [rt for rt in targets
+                   if not isinstance(rt, SPMDRemoteRuntime)])
+
+    def _collect(self, handles) -> None:
+        """Phase 2. A decode out on another replica's ranks is collected
+        on the first tick after its result is posted; until then the loop
+        steps the other runtimes."""
+        own = []
+        for rt, h in handles:
+            if isinstance(h[0], _RemoteResult):
+                self._deferred[id(rt)] = (rt, h)
+            else:
+                own.append((rt, h))
+        super()._collect(own)
+        ready = []
+        for key, (rt, h) in list(self._deferred.items()):
+            try:
+                if not (rt._failed or h[0].ready()):
+                    continue
+            except Exception as e:  # noqa: BLE001 — contain to this runtime
+                del self._deferred[key]
+                self._kill_runtime(rt, e)
+                continue
+            del self._deferred[key]
+            ready.append((rt, h))
+        super()._collect(ready)
+
+    def _idle(self) -> None:
+        """With a decode out on another replica's ranks, wait for its
+        result on the store rather than nap: the result, a notify or 50
+        ms ends the wait."""
+        if not self._deferred:
+            return super()._idle()
+        _rt, h = next(iter(self._deferred.values()))
+        h[0].wait(0.05, lambda: self._nudged)
+
+    def _send_control(self, op, a, index, values, replica: int = 0) -> None:
         e = self.ecfg
-        _send(op, a, 0, index, 0, values, e.max_slots, e.max_pages_per_seq,
-              e.repeat_last_n, 0)
+        _send(op, a, 0, index, replica, values, e.max_slots,
+              e.max_pages_per_seq, e.repeat_last_n, 0)
 
     def load_model(self, name, checkpoint_path=None, params=None):
         if name in self.runtimes:
@@ -754,7 +1041,10 @@ class SPMDEngine(TorchEngine):
                 # A concurrent pull of the same model won the race; a
                 # second OP_LOAD would desync worker ordinals for good.
                 return
-            self._send_control(OP_LOAD, 1, len(self.runtimes),
+            cfg = get_model_config(name)
+            n_reps = (self.mesh.dp if self.mesh is not None
+                      and not cfg.is_encoder else 1)
+            self._send_control(OP_LOAD, n_reps, len(self.runtimes),
                                (_encode_str(name, NAME_LEN),
                                 _encode_str(checkpoint_path, PATH_LEN)))
             ok = False
@@ -820,9 +1110,10 @@ class SPMDEngine(TorchEngine):
         # Engine thread: broadcast the reload and rebuild INLINE so the
         # weight reload and the pool allocation happen at the same point
         # of the op stream on every rank. Serving pauses for the reload.
-        log.warning("SPMD reload of %s (model %d) on all ranks", rt.name,
-                    rt.spmd_index)
-        self._send_control(OP_RELOAD, 0, rt.spmd_index, ())
+        log.warning("SPMD reload of %s (model %d, replica %d) on its ranks",
+                    rt.name, rt.spmd_index, rt.spmd_replica)
+        self._send_control(OP_RELOAD, 0, rt.spmd_index, (),
+                           replica=rt.spmd_replica)
         ok = False
         try:
             ok = self._rebuild_runtime(rt)
@@ -840,9 +1131,7 @@ class SPMDEngine(TorchEngine):
                                      if d is not rt]
                 self._recovering.discard(id(rt))
         self._swap_rebuilt()
-        for fresh in self.runtimes.values():
-            if fresh.name == rt.name:
-                fresh.spmd_index = rt.spmd_index
+        self._renumber()
 
     def chip_stats(self):
         chips = super().chip_stats()
@@ -913,24 +1202,27 @@ class SPMDEngine(TorchEngine):
 
 
 class _DeadReplica:
-    """Placeholder for an ordinal whose runtime failed to build: keeps the
-    slot's status-sync cadence alive (the primary's runtime still
-    dispatches and syncs on ITS cadence until the reload lands) and makes
-    any routed replay fail loudly."""
+    """Placeholder for a replica of this rank whose runtime failed to
+    build: keeps the slot's status-sync cadence alive (the primary's
+    runtime still dispatches and syncs on ITS cadence until the reload
+    lands) and makes any routed replay fail loudly."""
 
     def __init__(self, name: str):
         self.name = name
         self._cadence = _OpCadence()
 
 
-def _slot(runtimes, specs, mi):
-    """The holder at ordinal mi, growing the mirrored list with dead
-    placeholders when the primary references an ordinal we never built
-    (a protocol bug: kept loud but sync-aligned)."""
-    while len(runtimes) <= mi:
-        runtimes.append(_DeadReplica("?"))
+def _slot(rows, specs, mi, ri):
+    """This rank's holder at (mi, ri), growing the mirrored table with
+    dead placeholders when the primary references an ordinal we never
+    built (a protocol bug: kept loud but sync-aligned)."""
+    while len(rows) <= mi:
+        rows.append({})
         specs.append(("?", None))
-    return runtimes[mi]
+    row = rows[mi]
+    if ri not in row:
+        row[ri] = _DeadReplica(specs[mi][0])
+    return row[ri]
 
 
 def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
@@ -938,13 +1230,16 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
     """Worker-rank loop (rank != 0): replay the primary's dispatches.
 
     `models`: {name: checkpoint_path_or_None} in the SAME order as the
-    primary's --models list; the opcode header routes by that ordinal.
-    Returns the number of ops replayed. `max_steps` bounds the loop for
-    tests; production workers run until OP_SHUTDOWN, when they file
+    primary's --models list; the opcode header routes by that ordinal
+    and, on a mesh with a data axis, by the replica ordinal: this rank
+    replays its own replica's data ops only (the first rank of a replica
+    r > 0 posts each op's result for rank 0) and applies every control
+    op. Returns the number of ops received. `max_steps` bounds the loop
+    for tests; production workers run until OP_SHUTDOWN, when they file
     their report (`ollamamq/report/<rank>`: ops, output digest, kernel
-    launches, each runtime's weight and KV bytes and pipeline hand-off
-    times, peak device memory)
-    for the primary.
+    launches, its replica, the (model, replica) ordinals it reloaded,
+    each runtime's weight and KV bytes and pipeline hand-off times, peak
+    device memory) for the primary.
 
     A replay failure is answered over the status sync: the primary fails
     that runtime loudly and sends OP_RELOAD, which rebuilds it here from
@@ -955,76 +1250,93 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                                 pp=mesh.pp, model_names=list(models))
     if err is not None:
         raise ValueError(err)
-    _reset_wire()
+    _reset_wire(mesh)
     start_heartbeat()
-    runtimes = []  # [model ordinal] -> runtime | _DeadReplica
+    me = replica_of(mesh)
+    ranks = _layout[me]
+    posts = mesh.dp > 1 and me > 0 and distributed.rank() == ranks[0]
+    rows = []  # [model ordinal] -> {replica ordinal: runtime | _DeadReplica}
     specs = []  # [model ordinal] -> (name, ckpt)
     for name, ckpt in models.items():
-        (rt,) = _build_runtimes(name, ckpt, engine_cfg, mesh, dtype)
-        runtimes.append(rt)
+        rows.append(_build_row(name, ckpt, engine_cfg, mesh, dtype))
         specs.append((name, ckpt))
     steps = 0
+    reloads = []  # [model ordinal, replica ordinal] of each reload here
     S = engine_cfg.max_slots
     MP = engine_cfg.max_pages_per_seq
     W = engine_cfg.repeat_last_n
     wire_seq = 0
+    client = _client()
     try:
         while max_steps is None or steps < max_steps:
             header, raw = _recv_op(wire_seq)
+            seq = wire_seq
             wire_seq += 1
+            if mesh.dp > 1 and wire_seq % CURSOR_EVERY == 0:
+                client.set(f"ollamamq/cursor/{distributed.rank()}",
+                           str(wire_seq - 1))
             op, a, b, mi, ri = (int(x) for x in header)
             if op == OP_SHUTDOWN:
                 report = _trace.report()
+                report["replica"] = me
+                report["reloads"] = reloads
                 report["runtimes"] = {
                     rt.name: {"param_bytes": rt.param_bytes,
                               "kv_bytes": rt.kv_bytes,
                               "pipe": (dict(rt.pipe.stats)
                                        if getattr(rt, "pipe", None) else None)}
-                    for rt in runtimes if not isinstance(rt, _DeadReplica)}
+                    for row in rows for rt in row.values()
+                    if not isinstance(rt, _DeadReplica)}
                 if mesh.device.type == "cuda":
                     report["max_memory_allocated"] = \
                         torch.cuda.max_memory_allocated(mesh.device)
-                _client().set(f"ollamamq/report/{distributed.rank()}",
-                              json.dumps(report))
+                client.set(f"ollamamq/report/{distributed.rank()}",
+                           json.dumps(report))
                 break
+            if op in DATA_OPS and ri != me:
+                steps += 1  # another replica's op: its ranks replay it
+                continue
             ok = True
-            payload = None
+            payload = out = rt = None
             try:
                 if op in DATA_OPS:
-                    rt = _slot(runtimes, specs, mi)
+                    rt = _slot(rows, specs, mi, ri)
                     if isinstance(rt, _DeadReplica):
                         raise RuntimeError(
-                            f"no live runtime at ordinal {mi} for op {op}")
+                            f"no live runtime at ordinal {mi}/{ri} for op {op}")
                     payload = _unpack_payload(
                         raw, payload_spec(op, a, b, S, MP, W, rt.key_bytes))
                     out = _replay(rt, op, a, b, payload)
                     _trace.record(op, a, out)
                 elif op == OP_RELOAD:
                     name, ckpt = specs[mi]
-                    old = _slot(runtimes, specs, mi)
-                    # Free the old device memory before the reload; the
-                    # dead placeholder holds the slot (and a fresh
-                    # cadence, mirroring the primary's fresh runtime) if
-                    # the rebuild below raises.
-                    runtimes[mi] = _DeadReplica(name)
-                    del old
-                    (runtimes[mi],) = _build_runtimes(name, ckpt, engine_cfg,
-                                                      mesh, dtype)
-                    log.warning("worker reloaded %s (model %d)", name, mi)
+                    if ri == me:
+                        old = _slot(rows, specs, mi, ri)
+                        # Free the old device memory before the reload; the
+                        # dead placeholder holds the slot (and a fresh
+                        # cadence, mirroring the primary's fresh runtime)
+                        # if the rebuild below raises.
+                        rows[mi][ri] = _DeadReplica(name)
+                        del old
+                        rows[mi].update(_build_row(name, ckpt, engine_cfg,
+                                                   mesh, dtype, replica=ri))
+                        reloads.append([mi, ri])
+                        log.warning("worker reloaded %s (model %d, replica "
+                                    "%d)", name, mi, ri)
                 elif op == OP_LOAD:
                     payload = _unpack_payload(
                         raw, payload_spec(op, a, b, S, MP, W, 0))
                     name = _decode_str(payload[0])
                     ckpt = _decode_str(payload[1]) or None
                     specs.append((name, ckpt))
-                    try:
-                        (rt,) = _build_runtimes(name, ckpt, engine_cfg, mesh,
-                                                dtype)
-                        runtimes.append(rt)
-                    except Exception:
-                        # Keep ordinals aligned; OP_RELOAD rebuilds holes.
-                        runtimes.append(_DeadReplica(name))
-                        raise
+                    rows.append({})
+                    cfg = get_model_config(name)
+                    want = 1 if cfg is None or cfg.is_encoder else mesh.dp
+                    if a != want:
+                        raise RuntimeError(
+                            f"OP_LOAD of {name} for {a} replica(s); this "
+                            f"rank's mesh serves {want}")
+                    rows[-1] = _build_row(name, ckpt, engine_cfg, mesh, dtype)
                 elif op == OP_EVICT:
                     payload = _unpack_payload(
                         raw, payload_spec(op, a, b, S, MP, W, 0))
@@ -1045,17 +1357,25 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                 ok = False
                 log.exception("worker op failed (op=%d mi=%d ri=%d); "
                               "reporting desync", op, mi, ri)
-            # Status sync: data ops ride the TARGET RUNTIME's cadence
-            # (matching the primary's per-runtime cadence); control ops
-            # always sync (the primary waits on the result).
+                if op == OP_LOAD and rows and not rows[-1]:
+                    # Keep ordinals aligned; OP_RELOAD rebuilds holes.
+                    rows[-1] = {me: _DeadReplica(specs[-1][0])}
+            # Status sync: data ops ride the TARGET RUNTIME's cadence on its
+            # replica's bus (matching the primary's per-runtime cadence);
+            # control ops always sync every rank (the primary waits on the
+            # result).
             if op in DATA_OPS:
-                _slot(runtimes, specs, mi)._cadence.after_op(ok)
+                flags = _slot(rows, specs, mi, ri)._cadence.after_op(
+                    ok, _data_bus(ri))
+                if posts:
+                    _post_result(seq, ok and not (flags is not None
+                                                  and flags.any()), rt, out)
             else:
                 flags = _bus.sync(ok)
                 if op == OP_LOAD and flags[0]:
                     # The primary's own load failed AFTER broadcasting: it
                     # never added the model, so drop ours to realign.
-                    runtimes.pop()
+                    rows.pop()
                     specs.pop()
                 elif op == OP_EVICT and ok:
                     if flags[0]:
@@ -1063,7 +1383,7 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                                   "runtime to stay aligned",
                                   _decode_str(payload[0]))
                     else:
-                        del runtimes[mi]
+                        del rows[mi]
                         del specs[mi]
             steps += 1
     finally:

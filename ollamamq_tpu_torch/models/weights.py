@@ -314,6 +314,21 @@ def _to_device(params: dict, device) -> dict:
     return out
 
 
+def clone_to(params: dict, device) -> dict:
+    """A copy of a params tree on `device` in storage of its own (a
+    tensor already there is copied too): one data-parallel replica's
+    weights from the tree loaded once."""
+    def copy(t):
+        if isinstance(t, QuantTensor):
+            return QuantTensor(copy(t.q), copy(t.s))
+        return t.to(device, copy=True)
+
+    out = {k: copy(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: copy(v) for k, v in lp.items()}
+                     for lp in params["layers"]]
+    return out
+
+
 def replicate_kv_layer(lp: dict, cfg: ModelConfig, r: int) -> dict:
     """One layer of replicate_kv_heads."""
     Hk, hd = cfg.num_kv_heads, cfg.head_dim
@@ -377,9 +392,12 @@ def init_random(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     """Seeded random weights, drawn on `device` from a torch.Generator
     (the numbers differ from jax.random's for the same seed).
     `prepare_layer(layer)` / `prepare_top(name, tensor)` transform each
-    layer dict and the embed / lm_head as they are drawn."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    layer dict and the embed / lm_head as they are drawn. On the meta
+    device nothing is drawn: the tree's shapes and dtypes only."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     return llama.init_params(cfg, gen, dtype=dtype, device=device,
                              prepare_layer=prepare_layer,
                              prepare_top=prepare_top)

@@ -6,7 +6,10 @@ collectives. PyTorch has no single controller, so here each rank is a
 process (torch.distributed), the mesh is a grid of ranks with the same
 five axes in the same order,
 
-  - "data":   replicas (not ported yet)
+  - "data":   replicas: each data index is a whole (pipe, tensor)
+              sub-grid of ranks serving its own requests with its own
+              weights and KV pool (replica_submesh); the engine places
+              each request on its least-loaded replica
   - "pipe":   pipeline stages: each stage holds a contiguous slice of
               the layers and their KV pages and hands its activations to
               the next stage point to point (PipeGroup,
@@ -17,12 +20,24 @@ five axes in the same order,
               hidden dims and the vocabulary sharded; the forwards call
               the collectives themselves (TensorGroup)
 
-Ranks are numbered in that order (the tensor index varies fastest). The
-tensor axis carries one process group per stage and the pipe axis one
-per pipeline (the ranks sharing every other coordinate); every rank
-creates every group, in the same order, as torch.distributed requires.
-Several ranks may share one device (two ranks on one card over gloo);
+Ranks are numbered in that order (the tensor index varies fastest), so
+replica r holds the ranks [r * pp * tp, (r + 1) * pp * tp). The tensor
+axis carries one process group per (replica, stage) and the pipe axis
+one per (replica, tensor index); every rank creates every group of every
+replica, in the same order, as torch.distributed requires. Several
+ranks may share one device (two ranks on one card over gloo);
 `n_devices` counts the distinct devices, which is what MFU divides by.
+
+Without a process group the mesh is this one process: `make_mesh(dp=N,
+devices=[...])` gives N in-process replicas, replica r on devices[r]
+(several may share a card).
+
+The JAX package's multi-host rule for dp (each data slice takes chips
+from every process, so that every process takes part in every
+replica's jit) has no counterpart here: a rank owns one device and
+runs its own program, so a replica is simply a set of ranks, and the
+ranks of replica r > 0 need not include rank 0 (engine/spmd.py ships
+their plans and reads their results over the store).
 """
 
 from __future__ import annotations
@@ -192,24 +207,32 @@ class PipeGroup:
 
 
 class RankMesh:
-    """A (data, pipe, seq, expert, tensor) grid of ranks. `rank` is this
-    process's place in it and `devices[r]` rank r's device; `tensor` is
-    the TensorGroup the forwards take (None at tp 1) and `pipe` the
+    """A (data, pipe, seq, expert, tensor) grid of ranks. `ranks` holds
+    the global rank of every grid point (a replica's submesh starts at
+    `first`), `rank` is this process's global rank, or None when the
+    process holds no rank of this grid (rank 0's view of a replica
+    r > 0), and `devices[i]` is the device of rank first + i; `tensor`
+    is the TensorGroup the forwards take (None at tp 1) and `pipe` the
     PipeGroup of this rank's pipeline (None at pp 1)."""
 
-    def __init__(self, shape: dict, rank: int, devices: Sequence,
+    def __init__(self, shape: dict, rank: Optional[int], devices: Sequence,
                  group=None, backend: Optional[str] = None,
-                 labels: Optional[Sequence[str]] = None, pipe_group=None):
+                 labels: Optional[Sequence[str]] = None, pipe_group=None,
+                 first: int = 0):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.axis_names = AXES
         self.rank = rank
+        self.first = first
         self.devices = [torch.device(d) for d in devices]
-        self.ranks = np.arange(len(self.devices)).reshape(
+        self.ranks = first + np.arange(len(self.devices)).reshape(
             tuple(self.shape[a] for a in AXES))
         self.backend = backend
         # "host|device" per rank: devices of different hosts are distinct.
         self.labels = list(labels) if labels is not None else [
             str(d) for d in self.devices]
+        self.coord = self.tensor = self.pipe = None
+        if rank is None:
+            return
         coord = dict(zip(AXES, (int(i) for i in
                                 np.argwhere(self.ranks == rank)[0])))
         self.coord = coord
@@ -234,8 +257,15 @@ class RankMesh:
         return self.shape[AXIS_PIPE]
 
     @property
+    def dp(self) -> int:
+        return self.shape[AXIS_DATA]
+
+    @property
     def device(self) -> torch.device:
-        return self.devices[self.rank]
+        """This rank's device (a grid this process holds no rank of: its
+        first rank's)."""
+        return self.devices[(self.rank if self.rank is not None
+                             else self.first) - self.first]
 
     @property
     def n_devices(self) -> int:
@@ -255,24 +285,27 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     `tp=-1` means "all ranks not consumed by dp*pp*sp*ep". The ranks are
     the torch.distributed world when one is up (`devices` then lists
     each rank's device, default the one distributed.initialize gave this
-    process for every rank), else `devices` (default one CPU rank). At
-    pp 1 the tensor axis' process group is the world's; at pp > 1 every
-    rank creates the tensor group of every stage and the pipe group of
-    every pipeline, in that order. The data, seq and expert axes larger
-    than 1 are not ported yet."""
+    process for every rank), else `devices` (default one CPU rank per
+    replica). Without a world, a grid of one rank per replica is this
+    process's dp in-process replicas, replica r on devices[r]. In a
+    world at dp 1 and pp 1 the tensor axis' process group is the
+    world's; otherwise every rank creates the tensor group of every
+    (replica, stage) and then the pipe group of every (replica, tensor
+    index), in that order. The seq and expert axes larger than 1 are not
+    ported yet."""
     import torch.distributed as dist
 
     from ollamamq_tpu_torch.parallel import distributed
 
-    for axis, n in ((AXIS_DATA, dp), (AXIS_SEQ, sp), (AXIS_EXPERT, ep)):
+    for axis, n in ((AXIS_SEQ, sp), (AXIS_EXPERT, ep)):
         if n != 1:
             raise NotImplementedError(
-                f"mesh axis {axis!r} = {n}: only the tensor and pipe axes "
-                "are ported yet (data, seq and expert parallelism are not)")
-    if pp < 1:
-        raise ValueError(f"pp must be >= 1, got {pp}")
+                f"mesh axis {axis!r} = {n}: only the data, tensor and pipe "
+                "axes are ported yet (seq and expert parallelism are not)")
+    if pp < 1 or dp < 1:
+        raise ValueError(f"dp and pp must be >= 1, got dp={dp} pp={pp}")
     up = dist.is_available() and dist.is_initialized()
-    n = dist.get_world_size() if up else len(devices or ["cpu"])
+    n = dist.get_world_size() if up else len(devices or ["cpu"] * dp)
     labels = ([distributed.device_label(r) for r in range(n)]
               if up and distributed.initialized() else None)
     if devices is None:
@@ -281,28 +314,63 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     if len(devices) != n:
         raise ValueError(f"{len(devices)} devices for a world of {n} ranks")
     if tp == -1:
-        tp = n // pp if n % pp == 0 else -1
-    if tp * pp != n:
-        raise ValueError(f"dp*pp*sp*ep*tp={tp * pp} over {n} ranks: the mesh "
-                         "must span every rank of the world")
+        tp = n // (dp * pp) if n % (dp * pp) == 0 else -1
+    if dp * tp * pp != n:
+        raise ValueError(f"dp*pp*sp*ep*tp={dp * tp * pp} over {n} ranks: the "
+                         "mesh must span every rank of the world")
     if rank is None:
         rank = dist.get_rank() if up else 0
-    shape = {AXIS_PIPE: pp, AXIS_TENSOR: tp}
+    shape = {AXIS_DATA: dp, AXIS_PIPE: pp, AXIS_TENSOR: tp}
     group = pipe_group = None
-    if up and pp > 1:
-        grid = np.arange(n).reshape(pp, tp)
-        for s in range(pp):  # every rank creates every group, in order
-            g = dist.new_group(grid[s].tolist()) if tp > 1 else None
-            if rank in grid[s]:
-                group = g
-        for t in range(tp):
-            g = dist.new_group(grid[:, t].tolist())
-            if rank in grid[:, t]:
-                pipe_group = g
+    if up and (dp > 1 or pp > 1):
+        grid = np.arange(n).reshape(dp, pp, tp)
+        for r in range(dp):  # every rank creates every group, in order
+            for s in range(pp):
+                g = dist.new_group(grid[r, s].tolist()) if tp > 1 else None
+                if rank in grid[r, s]:
+                    group = g
+        for r in range(dp):
+            for t in range(tp):
+                g = dist.new_group(grid[r, :, t].tolist()) if pp > 1 else None
+                if rank in grid[r, :, t]:
+                    pipe_group = g
     return RankMesh(shape, rank, devices,
                     group=group, pipe_group=pipe_group,
                     backend=dist.get_backend() if up else None,
                     labels=labels)
+
+
+def replica_ranks(mesh: RankMesh, r: int) -> list:
+    """The global ranks of replica r, its first rank first."""
+    return mesh.ranks[r].reshape(-1).tolist()
+
+
+def replica_submesh(mesh: RankMesh, r: int) -> RankMesh:
+    """Replica r's slice of the data axis (a [1, pp, tp] grid of its
+    ranks): THE derivation, shared by the engine's replica construction
+    and the SPMD worker's replay and reload, which must agree on every
+    rank. Its rank is this process's when it holds one of replica r's
+    ranks, else None; its groups are this rank's (the groups of its own
+    replica). An in-process mesh's replica r is one rank on
+    devices[r]."""
+    if mesh.dp == 1:
+        return mesh
+    per = mesh.pp * mesh.tp
+    lo = r * per
+    if mesh.backend is None and per == 1:  # in-process replicas
+        return RankMesh({}, 0, [mesh.devices[r]])
+    mine = mesh.rank is not None and lo <= mesh.rank < lo + per
+    return RankMesh({AXIS_PIPE: mesh.pp, AXIS_TENSOR: mesh.tp},
+                    mesh.rank if mine else None, mesh.devices[lo:lo + per],
+                    group=mesh.tensor.group if mine and mesh.tensor else None,
+                    pipe_group=mesh.pipe.group if mine and mesh.pipe else None,
+                    backend=mesh.backend, labels=mesh.labels[lo:lo + per],
+                    first=lo)
+
+
+def replica_of(mesh: RankMesh) -> int:
+    """The replica this process's rank serves (0 without a data axis)."""
+    return mesh.coord[AXIS_DATA] if mesh.coord is not None else 0
 
 
 def validate_tp_for_model(tp: int, num_kv_heads: int, num_heads: int) -> None:
@@ -321,3 +389,4 @@ def validate_tp_for_model(tp: int, num_kv_heads: int, num_heads: int) -> None:
             "needs kv_heads % tp == 0 (sharded) or tp % kv_heads == 0 "
             "(replicated groups)"
         )
+

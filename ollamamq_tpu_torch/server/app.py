@@ -1448,6 +1448,10 @@ def capture_profile(out_dir: str, seconds: float, device) -> str:
 
 class OllamaServer(ThreadingHTTPServer):
     daemon_threads = True
+    # The listen backlog (socketserver's default is 5): a burst of
+    # clients connecting at once must wait in the kernel's accept queue,
+    # not be reset (the OS caps it at net.core.somaxconn).
+    request_queue_size = 1024
 
     def __init__(self, engine, host: str = "127.0.0.1", port: int = 11434,
                  timeout_s: float = 300.0, allow_all_routes: bool = False):

@@ -393,9 +393,12 @@ class Journal:
     # -- recording ---------------------------------------------------------
     def record(self, kind: str, req=None, req_id: Optional[int] = None,
                user: Optional[str] = None, model: Optional[str] = None,
-               **fields) -> dict:
+               dp_replica: int = 0, **fields) -> dict:
         """Append one validated record. `req` (duck-typed Request) fills
-        req_id/user/model unless given explicitly."""
+        req_id/user/model unless given explicitly. `dp_replica`: the
+        data-parallel replica of `model` the record is about (kept only
+        when not 0, so a one-replica journal is the reference's; the
+        fleet kinds' `replica` field names a fleet member)."""
         sets = _FIELD_SETS.get(kind)
         if sets is None:
             raise JournalError(f"unknown journal event kind {kind!r} "
@@ -435,6 +438,8 @@ class Journal:
             rec["user"] = user
         if model:
             rec["model"] = model
+        if dp_replica:
+            rec["dp_replica"] = int(dp_replica)
         rec.update(fields)
         with self._lock:
             rec["seq"] = self.seq
@@ -821,7 +826,8 @@ def check_invariants(records: List[dict],
     every other check reads self-contained records and stays valid.
     """
     bad: List[str] = []
-    # (model, slot) -> req_id currently observed holding it.
+    # (model, replica, slot) -> req_id currently observed holding it
+    # (data-parallel replicas of one model each number their slots).
     held: Dict[tuple, int] = {}
     # req_id -> batch ordinal at admit time (starvation tracking).
     admitted: Dict[int, int] = {}
@@ -851,18 +857,19 @@ def check_invariants(records: List[dict],
         elif kind == "install" and (r.get("slot") or 0) >= 0:
             # slot -1 = an unslotted runtime (FakeRuntime): nothing to
             # double-assign.
-            key = (r.get("model"), r.get("slot"))
+            key = (r.get("model"), r.get("dp_replica", 0), r.get("slot"))
             holder = held.get(key)
             if holder is not None and holder != rid:
+                where = f" (replica {key[1]})" if key[1] else ""
                 bad.append(
-                    f"seq {seq}: slot double-assignment: slot {key[1]} of "
-                    f"{key[0]} installed for req {rid} while held by "
+                    f"seq {seq}: slot double-assignment: slot {key[2]} of "
+                    f"{key[0]}{where} installed for req {rid} while held by "
                     f"req {holder}")
             held[key] = rid
         elif kind in ("finish", "preempt"):
             slot = r.get("slot")
             if slot is not None and slot >= 0:
-                held.pop((r.get("model"), slot), None)
+                held.pop((r.get("model"), r.get("dp_replica", 0), slot), None)
         if kind == "preempt":
             vip = r.get("vip")
             if vip is not None and r.get("user") is not None \

@@ -184,7 +184,7 @@ def test_log_file_writes_json_lines(cli_server):
     (["--tp", "2"], "cuda:1"),
     (["--tp", "2", "--fake-engine", "--device", "cpu"], "--fake-engine runs none"),
     (["--tp", "2", "--replicas", "2", "--device", "cpu"],
-     "tensor parallelism is not ported yet"),
+     "fleet members wider than one rank are not ported yet"),
     (["--spmd", "--fake-engine"], "--spmd and --fake-engine are mutually exclusive"),
     (["--spmd", "--replicas", "2"], "and --spmd are mutually exclusive"),
 ], ids=["heads", "zero", "missing-device", "fake", "fleet", "spmd-fake",
@@ -210,11 +210,11 @@ def test_tp_flags_exit_2(argv, message, caplog):
     (["--pp", "2", "--tp", "2", "--device", "cpu", "--model", "test-tiny-gqa",
       "--pp-microbatches", "-1"], "--pp-microbatches must be >= 0"),
     (["--pp", "2", "--replicas", "2", "--device", "cpu"],
-     "pipeline parallelism is not ported yet"),
+     "fleet members wider than one rank are not ported yet"),
     (["--pp", "2", "--autoscale", "--device", "cpu"],
-     "pipeline parallelism is not ported yet"),
+     "fleet members wider than one rank are not ported yet"),
     (["--pp", "2", "--replica-urls", "http://127.0.0.1:1", "--device", "cpu"],
-     "pipeline parallelism is not ported yet"),
+     "fleet members wider than one rank are not ported yet"),
     (["--pp", "2", "--kv-dtype", "int8", "--device", "cpu"],
      "--kv-dtype=int8 needs the ragged attention path"),
 ], ids=["layers", "moe", "zero", "missing-device", "microbatches", "fleet",
@@ -242,6 +242,84 @@ def test_pp_flags_reach_the_engine_config():
     assert (d.pp, d.pp_microbatches) == (1, None)
     e = engine_config(build_parser().parse_args(["--pp", "2", "--pp-microbatches", "4"]))
     assert (e.pp, e.pp_microbatches) == (2, 4)
+
+
+# ------------------------------------------------- data parallelism
+@pytest.mark.parametrize("argv,message", [
+    (["--dp", "2"], "no replica falls back to another device"),
+    (["--dp", "2", "--tp", "2"], "cuda:3"),
+    (["--dp", "0", "--device", "cpu"], "--dp must be >= 1"),
+    (["--dp", "2", "--tp", "2", "--replicas", "2", "--device", "cpu"],
+     "fleet members wider than one rank are not ported yet"),
+    (["--dp", "2", "--spmd", "--replicas", "2"],
+     "and --spmd are mutually exclusive"),
+    (["--dp", "2", "--tp", "3", "--device", "cpu"],
+     "num_heads=4 not divisible by tp=3"),
+], ids=["too-few-cards", "too-few-cards-for-ranks", "zero", "wide-fleet",
+        "spmd-fleet", "heads"])
+def test_dp_flags_exit_2(argv, message, caplog):
+    """--dp's refusals exit 2 before any device work: a host with fewer
+    cards than the replicas (one per replica of --dp alone, one per rank
+    of --dp x --tp; the missing ones named, no replica falls back to
+    another device or to the CPU), --dp 0, and the reference's fleet and
+    --spmd rules, which --dp leaves as they are."""
+    if torch.cuda.device_count() >= 2 and "--device" not in argv:
+        argv = [a if a != "2" or i != 1 else "64" for i, a in enumerate(argv)]
+        message = "cuda:63" if "--tp" not in argv else "cuda:127"
+    assert main(argv + ["--no-tui", "--model", "test-tiny"]) == 2
+    assert message in caplog.text
+
+
+@pytest.mark.parametrize("argv", [
+    ["--dp", "2", "--device", "cpu"],
+    ["--dp", "2", "--replicas", "2", "--device", "cpu"],
+    ["--dp", "2", "--replicas", "2", "--tiers", "interactive=r0;bulk=r1",
+     "--device", "cpu"],
+    ["--dp", "2", "--replicas", "1", "--autoscale", "--device", "cpu"],
+    ["--dp", "2", "--replica-urls", "http://127.0.0.1:1", "--device", "cpu"],
+    ["--dp", "2", "--fake-engine"],
+], ids=["alone", "replicas", "tiers", "autoscale", "replica-urls", "fake"])
+def test_dp_combinations_follow_the_reference(argv):
+    """The JAX CLI's rules for dp: it rides in the engine config, so
+    every in-process fleet member (--replicas, the autoscaler's, any
+    tier) serves dp replicas of its own; --replica-urls and the fake
+    engine take it as they are. None of these is refused."""
+    from ollamamq_tpu_torch import cli
+
+    args = build_parser().parse_args(argv + ["--model", "test-tiny"])
+    assert cli.validate(args) == ""
+    ecfg = cli.engine_config(args)
+    assert ecfg.dp == 2
+    if cli.is_fleet(args) and args.replicas:
+        built = []
+
+        def make(cfg):
+            built.append(cfg.dp)
+            return FakeEngine(cfg, models={"test-tiny": None},
+                              blocklist_path=None)
+
+        router = cli.build_fleet(args, ecfg, make)
+        assert built == [2] * args.replicas
+        assert len(router.local_members) == args.replicas
+
+
+def test_dp_cpu_serves_replicas_in_one_process():
+    """--dp 2 --device cpu builds one engine whose model is a ReplicaSet
+    of two replicas (one per CPU "device"); --dp 1 builds one runtime."""
+    from ollamamq_tpu_torch import cli
+    from ollamamq_tpu_torch.engine.engine import ReplicaSet, TorchEngine
+
+    for dp, want in ((2, 2), (1, 1)):
+        args = build_parser().parse_args(
+            ["--dp", str(dp), "--device", "cpu", "--model", "test-tiny",
+             "--max-slots", "2", "--num-pages", "16", "--page-size", "8",
+             "--max-pages-per-seq", "4"])
+        eng = TorchEngine(cli.engine_config(args), device=args.device,
+                          blocklist_path=None)
+        rt = eng.runtimes["test-tiny"]
+        reps = rt.replicas if isinstance(rt, ReplicaSet) else [rt]
+        assert len(reps) == want and (eng.mesh is None) == (dp == 1)
+        assert len(eng.chip_stats()) == 1  # both replicas on the one CPU
 
 
 def _alive(pid: int) -> bool:

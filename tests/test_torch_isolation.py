@@ -19,7 +19,9 @@ then SIGTERM; int8 weights for Mixtral exit 2), tensor parallelism over
 two ranks (`--tp 2 --device cpu`: the leader and the worker rank it
 starts both run with the block, installed by a sitecustomize the worker
 inherits), pipeline parallelism over two stages (`--pp 2 --device
-cpu`, the same way), and refusing what the fleet's layers still lack.
+cpu`, the same way), data-parallel replicas (`--dp 2` in one process,
+`--dp 2 --tp 2` over four ranks), and refusing what the fleet's layers
+still lack.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -377,13 +379,15 @@ def test_cli_serves_moe_without_jax(tmp_path):
 
 @pytest.mark.parametrize("flag,message", [
     (["--tiers", "interactive@tp2=r0;bulk=r1"],
-     "tensor parallelism is not ported yet"),
-    (["--autoscale", "--tp", "2"], "tensor parallelism is not ported yet"),
+     "fleet members wider than one rank are not ported yet"),
+    (["--autoscale", "--tp", "2"],
+     "fleet members wider than one rank are not ported yet"),
     (["--ha"], "--ha requires --wal-dir"),
 ], ids=["tiers", "autoscale", "ha"])
 def test_cli_refuses_unported_fleet_layers(flag, message):
     """What the fleet's layers still lack is refused by name, exit 2:
-    tier widths and autoscaled members above TP 1 (tensor parallelism);
+    tier widths and autoscaled members above TP 1 (fleet members wider
+    than one rank);
     and router HA, now ported, refuses a primary without its WAL with
     the JAX package's message."""
     proc = subprocess.run(
@@ -593,6 +597,23 @@ def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):
     blocked in BOTH ranks. SIGTERM exits 0."""
     text = _serve_ranks_without_jax(tmp_path, ["--tp", "2"])
     assert "tensor-parallel worker rank 1 starting" in text
+
+
+@pytest.mark.parametrize("flags,ranks", [(["--dp", "2"], 1),
+                                         (["--dp", "2", "--tp", "2"], 4)],
+                         ids=["dp2-in-process", "dp2-tp2-ranks"])
+def test_cli_dp2_replicas_run_without_jax(tmp_path, flags, ranks):
+    """`--dp 2 --device cpu` serves a stream through a ReplicaSet of two
+    replicas in this one process, and `--dp 2 --tp 2` through two
+    replicas of two ranks each (replica 1's ranks 2 and 3 do not include
+    rank 0), with JAX and the JAX package blocked in every rank. SIGTERM
+    exits 0."""
+    text = _serve_ranks_without_jax(tmp_path, flags)
+    assert "2 data-parallel replicas" in text
+    if ranks > 1:
+        assert "worker rank 3 starting" in text
+    else:
+        assert "worker rank" not in text
 
 
 def test_cli_pp2_stages_run_without_jax(tmp_path):

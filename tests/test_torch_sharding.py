@@ -18,7 +18,8 @@ at tp 8 over its 4 KV heads (replicated groups: every rank holds one
 duplicated head).
 
 tests/test_sharding.py::test_multihost_dp_picks_devices_from_every_process
-has no counterpart here: data parallelism is not ported yet.
+has no counterpart here: a rank owns one device, so a data-parallel
+replica is a set of ranks (tests/test_torch_dp_replicas.py).
 """
 
 import os
@@ -313,10 +314,12 @@ def test_mesh_shapes():
     assert two.device == torch.device("cuda:1") and two.n_devices == 2
     shared = RankMesh({"tensor": 2}, 0, ["cuda:0", "cuda:0"])
     assert shared.n_devices == 1  # two ranks on one card: one card's peak
-    for axis, kw in (("data", {"dp": 2}), ("seq", {"sp": 2}),
-                     ("expert", {"ep": 2})):
+    for axis, kw in (("seq", {"sp": 2}), ("expert", {"ep": 2})):
         with pytest.raises(NotImplementedError, match=f"'{axis}'"):
             make_mesh(devices=["cpu"] * 4, **kw)
+    # The data axis is ported: replicas over ranks (see
+    # tests/test_torch_dp_replicas.py for its shapes).
+    assert make_mesh(dp=2, devices=["cpu"] * 4).shape["data"] == 2
     with pytest.raises(ValueError, match="span every rank"):
         make_mesh(tp=2, devices=["cpu"] * 4)
     # The pipe axis: ranks in (data, pipe, seq, expert, tensor) order,

@@ -1,8 +1,8 @@
 """Tensor-parallel serving of the port over gloo processes, on the CPU.
 
 The mirror of tests/test_spmd.py, tests/test_spmd_heartbeat.py and
-tests/test_spmd_recovery.py (test_spmd_dp_replicas_across_hosts has no
-counterpart: data parallelism is not ported yet). Rank 0 runs
+tests/test_spmd_recovery.py (test_spmd_dp_replicas_across_hosts has its
+counterpart in tests/test_torch_spmd_dp.py). Rank 0 runs
 SPMDEngine, rank 1 run_worker, each in its own process with one compute
 thread, over a TCPStore on a fresh port; every process is killed on the
 way out and every wait is bounded.

@@ -740,11 +740,11 @@ def test_cli_tiers_validation_fails_fast():
 def test_cli_refuses_tier_widths_above_one(argv, caplog):
     """Every member runs at TP width 1: a tier spec declaring a wider
     width, or --tp other than 1, exits 2 before any device work, naming
-    tensor parallelism as not ported."""
+    fleet members wider than one rank as not ported."""
     from ollamamq_tpu_torch.cli import main
 
     assert main(argv + ["--no-tui", "--device", "cpu"]) == 2
-    assert "tensor parallelism is not ported yet" in caplog.text
+    assert "fleet members wider than one rank are not ported yet" in caplog.text
 
 
 def test_cli_member_factory_raises_for_tp2_and_regroup_aborts():
@@ -773,7 +773,7 @@ def test_cli_member_factory_raises_for_tp2_and_regroup_aborts():
     router.start()
     try:
         mem = _member(router, "r1")
-        with pytest.raises(ValueError, match="tensor parallelism"):
+        with pytest.raises(ValueError, match="fleet members wider than one rank"):
             mem.engine_factory(2)
         assert mem.engine_factory(1) is not None
         n_built = len(built)
