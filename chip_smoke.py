@@ -233,31 +233,64 @@ Phases, each printing JSON lines; any failure exits non-zero:
            router (its enqueue to the member's first token) and (a)'s
            tokens/s. The member's log is under chiprun_out/chip_smoke.
   serve-tiers
-           SLO-aware replica tiers: the CLI's fleet (cli.build_fleet) of
-           three bf16 members as serve-fleet builds them, with --tiers
-           "interactive=r0;bulk=r1,r2" and a whole-phase journal ring,
-           behind the HTTP server. A warm-up per tier, then 7 greedy
-           160-token streams in two waves 64 tokens apart: a VIP user, a
-           boosted user and a request with deadline_ms (interactive), and
-           4 plain users (bulk); once every stream holds 32 tokens, POST
-           /admin/retier/r2 {"tier": "interactive"} while bulk streams
-           are live on r2. Gates: every reply stop or length; every
-           interactive-class tier_place names the interactive tier and a
-           member of it, every bulk one the bulk tier; tier_regroup start
-           then done, paired, and GET /admin/tiers lists r0 and r2 as
+           SLO-aware replica tiers, first with every member one rank wide,
+           then with a member two ranks wide. The one-rank window: the
+           CLI's fleet of three bf16 members with --tiers
+           "interactive=r0;bulk=r1,r2" at the CLI's TTFT objective (500
+           ms) and eject bound (3 s), the same warm-ups, waves and regroup
+           of r2 as below (a re-label at its width); gated the same way
+           where the widths do not differ, every interactive-class
+           tier_place naming r0 or r2 with no overflow, and the two bounds
+           checked in effect. The wide window: the CLI's
+           fleet (cli.build_fleet) of three bf16 members as serve-fleet
+           builds them, with --tiers "interactive@tp2=r0;bulk=r1,r2", a
+           whole-phase journal ring and a card plan of five slots on
+           cuda:0 (fleet/wide.py CardPlan, the explicit device list; its
+           ranks share the card over gloo): r0 starts at tp 2, an
+           SPMDEngine leading a world of its own (rank 0 in this process,
+           rank 1 a `python -m ollamamq_tpu_torch.fleet.wide` process),
+           r1 and r2 at tp 1, behind the HTTP server. A warm-up per tier,
+           then 7 greedy 160-token streams in two waves 64 tokens apart: a
+           VIP user, a boosted user and a request with deadline_ms
+           (interactive), and 4 plain users (bulk); once every stream
+           holds 16 tokens, POST /admin/retier/r2 {"tier": "interactive"}
+           while bulk streams are live on r2: r2 is rebuilt at tp 2, a
+           world of its own; then two deadlined streams at once. The
+           router's eject bound is 60 s and the TTFT objective 60 s in
+           this window and the f32 one: r0's ranks time-slice the card
+           with the other members' process, so its loop iterations run
+           past the CLI's 3 s (recorded: each member's longest heartbeat
+           age). Launches count from the fleet's build, so rank 0's and
+           each rank 1's cover one span. Gates: every
+           reply stop or length; r0 at tp 2 and r1, r2 at tp 1, then r2 at
+           tp 2; every interactive-class tier_place of the waves names r0
+           (no overflow), every bulk one r1 or r2, the two late
+           streams r0 and r2; tier_regroup start then done with tp_from 1
+           and tp_to 2, paired, and GET /admin/tiers lists r0 and r2 as
            interactive; every stream live on r2 migrated to r1 (no
-           failover, no aborted handoff); check_no_dropped_streams and
+           failover, no aborted handoff, no eject); check_no_dropped_streams and
            check_invariants clean on the router's and every member's
-           journal; 0 pages used on every member; every member launched
-           both bf16 kernels (each made ragged dispatches and decode
-           steps, and the window's launch counts equal the layers times
-           the members' dispatches summed); a --tiers spec declaring
-           @tp2 exits the CLI with 2. Then float32 (TF32 off) through a
-           tiered fleet: one bulk stream, unmigrated, then its member
-           retiered once it holds 16 tokens: the ids must not change.
-           Records the regroup seconds (start to done in the journal),
-           TTFT p50 per tier (the router's enqueue to the member's first
-           token, from the journals) and tokens/s.
+           journal (r2's tp-1 engine's too); 0 pages used on every member;
+           the window's in-process launches equal the layers times the
+           dispatches of every rank 0 (r0, r1, r2 before and after the
+           regroup), each made ragged dispatches and decode steps, no
+           int8 launch; each wide member's rank 1 exactly 16 ragged
+           launches per ragged dispatch and 16 decode per decode step
+           over its run, as many of each as its rank 0, with the same
+           output digest; each
+           rank's param_bytes and kv_bytes those of one tp-2 rank from the
+           config's shapes (1,235,881,984 and 37,748,736); r2's old engine
+           garbage once regrouped, and memory_allocated back within 128
+           MiB of the phase's start once the fleet is gone (cuBLAS's
+           per-thread workspaces dropped from both readings). Then float32
+           (TF32 off) through the same tiered fleet: one bulk stream on a
+           tp-1 member, the same prompt from a VIP user on r0 (tp 2): ids
+           equal; then the bulk stream again with its member retiered to
+           interactive@tp2 once it holds 16 tokens (the stream migrates
+           in-tier): the ids must not change. Records the regroup seconds
+           (start to done in the journal: drain, migration and the tp-2
+           world's start), TTFT p50 per tier (the router's enqueue to the
+           member's first token, from the journals) and tokens/s.
   serve-autoscale
            the autoscaler: the CLI's fleet of one bf16 member of 2 slots
            with --autoscale --min-replicas 1 --max-replicas 2
@@ -319,8 +352,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
            --tp-rank) share cuda:0 over gloo (NCCL refuses two ranks on
            one GPU); rank 0 runs SPMDEngine and the HTTP server, rank 1
            run_worker, each holding half the heads, FFN columns and
-           vocabulary rows and half the KV pool. Four windows, each its
-           own pair of processes: (1) llama3:8b at full width (32 layers,
+           vocabulary rows and half the KV pool. Four windows in one
+           world of the two processes, each window a session of its
+           wire (its own engine on rank 0, its own run_worker on rank 1),
+           the kill last: (1) llama3:8b at full width (32 layers,
            d 4096, 32 heads over 8 KV heads, hd 128, f 14,336, vocab
            128,256, untied; seeded bf16 weights, 8 slots, 136 pages of
            32): 4 greedy /api/chat streams of 64 tokens from 3 users
@@ -355,7 +390,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
            pipeline stage each (times tp ranks a stage). First a probe:
            does gloo's raw send/recv take a CUDA tensor (recorded, not
            gated; the pipe group stages through pinned host buffers).
-           Then five windows: (1) llama3:8b at full width and depth
+           Then five windows, four of them in one world of two ranks
+           (sessions of its wire, the kill last) and the pp 2 x tp 2 one
+           in a world of four: (1) llama3:8b at full width and depth
            over 2 stages (16 layers each, the embedding, head and final
            norm on both; seeded bf16 weights, 8 slots, 136 pages of 32,
            24 pages a sequence, buckets 32/64/128/256, k_steps 8, 2
@@ -418,7 +455,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
-serve-fleet's, serve-tiers', serve-autoscale's, serve-ha's,
+serve-fleet's, serve-tiers' (both windows, and the wide members'
+worker ranks over their runs), serve-autoscale's, serve-ha's,
 serve-tp's, serve-pp's and serve-dp's (every rank of each window),
 counted in
 this process and in each server subprocess: a killed server's from its
@@ -2577,13 +2615,15 @@ FLEET_USERS = {"ada": "Tell me about fair queues. ", "bob": "Why page the KV cac
 
 
 def _fleet_router(dtype="bfloat16", kv_dtype="bfloat16", params=None,
-                  n_local=2, urls=(), extra=()):
+                  n_local=2, urls=(), extra=(), cards=None):
     """The CLI's own fleet (cli.build_fleet) from FLEET_ARGS and `extra`
     flags: `n_local` TorchEngine members r0, ... and HTTP members h0, ...
     at `urls`, at the CLI's defaults (the router's 3 s heartbeat eject
     bound among them). Only the engine factory differs from the CLI's:
-    the members (and any the autoscaler provisions) share one seeded
-    weight tree. Returns (router, its EngineConfig, params)."""
+    the one-rank members (and any the autoscaler provisions) share one
+    seeded weight tree; members wider than one rank (a tier's @tpN) lead
+    worlds of their own on `cards` (fleet/wide.py CardPlan, the explicit
+    device list). Returns (router, its EngineConfig, params)."""
     from ollamamq_tpu_torch import cli
     from ollamamq_tpu_torch.engine.engine import TorchEngine
 
@@ -2593,18 +2633,18 @@ def _fleet_router(dtype="bfloat16", kv_dtype="bfloat16", params=None,
                       "--replicas", str(n_local), "--replica-urls", ",".join(urls),
                       "--blocklist", os.path.join(OUT_DIR, "blocked-fleet-router.json"),
                       *extra])
-    err = cli.validate(args)
+    err = cli.validate(args, cards)
     if err:
         raise SystemExit(f"fleet flags refused: {err}")
     ecfg = cli.engine_config(args)
     held = {"params": params}
 
-    def make(cfg):
-        eng = TorchEngine(cfg, params=held["params"])
+    def make(cfg, device=None):
+        eng = TorchEngine(cfg, params=held["params"], device=device)
         held["params"] = eng.runtimes[FLEET_MODEL].params
         return eng
 
-    router = cli.build_fleet(args, ecfg, make)
+    router = cli.build_fleet(args, ecfg, make, cards=cards)
     return router, ecfg, held["params"]
 
 
@@ -2656,7 +2696,16 @@ def _wait_tokens(router, users, n, budget=300.0):
                and len(fl[u].attempt.req.generated_ids) >= n for u in users):
             return
         time.sleep(0.005)
-    raise SystemExit(f"serve-fleet: {users} never reached {n} tokens")
+    fl = {f.user: f for f in list(router.flights)}
+    state = {u: ((fl[u].member.name if fl[u].member else None,
+                  len(fl[u].attempt.req.generated_ids) if fl[u].attempt else None,
+                  fl[u].done) if u in fl else
+                 [{k: r.get(k) for k in ("kind", "replica", "reason", "tokens")}
+                  for r in router.journal.tail(None)
+                  if r.get("user") == u and r["kind"] in ("finish", "place",
+                                                         "replica_failover")])
+             for u in users}
+    raise SystemExit(f"serve-fleet: {users} never reached {n} tokens: {state}")
 
 
 def _fleet_metrics():
@@ -3198,7 +3247,15 @@ def serve_fleet_phase(report) -> None:
         raise SystemExit(f"serve-fleet gates failed: {gates}")
 
 
-TIERS_SPEC = "interactive=r0;bulk=r1,r2"
+# The one-rank window: every member at tp 1, at the CLI's TTFT objective
+# (500 ms) and eject bound (3 s), so tier isolation is gated at the
+# objective the tiers default to.
+TIERS_SPEC_TP1 = "interactive=r0;bulk=r1,r2"
+TIERS_SPEC = "interactive@tp2=r0;bulk=r1,r2"
+# Slots of the tiered fleets' card plan, all on cuda:0 (ranks share the
+# card over gloo): r0's two ranks, r1, r2, and the one more r2 takes when
+# it regroups to tp 2.
+TIERS_CARDS = ["cuda:0"] * 5
 TIERS_USERS = {"vip-a": ("vip", "Tell me about fair queues. "),
                "vip-b": ("boost", "Why page the KV cache? "),
                "dl": ("deadline", "Explain the decode kernel. "),
@@ -3206,13 +3263,233 @@ TIERS_USERS = {"vip-a": ("vip", "Tell me about fair queues. "),
                "b2": ("default", "How does a regroup move a member? "),
                "b3": ("default", "Why two tiers of replicas? "),
                "b4": ("default", "What does the balancer watch? ")}
+# The tiered fleets' eject bound. A wide member's ranks here time-slice
+# the one card with the other members' process (two CUDA contexts, no
+# MPS), and every layer's all_reduce waits on both: on an H100 its loop
+# iterations ran past the CLI's 3 s bound and it was ejected as stale.
+# A deployment gives each member's ranks cards of their own; the phase
+# records the longest heartbeat age instead.
+TIERS_EJECT_S = 60.0
+# After the regroup, two interactive (deadlined) streams at once: one a
+# member of the interactive tier.
+TIERS_LATE = {"late-a": "What does a wide member start? ",
+              "late-b": "Who reaps a member's ranks? "}
+
+
+def _tiers_run(port, results, errors, user, prompt=None, cls=None):
+    """One greedy FLEET_NEW-token /api/generate stream of a TIERS_USERS
+    user (or `prompt` of class `cls`): its ids and last frame land in
+    `results`, its error in `errors`."""
+    cls, prompt = TIERS_USERS.get(user, (cls, prompt))
+    opts = {"temperature": 0, "num_predict": FLEET_NEW}
+    if cls == "deadline":
+        opts["deadline_ms"] = 600000
+    try:
+        frames = [json.loads(x) for x in
+                  _ndjson(port, "POST", "/api/generate",
+                          {"model": FLEET_MODEL, "prompt": prompt,
+                           "options": opts}, user) if x.strip()]
+        results[user] = ([t for f in frames for t in f.get("token_ids", [])],
+                         frames[-1])
+    except Exception as e:  # noqa: BLE001 — reported, fails the phase
+        errors.append(f"{user}: {e}")
+
+
+def _tiers_warm(router, port):
+    """VIP and boost users set, then one warm-up per tier (a deadline
+    makes it interactive)."""
+    router.core.set_vip("vip-a")
+    router.core.set_boost("vip-b")
+    for user, opts in (("warm-i", {"deadline_ms": 600000}), ("warm-b", {})):
+        _post(port, "/api/generate", {"model": FLEET_MODEL, "prompt": "Warm up.",
+                                      "stream": False,
+                                      "options": {"temperature": 0,
+                                                  "num_predict": 8, **opts}}, user)
+
+
+def _tiers_waves(router, port, results, errors):
+    """TIERS_USERS' streams in two waves 64 tokens apart; returns their
+    threads once every stream holds 16 tokens (wave a's bulk streams on
+    r2 are still live then: the regroup that follows drains them)."""
+    threads = {u: threading.Thread(target=_tiers_run, args=(port, results, errors, u))
+               for u in TIERS_USERS}
+    wave_a, wave_b = ("vip-a", "b1", "b2"), ("vip-b", "dl", "b3", "b4")
+    for u in wave_a:
+        threads[u].start()
+    for u in wave_a:
+        _flight(router, u)
+    _wait_tokens(router, list(wave_a), 64)
+    for u in wave_b:
+        threads[u].start()
+    for u in wave_b:
+        _flight(router, u)
+    _wait_tokens(router, list(TIERS_USERS), 16)
+    return threads
+
+
+def _tiers_wait_interactive(port, name, budget):
+    """GET /admin/tiers until `name` serves in the interactive tier (or
+    the budget ends); returns the last reading."""
+    deadline = time.monotonic() + budget
+    while True:
+        tiers = json.loads(_get(port, "/admin/tiers"))
+        if any(m["name"] == name and m["state"] == "healthy"
+               for m in tiers["tiers"]["interactive"]["members"]) \
+                or time.monotonic() > deadline:
+            return tiers
+        time.sleep(0.05)
+
+
+def _tiers_ttft(recs, member_recs):
+    """({user: TTFT ms}, {tier: p50 ms}): the router's enqueue to the
+    member's first install (its first token), both journals on this
+    process's clock."""
+    enq = {r["user"]: r["t"] for r in recs if r["kind"] == "enqueue"}
+    first = {}
+    for rs in member_recs.values():
+        for r in rs:
+            if r["kind"] == "install" and r.get("user") in TIERS_USERS:
+                first[r["user"]] = min(r["t"], first.get(r["user"], r["t"]))
+    ttft = {u: (first[u] - enq[u]) * 1e3 for u in first if u in enq}
+    by_tier = {t: sorted(ms for u, ms in ttft.items()
+                         if (TIERS_USERS[u][0] == "default") == (t == "bulk"))
+               for t in ("interactive", "bulk")}
+    return ttft, {t: (v[len(v) // 2] if v else None) for t, v in by_tier.items()}
+
+
+def _tiers_tp1(card):
+    """serve-tiers' one-rank window (module docstring): every member at
+    tp 1 under TIERS_SPEC_TP1, at the CLI's TTFT objective and eject
+    bound; r2 regrouped to interactive under load (a re-label at its
+    width, the same engine restarted)."""
+    import torch
+
+    from ollamamq_tpu_torch.fleet.router import EJECT_HEARTBEAT_S
+    from ollamamq_tpu_torch.fleet.tiering import INTERACTIVE_TTFT_MS
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+    from ollamamq_tpu_torch.telemetry.journal import check_invariants
+    from ollamamq_tpu_torch.tools.journal import (check_no_dropped_streams,
+                                                  check_regroup_pairing)
+
+    router, ecfg, params = _fleet_router(
+        n_local=3, extra=["--tiers", TIERS_SPEC_TP1, "--journal-ring", "1000000"])
+    bounds = {"interactive_ttft_ms": router.tiers.objectives["interactive"].threshold_ms,
+              "eject_heartbeat_s": router.eject_heartbeat_s}
+    before = _member_dispatches(router, FLEET_MODEL)
+    reset_launch_counts()
+    srv = serve_in_thread(router, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    layers = router.resolve_runtime(FLEET_MODEL).cfg.num_layers
+    r2 = next(m for m in router.members if m.name == "r2")
+    try:
+        _tiers_warm(router, port)
+        seq0 = router.journal.seq
+        mseq0 = {m.name: m.engine.journal.seq for m in router.members}
+        results, errors = {}, []
+        t0 = time.monotonic()
+        threads = _tiers_waves(router, port, results, errors)
+        placed = {f.user: f.member.name for f in list(router.flights)}
+        on_r2 = sorted(f.user for f in list(router.flights)
+                       if f.member is r2 and not f.done)
+        _, data = _post(port, "/admin/retier/r2", {"tier": "interactive"}, "admin")
+        retier = json.loads(data)
+        for t in threads.values():
+            t.join(timeout=600)
+        seconds = time.monotonic() - t0
+        tiers = _tiers_wait_interactive(port, "r2", 60)
+        counts = launch_counts()
+        after = _member_dispatches(router, FLEET_MODEL)
+        recs = [r for r in router.journal.tail(None) if r["seq"] >= seq0]
+        member_recs = {m.name: [r for r in m.engine.journal.tail(None)
+                                if r["seq"] >= mseq0[m.name]] for m in router.members}
+        used = {m.name: m.engine.runtimes[FLEET_MODEL].alloc.used_pages
+                for m in router.members}
+    finally:
+        stop_server(srv)
+    del router, srv, params, r2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    places = [r for r in recs if r["kind"] == "tier_place"]
+    regroup = [r for r in recs if r["kind"] == "tier_regroup"]
+    imports = [r for r in recs if r["kind"] == "migrate_import"
+               and r.get("what") != "prefix"]
+    per_member, kernels_ok = _kernels_per_member(before, after, counts, layers,
+                                                 ["r0", "r1", "r2"])
+    ttft, ttft_p50 = _tiers_ttft(recs, member_recs)
+    gates = {
+        "default_bounds": bounds == {"interactive_ttft_ms": INTERACTIVE_TTFT_MS,
+                                     "eject_heartbeat_s": EJECT_HEARTBEAT_S},
+        "replies": not errors and len(results) == len(TIERS_USERS)
+        and all(fr.get("done") and fr.get("done_reason") in ("stop", "length")
+                and "error" not in fr for _, fr in results.values()),
+        "interactive_in_tier": all(
+            r["tier"] == "interactive" and r["replica"] in ("r0", "r2")
+            and not r.get("overflow")
+            for r in places if r["cls"] != "default" and r["user"] in TIERS_USERS)
+        and {r["user"] for r in places if r["cls"] != "default"} >= {"vip-a", "vip-b", "dl"},
+        "bulk_in_tier": all(r["tier"] == "bulk" and r["replica"] in ("r1", "r2")
+                            for r in places if r["cls"] == "default"),
+        "regroup_done": [r["phase"] for r in regroup] == ["start", "done"]
+        and check_regroup_pairing(recs) == []
+        and sorted(m["name"] for m in tiers["tiers"]["interactive"]["members"])
+        == ["r0", "r2"],
+        "r2_streams_migrated": len(on_r2) >= 1
+        and sorted(r["user"] for r in imports if r["replica"] == "r2") == on_r2
+        and all(r["to_replica"] == "r1" for r in imports)
+        and not any(r["kind"] in ("replica_failover", "migrate_abort") for r in recs),
+        "no_dropped": check_no_dropped_streams(recs) == []
+        and all(check_no_dropped_streams(rs) == [] for rs in member_recs.values()),
+        "invariants": check_invariants(recs) == []
+        and all(check_invariants(rs) == [] for rs in member_recs.values()),
+        "no_used_pages": all(v == 0 for v in used.values()),
+        "kernels_every_member": kernels_ok,
+    }
+    tokens = sum(len(ids) for ids, _ in results.values())
+    line = {"phase": "serve-tiers", "part": "tp1", "tiers": TIERS_SPEC_TP1,
+            "slots_per_member": ecfg.max_slots, **bounds,
+            "placed": placed, "live_on_r2": on_r2,
+            "tier_places": [{k: r.get(k) for k in ("user", "cls", "tier", "replica",
+                                                    "overflow")} for r in places],
+            "retier": retier,
+            "regroup_s": (regroup[-1]["t"] - regroup[0]["t"]
+                          if len(regroup) == 2 else None),
+            "ttft_ms": ttft, "ttft_p50_ms": ttft_p50, "tokens": tokens,
+            "seconds": seconds, "tokens_per_s": tokens / seconds,
+            "migrated": [{k: r[k] for k in ("user", "replica", "to_replica", "tokens",
+                                             "pages", "bytes")} for r in imports],
+            "launches": counts, "launches_per_member": per_member,
+            "used_pages": used, "card": card, "gates": gates}
+    emit(line)
+    return line
+
+
+def _tp_param_bytes(cfg, tp: int, nbytes: int = 2) -> int:
+    """One tensor-parallel rank's weight bytes from the config's shapes:
+    the attention and FFN matrices, their biases and the embedding and
+    head cut tp ways (Megatron; the vocabulary by rows), the norms whole
+    on every rank."""
+    d, q, kv, f = cfg.hidden_size, cfg.q_dim, cfg.kv_dim, cfg.intermediate_size
+    cut = d * q + 2 * d * kv + q * d + 3 * d * f + (q + 2 * kv) * cfg.attn_bias
+    layer = cut // tp + 2 * d + 2 * cfg.head_dim * cfg.qk_norm
+    top = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) // tp + d
+    return (layer * cfg.num_layers + top) * nbytes
+
+
+def _tp_kv_bytes(cfg, tp: int, pages: int, page_size: int, nbytes: int = 2) -> int:
+    """One tensor-parallel rank's K and V pools: every layer, its
+    num_kv_heads / tp heads."""
+    return (2 * cfg.num_layers * pages * page_size * (cfg.num_kv_heads // tp)
+            * cfg.head_dim * nbytes)
 
 
 def _member_dispatches(router, model):
     """{member: (ragged dispatches, decode steps)} of each local member's
-    runtime: with the window's launch counts, the proof that every member
-    launched both kernels (one launch per layer per ragged dispatch and
-    per decode step)."""
+    runtime (rank 0's, for a member leading a rank world): with the
+    window's launch counts, the proof that every member launched both
+    kernels (one launch per layer per ragged dispatch and per decode
+    step)."""
     return {m.name: (m.engine.runtimes[model].ragged_dispatches,
                      m.engine.runtimes[model].decode_steps)
             for m in router.local_members}
@@ -3238,21 +3515,31 @@ def _kernels_per_member(before, after, counts, layers, names):
 
 
 def _tiers_f32(card):
-    """One float32 stream (TF32 off) through a tiered fleet: unmigrated,
-    then its bulk member retiered to interactive once it holds 16 tokens
-    (the stream migrates in-tier): the ids must not change."""
+    """float32 (TF32 off) through a tiered fleet with r0 at tp 2: one bulk
+    stream, unmigrated, on a tp-1 member; the same prompt from a VIP user
+    on r0 (two ranks): the ids must be equal; then the bulk stream again,
+    its member retiered to interactive@tp2 once it holds 16 tokens (the
+    stream migrates in-tier): the ids must not change."""
     import torch
 
+    from ollamamq_tpu_torch.fleet.wide import CardPlan
     from ollamamq_tpu_torch.ops.sampling import SamplingParams
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    router, _, params = _fleet_router(dtype="float32", n_local=3,
-                                      extra=["--tiers", TIERS_SPEC])
+    router, _, params = _fleet_router(
+        dtype="float32", n_local=3,
+        extra=["--tiers", TIERS_SPEC, "--slo-ttft-ms", str(AUTOSCALE_SLO_TTFT_MS)],
+        cards=CardPlan(TIERS_CARDS, backend="gloo"))
+    router.eject_heartbeat_s = TIERS_EJECT_S
     router.start()
+    router.core.set_vip("f32-vip")  # the tiers read the core's VIP through a cache
     prompt = "The quick brown fox jumps over the lazy dog; regroup me, please."
     try:
         ref, end, _ = _stream_ids(router, "f32", prompt, 96)
+        wide_ids, wide_end, _ = _stream_ids(router, "f32-vip", prompt, 96)
+        wide_on = [r["replica"] for r in router.journal.tail(None, kind="tier_place")
+                   if r["user"] == "f32-vip"]
         rt = router.resolve_runtime(FLEET_MODEL)
         req = router.enqueue_request("f32", "", FLEET_MODEL,
                                      prompt_tokens=rt.tokenizer.encode(prompt),
@@ -3265,35 +3552,44 @@ def _tiers_f32(card):
         router.retier_replica(src.name, "interactive", why="smoke")
         items = _collect(req)
         ids = [i.token_id for i in items if i.kind == "token" and i.token_id >= 0]
-        deadline = time.monotonic() + 60
+        deadline = time.monotonic() + 120
         while src.tier != "interactive" and time.monotonic() < deadline:
             time.sleep(0.01)
         recs = router.journal.tail(None)
+        src_tp = src.tp
     finally:
         router.stop()
     del router, params
     migrated = [r for r in recs if r["kind"] == "migrate_import"
                 and r.get("what") != "prefix"]
     phases = [r["phase"] for r in recs if r["kind"] == "tier_regroup"]
-    gates = {"f32_retier_identical": ids == ref and end.kind == "done"
+    gates = {"f32_tp2_equals_tp1": (wide_on == ["r0"] and wide_ids == ref
+                                   and wide_end.kind == "done" and end.kind == "done"),
+             "f32_retier_identical": ids == ref and end.kind == "done"
              and items[-1].kind == "done",
              "f32_retier_migrated": len(migrated) == 1
              and migrated[0]["replica"] == src.name
              and migrated[0]["to_replica"] != src.name
-             and phases == ["start", "done"]
+             and phases == ["start", "done"] and src_tp == 2
              and not any(r["kind"] == "replica_failover" for r in recs)}
-    line = {"phase": "serve-tiers", "part": "f32-retier", "tf32": False,
+    line = {"phase": "serve-tiers", "part": "f32", "tf32": False,
+            "wide_member": wide_on, "first_diff_tp2": _first_diff(wide_ids, ref),
             "member": src.name, "migrated_at": depth, "tokens": len(ref),
-            "first_diff": _first_diff(ids, ref), "card": card, "gates": gates}
+            "first_diff": _first_diff(ids, ref), "regrouped_tp": src_tp,
+            "card": card, "gates": gates}
     emit(line)
     return line
 
 
 def serve_tiers_phase(report) -> None:
-    """SLO-aware replica tiers on the card (module docstring, serve-tiers)."""
+    """SLO-aware replica tiers on the card: the one-rank window, then r0
+    two ranks wide (module docstring, serve-tiers)."""
+    import weakref
+
     import torch
 
-    from ollamamq_tpu_torch import cli
+    from ollamamq_tpu_torch.config import get_model_config
+    from ollamamq_tpu_torch.fleet.wide import CardPlan
     from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
     from ollamamq_tpu_torch.telemetry.journal import check_invariants
@@ -3302,85 +3598,98 @@ def serve_tiers_phase(report) -> None:
 
     t_phase = time.monotonic()
     card = card_line()
+    tp1 = _tiers_tp1(card)
     gc.collect()
     torch.cuda.empty_cache()
+    # PyTorch keeps a cuBLAS workspace per thread that ran a GEMM (every
+    # member's loop): both readings drop them first.
+    clear_ws = getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)
+    clear_ws()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    # TTFT is timed to a stream's first text, which the seeded model's
+    # ids rarely decode to: a 500 ms objective would burn on that noise
+    # (r0's gloo all_reduces slow it most) and overflow the interactive
+    # class onto bulk, so the objective sits far above this traffic.
     router, ecfg, params = _fleet_router(
-        n_local=3, extra=["--tiers", TIERS_SPEC, "--journal-ring", "1000000"])
+        n_local=3, extra=["--tiers", TIERS_SPEC, "--journal-ring", "1000000",
+                          "--slo-ttft-ms", str(AUTOSCALE_SLO_TTFT_MS)],
+        cards=CardPlan(TIERS_CARDS, backend="gloo"))
+    router.eject_heartbeat_s = TIERS_EJECT_S
+    build_s = time.monotonic() - t0
+    # Counted from here: rank 0's launches and each rank 1's (its whole
+    # run) cover the same span, the warm-ups included.
+    before = _member_dispatches(router, FLEET_MODEL)
+    reset_launch_counts()
     srv = serve_in_thread(router, port=0, timeout_s=600)
     port = srv.server_address[1]
-    layers = router.resolve_runtime(FLEET_MODEL).cfg.num_layers
+    cfg = get_model_config(FLEET_MODEL)
+    layers = cfg.num_layers
+    r0, r1, r2 = (next(m for m in router.members if m.name == n)
+                  for n in ("r0", "r1", "r2"))
+    widths0 = {m.name: m.tp for m in router.members}
+    wide = {}
     try:
-        router.core.set_vip("vip-a")
-        router.core.set_boost("vip-b")
-        # One warm-up per tier (a deadline makes it interactive).
-        for user, opts in (("warm-i", {"deadline_ms": 600000}), ("warm-b", {})):
-            _post(port, "/api/generate", {"model": FLEET_MODEL, "prompt": "Warm up.",
-                                          "stream": False,
-                                          "options": {"temperature": 0,
-                                                      "num_predict": 8, **opts}}, user)
+        _tiers_warm(router, port)
         seq0 = router.journal.seq
         mseq0 = {m.name: m.engine.journal.seq for m in router.members}
-        before = _member_dispatches(router, FLEET_MODEL)
-        reset_launch_counts()
+        watch = _HeartbeatWatch(router)
         results, errors = {}, []
-
-        def run(user):
-            cls, prompt = TIERS_USERS[user]
-            opts = {"temperature": 0, "num_predict": FLEET_NEW}
-            if cls == "deadline":
-                opts["deadline_ms"] = 600000
-            try:
-                frames = [json.loads(x) for x in
-                          _ndjson(port, "POST", "/api/generate",
-                                  {"model": FLEET_MODEL, "prompt": prompt,
-                                   "options": opts}, user) if x.strip()]
-                results[user] = ([t for f in frames for t in f.get("token_ids", [])],
-                                 frames[-1])
-            except Exception as e:  # noqa: BLE001 — reported, fails the phase
-                errors.append(f"{user}: {e}")
-
         t0 = time.monotonic()
-        threads = {u: threading.Thread(target=run, args=(u,)) for u in TIERS_USERS}
-        wave_a, wave_b = ("vip-a", "b1", "b2"), ("vip-b", "dl", "b3", "b4")
-        for u in wave_a:
-            threads[u].start()
-        for u in wave_a:
-            _flight(router, u)
-        _wait_tokens(router, list(wave_a), 64)
-        for u in wave_b:
-            threads[u].start()
-        for u in wave_b:
-            _flight(router, u)
-        _wait_tokens(router, list(TIERS_USERS), 32)
+        threads = _tiers_waves(router, port, results, errors)
         placed = {f.user: f.member.name for f in list(router.flights)}
-        on_r2 = sorted(u for u, m in placed.items() if m == "r2")
+        on_r2 = sorted(f.user for f in list(router.flights)
+                       if f.member is r2 and not f.done)
+        # r2's engine before the regroup: its runtime's counters, its
+        # journal, and a weak reference that must die with it.
+        old_rt = r2.engine.runtimes[FLEET_MODEL]
+        old_journal, old_seq = r2.engine.journal, mseq0["r2"]
+        old_engine = weakref.ref(r2.engine)
         _, data = _post(port, "/admin/retier/r2", {"tier": "interactive"}, "admin")
         retier = json.loads(data)
         for t in threads.values():
             t.join(timeout=600)
+        tiers = _tiers_wait_interactive(port, "r2", 300)
+        # Two interactive streams at once after the regroup: the tier's
+        # least-loaded placement puts one on r2's new world.
+        late = {u: threading.Thread(target=_tiers_run,
+                                    args=(port, results, errors, u, p, "deadline"))
+                for u, p in TIERS_LATE.items()}
+        for t in late.values():
+            t.start()
+        for t in late.values():
+            t.join(timeout=600)
         seconds = time.monotonic() - t0
-        deadline = time.monotonic() + 60
-        while time.monotonic() < deadline:
-            tiers = json.loads(_get(port, "/admin/tiers"))
-            if any(m["name"] == "r2" and m["state"] == "healthy"
-                   for m in tiers["tiers"]["interactive"]["members"]):
-                break
-            time.sleep(0.05)
+        max_age = watch.stop()
+        del watch  # it holds the router
         counts = launch_counts()
         after = _member_dispatches(router, FLEET_MODEL)
+        old_after = (old_rt.ragged_dispatches, old_rt.decode_steps)
+        del old_rt
         recs = [r for r in router.journal.tail(None) if r["seq"] >= seq0]
         member_recs = {m.name: [r for r in m.engine.journal.tail(None)
-                                if r["seq"] >= mseq0[m.name]] for m in router.members}
+                                if r["seq"] >= (0 if m is r2 else mseq0[m.name])]
+                       for m in router.members}
+        member_recs["r2-tp1"] = [r for r in old_journal.tail(None) if r["seq"] >= old_seq]
+        del old_journal
         used = {m.name: m.engine.runtimes[FLEET_MODEL].alloc.used_pages
                 for m in router.members}
+        wide = {n: m.engine for n, m in (("r0", r0), ("r2", r2))}
+        rank0 = {n: {"param_bytes": e.runtimes[FLEET_MODEL].param_bytes,
+                     "kv_bytes": e.runtimes[FLEET_MODEL].kv_bytes,
+                     "trace": e.spmd_report()} for n, e in wide.items()}
+        widths1 = {m.name: m.tp for m in router.members}
+        gc.collect()
+        old_released = old_engine() is None
     finally:
-        stop_server(srv)
-    del router, srv, params
+        stop_server(srv)  # stops the router: each member world's ranks report
+    workers = {n: e.worker_reports for n, e in wide.items()}
+    del router, srv, params, wide, r0, r1, r2
     gc.collect()
     torch.cuda.empty_cache()
-    # A tier declaring a width above 1 is refused before any device work.
-    tp2_rc = cli.main(["--model", FLEET_MODEL, "--replicas", "2", "--no-tui",
-                       "--tiers", "interactive@tp2=r0;bulk=r1"])
+    mem_after_raw = torch.cuda.memory_allocated()
+    clear_ws()
+    mem_after = torch.cuda.memory_allocated()
     f32 = _tiers_f32(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3389,34 +3698,53 @@ def serve_tiers_phase(report) -> None:
     regroup = [r for r in recs if r["kind"] == "tier_regroup"]
     imports = [r for r in recs if r["kind"] == "migrate_import"
                and r.get("what") != "prefix"]
+    # rank 0 of each member runs in this process: the window's launches
+    # are layers x every rank-0 runtime's dispatches, r2's engine before
+    # and after its regroup included.
+    before["r2-tp1"] = before.pop("r2")
+    after["r2-tp1"] = old_after
     per_member, kernels_ok = _kernels_per_member(before, after, counts, layers,
-                                                 ["r0", "r1", "r2"])
-    # TTFT: the router's enqueue to the member's first install (its first
-    # token), both journals on this process's clock.
-    enq = {r["user"]: r["t"] for r in recs if r["kind"] == "enqueue"}
-    first = {}
-    for rs in member_recs.values():
-        for r in rs:
-            if r["kind"] == "install" and r.get("user") in TIERS_USERS:
-                first[r["user"]] = min(r["t"], first.get(r["user"], r["t"]))
-    ttft = {u: (first[u] - enq[u]) * 1e3 for u in first if u in enq}
-    by_tier = {t: sorted(ms for u, ms in ttft.items()
-                         if (TIERS_USERS[u][0] == "default") == (t == "bulk"))
-               for t in ("interactive", "bulk")}
+                                                 ["r0", "r1", "r2", "r2-tp1"])
+    per_bytes = {"param_bytes": _tp_param_bytes(cfg, 2),
+                 "kv_bytes": _tp_kv_bytes(cfg, 2, ecfg.num_pages, ecfg.page_size)}
+    ranks = {}
+    for n in ("r0", "r2"):
+        (w,) = workers[n] or [None]
+        exact1 = w is not None and _tp_exact(w["launches"], w["ops"], layers, "")[0]
+        # Rank 1 replays every dispatch of its rank 0 over the same span.
+        same_span = w is not None and all(
+            w["launches"].get(k, 0) == v for k, v in per_member[n].items())
+        ranks[n] = {
+            "rank0": {k: rank0[n][k] for k in per_bytes},
+            "rank1": ({k: w["runtimes"][FLEET_MODEL][k] for k in per_bytes}
+                      if w is not None else None),
+            "rank1_launches": w["launches"] if w is not None else None,
+            "rank1_ops": w["ops"] if w is not None else None,
+            "rank1_exact": exact1,
+            "rank1_same_span_as_rank0": same_span,
+            "digests_equal": (w is not None
+                              and w["digest"] == rank0[n]["trace"]["digest"])}
+    ttft, ttft_p50 = _tiers_ttft(recs, member_recs)
     regroup_s = (regroup[-1]["t"] - regroup[0]["t"]
                  if len(regroup) == 2 else None)
+    late_on = {r["user"]: r["replica"] for r in places if r["user"] in TIERS_LATE}
     gates = {
-        "replies": not errors and len(results) == len(TIERS_USERS)
+        "replies": not errors and len(results) == len(TIERS_USERS) + len(TIERS_LATE)
         and all(fr.get("done") and fr.get("done_reason") in ("stop", "length")
                 and "error" not in fr for _, fr in results.values()),
-        "interactive_in_tier": all(
-            r["tier"] == "interactive" and r["replica"] in ("r0", "r2")
+        "widths": widths0 == {"r0": 2, "r1": 1, "r2": 1}
+        and widths1 == {"r0": 2, "r1": 1, "r2": 2},
+        "interactive_on_r0": all(
+            r["tier"] == "interactive" and r["replica"] == "r0"
             and not r.get("overflow")
             for r in places if r["cls"] != "default" and r["user"] in TIERS_USERS)
         and {r["user"] for r in places if r["cls"] != "default"} >= {"vip-a", "vip-b", "dl"},
         "bulk_in_tier": all(r["tier"] == "bulk" and r["replica"] in ("r1", "r2")
                             for r in places if r["cls"] == "default"),
+        "late_on_both_wide": sorted(late_on.values()) == ["r0", "r2"],
         "regroup_done": [r["phase"] for r in regroup] == ["start", "done"]
+        and regroup[0].get("tp_from") == 1 and regroup[0].get("tp_to") == 2
+        and regroup[1].get("tp_to") == 2
         and check_regroup_pairing(recs) == []
         and sorted(m["name"] for m in tiers["tiers"]["interactive"]["members"])
         == ["r0", "r2"],
@@ -3424,29 +3752,54 @@ def serve_tiers_phase(report) -> None:
         and sorted(r["user"] for r in imports if r["replica"] == "r2") == on_r2
         and all(r["to_replica"] == "r1" for r in imports)
         and not any(r["kind"] in ("replica_failover", "migrate_abort") for r in recs),
+        "no_ejects": not any(r["kind"] == "replica_eject" for r in recs),
         "no_dropped": check_no_dropped_streams(recs) == []
         and all(check_no_dropped_streams(rs) == [] for rs in member_recs.values()),
         "invariants": check_invariants(recs) == []
         and all(check_invariants(rs) == [] for rs in member_recs.values()),
         "no_used_pages": all(v == 0 for v in used.values()),
         "kernels_every_member": kernels_ok,
-        "tp2_refused": tp2_rc == 2,
+        "wide_ranks_exact": all(v["rank1_exact"] and v["digests_equal"]
+                                and v["rank1_same_span_as_rank0"]
+                                for v in ranks.values()),
+        "wide_rank_bytes": all(v["rank0"] == per_bytes and v["rank1"] == per_bytes
+                               for v in ranks.values()),
+        "r2_old_engine_released": old_released,
+        "memory_back": mem_after - mem0 <= MOE_MEMORY_SLACK,
         **f32["gates"],
+        **{f"tp1_{k}": v for k, v in tp1["gates"].items()},
     }
     tokens = sum(len(ids) for ids, _ in results.values())
+    # The one-rank window's, then the wide window's in this process and
+    # its worker ranks' (whose runs the window spans).
+    launches = {k: n + counts[k] for k, n in tp1["launches"].items()}
+    for v in ranks.values():
+        for k, n in (v["rank1_launches"] or {}).items():
+            launches[k] += n
     line = {"phase": "serve-tiers", "model": FLEET_MODEL, "members": 3,
             "slots_per_member": ecfg.max_slots, "tiers": TIERS_SPEC,
+            "cards": "r0's two ranks, r1, r2 and r2's regroup on cuda:0 (gloo)",
             "users": {u: c for u, (c, _) in TIERS_USERS.items()},
             "max_new_tokens": FLEET_NEW, "placed": placed, "live_on_r2": on_r2,
-            "retier": retier, "regroup_s": regroup_s,
-            "ttft_ms": ttft,
-            "ttft_p50_ms": {t: (v[len(v) // 2] if v else None) for t, v in by_tier.items()},
+            "late_placed": late_on, "retier": retier, "regroup_s": regroup_s,
+            "fleet_build_s": build_s, "eject_heartbeat_s": TIERS_EJECT_S,
+            "max_heartbeat_age_s": max_age,
+            "interactive_ttft_ms_objective": AUTOSCALE_SLO_TTFT_MS,
+            "ttft_ms": ttft, "ttft_p50_ms": ttft_p50,
             "tokens": tokens, "seconds": seconds, "tokens_per_s": tokens / seconds,
             "migrated": [{k: r[k] for k in ("user", "replica", "to_replica", "tokens",
                                              "pages", "bytes")} for r in imports],
-            "launches": counts, "launches_per_member": per_member,
-            "used_pages": used, "f32": {k: f32[k] for k in ("member", "migrated_at",
-                                                           "tokens", "first_diff")},
+            "launches": launches, "launches_in_process": counts,
+            "tp1": {k: tp1[k] for k in ("regroup_s", "ttft_p50_ms", "tokens_per_s",
+                                        "interactive_ttft_ms", "eject_heartbeat_s",
+                                        "launches")},
+            "launches_per_member": per_member, "wide_ranks": ranks,
+            "rank_bytes_expected": per_bytes,
+            "memory_allocated": {"before_fleet": mem0, "after_fleet": mem_after,
+                                 "after_fleet_cublas_workspaces_kept": mem_after_raw},
+            "used_pages": used, "f32": {k: f32[k] for k in (
+                "wide_member", "first_diff_tp2", "member", "migrated_at", "tokens",
+                "first_diff", "regrouped_tp")},
             "phase_seconds": time.monotonic() - t_phase, "card": card, "gates": gates}
     emit(line)
     report["serve_tiers"] = line
@@ -4444,14 +4797,13 @@ def _tp_layer_ms(rt, port, model) -> dict:
     wall time is not a serving number."""
     import torch
 
-    from ollamamq_tpu_torch.engine import spmd
-
     def sync():
         if rt.device.type == "cuda":
             torch.cuda.synchronize()
 
     acc = {"allreduce_s": 0.0, "allreduce_calls": 0, "send_s": 0.0, "sync_s": 0.0}
-    group, send, bus_sync = rt.tp, spmd._send, spmd._bus.sync
+    plane = rt._plane  # the world's control plane: its wire and sync bus
+    group, send, bus_sync = rt.tp, plane.send, plane.bus.sync
     reduce = group.all_reduce
 
     def timed_reduce(x):
@@ -4475,7 +4827,7 @@ def _tp_layer_ms(rt, port, model) -> dict:
         return out
 
     before = rt.stats()
-    group.all_reduce, spmd._send, spmd._bus.sync = timed_reduce, timed_send, timed_sync
+    group.all_reduce, plane.send, plane.bus.sync = timed_reduce, timed_send, timed_sync
     try:
         body = {"model": model, "prompt": TP_TEXT * 2, "stream": False,
                 "options": {"temperature": 0, "num_predict": 32}}
@@ -4489,8 +4841,8 @@ def _tp_layer_ms(rt, port, model) -> dict:
         wall = time.monotonic() - t0
     finally:
         del group.all_reduce
-        spmd._send = send
-        del spmd._bus.sync
+        del plane.send
+        del plane.bus.sync
     after = rt.stats()
     forwards = ((after["ragged_dispatches"] - before["ragged_dispatches"])
                 + (after["decode_steps"] - before["decode_steps"]))
@@ -4704,13 +5056,16 @@ def _world(spec) -> int:
 
 
 def tp_rank_main(args) -> int:
-    """One rank of a serve-tp or serve-pp window (`--tp-rank`): every
-    rank shares the card over gloo; the others replay, rank 0 runs the
-    window and prints its result line. Any rank exits non-zero on any
-    failure."""
+    """One rank of a serve-tp, serve-pp or serve-dp world (`--tp-rank`):
+    every rank shares the card over gloo, and the world runs the windows
+    of `--tp-plan` ([[window, spec], ...], one world shape) in order:
+    rank 0 builds each window's engine and prints its result line, the
+    others replay it (one run_worker a window; each window is a session
+    of the world's wire). A window that kills a rank comes last. Any
+    rank exits non-zero on any failure."""
     import traceback
 
-    spec = json.loads(args.tp_spec)
+    plan = json.loads(args.tp_plan)
     rank = args.tp_rank
     try:
         import torch
@@ -4720,12 +5075,13 @@ def tp_rank_main(args) -> int:
         from ollamamq_tpu_torch.parallel import distributed
         from ollamamq_tpu_torch.parallel.mesh import make_mesh
 
-        device = "cuda:0" if spec["device"] == "cuda" else "cpu"
+        first = plan[0][1]
+        device = "cuda:0" if first["device"] == "cuda" else "cpu"
         if device != "cpu":
             for name in build.KERNELS:  # the parent built them: load only
                 build.kernel_fn(name)
-        world = _world(spec)
-        if args.tp_window == "pp-p2p":
+        world = _world(first)
+        if plan[0][0] == "pp-p2p":
             print("TP-RESULT " + json.dumps(_pp_p2p_probe(rank, args.tp_port, device)),
                   flush=True)
             os._exit(0)
@@ -4733,9 +5089,9 @@ def tp_rank_main(args) -> int:
                                backend="gloo", devices=[device] * world,
                                timeout_s=120)
         distributed.store().set(f"chip_smoke/pid/{rank}", str(os.getpid()))
-        mesh = make_mesh(dp=spec.get("dp", 1), tp=spec.get("tp", 2),
-                         pp=spec.get("pp", 1))
-        if rank != 0 and spec.get("dp", 1) > 1:
+        mesh = make_mesh(dp=first.get("dp", 1), tp=first.get("tp", 2),
+                         pp=first.get("pp", 1))
+        if rank != 0 and first.get("dp", 1) > 1:
             # serve-dp reads every rank's launches before its kill -9.
             from ollamamq_tpu_torch.ops.cuda import launch_counts
 
@@ -4748,13 +5104,26 @@ def tp_rank_main(args) -> int:
                 return out
 
             spmd._replay = posted
-        if rank != 0:
-            steps = spmd.run_worker({spec["model"]: None}, _tp_ecfg(spec), mesh)
-            print("TP-RESULT " + json.dumps({"rank": rank, "steps": steps}), flush=True)
-        else:
-            out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS}[args.tp_window](
-                spec, mesh, spec.get("profile", False))
+        from ollamamq_tpu_torch.ops.cuda import reset_launch_counts
+
+        for window, spec in plan:
+            # Each window counts its own launches and peak memory, as a
+            # world of its own would.
+            reset_launch_counts()
+            if device != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            if rank != 0:
+                steps = spmd.run_worker({spec["model"]: None}, _tp_ecfg(spec), mesh)
+                out = {"rank": rank, "steps": steps}
+            else:
+                out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS}[window](
+                    spec, mesh, spec.get("profile", False))
+            out.update(window=window, window_s=time.monotonic() - t0)
             print("TP-RESULT " + json.dumps(out), flush=True)
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
         sys.stdout.flush()
         os._exit(0)  # the gloo group of a killed peer must not block teardown
     except BaseException:  # noqa: BLE001 — every failure exits non-zero
@@ -4763,23 +5132,24 @@ def tp_rank_main(args) -> int:
         os._exit(1)
 
 
-def _tp_window(window, spec, timeout_s=900.0, after_leader_s=None):
-    """Run one serve-tp, serve-pp or serve-dp window in its rank processes
-    (logs under OUT_DIR); returns (rank 0's result, the return codes, the
-    log paths). `after_leader_s`: once rank 0 has exited, the other ranks
-    get that long before they are killed (a window that kills a rank
-    leaves its peers to fail on their own)."""
+def _tp_world(name, plan, timeout_s=900.0, after_leader_s=None):
+    """Run the windows of `plan` ([(window, spec), ...]) in one world of
+    rank processes (logs under OUT_DIR as serve_<name>_rank<r>.log);
+    returns ({window: rank 0's result}, the return codes, the log
+    paths). `after_leader_s`: once rank 0 has exited, the other ranks get
+    that long before they are killed (a window that kills a rank leaves
+    its peers to fail on their own)."""
     here = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(OUT_DIR, exist_ok=True)
     port = _free_port()
     env = dict(os.environ, **TP_HB)
-    phase = window[:2] if window.startswith(("pp-", "dp-")) else "tp"
-    ranks = range(_world(spec))
-    paths = [os.path.join(OUT_DIR, f"serve_{phase}_{window}_rank{r}.log") for r in ranks]
+    ranks = range(_world(plan[0][1]))
+    paths = [os.path.join(OUT_DIR, f"serve_{name}_rank{r}.log") for r in ranks]
     logs = [open(p, "w") for p in paths]
+    arg = json.dumps([list(w) for w in plan])
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(here, "chip_smoke.py"), "--tp-rank", str(r),
-         "--tp-port", str(port), "--tp-window", window, "--tp-spec", json.dumps(spec)],
+         "--tp-port", str(port), "--tp-plan", arg],
         cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT) for r in ranks]
     try:
         deadline = time.monotonic() + timeout_s
@@ -4797,27 +5167,31 @@ def _tp_window(window, spec, timeout_s=900.0, after_leader_s=None):
         for f in logs:
             f.close()
     text = open(paths[0]).read()
-    lines = [ln for ln in text.splitlines() if ln.startswith("TP-RESULT ")]
-    if not lines:
-        raise SystemExit(f"serve-{phase} {window}: rank 0 printed no result "
+    outs = [json.loads(ln[10:]) for ln in text.splitlines()
+            if ln.startswith("TP-RESULT ")]
+    results = {o.get("window", plan[0][0]): o for o in outs}
+    missing = [w for w, _ in plan if w not in results]
+    if missing:
+        raise SystemExit(f"serve {name}: rank 0 printed no result for {missing} "
                          f"(rc {[p.returncode for p in procs]}):\n{text[-4000:]}")
-    return json.loads(lines[-1][10:]), [p.returncode for p in procs], paths
+    return results, [p.returncode for p in procs], paths
 
 
 def _tp_nccl_check() -> dict:
     """A world-size-1 NCCL group (the backend initialize() picks for a CUDA
-    rank) runs the port's TP all-reduce helper on the card."""
+    rank, built on the world's store as every mesh group is) runs the
+    port's TP all-reduce helper on the card."""
     import torch
-    import torch.distributed as dist
 
     from ollamamq_tpu_torch.parallel import distributed
     from ollamamq_tpu_torch.parallel.mesh import TensorGroup
 
     distributed.initialize("127.0.0.1:0", 1, 0, devices=["cuda:0"], timeout_s=60)
     try:
-        backend = dist.get_backend()
+        world = distributed.default_world()
+        backend = world.backend
         x = torch.arange(4096, dtype=torch.bfloat16, device="cuda")
-        y = TensorGroup(1, 0, dist.group.WORLD).all_reduce(x.clone())
+        y = TensorGroup(1, 0, world.group([0])).all_reduce(x.clone())
         torch.cuda.synchronize()
         ok = backend == "nccl" and bool(torch.equal(x, y))
     finally:
@@ -4842,16 +5216,15 @@ def serve_tp_phase(report, profile: bool) -> None:
     refusal_text = refusal.stdout + refusal.stderr
     nccl = _tp_nccl_check()
     base = {"device": TP_DEVICE, "profile": profile}
-    windows, rcs = {}, {}
-    for window, spec in (("bf16", {"model": TP_MODEL, "dtype": "bfloat16"}),
-                         ("f32", {"model": TP_SMALL, "dtype": "float32"}),
-                         ("int8", {"model": TP_SMALL, "dtype": "bfloat16",
-                                   "quant": "int8"}),
-                         ("kill", {"model": TP_SMALL, "dtype": "bfloat16"})):
-        t0 = time.monotonic()
-        out, rc, _ = _tp_window(window, {**base, **spec})
-        out["window_s"] = time.monotonic() - t0
-        windows[window], rcs[window] = out, rc
+    t_world = time.monotonic()
+    # One world of two ranks serves the four windows, the kill last.
+    windows, rcs, _ = _tp_world("tp", [
+        (w, {**base, **spec}) for w, spec in (
+            ("bf16", {"model": TP_MODEL, "dtype": "bfloat16"}),
+            ("f32", {"model": TP_SMALL, "dtype": "float32"}),
+            ("int8", {"model": TP_SMALL, "dtype": "bfloat16", "quant": "int8"}),
+            ("kill", {"model": TP_SMALL, "dtype": "bfloat16"}))])
+    world_s = time.monotonic() - t_world
     bf16, f32, int8, kill = (windows[w] for w in ("bf16", "f32", "int8", "kill"))
     (w_bf16,), (w_f32,), (w_int8,) = bf16["workers"], f32["workers"], int8["workers"]
     cfg_layers = {"bf16": 32, "small": 16}
@@ -4901,7 +5274,8 @@ def serve_tp_phase(report, profile: bool) -> None:
             "cli_tp2_exit": refusal.returncode,
             "cli_tp2_message": next((ln.split(": ", 1)[-1] for ln in refusal_text.splitlines()
                                      if "cuda:1" in ln), refusal_text[-300:]),
-            "return_codes": rcs, "launches": launches,
+            "return_codes": rcs, "launches": launches, "world": "one, 2 ranks",
+            "world_s": world_s,
             "windows_s": {w: windows[w]["window_s"] for w in windows}}
     line["phase_s"] = time.monotonic() - t_phase
     emit(line)
@@ -4935,8 +5309,7 @@ def serve_tp_phase(report, profile: bool) -> None:
         "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
         "kill_health": (kill["health_http"] == 200 and "worker_stale" in kill["alerts"]
                         and kill["runtime_failed"] == [True]),
-        "exit_codes": (all(rc == [0, 0] for w, rc in rcs.items() if w != "kill")
-                       and rcs["kill"] == [0, -9]),
+        "exit_codes": rcs == [0, -9],  # rank 1 killed in the last window
     }
     emit({"phase": "serve-tp-gates", **gates})
     if not all(gates.values()):
@@ -5260,25 +5633,31 @@ def serve_pp_phase(report, profile: bool) -> None:
     refusal_text = refusal.stdout + refusal.stderr
     t0 = time.monotonic()
     try:  # recorded, not gated: a rank may die inside the raw call
-        probe, probe_rc, _ = _tp_window("pp-p2p", {"device": TP_DEVICE, "tp": 2},
-                                        timeout_s=120)
+        out, probe_rc, _ = _tp_world("pp_p2p", [("pp-p2p", {"device": TP_DEVICE,
+                                                            "tp": 2})],
+                                     timeout_s=120)
+        probe = out["pp-p2p"]
     except SystemExit as e:
         probe, probe_rc = {"error": str(e)[-600:]}, None
     probe["window_s"] = time.monotonic() - t0
     base = {"device": TP_DEVICE, "profile": profile, "tp": 1, "pp": 2, "mp": PP_MP}
-    windows, rcs = {}, {}
-    for window, spec in (("pp-bf16", {"model": PP_MODEL, "dtype": "bfloat16"}),
-                         ("pp-f32", {"model": PP_SMALL, "dtype": "float32",
-                                     "new": 32}),
-                         ("pp-tp-f32", {"model": PP_SMALL, "dtype": "float32",
-                                        "new": 32, "tp": 2}),
-                         ("pp-int8", {"model": PP_SMALL, "dtype": "bfloat16",
-                                      "quant": "int8", "kv": "bfloat16"}),
-                         ("pp-kill", {"model": PP_SMALL, "dtype": "bfloat16"})):
-        t0 = time.monotonic()
-        out, rc, _ = _tp_window(window, {**base, **spec})
-        out["window_s"] = time.monotonic() - t0
-        windows[window], rcs[window] = out, rc
+    # One world of two ranks serves the pp-2 windows, the kill last; the
+    # pp 2 x tp 2 window needs four ranks, a world of its own.
+    t0 = time.monotonic()
+    windows, rc2, _ = _tp_world("pp", [
+        (w, {**base, **spec}) for w, spec in (
+            ("pp-bf16", {"model": PP_MODEL, "dtype": "bfloat16"}),
+            ("pp-f32", {"model": PP_SMALL, "dtype": "float32", "new": 32}),
+            ("pp-int8", {"model": PP_SMALL, "dtype": "bfloat16",
+                         "quant": "int8", "kv": "bfloat16"}),
+            ("pp-kill", {"model": PP_SMALL, "dtype": "bfloat16"}))])
+    world_s = {"pp2": time.monotonic() - t0}
+    t0 = time.monotonic()
+    out, rc4, _ = _tp_world("pp_tp", [("pp-tp-f32", {
+        **base, "model": PP_SMALL, "dtype": "float32", "new": 32, "tp": 2})])
+    world_s["pp2_tp2"] = time.monotonic() - t0
+    windows.update(out)
+    rcs = {"pp2": rc2, "pp2_tp2": rc4}
     bf16, f32, f32tp, int8, kill = (windows[w] for w in
                                     ("pp-bf16", "pp-f32", "pp-tp-f32", "pp-int8", "pp-kill"))
     (w_bf16,), (w_int8,) = bf16["workers"], int8["workers"]
@@ -5335,6 +5714,8 @@ def serve_pp_phase(report, profile: bool) -> None:
                 (ln.split(": ", 1)[-1] for ln in refusal_text.splitlines()
                  if "--kv-dtype=int8" in ln), refusal_text[-300:]),
             "return_codes": rcs, "launches": launches,
+            "worlds": {"pp2": "pp-bf16, pp-f32, pp-int8, pp-kill",
+                       "pp2_tp2": "pp-tp-f32"}, "worlds_s": world_s,
             "windows_s": {w: windows[w]["window_s"] for w in windows}}
     line["phase_s"] = time.monotonic() - t_phase
     emit(line)
@@ -5371,8 +5752,7 @@ def serve_pp_phase(report, profile: bool) -> None:
         "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
         "kill_health": (kill["health_http"] == 200 and "worker_stale" in kill["alerts"]
                         and kill["runtime_failed"] == [True]),
-        "exit_codes": (all(all(c == 0 for c in rc) for w, rc in rcs.items()
-                           if w != "pp-kill") and rcs["pp-kill"] == [0, -9]),
+        "exit_codes": rcs == {"pp2": [0, -9], "pp2_tp2": [0, 0, 0, 0]},
     }
     emit({"phase": "serve-pp-gates", **gates})
     if not all(gates.values()):
@@ -5738,9 +6118,11 @@ def serve_dp_phase(report) -> None:
     f32_two = _dp_f32_ids(2)
     f32_counts = launch_counts()
     t0 = time.monotonic()
-    world, rcs, _ = _tp_window("dp-world", {"model": DP_MODEL, "dtype": "float32",
-                                            "dp": 2, "tp": 2, "device": TP_DEVICE},
-                               after_leader_s=30.0)
+    out, rcs, _ = _tp_world("dp", [("dp-world", {"model": DP_MODEL,
+                                                 "dtype": "float32", "dp": 2,
+                                                 "tp": 2, "device": TP_DEVICE})],
+                            after_leader_s=30.0)
+    world = out["dp-world"]
     world_s = time.monotonic() - t0
     launches = {k: 0 for k in KERNEL_ROWS}
     for counts in ([two["launches"], f32_counts]
@@ -5962,11 +6344,10 @@ def main(argv=None) -> int:
                     help="build the kernels and run this one phase (a "
                          "partial run: no kernels line and no closing "
                          "ok line)")
-    # One rank of a serve-tp window (the phase starts these itself).
+    # One rank of a serve-tp/pp/dp world (the phases start these).
     ap.add_argument("--tp-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=0, help=argparse.SUPPRESS)
-    ap.add_argument("--tp-window", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--tp-spec", default="{}", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-plan", default="[]", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
 

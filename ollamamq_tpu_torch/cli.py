@@ -44,13 +44,19 @@ failover (recompute replay when a transfer cannot land), and the
 /admin/fleet, /admin/drain and /admin/preempt routes. The router owns
 the caps, the WAL and the journal spill; its members run without them.
 --tiers splits the members into an interactive and a bulk tier
-(/admin/tiers, /admin/retier/{replica}); fleet members wider than one
-rank are not ported yet, so every member runs at TP width 1: a tier
-declaring @tpN with N > 1 is refused (exit 2), as are --tp and --pp
-other than 1 with a fleet (--dp N members each serve N replicas). --autoscale grows and shrinks the fleet between
---min-replicas and --max-replicas (in-process members from the same
-factory; --fake-engine members as `python -m ollamamq_tpu_torch.cli`
-subprocesses), and implies a fleet even with --replicas 1.
+(/admin/tiers, /admin/retier/{replica}). Members serve at --tp, --pp
+and --dp (a tier declaring @tpN starts its members at TP width N, and a
+regroup rebuilds the member at its target tier's width): a member wider
+than one rank leads a rank world of its own, whose ranks this process
+starts and reaps (fleet/wide.py). On a host with cards, when any member
+or tier is wider than one rank, every member holds cards of its own,
+disjoint from the others' (a host short of them exits 2 naming the
+missing cuda:k; a regroup toward a width whose cards are not free
+aborts); otherwise every member runs on --device. --autoscale grows
+and shrinks the fleet between --min-replicas and --max-replicas
+(in-process members from the same factory; --fake-engine members as
+`python -m ollamamq_tpu_torch.cli` subprocesses), and implies a fleet
+even with --replicas 1.
 
 --ha runs a fleet router as the HA primary: it replicates its WAL and
 its decision journal over GET /admin/ha/sync, stamps every member call
@@ -108,10 +114,6 @@ from ollamamq_tpu_torch.config import (QUANT_DTYPES, EngineConfig,
                                        validate_autoscale, validate_ha,
                                        validate_quant_config,
                                        validate_scheduler, validate_tiers)
-
-
-# What fleets still lack (ROADMAP Queue 1): a member is one rank.
-WIDE_MEMBERS = "fleet members wider than one rank are not ported yet"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -295,8 +297,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=d.dp, help="data-parallel axis size")
     p.add_argument("--tp", type=int, default=d.tp,
                    help="tensor-parallel width: ranks (processes, one per "
-                        "device) one engine spreads over; fleet members "
-                        "stay at 1")
+                        "device) one engine, or each fleet member, spreads "
+                        "over")
     p.add_argument("--pp", type=int, default=d.pp,
                    help="pipeline-parallel stages (layers split across "
                         "chip groups; for models beyond one group's HBM)")
@@ -315,8 +317,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(needs --replicas/--replica-urls): "
                         "'interactive=r0;bulk=r1,r2' maps members to "
                         "tiers by name (or tpN for every member at that "
-                        "TP width; an @tpN suffix declares the width a "
-                        "retiered member restarts at, here only tp1). "
+                        "TP width; an @tpN suffix declares the width the "
+                        "tier's members start at and a retiered member "
+                        "restarts at). "
                         "VIP/boost users and deadlined requests place on "
                         "the interactive tier, everything else on bulk; "
                         "cross-tier placement only under journaled SLO "
@@ -491,8 +494,10 @@ def model_table(args) -> dict:
     return {name: checkpoints.get(name) for name in names}
 
 
-def validate(args) -> str:
-    """The flags' errors, checked before any device work ("" = valid)."""
+def validate(args, cards=None) -> str:
+    """The flags' errors, checked before any device work ("" = valid).
+    `cards`: a fleet's explicit card plan (fleet/wide.py CardPlan), whose
+    slots stand for the host's cards."""
     for name in model_table(args):
         if get_model_config(name) is None:
             return f"unknown model architecture: {name}"
@@ -533,10 +538,6 @@ def validate(args) -> str:
                 "mutually exclusive (the SPMD engine already owns its worker "
                 "ranks; run the fleet router over separate SPMD services via "
                 "--replica-urls from a non-SPMD front-end instead)")
-    for flag, n in (("--tp", args.tp), ("--pp", args.pp)):
-        if n != 1 and (args.replicas != 1 or urls or args.autoscale):
-            return (f"{flag} {n} with a fleet: {WIDE_MEMBERS} (each member "
-                    f"runs at {flag} 1); serve {flag} from a single engine")
     if args.dp < 1:
         return f"--dp must be >= 1, got {args.dp}"
     if args.tp != 1 or args.pp != 1 or args.spmd:
@@ -578,12 +579,14 @@ def validate(args) -> str:
         err = validate_tiers(args.tiers, fleet_roster(args))
         if err:
             return f"invalid --tiers: {err}"
-        _, widths = assign_tiers(args.tiers, fleet_roster(args))
-        wide = sorted(t for t, w in widths.items() if w not in (None, 1))
-        if wide:
-            return (f"invalid --tiers: tier {wide[0]!r} declares TP width "
-                    f"{widths[wide[0]]}; {WIDE_MEMBERS}, so every member "
-                    "runs at tp1")
+        for tier, width in sorted(tier_widths(args).items()):
+            err = validate_width(args, width or 1, args.pp)
+            if err:
+                return f"invalid --tiers: tier {tier!r} @tp{width}: {err}"
+    if is_fleet(args):
+        err = validate_fleet_cards(args, cards)
+        if err:
+            return err
     if args.metrics_buckets:
         try:
             latency_buckets(args.metrics_buckets)
@@ -604,7 +607,6 @@ def validate_tp(args) -> str:
     against every model's heads and layers, and the devices of a local
     world (tp x pp ranks) on this host."""
     from ollamamq_tpu_torch.parallel.distributed import multiprocess_configured
-    from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
 
     if args.spmd and not os.environ.get("OLLAMAMQ_TP_WORKER") \
             and not multiprocess_configured():
@@ -618,23 +620,75 @@ def validate_tp(args) -> str:
         return f"--pp-microbatches must be >= 0, got {args.pp_microbatches}"
     if args.fake_engine:
         return "--tp / --pp need a model engine; --fake-engine runs none"
-    if args.pp > 1:
-        for name in model_table(args):
-            cfg = get_model_config(name)
-            if cfg.num_layers % args.pp:
-                return (f"pp={args.pp} must divide num_layers="
-                        f"{cfg.num_layers} ({name})")
+    err = validate_width(args, args.tp, args.pp)
+    if err or is_fleet(args):  # a fleet's cards: validate_fleet_cards
+        return err
+    return validate_devices(args)
+
+
+def validate_width(args, tp: int, pp: int) -> str:
+    """tp and pp against every model's heads and layers."""
+    from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
+
+    for name in model_table(args):
+        cfg = get_model_config(name)
+        if pp > 1:
+            if cfg.num_layers % pp:
+                return f"pp={pp} must divide num_layers={cfg.num_layers} ({name})"
             if cfg.num_experts:
                 return ("pp with an MoE model is not supported: the pipeline "
                         f"stage body runs the dense FFN ({name})")
-    if args.tp > 1:
-        for name in model_table(args):
-            cfg = get_model_config(name)
+        if tp > 1:
             try:
-                validate_tp_for_model(args.tp, cfg.num_kv_heads, cfg.num_heads)
+                validate_tp_for_model(tp, cfg.num_kv_heads, cfg.num_heads)
             except ValueError as e:
-                return f"--tp {args.tp} for {name}: {e}"
-    return validate_devices(args)
+                return f"--tp {tp} for {name}: {e}"
+    return ""
+
+
+def tier_widths(args) -> dict:
+    """{tier: declared TP width} of --tiers (None: the member's own)."""
+    if not args.tiers:
+        return {}
+    return assign_tiers(args.tiers, fleet_roster(args))[1]
+
+
+def member_widths(args) -> dict:
+    """{member: TP width it starts at} of the in-process members: its
+    tier's declared width, else --tp."""
+    assignment, widths = (assign_tiers(args.tiers, fleet_roster(args))
+                          if args.tiers else ({}, {}))
+    return {f"r{i}": widths.get(assignment.get(f"r{i}")) or args.tp
+            for i in range(max(0, args.replicas))}
+
+
+def fleet_has_wide(args) -> bool:
+    """A member, a tier or the autoscaler's members wider than one rank
+    (the card plan then gives every member cards of its own)."""
+    widths = list(member_widths(args).values()) + [
+        w for w in tier_widths(args).values() if w]
+    return args.pp > 1 or any(max(1, w) > 1 for w in widths + [args.tp])
+
+
+def validate_fleet_cards(args, cards=None) -> str:
+    """The cards the fleet's starting members need of their own, planned
+    as build_fleet hands them out: on `cards` (fleet/wide.py CardPlan),
+    else card_plan(args). Nothing to check for a plan that counts no
+    cards (the CPU, or no member or tier wider than one rank: every
+    member runs on --device)."""
+    from ollamamq_tpu_torch.fleet.wide import CardPlan
+
+    plan = cards if cards is not None else card_plan(args)
+    if not plan.accounted:
+        return ""
+    trial = CardPlan(plan.cards, backend=plan.backend)
+    for name, width in member_widths(args).items():
+        try:
+            trial.take_member(name, argparse.Namespace(dp=args.dp, tp=width,
+                                                       pp=args.pp))
+        except RuntimeError as e:
+            return str(e)
+    return ""
 
 
 def validate_devices(args) -> str:
@@ -833,39 +887,66 @@ def start_ranks(args, argv, log):
         raise
 
 
-def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
+def card_plan(args):
+    """The fleet's card plan (fleet/wide.py CardPlan): the host's cards,
+    one member each, when a member or tier is wider than one rank on
+    cards; else every member on --device (the CPU, or a fleet of
+    one-rank members sharing its card)."""
+    from ollamamq_tpu_torch.fleet.wide import CardPlan
+
+    if args.device == "cpu" or args.fake_engine or not fleet_has_wide(args):
+        return CardPlan(device=args.device)
+    import torch
+
+    return CardPlan([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+
+
+def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None,
+                cards=None):
     """The FleetRouter that `main` serves for --replicas N > 1,
     --replica-urls or --autoscale: in-process members r0..r{N-1}, each
-    an `engine_factory(member_cfg)` that the drain's hot restart, a
-    tier regroup and the autoscaler's LocalProvisioner call again, then
-    HTTP members h0, h1, ... at the URLs. Members serve uncapped what
-    the router placed (the router owns the caps), keep no blocklist (the
-    router blocks at ingress) and leave the journal spill, the WAL and
-    the policy layers to the router (a member WAL would record and
-    recover every stream twice). Under --autoscale with --fake-engine,
-    scale-ups spawn `python -m ollamamq_tpu_torch.cli --fake-engine`
-    subprocesses joined as HTTP members instead."""
+    built by its own fleet/wide.py MemberFactory, which the drain's hot
+    restart, a tier regroup and the autoscaler's LocalProvisioner call
+    again, then HTTP members h0, h1, ... at the URLs. A member starts at
+    its tier's declared @tpN width, else at --tp; wider than one rank it
+    is an SPMDEngine leading a rank world of its own, else
+    `engine_factory(member_cfg)` (with `device=` its own card when
+    `cards`, the CardPlan, counts cards; default card_plan(args)).
+    Members serve uncapped what the router placed (the router owns the
+    caps), keep no blocklist (the router blocks at ingress) and leave
+    the journal spill, the WAL and the policy layers to the router (a
+    member WAL would record and recover every stream twice). Under
+    --autoscale with --fake-engine, scale-ups spawn `python -m
+    ollamamq_tpu_torch.cli --fake-engine` subprocesses joined as HTTP
+    members instead."""
     import dataclasses
 
     from ollamamq_tpu_torch.core.mqcore import Fairness
     from ollamamq_tpu_torch.fleet import FleetRouter, HttpMember, LocalMember
+    from ollamamq_tpu_torch.fleet.wide import MemberFactory
 
+    fairness = fairness or Fairness.REQUESTS
+    plan = cards if cards is not None else card_plan(args)
     member_cfg = dataclasses.replace(
         ecfg, max_queued=0, max_queued_per_user=0, journal_file=None,
         wal_dir=None, tiers=None, autoscale=False, ha=False,
         standby_of=None)
 
-    def factory(tp=None):
-        # One rank per member: any other width is refused, never built at
-        # width 1 under a wider tier's label (the regroup aborts and the
-        # member keeps its tier).
-        if tp not in (None, 1):
-            raise ValueError(f"TP width {tp}: {WIDE_MEMBERS} (every member "
-                             "runs at tp1)")
-        return engine_factory(member_cfg)
+    def member_factory(name: str) -> MemberFactory:
+        return MemberFactory(name, member_cfg, plan, engine_factory,
+                             model_table(args), fairness,
+                             worlds=not args.fake_engine)
 
-    members = [LocalMember(f"r{i}", factory(), engine_factory=factory)
-               for i in range(args.replicas)]
+    members = []
+    try:
+        for name, width in member_widths(args).items():
+            factory = member_factory(name)
+            members.append(LocalMember(name, factory(width),
+                                       engine_factory=factory))
+    except BaseException:
+        for m in members:  # a fleet that cannot start reaps what it began
+            m.stop()
+        raise
     members += [HttpMember(f"h{j}", url, timeout_s=args.timeout)
                 for j, url in enumerate(replica_urls(args))]
     provisioner = None
@@ -882,12 +963,12 @@ def build_fleet(args, ecfg: EngineConfig, engine_factory, fairness=None):
                 "--max-slots", str(args.max_slots),
                 "--max-new-tokens", str(args.max_new_tokens)])
         else:
-            provisioner = LocalProvisioner(factory)
+            provisioner = LocalProvisioner(member_factory, release=plan.release)
     # A standby's router attaches no primary-side coordinator at
     # construction: it becomes one only at promotion.
     router = FleetRouter(
         members, dataclasses.replace(ecfg, ha=False) if args.standby_of else ecfg,
-        blocklist_path=args.blocklist, fairness=fairness or Fairness.REQUESTS,
+        blocklist_path=args.blocklist, fairness=fairness,
         placement=args.placement, drain_timeout_s=args.drain_timeout_s,
         provisioner=provisioner)
     if args.standby_of:
@@ -924,7 +1005,9 @@ def main(argv=None) -> int:
     fairness = Fairness.TOKENS if args.token_fairness else Fairness.REQUESTS
     ecfg = engine_config(args)
     workers = []
-    if args.tp != 1 or args.pp != 1 or args.spmd:
+    # A fleet's members lead their own rank worlds (build_fleet); this
+    # process is a rank of a world only as one engine.
+    if not is_fleet(args) and (args.tp != 1 or args.pp != 1 or args.spmd):
         from ollamamq_tpu_torch.engine import spmd
         from ollamamq_tpu_torch.parallel import distributed
 
@@ -937,7 +1020,7 @@ def main(argv=None) -> int:
             spmd.run_worker(model_table(args), ecfg, mesh)
             return 0
 
-    def build_engine(cfg, blocklist):
+    def build_engine(cfg, blocklist, device=None):
         if args.fake_engine:
             from ollamamq_tpu_torch.engine.fake import FakeEngine
 
@@ -949,13 +1032,16 @@ def main(argv=None) -> int:
                                   fairness=fairness, models=model_table(args))
             eng.worker_procs = workers
             return eng
-        return TorchEngine(cfg, device=args.device, blocklist_path=blocklist,
-                           fairness=fairness, models=model_table(args))
+        return TorchEngine(cfg, device=device or args.device,
+                           blocklist_path=blocklist, fairness=fairness,
+                           models=model_table(args))
 
     try:
         if is_fleet(args):
-            engine = build_fleet(args, ecfg,
-                                 lambda cfg: build_engine(cfg, None), fairness)
+            engine = build_fleet(
+                args, ecfg,
+                lambda cfg, device=None: build_engine(cfg, None, device),
+                fairness)
         else:
             engine = build_engine(ecfg, args.blocklist)
     except BaseException:

@@ -15,6 +15,7 @@ import json
 import os
 import subprocess
 import threading
+import time
 from typing import Iterable, Optional, Tuple
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,23 +36,48 @@ class Fairness(enum.IntEnum):
 
 
 def _ensure_built() -> str:
+    """cpp/libmqcore.so, built first if missing or older than its
+    sources. Processes build it one at a time (a lock file beside it)
+    and into a file of their own that then replaces the library in one
+    rename, so no process ever opens a library another is writing."""
+    import fcntl
+
     with _BUILD_LOCK:
         if not os.path.isdir(_CPP_DIR):
             raise RuntimeError(
                 f"native scheduler core sources not found at {_CPP_DIR}: "
                 "run from a checkout of the repository")
-        sources = [os.path.join(_CPP_DIR, f) for f in os.listdir(_CPP_DIR)
-                   if f.endswith((".cpp", ".h"))]
-        stale = not os.path.exists(_LIB_PATH) or any(
-            os.path.getmtime(s) > os.path.getmtime(_LIB_PATH) for s in sources)
-        if stale:
-            subprocess.run(["make", "-C", _CPP_DIR], check=True,
-                           capture_output=True, text=True)
+        with open(os.path.join(_CPP_DIR, ".libmqcore.lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            sources = [os.path.join(_CPP_DIR, f) for f in os.listdir(_CPP_DIR)
+                       if f.endswith((".cpp", ".h"))]
+            stale = not os.path.exists(_LIB_PATH) or any(
+                os.path.getmtime(s) > os.path.getmtime(_LIB_PATH)
+                for s in sources)
+            if stale:
+                tmp = f"libmqcore.so.{os.getpid()}.tmp"
+                try:
+                    subprocess.run(["make", "-C", _CPP_DIR, f"TARGET={tmp}"],
+                                   check=True, capture_output=True, text=True)
+                    os.replace(os.path.join(_CPP_DIR, tmp), _LIB_PATH)
+                finally:
+                    if os.path.exists(os.path.join(_CPP_DIR, tmp)):
+                        os.remove(os.path.join(_CPP_DIR, tmp))
     return _LIB_PATH
 
 
 def _load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(_ensure_built())
+    # The JAX package's binding builds the same library in place: a
+    # library that is still being written there fails to open, and opens
+    # once its build is done.
+    for attempt in range(40):
+        try:
+            lib = ctypes.CDLL(_ensure_built())
+            break
+        except OSError:
+            if attempt == 39:
+                raise
+            time.sleep(0.25)
     P, S, I, L = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int64
     sigs = {
         "mq_new": (P, [S]),

@@ -55,7 +55,7 @@ its own replica's data ops and applies every control op (LOAD, EVICT,
 RELOAD, SHUTDOWN), so the ordinal tables stay aligned on every rank.
 
 Desync detection: after every replayed op, the ranks that ran it
-exchange a status flag OUT-OF-BAND via the store (`status_sync`), a
+exchange a status flag OUT-OF-BAND via the store (`_Plane.status_sync`), a
 host-side barrier that cannot deadlock behind the very computation
 whose failure it reports; control ops sync every rank. A worker whose
 replay failed has diverged KV state, so the primary fails the runtime
@@ -63,13 +63,22 @@ LOUDLY (its requests end with an error) and the recovery path
 broadcasts OP_RELOAD, rebuilding it on every rank of its replica. The
 sync is one small store round-trip per dispatch;
 OLLAMAMQ_SPMD_STATUS_EVERY=N syncs every Nth data op instead.
-Liveness: every rank bumps a heartbeat key (`start_heartbeat`); a rank
+Liveness: every rank bumps a heartbeat key (`_Plane.start_heartbeat`); a rank
 whose heartbeat stops changing for OLLAMAMQ_SPMD_HB_STALE seconds is
 presumed dead, so a sync or a result wait on it raises PeerDeadError
 within that bound (only the waits of its own replica: a dead rank of
 replica 1 fails replica 1's requests and leaves replica 0 serving), and
 a collective waiting on it fails at the process group's timeout at the
 latest.
+
+Worlds and sessions: the wire, the sync buses, the replicas' ranks, the
+op trace and the heartbeat are one world's (`_Plane`). A worker rank and
+a lone engine use the process's plane, over its default world; a fleet
+router leads one plane per member wider than one rank
+(fleet/wide.py), picked by the runtime's mesh (`_plane_for`). An engine
+and its workers' run_worker each start a session of their world's wire
+(`_Plane.reset`), whose keys are its own, so one world can serve one
+engine after another.
 """
 
 from __future__ import annotations
@@ -82,6 +91,7 @@ import logging
 import os
 import threading
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -169,8 +179,9 @@ class _HeartbeatMonitor:
     that has never written a heartbeat is treated as alive: liveness is
     opt-in per rank, so a starting deployment can't false-positive."""
 
-    def __init__(self):
+    def __init__(self, plane: Optional["_Plane"] = None):
         self._seen = {}  # rank -> (value, first observed at, our clock)
+        self.plane = plane  # whose store it reads (None: this process's)
 
     def observe(self, pid: int, value: Optional[str], now: float) -> bool:
         """Record one reading; returns True if the peer is stale."""
@@ -183,7 +194,7 @@ class _HeartbeatMonitor:
         return (now - prev[1]) > _hb_stale()
 
     def stale_peers(self, pids) -> list:
-        client = _client()
+        client = (self.plane or _plane).client()
         now = time.monotonic()
         out = []
         for pid in pids:
@@ -194,94 +205,6 @@ class _HeartbeatMonitor:
             if self.observe(pid, v, now):
                 out.append(pid)
         return out
-
-
-_hb_monitor = _HeartbeatMonitor()
-_hb_stop = threading.Event()
-
-
-def start_heartbeat() -> None:
-    """Advertise this rank's liveness (`ollamamq/hb/<rank>`, bumped every
-    _hb_every() seconds) and its device rows (`ollamamq/chips/<rank>`),
-    so peers stop waiting on us within ~_hb_stale() s of our death
-    instead of the full status-sync timeout."""
-    pid = distributed.rank()
-    _hb_stop.clear()
-
-    def run():
-        client = _client()  # this thread's own connection
-        n = 0
-        while not _hb_stop.is_set():
-            try:
-                client.set(f"ollamamq/hb/{pid}", str(n))
-                dev = distributed.device()
-                rows = chip_stats(dev) if dev is not None else []
-                for row in rows:
-                    row["process"] = pid
-                client.set(f"ollamamq/chips/{pid}", json.dumps(rows))
-            except Exception:  # noqa: BLE001 — coordinator gone: exiting
-                return
-            n += 1
-            _hb_stop.wait(_hb_every())
-
-    threading.Thread(target=run, daemon=True, name="spmd-heartbeat").start()
-
-
-def stop_heartbeat() -> None:
-    _hb_stop.set()
-
-
-def _wait_polled(client, key: str, ranks, what: str) -> bytes:
-    """The value of `key` once it exists, waiting in short polls between
-    which the heartbeats of `ranks` (other than this one) are checked: a
-    rank that died surfaces as PeerDeadError in ~_hb_stale() s instead of
-    blocking for OLLAMAMQ_SPMD_STATUS_TIMEOUT."""
-    pid = distributed.rank()
-    deadline = time.monotonic() + _status_timeout_s()
-    poll = min(2.0, max(0.2, _hb_stale() / 4))
-    while True:
-        try:
-            return _wait_get(client, key, poll)
-        except Exception as e:
-            if not _is_deadline(e):
-                raise
-            dead = _hb_monitor.stale_peers([p for p in ranks if p != pid])
-            if dead:
-                raise PeerDeadError(
-                    f"rank(s) {dead} heartbeat went stale at {what}: "
-                    "presumed dead; failing in-flight work loudly") from None
-            if time.monotonic() > deadline:
-                raise
-
-
-def status_sync(ok: bool, seq: int, domain: str = "all",
-                ranks=None) -> np.ndarray:
-    """Exchange one ok/fail flag per rank of `ranks` (default: every
-    rank) via the store; returns int32[world] (1 = that rank's op failed;
-    0 for ranks outside the sync). Host-side only: the failure being
-    reported may be a computation one side issued and the other didn't,
-    so the report must never be a device collective. Every rank of the
-    sync calls this at the same point in the op stream (`seq` is the
-    shared ordinal of the sync's `domain`: every rank for control ops,
-    a replica's ranks for its data ops). A POLLED barrier
-    (_wait_polled): a dead rank of the sync raises PeerDeadError."""
-    client = _client()
-    n, pid = distributed.world_size(), distributed.rank()
-    ranks = list(range(n)) if ranks is None else list(ranks)
-    client.set(f"ollamamq/st/{domain}/{seq}/{pid}", "ok" if ok else "fail")
-    flags = np.zeros(n, np.int32)
-    for i in ranks:
-        v = _wait_polled(client, f"ollamamq/st/{domain}/{seq}/{i}", ranks,
-                         f"sync {domain}/{seq}").decode()
-        flags[i] = 0 if v == "ok" else 1
-    # Everyone passed the PREVIOUS sync before writing this sync's key,
-    # so our previous-sync key has been read by all: safe to clean up.
-    if seq > 0:
-        try:
-            client.delete_key(f"ollamamq/st/{domain}/{seq - 1}/{pid}")
-        except Exception:  # noqa: BLE001
-            pass
-    return flags
 
 
 def _encode_str(s: Optional[str], n: int) -> np.ndarray:
@@ -380,15 +303,8 @@ class _Wire:
         self.deleted = 0
 
 
-_wire = _Wire()
-
 _HDR = 5 * 4  # int32[5] header bytes
 CURSOR_EVERY = 32  # ops between a worker's cursor posts (dp > 1)
-
-# The ranks of each replica of this world's mesh ([[every rank]] at dp 1)
-# and the status-sync bus of each replica's data ops (_data_bus).
-_layout: list = [None]
-_buses: dict = {}
 
 
 def _pack_payload(cast) -> bytes:
@@ -409,51 +325,221 @@ def _unpack_payload(raw: bytes, spec):
     return tuple(out)
 
 
-def _send(op, a, b, index, replica, values, S, MP, W, K):
-    spec = payload_spec(op, a, b, S, MP, W, K)
-    assert len(values) == len(spec)
-    cast = []
-    for v, (shape, dt) in zip(values, spec):
-        v = np.asarray(v, dt)
-        # Shape drift would desync the wire decode on workers with an
-        # opaque error; fail at the send site instead.
-        assert v.shape == shape, (op, v.shape, shape)
-        cast.append(v)
-    header = np.asarray([op, a, b, index, replica], np.int32).tobytes()
-    client = _client()
-    client.set(f"ollamamq/op/{_wire.seq}", header + _pack_payload(cast))
-    _wire.seq += 1
-    if len(_layout) > 1 and _wire.seq % (2 * CURSOR_EVERY) == 0:
-        _wire.consumed = max(_wire.consumed, _workers_cursor(client))
-    # Reclaim keys every worker has provably consumed (barrier horizon).
-    while _wire.deleted < _wire.consumed:
+class _Plane:
+    """One rank world's control plane as this process drives it: the
+    world's store, its op stream (`_Wire`), its status-sync buses, the
+    ranks of each replica of its mesh (`layout`: [[every rank]] at dp 1),
+    this rank's op trace and its heartbeat. Worker ranks and a lone
+    engine use the process's plane (`_plane`, over distributed's default
+    world); a fleet router leads one plane per member wider than one
+    rank (`_plane_for` its mesh's world), so the members' step plans,
+    syncs and liveness never mix."""
+
+    def __init__(self, world=None):
+        self.world = world  # None: this process's default world
+        self.hb = _HeartbeatMonitor(self)
+        self._hb_stop = threading.Event()
+        self.session = 0
+        self._sessions = 0  # resets so far in the world `_counted`
+        self._counted = None
+        self._fresh(None)
+
+    def reset(self, mesh=None) -> None:
+        """A fresh op stream and barrier ordinals for the next session of
+        this world (an engine and its workers' run_worker, which reset
+        once each, in step): its wire starts at 0 on every rank, under
+        keys of its own (`key`), so a world that serves one engine after
+        another never reads an earlier session's ops or syncs. `mesh`
+        gives the replicas' ranks (none: one replica of every rank)."""
+        world = self.world or distributed.default_world()
+        if world is not self._counted:  # a new world counts from 0
+            self._counted, self._sessions = world, 0
+        self.session = self._sessions
+        self._sessions += 1
+        self._fresh(mesh)
+
+    def _fresh(self, mesh) -> None:
+        self.wire = _Wire()
+        self.bus = _SyncBus(plane=self)
+        self.layout = ([replica_ranks(mesh, r) for r in range(mesh.dp)]
+                       if mesh is not None and mesh.dp > 1 else [None])
+        self.buses: dict = {}
+        self.trace = _OpTrace(self)
+
+    def key(self, name: str) -> str:
+        """The store key of `name` (op/<seq>, st/..., res/<seq>, ...) in
+        this session; liveness keys (hb, chips, dev) have no session."""
+        return (f"ollamamq/{name}" if self.session == 0
+                else f"ollamamq/s{self.session}/{name}")
+
+    def client(self):
+        """This thread's client of the world's store."""
+        return self.world.store() if self.world is not None else _client()
+
+    @property
+    def rank(self) -> int:
+        return self.world.rank if self.world is not None else distributed.rank()
+
+    @property
+    def size(self) -> int:
+        return (self.world.size if self.world is not None
+                else distributed.world_size())
+
+    @property
+    def device(self):
+        return (self.world.device if self.world is not None
+                else distributed.device())
+
+    def data_bus(self, replica: int) -> "_SyncBus":
+        """The sync bus of replica `replica`'s data ops: the control bus
+        at dp 1 (every rank runs every op), else the replica's own."""
+        if len(self.layout) == 1:
+            return self.bus
+        if replica not in self.buses:
+            self.buses[replica] = _SyncBus(f"r{replica}", self.layout[replica],
+                                           plane=self)
+        return self.buses[replica]
+
+    def start_heartbeat(self) -> None:
+        """Advertise this rank's liveness (`ollamamq/hb/<rank>`, bumped
+        every _hb_every() seconds) and its device rows
+        (`ollamamq/chips/<rank>`), so peers stop waiting on us within
+        ~_hb_stale() s of our death instead of the full status-sync
+        timeout."""
+        pid, stop = self.rank, self._hb_stop
+        stop.clear()
+
+        def run():
+            client = self.client()  # this thread's own connection
+            n = 0
+            while not stop.is_set():
+                try:
+                    client.set(f"ollamamq/hb/{pid}", str(n))
+                    dev = self.device
+                    rows = chip_stats(dev) if dev is not None else []
+                    for row in rows:
+                        row["process"] = pid
+                    client.set(f"ollamamq/chips/{pid}", json.dumps(rows))
+                except Exception:  # noqa: BLE001 — coordinator gone: exiting
+                    return
+                n += 1
+                stop.wait(_hb_every())
+
+        threading.Thread(target=run, daemon=True, name="spmd-heartbeat").start()
+
+    def stop_heartbeat(self) -> None:
+        self._hb_stop.set()
+
+    def wait_polled(self, client, key: str, ranks, what: str) -> bytes:
+        """The value of `key` once it exists, waiting in short polls
+        between which the heartbeats of `ranks` (other than this one) are
+        checked: a rank that died surfaces as PeerDeadError in
+        ~_hb_stale() s instead of blocking for
+        OLLAMAMQ_SPMD_STATUS_TIMEOUT."""
+        pid = self.rank
+        deadline = time.monotonic() + _status_timeout_s()
+        poll = min(2.0, max(0.2, _hb_stale() / 4))
+        while True:
+            try:
+                return _wait_get(client, key, poll)
+            except Exception as e:
+                if not _is_deadline(e):
+                    raise
+                dead = self.hb.stale_peers([p for p in ranks if p != pid])
+                if dead:
+                    raise PeerDeadError(
+                        f"rank(s) {dead} heartbeat went stale at {what}: "
+                        "presumed dead; failing in-flight work loudly") from None
+                if time.monotonic() > deadline:
+                    raise
+
+    def status_sync(self, ok: bool, seq: int, domain: str = "all",
+                    ranks=None) -> np.ndarray:
+        """Exchange one ok/fail flag per rank of `ranks` (default: every
+        rank) via the store; returns int32[world] (1 = that rank's op
+        failed; 0 for ranks outside the sync). Host-side only: the
+        failure being reported may be a computation one side issued and
+        the other didn't, so the report must never be a device
+        collective. Every rank of the sync calls this at the same point
+        in the op stream (`seq` is the shared ordinal of the sync's
+        `domain`: every rank for control ops, a replica's ranks for its
+        data ops). A POLLED barrier (wait_polled): a dead rank of the
+        sync raises PeerDeadError."""
+        client = self.client()
+        n, pid = self.size, self.rank
+        ranks = list(range(n)) if ranks is None else list(ranks)
+        client.set(self.key(f"st/{domain}/{seq}/{pid}"), "ok" if ok else "fail")
+        flags = np.zeros(n, np.int32)
+        for i in ranks:
+            v = self.wait_polled(client, self.key(f"st/{domain}/{seq}/{i}"),
+                                 ranks, f"sync {domain}/{seq}").decode()
+            flags[i] = 0 if v == "ok" else 1
+        # Everyone passed the PREVIOUS sync before writing this sync's
+        # key, so our previous-sync key has been read by all: safe to
+        # clean up.
+        if seq > 0:
+            try:
+                client.delete_key(self.key(f"st/{domain}/{seq - 1}/{pid}"))
+            except Exception:  # noqa: BLE001
+                pass
+        return flags
+
+    def send(self, op, a, b, index, replica, values, S, MP, W, K) -> None:
+        """Post one op (header + payload) on the wire."""
+        spec = payload_spec(op, a, b, S, MP, W, K)
+        assert len(values) == len(spec)
+        cast = []
+        for v, (shape, dt) in zip(values, spec):
+            v = np.asarray(v, dt)
+            # Shape drift would desync the wire decode on workers with an
+            # opaque error; fail at the send site instead.
+            assert v.shape == shape, (op, v.shape, shape)
+            cast.append(v)
+        header = np.asarray([op, a, b, index, replica], np.int32).tobytes()
+        wire = self.wire
+        client = self.client()
+        client.set(self.key(f"op/{wire.seq}"), header + _pack_payload(cast))
+        wire.seq += 1
+        if len(self.layout) > 1 and wire.seq % (2 * CURSOR_EVERY) == 0:
+            wire.consumed = max(wire.consumed, self.workers_cursor(client))
+        # Reclaim keys every worker has provably consumed (barrier horizon).
+        while wire.deleted < wire.consumed:
+            try:
+                client.delete_key(self.key(f"op/{wire.deleted}"))
+            except Exception:  # noqa: BLE001
+                pass
+            wire.deleted += 1
+
+    def workers_cursor(self, client) -> int:
+        """The least op cursor the workers posted (0 until each has). The
+        ranks of a replica with a rank whose heartbeat went stale are left
+        out: a rank presumed dead replays nothing more (its replica's live
+        ranks fail their next sync on it and exit), and their frozen
+        cursors would keep every later op key in the store for as long as
+        the other replicas serve."""
+        world = self.size
+        dead = set(self.hb.stale_peers(range(1, world)))
+        gone = {p for ranks in self.layout if dead & set(ranks) for p in ranks}
+        live = [p for p in range(1, world) if p not in gone]
+        if not live:
+            return self.wire.seq
+        keys = [self.key(f"cursor/{p}") for p in live]
         try:
-            client.delete_key(f"ollamamq/op/{_wire.deleted}")
-        except Exception:  # noqa: BLE001
-            pass
-        _wire.deleted += 1
-
-
-def _workers_cursor(client) -> int:
-    """The least op cursor the workers posted (0 until each has). The
-    ranks of a replica with a rank whose heartbeat went stale are left
-    out: a rank presumed dead replays nothing more (its replica's live
-    ranks fail their next sync on it and exit), and their frozen cursors
-    would keep every later op key in the store for as long as the other
-    replicas serve."""
-    world = distributed.world_size()
-    dead = set(_hb_monitor.stale_peers(range(1, world)))
-    gone = {p for ranks in _layout if dead & set(ranks) for p in ranks}
-    live = [p for p in range(1, world) if p not in gone]
-    if not live:
-        return _wire.seq
-    keys = [f"ollamamq/cursor/{p}" for p in live]
-    try:
-        if not client.check(keys):
+            if not client.check(keys):
+                return 0
+            return min(int(v) for v in client.multi_get(keys))
+        except Exception:  # noqa: BLE001 — the horizon only waits
             return 0
-        return min(int(v) for v in client.multi_get(keys))
-    except Exception:  # noqa: BLE001 — the horizon only waits
-        return 0
+
+    def broadcast_shutdown(self) -> None:
+        """Release the worker ranks. Sent exactly ONCE per deployment (the
+        worker loop exits on the first shutdown header)."""
+        if self.size > 1:
+            self.send(OP_SHUTDOWN, 0, 0, 0, 0, (), 0, 0, 0, 0)
+
+
+def _send(op, a, b, index, replica, values, S, MP, W, K):
+    _plane.send(op, a, b, index, replica, values, S, MP, W, K)
 
 
 def _recv_op(seq: int, timeout_s: float = 10.0):
@@ -462,14 +548,14 @@ def _recv_op(seq: int, timeout_s: float = 10.0):
     for arbitrarily long), but a primary whose heartbeat went stale will
     never send again: exit loudly instead of idling forever. A store
     that is gone (the primary exited) raises at once."""
-    client = _client()
+    client = _plane.client()
     while True:
         try:
-            blob = _wait_get(client, f"ollamamq/op/{seq}", timeout_s)
+            blob = _wait_get(client, _plane.key(f"op/{seq}"), timeout_s)
             break
         except Exception as e:
             if _is_deadline(e):
-                if _hb_monitor.stale_peers([0]):
+                if _plane.hb.stale_peers([0]):
                     raise PeerDeadError(
                         "primary rank heartbeat went stale; worker "
                         "exiting") from None
@@ -477,13 +563,6 @@ def _recv_op(seq: int, timeout_s: float = 10.0):
             raise
     header = np.frombuffer(blob[:_HDR], np.int32)
     return header, blob[_HDR:]
-
-
-def broadcast_shutdown() -> None:
-    """Release the worker ranks. Sent exactly ONCE per deployment (the
-    worker loop exits on the first shutdown header)."""
-    if distributed.world_size() > 1:
-        _send(OP_SHUTDOWN, 0, 0, 0, 0, (), 0, 0, 0, 0)
 
 
 class _SyncBus:
@@ -494,45 +573,43 @@ class _SyncBus:
     aligned without any extra wire traffic; barrier ids are never
     reused."""
 
-    def __init__(self, domain: str = "all", ranks=None):
+    def __init__(self, domain: str = "all", ranks=None,
+                 plane: Optional[_Plane] = None):
         self.seq = 0
         self.domain = domain
         self.ranks = ranks  # None: every rank
+        self.plane = plane
 
     def sync(self, ok: bool) -> np.ndarray:
-        flags = status_sync(ok, self.seq, self.domain, self.ranks)
+        plane = self.plane or _plane
+        flags = plane.status_sync(ok, self.seq, self.domain, self.ranks)
         self.seq += 1
         if self.ranks is None:
             # Barrier of every rank complete: on the primary, every op
             # sent so far has been consumed by every worker — advance the
-            # wire-key cleanup horizon. On workers _wire.seq is 0 (no-op).
-            _wire.consumed = _wire.seq
+            # wire-key cleanup horizon. On workers the wire's seq is 0.
+            plane.wire.consumed = plane.wire.seq
         return flags
 
 
-_bus = _SyncBus()
-
-
-def _data_bus(replica: int) -> _SyncBus:
-    """The sync bus of replica `replica`'s data ops: the control bus at
-    dp 1 (every rank runs every op), else the replica's own."""
-    if len(_layout) == 1:
-        return _bus
-    if replica not in _buses:
-        _buses[replica] = _SyncBus(f"r{replica}", _layout[replica])
-    return _buses[replica]
-
-
 def _reset_wire(mesh=None) -> None:
-    """A fresh op stream and barrier ordinals: each world (each store)
-    starts its wire at 0 on every rank. `mesh` gives the replicas' ranks
-    (none: one replica of every rank)."""
-    global _wire, _bus, _layout
-    _wire, _bus = _Wire(), _SyncBus()
-    _layout = ([replica_ranks(mesh, r) for r in range(mesh.dp)]
-               if mesh is not None and mesh.dp > 1 else [None])
-    _buses.clear()
-    _trace.reset()
+    """Reset this process's plane (_Plane.reset); `_wire` is its op
+    stream."""
+    global _wire
+    _plane.reset(mesh)
+    _wire = _plane.wire
+
+
+def _plane_for(mesh) -> _Plane:
+    """The plane of `mesh`'s world: this process's own for its default
+    world (or no world), else the one plane of that world."""
+    world = getattr(mesh, "world", None)
+    if world is None or world is distributed.default_world():
+        return _plane
+    plane = _planes.get(world)
+    if plane is None:
+        plane = _planes[world] = _Plane(world)
+    return plane
 
 
 class _OpCadence:
@@ -561,7 +638,8 @@ class _OpTrace:
     every data op's output in order. Ranks that replayed the same plans
     and produced the same ids hold the same digest."""
 
-    def __init__(self):
+    def __init__(self, plane: Optional[_Plane] = None):
+        self.plane = plane
         self.reset()
 
     def reset(self) -> None:
@@ -580,11 +658,15 @@ class _OpTrace:
     def report(self) -> dict:
         from ollamamq_tpu_torch.ops.cuda import launch_counts
 
-        return {"rank": distributed.rank(), "ops": dict(self.ops),
+        return {"rank": (self.plane or _plane).rank, "ops": dict(self.ops),
                 "digest": self._h.hexdigest(), "launches": launch_counts()}
 
 
-_trace = _OpTrace()
+# This process's plane (worker ranks, a lone engine) and the planes of
+# the other worlds it leads (a fleet router's wide members).
+_plane = _Plane()
+_wire = _plane.wire
+_planes: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _raise_on_worker_failure(flags: Optional[np.ndarray], name: str) -> None:
@@ -613,11 +695,12 @@ def _ship(rt, op, a, b, values) -> int:
         # Workers replay this exact wire sequence: a desync postmortem
         # lines the journal's wire_seq up against each rank's position.
         rt.journal.record("broadcast", model=rt.name,
-                          op=_OP_SITE.get(op, str(op)), wire_seq=_wire.seq)
-    seq = _wire.seq
-    _send(op, a, b, rt.spmd_index, rt.spmd_replica, values,
-          rt.ecfg.max_slots, rt.ecfg.max_pages_per_seq,
-          rt.ecfg.repeat_last_n, rt.key_bytes)
+                          op=_OP_SITE.get(op, str(op)),
+                          wire_seq=rt._plane.wire.seq)
+    seq = rt._plane.wire.seq
+    rt._plane.send(op, a, b, rt.spmd_index, rt.spmd_replica, values,
+                   rt.ecfg.max_slots, rt.ecfg.max_pages_per_seq,
+                   rt.ecfg.repeat_last_n, rt.key_bytes)
     return seq
 
 
@@ -631,11 +714,11 @@ def _mirrored_dispatch(rt, op, a, b, values, dispatch):
     ok = False
     try:
         out = dispatch()
-        _trace.record(op, a, out)
+        rt._plane.trace.record(op, a, out)
         ok = True
         return out
     finally:
-        flags = rt._cadence.after_op(ok, _data_bus(rt.spmd_replica))
+        flags = rt._cadence.after_op(ok, rt._plane.data_bus(rt.spmd_replica))
         if ok:
             _raise_on_worker_failure(flags, rt.name)
 
@@ -651,7 +734,7 @@ def _post_result(seq: int, ok: bool, rt, out) -> None:
     if ok:
         np.save(buf, out.detach().to("cpu").contiguous().numpy(),
                 allow_pickle=False)
-    _client().set(f"ollamamq/res/{seq}", buf.getvalue())
+    _client().set(_plane.key(f"res/{seq}"), buf.getvalue())
 
 
 class _RemoteResult:
@@ -674,13 +757,14 @@ class _RemoteResult:
         self._since = self._checked = time.monotonic()
 
     def ready(self) -> bool:
-        if self._out is not None or _client().check(
-                [f"ollamamq/res/{self.seq}"]):
+        plane = self.rt._plane
+        if self._out is not None or plane.client().check(
+                [plane.key(f"res/{self.seq}")]):
             return True
         now = time.monotonic()
         if now - self._checked >= self.HB_CHECK_S:
             self._checked = now
-            dead = _hb_monitor.stale_peers(_layout[self.rt.spmd_replica])
+            dead = plane.hb.stale_peers(plane.layout[self.rt.spmd_replica])
             if dead:
                 raise PeerDeadError(
                     f"rank(s) {dead} heartbeat went stale at replica "
@@ -697,8 +781,9 @@ class _RemoteResult:
         `seconds` pass, in store waits of WAIT_SLICE_S (the store answers
         a wait the moment its key lands) with `stop()` read between them.
         Errors are left to ready() and cpu()."""
-        client = _client()
-        key = [f"ollamamq/res/{self.seq}"]
+        plane = self.rt._plane
+        client = plane.client()
+        key = [plane.key(f"res/{self.seq}")]
         deadline = time.monotonic() + seconds
         while not stop() and time.monotonic() < deadline:
             try:
@@ -710,10 +795,11 @@ class _RemoteResult:
 
     def cpu(self) -> torch.Tensor:
         if self._out is None:
-            rt, key = self.rt, f"ollamamq/res/{self.seq}"
-            client = _client()
-            raw = _wait_polled(client, key, _layout[rt.spmd_replica],
-                               f"replica {rt.spmd_replica}'s op {self.seq}")
+            rt, plane = self.rt, self.rt._plane
+            key = plane.key(f"res/{self.seq}")
+            client = plane.client()
+            raw = plane.wait_polled(client, key, plane.layout[rt.spmd_replica],
+                                    f"replica {rt.spmd_replica}'s op {self.seq}")
             try:
                 client.delete_key(key)
             except Exception:  # noqa: BLE001
@@ -722,7 +808,7 @@ class _RemoteResult:
             if not ok:
                 raise WorkerDesyncError(
                     f"replica {rt.spmd_replica}'s ranks "
-                    f"{_layout[rt.spmd_replica]} failed replaying a dispatch "
+                    f"{plane.layout[rt.spmd_replica]} failed replaying a dispatch "
                     f"for {rt.name}; KV state diverged — failing runtime for "
                     "reload")
             rt.gen.set_state(torch.from_numpy(
@@ -751,7 +837,10 @@ class _SPMDMixin:
     """The rank bookkeeping both SPMD runtime kinds carry."""
 
     def _spmd_init(self) -> None:
-        self._spmd = distributed.world_size() > 1
+        # The control plane of this runtime's world (a fleet router leads
+        # one world per wide member).
+        self._plane = _plane_for(getattr(self, "mesh", None))
+        self._spmd = self._plane.size > 1
         # Ordinals agreed with workers via the shared --models ordering,
         # carried in the opcode header so multi-model pods stay in step.
         self.spmd_index = 0
@@ -781,8 +870,9 @@ class SPMDModelRuntime(_SPMDMixin, ModelRuntime):
 
     # KV migration is a fleet-member feature; on a multi-rank runtime the
     # pool gather/scatter would run on rank 0 alone and desync the
-    # workers' replay state, so it refuses (the CLI already forbids
-    # --replicas with --tp; this guards /admin/migrate too).
+    # workers' replay state, so it refuses: a stream moving onto or off a
+    # fleet member wider than one rank replays by recompute instead (this
+    # guards /admin/migrate too).
     def export_request(self, rid):
         return None if self._spmd else super().export_request(rid)
 
@@ -932,10 +1022,14 @@ class SPMDEngine(TorchEngine):
     remote_runtime_class = SPMDRemoteRuntime
 
     def __init__(self, engine_cfg: EngineConfig, mesh=None, **kw):
-        if distributed.world_size() > 1 and not distributed.is_primary():
+        self._plane = _plane_for(mesh)
+        if self._plane.size > 1 and self._plane.rank != 0:
             raise RuntimeError("SPMDEngine runs on rank 0; workers run "
                                "run_worker")
-        _reset_wire(mesh)
+        if self._plane is _plane:
+            _reset_wire(mesh)
+        else:
+            self._plane.reset(mesh)
         self.worker_reports: list = []
         self._released = False
         # Decode chunks out on another replica's ranks, not collected yet:
@@ -946,11 +1040,22 @@ class SPMDEngine(TorchEngine):
         super().__init__(engine_cfg, mesh=mesh, **kw)
         self._renumber()
         if self._multi():
-            start_heartbeat()
+            self._plane.start_heartbeat()
 
-    @staticmethod
-    def _multi() -> bool:
-        return distributed.world_size() > 1
+    def _multi(self) -> bool:
+        return self._plane.size > 1
+
+    @property
+    def restartable(self) -> bool:
+        """Whether start() may follow stop(): not for an engine leading a
+        world, whose stop releases its ranks (fleet/members.py rebuilds
+        such a member instead)."""
+        return not self._multi()
+
+    @property
+    def released(self) -> bool:
+        """Whether stop() released this engine's ranks."""
+        return self._released
 
     def _renumber(self) -> None:
         """Re-derive (model ordinal, replica ordinal) of every runtime
@@ -1015,8 +1120,8 @@ class SPMDEngine(TorchEngine):
 
     def _send_control(self, op, a, index, values, replica: int = 0) -> None:
         e = self.ecfg
-        _send(op, a, 0, index, replica, values, e.max_slots,
-              e.max_pages_per_seq, e.repeat_last_n, 0)
+        self._plane.send(op, a, 0, index, replica, values, e.max_slots,
+                         e.max_pages_per_seq, e.repeat_last_n, 0)
 
     def load_model(self, name, checkpoint_path=None, params=None):
         if name in self.runtimes:
@@ -1053,7 +1158,7 @@ class SPMDEngine(TorchEngine):
                 self._renumber()
                 ok = True
             finally:
-                flags = _bus.sync(ok)
+                flags = self._plane.bus.sync(ok)
                 if ok and flags.any():
                     # The worker holds a dead placeholder at this ordinal;
                     # the first dispatch fails loudly and the reload path
@@ -1088,7 +1193,7 @@ class SPMDEngine(TorchEngine):
                 ok = True
                 return out
             finally:
-                flags = _bus.sync(ok)
+                flags = self._plane.bus.sync(ok)
                 if ok and flags.any():
                     log.critical(
                         "worker rank(s) %s refused evicting %s: ordinal "
@@ -1119,7 +1224,7 @@ class SPMDEngine(TorchEngine):
             ok = self._rebuild_runtime(rt)
         finally:
             try:
-                flags = _bus.sync(ok)
+                flags = self._plane.bus.sync(ok)
             except PeerDeadError:
                 flags = np.ones(1, np.int32)
                 log.error("a worker rank is dead: %s stays failed", rt.name)
@@ -1136,8 +1241,8 @@ class SPMDEngine(TorchEngine):
     def chip_stats(self):
         chips = super().chip_stats()
         if self._multi():
-            client = _client()
-            for p in range(1, distributed.world_size()):
+            client = self._plane.client()
+            for p in range(1, self._plane.size):
                 try:
                     v = _try_get(client, f"ollamamq/chips/{p}")
                     if v:
@@ -1153,22 +1258,22 @@ class SPMDEngine(TorchEngine):
         if not self._multi():
             return []
         try:
-            return _hb_monitor.stale_peers(range(1, distributed.world_size()))
+            return self._plane.hb.stale_peers(range(1, self._plane.size))
         except Exception:  # noqa: BLE001 — the sync path surfaces it
             return []
 
-    @staticmethod
-    def _worker_report(p: int, deadline: float) -> Optional[dict]:
+    def _worker_report(self, p: int, deadline: float) -> Optional[dict]:
         """Rank p's shutdown report, or None once it is past `deadline`
         or its heartbeat is stale (a dead worker files none)."""
-        client = _client()
+        client = self._plane.client()
         while time.monotonic() < deadline:
             try:
-                return json.loads(_wait_get(client, f"ollamamq/report/{p}", 1.0))
+                return json.loads(_wait_get(
+                    client, self._plane.key(f"report/{p}"), 1.0))
             except Exception as e:
                 if not _is_deadline(e):
                     raise
-                if _hb_monitor.stale_peers([p]):
+                if self._plane.hb.stale_peers([p]):
                     break
         log.error("worker rank %d filed no report", p)
         return None
@@ -1176,7 +1281,7 @@ class SPMDEngine(TorchEngine):
     def spmd_report(self) -> dict:
         """This rank's wire trace: data ops by kind, the digest of their
         outputs, the kernel launch counts."""
-        return _trace.report()
+        return self._plane.trace.report()
 
     # Worker processes this process started (cli --tp): reaped on stop.
     worker_procs: list = []
@@ -1187,18 +1292,20 @@ class SPMDEngine(TorchEngine):
             return
         self._released = True
         try:
-            broadcast_shutdown()  # exactly once, after dispatches ended
+            self._plane.broadcast_shutdown()  # once, after dispatches ended
             self.worker_reports = []
             deadline = time.monotonic() + report_timeout_s
-            for p in range(1, distributed.world_size()):
+            for p in range(1, self._plane.size):
                 report = self._worker_report(p, deadline)
                 if report is not None:
                     self.worker_reports.append(report)
         except Exception:  # noqa: BLE001 — the store is gone
             log.exception("worker reports incomplete")
         finally:
-            stop_heartbeat()
+            self._plane.stop_heartbeat()
             distributed.reap(self.worker_procs)
+            if self._plane is not _plane:
+                self._plane.world.close()  # a member's world ends with it
 
 
 class _DeadReplica:
@@ -1251,9 +1358,9 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
     if err is not None:
         raise ValueError(err)
     _reset_wire(mesh)
-    start_heartbeat()
+    _plane.start_heartbeat()
     me = replica_of(mesh)
-    ranks = _layout[me]
+    ranks = _plane.layout[me]
     posts = mesh.dp > 1 and me > 0 and distributed.rank() == ranks[0]
     rows = []  # [model ordinal] -> {replica ordinal: runtime | _DeadReplica}
     specs = []  # [model ordinal] -> (name, ckpt)
@@ -1273,11 +1380,11 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
             seq = wire_seq
             wire_seq += 1
             if mesh.dp > 1 and wire_seq % CURSOR_EVERY == 0:
-                client.set(f"ollamamq/cursor/{distributed.rank()}",
+                client.set(_plane.key(f"cursor/{distributed.rank()}"),
                            str(wire_seq - 1))
             op, a, b, mi, ri = (int(x) for x in header)
             if op == OP_SHUTDOWN:
-                report = _trace.report()
+                report = _plane.trace.report()
                 report["replica"] = me
                 report["reloads"] = reloads
                 report["runtimes"] = {
@@ -1290,7 +1397,7 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                 if mesh.device.type == "cuda":
                     report["max_memory_allocated"] = \
                         torch.cuda.max_memory_allocated(mesh.device)
-                client.set(f"ollamamq/report/{distributed.rank()}",
+                client.set(_plane.key(f"report/{distributed.rank()}"),
                            json.dumps(report))
                 break
             if op in DATA_OPS and ri != me:
@@ -1307,7 +1414,7 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                     payload = _unpack_payload(
                         raw, payload_spec(op, a, b, S, MP, W, rt.key_bytes))
                     out = _replay(rt, op, a, b, payload)
-                    _trace.record(op, a, out)
+                    _plane.trace.record(op, a, out)
                 elif op == OP_RELOAD:
                     name, ckpt = specs[mi]
                     if ri == me:
@@ -1366,12 +1473,12 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
             # result).
             if op in DATA_OPS:
                 flags = _slot(rows, specs, mi, ri)._cadence.after_op(
-                    ok, _data_bus(ri))
+                    ok, _plane.data_bus(ri))
                 if posts:
                     _post_result(seq, ok and not (flags is not None
                                                   and flags.any()), rt, out)
             else:
-                flags = _bus.sync(ok)
+                flags = _plane.bus.sync(ok)
                 if op == OP_LOAD and flags[0]:
                     # The primary's own load failed AFTER broadcasting: it
                     # never added the model, so drop ours to realign.
@@ -1387,7 +1494,7 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                         del specs[mi]
             steps += 1
     finally:
-        stop_heartbeat()
+        _plane.stop_heartbeat()
     return steps
 
 

@@ -129,26 +129,31 @@ class MemberProvisioner:
 
 
 class LocalProvisioner(MemberProvisioner):
-    """In-process members from an engine factory (the CLI's closure:
-    same models, scheduler, fairness as the seed members). The cheap
-    path for tests and for fleets whose replicas share the local
-    card."""
+    """In-process members from engine factories (the CLI's: same models,
+    scheduler, fairness as the seed members). The cheap path for tests
+    and for fleets whose replicas share the local card.
+    `factory_for(name)` returns the engine factory of the member named
+    `name` (the CLI's fleet/wide.py MemberFactory, which builds at any
+    width on that member's own cards); `release(name)` runs at retire,
+    so a retired member's cards are free again."""
 
-    def __init__(self, engine_factory):
-        self.engine_factory = engine_factory
+    def __init__(self, factory_for, release=None):
+        self.factory_for = factory_for
+        self.release = release or (lambda name: None)
 
     def provision(self, name: str, tier: Optional[str] = None,
                   tp: Optional[int] = None):
         from ollamamq_tpu_torch.fleet.members import LocalMember
 
-        engine = self.engine_factory(tp)
-        return LocalMember(name, engine, engine_factory=self.engine_factory)
+        factory = self.factory_for(name)
+        return LocalMember(name, factory(tp), engine_factory=factory)
 
     def retire(self, member) -> None:
         try:
             member.stop()
         except Exception:  # noqa: BLE001
             log.exception("stopping retired member %s failed", member.name)
+        self.release(member.name)
 
     def describe(self) -> str:
         return "local (in-process engine factory)"

@@ -46,6 +46,9 @@ log = logging.getLogger("ollamamq.fleet")
 # /health JSON "degraded" status alone must NOT eject: an SLO burning is
 # pressure, not death — app.py /health makes the same distinction).
 FATAL_ALERTS = frozenset({"device_offline", "engine_stall"})
+# Fatal too for a member wider than one rank (fleet/wide.py): one of its
+# ranks stopped beating, and its runtimes cannot reload without it.
+WORLD_FATAL_ALERTS = frozenset({"worker_stale"})
 
 _REASONS = {r.value: r for r in FinishReason}
 
@@ -252,14 +255,20 @@ class LocalMember(_MemberBase):
         True; the zombie then keeps looping, and two loops writing the
         same KV pool and slot tables corrupt both. Waits briefly for the
         first liveness tick so the caller's health evaluation sees a
-        fresh heartbeat."""
-        old = self.engine._thread
-        if old is not None and old.is_alive():
-            old.join(timeout=5.0)
-            if old.is_alive():
-                return  # still wedged: stay ejected, re-probe later
-        self.engine._thread = None
-        self.engine.start()
+        fresh heartbeat. An engine whose stop released its rank world (a
+        failed rebuild whose restore failed too) is built anew at its
+        width instead."""
+        if getattr(self.engine, "released", False) \
+                and self.engine_factory is not None:
+            self._adopt(self.engine_factory(self.tp))
+        else:
+            old = self.engine._thread
+            if old is not None and old.is_alive():
+                old.join(timeout=5.0)
+                if old.is_alive():
+                    return  # still wedged: stay ejected, re-probe later
+            self.engine._thread = None
+            self.engine.start()
         deadline = time.monotonic() + 1.0
         while (time.monotonic() - self.engine.last_tick_at > 0.5
                and time.monotonic() < deadline):
@@ -267,33 +276,57 @@ class LocalMember(_MemberBase):
 
     def hot_restart(self) -> None:
         """Drain-complete restart: clean stop (nothing in flight) then
-        start — the rolling-restart primitive."""
+        start — the rolling-restart primitive. An engine that cannot
+        start again once stopped (one leading a rank world, whose stop
+        releases its ranks) is rebuilt at its width instead."""
+        if not getattr(self.engine, "restartable", True) \
+                and self.engine_factory is not None:
+            self._rebuild(self.tp)
+            return
         self.engine.stop()
         self.engine.start()
 
     def retier(self, tp: Optional[int] = None) -> Optional[int]:
         """Drain-complete retier restart: rebuild the engine at the
         target tier's TP width (the drain already emptied it — weights
-        reload, KV pool reallocates at the new sharding). No factory or
-        no width change => a plain hot restart (re-label only). Returns
-        the width the member now runs at. On a failed rebuild the OLD
-        engine restarts and the error propagates — the caller aborts
-        the regroup and the member keeps its original tier."""
+        reload, KV pool reallocates at the new sharding; a member wider
+        than one rank starts a rank world of its own and the old one's
+        ranks are reaped). No factory or no width change => a plain hot
+        restart (re-label only). Returns the width the member now runs
+        at. On a failed rebuild the OLD engine restarts (one that led a
+        rank world is rebuilt at its width, with a new world) and the
+        error propagates — the caller aborts the regroup and the member
+        keeps its original tier; if that restart fails too the member
+        stays down and the caller ejects it."""
         if tp is None or tp == self.tp or self.engine_factory is None:
             self.hot_restart()
             return self.tp
-        old = self.engine
+        self._rebuild(tp)
+        return self.tp
+
+    def _rebuild(self, tp: Optional[int]) -> None:
+        old, old_tp = self.engine, self.tp
         old.stop()
         try:
             fresh = self.engine_factory(tp)
         except Exception:
-            old.start()  # the member must not stay dead over a bad width
+            # The member must not stay dead over a bad width.
+            try:
+                if getattr(old, "restartable", True):
+                    old.start()
+                else:
+                    self._adopt(self.engine_factory(old_tp))
+            except Exception:  # noqa: BLE001 — the rebuild's error propagates
+                log.exception("member %s: its old engine did not start "
+                              "again either; it stays down", self.name)
             raise
-        self.engine = fresh
-        if getattr(fresh, "tracer", None) is not None:
-            fresh.tracer.origin = self.name
-        fresh.start()
-        return self.tp
+        self._adopt(fresh)
+
+    def _adopt(self, engine) -> None:
+        self.engine = engine
+        if getattr(engine, "tracer", None) is not None:
+            engine.tracer.origin = self.name
+        engine.start()
 
     # -- health ------------------------------------------------------------
     def alive(self) -> bool:
@@ -311,7 +344,10 @@ class LocalMember(_MemberBase):
         alerts = getattr(self.engine, "alerts", None)
         if alerts is None:
             return []
-        return [a.name for a in alerts.active() if a.name in FATAL_ALERTS]
+        # A member leading a rank world cannot serve with a rank dead.
+        fatal = (FATAL_ALERTS if getattr(self.engine, "restartable", True)
+                 else FATAL_ALERTS | WORLD_FATAL_ALERTS)
+        return [a.name for a in alerts.active() if a.name in fatal]
 
     def active_alerts(self) -> list:
         alerts = getattr(self.engine, "alerts", None)

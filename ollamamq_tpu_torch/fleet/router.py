@@ -295,13 +295,22 @@ class FleetRouter:
                 AutoscalerManager, LocalProvisioner)
 
             if provisioner is None:
+                from ollamamq_tpu_torch.fleet.wide import MemberFactory
+
                 factory = getattr(self.members[0], "engine_factory", None)
                 if factory is None:
                     raise ValueError(
                         "--autoscale needs a MemberProvisioner (none "
                         "given, and the seed members carry no engine "
                         "factory to build a LocalProvisioner from)")
-                provisioner = LocalProvisioner(factory)
+                if isinstance(factory, MemberFactory):
+                    # It builds its own member, on that member's cards.
+                    raise ValueError(
+                        "--autoscale over members with cards of their "
+                        "own needs a LocalProvisioner that makes each new "
+                        "member's factory (cli.build_fleet's); the seed "
+                        "member's factory builds only that member")
+                provisioner = LocalProvisioner(lambda name: factory)
             self.autoscaler = AutoscalerManager(
                 self, provisioner, **(autoscale_kw or {}))
         # Router HA (fleet/ha.py): `epoch` stamps every member-facing
@@ -1731,8 +1740,13 @@ class FleetRouter:
             log.exception("retier restart of %s at tier %s width failed",
                           mem.name, target)
             self._abort_retier(mem, "restart_failed")
-            mem.state = "healthy" if mem.alive() else mem.state
-            self._update_gauges()
+            if mem.alive():
+                mem.state = "healthy"
+                self._update_gauges()
+            else:
+                # The old engine did not start again either: out of
+                # rotation until a re-probe's restart brings it back.
+                self._eject(mem, "restart_failed", mem.heartbeat_age())
             return
         from_tier = mem.tier
         mem.tier = target
@@ -1796,6 +1810,10 @@ class FleetRouter:
                     mem.hot_restart()
                 except Exception:  # noqa: BLE001
                     log.exception("hot-restart of %s failed", mem.name)
+                    if not mem.alive():
+                        self._eject(mem, "restart_failed",
+                                    mem.heartbeat_age())
+                        continue
                 mem.state = "healthy"
                 self.journal.record("replica_join", replica=mem.name,
                                     why="drain_complete")

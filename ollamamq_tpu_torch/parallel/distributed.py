@@ -3,9 +3,11 @@
 The JAX package's deployment is one SPMD program across hosts wired by
 `jax.distributed.initialize`. Here every rank is a process: rank 0 hosts
 a `TCPStore` (the key-value store the step wire, the status syncs and
-the heartbeats of engine/spmd.py ride on) and every rank joins one
-process group over it for the model's collectives. Rank 0 additionally
-runs the HTTP front and the scheduler.
+the heartbeats of engine/spmd.py ride on), and the mesh's process
+groups for the model's collectives are built on that store (`World`).
+Rank 0 additionally runs the HTTP front and the scheduler. A process
+runs in one world (`initialize`), except a fleet router, which is rank
+0 of one world per member wider than one rank (`open_world`).
 
 The backend is an explicit choice: `nccl` for CUDA ranks and `gloo` for
 CPU ranks by default, never switched because a device is missing (two
@@ -29,8 +31,7 @@ log = logging.getLogger("ollamamq.torch.distributed")
 
 DEFAULT_TIMEOUT_S = 120.0
 
-_state: dict = {}
-_local = threading.local()
+_default: Optional["World"] = None
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -61,6 +62,121 @@ def _rank_device(rank: int, devices: Optional[Sequence]) -> torch.device:
     return torch.device(f"cuda:{idx}")
 
 
+class World:
+    """One rank world as this process sees it: the coordinator's store
+    (rank 0 hosts it), this process's rank, the world's size, every
+    rank's device as it published it, and the process groups its meshes
+    run their collectives over. A process is a rank of one world, except
+    that rank 0 may lead several: a fleet router is rank 0 of the world
+    of every member wider than one rank (fleet/wide.py).
+
+    The groups are backends built on this world's own store (gloo, or
+    NCCL for CUDA ranks), never torch.distributed's process-global
+    default group, so several worlds live side by side in one process.
+    Each thread gets its own store client (the engine thread, the
+    heartbeat and the health monitor never share a socket)."""
+
+    def __init__(self, host: str, port: int, rank: int, size: int,
+                 device: torch.device, backend: str,
+                 timeout: datetime.timedelta, server=None):
+        self.host, self.port = host, port
+        self.rank, self.size = rank, size
+        self.device, self.backend, self.timeout = device, backend, timeout
+        self._server = server  # rank 0's store: the world lives while it does
+        self._local = threading.local()
+        self._groups: dict = {}
+        self._group_store = None
+
+    def store(self):
+        """This thread's client of the world's store."""
+        import torch.distributed as dist
+
+        st = getattr(self._local, "store", None)
+        if st is None:
+            st = dist.TCPStore(self.host, self.port, is_master=False,
+                               timeout=self.timeout, wait_for_workers=False)
+            self._local.store = st
+        return st
+
+    def device_label(self, r: int) -> str:
+        """"host|device" of rank r, as that rank published it."""
+        return self.store().get(f"ollamamq/dev/{r}").decode()
+
+    def group(self, ranks: Sequence[int]):
+        """The process group of `ranks` (global ranks, in group-rank
+        order), built once per world; only a rank of the group may ask.
+        Every rank of the group must ask for it in the same order as the
+        others (gloo connects at construction)."""
+        import torch.distributed as dist
+
+        ranks = [int(r) for r in ranks]
+        key = "-".join(map(str, ranks))
+        pg = self._groups.get(key)
+        if pg is not None:
+            return pg
+        if self.rank not in ranks:
+            raise ValueError(f"rank {self.rank} is not in group {ranks}")
+        if self._group_store is None:
+            self._group_store = dist.TCPStore(
+                self.host, self.port, is_master=False, timeout=self.timeout,
+                wait_for_workers=False)
+        prefix = dist.PrefixStore(f"pg/{key}/", self._group_store)
+        me, n = ranks.index(self.rank), len(ranks)
+        if self.backend == "nccl":
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = self.timeout
+            pg = dist.ProcessGroupNCCL(prefix, me, n, opts)
+        else:
+            pg = dist.ProcessGroupGloo(prefix, me, n, self.timeout)
+        self._groups[key] = pg
+        return pg
+
+    def close(self) -> None:
+        """Drop the groups and the store clients (rank 0: the store)."""
+        self._groups.clear()
+        self._group_store = None
+        self._local = threading.local()
+        self._server = None
+
+
+def open_world(coordinator_address: str, num_processes: int, process_id: int,
+               backend: Optional[str] = None,
+               devices: Optional[Sequence] = None,
+               timeout_s: float = DEFAULT_TIMEOUT_S, on_store=None,
+               set_device: bool = True) -> World:
+    """Join (rank 0: host) the world whose store is at
+    `coordinator_address` ("host:port"; port 0 lets rank 0 pick a free
+    one). `devices` lists every rank's device (default cuda:{LOCAL_RANK
+    or rank}); `backend` defaults to nccl for a CUDA device and gloo
+    otherwise. `on_store(port)` runs once rank 0's store is up (it starts
+    the other ranks). `set_device`: make this rank's card the process's
+    current one (a router leading several worlds leaves its own as is).
+    Every rank publishes where it runs: the mesh's device list, and the
+    distinct devices MFU divides by (two ranks may share a card)."""
+    import torch.distributed as dist
+
+    rank, world = int(process_id or 0), int(num_processes or 1)
+    device = _rank_device(rank, devices)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    host, _, port = coordinator_address.rpartition(":")
+    host = host or "127.0.0.1"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    server = dist.TCPStore(host, int(port), world, is_master=rank == 0,
+                           timeout=timeout, wait_for_workers=False)
+    if on_store is not None:
+        on_store(server.port)
+    if device.type == "cuda" and set_device:
+        torch.cuda.set_device(device)
+    w = World(host, server.port, rank, world, device, backend, timeout,
+              server=server)
+    w._local.store = server
+    server.set(f"ollamamq/dev/{rank}", f"{socket.gethostname()}|{device}")
+    log.info("rank world up: rank %d/%d on %s (%s, store %s:%d)",
+             rank, world, device, backend, host, server.port)
+    return w
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
@@ -68,18 +184,13 @@ def initialize(coordinator_address: Optional[str] = None,
                devices: Optional[Sequence] = None,
                timeout_s: float = DEFAULT_TIMEOUT_S,
                on_store=None) -> bool:
-    """Bring up the store and the process group. No-op for one process.
+    """Bring up this process's world (open_world). No-op for one process.
 
     Args fall back to torch.distributed's env names: MASTER_ADDR and
     MASTER_PORT (the coordinator, rank 0's store), WORLD_SIZE and RANK.
-    Multi-process is OPT-IN via those (or explicit args). `devices` lists
-    every rank's device (default cuda:{LOCAL_RANK or rank}); `backend`
-    defaults to nccl for a CUDA device and gloo otherwise. Port 0 lets
-    rank 0 pick a free port: `on_store(port)` runs once rank 0's store is
-    up and before the group forms (it starts the other ranks).
-    Returns True if a process group was initialized."""
-    import torch.distributed as dist
-
+    Multi-process is OPT-IN via those (or explicit args). Returns True if
+    a world was brought up."""
+    global _default
     if not coordinator_address and os.environ.get("MASTER_ADDR"):
         coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
                                f"{os.environ.get('MASTER_PORT', '29500')}")
@@ -91,67 +202,41 @@ def initialize(coordinator_address: Optional[str] = None,
     if not coordinator_address:
         raise ValueError("a multi-process run needs a coordinator address "
                          "(MASTER_ADDR / MASTER_PORT)")
-    rank = int(process_id or 0)
-    world = int(num_processes or 1)
-    device = _rank_device(rank, devices)
-    if backend is None:
-        backend = "nccl" if device.type == "cuda" else "gloo"
-    host, _, port = coordinator_address.rpartition(":")
-    timeout = datetime.timedelta(seconds=timeout_s)
-    store = dist.TCPStore(host or "127.0.0.1", int(port), world,
-                          is_master=rank == 0, timeout=timeout,
-                          wait_for_workers=False)
-    if on_store is not None:
-        on_store(store.port)
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    dist.init_process_group(backend, store=dist.PrefixStore("pg", store),
-                            rank=rank, world_size=world, timeout=timeout)
-    _state.update(store=store, host=host or "127.0.0.1", port=store.port,
-                  rank=rank, world=world, device=device,
-                  timeout=timeout, gen=_state.get("gen", 0) + 1)
-    _local.store, _local.gen = store, _state["gen"]
-    # Every rank publishes where it runs: the mesh's device list, and
-    # the distinct devices MFU divides by (two ranks may share a card).
-    store.set(f"ollamamq/dev/{rank}", f"{socket.gethostname()}|{device}")
-    log.info("distributed runtime up: rank %d/%d on %s (%s, store %s:%d)",
-             rank, world, device, backend, _state["host"], store.port)
+    _default = open_world(coordinator_address, num_processes or 1,
+                          process_id or 0, backend=backend, devices=devices,
+                          timeout_s=timeout_s, on_store=on_store)
     return True
 
 
+def default_world() -> Optional[World]:
+    """The world initialize() brought up (None: none)."""
+    return _default
+
+
 def initialized() -> bool:
-    return "store" in _state
+    return _default is not None
 
 
 def rank() -> int:
-    return _state.get("rank", 0)
+    return _default.rank if _default is not None else 0
 
 
 def world_size() -> int:
-    return _state.get("world", 1)
+    return _default.size if _default is not None else 1
 
 
 def device() -> Optional[torch.device]:
-    return _state.get("device")
+    return _default.device if _default is not None else None
 
 
 def device_label(r: int) -> str:
     """"host|device" of rank r, as that rank published it."""
-    return store().get(f"ollamamq/dev/{r}").decode()
+    return _default.device_label(r)
 
 
 def store():
-    """This thread's client of the coordinator's store (the engine
-    thread, the heartbeat and the health monitor each get their own
-    connection, so no two threads share a socket)."""
-    st = getattr(_local, "store", None)
-    if st is None or getattr(_local, "gen", None) != _state.get("gen"):
-        import torch.distributed as dist
-
-        st = dist.TCPStore(_state["host"], _state["port"], is_master=False,
-                           timeout=_state["timeout"], wait_for_workers=False)
-        _local.store, _local.gen = st, _state["gen"]
-    return st
+    """This thread's client of the coordinator's store."""
+    return _default.store()
 
 
 def is_primary() -> bool:
@@ -187,13 +272,9 @@ def reap(procs, timeout_s: float = 15.0) -> None:
 
 
 def shutdown() -> None:
-    """Leave the process group and drop the store clients (a process may
-    bring up another world afterwards)."""
-    import torch.distributed as dist
-
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    gen = _state.get("gen", 0)
-    _state.clear()
-    _state["gen"] = gen  # clients of the old store are never reused
-    _local.store = None
+    """Leave this process's world: drop its groups and store clients (a
+    process may bring up another world afterwards)."""
+    global _default
+    if _default is not None:
+        _default.close()
+    _default = None

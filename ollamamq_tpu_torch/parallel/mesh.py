@@ -23,12 +23,13 @@ five axes in the same order,
 Ranks are numbered in that order (the tensor index varies fastest), so
 replica r holds the ranks [r * pp * tp, (r + 1) * pp * tp). The tensor
 axis carries one process group per (replica, stage) and the pipe axis
-one per (replica, tensor index); every rank creates every group of every
-replica, in the same order, as torch.distributed requires. Several
+one per (replica, tensor index), each built by its own ranks on the
+world's store (distributed.World.group), so several worlds can live in
+one process (a fleet router leads one per wide member). Several
 ranks may share one device (two ranks on one card over gloo);
 `n_devices` counts the distinct devices, which is what MFU divides by.
 
-Without a process group the mesh is this one process: `make_mesh(dp=N,
+Without a world the mesh is this one process: `make_mesh(dp=N,
 devices=[...])` gives N in-process replicas, replica r on devices[r]
 (several may share a card).
 
@@ -78,12 +79,14 @@ class TensorGroup:
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum of x over the tensor axis (row-parallel projections, the
-        vocab-parallel embedding), in place; returns x. A one-rank group
+        vocab-parallel embedding), in place; returns x. A one-rank axis
         with no process group is a no-op."""
-        if self.size > 1 or self.group is not None:
+        if self.group is not None:
             import torch.distributed as dist
 
-            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+            opts = dist.AllreduceOptions()
+            opts.reduceOp = dist.ReduceOp.SUM
+            self.group.allreduce([x], opts).wait()
         return x
 
     def vocab_range(self, vocab: int) -> Tuple[int, int]:
@@ -155,8 +158,6 @@ class PipeGroup:
 
     def send(self, x: torch.Tensor, stage: int) -> None:
         """Post x to `stage` (asynchronous; flush() completes it)."""
-        import torch.distributed as dist
-
         payload = x.contiguous()
         if self._staged(x.device):
             # The copy would wait for the stage's compute anyway; waiting
@@ -169,28 +170,26 @@ class PipeGroup:
             payload = buf
         t0 = time.perf_counter()
         self._n += 1
-        self._pending.append((dist.isend(payload, dst=self.ranks[stage],
-                                         group=self.group), payload))
+        # The group's ranks are this pipeline's stages, in stage order.
+        self._pending.append((self.group.send([payload], stage, 0), payload))
         self.stats["sends"] += 1
         self.stats["bytes"] += payload.numel() * payload.element_size()
         self.stats["send_s"] += time.perf_counter() - t0
 
     def recv(self, shape, dtype, stage: int, device) -> torch.Tensor:
         """Receive the next tensor `stage` sent to this one (blocks)."""
-        import torch.distributed as dist
-
         device = torch.device(device)
         t0 = time.perf_counter()
         if self._staged(device):
             buf = self._host(("recv", self._n), tuple(shape), dtype)
-            dist.recv(buf, src=self.ranks[stage], group=self.group)
+            self.group.recv([buf], stage, 0).wait()
             t1 = time.perf_counter()
             self.stats["recv_s"] += t1 - t0
             out = buf.to(device)
             self.stats["staging_s"] += time.perf_counter() - t1
         else:
             out = torch.empty(shape, dtype=dtype, device=device)
-            dist.recv(out, src=self.ranks[stage], group=self.group)
+            self.group.recv([out], stage, 0).wait()
             self.stats["recv_s"] += time.perf_counter() - t0
         self._n += 1
         self.stats["recvs"] += 1
@@ -213,12 +212,15 @@ class RankMesh:
     process holds no rank of this grid (rank 0's view of a replica
     r > 0), and `devices[i]` is the device of rank first + i; `tensor`
     is the TensorGroup the forwards take (None at tp 1) and `pipe` the
-    PipeGroup of this rank's pipeline (None at pp 1)."""
+    PipeGroup of this rank's pipeline (None at pp 1). `world` is the
+    rank world (parallel/distributed.World) the grid spans, None for
+    this one process."""
 
     def __init__(self, shape: dict, rank: Optional[int], devices: Sequence,
                  group=None, backend: Optional[str] = None,
                  labels: Optional[Sequence[str]] = None, pipe_group=None,
-                 first: int = 0):
+                 first: int = 0, world=None):
+        self.world = world
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.axis_names = AXES
         self.rank = rank
@@ -279,22 +281,19 @@ class RankMesh:
 
 def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
               ep: int = 1, devices: Optional[Sequence] = None,
-              rank: Optional[int] = None) -> RankMesh:
+              rank: Optional[int] = None, world=None) -> RankMesh:
     """Build a (data, pipe, seq, expert, tensor) mesh of ranks.
 
     `tp=-1` means "all ranks not consumed by dp*pp*sp*ep". The ranks are
-    the torch.distributed world when one is up (`devices` then lists
-    each rank's device, default the one distributed.initialize gave this
-    process for every rank), else `devices` (default one CPU rank per
-    replica). Without a world, a grid of one rank per replica is this
-    process's dp in-process replicas, replica r on devices[r]. In a
-    world at dp 1 and pp 1 the tensor axis' process group is the
-    world's; otherwise every rank creates the tensor group of every
-    (replica, stage) and then the pipe group of every (replica, tensor
-    index), in that order. The seq and expert axes larger than 1 are not
-    ported yet."""
-    import torch.distributed as dist
-
+    those of `world` (parallel/distributed.World; default the world
+    distributed.initialize brought up, if any): `devices` then lists
+    each rank's device, default the one each rank published. Without a
+    world, `devices` (default one CPU rank per replica) are this
+    process's dp in-process replicas, replica r on devices[r]. This rank
+    builds the tensor group of its (replica, stage) and then the pipe
+    group of its (replica, tensor index), on the world's store; every
+    rank builds its groups in that order. The seq and expert axes larger
+    than 1 are not ported yet."""
     from ollamamq_tpu_torch.parallel import distributed
 
     for axis, n in ((AXIS_SEQ, sp), (AXIS_EXPERT, ep)):
@@ -304,10 +303,11 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
                 "axes are ported yet (seq and expert parallelism are not)")
     if pp < 1 or dp < 1:
         raise ValueError(f"dp and pp must be >= 1, got dp={dp} pp={pp}")
-    up = dist.is_available() and dist.is_initialized()
-    n = dist.get_world_size() if up else len(devices or ["cpu"] * dp)
-    labels = ([distributed.device_label(r) for r in range(n)]
-              if up and distributed.initialized() else None)
+    if world is None:
+        world = distributed.default_world()
+    n = world.size if world is not None else len(devices or ["cpu"] * dp)
+    labels = ([world.device_label(r) for r in range(n)]
+              if world is not None else None)
     if devices is None:
         devices = ([lb.split("|", 1)[1] for lb in labels] if labels
                    else ["cpu"] * n)
@@ -319,25 +319,20 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
         raise ValueError(f"dp*pp*sp*ep*tp={dp * tp * pp} over {n} ranks: the "
                          "mesh must span every rank of the world")
     if rank is None:
-        rank = dist.get_rank() if up else 0
+        rank = world.rank if world is not None else 0
     shape = {AXIS_DATA: dp, AXIS_PIPE: pp, AXIS_TENSOR: tp}
     group = pipe_group = None
-    if up and (dp > 1 or pp > 1):
+    if world is not None:
         grid = np.arange(n).reshape(dp, pp, tp)
-        for r in range(dp):  # every rank creates every group, in order
-            for s in range(pp):
-                g = dist.new_group(grid[r, s].tolist()) if tp > 1 else None
-                if rank in grid[r, s]:
-                    group = g
-        for r in range(dp):
-            for t in range(tp):
-                g = dist.new_group(grid[r, :, t].tolist()) if pp > 1 else None
-                if rank in grid[r, :, t]:
-                    pipe_group = g
+        r, s, t = (int(i) for i in np.argwhere(grid == rank)[0])
+        if tp > 1:
+            group = world.group(grid[r, s].tolist())
+        if pp > 1:
+            pipe_group = world.group(grid[r, :, t].tolist())
     return RankMesh(shape, rank, devices,
                     group=group, pipe_group=pipe_group,
-                    backend=dist.get_backend() if up else None,
-                    labels=labels)
+                    backend=world.backend if world is not None else None,
+                    labels=labels, world=world)
 
 
 def replica_ranks(mesh: RankMesh, r: int) -> list:
@@ -365,7 +360,7 @@ def replica_submesh(mesh: RankMesh, r: int) -> RankMesh:
                     group=mesh.tensor.group if mine and mesh.tensor else None,
                     pipe_group=mesh.pipe.group if mine and mesh.pipe else None,
                     backend=mesh.backend, labels=mesh.labels[lo:lo + per],
-                    first=lo)
+                    first=lo, world=mesh.world)
 
 
 def replica_of(mesh: RankMesh) -> int:

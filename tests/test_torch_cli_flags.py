@@ -6,7 +6,8 @@ checked before any device work), --log-file / --log-rotate-mb /
 Each with the JAX package's exit code or behaviour: invalid values exit
 2 before any device work, and one CLI server (a fake engine in a
 subprocess) shows the others at work over HTTP. Then --tp and --spmd:
-their refusals exit 2 before any device work, `--tp 2 --device cpu`
+their refusals exit 2 before any device work (fleets of members wider
+than one rank validate), `--tp 2 --device cpu`
 serves through the CLI's own worker rank (gloo) and leaves no process
 behind, on SIGTERM or when the leader is killed."""
 
@@ -178,21 +179,34 @@ def test_log_file_writes_json_lines(cli_server):
 
 
 # ------------------------------------------------- tensor parallelism
+def _assert_valid(argv):
+    """The flags validate (a case of the fleet's widths that used to be
+    refused, in the parametrized refusal tests)."""
+    from ollamamq_tpu_torch.cli import validate
+
+    args = build_parser().parse_args(argv + ["--no-tui", "--model", "test-tiny"])
+    assert validate(args) == ""
+
+
 @pytest.mark.parametrize("argv,message", [
     (["--tp", "3", "--device", "cpu"], "num_heads=4 not divisible by tp=3"),
     (["--tp", "0", "--device", "cpu"], "--tp must be >= 1"),
     (["--tp", "2"], "cuda:1"),
     (["--tp", "2", "--fake-engine", "--device", "cpu"], "--fake-engine runs none"),
-    (["--tp", "2", "--replicas", "2", "--device", "cpu"],
-     "fleet members wider than one rank are not ported yet"),
+    (["--tp", "2", "--replicas", "2", "--device", "cpu"], None),
     (["--spmd", "--fake-engine"], "--spmd and --fake-engine are mutually exclusive"),
     (["--spmd", "--replicas", "2"], "and --spmd are mutually exclusive"),
 ], ids=["heads", "zero", "missing-device", "fake", "fleet", "spmd-fake",
         "spmd-fleet"])
 def test_tp_flags_exit_2(argv, message, caplog):
     """A tp that does not divide the heads, a local --tp whose devices the
-    host lacks (named; no fallback to fewer devices), and the fleet and
-    fake-engine combinations exit 2 before any device work."""
+    host lacks (named; no fallback to fewer devices), and the --spmd and
+    fake-engine combinations exit 2 before any device work. A fleet of
+    --tp 2 members on the CPU validates (message None): fleet members
+    wider than one rank are ported (fleet/wide.py)."""
+    if message is None:
+        _assert_valid(argv)
+        return
     if argv == ["--tp", "2"] and torch.cuda.device_count() >= 2:
         argv = ["--tp", "64", "--model", "llama3:8b"]
         message = "cuda:63"
@@ -209,12 +223,10 @@ def test_tp_flags_exit_2(argv, message, caplog):
     (["--pp", "2"], "cuda:1"),
     (["--pp", "2", "--tp", "2", "--device", "cpu", "--model", "test-tiny-gqa",
       "--pp-microbatches", "-1"], "--pp-microbatches must be >= 0"),
-    (["--pp", "2", "--replicas", "2", "--device", "cpu"],
-     "fleet members wider than one rank are not ported yet"),
-    (["--pp", "2", "--autoscale", "--device", "cpu"],
-     "fleet members wider than one rank are not ported yet"),
+    (["--pp", "2", "--replicas", "2", "--device", "cpu"], None),
+    (["--pp", "2", "--autoscale", "--device", "cpu"], None),
     (["--pp", "2", "--replica-urls", "http://127.0.0.1:1", "--device", "cpu"],
-     "fleet members wider than one rank are not ported yet"),
+     None),
     (["--pp", "2", "--kv-dtype", "int8", "--device", "cpu"],
      "--kv-dtype=int8 needs the ragged attention path"),
 ], ids=["layers", "moe", "zero", "missing-device", "microbatches", "fleet",
@@ -223,8 +235,12 @@ def test_pp_flags_exit_2(argv, message, caplog):
     """--pp's refusals exit 2 before any device work: a pp that does not
     divide a model's layers, pp with a mixture-of-experts model, a local
     world whose devices the host lacks (tp x pp ranks, one per device;
-    named, no fallback), pp with a fleet (members stay one rank wide),
-    and int8 KV with pp (the JAX package's message)."""
+    named, no fallback), and int8 KV with pp (the JAX package's message).
+    pp with a fleet on the CPU validates (message None): each member
+    leads a pipeline world of its own (fleet/wide.py)."""
+    if message is None:
+        _assert_valid(argv)
+        return
     if argv == ["--pp", "2"] and torch.cuda.device_count() >= 2:
         argv = ["--pp", "32", "--model", "llama3:8b"]
         message = "cuda:31"
@@ -249,8 +265,7 @@ def test_pp_flags_reach_the_engine_config():
     (["--dp", "2"], "no replica falls back to another device"),
     (["--dp", "2", "--tp", "2"], "cuda:3"),
     (["--dp", "0", "--device", "cpu"], "--dp must be >= 1"),
-    (["--dp", "2", "--tp", "2", "--replicas", "2", "--device", "cpu"],
-     "fleet members wider than one rank are not ported yet"),
+    (["--dp", "2", "--tp", "2", "--replicas", "2", "--device", "cpu"], None),
     (["--dp", "2", "--spmd", "--replicas", "2"],
      "and --spmd are mutually exclusive"),
     (["--dp", "2", "--tp", "3", "--device", "cpu"],
@@ -261,8 +276,13 @@ def test_dp_flags_exit_2(argv, message, caplog):
     """--dp's refusals exit 2 before any device work: a host with fewer
     cards than the replicas (one per replica of --dp alone, one per rank
     of --dp x --tp; the missing ones named, no replica falls back to
-    another device or to the CPU), --dp 0, and the reference's fleet and
-    --spmd rules, which --dp leaves as they are."""
+    another device or to the CPU), --dp 0, and the reference's --spmd
+    rule, which --dp leaves as it is. A fleet of dp x tp members on the
+    CPU validates (message None): fleet members wider than one rank are
+    ported (fleet/wide.py)."""
+    if message is None:
+        _assert_valid(argv)
+        return
     if torch.cuda.device_count() >= 2 and "--device" not in argv:
         argv = [a if a != "2" or i != 1 else "64" for i, a in enumerate(argv)]
         message = "cuda:63" if "--tp" not in argv else "cuda:127"

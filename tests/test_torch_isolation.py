@@ -20,8 +20,9 @@ two ranks (`--tp 2 --device cpu`: the leader and the worker rank it
 starts both run with the block, installed by a sitecustomize the worker
 inherits), pipeline parallelism over two stages (`--pp 2 --device
 cpu`, the same way), data-parallel replicas (`--dp 2` in one process,
-`--dp 2 --tp 2` over four ranks), and refusing what the fleet's layers
-still lack.
+`--dp 2 --tp 2` over four ranks), fleet members two ranks wide
+(`--replicas 2 --tp 2`, every member rank blocked too), and refusing
+what the fleet's layers cannot take.
 
 Runs in a subprocess because this test session's conftest imports JAX.
 """
@@ -378,18 +379,19 @@ def test_cli_serves_moe_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag,message", [
-    (["--tiers", "interactive@tp2=r0;bulk=r1"],
-     "fleet members wider than one rank are not ported yet"),
-    (["--autoscale", "--tp", "2"],
-     "fleet members wider than one rank are not ported yet"),
+    (["--tiers", "interactive@tp3=r0;bulk=r1"],
+     "tier 'interactive' @tp3: --tp 3 for test-tiny: num_heads=4 not "
+     "divisible by tp=3"),
+    (["--autoscale", "--tp", "3"],
+     "--tp 3 for test-tiny: num_heads=4 not divisible by tp=3"),
     (["--ha"], "--ha requires --wal-dir"),
 ], ids=["tiers", "autoscale", "ha"])
 def test_cli_refuses_unported_fleet_layers(flag, message):
-    """What the fleet's layers still lack is refused by name, exit 2:
-    tier widths and autoscaled members above TP 1 (fleet members wider
-    than one rank);
-    and router HA, now ported, refuses a primary without its WAL with
-    the JAX package's message."""
+    """What the fleet's layers refuse is refused by name, exit 2, with
+    JAX blocked: fleet members wider than one rank are ported, so a tier
+    width or an autoscaled member's width is refused only when the model
+    cannot take it (tp 3 over test-tiny's 4 heads); router HA refuses a
+    primary without its WAL with the JAX package's message."""
     proc = subprocess.run(
         _blocked_cli(["--model", "test-tiny", "--device", "cpu", "--no-tui",
                       "--replicas", "2"] + flag),
@@ -590,6 +592,15 @@ def _serve_ranks_without_jax(tmp_path, flags):
     assert "blocked:" not in text and "graceful shutdown complete" in text
     assert "import jax" not in text
     return text
+
+
+def test_cli_wide_fleet_members_run_without_jax(tmp_path):
+    """`--replicas 2 --tp 2 --device cpu` serves a stream through a fleet
+    whose members each lead a world of two ranks (fleet/wide.py), with
+    JAX and the JAX package blocked in the router and in every member's
+    rank. SIGTERM exits 0."""
+    text = _serve_ranks_without_jax(tmp_path, ["--replicas", "2", "--tp", "2"])
+    assert text.count("wide-member rank 1 of 2") == 2
 
 
 def test_cli_tp2_leader_and_worker_run_without_jax(tmp_path):

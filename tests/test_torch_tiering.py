@@ -15,9 +15,9 @@ flaps.
 
 Beyond the mirror: the regroup's greedy ids are held against the same
 streams served by a JAX TPUEngine fleet, the spec parser against the
-JAX package's, and every member here runs at TP width 1, so the CLI's
-member factory raises for another width (the regroup then aborts and
-the member keeps its tier) and a tier spec declaring one exits 2.
+JAX package's, and the CLI's member factory rebuilds a member at a tier's
+declared width (a regroup to tp2 leads a rank world of two ranks; the
+rest of the wide members' cases are in tests/test_torch_wide_members.py).
 
 Waits poll journal records and member states with budgets, never fixed
 sleeps, so the chaos case holds under a loaded test run.
@@ -731,27 +731,33 @@ def test_cli_tiers_validation_fails_fast():
                  "--no-tui"]) == 2
 
 
-# --------------------------------------------------- one device per engine
-@pytest.mark.parametrize("argv", [
-    ["--replicas", "2", "--tiers", "interactive@tp2=r0;bulk=r1"],
-    ["--replicas", "2", "--tiers", "interactive=r0;bulk@tp4=r1"],
-    ["--replicas", "2", "--tp", "2"],
+# ------------------------------------------------- members wider than one rank
+@pytest.mark.parametrize("argv,widths", [
+    (["--replicas", "2", "--tiers", "interactive@tp2=r0;bulk=r1"],
+     {"r0": 2, "r1": 1}),
+    (["--replicas", "2", "--tiers", "interactive=r0;bulk@tp4=r1"],
+     {"r0": 1, "r1": 4}),
+    (["--replicas", "2", "--tp", "2"], {"r0": 2, "r1": 2}),
 ], ids=["interactive-tp2", "bulk-tp4", "tp-flag"])
-def test_cli_refuses_tier_widths_above_one(argv, caplog):
-    """Every member runs at TP width 1: a tier spec declaring a wider
-    width, or --tp other than 1, exits 2 before any device work, naming
-    fleet members wider than one rank as not ported."""
-    from ollamamq_tpu_torch.cli import main
+def test_cli_refuses_tier_widths_above_one(argv, widths):
+    """Tier widths above one and --tp other than 1 with a fleet are no
+    longer refused (fleet members wider than one rank are ported): the
+    flags validate on the CPU and every member starts at its tier's
+    declared width, else at --tp, as the JAX CLI's roster does."""
+    from ollamamq_tpu_torch import cli
 
-    assert main(argv + ["--no-tui", "--device", "cpu"]) == 2
-    assert "fleet members wider than one rank are not ported yet" in caplog.text
+    args = cli.build_parser().parse_args(argv + ["--no-tui", "--device", "cpu"])
+    assert cli.validate(args) == ""
+    assert cli.member_widths(args) == widths
 
 
 def test_cli_member_factory_raises_for_tp2_and_regroup_aborts():
-    """The CLI's real-engine factory refuses a width other than 1 and
-    never builds a TP-1 engine under a wider label: a regroup whose
-    target tier declares tp2 aborts (tier_regroup aborted), the old
-    engine restarts, and the member keeps its original tier."""
+    """The CLI's member factory builds at the width a regroup asks for: a
+    regroup whose target tier declares tp2 completes (tier_regroup start
+    then done, tp_from 1 / tp_to 2), the member then leads a rank world
+    of two ranks (an SPMDEngine, not a one-rank engine under a wider
+    label) and serves; the abort of a world that cannot start is covered
+    in tests/test_torch_wide_members.py."""
     from ollamamq_tpu_torch import cli
 
     args = cli.build_parser().parse_args(
@@ -773,26 +779,27 @@ def test_cli_member_factory_raises_for_tp2_and_regroup_aborts():
     router.start()
     try:
         mem = _member(router, "r1")
-        with pytest.raises(ValueError, match="fleet members wider than one rank"):
-            mem.engine_factory(2)
-        assert mem.engine_factory(1) is not None
         n_built = len(built)
-        old = mem.engine
-        # A tier declaring tp2 (the CLI itself refuses such a spec).
+        # A tier declaring tp2 (as --tiers "interactive@tp2=..." does).
         router.tiers.widths["interactive"] = 2
         router.retier_replica("r1", "interactive", why="test")
         assert _wait(lambda: _has_record(router, "tier_regroup",
-                                         phase="aborted"), budget=60.0)
-        rec = router.journal.tail(None, kind="tier_regroup")[-1]
-        assert rec["why"] == "restart_failed"
+                                         phase="done"), budget=120.0)
+        start, done = router.journal.tail(None, kind="tier_regroup")
+        assert (start["phase"], start["tp_from"], start["tp_to"]) == \
+            ("start", 1, 2)
+        assert (done["phase"], done["tp_to"]) == ("done", 2)
         assert _wait(lambda: mem.state == "healthy" and mem.alive(),
                      budget=30.0)
-        assert mem.tier == "bulk" and mem.retier_to is None
-        assert mem.engine is old and len(built) == n_built
-        assert all(c.tp == 1 for c in built)
+        assert mem.tier == "interactive" and mem.retier_to is None
+        assert mem.tp == 2 and len(mem.engine.worker_procs) == 1
+        assert len(built) == n_built and all(c.tp == 1 for c in built)
         assert check_regroup_pairing(router.journal.tail(None)) == []
-        # The member still serves a bulk stream after the abort.
+        # The regrouped member serves an interactive stream.
+        router.core.set_vip("after")
         items = collect(_run(router, "after", max_tokens=4))
         assert items[-1].kind == "done"
+        assert router.journal.tail(None, kind="tier_place")[-1]["tier"] == \
+            "interactive"
     finally:
         router.stop()
