@@ -250,7 +250,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
            SPMDEngine leading a world of its own (rank 0 in this process,
            rank 1 a `python -m ollamamq_tpu_torch.fleet.wide` process),
            r1 and r2 at tp 1, behind the HTTP server. A warm-up per tier,
-           then 7 greedy 160-token streams in two waves 64 tokens apart: a
+           then 7 greedy 256-token streams in two waves 32 tokens apart: a
            VIP user, a boosted user and a request with deadline_ms
            (interactive), and 4 plain users (bulk); once every stream
            holds 16 tokens, POST /admin/retier/r2 {"tier": "interactive"}
@@ -452,12 +452,45 @@ Phases, each printing JSON lines; any failure exits non-zero:
            error within 18 s, replica 0's finish, only replica 1 is
            failed, worker_stale fires. Rank logs go to
            chiprun_out/chip_smoke/serve_dp_*.log.
+  serve-sp sequence parallelism: llama3.2:1b at full width and depth
+           (seeded) over two sequence shards, ranks (processes of this
+           script, --tp-rank) sharing cuda:0 over gloo; 8 slots, 640
+           pages of 32, 272 pages a sequence, buckets 32/64/128/256,
+           token budget 512, k_steps 8. One world of two ranks serves
+           three windows (sessions of its wire, the kill last), a world
+           of four one more: (1) bf16: two prompts of 8,000 token ids
+           (/api/generate `context`; T 8,192, C 4,096 a shard) and two
+           short chats from 3 users at once, 32 new tokens each; gates:
+           every reply stop/length, rank 0 ran exactly 2 sp prefills in
+           the burst and both ranks the same 3 over the window (one more
+           8K prompt times TTFT), the short prompts on the ragged path,
+           exactly 16 ragged launches per ragged dispatch and 16 decode
+           per decode step on each rank and no int8 launch, both ranks'
+           output digests equal, each rank's K and V at every real
+           position of each long prompt, every layer, hashed bit-equal
+           to rank 0's, every decode-kernel call on rank 0 (over those
+           pages) within 2e-2 x max |plain| of the plain version on the
+           same tensors. Records the 8K prompt's TTFT at sp 2 against
+           one rank's chunked ragged prefill in the same process, the
+           ring's hand-off ms and bytes per prefill, each rank's peak
+           memory and tokens/s. (2) float32 (TF32 off): a ~5,000-id
+           prompt with 32 greedy tokens at sp 2 and (3) at sp 2 x tp 2
+           (four ranks) against one rank (the ragged path): ids
+           identical, the sp prefill's logits within 1e-4 x max of the
+           one rank's. (4) kill -9 of rank 1 after its first ring
+           hand-off of an 8K prompt while two streams decode: every
+           request errors within 18 s, /health 200 with worker_stale
+           and the runtime failed. Besides: `python -m
+           ollamamq_tpu_torch.cli --sp 2 --kv-dtype int8` exits 2 with
+           the reference's message. Rank logs go to
+           chiprun_out/chip_smoke/serve_sp_*.log.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
 serve-fleet's, serve-tiers' (both windows, and the wide members'
 worker ranks over their runs), serve-autoscale's, serve-ha's,
-serve-tp's, serve-pp's and serve-dp's (every rank of each window),
+serve-tp's, serve-pp's, serve-dp's and serve-sp's (every rank of each
+window),
 counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
@@ -471,6 +504,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import gc
 import gzip
 import http.client
@@ -3256,6 +3290,13 @@ TIERS_SPEC = "interactive@tp2=r0;bulk=r1,r2"
 # card over gloo): r0's two ranks, r1, r2, and the one more r2 takes when
 # it regroups to tp 2.
 TIERS_CARDS = ["cuda:0"] * 5
+# Tokens of each tiers stream, and the tokens wave a holds before wave b
+# starts. Every stream must still be live when the waves' waits read it
+# and when r2's regroup drains it; a wide member's ranks time-slicing the
+# card start their streams late, and at 160 tokens and 64 the bulk
+# streams often ended first (PERF.md §6).
+TIERS_NEW = 256
+TIERS_WAVE_A = 32
 TIERS_USERS = {"vip-a": ("vip", "Tell me about fair queues. "),
                "vip-b": ("boost", "Why page the KV cache? "),
                "dl": ("deadline", "Explain the decode kernel. "),
@@ -3277,11 +3318,11 @@ TIERS_LATE = {"late-a": "What does a wide member start? ",
 
 
 def _tiers_run(port, results, errors, user, prompt=None, cls=None):
-    """One greedy FLEET_NEW-token /api/generate stream of a TIERS_USERS
+    """One greedy TIERS_NEW-token /api/generate stream of a TIERS_USERS
     user (or `prompt` of class `cls`): its ids and last frame land in
     `results`, its error in `errors`."""
     cls, prompt = TIERS_USERS.get(user, (cls, prompt))
-    opts = {"temperature": 0, "num_predict": FLEET_NEW}
+    opts = {"temperature": 0, "num_predict": TIERS_NEW}
     if cls == "deadline":
         opts["deadline_ms"] = 600000
     try:
@@ -3308,9 +3349,10 @@ def _tiers_warm(router, port):
 
 
 def _tiers_waves(router, port, results, errors):
-    """TIERS_USERS' streams in two waves 64 tokens apart; returns their
-    threads once every stream holds 16 tokens (wave a's bulk streams on
-    r2 are still live then: the regroup that follows drains them)."""
+    """TIERS_USERS' streams in two waves TIERS_WAVE_A tokens apart;
+    returns their threads once every stream holds 16 tokens (wave a's
+    bulk streams on r2 are still live then: the regroup that follows
+    drains them)."""
     threads = {u: threading.Thread(target=_tiers_run, args=(port, results, errors, u))
                for u in TIERS_USERS}
     wave_a, wave_b = ("vip-a", "b1", "b2"), ("vip-b", "dl", "b3", "b4")
@@ -3318,7 +3360,7 @@ def _tiers_waves(router, port, results, errors):
         threads[u].start()
     for u in wave_a:
         _flight(router, u)
-    _wait_tokens(router, list(wave_a), 64)
+    _wait_tokens(router, list(wave_a), TIERS_WAVE_A)
     for u in wave_b:
         threads[u].start()
     for u in wave_b:
@@ -3780,7 +3822,7 @@ def serve_tiers_phase(report) -> None:
             "slots_per_member": ecfg.max_slots, "tiers": TIERS_SPEC,
             "cards": "r0's two ranks, r1, r2 and r2's regroup on cuda:0 (gloo)",
             "users": {u: c for u, (c, _) in TIERS_USERS.items()},
-            "max_new_tokens": FLEET_NEW, "placed": placed, "live_on_r2": on_r2,
+            "max_new_tokens": TIERS_NEW, "placed": placed, "live_on_r2": on_r2,
             "late_placed": late_on, "retier": retier, "regroup_s": regroup_s,
             "fleet_build_s": build_s, "eject_heartbeat_s": TIERS_EJECT_S,
             "max_heartbeat_age_s": max_age,
@@ -5050,13 +5092,15 @@ TP_WINDOWS = {"bf16": _tp_leader_bf16, "f32": _tp_leader_f32,
 
 
 def _world(spec) -> int:
-    """Ranks of a serve-tp / serve-pp / serve-dp window: tp per stage x pp
-    stages x dp replicas."""
-    return spec.get("dp", 1) * spec.get("tp", 2) * spec.get("pp", 1)
+    """Ranks of a serve-tp / serve-pp / serve-dp / serve-sp window: tp per
+    stage x pp stages x sp shards x dp replicas."""
+    return (spec.get("dp", 1) * spec.get("tp", 2) * spec.get("pp", 1)
+            * spec.get("sp", 1))
 
 
 def tp_rank_main(args) -> int:
-    """One rank of a serve-tp, serve-pp or serve-dp world (`--tp-rank`):
+    """One rank of a serve-tp, serve-pp, serve-dp or serve-sp world
+    (`--tp-rank`):
     every rank shares the card over gloo, and the world runs the windows
     of `--tp-plan` ([[window, spec], ...], one world shape) in order:
     rank 0 builds each window's engine and prints its result line, the
@@ -5090,7 +5134,7 @@ def tp_rank_main(args) -> int:
                                timeout_s=120)
         distributed.store().set(f"chip_smoke/pid/{rank}", str(os.getpid()))
         mesh = make_mesh(dp=first.get("dp", 1), tp=first.get("tp", 2),
-                         pp=first.get("pp", 1))
+                         pp=first.get("pp", 1), sp=first.get("sp", 1))
         if rank != 0 and first.get("dp", 1) > 1:
             # serve-dp reads every rank's launches before its kill -9.
             from ollamamq_tpu_torch.ops.cuda import launch_counts
@@ -5112,12 +5156,19 @@ def tp_rank_main(args) -> int:
             reset_launch_counts()
             if device != "cpu":
                 torch.cuda.reset_peak_memory_stats()
+            if spec.get("sp", 1) > 1:
+                # serve-sp holds every rank's pages after each ring
+                # prefill, and its kill waits for rank 1's first hand-off.
+                _sp_page_digests(window, rank)
+                if window == "sp-kill" and rank != 0:
+                    _sp_ring_flag(rank)
             t0 = time.monotonic()
             if rank != 0:
-                steps = spmd.run_worker({spec["model"]: None}, _tp_ecfg(spec), mesh)
+                steps = spmd.run_worker({spec["model"]: None}, _window_ecfg(spec),
+                                        mesh)
                 out = {"rank": rank, "steps": steps}
             else:
-                out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS}[window](
+                out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS, **SP_WINDOWS}[window](
                     spec, mesh, spec.get("profile", False))
             out.update(window=window, window_s=time.monotonic() - t0)
             print("TP-RESULT " + json.dumps(out), flush=True)
@@ -6192,6 +6243,489 @@ def serve_dp_phase(report) -> None:
         raise SystemExit(f"serve-dp: gates failed: {gates}")
 
 
+SP_MODEL = "llama3.2:1b"
+SP_NEW = 32
+SP_LONG = 8000  # token ids of each long prompt: T 8,192 and C 4,096 at sp 2
+SP_F32_LONG = 5000
+SP_PAGES, SP_PS, SP_MP = 640, 32, 272  # 8,704 tokens a sequence
+# Two chats that stay under the largest bucket (the ragged path).
+SP_SHORT = (("sp-cyd", "Why cut a long prompt over ranks? "),
+            ("sp-cyd", "What does each shard of a ring hand on? "))
+SP_PAGE_KEY = "chip_smoke/sp_pages/{window}/{rank}"
+SP_RING_KEY = "chip_smoke/sp_ring/{rank}"
+
+
+def _sp_ecfg(spec):
+    """A serve-sp window's engine: 8 slots, 640 pages of 32 (two 8K
+    prompts and their replies fit), 272 pages a sequence, token budget
+    512, buckets 32/64/128/256 (a long prompt pads to a multiple of
+    256), k_steps 8, sp shards."""
+    from ollamamq_tpu_torch.config import EngineConfig
+
+    return EngineConfig(model=spec["model"], max_slots=8, num_pages=SP_PAGES,
+                        page_size=SP_PS, max_pages_per_seq=SP_MP,
+                        max_batch_tokens=512, token_granule=16,
+                        prefill_buckets=PP_BUCKETS, max_new_tokens=SP_NEW,
+                        decode_steps_per_iter=8, dtype=spec["dtype"],
+                        sp=spec.get("sp", 1), seed=0)
+
+
+def _window_ecfg(spec):
+    return (_sp_ecfg if spec.get("sp", 1) > 1 else _tp_ecfg)(spec)
+
+
+def _sp_ids(n: int, seed: int) -> list:
+    """n token ids drawn from `seed` (the seeded model's vocabulary)."""
+    import numpy as np
+
+    from ollamamq_tpu_torch.config import MODEL_CONFIGS
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(3, MODEL_CONFIGS[SP_MODEL].vocab_size, size=n).tolist()
+
+
+def _sp_page_digests(window: str, rank: int) -> None:
+    """After every sequence-parallel prefill on this rank, hash its K and
+    V pages at the prompt's real positions, every layer, and post the
+    window's list under SP_PAGE_KEY: the ranks' pools must hold the same
+    bytes (each wrote every chunk the ring passed it)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ollamamq_tpu_torch.engine.engine import ModelRuntime
+    from ollamamq_tpu_torch.parallel import distributed
+
+    orig = getattr(ModelRuntime._dispatch_prefill_sp, "__wrapped__",
+                   ModelRuntime._dispatch_prefill_sp)
+    record = []
+
+    def hashed(self, T, tokens, lens, slot_ids, pt_rows, *rest):
+        out = orig(self, T, tokens, lens, slot_ids, pt_rows, *rest)
+        n, ps = int(lens[0]), self.ecfg.page_size
+        t = np.arange(n)
+        slots = np.asarray(pt_rows)[0][t // ps].astype(np.int64) * ps + t % ps
+        idx = torch.from_numpy(slots).to(self.device)
+        h = hashlib.sha256()
+        for pool in (self.kc, self.vc):
+            h.update(pool[:, idx].contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        record.append({"n": n, "T": int(T), "sha256": h.hexdigest()})
+        distributed.store().set(SP_PAGE_KEY.format(window=window, rank=rank),
+                                json.dumps(record))
+        return out
+
+    hashed.__wrapped__ = orig
+    ModelRuntime._dispatch_prefill_sp = hashed
+
+
+def _sp_ring_flag(rank: int) -> None:
+    """Post the count of this rank's ring hand-offs after each one (the
+    kill window waits for the first)."""
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.parallel.mesh import SeqGroup
+
+    rotate = SeqGroup.rotate
+    n = [0]
+
+    def flagged(self, x):
+        out = rotate(self, x)
+        n[0] += 1
+        distributed.store().set(SP_RING_KEY.format(rank=rank), str(n[0]))
+        return out
+
+    SeqGroup.rotate = flagged
+
+
+def _sp_pages_of(window: str, ranks) -> dict:
+    """Every rank's posted page digests of `window`, {rank: [...]}."""
+    from ollamamq_tpu_torch.parallel import distributed
+
+    client = distributed.store()
+    out = {}
+    for r in ranks:
+        key = SP_PAGE_KEY.format(window=window, rank=r)
+        out[r] = json.loads(client.get(key)) if client.check([key]) else []
+    return out
+
+
+def _sp_decode_checked(calls: list):
+    """Wrap llama.paged_decode_attention_any so that each kernel call is
+    held against the plain version on the same q and pools (relative
+    error, the longest context); returns the original."""
+    from ollamamq_tpu_torch.models import llama
+
+    orig = llama.paged_decode_attention_any
+
+    def checked(impl, *args):
+        out = orig(impl, *args)
+        if impl == "kernel":
+            ref = orig("plain", *args)
+            scale = float(ref.float().abs().max())
+            err = float((out.float() - ref.float()).abs().max())
+            calls.append((err, scale, bool(out.isfinite().all()), int(args[4].max())))
+        return out
+
+    llama.paged_decode_attention_any = checked
+    return orig
+
+
+def _sp_leader_bf16(spec, mesh, profile):
+    """sp 2 in bf16: two 8,000-id prompts (/api/generate `context`) and
+    two short chats from 3 users at once, 32 new tokens each; then the
+    TTFT of one more 8K prompt at sp 2 and, in the same process, on one
+    rank (the ragged path's spans)."""
+    import torch
+
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.models import llama
+    from ollamamq_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model, ecfg = spec["model"], _sp_ecfg(spec)
+    t0 = time.monotonic()
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rt = eng.runtimes[model]
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    greedy = {"temperature": 0, "num_predict": SP_NEW}
+    bodies = [("sp-ada", "/api/generate",
+               {"model": model, "prompt": "", "options": greedy,
+                "context": _sp_ids(SP_LONG, 1)}),
+              ("sp-bob", "/api/generate",
+               {"model": model, "prompt": "", "options": greedy,
+                "context": _sp_ids(SP_LONG, 2)})]
+    bodies += [(u, "/api/chat", {"model": model, "options": greedy,
+                                 "messages": [{"role": "user", "content": text * 2}]})
+               for u, text in SP_SHORT]
+    results, errors = {}, []
+
+    def run(i, user, path, body):
+        try:
+            results[i] = _ollama_result(*_post(port, path, body, user))
+        except Exception as e:  # noqa: BLE001 — reported, then fails the phase
+            errors.append(f"{user}/{i}: {e}")
+
+    calls = []
+    orig_dec = _sp_decode_checked(calls)
+    ring0 = dict(mesh.seq.stats)
+    before = rt.stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i, *b)) for i, b in enumerate(bodies)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        llama.paged_decode_attention_any = orig_dec
+    burst_s = time.monotonic() - t0
+    counts = launch_counts()
+    after = rt.stats()
+    ring = {k: mesh.seq.stats[k] - ring0[k] for k in ring0}
+    peak = torch.cuda.max_memory_allocated()
+    if errors or len(results) != len(bodies):
+        raise SystemExit(f"serve-sp requests failed: {errors}")
+    ops = {"ragged": after["ragged_dispatches"] - before["ragged_dispatches"],
+           "spec": 0, "decode_steps": after["decode_steps"] - before["decode_steps"]}
+    exact, own = _tp_exact(counts, ops, rt.cfg.num_layers, "")
+    tokens = after["tokens_generated"] - before["tokens_generated"]
+
+    def ttft(e, ids):
+        req = e.enqueue_request("sp-ttft", "", model, prompt_tokens=ids,
+                                sampling=SamplingParams(max_tokens=1, temperature=0.0))
+        it = _tp_wait(req)
+        return req.stats.ttft_ms if it is not None and it.kind == "done" else None
+
+    ttft_sp = ttft(eng, _sp_ids(SP_LONG, 3))
+    stop_server(srv)
+    eng.stop()
+    pages = _sp_pages_of("sp-bf16", range(mesh.size))
+    one = TorchEngine(dataclasses.replace(ecfg, sp=1), device=mesh.device,
+                      blocklist_path=None)
+    one.start()
+    ttft(one, _sp_ids(SP_LONG, 4))  # warm-up: the same path at the same length
+    ttft_one = ttft(one, _sp_ids(SP_LONG, 3))
+    one_stats = one.runtimes[model].stats()
+    one.stop()
+    del one
+    checked = {"calls": len(calls),
+               "calls_over_8k": sum(1 for c in calls if c[3] >= SP_LONG),
+               "max_rel_err": max((e / s for e, s, _, _ in calls), default=None),
+               "tol": f"max |kernel - plain| <= {TOL['bfloat16']} * max |plain|",
+               "ok": bool(calls) and all(fin and e <= TOL["bfloat16"] * s
+                                         for e, s, fin, _ in calls)}
+    # The burst runs the plain decode after every kernel call on rank 0
+    # (_sp_decode_checked): its rate is not the serving rate.
+    return {"init_s": init_s, "burst_s": burst_s, "tokens": tokens,
+            "tokens_per_s_with_call_checks": tokens / burst_s,
+            "replies": {str(i): {"tokens": len(ids), "done_reason": why}
+                        for i, (ids, why) in results.items()},
+            "sp_prefills": after["sp_prefill_dispatches"] - before["sp_prefill_dispatches"],
+            "ragged_dispatches": ops["ragged"], "decode_steps": ops["decode_steps"],
+            "launches": counts, "launches_expected": own, "kernels_exact": exact,
+            "decode_per_call": checked, "ring": ring,
+            "ttft_ms": {"sp2": ttft_sp, "one_rank_ragged": ttft_one,
+                        "one_rank_ragged_dispatches": one_stats["ragged_dispatches"]},
+            "max_memory_allocated": peak, "pages": pages,
+            "param_bytes": rt.param_bytes, "kv_bytes": rt.kv_bytes,
+            "trace": eng.spmd_report(), "workers": eng.worker_reports}
+
+
+def _sp_leader_f32(spec, mesh, profile):
+    """float32 identity: one ~5,000-id prompt with 32 greedy tokens at sp
+    (x tp), then on one rank of the same seed (the ragged path's spans):
+    ids identical, the sp prefill's logits within 1e-4 x max of the
+    logits the one rank's last span gave the same position."""
+    import torch
+
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.models import llama
+    from ollamamq_tpu_torch.ops.cuda import launch_counts
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model, ecfg = spec["model"], _sp_ecfg(spec)
+    prompt = _sp_ids(SP_F32_LONG, 5)
+    capture = {}
+
+    def run(eng, fwd, key):
+        orig = getattr(llama, fwd)
+
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            capture[key] = out[0][0].float().cpu()  # row 0: the only request
+            return out
+
+        setattr(llama, fwd, wrapped)
+        try:
+            req = eng.enqueue_request("sp-f32", "", model, prompt_tokens=prompt,
+                                      sampling=SamplingParams(max_tokens=SP_NEW,
+                                                              temperature=0.0))
+            eng.start()
+            item = _tp_wait(req)
+        finally:
+            setattr(llama, fwd, orig)
+        eng.stop()
+        return list(req.generated_ids), item is not None and item.kind == "done"
+
+    sp_eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    ids_sp, ok_sp = run(sp_eng, "forward_prefill_sp", "sp")
+    sp_prefills = sp_eng.runtimes[model].sp_prefill_dispatches
+    counts = launch_counts()
+    workers = sp_eng.worker_reports
+    del sp_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = TorchEngine(dataclasses.replace(ecfg, sp=1), device=mesh.device,
+                      blocklist_path=None)
+    # The one rank's last ragged call before decoding holds the prompt's
+    # last span: its row 0 is the first token's logits.
+    ids_one, ok_one = run(one, "forward_ragged", "one")
+    del one
+    a, b = capture["sp"], capture["one"]
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return {"ids_sp": ids_sp, "ids_one": ids_one, "done": ok_sp and ok_one,
+            "ids_identical": ids_sp == ids_one and len(ids_sp) > 0,
+            "sp_prefills": sp_prefills, "prompt_tokens": len(prompt),
+            "first_logits": {"max_abs_err": err, "ref_max_abs": scale,
+                             "rel_err": err / scale,
+                             "tol": f"max |sp - one rank| <= {TOL['float32']} * "
+                                    "max |one rank|",
+                             "ok": err <= TOL["float32"] * scale},
+            "launches": counts, "workers": workers}
+
+
+def _sp_leader_kill(spec, mesh, profile):
+    """kill -9 of rank 1 in the middle of an 8K prompt's ring while two
+    short streams decode: every request must end with an error within
+    the heartbeat bound, and /health keep answering (runtime failed,
+    worker_stale firing)."""
+    import urllib.request
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model, ecfg = spec["model"], _sp_ecfg(spec)
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    tok = eng.runtimes[model].tokenizer
+    greedy = dict(temperature=0.0)
+    reqs = [eng.enqueue_request(f"kill-{i}", "", model,
+                                prompt_tokens=tok.encode(text * 2),
+                                sampling=SamplingParams(max_tokens=400, **greedy))
+            for i, (_, text) in enumerate(SP_SHORT)]
+    deadline = time.monotonic() + 300
+    while (min(len(r.generated_ids) for r in reqs) < 16
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    in_flight = [len(r.generated_ids) for r in reqs]
+    client = distributed.store()
+    reqs.append(eng.enqueue_request("kill-long", "", model,
+                                    prompt_tokens=_sp_ids(SP_LONG, 6),
+                                    sampling=SamplingParams(max_tokens=SP_NEW, **greedy)))
+    client.wait([SP_RING_KEY.format(rank=1)], datetime.timedelta(seconds=120))
+    os.kill(int(client.get("chip_smoke/pid/1")), signal.SIGKILL)
+    t_kill = time.monotonic()
+    items, ends = [], []
+    for r in reqs:
+        items.append(_tp_wait(r, budget=120))
+        ends.append(time.monotonic() - t_kill)
+    time.sleep(3.5)  # past the heartbeat's staleness
+    eng.health.check_once()
+    with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/health",
+                                timeout=30) as resp:
+        status, health = resp.status, json.loads(resp.read())
+    stop_server(srv)
+    return {"tokens_at_kill": in_flight,
+            "kinds": [it.kind if it else "timeout" for it in items],
+            "errors": [(it.error or "")[:160] if it else "" for it in items],
+            "seconds_to_error": ends, "bound_s": TP_KILL_BOUND_S,
+            "health_http": status, "health_status": health["status"],
+            "alerts": [a["name"] for a in health["alerts"]],
+            "runtime_failed": [r["failed"] for r in health["runtimes"]]}
+
+
+SP_WINDOWS = {"sp-bf16": _sp_leader_bf16, "sp-f32": _sp_leader_f32,
+              "sp-tp-f32": _sp_leader_f32, "sp-kill": _sp_leader_kill}
+
+
+def serve_sp_phase(report) -> None:
+    """Sequence parallelism: llama3.2:1b at full width and depth over two
+    sequence shards sharing the card (gloo): 8K prompts through the ring
+    prefill in bf16, float32 identity with one rank at sp 2 and at sp 2 x
+    tp 2, and a kill -9 mid-ring; see the module docstring."""
+    import torch
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    refusal = subprocess.run(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", SP_MODEL,
+         "--sp", "2", "--kv-dtype", "int8", "--no-tui"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=120)
+    refusal_text = refusal.stdout + refusal.stderr
+    base = {"device": TP_DEVICE, "model": SP_MODEL, "sp": 2, "tp": 1}
+    t_world = time.monotonic()
+    # One world of two ranks serves three windows, the kill last.
+    windows, rcs, _ = _tp_world("sp", [
+        ("sp-bf16", {**base, "dtype": "bfloat16"}),
+        ("sp-f32", {**base, "dtype": "float32"}),
+        ("sp-kill", {**base, "dtype": "bfloat16"})])
+    world_s = time.monotonic() - t_world
+    t_wide = time.monotonic()
+    wide, rcs_wide, _ = _tp_world("sp_tp", [
+        ("sp-tp-f32", {**base, "tp": 2, "dtype": "float32"})])
+    wide_s = time.monotonic() - t_wide
+    bf16, f32, kill, f32tp = (windows["sp-bf16"], windows["sp-f32"],
+                              windows["sp-kill"], wide["sp-tp-f32"])
+    (w_bf16,), (w_f32,) = bf16["workers"], f32["workers"]
+    layers = 16
+    w_exact, w_own = _tp_exact(w_bf16["launches"], w_bf16["ops"], layers, "")
+    pages = {int(k): v for k, v in bf16["pages"].items()}  # JSON keys: str
+    launches = {k: 0 for k in KERNEL_ROWS}
+    for counts in ([bf16["launches"], w_bf16["launches"], f32["launches"],
+                    w_f32["launches"], f32tp["launches"]]
+                   + [w["launches"] for w in f32tp["workers"]]):
+        for k, v in counts.items():
+            launches[k] += v
+    w_ring = w_bf16["runtimes"][SP_MODEL]["seq"]
+
+    def per_prefill(ring):
+        n = max(1, ring["prefills"])
+        return {"prefills": ring["prefills"], "handoffs": ring["handoffs"],
+                "bytes_per_prefill": ring["bytes"] / n,
+                "handoff_ms_per_prefill": 1e3 * (ring["send_s"] + ring["recv_s"]
+                                                 + ring["staging_s"]) / n,
+                "staging_ms_per_prefill": 1e3 * ring["staging_s"] / n,
+                "recv_ms_per_prefill": 1e3 * ring["recv_s"] / n,
+                "prefill_ms": 1e3 * ring["prefill_s"] / n}
+
+    line = {"phase": "serve-sp", "model": SP_MODEL, "sp": 2, "backend": "gloo",
+            "ranks_on": "cuda:0 (both)", "layers": layers,
+            "width": {"hidden": 2048, "heads": 32, "kv_heads": 8, "head_dim": 64,
+                      "intermediate": 8192, "vocab": 128256},
+            "dtype": "bfloat16", "long_prompt_ids": SP_LONG, "padded_T": 8192,
+            "chunk_C": 4096, "streams": 4, "users": 3,
+            **{k: bf16[k] for k in ("init_s", "burst_s", "tokens",
+                                    "tokens_per_s_with_call_checks",
+                                    "replies", "sp_prefills", "ragged_dispatches",
+                                    "decode_steps", "launches_expected",
+                                    "kernels_exact", "decode_per_call", "ttft_ms",
+                                    "param_bytes", "kv_bytes")},
+            "ring": {"rank0": per_prefill(bf16["ring"]), "rank1": per_prefill(w_ring)},
+            "max_memory_allocated": {"rank0": bf16["max_memory_allocated"],
+                                     "rank1": w_bf16.get("max_memory_allocated")},
+            "ops": {"rank0": bf16["trace"]["ops"], "rank1": w_bf16["ops"]},
+            "digests_equal": bf16["trace"]["digest"] == w_bf16["digest"],
+            "launches_rank0_burst": bf16["launches"],
+            "launches_rank1": w_bf16["launches"], "kernels_exact_rank1": w_exact,
+            "page_digests": pages,
+            "f32": {k: f32[k] for k in ("ids_identical", "first_logits", "done",
+                                        "sp_prefills", "prompt_tokens")},
+            "f32_tp2": {k: f32tp[k] for k in ("ids_identical", "first_logits",
+                                              "done", "sp_prefills")},
+            "f32_launches": {"rank0": f32["launches"], "rank1": w_f32["launches"]},
+            "f32_tp2_ops": [w["ops"] for w in f32tp["workers"]],
+            "kill": kill, "cli_sp2_int8_exit": refusal.returncode,
+            "cli_sp2_int8_message": next((ln.split(": ", 1)[-1]
+                                          for ln in refusal_text.splitlines()
+                                          if "sequence-parallel" in ln),
+                                         refusal_text[-300:]),
+            "return_codes": {"sp": rcs, "sp_tp": rcs_wide}, "launches": launches,
+            "worlds": {"sp": "one, 2 ranks", "sp_tp": "one, 4 ranks"},
+            "world_s": {"sp": world_s, "sp_tp": wide_s},
+            "windows_s": {w: r["window_s"] for w, r in {**windows, **wide}.items()}}
+    line["phase_s"] = time.monotonic() - t_phase
+    emit(line)
+    report["serve_sp"] = line
+    rank_pages = [[p["sha256"] for p in pages.get(r, [])] for r in (0, 1)]
+    gates = {
+        "replies": all(r["done_reason"] in ("stop", "length")
+                       for r in line["replies"].values()),
+        "sp_prefills": (bf16["sp_prefills"] == 2
+                        and w_bf16["ops"]["sp_prefill"]
+                        == bf16["trace"]["ops"]["sp_prefill"] == 3),
+        "short_prompts_ragged": bf16["ragged_dispatches"] > 0
+                                and w_bf16["ops"]["ragged"] > 0,
+        "kernels_exact": bf16["kernels_exact"] and w_exact,
+        "ranks_ids_equal": line["digests_equal"],
+        "pages_bit_equal": (len(rank_pages[0]) == 3 and rank_pages[0] == rank_pages[1]
+                            and sum(1 for p in pages.get(0, []) if p["n"] >= SP_LONG) == 3),
+        "decode_per_call": bf16["decode_per_call"]["ok"]
+                           and bf16["decode_per_call"]["calls_over_8k"] > 0,
+        "f32_ids_identical": f32["done"] and f32["ids_identical"]
+                             and f32["sp_prefills"] == 1,
+        "f32_first_logits": f32["first_logits"]["ok"],
+        "f32_decode_kernel_both_ranks": (f32["launches"]["paged_decode_attention"] > 0
+                                         and w_f32["launches"]["paged_decode_attention"] > 0),
+        "f32_tp2_ids_identical": f32tp["done"] and f32tp["ids_identical"]
+                                 and f32tp["sp_prefills"] == 1,
+        "f32_tp2_first_logits": f32tp["first_logits"]["ok"],
+        "cli_sp2_int8_exit_2": (refusal.returncode == 2
+                                and "sequence-parallel" in refusal_text),
+        "kill_errors": kill["kinds"] == ["error"] * 3,
+        "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
+        "kill_health": (kill["health_http"] == 200 and "worker_stale" in kill["alerts"]
+                        and kill["runtime_failed"] == [True]),
+        "exit_codes": rcs == [0, -9] and rcs_wide == [0, 0, 0, 0],
+    }
+    emit({"phase": "serve-sp-gates", **gates})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-sp: gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -6332,6 +6866,7 @@ PHASES = {
     "serve-tp": lambda r, p: serve_tp_phase(r, p),
     "serve-pp": lambda r, p: serve_pp_phase(r, p),
     "serve-dp": lambda r, p: serve_dp_phase(r),
+    "serve-sp": lambda r, p: serve_sp_phase(r),
 }
 
 
@@ -6400,10 +6935,11 @@ def main(argv=None) -> int:
                                             "serve_fleet", "serve_tiers",
                                             "serve_autoscale", "serve_ha",
                                             "serve_tp", "serve_pp",
-                                            "serve_dp"))),
+                                            "serve_dp", "serve_sp"))),
                "launches_serve_tp": report["serve_tp"]["launches"][name],
                "launches_serve_pp": report["serve_pp"]["launches"][name],
                "launches_serve_dp": report["serve_dp"]["launches"][name],
+               "launches_serve_sp": report["serve_sp"]["launches"][name],
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

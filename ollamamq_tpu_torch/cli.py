@@ -87,15 +87,24 @@ on the CPU with --device cpu), stage 0 holds rank 0. The runtime serves
 generate only, through the bucketed prefill, the chunked long-prompt
 path and the pipelined decode, in --pp-microbatches GPipe microbatches
 (default one per stage). A pp that does not divide a model's layers, pp
-with a mixture-of-experts model, --kv-dtype int8 with pp, and --pp with
-a fleet exit 2.
+with a mixture-of-experts model and --kv-dtype int8 with pp exit 2.
+
+--sp N (N > 1) cuts a long prompt's prefill over N sequence shards,
+one rank each, times --tp ranks per shard: the ranks start as for --tp
+(one per device, or all on the CPU with --device cpu), and a prompt
+past the largest prefill bucket prefills in one forward with ring
+attention over the shards (parallel/ring_attention.py); weights and the
+KV pool are replicated over them, so every other step runs alike on
+each. --kv-dtype int8 with sp and sp with pp exit 2. In a fleet every
+member starts at the fleet's --tp / --pp / --sp (fleet/wide.py).
 
 --dp N serves every generative model as N data-parallel replicas, each
 with its own weights, KV pool and slots; a request goes to the
 least-loaded replica. Alone, this one process holds the N replicas, on
 cuda:0..cuda:N-1 (all on the CPU with --device cpu). With --tp or --pp
-each replica is its own tp x pp group of ranks, started as for --tp
-(N x pp x tp ranks, one per device; replica r holds ranks r*pp*tp ..);
+each replica is its own tp x sp x pp group of ranks, started as for
+--tp (N x pp x sp x tp ranks, one per device; replica r holds ranks
+r*pp*sp*tp ..);
 with --spmd the world in the env is cut the same way. A host with fewer
 cards than the replicas need exits 2 naming the missing ones: no replica
 falls back to another device or to the CPU.
@@ -302,6 +311,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp", type=int, default=d.pp,
                    help="pipeline-parallel stages (layers split across "
                         "chip groups; for models beyond one group's HBM)")
+    p.add_argument("--sp", type=int, default=d.sp,
+                   help="sequence-parallel shards: ranks a long prompt's "
+                        "one-shot prefill is cut over (ring attention)")
     p.add_argument("--pp-microbatches", type=int, default=0,
                    help="GPipe microbatches per pp dispatch (0 = one per "
                         "stage; sweep on hardware — prefill wants more, "
@@ -502,7 +514,8 @@ def validate(args, cards=None) -> str:
         if get_model_config(name) is None:
             return f"unknown model architecture: {name}"
     err = (validate_quant_config(args.weights_dtype, args.kv_dtype,
-                                 pp=args.pp, model_names=list(model_table(args)))
+                                 pp=args.pp, sp=args.sp,
+                                 model_names=list(model_table(args)))
            or validate_scheduler(args.scheduler))
     if err:
         return err
@@ -540,7 +553,7 @@ def validate(args, cards=None) -> str:
                 "--replica-urls from a non-SPMD front-end instead)")
     if args.dp < 1:
         return f"--dp must be >= 1, got {args.dp}"
-    if args.tp != 1 or args.pp != 1 or args.spmd:
+    if args.tp != 1 or args.pp != 1 or args.sp != 1 or args.spmd:
         err = validate_tp(args)
         if err:
             return err
@@ -603,9 +616,9 @@ def validate(args, cards=None) -> str:
 
 
 def validate_tp(args) -> str:
-    """--tp / --pp / --spmd errors that need no device work: the widths
-    against every model's heads and layers, and the devices of a local
-    world (tp x pp ranks) on this host."""
+    """--tp / --pp / --sp / --spmd errors that need no device work: the
+    widths against every model's heads and layers, and the devices of a
+    local world (tp x pp x sp ranks) on this host."""
     from ollamamq_tpu_torch.parallel.distributed import multiprocess_configured
 
     if args.spmd and not os.environ.get("OLLAMAMQ_TP_WORKER") \
@@ -618,8 +631,14 @@ def validate_tp(args) -> str:
         return f"--pp must be >= 1, got {args.pp}"
     if args.pp_microbatches < 0:
         return f"--pp-microbatches must be >= 0, got {args.pp_microbatches}"
+    if args.sp < 1:
+        return f"--sp must be >= 1, got {args.sp}"
     if args.fake_engine:
-        return "--tp / --pp need a model engine; --fake-engine runs none"
+        return "--tp / --pp / --sp need a model engine; --fake-engine runs none"
+    if args.sp > 1 and args.pp > 1:
+        return ("pp and sp cannot combine on one runtime: pipeline stages "
+                "and sequence shards contend for the same activation layout "
+                "(use pp x tp, or sp x tp)")
     err = validate_width(args, args.tp, args.pp)
     if err or is_fleet(args):  # a fleet's cards: validate_fleet_cards
         return err
@@ -667,7 +686,8 @@ def fleet_has_wide(args) -> bool:
     (the card plan then gives every member cards of its own)."""
     widths = list(member_widths(args).values()) + [
         w for w in tier_widths(args).values() if w]
-    return args.pp > 1 or any(max(1, w) > 1 for w in widths + [args.tp])
+    return args.pp > 1 or args.sp > 1 or any(max(1, w) > 1
+                                             for w in widths + [args.tp])
 
 
 def validate_fleet_cards(args, cards=None) -> str:
@@ -685,7 +705,7 @@ def validate_fleet_cards(args, cards=None) -> str:
     for name, width in member_widths(args).items():
         try:
             trial.take_member(name, argparse.Namespace(dp=args.dp, tp=width,
-                                                       pp=args.pp))
+                                                       pp=args.pp, sp=args.sp))
         except RuntimeError as e:
             return str(e)
     return ""
@@ -706,7 +726,8 @@ def validate_devices(args) -> str:
     if have >= need:
         return ""
     flags = " ".join(f"{f} {n}" for f, n in (("--dp", args.dp), ("--tp", args.tp),
-                                            ("--pp", args.pp)) if n != 1)
+                                            ("--pp", args.pp), ("--sp", args.sp))
+                     if n != 1)
     unit = "rank" if world > 1 else "replica"
     missing = ", ".join(f"cuda:{i}" for i in range(have, need))
     return (f"{flags} runs one {unit} per device, cuda:0..cuda:{need - 1}, "
@@ -715,10 +736,10 @@ def validate_devices(args) -> str:
 
 
 def local_world(args) -> int:
-    """Ranks of a one-host --tp / --pp world: tp per stage times pp, times
-    --dp replicas of that group (1: no rank world; --dp alone runs its
-    replicas in this process)."""
-    group = max(1, args.tp) * args.pp
+    """Ranks of a one-host --tp / --pp / --sp world: tp per stage times pp
+    times sp, times --dp replicas of that group (1: no rank world; --dp
+    alone runs its replicas in this process)."""
+    group = max(1, args.tp) * args.pp * args.sp
     return args.dp * group if group > 1 else 1
 
 
@@ -755,7 +776,7 @@ def engine_config(args) -> EngineConfig:
         router_overhead_budget_ms=args.router_overhead_budget_ms,
         federate_metrics=not args.no_federate_metrics,
         preemptible=args.preemptible or None, tp=args.tp, pp=args.pp,
-        dp=args.dp,
+        dp=args.dp, sp=args.sp,
         pp_microbatches=args.pp_microbatches or None,
         tiers=args.tiers or None, autoscale=args.autoscale,
         min_replicas=args.min_replicas, max_replicas=args.max_replicas,
@@ -840,9 +861,10 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
 
 
 def start_ranks(args, argv, log):
-    """Bring up the rank world of --tp / --pp / --spmd. Returns (mesh,
-    worker processes this process started). --tp N --pp P on one host
-    (N x P ranks): this process is rank 0 and starts the others as
+    """Bring up the rank world of --tp / --pp / --sp / --spmd. Returns
+    (mesh, worker processes this process started). --tp N --pp P --sp Q
+    on one host (N x P x Q ranks): this process is rank 0 and starts the
+    others as
     `python -m ollamamq_tpu_torch.cli`
     with the same flags (env OLLAMAMQ_TP_WORKER=1, RANK, WORLD_SIZE,
     MASTER_ADDR/PORT of the store this process hosts), each dying with
@@ -858,7 +880,7 @@ def start_ranks(args, argv, log):
         world = int(os.environ.get("WORLD_SIZE", "1"))
         distributed.initialize(devices=["cpu"] * world if cpu else None)
         tp = args.tp if args.tp not in (1, -1) or not args.spmd else -1
-        return make_mesh(dp=args.dp, tp=tp, pp=args.pp), procs
+        return make_mesh(dp=args.dp, tp=tp, pp=args.pp, sp=args.sp), procs
 
     world = local_world(args)
 
@@ -879,7 +901,7 @@ def start_ranks(args, argv, log):
         distributed.initialize("127.0.0.1:0", world, 0, devices=devices,
                                on_store=spawn)
         return make_mesh(dp=args.dp, tp=max(1, args.tp), pp=args.pp,
-                         devices=devices), procs
+                         sp=args.sp, devices=devices), procs
     except BaseException:
         for p in procs:
             p.kill()
@@ -1007,7 +1029,8 @@ def main(argv=None) -> int:
     workers = []
     # A fleet's members lead their own rank worlds (build_fleet); this
     # process is a rank of a world only as one engine.
-    if not is_fleet(args) and (args.tp != 1 or args.pp != 1 or args.spmd):
+    if not is_fleet(args) and (args.tp != 1 or args.pp != 1 or args.sp != 1
+                               or args.spmd):
         from ollamamq_tpu_torch.engine import spmd
         from ollamamq_tpu_torch.parallel import distributed
 
@@ -1015,7 +1038,8 @@ def main(argv=None) -> int:
         if not distributed.is_primary():
             # Worker rank: replay rank 0's step plans until shutdown.
             log.info("%s worker rank %d starting for %s",
-                     "pipeline-parallel" if args.pp > 1 else "tensor-parallel",
+                     "pipeline-parallel" if args.pp > 1 else
+                     "sequence-parallel" if args.sp > 1 else "tensor-parallel",
                      distributed.rank(), ",".join(model_table(args)))
             spmd.run_worker(model_table(args), ecfg, mesh)
             return 0

@@ -250,6 +250,11 @@ class EngineConfig:
     # of the batch).
     pp: int = 1
     pp_microbatches: Optional[int] = None
+    # Sequence-parallel shards of one engine: a prompt past the largest
+    # prefill bucket prefills in one forward cut over sp ranks (ring
+    # attention, parallel/ring_attention.py); weights and the KV pool
+    # are replicated over them.
+    sp: int = 1
     dtype: str = "bfloat16"
     # "int8": per-channel symmetric int8 weights, quantized when the
     # runtime builds them (f32 scales; norms and biases stay in `dtype`).

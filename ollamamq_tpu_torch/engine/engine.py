@@ -508,6 +508,14 @@ class ModelRuntime(JournaledRuntime):
         self.kv_dtype = engine_cfg.kv_dtype
         self.mesh, self.tp, tp_size = _tensor_axis(mesh, model_cfg)
         self.device = resolve_device(self._home_device(mesh, device))
+        # Sequence parallelism: a prompt past the largest prefill bucket
+        # prefills in one forward cut over the seq axis (ring attention,
+        # models/llama.py forward_prefill_sp); weights and the KV pool
+        # are replicated over the axis, so every other op runs alike on
+        # every shard. `seq` is this rank's ring (None on rank 0's host
+        # state of another replica).
+        self._sp = mesh is not None and mesh.shape["seq"] > 1
+        self.seq = mesh.seq if mesh is not None else None
         self.dtype = dtype if dtype is not None else DTYPES[engine_cfg.dtype]
         self.tokenizer = load_tokenizer(checkpoint_path)
         if tp_size > model_cfg.num_kv_heads:
@@ -597,6 +605,7 @@ class ModelRuntime(JournaledRuntime):
         self.tokens_generated = 0
         self.ragged_dispatches = 0
         self.prefill_dispatches = 0
+        self.sp_prefill_dispatches = 0
         self.chunk_dispatches = 0
         self.decode_dispatches = 0
         self.decode_steps = 0
@@ -1404,6 +1413,7 @@ class ModelRuntime(JournaledRuntime):
             # queue (fcfs: FIFO, untouched).
             self.policy.reorder_pending(self.pending_prefill)
         did = False
+        largest = self.ecfg.prefill_buckets[-1]
         while self.pending_prefill:
             req = self.pending_prefill[0]
             if req.cancelled.is_set():
@@ -1428,6 +1438,23 @@ class ModelRuntime(JournaledRuntime):
                     f"prompt length {n} exceeds maximum {max_prompt}" if n
                     else "empty prompt"))
                 continue
+            if self._sp and n > largest:
+                # A long prompt on a sequence-parallel mesh takes the
+                # one-shot ring-attention prefill (its activations cut
+                # over the seq axis; the ragged stream's do not), past
+                # the prefix cache.
+                slot = self._claim_slot()
+                if slot is None:
+                    return did
+                pages = self._alloc_pages(n + 1)
+                if pages is None:
+                    return did
+                self.pending_prefill.popleft()
+                self._pc_miss()
+                req.stats.prefill_started_at = time.monotonic()
+                self.slot_pages[slot] = pages
+                self._prefill_sp(req, slot, n, core)
+                return True
             nodes, shared = [], []
             if self.prefix_cache is not None:
                 nodes, shared = self._match_prefix(req.prompt_tokens)
@@ -2007,6 +2034,83 @@ class ModelRuntime(JournaledRuntime):
         self.recent[slot] = row
         return tok
 
+    def _dispatch_prefill_sp(self, T, tokens, lens, slot_ids, pt_rows, temp,
+                             top_k, top_p, pen, pres, freq,
+                             seeds) -> torch.Tensor:
+        """The sequence-parallel prefill of one long prompt padded to T
+        (every input of the device work, so each rank of the ring replays
+        the same call): forward_prefill_sp writes every position's K/V
+        into the slot's pages on this shard, then the penalty ring opens
+        from the prompt's last W tokens and one token is sampled, alike
+        on every shard. Returns the token [1] on the device."""
+        self._fault("sp_prefill")
+        tokens_d, lens_d, slots_d, pt_d = self._to_dev(
+            [tokens, lens, slot_ids, pt_rows], np.int32)
+        logits, _, _ = llama.forward_prefill_sp(
+            self.params, self.cfg, tokens_d, lens_d, self.kc, self.vc, pt_d,
+            self.ecfg.page_size, self.seq, tp=self.tp)
+        W = self.recent.shape[1]
+        idx = lens_d[:, None] - W + torch.arange(W, device=self.device)[None, :]
+        gathered = torch.gather(tokens_d, 1, idx.clamp(0, T - 1).long())
+        rows = torch.where(idx >= 0, gathered, -1)
+        tok = self._sample_rows(logits, rows, lens, temp, top_k, top_p, pen,
+                                pres, freq, seeds)
+        self.recent[slots_d.long()] = torch.cat([rows[:, 1:], tok[:, None]], 1)
+        return tok
+
+    def _prefill_sp(self, req: Request, slot: int, n: int, core: MQCore) -> None:
+        """Run the sequence-parallel prefill of one long prompt and
+        install its slot. The caller claimed the slot and its pages. The
+        prompt pads to T, a multiple of the largest bucket rounded up to
+        a multiple of sp. A failure is contained to this request: its
+        pages go back, it is retried once, and a desync re-raises (the
+        runtime must fail and reload)."""
+        s = req.sampling
+        sp = self.mesh.shape["seq"]
+        largest = self.ecfg.prefill_buckets[-1]
+        unit = -(-largest // sp) * sp
+        T = -(-n // unit) * unit
+        self.page_table[slot, :] = kvc.make_page_table_row(
+            self.slot_pages[slot], self.ecfg.max_pages_per_seq)
+        tokens = np.zeros((1, T), np.int32)
+        tokens[0, :n] = req.prompt_tokens
+        self.inflight_prefill = [req]
+        req.trace_event("prefill", mode="sp", tokens=n)
+        t0 = time.monotonic()
+        try:
+            tok = self._dispatch_prefill_sp(
+                T, tokens, np.asarray([n], np.int32),
+                np.asarray([slot], np.int32), self.page_table[slot:slot + 1],
+                np.asarray([s.temperature], np.float32),
+                np.asarray([s.top_k], np.int32),
+                np.asarray([s.top_p], np.float32),
+                np.asarray([s.repeat_penalty], np.float32),
+                np.asarray([s.presence_penalty], np.float32),
+                np.asarray([s.frequency_penalty], np.float32),
+                np.asarray([s.seed], np.int32))
+            tok = int(tok.cpu().numpy()[0])
+        except Exception as e:  # noqa: BLE001 — contained to this request
+            # The slot was never installed, so a failed runtime would not
+            # find its pages: release them here, retry once, and keep the
+            # other requests in flight.
+            log.exception("sequence-parallel prefill failed for req %d",
+                          req.req_id, extra={"req_id": req.req_id})
+            self._release_slot_pages(slot)
+            desync = isinstance(e, WorkerDesyncError)
+            msg = f"sp prefill failed: {e}"
+            if desync or not self._retry_requeue(req, msg):
+                core.mark_dropped(req.user)
+                req.finish(FinishReason.ERROR, error=self._poison_msg(req, msg))
+            if desync:
+                raise  # diverged ranks: the runtime must fail and reload
+            return
+        finally:
+            self.inflight_prefill = []
+        self.sp_prefill_dispatches += 1
+        self.prefill_latency_ms = (time.monotonic() - t0) * 1e3
+        self._tm_prefill.observe(self.prefill_latency_ms)
+        self._install_slot(slot, req, n, tok, core)
+
     def step_prefill(self, core: MQCore) -> bool:
         """Admit pending prompts into free slots: same-bucket prompts
         prefill TOGETHER in one forward (up to MAX_PREFILL_BATCH), which
@@ -2045,8 +2149,11 @@ class ModelRuntime(JournaledRuntime):
                     f"prompt length {n} exceeds maximum {max_prompt}" if n
                     else "empty prompt"))
                 continue
-            nodes, shared = ([], []) if self.prefix_cache is None else \
-                self._match_prefix(req.prompt_tokens)
+            # A sequence-parallel runtime keeps its one-shot ring-attention
+            # forward for a prompt past the largest bucket: no prefix match.
+            sp_long = self._sp and n > largest
+            nodes, shared = ([], []) if self.prefix_cache is None or sp_long \
+                else self._match_prefix(req.prompt_tokens)
             if nodes or n > largest:
                 # The chunked path: the uncached tail of a prefix hit, or a
                 # prompt past the largest bucket.
@@ -2078,6 +2185,11 @@ class ModelRuntime(JournaledRuntime):
                     prefix_len = 0
                 self.pending_prefill.popleft()
                 req.stats.prefill_started_at = time.monotonic()
+                if sp_long:
+                    # ONE forward with the sequence cut over the seq axis
+                    # instead of serial chunks.
+                    self._prefill_sp(req, slot, n, core)
+                    return True
                 # The row stays OFF the shared page table until the final
                 # chunk installs the slot: decode steps write every slot's
                 # position through self.page_table, and a reserved slot
@@ -2486,6 +2598,7 @@ class ModelRuntime(JournaledRuntime):
                 "tokens_generated": self.tokens_generated,
                 "ragged_dispatches": self.ragged_dispatches,
                 "prefill_dispatches": self.prefill_dispatches,
+                "sp_prefill_dispatches": self.sp_prefill_dispatches,
                 "chunk_dispatches": self.chunk_dispatches,
                 "decode_dispatches": self.decode_dispatches,
                 "decode_steps": self.decode_steps,

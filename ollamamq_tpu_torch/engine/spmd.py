@@ -27,8 +27,9 @@ the JAX package's numbers:
     OP_CHUNK    = 2, a=chunk     (one chunk of a long prompt, pp > 1)
     OP_DECODE   = 3, a=k_steps   (fused decode steps of every slot)
     OP_ENCODE   = 4, a=B, b=bucket (embedding batch forward, stateless)
-    OP_PREFILL_SP = 5            reserved: the sequence-parallel prefill,
-                                    not ported yet
+    OP_PREFILL_SP = 5, a=T       (one long prompt's sequence-parallel
+                                    prefill: every rank of the replica
+                                    runs its shard of the ring)
     OP_RELOAD   = 6              -> rebuild runtime [mi][ri] from pristine
                                     config (failure recovery)
     OP_LOAD     = 7, a=n_replicas; payload carries (name, ckpt) strings
@@ -115,7 +116,7 @@ OP_PREFILL = 1  # a=bucket, b=B: bucketed prefill (the pp > 1 path)
 OP_CHUNK = 2  # a=chunk: one chunk of a long prompt (the pp > 1 path)
 OP_DECODE = 3
 OP_ENCODE = 4
-OP_PREFILL_SP = 5  # reserved: sequence-parallel prefill
+OP_PREFILL_SP = 5  # a=T: one long prompt's sequence-parallel prefill
 OP_RELOAD = 6
 OP_LOAD = 7
 OP_EVICT = 8
@@ -125,8 +126,8 @@ OP_SPEC = 11  # a=T_pad, b=k_cap: ragged mixed batch + speculative spans
 
 NAME_LEN = 128  # utf-8 bytes, zero-padded, for OP_LOAD/OP_EVICT names
 PATH_LEN = 256  # utf-8 bytes for checkpoint paths ("" = None)
-DATA_OPS = (OP_PREFILL, OP_CHUNK, OP_DECODE, OP_ENCODE, OP_EMBED, OP_RAGGED,
-            OP_SPEC)
+DATA_OPS = (OP_PREFILL, OP_CHUNK, OP_DECODE, OP_PREFILL_SP, OP_ENCODE, OP_EMBED,
+            OP_RAGGED, OP_SPEC)
 
 
 def _env_float(name: str, default: float) -> float:
@@ -249,6 +250,10 @@ def payload_spec(op, a, b, S, MP, W, K):
         # last tokens, positions, active mask, page table
         return [((S,), np.int32), ((S,), np.int32), ((S,), np.int32),
                 ((S, MP), np.int32)] + samp(S) + key
+    if op == OP_PREFILL_SP:
+        # tokens padded to T, lens, slot id, page-table row
+        return [((1, a), np.int32), ((1,), np.int32), ((1,), np.int32),
+                ((1, MP), np.int32)] + samp(1) + key
     if op == OP_RAGGED:
         T = a
         # tokens, tok_seq, tok_pos, write_slots; then per-sequence
@@ -276,9 +281,6 @@ def payload_spec(op, a, b, S, MP, W, K):
         return [((NAME_LEN,), np.int32), ((PATH_LEN,), np.int32)]
     if op == OP_EVICT:
         return [((NAME_LEN,), np.int32)]
-    if op == OP_PREFILL_SP:
-        raise ValueError(f"opcode {op} carries a sequence-parallel "
-                         "dispatch, which is not ported yet")
     raise ValueError(f"no payload spec for opcode {op}")
 
 
@@ -644,7 +646,8 @@ class _OpTrace:
 
     def reset(self) -> None:
         self.ops = {"ragged": 0, "spec": 0, "prefill": 0, "chunk": 0,
-                    "decode": 0, "decode_steps": 0, "embed": 0, "encode": 0}
+                    "sp_prefill": 0, "decode": 0, "decode_steps": 0,
+                    "embed": 0, "encode": 0}
         self._h = hashlib.sha256()
 
     def record(self, op: int, a: int, out) -> None:
@@ -678,7 +681,7 @@ def _raise_on_worker_failure(flags: Optional[np.ndarray], name: str) -> None:
 
 
 _OP_SITE = {OP_PREFILL: "prefill", OP_CHUNK: "chunk", OP_DECODE: "decode",
-            OP_RAGGED: "ragged", OP_SPEC: "spec_verify", OP_EMBED: "embed",
+            OP_PREFILL_SP: "sp_prefill", OP_RAGGED: "ragged", OP_SPEC: "spec_verify", OP_EMBED: "embed",
             OP_ENCODE: "encode"}
 
 
@@ -926,6 +929,16 @@ class SPMDModelRuntime(_SPMDMixin, ModelRuntime):
         return self._mirrored(
             OP_CHUNK, chunk, 0, args[1:] + (_key_of(self),),
             lambda: ModelRuntime._dispatch_chunk(self, *args))
+
+    def _dispatch_prefill_sp(self, T, tokens, lens, slot_ids, pt_rows, temp,
+                             top_k, top_p, pen, pres, freq, seeds):
+        args = (T, tokens, lens, slot_ids, pt_rows, temp, top_k, top_p, pen,
+                pres, freq, seeds)
+        if not self._spmd:
+            return super()._dispatch_prefill_sp(*args)
+        return self._mirrored(
+            OP_PREFILL_SP, T, 0, args[1:] + (_key_of(self),),
+            lambda: ModelRuntime._dispatch_prefill_sp(self, *args))
 
     def _dispatch_decode(self, k_steps, last_tokens, seq_lens, active_mask,
                          page_table, temp, top_k, top_p, pen, pres, freq,
@@ -1345,8 +1358,8 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
     for tests; production workers run until OP_SHUTDOWN, when they file
     their report (`ollamamq/report/<rank>`: ops, output digest, kernel
     launches, its replica, the (model, replica) ordinals it reloaded,
-    each runtime's weight and KV bytes and pipeline hand-off times, peak
-    device memory) for the primary.
+    each runtime's weight and KV bytes and its pipeline and ring
+    hand-off times, peak device memory) for the primary.
 
     A replay failure is answered over the status sync: the primary fails
     that runtime loudly and sends OP_RELOAD, which rebuilds it here from
@@ -1354,7 +1367,8 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
     from ollamamq_tpu_torch.config import get_model_config, validate_quant_config
 
     err = validate_quant_config(engine_cfg.weights_dtype, engine_cfg.kv_dtype,
-                                pp=mesh.pp, model_names=list(models))
+                                pp=mesh.pp, sp=mesh.sp,
+                                model_names=list(models))
     if err is not None:
         raise ValueError(err)
     _reset_wire(mesh)
@@ -1391,7 +1405,9 @@ def run_worker(models, engine_cfg: EngineConfig, mesh, dtype=None,
                     rt.name: {"param_bytes": rt.param_bytes,
                               "kv_bytes": rt.kv_bytes,
                               "pipe": (dict(rt.pipe.stats)
-                                       if getattr(rt, "pipe", None) else None)}
+                                       if getattr(rt, "pipe", None) else None),
+                              "seq": (dict(rt.seq.stats)
+                                      if getattr(rt, "seq", None) else None)}
                     for row in rows for rt in row.values()
                     if not isinstance(rt, _DeadReplica)}
                 if mesh.device.type == "cuda":
@@ -1534,6 +1550,13 @@ def _replay(rt, op, a, b, payload):
         out = ModelRuntime._dispatch_chunk(
             rt, a, tokens, start, cl, slot_id, is_final, is_first, seed_row,
             pt, temp, tk, tp, pen, pres, freq, np.array(seeds))
+    elif op == OP_PREFILL_SP:
+        (tokens, lens, slot_ids, pt, temp, tk, tp, pen, pres, freq, seeds,
+         key) = payload
+        rt.gen.set_state(torch.from_numpy(key.copy()))
+        out = ModelRuntime._dispatch_prefill_sp(
+            rt, a, tokens, lens, slot_ids, pt, temp, tk, tp, pen, pres, freq,
+            np.array(seeds))
     elif op == OP_DECODE:
         (tokens, positions, active, pt, temp, tk, tp, pen, pres, freq,
          seeds, key) = payload

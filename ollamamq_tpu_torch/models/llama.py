@@ -24,6 +24,7 @@ w_router and the expert stacks we_gate / we_up / we_down
 from __future__ import annotations
 
 import math
+import time
 from typing import Tuple
 
 import torch
@@ -370,6 +371,77 @@ def forward_prefill_chunk(
                        v_cache, slots, attend, valid, tp)
     x_last = last_valid(x.reshape(B, C, -1), chunk_lens)
     return _logits(params, cfg, x_last, tp), k_cache, v_cache
+
+
+def forward_prefill_sp(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int32, right-padded; T divisible by sp
+    seq_lens: torch.Tensor,  # [B] valid lengths
+    k_cache,  # [L, S, Hk, hd] tensor, written in place
+    v_cache,
+    page_table: torch.Tensor,  # [B, max_pages]; rows cover every real token
+    page_size: int,
+    seq,  # SeqGroup: this rank's shard of the sequence-parallel ring
+    tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequence-parallel prefill of long prompts: this shard runs the
+    layers over its chunk of the sequence (positions seq.index * C ...,
+    C = T / sp) with ring attention (parallel/ring_attention.py). Every
+    K/V chunk that passes through the shard on the ring is written into
+    its own pages, so each shard's pool ends as one whole prefill's
+    (the pool is replicated over the seq axis); positions at or past
+    seq_lens go to the trash page. The shard holding a row's last valid
+    position hands that hidden row to the others (a sum over the seq
+    axis with zeros elsewhere, exact), so every shard computes the same
+    logits. Returns (last-valid-position logits [B, V] float32,
+    k_cache, v_cache)."""
+    from ollamamq_tpu_torch.engine.kv_cache import TRASH_PAGE
+    from ollamamq_tpu_torch.parallel.ring_attention import ring_attention
+
+    t0 = time.perf_counter()
+    B, T = tokens.shape
+    sp = seq.size
+    C = T // sp
+    if C * sp != T:
+        raise ValueError(f"padded length {T} is not divisible by sp={sp}")
+    dev = tokens.device
+    lo = seq.index * C
+    seq_lens = seq_lens.to(dev)
+    x = _embed(params, cfg, tokens[:, lo:lo + C].reshape(-1), tp)  # [B*C, D]
+    pos_b = lo + torch.arange(C, dtype=torch.int32, device=dev).expand(B, C)
+    valid = (pos_b < seq_lens[:, None]).reshape(-1)
+    # Every chunk's slots: a position at or past seq_lens lands in the
+    # trash page.
+    pos_all = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    slots = flat_slot_indices(page_table, pos_all, page_size)
+    slots = torch.where(pos_all < seq_lens[:, None], slots,
+                        TRASH_PAGE * page_size + pos_all % page_size)
+    chunk_slots = [slots[:, j * C:(j + 1) * C].reshape(-1) for j in range(sp)]
+
+    for layer, lp in enumerate(params["layers"]):
+        def ring(q, k, v, layer=layer):
+            def write(j, kj, vj):
+                kv_write(k_cache[layer], chunk_slots[j], kj.flatten(0, 1))
+                kv_write(v_cache[layer], chunk_slots[j], vj.flatten(0, 1))
+
+            out = ring_attention(q.reshape(B, C, *q.shape[1:]),
+                                 k.reshape(B, C, *k.shape[1:]),
+                                 v.reshape(B, C, *v.shape[1:]), seq_lens, seq,
+                                 on_chunk=write)
+            return out.reshape(B * C, *q.shape[1:])
+
+        x = layer_step(cfg, lp, x, pos_b.reshape(-1), ring, valid, tp)
+    last = (seq_lens.long() - 1).clamp(0, T - 1)  # [B] global positions
+    mine = (last >= lo) & (last < lo + C)
+    rows = x.reshape(B, C, -1)[torch.arange(B, device=dev),
+                               (last - lo).clamp(0, C - 1)]
+    x_last = seq.all_reduce(torch.where(mine[:, None], rows,
+                                        torch.zeros_like(rows)))
+    logits = _logits(params, cfg, x_last, tp)
+    seq.stats["prefills"] += 1
+    seq.stats["prefill_s"] += time.perf_counter() - t0
+    return logits, k_cache, v_cache
 
 
 def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

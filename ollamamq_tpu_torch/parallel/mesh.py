@@ -6,7 +6,7 @@ collectives. PyTorch has no single controller, so here each rank is a
 process (torch.distributed), the mesh is a grid of ranks with the same
 five axes in the same order,
 
-  - "data":   replicas: each data index is a whole (pipe, tensor)
+  - "data":   replicas: each data index is a whole (pipe, seq, tensor)
               sub-grid of ranks serving its own requests with its own
               weights and KV pool (replica_submesh); the engine places
               each request on its least-loaded replica
@@ -14,18 +14,26 @@ five axes in the same order,
               the layers and their KV pages and hands its activations to
               the next stage point to point (PipeGroup,
               parallel/pipeline.py)
-  - "seq":    sequence shards (not ported yet)
+  - "seq":    sequence shards: a long prompt's one-shot prefill cuts
+              the sequence in contiguous chunks over the axis and runs
+              ring attention, each shard handing its K/V chunk to the
+              next point to point (SeqGroup,
+              parallel/ring_attention.py); weights and the KV pool are
+              replicated over it, so every other op runs alike on
+              every shard
   - "expert": expert shards (not ported yet)
   - "tensor": tensor parallelism within a stage: attention heads, FFN
               hidden dims and the vocabulary sharded; the forwards call
               the collectives themselves (TensorGroup)
 
 Ranks are numbered in that order (the tensor index varies fastest), so
-replica r holds the ranks [r * pp * tp, (r + 1) * pp * tp). The tensor
-axis carries one process group per (replica, stage) and the pipe axis
-one per (replica, tensor index), each built by its own ranks on the
-world's store (distributed.World.group), so several worlds can live in
-one process (a fleet router leads one per wide member). Several
+replica r holds the ranks [r * pp * sp * tp, (r + 1) * pp * sp * tp).
+The tensor axis carries one process group per (replica, stage, seq
+index), the pipe axis one per (replica, seq index, tensor index) and
+the seq axis one per (replica, stage, tensor index), each built by its
+own ranks on the world's store (distributed.World.group), so several
+worlds can live in one process (a fleet router leads one per wide
+member). Several
 ranks may share one device (two ranks on one card over gloo);
 `n_devices` counts the distinct devices, which is what MFU divides by.
 
@@ -57,6 +65,16 @@ AXIS_EXPERT = "expert"
 AXES = (AXIS_DATA, AXIS_PIPE, AXIS_SEQ, AXIS_EXPERT, AXIS_TENSOR)
 
 
+def _sum(group, x: torch.Tensor) -> torch.Tensor:
+    """All-reduce (sum) of x over `group`, in place; returns x."""
+    import torch.distributed as dist
+
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = dist.ReduceOp.SUM
+    group.allreduce([x], opts).wait()
+    return x
+
+
 def shard_range(n: int, size: int, rank: int) -> Tuple[int, int]:
     """Rank `rank`'s [lo, hi) of an axis of n entries cut in `size`
     shards of ceil(n / size) (the last one shorter when size does not
@@ -81,13 +99,7 @@ class TensorGroup:
         """Sum of x over the tensor axis (row-parallel projections, the
         vocab-parallel embedding), in place; returns x. A one-rank axis
         with no process group is a no-op."""
-        if self.group is not None:
-            import torch.distributed as dist
-
-            opts = dist.AllreduceOptions()
-            opts.reduceOp = dist.ReduceOp.SUM
-            self.group.allreduce([x], opts).wait()
-        return x
+        return x if self.group is None else _sum(self.group, x)
 
     def vocab_range(self, vocab: int) -> Tuple[int, int]:
         return shard_range(vocab, self.size, self.rank)
@@ -106,44 +118,25 @@ class TensorGroup:
         return self.all_reduce(full)
 
 
-class PipeGroup:
-    """The pipe axis as a stage sees it: this rank's stage, the stage
-    count, the global rank of every stage of its pipeline and their
-    process group. Hand-offs are point to point: a stage sends its
-    activations to a later stage and receives from an earlier one, in
-    the same order on both sides.
+class _PointToPoint:
+    """Point-to-point hand-offs over one process group, shared by the
+    pipe and seq axes. A CUDA tensor crosses a gloo group through pinned
+    host buffers, staged here explicitly (gloo moves host memory; a raw
+    send of device memory aborts the sender); an NCCL group sends device
+    memory directly. Buffers are keyed by the caller's slot and reused
+    once the hand-off that used them completed. `stats` sums the bytes
+    sent and, in seconds, the host staging copies (staging_s), posting
+    sends and completing them (send_s) and posting and completing
+    receives (recv_s: this includes the wait for the peer's compute)."""
 
-    A CUDA tensor crosses a gloo group through pinned host buffers,
-    staged here explicitly (gloo moves host memory); an NCCL group sends
-    device memory directly. Sends are asynchronous and `flush` waits for
-    them (the end of each forward), so a send buffer is reused only
-    after its send completed. `stats` sums, in seconds: the hand-offs'
-    host staging copies (staging_s), posting and completing sends
-    (send_s), receives (recv_s: this includes the wait for the sending
-    stage's compute, the pipeline's bubble as this stage sees it) and
-    the wall time of whole forwards (forward_s, parallel/pipeline.py)."""
-
-    def __init__(self, size: int, stage: int, ranks: Sequence[int],
-                 group=None, backend: Optional[str] = None):
-        self.size = size
-        self.stage = stage
+    def __init__(self, ranks: Sequence[int], group=None,
+                 backend: Optional[str] = None):
         self.ranks = [int(r) for r in ranks]
         self.group = group
         self.backend = backend
         self._bufs: dict = {}
-        self._pending: list = []
-        self._n = 0  # hand-offs since the last flush: a buffer each
-        self.stats = {"forwards": 0, "forward_s": 0.0, "sends": 0,
-                      "recvs": 0, "send_s": 0.0, "recv_s": 0.0,
-                      "staging_s": 0.0, "bytes": 0}
-
-    @property
-    def first(self) -> bool:
-        return self.stage == 0
-
-    @property
-    def last(self) -> bool:
-        return self.stage == self.size - 1
+        self.stats = {"bytes": 0, "staging_s": 0.0, "send_s": 0.0,
+                      "recv_s": 0.0}
 
     def _staged(self, device: torch.device) -> bool:
         return device.type == "cuda" and self.backend != "nccl"
@@ -156,44 +149,97 @@ class PipeGroup:
             self._bufs[key] = buf
         return buf
 
-    def send(self, x: torch.Tensor, stage: int) -> None:
-        """Post x to `stage` (asynchronous; flush() completes it)."""
+    def _post_send(self, x: torch.Tensor, peer: int, slot):
+        """Post x to group rank `peer`; returns (work, the tensor sent),
+        which must stay alive until the work completed."""
         payload = x.contiguous()
         if self._staged(x.device):
-            # The copy would wait for the stage's compute anyway; waiting
-            # first keeps that wait out of the staging time.
+            # The copy would wait for the producer's compute anyway;
+            # waiting first keeps that wait out of the staging time.
             torch.cuda.current_stream(x.device).synchronize()
             t1 = time.perf_counter()
-            buf = self._host(("send", self._n), x.shape, x.dtype)
+            buf = self._host(("send", slot), payload.shape, payload.dtype)
             buf.copy_(payload)
             self.stats["staging_s"] += time.perf_counter() - t1
             payload = buf
         t0 = time.perf_counter()
-        self._n += 1
-        # The group's ranks are this pipeline's stages, in stage order.
-        self._pending.append((self.group.send([payload], stage, 0), payload))
-        self.stats["sends"] += 1
+        work = self.group.send([payload], peer, 0)
         self.stats["bytes"] += payload.numel() * payload.element_size()
         self.stats["send_s"] += time.perf_counter() - t0
+        return work, payload
+
+    def _post_recv(self, shape, dtype, peer: int, device: torch.device,
+                   slot):
+        """Post a receive from group rank `peer`; returns (work, buffer)
+        for `_landed`."""
+        t0 = time.perf_counter()
+        if self._staged(device):
+            buf = self._host(("recv", slot), tuple(shape), dtype)
+        else:
+            buf = torch.empty(shape, dtype=dtype, device=device)
+        work = self.group.recv([buf], peer, 0)
+        self.stats["recv_s"] += time.perf_counter() - t0
+        return work, buf
+
+    def _landed(self, work, buf: torch.Tensor,
+                device: torch.device) -> torch.Tensor:
+        """Wait for a posted receive; its tensor on `device`."""
+        t0 = time.perf_counter()
+        work.wait()
+        t1 = time.perf_counter()
+        self.stats["recv_s"] += t1 - t0
+        if buf.device == device:
+            return buf
+        out = buf.to(device)
+        self.stats["staging_s"] += time.perf_counter() - t1
+        return out
+
+
+class PipeGroup(_PointToPoint):
+    """The pipe axis as a stage sees it: this rank's stage, the stage
+    count, the global rank of every stage of its pipeline and their
+    process group. Hand-offs are point to point: a stage sends its
+    activations to a later stage and receives from an earlier one, in
+    the same order on both sides.
+
+    Sends are asynchronous and `flush` waits for them (the end of each
+    forward), so a send buffer is reused only after its send completed.
+    Beside the hand-offs' stats (_PointToPoint), `stats` counts sends
+    and receives and sums the wall time of whole forwards (forward_s,
+    parallel/pipeline.py); recv_s is the pipeline's bubble as this
+    stage sees it."""
+
+    def __init__(self, size: int, stage: int, ranks: Sequence[int],
+                 group=None, backend: Optional[str] = None):
+        super().__init__(ranks, group, backend)
+        self.size = size
+        self.stage = stage
+        self._pending: list = []
+        self._n = 0  # hand-offs since the last flush: a buffer each
+        self.stats.update(forwards=0, forward_s=0.0, sends=0, recvs=0)
+
+    @property
+    def first(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def last(self) -> bool:
+        return self.stage == self.size - 1
+
+    def send(self, x: torch.Tensor, stage: int) -> None:
+        """Post x to `stage` (asynchronous; flush() completes it)."""
+        # The group's ranks are this pipeline's stages, in stage order.
+        self._pending.append(self._post_send(x, stage, self._n))
+        self._n += 1
+        self.stats["sends"] += 1
 
     def recv(self, shape, dtype, stage: int, device) -> torch.Tensor:
         """Receive the next tensor `stage` sent to this one (blocks)."""
         device = torch.device(device)
-        t0 = time.perf_counter()
-        if self._staged(device):
-            buf = self._host(("recv", self._n), tuple(shape), dtype)
-            self.group.recv([buf], stage, 0).wait()
-            t1 = time.perf_counter()
-            self.stats["recv_s"] += t1 - t0
-            out = buf.to(device)
-            self.stats["staging_s"] += time.perf_counter() - t1
-        else:
-            out = torch.empty(shape, dtype=dtype, device=device)
-            self.group.recv([out], stage, 0).wait()
-            self.stats["recv_s"] += time.perf_counter() - t0
+        work, buf = self._post_recv(shape, dtype, stage, device, self._n)
         self._n += 1
         self.stats["recvs"] += 1
-        return out
+        return self._landed(work, buf, device)
 
     def flush(self) -> None:
         """Wait for every posted send (their buffers are then free)."""
@@ -205,21 +251,75 @@ class PipeGroup:
         self.stats["send_s"] += time.perf_counter() - t0
 
 
+class SeqGroup(_PointToPoint):
+    """The seq axis as a sequence shard sees it: this rank's shard index,
+    the shard count, the global rank of every shard of its ring (in seq
+    order) and their process group. `rotate` is the ring's hand-off: a
+    shard sends its tensor to the next shard and receives the previous
+    shard's, the send and the receive posted together (at sp 2 next and
+    previous are one peer; the even shards send first and the odd ones
+    receive first, the order NCCL needs), then waits for both. Beside
+    the hand-offs' stats (_PointToPoint), `stats` counts the hand-offs
+    and sums the wall time of whole prefills (prefill_s,
+    models/llama.py)."""
+
+    def __init__(self, size: int, index: int, ranks: Sequence[int],
+                 group=None, backend: Optional[str] = None):
+        super().__init__(ranks, group, backend)
+        self.size = size
+        self.index = index
+        self.stats.update(prefills=0, prefill_s=0.0, handoffs=0)
+
+    @property
+    def next(self) -> int:
+        return (self.index + 1) % self.size
+
+    @property
+    def prev(self) -> int:
+        return (self.index - 1) % self.size
+
+    def rotate(self, x: torch.Tensor) -> torch.Tensor:
+        """Send x to the next shard; return the previous shard's tensor
+        of the same shape and dtype, on x's device (blocks until both
+        halves completed)."""
+        # The group's ranks are the ring's shards, in seq order.
+        def send():
+            return self._post_send(x, self.next, 0)
+
+        def recv():
+            return self._post_recv(x.shape, x.dtype, self.prev, x.device, 0)
+
+        if self.index % 2 == 0:
+            (sent, _), (got, buf) = send(), recv()
+        else:
+            (got, buf), (sent, _) = recv(), send()
+        t0 = time.perf_counter()
+        sent.wait()
+        self.stats["send_s"] += time.perf_counter() - t0
+        self.stats["handoffs"] += 1
+        return self._landed(got, buf, x.device)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of x over the seq axis, in place; returns x."""
+        return _sum(self.group, x)
+
+
 class RankMesh:
     """A (data, pipe, seq, expert, tensor) grid of ranks. `ranks` holds
     the global rank of every grid point (a replica's submesh starts at
     `first`), `rank` is this process's global rank, or None when the
     process holds no rank of this grid (rank 0's view of a replica
     r > 0), and `devices[i]` is the device of rank first + i; `tensor`
-    is the TensorGroup the forwards take (None at tp 1) and `pipe` the
-    PipeGroup of this rank's pipeline (None at pp 1). `world` is the
+    is the TensorGroup the forwards take (None at tp 1), `pipe` the
+    PipeGroup of this rank's pipeline (None at pp 1) and `seq` the
+    SeqGroup of its ring (None at sp 1). `world` is the
     rank world (parallel/distributed.World) the grid spans, None for
     this one process."""
 
     def __init__(self, shape: dict, rank: Optional[int], devices: Sequence,
                  group=None, backend: Optional[str] = None,
                  labels: Optional[Sequence[str]] = None, pipe_group=None,
-                 first: int = 0, world=None):
+                 first: int = 0, world=None, seq_group=None):
         self.world = world
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.axis_names = AXES
@@ -232,7 +332,7 @@ class RankMesh:
         # "host|device" per rank: devices of different hosts are distinct.
         self.labels = list(labels) if labels is not None else [
             str(d) for d in self.devices]
-        self.coord = self.tensor = self.pipe = None
+        self.coord = self.tensor = self.pipe = self.seq = None
         if rank is None:
             return
         coord = dict(zip(AXES, (int(i) for i in
@@ -245,6 +345,11 @@ class RankMesh:
                           coord[AXIS_EXPERT], coord[AXIS_TENSOR]]
         self.pipe = (PipeGroup(pp, coord[AXIS_PIPE], line.tolist(),
                                pipe_group, backend) if pp > 1 else None)
+        sp = self.shape[AXIS_SEQ]
+        ring = self.ranks[coord[AXIS_DATA], coord[AXIS_PIPE], :,
+                          coord[AXIS_EXPERT], coord[AXIS_TENSOR]]
+        self.seq = (SeqGroup(sp, coord[AXIS_SEQ], ring.tolist(), seq_group,
+                             backend) if sp > 1 else None)
 
     @property
     def size(self) -> int:
@@ -261,6 +366,10 @@ class RankMesh:
     @property
     def dp(self) -> int:
         return self.shape[AXIS_DATA]
+
+    @property
+    def sp(self) -> int:
+        return self.shape[AXIS_SEQ]
 
     @property
     def device(self) -> torch.device:
@@ -290,19 +399,20 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     each rank's device, default the one each rank published. Without a
     world, `devices` (default one CPU rank per replica) are this
     process's dp in-process replicas, replica r on devices[r]. This rank
-    builds the tensor group of its (replica, stage) and then the pipe
-    group of its (replica, tensor index), on the world's store; every
-    rank builds its groups in that order. The seq and expert axes larger
-    than 1 are not ported yet."""
+    builds the tensor group of its (replica, stage, seq index), then the
+    pipe group of its (replica, seq index, tensor index), then the seq
+    group of its (replica, stage, tensor index), on the world's store;
+    every rank builds its groups in that order. The expert axis larger
+    than 1 is not ported yet."""
     from ollamamq_tpu_torch.parallel import distributed
 
-    for axis, n in ((AXIS_SEQ, sp), (AXIS_EXPERT, ep)):
-        if n != 1:
-            raise NotImplementedError(
-                f"mesh axis {axis!r} = {n}: only the data, tensor and pipe "
-                "axes are ported yet (seq and expert parallelism are not)")
-    if pp < 1 or dp < 1:
-        raise ValueError(f"dp and pp must be >= 1, got dp={dp} pp={pp}")
+    if ep != 1:
+        raise NotImplementedError(
+            f"mesh axis {AXIS_EXPERT!r} = {ep}: only the data, pipe, seq "
+            "and tensor axes are ported yet (expert parallelism is not)")
+    if pp < 1 or dp < 1 or sp < 1:
+        raise ValueError(f"dp, pp and sp must be >= 1, got dp={dp} pp={pp} "
+                         f"sp={sp}")
     if world is None:
         world = distributed.default_world()
     n = world.size if world is not None else len(devices or ["cpu"] * dp)
@@ -314,23 +424,25 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     if len(devices) != n:
         raise ValueError(f"{len(devices)} devices for a world of {n} ranks")
     if tp == -1:
-        tp = n // (dp * pp) if n % (dp * pp) == 0 else -1
-    if dp * tp * pp != n:
-        raise ValueError(f"dp*pp*sp*ep*tp={dp * tp * pp} over {n} ranks: the "
-                         "mesh must span every rank of the world")
+        tp = n // (dp * pp * sp) if n % (dp * pp * sp) == 0 else -1
+    if dp * tp * pp * sp != n:
+        raise ValueError(f"dp*pp*sp*ep*tp={dp * tp * pp * sp} over {n} ranks: "
+                         "the mesh must span every rank of the world")
     if rank is None:
         rank = world.rank if world is not None else 0
-    shape = {AXIS_DATA: dp, AXIS_PIPE: pp, AXIS_TENSOR: tp}
-    group = pipe_group = None
+    shape = {AXIS_DATA: dp, AXIS_PIPE: pp, AXIS_SEQ: sp, AXIS_TENSOR: tp}
+    group = pipe_group = seq_group = None
     if world is not None:
-        grid = np.arange(n).reshape(dp, pp, tp)
-        r, s, t = (int(i) for i in np.argwhere(grid == rank)[0])
+        grid = np.arange(n).reshape(dp, pp, sp, tp)
+        r, s, q, t = (int(i) for i in np.argwhere(grid == rank)[0])
         if tp > 1:
-            group = world.group(grid[r, s].tolist())
+            group = world.group(grid[r, s, q].tolist())
         if pp > 1:
-            pipe_group = world.group(grid[r, :, t].tolist())
+            pipe_group = world.group(grid[r, :, q, t].tolist())
+        if sp > 1:
+            seq_group = world.group(grid[r, s, :, t].tolist())
     return RankMesh(shape, rank, devices,
-                    group=group, pipe_group=pipe_group,
+                    group=group, pipe_group=pipe_group, seq_group=seq_group,
                     backend=world.backend if world is not None else None,
                     labels=labels, world=world)
 
@@ -341,7 +453,7 @@ def replica_ranks(mesh: RankMesh, r: int) -> list:
 
 
 def replica_submesh(mesh: RankMesh, r: int) -> RankMesh:
-    """Replica r's slice of the data axis (a [1, pp, tp] grid of its
+    """Replica r's slice of the data axis (a [1, pp, sp, tp] grid of its
     ranks): THE derivation, shared by the engine's replica construction
     and the SPMD worker's replay and reload, which must agree on every
     rank. Its rank is this process's when it holds one of replica r's
@@ -350,15 +462,17 @@ def replica_submesh(mesh: RankMesh, r: int) -> RankMesh:
     devices[r]."""
     if mesh.dp == 1:
         return mesh
-    per = mesh.pp * mesh.tp
+    per = mesh.pp * mesh.sp * mesh.tp
     lo = r * per
     if mesh.backend is None and per == 1:  # in-process replicas
         return RankMesh({}, 0, [mesh.devices[r]])
     mine = mesh.rank is not None and lo <= mesh.rank < lo + per
-    return RankMesh({AXIS_PIPE: mesh.pp, AXIS_TENSOR: mesh.tp},
+    return RankMesh({AXIS_PIPE: mesh.pp, AXIS_SEQ: mesh.sp,
+                     AXIS_TENSOR: mesh.tp},
                     mesh.rank if mine else None, mesh.devices[lo:lo + per],
                     group=mesh.tensor.group if mine and mesh.tensor else None,
                     pipe_group=mesh.pipe.group if mine and mesh.pipe else None,
+                    seq_group=mesh.seq.group if mine and mesh.seq else None,
                     backend=mesh.backend, labels=mesh.labels[lo:lo + per],
                     first=lo, world=mesh.world)
 

@@ -260,6 +260,50 @@ def test_pp_flags_reach_the_engine_config():
     assert (e.pp, e.pp_microbatches) == (2, 4)
 
 
+# ------------------------------------------------- sequence parallelism
+@pytest.mark.parametrize("argv,message", [
+    (["--sp", "2", "--kv-dtype", "int8", "--device", "cpu"],
+     "--kv-dtype=int8 is unsupported with sequence-parallel prefill"),
+    (["--sp", "2", "--pp", "2", "--device", "cpu"],
+     "pp and sp cannot combine on one runtime"),
+    (["--sp", "0", "--device", "cpu"], "--sp must be >= 1"),
+    (["--sp", "2"], "cuda:1"),
+    (["--sp", "2", "--tp", "2"], "cuda:3"),
+    (["--sp", "2", "--fake-engine", "--device", "cpu"], "--fake-engine runs none"),
+    (["--sp", "2", "--replicas", "2"], "cuda:0"),
+    (["--sp", "2", "--device", "cpu"], None),
+    (["--sp", "2", "--tp", "2", "--dp", "2", "--device", "cpu",
+      "--model", "test-tiny-gqa"], None),
+], ids=["int8-kv", "pp", "zero", "missing-device", "missing-device-tp", "fake",
+        "fleet", "cpu", "dp-tp-cpu"])
+def test_sp_flags_exit_2(argv, message, caplog):
+    """--sp's refusals exit 2 before any device work: int8 KV with sp and
+    pp x sp (the JAX package's messages), a local world whose devices the
+    host lacks (sp x tp ranks, one per device; named, no fallback), the
+    fake engine, and a fleet whose sp members need cards of their own
+    that the host lacks. sp on the CPU, alone or with tp and dp,
+    validates (message None)."""
+    if message is None:
+        _assert_valid(argv)
+        return
+    if "cuda:" in message and torch.cuda.device_count() >= 2:
+        argv, message = ["--sp", "32", "--model", "llama3:8b"], "cuda:31"
+    assert main(argv + ["--no-tui", "--model", "test-tiny"]
+                if "--model" not in argv else argv + ["--no-tui"]) == 2
+    assert message in caplog.text
+
+
+def test_sp_flag_reaches_the_engine_config_and_the_world():
+    """--sp lands in EngineConfig (the JAX CLI's default 1) and sizes the
+    local rank world: dp x pp x sp x tp ranks."""
+    from ollamamq_tpu_torch.cli import build_parser, engine_config, local_world
+
+    assert engine_config(build_parser().parse_args([])).sp == 1
+    args = build_parser().parse_args(["--sp", "2", "--tp", "2", "--dp", "2"])
+    assert engine_config(args).sp == 2 and local_world(args) == 8
+    assert local_world(build_parser().parse_args(["--sp", "4"])) == 4
+
+
 # ------------------------------------------------- data parallelism
 @pytest.mark.parametrize("argv,message", [
     (["--dp", "2"], "no replica falls back to another device"),

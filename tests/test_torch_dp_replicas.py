@@ -466,8 +466,8 @@ def test_mesh_shapes_with_a_data_axis():
     other = replica_submesh(mesh, 0)
     assert other.rank is None and other.tensor is None and other.tp == 4
     assert make_mesh(dp=1, sp=1, tp=4, devices=["cpu"] * 4).shape["seq"] == 1
-    with pytest.raises(NotImplementedError, match="'seq'"):
-        make_mesh(dp=1, sp=2, tp=4, devices=["cpu"] * 8)
+    with pytest.raises(NotImplementedError, match="'expert'"):
+        make_mesh(dp=1, ep=2, tp=4, devices=["cpu"] * 8)
     with pytest.raises(ValueError, match="span every rank"):
         make_mesh(dp=3, tp=2, devices=["cpu"] * 8)
     # pp inside each replica: dp 2 x pp 2 x tp 2, rank 6 is replica 1's
@@ -476,6 +476,13 @@ def test_mesh_shapes_with_a_data_axis():
     assert grid.ranks.shape == (2, 2, 1, 1, 2)
     sub = replica_submesh(grid, 1)
     assert sub.pipe.stage == 1 and sub.pipe.ranks == [4, 6] and sub.pp == 2
+    # seq inside each replica: dp 2 x sp 2 x tp 2, rank 6 is replica 1's
+    # shard 1, tensor rank 0, its ring ranks 4 and 6.
+    ring = make_mesh(dp=2, sp=2, tp=2, devices=["cpu"] * 8, rank=6)
+    assert ring.ranks.shape == (2, 1, 2, 1, 2)
+    sub = replica_submesh(ring, 1)
+    assert sub.sp == 2 and sub.seq.index == 1 and sub.seq.ranks == [4, 6]
+    assert replica_submesh(ring, 0).seq is None
     local = make_mesh(dp=2, devices=["cpu", "cuda:1"])
     assert [replica_submesh(local, r).device for r in (0, 1)] == [
         torch.device("cpu"), torch.device("cuda:1")]

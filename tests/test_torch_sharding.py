@@ -314,9 +314,13 @@ def test_mesh_shapes():
     assert two.device == torch.device("cuda:1") and two.n_devices == 2
     shared = RankMesh({"tensor": 2}, 0, ["cuda:0", "cuda:0"])
     assert shared.n_devices == 1  # two ranks on one card: one card's peak
-    for axis, kw in (("seq", {"sp": 2}), ("expert", {"ep": 2})):
-        with pytest.raises(NotImplementedError, match=f"'{axis}'"):
-            make_mesh(devices=["cpu"] * 4, **kw)
+    with pytest.raises(NotImplementedError, match="'expert'"):
+        make_mesh(devices=["cpu"] * 4, ep=2)
+    # The seq axis is ported: sp 2 x tp 2, rank 3 is shard 1's tensor
+    # rank 1, its ring ranks 1 and 3.
+    seq = make_mesh(sp=2, devices=["cpu"] * 4, rank=3)
+    assert seq.ranks.shape == (1, 1, 2, 1, 2) and seq.sp == 2 and seq.tp == 2
+    assert seq.seq.index == 1 and seq.seq.ranks == [1, 3] and seq.seq.next == 0
     # The data axis is ported: replicas over ranks (see
     # tests/test_torch_dp_replicas.py for its shapes).
     assert make_mesh(dp=2, devices=["cpu"] * 4).shape["data"] == 2

@@ -430,13 +430,13 @@ def _values(spec, rng):
     (spmd.OP_RAGGED, 24, 0), (spmd.OP_SPEC, 32, 4), (spmd.OP_DECODE, 4, 0),
     (spmd.OP_EMBED, 8, 64), (spmd.OP_ENCODE, 1, 32), (spmd.OP_LOAD, 1, 0),
     (spmd.OP_EVICT, 0, 0), (spmd.OP_RELOAD, 0, 0), (spmd.OP_SHUTDOWN, 0, 0),
-    (spmd.OP_PREFILL, 32, 4), (spmd.OP_CHUNK, 64, 0),
+    (spmd.OP_PREFILL, 32, 4), (spmd.OP_CHUNK, 64, 0), (spmd.OP_PREFILL_SP, 64, 0),
 ], ids=["ragged", "spec", "decode", "embed", "encode", "load", "evict",
-        "reload", "shutdown", "prefill", "chunk"])
+        "reload", "shutdown", "prefill", "chunk", "prefill_sp"])
 def test_wire_payload_round_trips(op, a, b, monkeypatch):
     """payload_spec -> _send over a real TCPStore -> _recv_op ->
     _unpack_payload gives back the header and every value exactly; the
-    sp opcode keeps its number and refuses a payload."""
+    prefill opcodes keep their numbers, the sp prefill's data op too."""
     S, MP, W = 4, 8, 16
     K = int(torch.Generator().get_state().numel())
     store = torch.distributed.TCPStore("127.0.0.1", 0, 1, is_master=True,
@@ -460,6 +460,6 @@ def test_wire_payload_round_trips(op, a, b, monkeypatch):
     if op == spmd.OP_LOAD:
         assert spmd._decode_str(got[0]) == "test-tiny-embed"
         assert spmd._decode_str(got[1]) == "/ckpt/dir"
-    with pytest.raises(ValueError, match="not ported yet"):
-        spmd.payload_spec(spmd.OP_PREFILL_SP, 16, 1, S, MP, W, K)
+    assert len(spmd.payload_spec(spmd.OP_PREFILL_SP, 16, 0, S, MP, W, K)) == 12
     assert (spmd.OP_PREFILL, spmd.OP_CHUNK, spmd.OP_PREFILL_SP) == (1, 2, 5)
+    assert spmd.OP_PREFILL_SP in spmd.DATA_OPS

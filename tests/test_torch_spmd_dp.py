@@ -149,6 +149,8 @@ if rank == 0:
         out["sampled"] = {str(i): outcome(r) for i, r in where.items()}
         out["gen"] = hashlib.sha256(
             rs.replicas[1].gen.get_state().numpy().tobytes()).hexdigest()
+        # Decode chunks out on replica 1's rank and not collected yet.
+        out["deferred_at_read"] = len(eng._deferred)
         # kill -9 of rank 1 (replica 1) while both replicas decode.
         store.set("test/die", "1")
         t0 = time.monotonic()
@@ -186,10 +188,13 @@ else:
         return out
 
     def post(seq, ok, rt, out):
-        orig_post(seq, ok, rt, out)
+        # The line goes out BEFORE the result does: once rank 0 holds the
+        # result it may read its copy and set test/die at once, and a
+        # check made after the post would then drop this op's line.
         if ok and not store.check(["test/die"]):
             print("GEN " + hashlib.sha256(
                 rt.gen.get_state().numpy().tobytes()).hexdigest(), flush=True)
+        orig_post(seq, ok, rt, out)
 
     spmd._replay, spmd._post_result = replay, post
     steps = spmd.run_worker(MODELS, ecfg, mesh)
@@ -355,6 +360,7 @@ def test_dp_over_two_ranks_serves_and_returns_the_generator(dp_world,
     # The state of replica 1's generator that its rank last posted (before
     # the kill) is rank 0's copy: the next plan starts from it.
     posted = [ln[4:] for ln in log1.splitlines() if ln.startswith("GEN ")]
+    assert leader["deferred_at_read"] == 0
     assert posted and posted[-1] == leader["gen"]
 
 

@@ -22,7 +22,10 @@ router's process starts and reaps. Through the CLI's own build_fleet
     world (restart_failed, tier kept); when the restore cannot start
     either the router ejects the member, and a re-probe rebuilds it;
   - `--tp 2 --autoscale`: a scaled-up member runs at tp 2 and its retire
-    reaps its ranks; `--pp 2 --replicas 2` serves a stream; `--dp 2
+    reaps its ranks; `--pp 2 --replicas 2` serves a stream; under `--sp
+    2 --replicas 2` each member's prompts past the largest prefill
+    bucket take the sequence-parallel prefill and give TPUEngine's ids;
+    `--dp 2
     --tp 2 --replicas 2` validates; a host short of the cards a fleet
     needs exits 2 naming them.
 
@@ -30,6 +33,7 @@ Each fleet is built once per module (its rank worlds take seconds to
 start); waits poll with budgets.
 """
 
+import dataclasses
 import os
 import time
 
@@ -114,9 +118,10 @@ def reference(tmp_path_factory):
     return path, ids
 
 
-def _fleet(extra, ckpt):
-    """The CLI's own fleet over `extra` flags; one-rank members are
-    TorchEngines on the CPU loading the same checkpoint."""
+def _fleet(extra, ckpt, **ecfg):
+    """The CLI's own fleet over `extra` flags (its EngineConfig with the
+    `ecfg` fields replaced); one-rank members are TorchEngines on the
+    CPU loading the same checkpoint."""
     args = cli.build_parser().parse_args(
         TINY + ["--checkpoints", f"test-tiny={ckpt}"] + extra)
     assert cli.validate(args) == ""
@@ -125,7 +130,8 @@ def _fleet(extra, ckpt):
         return TorchEngine(cfg, device="cpu", blocklist_path=None,
                            models=cli.model_table(args))
 
-    router = cli.build_fleet(args, cli.engine_config(args), make)
+    router = cli.build_fleet(
+        args, dataclasses.replace(cli.engine_config(args), **ecfg), make)
     router.start()
     return router
 
@@ -470,6 +476,26 @@ def test_pp2_members_serve(reference):
         items = collect(_run(router, "pp", PROMPTS[2]), timeout=120)
         assert items[-1].kind == "done"
         assert _ids(items) == reference[1][PROMPTS[2]]
+    finally:
+        router.stop()
+
+
+def test_sp2_members_serve_long_prompts(reference):
+    """Each member leads a world of two sequence shards; with prefill
+    buckets up to 32 every prompt here (36-42 tokens) prefills over the
+    ring, on both members, and gives TPUEngine's ids."""
+    router = _fleet(["--replicas", "2", "--sp", "2"], reference[0],
+                    prefill_buckets=(16, 32))
+    try:
+        rts = [m.engine.runtimes["test-tiny"] for m in router.members]
+        assert [rt.mesh.sp for rt in rts] == [2, 2]
+        reqs = [_run(router, f"sp{i}", p) for i, p in enumerate(PROMPTS)]
+        for p, r in zip(PROMPTS, reqs):
+            items = collect(r, timeout=120)
+            assert items[-1].kind == "done"
+            assert _ids(items) == reference[1][p]
+        assert sum(rt.sp_prefill_dispatches for rt in rts) == len(PROMPTS)
+        assert all(rt.sp_prefill_dispatches > 0 for rt in rts)
     finally:
         router.stop()
 
