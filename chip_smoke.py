@@ -484,13 +484,43 @@ Phases, each printing JSON lines; any failure exits non-zero:
            ollamamq_tpu_torch.cli --sp 2 --kv-dtype int8` exits 2 with
            the reference's message. Rank logs go to
            chiprun_out/chip_smoke/serve_sp_*.log.
+  serve-ep expert parallelism: mixtral:8x7b at full width over two
+           expert shards (four experts of every layer a rank, the rest
+           replicated), ranks (processes of this script, --tp-rank)
+           sharing cuda:0 over gloo, each registering the cut configs
+           itself. One world of two ranks serves three windows, a world
+           of four one more: (1) bf16, cut to 16 of 32 layers, seeded
+           weights at ep 2 through the HTTP server, serve-moe's traffic
+           (4 greedy /api/chat streams of 64 tokens from 3 users, then
+           one prompt twice alone); gates: every reply stop/length, the
+           repeat's ids identical, both ranks' output digests equal, both
+           ranks' digests of layer 0's capacity-slot tensor over every
+           forward equal, exactly 16 ragged launches per ragged dispatch
+           and 16 decode per decode step on each rank and no int8
+           launch, 24,416,362,496 weight bytes a rank (from the config's
+           shapes), both ranks' whole K and V pools sha256-equal, every
+           attention call of one prefill and one decode step on rank 0's
+           shard within 2e-2 x max |plain|. Records tokens/s, TTFT p50,
+           rank 0's FFN all_reduce ms a forward and its share (a burst
+           of its own), each rank's decode step (its own experts, no
+           collective) against its byte bound, each rank's peak memory.
+           (2) float32 (TF32 off), cut to 2 layers: 4 greedy streams at
+           ep 2 and (3) at ep 2 x tp 2 (four ranks) against one rank:
+           ids identical, first logits within 1e-4 x max, the ep 2 x tp
+           2 rank's bytes from the shapes. (4) kill -9 of rank 1 while 4
+           streams decode (2 layers, bf16): every request errors within
+           18 s, /health 200 with worker_stale. Besides: `python -m
+           ollamamq_tpu_torch.cli` exits 2 before any device work for
+           --ep 3, --ep 2 --pp 2 and --ep 2 --weights-dtype int8 on
+           mixtral:8x7b. Rank logs go to
+           chiprun_out/chip_smoke/serve_ep_*.log.
 
 Then the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
 serve-fleet's, serve-tiers' (both windows, and the wide members'
 worker ranks over their runs), serve-autoscale's, serve-ha's,
-serve-tp's, serve-pp's, serve-dp's and serve-sp's (every rank of each
-window),
+serve-tp's, serve-pp's, serve-dp's, serve-sp's and serve-ep's (every
+rank of each window),
 counted in
 this process and in each server subprocess: a killed server's from its
 /health read just before the SIGKILL, so the launches of those last few
@@ -1213,7 +1243,7 @@ def serve_phase(report, profile: bool, int8: bool = False) -> None:
 
 
 def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False,
-                           tp=1) -> None:
+                           tp=1, ep=None) -> None:
     """One prompt's prefill and first decode step through the kernels vs
     the plain attention path, on the serving weights (outside the counted
     window): logits within TOL["bfloat16"] of the plain path's max.
@@ -1230,7 +1260,9 @@ def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False,
     each attention call sees the rank's own q and pools at the TP-local
     head counts. Only the per-call check means anything there; so too for
     a pipeline stage's `rt`, whose layers are the stage's own (one call
-    per layer it holds)."""
+    per layer it holds), and for an expert rank's (`ep`: its
+    ExpertGroup with no process group, so its MoE layers run its own
+    experts)."""
     import torch
 
     from ollamamq_tpu_torch.config import EngineConfig
@@ -1285,11 +1317,11 @@ def kernel_vs_plain_logits(report, phase, rt, text, quant, per_call=False,
             pre, _, _ = llama.forward_ragged(
                 rt.params, cfg, tokens, tok_seq, tok_pos, ws,
                 torch.tensor([n - 1], device="cuda"), kc, vc, pt, *meta, ps,
-                attn_impl=impl)
+                attn_impl=impl, ep=ep)
             nxt = pre.argmax(-1).to(torch.int32)
             dec, _, _ = llama.forward_decode(
                 rt.params, cfg, nxt, torch.tensor([n], dtype=torch.int32, device="cuda"),
-                kc, vc, pt, ps, attn_impl=impl)
+                kc, vc, pt, ps, attn_impl=impl, ep=ep)
         finally:
             moe.route = route
             llama.ragged_attention_any, llama.paged_decode_attention_any = dispatch
@@ -4504,14 +4536,15 @@ def _moe_layer_check(cfg, lp) -> dict:
             "ok": bool(torch.isfinite(got).all()) and err <= TOL["float32"] * scale}
 
 
-def _decode_step_ms(rt, profile, B=8, ctx=200, iters=5) -> dict:
+def _decode_step_ms(rt, profile, B=8, ctx=200, iters=5, ep=None) -> dict:
     """One forward_decode over B live rows at context `ctx` on the
     serving weights (a private pool): its time between CUDA events
     (eager, so the host's launch gaps count), with `profile` its device
     time by torch.profiler, and the bound: the bytes the step must move
     over 3.35 TB/s, i.e. every weight but the embedding table (the dense
     dispatch reads each expert), B embedding rows, the K/V it reads and
-    writes."""
+    writes. `ep`: an expert rank's ExpertGroup with no process group
+    (its own experts, no collective; the bound counts its own bytes)."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -4533,7 +4566,7 @@ def _decode_step_ms(rt, profile, B=8, ctx=200, iters=5) -> dict:
     def step(i):
         pos = torch.full((B,), ctx + i, dtype=torch.int32, device="cuda")
         llama.forward_decode(rt.params, cfg, tokens, pos, kc, vc, pt, ps,
-                             active=active)
+                             active=active, ep=ep)
 
     times = []
     for i in range(iters + 2):
@@ -4748,7 +4781,7 @@ def _tp_ecfg(spec):
                         decode_steps_per_iter=8, dtype=spec["dtype"],
                         weights_dtype=spec.get("quant", "bfloat16"),
                         kv_dtype=spec.get("kv", spec.get("quant", "bfloat16")),
-                        pp=spec.get("pp", 1), seed=0)
+                        pp=spec.get("pp", 1), ep=spec.get("ep", 1), seed=0)
 
 
 def _tp_wait(req, budget=600.0):
@@ -4830,13 +4863,15 @@ def _tp_traffic(rt, port, model):
             "launches": counts, "launches_expected": own, "kernels_exact": exact}
 
 
-def _tp_layer_ms(rt, port, model) -> dict:
+def _tp_layer_ms(rt, port, model, group=None) -> dict:
     """The TP layer's own costs over one more 2-stream burst: every
     all_reduce of rank 0 (the two row-parallel sums per layer, the
     embedding's and the logits' vocab gather) timed between device
     synchronizations, and the wire (the step plan's store write and the
     status sync) per dispatch. The synchronizations slow the burst; its
-    wall time is not a serving number."""
+    wall time is not a serving number. `group`: another group's
+    all_reduce to time (serve-ep: the (expert, tensor) plane's FFN
+    sum)."""
     import torch
 
     def sync():
@@ -4845,7 +4880,8 @@ def _tp_layer_ms(rt, port, model) -> dict:
 
     acc = {"allreduce_s": 0.0, "allreduce_calls": 0, "send_s": 0.0, "sync_s": 0.0}
     plane = rt._plane  # the world's control plane: its wire and sync bus
-    group, send, bus_sync = rt.tp, plane.send, plane.bus.sync
+    group = group if group is not None else rt.tp
+    send, bus_sync = plane.send, plane.bus.sync
     reduce = group.all_reduce
 
     def timed_reduce(x):
@@ -4985,6 +5021,7 @@ def _tp_leader_f32(spec, mesh, profile):
 
     reset_launch_counts()
     tp_eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    param_bytes = tp_eng.runtimes[model].param_bytes
     ids2, cap2, ok2 = run(tp_eng)
     counts = launch_counts()
     worker = tp_eng.worker_reports
@@ -5001,7 +5038,7 @@ def _tp_leader_f32(spec, mesh, profile):
                               "rel_err": err / scale,
                               "tol": f"max |tp2 - tp1| <= {TOL['float32']} * max |tp1|",
                               "ok": err <= TOL["float32"] * scale},
-            "launches": counts, "workers": worker}
+            "param_bytes": param_bytes, "launches": counts, "workers": worker}
 
 
 def _tp_leader_int8(spec, mesh, profile):
@@ -5092,15 +5129,16 @@ TP_WINDOWS = {"bf16": _tp_leader_bf16, "f32": _tp_leader_f32,
 
 
 def _world(spec) -> int:
-    """Ranks of a serve-tp / serve-pp / serve-dp / serve-sp window: tp per
-    stage x pp stages x sp shards x dp replicas."""
+    """Ranks of a serve-tp / serve-pp / serve-dp / serve-sp / serve-ep
+    window: tp per stage x pp stages x sp shards x ep shards x dp
+    replicas."""
     return (spec.get("dp", 1) * spec.get("tp", 2) * spec.get("pp", 1)
-            * spec.get("sp", 1))
+            * spec.get("sp", 1) * spec.get("ep", 1))
 
 
 def tp_rank_main(args) -> int:
-    """One rank of a serve-tp, serve-pp, serve-dp or serve-sp world
-    (`--tp-rank`):
+    """One rank of a serve-tp, serve-pp, serve-dp, serve-sp or serve-ep
+    world (`--tp-rank`):
     every rank shares the card over gloo, and the world runs the windows
     of `--tp-plan` ([[window, spec], ...], one world shape) in order:
     rank 0 builds each window's engine and prints its result line, the
@@ -5134,7 +5172,9 @@ def tp_rank_main(args) -> int:
                                timeout_s=120)
         distributed.store().set(f"chip_smoke/pid/{rank}", str(os.getpid()))
         mesh = make_mesh(dp=first.get("dp", 1), tp=first.get("tp", 2),
-                         pp=first.get("pp", 1), sp=first.get("sp", 1))
+                         pp=first.get("pp", 1), sp=first.get("sp", 1),
+                         ep=first.get("ep", 1))
+        _moe_cuts()  # serve-ep's cut models, by name, on every rank
         if rank != 0 and first.get("dp", 1) > 1:
             # serve-dp reads every rank's launches before its kill -9.
             from ollamamq_tpu_torch.ops.cuda import launch_counts
@@ -5162,14 +5202,22 @@ def tp_rank_main(args) -> int:
                 _sp_page_digests(window, rank)
                 if window == "sp-kill" and rank != 0:
                     _sp_ring_flag(rank)
+            # serve-ep digests layer 0's routing on every rank.
+            unroute = (_ep_route_digests(window, rank) if spec.get("ep_checks")
+                       else None)
             t0 = time.monotonic()
             if rank != 0:
+                rows = _ep_capture_rows() if spec.get("ep_checks") else None
                 steps = spmd.run_worker({spec["model"]: None}, _window_ecfg(spec),
                                         mesh)
                 out = {"rank": rank, "steps": steps}
+                if rows is not None:
+                    _ep_worker_checks(window, rank, rows, mesh)
             else:
-                out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS, **SP_WINDOWS}[window](
-                    spec, mesh, spec.get("profile", False))
+                out = {**TP_WINDOWS, **PP_WINDOWS, **DP_WINDOWS, **SP_WINDOWS,
+                       **EP_WINDOWS}[window](spec, mesh, spec.get("profile", False))
+            if unroute is not None:
+                unroute()
             out.update(window=window, window_s=time.monotonic() - t0)
             print("TP-RESULT " + json.dumps(out), flush=True)
             gc.collect()
@@ -6726,6 +6774,327 @@ def serve_sp_phase(report) -> None:
         raise SystemExit(f"serve-sp: gates failed: {gates}")
 
 
+# -- serve-ep: expert parallelism over two ranks --------------------------------
+EP_F32_MODEL = "mixtral:8x7b-2l"  # 2 of 32 layers: the f32 and kill windows
+EP_PARAM_BYTES = 24_416_362_496  # each ep-2 rank's bf16 slice of MOE_MODEL
+EP_ROUTE_KEY = "chip_smoke/ep_route/{window}/{rank}"
+EP_RANK_KEY = "chip_smoke/ep_rank/{window}/{rank}"
+EP_GO_KEY = "chip_smoke/ep_go/{window}"
+
+
+def _moe_cuts() -> None:
+    """Register mixtral:8x7b cut to 16 layers (MOE_MODEL) and to 2
+    (EP_F32_MODEL) in this process's config table (idempotent): a rank
+    of a serve-ep world builds them by name."""
+    from ollamamq_tpu_torch.config import MODEL_CONFIGS
+
+    full = MODEL_CONFIGS["mixtral:8x7b"]
+    for name, layers in ((MOE_MODEL, MOE_LAYERS), (EP_F32_MODEL, 2)):
+        MODEL_CONFIGS.setdefault(name, dataclasses.replace(
+            full, name=name, num_layers=layers))
+
+
+def _ep_param_bytes(cfg, layers: int, ep: int, tp: int, nbytes: int) -> int:
+    """One (expert, tensor) rank's weight bytes from the config's shapes:
+    its E / ep experts' F / tp slices, its heads' attention and V / tp
+    vocabulary rows of the untied embedding and head; the router and the
+    norms whole."""
+    D, E = cfg.hidden_size, cfg.num_experts
+    attn = 2 * D * cfg.q_dim // tp + 2 * D * cfg.kv_dim // tp
+    experts = 3 * (E // ep) * D * (cfg.intermediate_size // tp)
+    per_layer = attn + experts + D * E + 2 * D
+    vocab = 2 * -(-cfg.vocab_size // tp) * D
+    return (layers * per_layer + vocab + D) * nbytes
+
+
+def _ep_route_digests(window: str, rank: int):
+    """Hash layer 0's capacity-slot tensor (models/moe.py route: which
+    (token, k-slot) won which place in which expert's queue, and which
+    were dropped) at every forward on this rank, and post the running
+    sha256 and count under EP_ROUTE_KEY: the expert ranks must route
+    alike. Layer 0 is the router of the window's first route call.
+    Returns the function that unhooks it."""
+    import hashlib
+
+    from ollamamq_tpu_torch.models import moe
+    from ollamamq_tpu_torch.parallel import distributed
+
+    orig = moe.route
+    h, state = hashlib.sha256(), {"ptr": None, "n": 0}
+    key = EP_ROUTE_KEY.format(window=window, rank=rank)
+
+    def hashed(cfg, lp, x, valid=None):
+        out = orig(cfg, lp, x, valid)
+        ptr = lp["w_router"].data_ptr()
+        if state["ptr"] is None:
+            state["ptr"] = ptr
+        if ptr == state["ptr"]:
+            h.update(out[2].contiguous().cpu().numpy().tobytes())
+            state["n"] += 1
+            distributed.store().set(key, json.dumps({"n": state["n"],
+                                                     "sha256": h.hexdigest()}))
+        return out
+
+    moe.route = hashed
+
+    def unhook():
+        moe.route = orig
+
+    return unhook
+
+
+def _ep_capture_rows() -> list:
+    """The runtimes a worker rank's run_worker builds (spmd._build_row),
+    kept for the checks after it returns."""
+    from ollamamq_tpu_torch.engine import spmd
+
+    rows, build = [], spmd._build_row
+
+    def captured(*a, **kw):
+        row = build(*a, **kw)
+        rows.append(row)
+        return row
+
+    captured.__wrapped__ = build
+    spmd._build_row = captured
+    return rows
+
+
+def _pool_sha256(rt) -> str:
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for pool in (rt.kc, rt.vc):
+        h.update(pool.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _ep_decode_step(rt, mesh) -> dict:
+    """This expert rank's decode step on its own experts (no collective:
+    an ExpertGroup with no process group) against its own byte bound."""
+    from ollamamq_tpu_torch.parallel.mesh import ExpertGroup
+
+    local = ExpertGroup(mesh.ep, mesh.coord["expert"], None)
+    return _decode_step_ms(rt, True, ep=local)
+
+
+def _ep_worker_checks(window: str, rank: int, rows: list, mesh) -> None:
+    """A worker rank after its run_worker of the bf16 window: the sha256
+    of its whole K and V pools, then (once rank 0 has measured its own,
+    EP_GO_KEY) its decode step, posted under EP_RANK_KEY."""
+    from ollamamq_tpu_torch.engine import spmd
+    from ollamamq_tpu_torch.parallel import distributed
+
+    spmd._build_row = getattr(spmd._build_row, "__wrapped__", spmd._build_row)
+    (rt,) = [r for row in rows for r in row.values()]
+    client = distributed.store()
+    out = {"pool_sha256": _pool_sha256(rt), "param_bytes": rt.param_bytes}
+    client.wait([EP_GO_KEY.format(window=window)], datetime.timedelta(seconds=300))
+    out["decode_step"] = _ep_decode_step(rt, mesh)
+    client.set(EP_RANK_KEY.format(window=window, rank=rank), json.dumps(out))
+    rows.clear()
+
+
+def _ep_leader_bf16(spec, mesh, profile):
+    """ep 2 in bf16: serve-moe's traffic through the HTTP server, rank
+    0's FFN all_reduce over a burst of its own, then (the engine
+    stopped) the pools' and routing digests of both ranks, the per-call
+    kernel check on rank 0's shard and each rank's decode step."""
+    import torch
+
+    from ollamamq_tpu_torch.engine.spmd import SPMDEngine
+    from ollamamq_tpu_torch.parallel import distributed
+    from ollamamq_tpu_torch.parallel.mesh import ExpertGroup
+    from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
+
+    model, ecfg = spec["model"], _tp_ecfg(spec)
+    t0 = time.monotonic()
+    eng = SPMDEngine(ecfg, mesh=mesh, blocklist_path=None)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rt = eng.runtimes[model]
+    srv = serve_in_thread(eng, port=0, timeout_s=600)
+    port = srv.server_address[1]
+    line = _serve_moe_traffic(rt, port)
+    line["ffn_allreduce"] = _tp_layer_ms(rt, port, model, group=rt.ep)
+    stop_server(srv)
+    peak = torch.cuda.max_memory_allocated()
+    eng.stop()
+    window = "ep-bf16"
+    client = distributed.store()
+    ranks = range(mesh.size)
+    routes = {}
+    for r in ranks:
+        key = EP_ROUTE_KEY.format(window=window, rank=r)
+        routes[r] = json.loads(client.get(key)) if client.check([key]) else None
+    calls = {}
+    kernel_vs_plain_logits(calls, "serve-ep", rt, MOE_TEXT * 2, "bfloat16",
+                           per_call=True, ep=ExpertGroup(mesh.ep, 0, None))
+    step = {0: _ep_decode_step(rt, mesh)}
+    pools = {0: _pool_sha256(rt)}
+    rank_bytes = {0: rt.param_bytes}
+    client.set(EP_GO_KEY.format(window=window), "1")
+    for r in ranks[1:]:
+        key = EP_RANK_KEY.format(window=window, rank=r)
+        client.wait([key], datetime.timedelta(seconds=300))
+        got = json.loads(client.get(key))
+        step[r], pools[r] = got["decode_step"], got["pool_sha256"]
+        rank_bytes[r] = got["param_bytes"]
+    line.update(init_s=init_s, param_bytes=rt.param_bytes, kv_bytes=rt.kv_bytes,
+                max_memory_allocated=peak, n_chips=rt.n_chips,
+                experts=list(rt.ep.expert_range(rt.cfg.num_experts)),
+                routes=routes, pools=pools, decode_step=step,
+                rank_param_bytes=rank_bytes,
+                per_call=calls["serve_ep_logits"], trace=eng.spmd_report(),
+                workers=eng.worker_reports)
+    return line
+
+
+EP_WINDOWS = {"ep-bf16": _ep_leader_bf16, "ep-f32": _tp_leader_f32,
+              "ep-tp-f32": _tp_leader_f32, "ep-kill": _tp_leader_kill}
+
+
+def serve_ep_phase(report) -> None:
+    """Expert parallelism: mixtral:8x7b at full width over two expert
+    shards sharing the card (gloo): 16 layers in bf16 through the HTTP
+    server, float32 identity with one rank at ep 2 and ep 2 x tp 2 (2
+    layers), and a kill -9; see the module docstring."""
+    import torch
+
+    from ollamamq_tpu_torch.config import MODEL_CONFIGS
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    refusals = {name: subprocess.Popen(
+        [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", "mixtral:8x7b",
+         *flags, "--no-tui"], cwd=here, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name, flags in (("ep3", ["--ep", "3"]),
+                            ("ep2_pp2", ["--ep", "2", "--pp", "2"]),
+                            ("ep2_int8", ["--ep", "2", "--weights-dtype", "int8"]))}
+    base = {"device": TP_DEVICE, "ep": 2, "tp": 1}
+    t_world = time.monotonic()
+    # One world of two ranks serves three windows, the kill last.
+    windows, rcs, _ = _tp_world("ep", [
+        ("ep-bf16", {**base, "model": MOE_MODEL, "dtype": "bfloat16",
+                     "ep_checks": True}),
+        ("ep-f32", {**base, "model": EP_F32_MODEL, "dtype": "float32"}),
+        ("ep-kill", {**base, "model": EP_F32_MODEL, "dtype": "bfloat16"})])
+    world_s = time.monotonic() - t_world
+    t_wide = time.monotonic()
+    wide, rcs_wide, _ = _tp_world("ep_tp", [
+        ("ep-tp-f32", {**base, "tp": 2, "model": EP_F32_MODEL,
+                       "dtype": "float32"})])
+    wide_s = time.monotonic() - t_wide
+    bf16, f32, kill, f32tp = (windows["ep-bf16"], windows["ep-f32"],
+                              windows["ep-kill"], wide["ep-tp-f32"])
+    (w_bf16,), (w_f32,) = bf16["workers"], f32["workers"]
+    layers = MOE_LAYERS
+    w_exact, w_own = _tp_exact(w_bf16["launches"], w_bf16["ops"], layers, "")
+    launches = {k: 0 for k in KERNEL_ROWS}
+    for counts in ([bf16["launches"], w_bf16["launches"], f32["launches"],
+                    w_f32["launches"], f32tp["launches"]]
+                   + [w["launches"] for w in f32tp["workers"]]):
+        for k, v in counts.items():
+            launches[k] += v
+    full = MODEL_CONFIGS["mixtral:8x7b"]
+    bytes_ep2 = _ep_param_bytes(full, layers, 2, 1, 2)
+    bytes_f32_ep2_tp2 = _ep_param_bytes(full, 2, 2, 2, 4)
+    outs = {}
+    for name, proc in refusals.items():
+        out, _ = proc.communicate(timeout=120)
+        outs[name] = {"exit": proc.returncode,
+                      "message": next((ln.split(": ", 1)[-1]
+                                       for ln in out.splitlines()
+                                       if "ep=" in ln or "MoE" in ln), out[-300:])}
+    routes = {int(k): v for k, v in bf16["routes"].items()}  # JSON keys: str
+    pools = {int(k): v for k, v in bf16["pools"].items()}
+    step = {int(k): v for k, v in bf16["decode_step"].items()}
+    rank_bytes = {int(k): v for k, v in bf16["rank_param_bytes"].items()}
+    fa = bf16["ffn_allreduce"]
+    line = {"phase": "serve-ep", "model": MOE_MODEL, "ep": 2, "backend": "gloo",
+            "ranks_on": "cuda:0 (both)", "layers": layers,
+            "reduced": {"num_layers": [32, layers]},
+            "width": {"hidden": full.hidden_size,
+                      "intermediate": full.intermediate_size,
+                      "heads": full.num_heads, "kv_heads": full.num_kv_heads,
+                      "head_dim": full.head_dim, "experts": full.num_experts,
+                      "top_k": full.num_experts_per_tok, "vocab": full.vocab_size},
+            "experts_rank0": bf16["experts"], "dtype": "bfloat16",
+            "streams": len(MOE_STREAMS), "users": 3,
+            **{k: bf16[k] for k in ("init_s", "serve_s", "burst_s", "tokens",
+                                    "burst_tokens", "burst_tokens_per_s",
+                                    "ttft_ms", "replies", "greedy_repeat_identical",
+                                    "ragged_dispatches", "decode_steps",
+                                    "launches_expected", "kernels_exact",
+                                    "param_bytes", "kv_bytes", "n_chips")},
+            "param_bytes_expected": bytes_ep2, "rank_param_bytes": rank_bytes,
+            "ffn_allreduce": {**fa, "share_of_forward": (fa["allreduce_ms_per_forward"]
+                                                         / max(1e-9, fa["wall_ms_per_forward"]))},
+            "decode_step": step,
+            "max_memory_allocated": {"rank0": bf16["max_memory_allocated"],
+                                     "rank1": w_bf16.get("max_memory_allocated")},
+            "ops": {"rank0": bf16["trace"]["ops"], "rank1": w_bf16["ops"]},
+            "digests_equal": bf16["trace"]["digest"] == w_bf16["digest"],
+            "routes": routes, "pools": pools,
+            "per_call": bf16["per_call"],
+            "launches_rank0_burst": bf16["launches"],
+            "launches_rank1": w_bf16["launches"], "kernels_exact_rank1": w_exact,
+            "f32": {k: f32[k] for k in ("ids_identical", "first_forward", "done",
+                                        "param_bytes")},
+            "f32_tp2": {k: f32tp[k] for k in ("ids_identical", "first_forward",
+                                              "done", "param_bytes")},
+            "f32_tp2_param_bytes_expected": bytes_f32_ep2_tp2,
+            "f32_launches": {"rank0": f32["launches"], "rank1": w_f32["launches"]},
+            "kill": kill, "cli_refusals": outs,
+            "return_codes": {"ep": rcs, "ep_tp": rcs_wide}, "launches": launches,
+            "worlds": {"ep": "one, 2 ranks", "ep_tp": "one, 4 ranks"},
+            "world_s": {"ep": world_s, "ep_tp": wide_s},
+            "windows_s": {w: r["window_s"] for w, r in {**windows, **wide}.items()}}
+    line["phase_s"] = time.monotonic() - t_phase
+    emit(line)
+    report["serve_ep"] = line
+    gates = {
+        "replies": all(r["done_reason"] in ("stop", "length")
+                       for r in line["replies"].values()),
+        "greedy_repeat_identical": bf16["greedy_repeat_identical"],
+        "ranks_ids_equal": line["digests_equal"],
+        "routing_equal": (routes.get(0) is not None and routes[0]["n"] > 0
+                          and routes[0] == routes.get(1)),
+        "kernels_exact": bf16["kernels_exact"] and w_exact,
+        "param_bytes": (EP_PARAM_BYTES == bytes_ep2
+                        and rank_bytes == {0: bytes_ep2, 1: bytes_ep2}),
+        "pools_equal": pools.get(0) is not None and pools[0] == pools.get(1),
+        "per_call": all(c["ok"] for k, c in bf16["per_call"].items()
+                        if k.endswith("_per_call")),
+        "f32_ids_identical": f32["done"] and f32["ids_identical"],
+        "f32_first_logits": f32["first_forward"]["ok"],
+        "f32_tp2_ids_identical": f32tp["done"] and f32tp["ids_identical"],
+        "f32_tp2_first_logits": f32tp["first_forward"]["ok"],
+        "f32_tp2_param_bytes": f32tp["param_bytes"] == bytes_f32_ep2_tp2,
+        "f32_kernels_both_ranks": all(
+            c["ragged_paged_attention"] > 0 and c["paged_decode_attention"] > 0
+            for c in (f32["launches"], w_f32["launches"])),
+        "cli_refusals_exit_2": (
+            all(o["exit"] == 2 for o in outs.values())
+            and "ep=3 must divide num_experts=8" in outs["ep3"]["message"]
+            and "pp with an MoE model" in outs["ep2_pp2"]["message"]
+            and "does not cover MoE expert stacks" in outs["ep2_int8"]["message"]),
+        "kill_errors": kill["kinds"] == ["error"] * 4,
+        "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
+        "kill_health": (kill["health_http"] == 200 and "worker_stale" in kill["alerts"]
+                        and kill["runtime_failed"] == [True]),
+        "exit_codes": rcs == [0, -9] and rcs_wide == [0, 0, 0, 0],
+    }
+    emit({"phase": "serve-ep-gates", **gates})
+    if not all(gates.values()):
+        raise SystemExit(f"serve-ep: gates failed: {gates}")
+
+
 def guardrail_phase(report) -> None:
     """quant_guardrail of the int8 llama3.2:1b tree against its bf16
     source (seeded random weights) at full width on the card. The bound on
@@ -6867,6 +7236,7 @@ PHASES = {
     "serve-pp": lambda r, p: serve_pp_phase(r, p),
     "serve-dp": lambda r, p: serve_dp_phase(r),
     "serve-sp": lambda r, p: serve_sp_phase(r),
+    "serve-ep": lambda r, p: serve_ep_phase(r),
 }
 
 
@@ -6935,11 +7305,13 @@ def main(argv=None) -> int:
                                             "serve_fleet", "serve_tiers",
                                             "serve_autoscale", "serve_ha",
                                             "serve_tp", "serve_pp",
-                                            "serve_dp", "serve_sp"))),
+                                            "serve_dp", "serve_sp",
+                                            "serve_ep"))),
                "launches_serve_tp": report["serve_tp"]["launches"][name],
                "launches_serve_pp": report["serve_pp"]["launches"][name],
                "launches_serve_dp": report["serve_dp"]["launches"][name],
                "launches_serve_sp": report["serve_sp"]["launches"][name],
+               "launches_serve_ep": report["serve_ep"]["launches"][name],
                "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                "bound_by": m["bound_by"], "library_ms": m["sdpa_dense_ms"]}

@@ -95,16 +95,25 @@ one rank each, times --tp ranks per shard: the ranks start as for --tp
 past the largest prefill bucket prefills in one forward with ring
 attention over the shards (parallel/ring_attention.py); weights and the
 KV pool are replicated over them, so every other step runs alike on
-each. --kv-dtype int8 with sp and sp with pp exit 2. In a fleet every
-member starts at the fleet's --tp / --pp / --sp (fleet/wide.py).
+each. --kv-dtype int8 with sp and sp with pp exit 2.
+
+--ep N (N > 1) cuts every mixture-of-experts layer's experts over N
+expert shards, one rank each, times --tp ranks per shard: the ranks
+start as for --tp, each holds E / N of every MoE layer's experts (and
+its --tp slice of them) and everything else whole, routes every token
+alike and sums its experts' partial output over the (expert, tensor)
+plane. A dense model serves on the same ranks, replicated over them.
+--ep < 1, an --ep that does not divide an MoE model's expert count, and
+--pp with an MoE model exit 2. In a fleet every member starts at the
+fleet's --tp / --pp / --sp / --ep (fleet/wide.py).
 
 --dp N serves every generative model as N data-parallel replicas, each
 with its own weights, KV pool and slots; a request goes to the
 least-loaded replica. Alone, this one process holds the N replicas, on
-cuda:0..cuda:N-1 (all on the CPU with --device cpu). With --tp or --pp
-each replica is its own tp x sp x pp group of ranks, started as for
---tp (N x pp x sp x tp ranks, one per device; replica r holds ranks
-r*pp*sp*tp ..);
+cuda:0..cuda:N-1 (all on the CPU with --device cpu). With --tp, --pp,
+--sp or --ep each replica is its own pp x sp x ep x tp group of ranks,
+started as for --tp (N x pp x sp x ep x tp ranks, one per device;
+replica r holds ranks r*pp*sp*ep*tp ..);
 with --spmd the world in the env is cut the same way. A host with fewer
 cards than the replicas need exits 2 naming the missing ones: no replica
 falls back to another device or to the CPU.
@@ -314,6 +323,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=d.sp,
                    help="sequence-parallel shards: ranks a long prompt's "
                         "one-shot prefill is cut over (ring attention)")
+    p.add_argument("--ep", type=int, default=d.ep,
+                   help="expert-parallel axis size (MoE models)")
     p.add_argument("--pp-microbatches", type=int, default=0,
                    help="GPipe microbatches per pp dispatch (0 = one per "
                         "stage; sweep on hardware — prefill wants more, "
@@ -553,7 +564,8 @@ def validate(args, cards=None) -> str:
                 "--replica-urls from a non-SPMD front-end instead)")
     if args.dp < 1:
         return f"--dp must be >= 1, got {args.dp}"
-    if args.tp != 1 or args.pp != 1 or args.sp != 1 or args.spmd:
+    if args.tp != 1 or args.pp != 1 or args.sp != 1 or args.ep != 1 \
+            or args.spmd:
         err = validate_tp(args)
         if err:
             return err
@@ -593,7 +605,7 @@ def validate(args, cards=None) -> str:
         if err:
             return f"invalid --tiers: {err}"
         for tier, width in sorted(tier_widths(args).items()):
-            err = validate_width(args, width or 1, args.pp)
+            err = validate_width(args, width or 1, args.pp, args.ep)
             if err:
                 return f"invalid --tiers: tier {tier!r} @tp{width}: {err}"
     if is_fleet(args):
@@ -616,9 +628,10 @@ def validate(args, cards=None) -> str:
 
 
 def validate_tp(args) -> str:
-    """--tp / --pp / --sp / --spmd errors that need no device work: the
-    widths against every model's heads and layers, and the devices of a
-    local world (tp x pp x sp ranks) on this host."""
+    """--tp / --pp / --sp / --ep / --spmd errors that need no device
+    work: the widths against every model's heads, layers and experts,
+    and the devices of a local world (pp x sp x ep x tp ranks) on this
+    host."""
     from ollamamq_tpu_torch.parallel.distributed import multiprocess_configured
 
     if args.spmd and not os.environ.get("OLLAMAMQ_TP_WORKER") \
@@ -633,20 +646,24 @@ def validate_tp(args) -> str:
         return f"--pp-microbatches must be >= 0, got {args.pp_microbatches}"
     if args.sp < 1:
         return f"--sp must be >= 1, got {args.sp}"
+    if args.ep < 1:
+        return f"--ep must be >= 1, got {args.ep}"
     if args.fake_engine:
-        return "--tp / --pp / --sp need a model engine; --fake-engine runs none"
+        return ("--tp / --pp / --sp / --ep need a model engine; "
+                "--fake-engine runs none")
     if args.sp > 1 and args.pp > 1:
         return ("pp and sp cannot combine on one runtime: pipeline stages "
                 "and sequence shards contend for the same activation layout "
                 "(use pp x tp, or sp x tp)")
-    err = validate_width(args, args.tp, args.pp)
+    err = validate_width(args, args.tp, args.pp, args.ep)
     if err or is_fleet(args):  # a fleet's cards: validate_fleet_cards
         return err
     return validate_devices(args)
 
 
-def validate_width(args, tp: int, pp: int) -> str:
-    """tp and pp against every model's heads and layers."""
+def validate_width(args, tp: int, pp: int, ep: int = 1) -> str:
+    """tp, pp and ep against every model's heads, layers and experts (a
+    dense model is replicated over the expert axis)."""
     from ollamamq_tpu_torch.parallel.mesh import validate_tp_for_model
 
     for name in model_table(args):
@@ -657,6 +674,9 @@ def validate_width(args, tp: int, pp: int) -> str:
             if cfg.num_experts:
                 return ("pp with an MoE model is not supported: the pipeline "
                         f"stage body runs the dense FFN ({name})")
+        if ep > 1 and cfg.num_experts and cfg.num_experts % ep:
+            return (f"ep={ep} must divide num_experts={cfg.num_experts} "
+                    f"({name})")
         if tp > 1:
             try:
                 validate_tp_for_model(tp, cfg.num_kv_heads, cfg.num_heads)
@@ -686,8 +706,8 @@ def fleet_has_wide(args) -> bool:
     (the card plan then gives every member cards of its own)."""
     widths = list(member_widths(args).values()) + [
         w for w in tier_widths(args).values() if w]
-    return args.pp > 1 or args.sp > 1 or any(max(1, w) > 1
-                                             for w in widths + [args.tp])
+    return args.pp > 1 or args.sp > 1 or args.ep > 1 or any(
+        max(1, w) > 1 for w in widths + [args.tp])
 
 
 def validate_fleet_cards(args, cards=None) -> str:
@@ -704,8 +724,8 @@ def validate_fleet_cards(args, cards=None) -> str:
     trial = CardPlan(plan.cards, backend=plan.backend)
     for name, width in member_widths(args).items():
         try:
-            trial.take_member(name, argparse.Namespace(dp=args.dp, tp=width,
-                                                       pp=args.pp, sp=args.sp))
+            trial.take_member(name, argparse.Namespace(
+                dp=args.dp, tp=width, pp=args.pp, sp=args.sp, ep=args.ep))
         except RuntimeError as e:
             return str(e)
     return ""
@@ -713,7 +733,8 @@ def validate_fleet_cards(args, cards=None) -> str:
 
 def validate_devices(args) -> str:
     """The cards this host must have: one per rank of a local --tp / --pp
-    world (--dp x --pp x --tp ranks), or one per replica of --dp alone
+    / --sp / --ep world (--dp x --pp x --sp x --ep x --tp ranks), or one
+    per replica of --dp alone
     (in-process replicas on cuda:0..). None is missing on the CPU or
     under --spmd (each host brings its own)."""
     world = local_world(args)
@@ -726,7 +747,8 @@ def validate_devices(args) -> str:
     if have >= need:
         return ""
     flags = " ".join(f"{f} {n}" for f, n in (("--dp", args.dp), ("--tp", args.tp),
-                                            ("--pp", args.pp), ("--sp", args.sp))
+                                            ("--pp", args.pp), ("--sp", args.sp),
+                                            ("--ep", args.ep))
                      if n != 1)
     unit = "rank" if world > 1 else "replica"
     missing = ", ".join(f"cuda:{i}" for i in range(have, need))
@@ -736,10 +758,10 @@ def validate_devices(args) -> str:
 
 
 def local_world(args) -> int:
-    """Ranks of a one-host --tp / --pp / --sp world: tp per stage times pp
-    times sp, times --dp replicas of that group (1: no rank world; --dp
-    alone runs its replicas in this process)."""
-    group = max(1, args.tp) * args.pp * args.sp
+    """Ranks of a one-host --tp / --pp / --sp / --ep world: tp per stage
+    times pp times sp times ep, times --dp replicas of that group (1: no
+    rank world; --dp alone runs its replicas in this process)."""
+    group = max(1, args.tp) * args.pp * args.sp * args.ep
     return args.dp * group if group > 1 else 1
 
 
@@ -776,7 +798,7 @@ def engine_config(args) -> EngineConfig:
         router_overhead_budget_ms=args.router_overhead_budget_ms,
         federate_metrics=not args.no_federate_metrics,
         preemptible=args.preemptible or None, tp=args.tp, pp=args.pp,
-        dp=args.dp, sp=args.sp,
+        dp=args.dp, sp=args.sp, ep=args.ep,
         pp_microbatches=args.pp_microbatches or None,
         tiers=args.tiers or None, autoscale=args.autoscale,
         min_replicas=args.min_replicas, max_replicas=args.max_replicas,
@@ -861,10 +883,10 @@ def install_graceful_shutdown(engine, grace_s: float) -> None:
 
 
 def start_ranks(args, argv, log):
-    """Bring up the rank world of --tp / --pp / --sp / --spmd. Returns
-    (mesh, worker processes this process started). --tp N --pp P --sp Q
-    on one host (N x P x Q ranks): this process is rank 0 and starts the
-    others as
+    """Bring up the rank world of --tp / --pp / --sp / --ep / --spmd.
+    Returns (mesh, worker processes this process started). --tp N --pp P
+    --sp Q --ep X on one host (N x P x Q x X ranks): this process is rank
+    0 and starts the others as
     `python -m ollamamq_tpu_torch.cli`
     with the same flags (env OLLAMAMQ_TP_WORKER=1, RANK, WORLD_SIZE,
     MASTER_ADDR/PORT of the store this process hosts), each dying with
@@ -880,7 +902,8 @@ def start_ranks(args, argv, log):
         world = int(os.environ.get("WORLD_SIZE", "1"))
         distributed.initialize(devices=["cpu"] * world if cpu else None)
         tp = args.tp if args.tp not in (1, -1) or not args.spmd else -1
-        return make_mesh(dp=args.dp, tp=tp, pp=args.pp, sp=args.sp), procs
+        return make_mesh(dp=args.dp, tp=tp, pp=args.pp, sp=args.sp,
+                         ep=args.ep), procs
 
     world = local_world(args)
 
@@ -901,7 +924,7 @@ def start_ranks(args, argv, log):
         distributed.initialize("127.0.0.1:0", world, 0, devices=devices,
                                on_store=spawn)
         return make_mesh(dp=args.dp, tp=max(1, args.tp), pp=args.pp,
-                         sp=args.sp, devices=devices), procs
+                         sp=args.sp, ep=args.ep, devices=devices), procs
     except BaseException:
         for p in procs:
             p.kill()
@@ -1030,7 +1053,7 @@ def main(argv=None) -> int:
     # A fleet's members lead their own rank worlds (build_fleet); this
     # process is a rank of a world only as one engine.
     if not is_fleet(args) and (args.tp != 1 or args.pp != 1 or args.sp != 1
-                               or args.spmd):
+                               or args.ep != 1 or args.spmd):
         from ollamamq_tpu_torch.engine import spmd
         from ollamamq_tpu_torch.parallel import distributed
 
@@ -1039,7 +1062,8 @@ def main(argv=None) -> int:
             # Worker rank: replay rank 0's step plans until shutdown.
             log.info("%s worker rank %d starting for %s",
                      "pipeline-parallel" if args.pp > 1 else
-                     "sequence-parallel" if args.sp > 1 else "tensor-parallel",
+                     "sequence-parallel" if args.sp > 1 else
+                     "expert-parallel" if args.ep > 1 else "tensor-parallel",
                      distributed.rank(), ",".join(model_table(args)))
             spmd.run_worker(model_table(args), ecfg, mesh)
             return 0

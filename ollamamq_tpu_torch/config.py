@@ -255,6 +255,13 @@ class EngineConfig:
     # attention, parallel/ring_attention.py); weights and the KV pool
     # are replicated over them.
     sp: int = 1
+    # Expert-parallel shards of one engine (the JAX package's mesh axis
+    # sizes build the same (data, pipe, seq, expert, tensor) mesh): each
+    # rank holds E / ep of every MoE layer's experts and their FFN output
+    # is summed over the (expert, tensor) plane; everything else, and a
+    # dense model whole, is replicated over the axis. ep must divide an
+    # MoE model's expert count.
+    ep: int = 1
     dtype: str = "bfloat16"
     # "int8": per-channel symmetric int8 weights, quantized when the
     # runtime builds them (f32 scales; norms and biases stay in `dtype`).

@@ -497,6 +497,9 @@ class ModelRuntime(JournaledRuntime):
                 log.warning("%s: --pp-microbatches %d rounded down to %d, the "
                             "largest divisor of the %d decode slots not above "
                             "it", name, want, micro, engine_cfg.max_slots)
+        # Expert parallelism: an MoE model keeps this rank's experts of
+        # every layer; a dense one is replicated over the expert axis.
+        self.ep, self._ep = _expert_axis(mesh, model_cfg, name)
         stage = self.pipe.stage if self.pipe is not None else 0
         self.name = name
         self.cfg = model_cfg
@@ -667,14 +670,16 @@ class ModelRuntime(JournaledRuntime):
         passed in are cut here)."""
         cfg, ecfg = self._orig_cfg, self.ecfg
         rank = self.tp.rank if self.tp is not None else 0
+        expert = self.ep.index if self.ep is not None else 0
         if params is None:
             params = weights.load_params(cfg, checkpoint_path, ecfg.seed,
                                          self.dtype, self.weights_dtype,
                                          self.device, tp=tp_size, rank=rank,
-                                         pp=pp, stage=stage)
+                                         pp=pp, stage=stage, ep=self._ep,
+                                         expert_index=expert)
         else:
             params = weights.tp_slice(weights.stage_slice(params, cfg, pp, stage),
-                                      cfg, tp_size, rank)
+                                      cfg, tp_size, rank, self._ep, expert)
         self.params = params
         self.kc, self.vc = kvc.alloc_kv_pool(
             self.cfg, ecfg, self.dtype, self.device, kv_dtype=self.kv_dtype,
@@ -760,8 +765,14 @@ class ModelRuntime(JournaledRuntime):
 
     def _clear_slot(self, slot: int) -> None:
         """Reset a slot's sampling rows and bookkeeping (the caller
-        releases its pages: finish and preempt release differently)."""
+        releases its pages: finish and preempt release differently). A
+        parked slot's decode row still runs, at position 0 on the trash
+        page: its last token goes to 0 too, so every parked row writes the
+        same K/V to the trash slot they share and each rank of a world
+        holds the same bytes there (which of several differing rows lands
+        in one slot is unspecified)."""
         self.seq_lens[slot] = 0
+        self.last_tokens[slot] = 0
         self.temp[slot] = 0.0
         self.top_k[slot] = 0
         self.top_p[slot] = 1.0
@@ -1837,7 +1848,7 @@ class ModelRuntime(JournaledRuntime):
         logits, _, _ = llama.forward_ragged(
             self.params, self.cfg, tokens_d, tok_seq_d, tok_pos_d, ws_d,
             out_idx, self.kc, self.vc, pt_d, qs_d, ql_d, kv_d,
-            self.ecfg.page_size, tp=self.tp)
+            self.ecfg.page_size, tp=self.tp, ep=self.ep)
         if k_cap:
             greedy_all = logits.argmax(-1).to(torch.int32)  # [S, k_cap + 1]
             # Draft j + 1 sits right after the span's input token.
@@ -1988,7 +1999,7 @@ class ModelRuntime(JournaledRuntime):
         else:
             logits, _, _ = llama.forward_prefill(
                 self.params, self.cfg, tokens_d, lens_d, self.kc, self.vc,
-                pt_d, ps, tp=self.tp)
+                pt_d, ps, tp=self.tp, ep=self.ep)
         W = self.recent.shape[1]
         # Ring rows: the last W prompt tokens of each sequence.
         idx = lens_d[:, None] - W + torch.arange(W, device=self.device)[None, :]
@@ -2020,7 +2031,7 @@ class ModelRuntime(JournaledRuntime):
         else:
             logits, _, _ = llama.forward_prefill_chunk(
                 self.params, self.cfg, tokens_d, start_d, cl_d, self.kc,
-                self.vc, pt_d, ps, tp=self.tp)
+                self.vc, pt_d, ps, tp=self.tp, ep=self.ep)
         slot, n_valid = int(slot_id[0]), int(cl[0])
         W = self.recent.shape[1]
         row = (torch.from_numpy(np.asarray(seed_row[0], np.int32)).to(self.device)
@@ -2048,7 +2059,7 @@ class ModelRuntime(JournaledRuntime):
             [tokens, lens, slot_ids, pt_rows], np.int32)
         logits, _, _ = llama.forward_prefill_sp(
             self.params, self.cfg, tokens_d, lens_d, self.kc, self.vc, pt_d,
-            self.ecfg.page_size, self.seq, tp=self.tp)
+            self.ecfg.page_size, self.seq, tp=self.tp, ep=self.ep)
         W = self.recent.shape[1]
         idx = lens_d[:, None] - W + torch.arange(W, device=self.device)[None, :]
         gathered = torch.gather(tokens_d, 1, idx.clamp(0, T - 1).long())
@@ -2467,7 +2478,7 @@ class ModelRuntime(JournaledRuntime):
                 logits, _, _ = llama.forward_decode(
                     self.params, self.cfg, tokens, positions, self.kc,
                     self.vc, pt_d, self.ecfg.page_size, active=act_d,
-                    tp=self.tp)
+                    tp=self.tp, ep=self.ep)
             ring = self.recent[:S]
             pen_logits = maybe_apply_penalties(logits, ring, pen_d, pres_d,
                                                freq_d, need_pen)
@@ -2545,7 +2556,8 @@ class ModelRuntime(JournaledRuntime):
     def _dispatch_embed(self, B, bucket, tokens, lens) -> torch.Tensor:
         self._fault("embed")
         toks, n = self._to_dev([tokens, lens], np.int32)
-        return llama.forward_embed(self.params, self.cfg, toks, n, tp=self.tp)
+        return llama.forward_embed(self.params, self.cfg, toks, n, tp=self.tp,
+                                   ep=self.ep)
 
     def step_embed(self, core: MQCore) -> bool:
         """Serve pending embed requests: stateless forwards (no KV write),
@@ -2722,6 +2734,21 @@ def _tensor_axis(mesh, model_cfg: ModelConfig):
         return mesh, None, 1
     validate_tp_for_model(mesh.tp, model_cfg.num_kv_heads, model_cfg.num_heads)
     return mesh, mesh.tensor, mesh.tp
+
+
+def _expert_axis(mesh, model_cfg: ModelConfig, name: str):
+    """(ExpertGroup or None, ep) of a runtime: an MoE model's expert
+    shard on an expert-parallel mesh (ep must divide its experts), (None,
+    1) for a dense model, which the axis replicates (multi-model pools
+    mix families). The group is None on rank 0's host state of another
+    replica, which runs no forward."""
+    ep = mesh.ep if mesh is not None else 1
+    if ep == 1 or not model_cfg.num_experts:
+        return None, 1
+    if model_cfg.num_experts % ep:
+        raise ValueError(f"ep={ep} must divide num_experts="
+                         f"{model_cfg.num_experts} ({name})")
+    return mesh.expert, ep
 
 
 def dp_devices(device, dp: int) -> List[str]:

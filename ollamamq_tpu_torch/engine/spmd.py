@@ -977,7 +977,8 @@ class SPMDRemoteRuntime(SPMDModelRuntime):
         meta = torch.device("meta")
         shapes = weights.load_params(self._orig_cfg, None, self.ecfg.seed,
                                      self.dtype, self.weights_dtype, meta,
-                                     tp=tp_size, rank=0, pp=pp, stage=0)
+                                     tp=tp_size, rank=0, pp=pp, stage=0,
+                                     ep=self._ep)
         kc, vc = kvc.alloc_kv_pool(self.cfg, self.ecfg, self.dtype, meta,
                                    kv_dtype=self.kv_dtype, tp=tp_size,
                                    layers=self.cfg.num_layers // pp)

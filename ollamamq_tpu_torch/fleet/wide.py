@@ -1,6 +1,6 @@
 """Fleet members wider than one rank: each leads a rank world of its own.
 
-A fleet member at tp x pp x sp (x dp) > 1 ranks is an SPMDEngine
+A fleet member at tp x pp x sp x ep (x dp) > 1 ranks is an SPMDEngine
 (engine/spmd.py) over a world that belongs to that member alone. The
 router's process is rank 0 of every such world: it hosts the world's
 store and its control plane, runs the member's scheduler on rank 0's
@@ -50,17 +50,23 @@ JOIN_TIMEOUT_S = 300.0
 
 
 def member_ranks(cfg) -> int:
-    """Processes of a member at `cfg`'s widths: tp x pp x sp per replica
-    times dp when tp x pp x sp > 1 (a rank world), else 1 (--dp alone
-    keeps its replicas in one process)."""
-    group = max(1, cfg.tp) * max(1, cfg.pp) * max(1, cfg.sp)
+    """Processes of a member at `cfg`'s widths: tp x pp x sp x ep per
+    replica times dp when tp x pp x sp x ep > 1 (a rank world), else 1
+    (--dp alone keeps its replicas in one process)."""
+    group = _group(cfg)
     return max(1, cfg.dp) * group if group > 1 else 1
 
 
 def member_cards(cfg) -> int:
     """Cards a member at `cfg`'s widths holds: one per rank, or one per
     in-process replica."""
-    return max(1, cfg.dp) * max(1, cfg.tp) * max(1, cfg.pp) * max(1, cfg.sp)
+    return max(1, cfg.dp) * _group(cfg)
+
+
+def _group(cfg) -> int:
+    """Ranks of one replica at `cfg`'s widths."""
+    return (max(1, cfg.tp) * max(1, cfg.pp) * max(1, cfg.sp)
+            * max(1, cfg.ep))
 
 
 class CardPlan:
@@ -230,7 +236,7 @@ def start_world(cfg, models: dict, devices: Sequence[str],
     spec = {"models": models, "ecfg": dataclasses.asdict(cfg),
             "devices": list(devices), "backend": backend,
             "mesh": {"dp": cfg.dp, "tp": max(1, cfg.tp), "pp": cfg.pp,
-                     "sp": cfg.sp}}
+                     "sp": cfg.sp, "ep": cfg.ep}}
     procs: list = []
 
     def spawn(port: int) -> None:
@@ -248,7 +254,7 @@ def start_world(cfg, models: dict, devices: Sequence[str],
                                        on_store=spawn, set_device=False)
         _await_ranks(world, procs, timeout_s)
         mesh = make_mesh(dp=cfg.dp, tp=max(1, cfg.tp), pp=cfg.pp,
-                         sp=cfg.sp, devices=devices, world=world)
+                         sp=cfg.sp, ep=cfg.ep, devices=devices, world=world)
         return mesh, procs
     except BaseException:
         _abandon(procs, world)
@@ -341,7 +347,7 @@ def worker_main() -> int:
     distributed.initialize(backend=spec["backend"], devices=devices)
     shape = spec["mesh"]
     mesh = make_mesh(dp=shape["dp"], tp=shape["tp"], pp=shape["pp"],
-                     sp=shape["sp"], devices=devices)
+                     sp=shape["sp"], ep=shape["ep"], devices=devices)
     log.info("wide-member rank %d of %d on %s", distributed.rank(),
              len(devices), distributed.device())
     spmd.run_worker(spec["models"], _engine_config(spec["ecfg"]), mesh)

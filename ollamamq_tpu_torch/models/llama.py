@@ -18,7 +18,12 @@ rank's rows give zeros, then all_reduce) and the vocab gather of the
 logits, so every rank holds the full [N, V] logits and samples the same
 ids. A mixture-of-experts layer holds
 w_router and the expert stacks we_gate / we_up / we_down
-(models/moe.py) in place of w_gate / w_up / w_down.
+(models/moe.py) in place of w_gate / w_up / w_down. Under expert
+parallelism (`ep`, a parallel.mesh.ExpertGroup) a rank holds E / ep of
+each MoE layer's experts and everything else as at ep 1: an MoE layer's
+partial FFN output is summed over the (expert, tensor) plane in one
+all_reduce, while attention, and a dense layer's FFN (replicated over
+the expert axis), sum over the tensor axis only.
 """
 
 from __future__ import annotations
@@ -135,12 +140,16 @@ def _mlp(lp: dict, h: torch.Tensor) -> torch.Tensor:
     return qeinsum("nf,fd->nd", F.silu(gate) * up, lp["w_down"])
 
 
-def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor, valid=None) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor, valid=None,
+         ep=None) -> torch.Tensor:
     """Dense SwiGLU or routed mixture-of-experts, by model family.
     `valid` (bool, one per row of h) marks real tokens; only MoE routing
-    reads it (padding and parked rows must not claim expert capacity)."""
+    reads it (padding and parked rows must not claim expert capacity).
+    Under `ep` an MoE layer runs this rank's experts only (a partial
+    sum)."""
     if cfg.num_experts:
-        return moe_mlp(cfg, lp, h, valid=valid)
+        experts = None if ep is None else ep.expert_range(cfg.num_experts)
+        return moe_mlp(cfg, lp, h, valid=valid, experts=experts)
     return _mlp(lp, h)
 
 
@@ -170,14 +179,24 @@ def _reduce(x: torch.Tensor, tp) -> torch.Tensor:
     return x if tp is None else tp.all_reduce(x)
 
 
+def _ffn_sum(cfg: ModelConfig, y: torch.Tensor, tp, ep) -> torch.Tensor:
+    """The FFN's partial outputs summed over the ranks that share them:
+    an MoE layer's over the (expert, tensor) plane, a dense layer's
+    (replicated over the expert axis) over the tensor axis."""
+    if cfg.num_experts and ep is not None:
+        return ep.all_reduce(y)
+    return _reduce(y, tp)
+
+
 def layer_step(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                positions: torch.Tensor, attend, valid=None,
-               tp=None) -> torch.Tensor:
+               tp=None, ep=None, ffn=_ffn) -> torch.Tensor:
     """One decoder layer: norm, qkv, RoPE, `attend(q, k, v)` -> [N, H,
-    hd], output projection and the FFN (dense SwiGLU or routed experts
-    over the `valid` rows), with residuals. Under `tp` the two row-
-    parallel outputs are summed over the tensor axis before their
-    residual adds."""
+    hd], output projection and the FFN (`ffn(cfg, lp, h, valid, ep)`:
+    dense SwiGLU or routed experts over the `valid` rows), with
+    residuals. Under `tp` the attention output is summed over the
+    tensor axis, and the FFN's as _ffn_sum says, before their residual
+    adds."""
     N = x.shape[0]
     h = rmsnorm(x, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = _qkv(cfg, lp, h)
@@ -186,11 +205,11 @@ def layer_step(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     attn = attend(q, k, v)
     x = x + _reduce(qeinsum("ne,ed->nd", attn.reshape(N, -1), lp["wo"]), tp)
     h2 = rmsnorm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + _reduce(_ffn(cfg, lp, h2, valid), tp)
+    return x + _ffn_sum(cfg, ffn(cfg, lp, h2, valid, ep), tp, ep)
 
 
 def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend,
-            valid=None, tp=None):
+            valid=None, tp=None, ep=None):
     """The paged layer stack: each layer writes its K/V BEFORE attention
     (a token sees its own K/V), then attends through `attend(layer, q)`.
     `k_cache[layer]` is that layer's pool, a tensor or a QuantKV."""
@@ -200,7 +219,7 @@ def _layers(params, cfg, x, positions, k_cache, v_cache, write_slots, attend,
             kv_write(v_cache[layer], write_slots, v)
             return attend(layer, q)
 
-        x = layer_step(cfg, lp, x, positions, paged, valid, tp)
+        x = layer_step(cfg, lp, x, positions, paged, valid, tp, ep)
     return x
 
 
@@ -221,6 +240,7 @@ def forward_ragged(
     page_size: int,
     attn_impl: str = "kernel",  # "kernel" (serving) | "plain" (reference)
     tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+    ep=None,  # ExpertGroup: this rank's experts of an expert-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ONE forward over a ragged mixed batch of prefill spans and decode
     tokens sharing a flattened [T] stream. Each layer writes the
@@ -237,7 +257,7 @@ def forward_ragged(
             tok_seq, tok_pos, kv_len, q_start, q_len, page_size)
 
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
-                attend, valid=tok_pos >= 0, tp=tp)
+                attend, valid=tok_pos >= 0, tp=tp, ep=ep)
     return _logits(params, cfg, x[out_idx.long()], tp), k_cache, v_cache
 
 
@@ -253,6 +273,7 @@ def forward_decode(
     attn_impl: str = "kernel",  # "kernel" (serving) | "plain" (reference)
     active=None,  # [B] int32/bool live decode slots (None = all live)
     tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+    ep=None,  # ExpertGroup: this rank's experts of an expert-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step for the whole batch; returns (logits [B, V] in
     float32, k_cache, v_cache). `active` feeds MoE routing only: parked
@@ -272,7 +293,7 @@ def forward_decode(
 
     valid = None if active is None else active > 0
     x = _layers(params, cfg, x, positions, k_cache, v_cache, write_slots,
-                attend, valid, tp)
+                attend, valid, tp, ep)
     return _logits(params, cfg, x, tp), k_cache, v_cache
 
 
@@ -285,7 +306,7 @@ def last_valid(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
 
 
 def prefill_layers(cfg: ModelConfig, layers, x, positions, k_cache, v_cache,
-                   slots, attend, valid=None, tp=None):
+                   slots, attend, valid=None, tp=None, ep=None):
     """A stack of layers over a padded [B, T] batch flattened to [B*T, D]:
     each layer writes the batch's K/V at `slots` [B, T] (padding rows
     point at the trash page), then `attend(q, k, v, kcl, vcl)` with q, k,
@@ -304,7 +325,7 @@ def prefill_layers(cfg: ModelConfig, layers, x, positions, k_cache, v_cache,
                          v.reshape(B, T, *v.shape[1:]), k_cache[i], v_cache[i])
             return out.reshape(B * T, *q.shape[1:])
 
-        x = layer_step(cfg, lp, x, positions, paged, valid, tp)
+        x = layer_step(cfg, lp, x, positions, paged, valid, tp, ep)
     return x
 
 
@@ -318,6 +339,7 @@ def forward_prefill(
     page_table: torch.Tensor,  # [B, max_pages]; padding rows: the trash page
     page_size: int,
     tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+    ep=None,  # ExpertGroup: this rank's experts of an expert-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fresh prompts padded to one bucket: every position's K/V goes to
     its page (padding positions past a row's pages land in the trash
@@ -333,7 +355,7 @@ def forward_prefill(
         return causal_attention(q, k, v, seq_lens)
 
     x = prefill_layers(cfg, params["layers"], x, pos_b.reshape(-1), k_cache,
-                       v_cache, slots, attend, valid, tp)
+                       v_cache, slots, attend, valid, tp, ep)
     x_last = last_valid(x.reshape(B, T, -1), seq_lens)
     return _logits(params, cfg, x_last, tp), k_cache, v_cache
 
@@ -349,6 +371,7 @@ def forward_prefill_chunk(
     page_table: torch.Tensor,  # [B, max_pages]: covers prefix AND chunk
     page_size: int,
     tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+    ep=None,  # ExpertGroup: this rank's experts of an expert-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk of a long prompt: writes the chunk's K/V into its pages
     and attends over the prefix already written plus the chunk itself
@@ -368,7 +391,7 @@ def forward_prefill_chunk(
                                                chunk_lens, page_size)
 
     x = prefill_layers(cfg, params["layers"], x, pos_b.reshape(-1), k_cache,
-                       v_cache, slots, attend, valid, tp)
+                       v_cache, slots, attend, valid, tp, ep)
     x_last = last_valid(x.reshape(B, C, -1), chunk_lens)
     return _logits(params, cfg, x_last, tp), k_cache, v_cache
 
@@ -384,6 +407,7 @@ def forward_prefill_sp(
     page_size: int,
     seq,  # SeqGroup: this rank's shard of the sequence-parallel ring
     tp=None,  # TensorGroup: this rank's slice of a tensor-parallel mesh
+    ep=None,  # ExpertGroup: this rank's experts of an expert-parallel mesh
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sequence-parallel prefill of long prompts: this shard runs the
     layers over its chunk of the sequence (positions seq.index * C ...,
@@ -394,8 +418,13 @@ def forward_prefill_sp(
     seq_lens go to the trash page. The shard holding a row's last valid
     position hands that hidden row to the others (a sum over the seq
     axis with zeros elsewhere, exact), so every shard computes the same
-    logits. Returns (last-valid-position logits [B, V] float32,
-    k_cache, v_cache)."""
+    logits. An MoE layer routes the whole [B, T] stream, as the
+    reference's FFN does over the seq-sharded activations: each shard
+    hands its hidden rows to the others (a sum over the seq axis with
+    zeros elsewhere, exact), every shard routes the same groups of the
+    same stream (so capacity and drops do not depend on where the
+    chunks are cut), and keeps the FFN output of its own rows. Returns
+    (last-valid-position logits [B, V] float32, k_cache, v_cache)."""
     from ollamamq_tpu_torch.engine.kv_cache import TRASH_PAGE
     from ollamamq_tpu_torch.parallel.ring_attention import ring_attention
 
@@ -418,6 +447,16 @@ def forward_prefill_sp(
     slots = torch.where(pos_all < seq_lens[:, None], slots,
                         TRASH_PAGE * page_size + pos_all % page_size)
     chunk_slots = [slots[:, j * C:(j + 1) * C].reshape(-1) for j in range(sp)]
+    valid_all = (pos_all < seq_lens[:, None]).reshape(-1)
+
+    def stream_ffn(cfg, lp, h, valid, ep):
+        if not cfg.num_experts:
+            return _ffn(cfg, lp, h, valid, ep)
+        full = h.new_zeros(B, T, h.shape[-1])
+        full[:, lo:lo + C] = h.reshape(B, C, -1)
+        y = _ffn(cfg, lp, seq.all_reduce(full).reshape(B * T, -1), valid_all,
+                 ep)
+        return y.reshape(B, T, -1)[:, lo:lo + C].reshape(B * C, -1)
 
     for layer, lp in enumerate(params["layers"]):
         def ring(q, k, v, layer=layer):
@@ -431,7 +470,8 @@ def forward_prefill_sp(
                                  on_chunk=write)
             return out.reshape(B * C, *q.shape[1:])
 
-        x = layer_step(cfg, lp, x, pos_b.reshape(-1), ring, valid, tp)
+        x = layer_step(cfg, lp, x, pos_b.reshape(-1), ring, valid, tp, ep,
+                       ffn=stream_ffn)
     last = (seq_lens.long() - 1).clamp(0, T - 1)  # [B] global positions
     mine = (last >= lo) & (last < lo + C)
     rows = x.reshape(B, C, -1)[torch.arange(B, device=dev),
@@ -446,7 +486,7 @@ def forward_prefill_sp(
 
 def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                       seq_lens: torch.Tensor, attention,
-                      tp=None) -> torch.Tensor:
+                      tp=None, ep=None) -> torch.Tensor:
     """Stateless [B, T] forward with `attention(q, k, v, seq_lens)` over
     dense [B, T, H, hd] tensors (no KV write), then a masked mean pool of
     the final-norm states in float32 and L2 normalisation. Rows with
@@ -465,7 +505,7 @@ def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         return out.reshape(B * T, *q.shape[1:])
 
     for lp in params["layers"]:
-        x = layer_step(cfg, lp, x, positions, attend, valid, tp)
+        x = layer_step(cfg, lp, x, positions, attend, valid, tp, ep)
     x = rmsnorm(x, params["final_norm"], cfg.rms_norm_eps).float()
     x = x.reshape(B, T, -1)
     mask = valid.reshape(B, T).float()[..., None]
@@ -474,13 +514,13 @@ def _pooled_embedding(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def forward_embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  seq_lens: torch.Tensor, tp=None) -> torch.Tensor:
+                  seq_lens: torch.Tensor, tp=None, ep=None) -> torch.Tensor:
     """Embeddings from a GENERATIVE model: causal forward with no KV
     write, masked mean pool of the final-norm states, L2 norm (llama.cpp's
     default pooling for causal models). tokens [B, T], seq_lens [B] ->
     [B, D] float32."""
     return _pooled_embedding(params, cfg, tokens, seq_lens, causal_attention,
-                             tp)
+                             tp, ep)
 
 
 def forward_encoder(params: dict, cfg: ModelConfig, tokens: torch.Tensor,

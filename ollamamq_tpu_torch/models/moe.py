@@ -21,6 +21,16 @@ Under tensor parallelism each rank holds every expert's F / tp slice and
 the whole router: routing (and so every capacity drop) is identical on
 every rank, each rank's combine yields a partial sum over its F slice,
 and the caller's all_reduce after the FFN (llama.layer_step) adds them.
+
+Under expert parallelism a rank holds experts [e0, e1) of E (and their
+F / tp slice) and still the whole router, and its hidden states are
+replicated over the expert axis: it routes every token over all E
+experts, so every capacity slot and every drop equals the one-rank
+layer's, then only its own experts' columns of dispatch / combine meet
+its stacks. Its output is the partial sum over its experts (and F
+slice); the caller (llama.layer_step) sums the partials over the
+(expert, tensor) plane in one all_reduce. The tokens are on every rank
+already, so no all-to-all moves them.
 """
 
 from __future__ import annotations
@@ -92,18 +102,23 @@ def route(cfg: ModelConfig, lp: dict, x: torch.Tensor, valid=None):
 
 
 def moe_mlp(cfg: ModelConfig, lp: dict, h: torch.Tensor,
-            valid=None) -> torch.Tensor:
+            valid=None, experts=None) -> torch.Tensor:
     """Top-k routed expert FFN over hiddens [..., D]; returns the same
     shape (the residual add is the caller's). All leading dims form one
     stream of N tokens, routed in groups of group_size(N). `valid`
     (bool, h's leading shape) marks real tokens: padding rows and parked
     decode slots must not claim expert capacity, or identical garbage
-    rows crowd real tokens out of their experts' queues."""
+    rows crowd real tokens out of their experts' queues. `experts`
+    (e0, e1): lp's stacks hold only those experts (an expert-parallel
+    rank's shard); the result is then their partial sum, which the
+    caller adds up over the expert axis."""
     D = h.shape[-1]
     N = h.numel() // D
     G = group_size(N)
     x = h.reshape(N // G, G, D)
     gate_vals, _, slot, C = route(cfg, lp, x, valid)
+    if experts is not None:
+        slot = slot[..., experts[0]:experts[1]]  # this rank's experts' queues
     # One-hot (token, k-slot) -> (expert, capacity-slot) in h's dtype;
     # slot C (dropped / unrouted) matches no column.
     pos_oh = (slot[..., None] == torch.arange(C, device=h.device)).to(h.dtype)

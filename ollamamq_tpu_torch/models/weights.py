@@ -132,7 +132,8 @@ def _safetensors_files(path: str):
 
 
 def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
-                     device="cpu", layers: Optional[tuple] = None) -> dict:
+                     device="cpu", layers: Optional[tuple] = None,
+                     experts: Optional[tuple] = None) -> dict:
     """Load an HF-layout safetensors checkpoint (every *.safetensors file
     of the directory, in sorted order) into this package's params dict,
     cast to `dtype` on `device`. HF projections are [out, in]; ours are
@@ -140,8 +141,9 @@ def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
     checkpoint loads into an MoE config: each layer's experts stack to
     [E, in, out] in `dtype` as they are read, and their raw tensors are
     dropped at once (the expert stacks are ~90% of an 8x7b). `layers`
-    (lo, hi) reads only those layers (a pipeline stage's): the memory
-    map leaves the others unread."""
+    (lo, hi) reads only those layers (a pipeline stage's), and `experts`
+    (e0, e1) only those experts of each MoE layer (an expert-parallel
+    rank's): the memory map leaves the others unread."""
     files = _safetensors_files(path)
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {path}")
@@ -166,13 +168,13 @@ def load_safetensors(cfg: ModelConfig, path: str, dtype=torch.bfloat16,
     layers = [{ours: grab(f"model.layers.{i}.{hf}", tr)
                for hf, ours, tr in present} for i in range(lo, hi)]
     if cfg.num_experts:
+        e0, e1 = experts if experts is not None else (0, cfg.num_experts)
         for i, lp in enumerate(layers, start=lo):
             p = f"model.layers.{i}.block_sparse_moe."
             for hf, ours in _HF_EXPERT_MAP.items():
-                names = [f"{p}experts.{e}.{hf}.weight"
-                         for e in range(cfg.num_experts)]
+                names = [f"{p}experts.{e}.{hf}.weight" for e in range(e0, e1)]
                 out_dim, in_dim = raw[names[0]].shape
-                stack = torch.empty((cfg.num_experts, in_dim, out_dim),
+                stack = torch.empty((e1 - e0, in_dim, out_dim),
                                     dtype=dtype, device=device)
                 for e, n in enumerate(names):
                     stack[e] = raw.pop(n).to(device=device).to(dtype).t()
@@ -223,7 +225,7 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
                 seed: int = 0, dtype=torch.bfloat16,
                 weights_dtype: str = "bfloat16", device="cpu",
                 tp: int = 1, rank: int = 0, pp: int = 1,
-                stage: int = 0) -> dict:
+                stage: int = 0, ep: int = 1, expert_index: int = 0) -> dict:
     """Resolve weights: an HF safetensors directory or seeded random init,
     then int8 quantization when `weights_dtype` is "int8". A directory
     with no .safetensors file (an orbax checkpoint) is refused.
@@ -241,31 +243,45 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
     final norm and head: the seed draws every layer in order on every
     stage and keeps its own (so they are bit-identical to the same
     layers of a one-stage tree), a checkpoint is read for those layers
-    only."""
+    only.
+
+    With ep > 1 each MoE layer holds only expert index `expert_index`'s
+    experts (parallel/sharding.py), then its tensor slice of them; every
+    other leaf is as at ep 1. The seed draws each layer whole, in the
+    one-rank order (one randn per expert stack), and the rank keeps its
+    experts and frees the rest before the next layer is drawn; a
+    checkpoint is read for the rank's experts only."""
     int8 = weights_dtype == "int8"
     if int8 and cfg.num_experts:
         raise ValueError("int8 weight quantization does not cover MoE expert "
                          "stacks; load the model with --weights-dtype=bfloat16")
+    ep = ep if cfg.num_experts else 1  # a dense model: replicated over it
+    experts = None
+    if ep > 1:
+        from ollamamq_tpu_torch.parallel.mesh import shard_range
+
+        experts = shard_range(cfg.num_experts, ep, expert_index)
+    cut = tp > 1 or ep > 1
     span = None
     if pp > 1:
         from ollamamq_tpu_torch.parallel.sharding import stage_layers
 
         span = stage_layers(cfg.num_layers, pp, stage)
-        if tp == 1:
+        if not cut:
             layer = quantize_layer_int8 if int8 else (lambda lp: lp)
             top = ((lambda name, t: quantize_tensor(t, axis=0)
                     if name in QUANT_ROW_KEYS else t) if int8 else None)
-    if tp > 1:
+    if cut:
         from ollamamq_tpu_torch.parallel.sharding import shard_layer, shard_leaf
 
         r = tp // cfg.num_kv_heads if tp > cfg.num_kv_heads else 1
 
-        def layer(lp: dict) -> dict:
+        def layer(lp: dict, ep: int = ep) -> dict:
             if r > 1:
                 lp = replicate_kv_layer(lp, cfg, r)
             if int8:
                 lp = quantize_layer_int8(lp)
-            return shard_layer(lp, tp, rank)
+            return shard_layer(lp, tp, rank, ep, expert_index)
 
         def top(name: str, t):
             if int8 and name in QUANT_ROW_KEYS:
@@ -279,17 +295,18 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
                 f"{checkpoint_path} holds no .safetensors file; an orbax "
                 "checkpoint needs the JAX package (ollamamq_tpu) to read it: "
                 "convert it to HF safetensors first")
-        if tp == 1:
+        if not cut:
             params = load_safetensors(cfg, checkpoint_path, dtype=dtype,
                                       device=device, layers=span)
             return quantize_params_int8(params) if int8 else params
         params = load_safetensors(cfg, checkpoint_path, dtype=dtype,
-                                  layers=span)
-        params["layers"] = [layer(lp) for lp in params["layers"]]
+                                  layers=span, experts=experts)
+        # The rank's experts only were read: cut the rest as at ep 1.
+        params["layers"] = [layer(lp, 1) for lp in params["layers"]]
         params.update({k: top(k, v) for k, v in params.items()
                        if k != "layers"})
         return _to_device(params, device)
-    if tp == 1 and pp == 1:
+    if not cut and pp == 1:
         params = init_random(cfg, seed=seed, dtype=dtype, device=device)
         return quantize_params_int8(params) if int8 else params
     drawn = iter(range(cfg.num_layers))
@@ -375,16 +392,20 @@ def stage_slice(params: dict, cfg: ModelConfig, pp: int, stage: int) -> dict:
     return dict(params, layers=params["layers"][lo:hi])
 
 
-def tp_slice(params: dict, cfg: ModelConfig, tp: int, rank: int) -> dict:
-    """Rank `rank`'s slice of a whole params tree (quantized or not, as
-    given): KV heads replicated when tp > kv heads, then cut."""
-    if tp == 1:
+def tp_slice(params: dict, cfg: ModelConfig, tp: int, rank: int,
+             ep: int = 1, expert_index: int = 0) -> dict:
+    """Rank (expert_index, rank)'s slice of a whole params tree
+    (quantized or not, as given): KV heads replicated when tp > kv
+    heads, then cut (a dense model is replicated over the expert
+    axis)."""
+    ep = ep if cfg.num_experts else 1
+    if tp == 1 and ep == 1:
         return params
     from ollamamq_tpu_torch.parallel.sharding import shard_params
 
     if tp > cfg.num_kv_heads:
         params = replicate_kv_heads(params, cfg, tp // cfg.num_kv_heads)
-    return shard_params(params, tp, rank)
+    return shard_params(params, tp, rank, ep, expert_index)
 
 
 def init_random(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,

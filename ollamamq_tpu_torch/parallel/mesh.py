@@ -21,19 +21,27 @@ five axes in the same order,
               parallel/ring_attention.py); weights and the KV pool are
               replicated over it, so every other op runs alike on
               every shard
-  - "expert": expert shards (not ported yet)
+  - "expert": expert shards: each rank holds E / ep of every MoE
+              layer's experts (and their F / tp slice); everything else
+              (router, attention, embedding, KV pool) is replicated over
+              the axis, so every expert rank routes the same tokens alike
+              and its partial FFN output is summed over the (expert,
+              tensor) plane in one all_reduce (ExpertGroup); no
+              all-to-all moves tokens. A dense model on the axis runs
+              alike on every expert rank
   - "tensor": tensor parallelism within a stage: attention heads, FFN
               hidden dims and the vocabulary sharded; the forwards call
               the collectives themselves (TensorGroup)
 
-Ranks are numbered in that order (the tensor index varies fastest), so
-replica r holds the ranks [r * pp * sp * tp, (r + 1) * pp * sp * tp).
-The tensor axis carries one process group per (replica, stage, seq
-index), the pipe axis one per (replica, seq index, tensor index) and
-the seq axis one per (replica, stage, tensor index), each built by its
-own ranks on the world's store (distributed.World.group), so several
-worlds can live in one process (a fleet router leads one per wide
-member). Several
+Ranks are numbered in that order (the tensor index varies fastest, the
+expert index next), so replica r holds the ranks [r * pp * sp * ep * tp,
+(r + 1) * pp * sp * ep * tp). The tensor axis carries one process group
+per (replica, stage, seq index, expert index), the pipe axis one per
+(replica, seq index, expert index, tensor index), the seq axis one per
+(replica, stage, expert index, tensor index) and the (expert, tensor)
+plane one per (replica, stage, seq index), each built by its own ranks
+on the world's store (distributed.World.group), so several worlds can
+live in one process (a fleet router leads one per wide member). Several
 ranks may share one device (two ranks on one card over gloo);
 `n_devices` counts the distinct devices, which is what MFU divides by.
 
@@ -116,6 +124,27 @@ class TensorGroup:
                            device=local.device)
         full[..., lo:hi] = local
         return self.all_reduce(full)
+
+
+class ExpertGroup:
+    """The expert axis as an MoE layer sees it: this rank's expert index,
+    the axis size, and the process group of its (expert, tensor) plane
+    (the ep x tp ranks of its replica, stage and seq index). The rank
+    holds experts [e0, e1) = expert_range(E) of every MoE layer; its
+    FFN output is a partial sum over those experts (and over its F / tp
+    slice), and `all_reduce` adds every partial of the plane at once."""
+
+    def __init__(self, size: int, index: int, group=None):
+        self.size = size
+        self.index = index
+        self.group = group
+
+    def expert_range(self, num_experts: int) -> Tuple[int, int]:
+        return shard_range(num_experts, self.size, self.index)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of x over the (expert, tensor) plane, in place; returns x."""
+        return x if self.group is None else _sum(self.group, x)
 
 
 class _PointToPoint:
@@ -311,15 +340,17 @@ class RankMesh:
     process holds no rank of this grid (rank 0's view of a replica
     r > 0), and `devices[i]` is the device of rank first + i; `tensor`
     is the TensorGroup the forwards take (None at tp 1), `pipe` the
-    PipeGroup of this rank's pipeline (None at pp 1) and `seq` the
-    SeqGroup of its ring (None at sp 1). `world` is the
+    PipeGroup of this rank's pipeline (None at pp 1), `seq` the
+    SeqGroup of its ring (None at sp 1) and `expert` the ExpertGroup of
+    its (expert, tensor) plane (None at ep 1). `world` is the
     rank world (parallel/distributed.World) the grid spans, None for
     this one process."""
 
     def __init__(self, shape: dict, rank: Optional[int], devices: Sequence,
                  group=None, backend: Optional[str] = None,
                  labels: Optional[Sequence[str]] = None, pipe_group=None,
-                 first: int = 0, world=None, seq_group=None):
+                 first: int = 0, world=None, seq_group=None,
+                 expert_group=None):
         self.world = world
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
         self.axis_names = AXES
@@ -332,7 +363,7 @@ class RankMesh:
         # "host|device" per rank: devices of different hosts are distinct.
         self.labels = list(labels) if labels is not None else [
             str(d) for d in self.devices]
-        self.coord = self.tensor = self.pipe = self.seq = None
+        self.coord = self.tensor = self.pipe = self.seq = self.expert = None
         if rank is None:
             return
         coord = dict(zip(AXES, (int(i) for i in
@@ -350,6 +381,9 @@ class RankMesh:
                           coord[AXIS_EXPERT], coord[AXIS_TENSOR]]
         self.seq = (SeqGroup(sp, coord[AXIS_SEQ], ring.tolist(), seq_group,
                              backend) if sp > 1 else None)
+        ep = self.shape[AXIS_EXPERT]
+        self.expert = (ExpertGroup(ep, coord[AXIS_EXPERT], expert_group)
+                       if ep > 1 else None)
 
     @property
     def size(self) -> int:
@@ -370,6 +404,10 @@ class RankMesh:
     @property
     def sp(self) -> int:
         return self.shape[AXIS_SEQ]
+
+    @property
+    def ep(self) -> int:
+        return self.shape[AXIS_EXPERT]
 
     @property
     def device(self) -> torch.device:
@@ -399,20 +437,17 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
     each rank's device, default the one each rank published. Without a
     world, `devices` (default one CPU rank per replica) are this
     process's dp in-process replicas, replica r on devices[r]. This rank
-    builds the tensor group of its (replica, stage, seq index), then the
-    pipe group of its (replica, seq index, tensor index), then the seq
-    group of its (replica, stage, tensor index), on the world's store;
-    every rank builds its groups in that order. The expert axis larger
-    than 1 is not ported yet."""
+    builds the tensor group of its (replica, stage, seq index, expert
+    index), then the pipe group of its (replica, seq index, expert
+    index, tensor index), then the seq group of its (replica, stage,
+    expert index, tensor index), then the (expert, tensor) plane of its
+    (replica, stage, seq index), on the world's store; every rank
+    builds its groups in that order."""
     from ollamamq_tpu_torch.parallel import distributed
 
-    if ep != 1:
-        raise NotImplementedError(
-            f"mesh axis {AXIS_EXPERT!r} = {ep}: only the data, pipe, seq "
-            "and tensor axes are ported yet (expert parallelism is not)")
-    if pp < 1 or dp < 1 or sp < 1:
-        raise ValueError(f"dp, pp and sp must be >= 1, got dp={dp} pp={pp} "
-                         f"sp={sp}")
+    if pp < 1 or dp < 1 or sp < 1 or ep < 1:
+        raise ValueError(f"dp, pp, sp and ep must be >= 1, got dp={dp} "
+                         f"pp={pp} sp={sp} ep={ep}")
     if world is None:
         world = distributed.default_world()
     n = world.size if world is not None else len(devices or ["cpu"] * dp)
@@ -423,26 +458,31 @@ def make_mesh(dp: int = 1, tp: int = -1, sp: int = 1, pp: int = 1,
                    else ["cpu"] * n)
     if len(devices) != n:
         raise ValueError(f"{len(devices)} devices for a world of {n} ranks")
+    outer = dp * pp * sp * ep
     if tp == -1:
-        tp = n // (dp * pp * sp) if n % (dp * pp * sp) == 0 else -1
-    if dp * tp * pp * sp != n:
-        raise ValueError(f"dp*pp*sp*ep*tp={dp * tp * pp * sp} over {n} ranks: "
+        tp = n // outer if n % outer == 0 else -1
+    if outer * tp != n:
+        raise ValueError(f"dp*pp*sp*ep*tp={outer * tp} over {n} ranks: "
                          "the mesh must span every rank of the world")
     if rank is None:
         rank = world.rank if world is not None else 0
-    shape = {AXIS_DATA: dp, AXIS_PIPE: pp, AXIS_SEQ: sp, AXIS_TENSOR: tp}
-    group = pipe_group = seq_group = None
+    shape = {AXIS_DATA: dp, AXIS_PIPE: pp, AXIS_SEQ: sp, AXIS_EXPERT: ep,
+             AXIS_TENSOR: tp}
+    group = pipe_group = seq_group = expert_group = None
     if world is not None:
-        grid = np.arange(n).reshape(dp, pp, sp, tp)
-        r, s, q, t = (int(i) for i in np.argwhere(grid == rank)[0])
+        grid = np.arange(n).reshape(dp, pp, sp, ep, tp)
+        r, s, q, e, t = (int(i) for i in np.argwhere(grid == rank)[0])
         if tp > 1:
-            group = world.group(grid[r, s, q].tolist())
+            group = world.group(grid[r, s, q, e].tolist())
         if pp > 1:
-            pipe_group = world.group(grid[r, :, q, t].tolist())
+            pipe_group = world.group(grid[r, :, q, e, t].tolist())
         if sp > 1:
-            seq_group = world.group(grid[r, s, :, t].tolist())
+            seq_group = world.group(grid[r, s, :, e, t].tolist())
+        if ep > 1:
+            expert_group = world.group(grid[r, s, q].reshape(-1).tolist())
     return RankMesh(shape, rank, devices,
                     group=group, pipe_group=pipe_group, seq_group=seq_group,
+                    expert_group=expert_group,
                     backend=world.backend if world is not None else None,
                     labels=labels, world=world)
 
@@ -453,7 +493,7 @@ def replica_ranks(mesh: RankMesh, r: int) -> list:
 
 
 def replica_submesh(mesh: RankMesh, r: int) -> RankMesh:
-    """Replica r's slice of the data axis (a [1, pp, sp, tp] grid of its
+    """Replica r's slice of the data axis (a [1, pp, sp, ep, tp] grid of its
     ranks): THE derivation, shared by the engine's replica construction
     and the SPMD worker's replay and reload, which must agree on every
     rank. Its rank is this process's when it holds one of replica r's
@@ -462,17 +502,19 @@ def replica_submesh(mesh: RankMesh, r: int) -> RankMesh:
     devices[r]."""
     if mesh.dp == 1:
         return mesh
-    per = mesh.pp * mesh.sp * mesh.tp
+    per = mesh.pp * mesh.sp * mesh.ep * mesh.tp
     lo = r * per
     if mesh.backend is None and per == 1:  # in-process replicas
         return RankMesh({}, 0, [mesh.devices[r]])
     mine = mesh.rank is not None and lo <= mesh.rank < lo + per
     return RankMesh({AXIS_PIPE: mesh.pp, AXIS_SEQ: mesh.sp,
-                     AXIS_TENSOR: mesh.tp},
+                     AXIS_EXPERT: mesh.ep, AXIS_TENSOR: mesh.tp},
                     mesh.rank if mine else None, mesh.devices[lo:lo + per],
                     group=mesh.tensor.group if mine and mesh.tensor else None,
                     pipe_group=mesh.pipe.group if mine and mesh.pipe else None,
                     seq_group=mesh.seq.group if mine and mesh.seq else None,
+                    expert_group=(mesh.expert.group if mine and mesh.expert
+                                  else None),
                     backend=mesh.backend, labels=mesh.labels[lo:lo + per],
                     first=lo, world=mesh.world)
 

@@ -18,6 +18,13 @@ dims are named from the right:
   - KV pool [L, S, kv_heads, hd] and its int8 scale rows [L, S, kv_heads]
                                        -> kv_heads
 
+Under expert parallelism the expert stacks are also cut on E over the
+expert axis (EXPERT, expert_spec): expert index i of ep holds experts
+[i E/ep, (i + 1) E/ep), each with its tensor rank's F slice, as the JAX
+package's PS(None, "expert", None, "tensor") / PS(None, "expert",
+"tensor", None) lay them out. Every other leaf, the router and the KV
+pool included, is replicated over the expert axis.
+
 Under pipeline parallelism the list of layers, and the KV pool's layer
 dim, are cut over the pipe axis as well: stage s of P holds layers
 [s L/P, (s + 1) L/P) (stage_layers). As in the JAX package, the
@@ -45,6 +52,9 @@ COLUMN = ("wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv",
           "we_gate", "we_up")
 ROW = ("wo", "w_down", "we_down")
 VOCAB = ("embed", "lm_head")
+# Cut on their expert dim (axis 0 of one layer's [E, ...] stack) over the
+# expert axis.
+EXPERT = ("we_gate", "we_up", "we_down")
 
 
 def spec_for(name: str, leaf):
@@ -66,6 +76,12 @@ def spec_for(name: str, leaf):
     return None  # norms, the router: replicated
 
 
+def expert_spec(name: str):
+    """The dim of a layer leaf cut over the expert axis (None =
+    replicated over it)."""
+    return 0 if name in EXPERT else None
+
+
 def param_partition_specs(params: dict) -> dict:
     """The spec of every leaf of a params dict, in its structure."""
     out = {k: spec_for(k, v) for k, v in params.items() if k != "layers"}
@@ -84,7 +100,15 @@ def shard_tensor(t: torch.Tensor, dim: Optional[int], tp: int,
     return t.narrow(dim, lo, hi - lo).clone()
 
 
-def shard_leaf(name: str, leaf, tp: int, rank: int):
+def shard_leaf(name: str, leaf, tp: int, rank: int, ep: int = 1,
+               expert_index: int = 0):
+    """Rank (expert_index, rank)'s slice of one leaf: its experts, then
+    its tensor slice of them."""
+    if ep > 1 and expert_spec(name) is not None:
+        lo, hi = shard_range(leaf.shape[0], ep, expert_index)
+        leaf = leaf[lo:hi]
+        if tp == 1:
+            return leaf.clone()
     spec = spec_for(name, leaf)
     if isinstance(leaf, QuantTensor):
         return QuantTensor(shard_tensor(leaf.q, spec.q, tp, rank),
@@ -92,19 +116,23 @@ def shard_leaf(name: str, leaf, tp: int, rank: int):
     return shard_tensor(leaf, spec, tp, rank)
 
 
-def shard_layer(lp: dict, tp: int, rank: int) -> dict:
-    return {k: shard_leaf(k, v, tp, rank) for k, v in lp.items()}
+def shard_layer(lp: dict, tp: int, rank: int, ep: int = 1,
+                expert_index: int = 0) -> dict:
+    return {k: shard_leaf(k, v, tp, rank, ep, expert_index)
+            for k, v in lp.items()}
 
 
-def shard_params(params: dict, tp: int, rank: int) -> dict:
-    """Rank `rank`'s params of a tp-way tensor-parallel mesh. Head and
-    FFN dims must divide by tp (validate_tp_for_model); the vocabulary
-    is cut in ceil(V / tp) rows per rank."""
-    if tp == 1:
+def shard_params(params: dict, tp: int, rank: int, ep: int = 1,
+                 expert_index: int = 0) -> dict:
+    """Rank (expert_index, rank)'s params of an ep x tp mesh. Head and
+    FFN dims must divide by tp (validate_tp_for_model) and expert counts
+    by ep; the vocabulary is cut in ceil(V / tp) rows per rank."""
+    if tp == 1 and ep == 1:
         return params
     out = {k: shard_leaf(k, v, tp, rank) for k, v in params.items()
            if k != "layers"}
-    out["layers"] = [shard_layer(lp, tp, rank) for lp in params["layers"]]
+    out["layers"] = [shard_layer(lp, tp, rank, ep, expert_index)
+                     for lp in params["layers"]]
     return out
 
 

@@ -304,6 +304,57 @@ def test_sp_flag_reaches_the_engine_config_and_the_world():
     assert local_world(build_parser().parse_args(["--sp", "4"])) == 4
 
 
+# ------------------------------------------------- expert parallelism
+@pytest.mark.parametrize("argv,message", [
+    (["--ep", "3", "--model", "test-tiny-moe", "--device", "cpu"],
+     "ep=3 must divide num_experts=4 (test-tiny-moe)"),
+    (["--ep", "3", "--model", "mixtral:8x7b"],
+     "ep=3 must divide num_experts=8 (mixtral:8x7b)"),
+    (["--ep", "2", "--pp", "2", "--model", "mixtral:8x7b"],
+     "pp with an MoE model is not supported"),
+    (["--ep", "2", "--weights-dtype", "int8", "--model", "mixtral:8x7b"],
+     "--weights-dtype=int8 does not cover MoE expert stacks"),
+    (["--ep", "0", "--device", "cpu"], "--ep must be >= 1"),
+    (["--ep", "2"], "cuda:1"),
+    (["--ep", "2", "--fake-engine", "--device", "cpu"], "--fake-engine runs none"),
+    (["--ep", "2", "--device", "cpu"], None),
+    (["--ep", "2", "--tp", "2", "--dp", "2", "--device", "cpu"], None),
+    (["--ep", "4", "--model", "test-tiny-moe", "--device", "cpu"], None),
+], ids=["not-dividing", "not-dividing-mixtral", "pp-moe", "int8-moe", "zero",
+        "missing-device", "fake", "dense-cpu", "dp-tp-cpu", "moe-cpu"])
+def test_ep_flags_exit_2(argv, message, caplog):
+    """--ep's refusals exit 2 before any device work, with the JAX
+    package's reasons: an ep that does not divide an MoE model's experts
+    (naming both), pp with an MoE model, int8 weights on an MoE model,
+    --ep 0, a local world whose devices the host lacks (ep ranks, one per
+    device; named, no fallback) and the fake engine. ep on the CPU, on a
+    dense model too and with tp and dp, validates (message None)."""
+    if message is None:
+        from ollamamq_tpu_torch.cli import validate
+
+        args = build_parser().parse_args(argv + ["--no-tui"] + (
+            [] if "--model" in argv else ["--model", "test-tiny"]))
+        assert validate(args) == ""
+        return
+    if "cuda:" in message and torch.cuda.device_count() >= 2:
+        argv, message = ["--ep", "32", "--model", "llama3:8b"], "cuda:31"
+    assert main(argv + ["--no-tui", "--model", "test-tiny"]
+                if "--model" not in argv else argv + ["--no-tui"]) == 2
+    assert message in caplog.text
+
+
+def test_ep_flag_reaches_the_engine_config_and_the_world():
+    """--ep lands in EngineConfig (the JAX CLI's default 1) and sizes the
+    local rank world: dp x pp x sp x ep x tp ranks."""
+    from ollamamq_tpu_torch.cli import engine_config, local_world
+
+    assert engine_config(build_parser().parse_args([])).ep == 1
+    args = build_parser().parse_args(["--ep", "2", "--tp", "2", "--dp", "2"])
+    assert engine_config(args).ep == 2 and local_world(args) == 8
+    assert local_world(build_parser().parse_args(["--ep", "4"])) == 4
+    assert local_world(build_parser().parse_args(["--ep", "2", "--sp", "2"])) == 4
+
+
 # ------------------------------------------------- data parallelism
 @pytest.mark.parametrize("argv,message", [
     (["--dp", "2"], "no replica falls back to another device"),
@@ -394,16 +445,17 @@ def _alive(pid: int) -> bool:
         return False
 
 
-def _tp2_cli(tmp_path):
-    """`--tp 2 --device cpu` in a subprocess, serving; returns (proc,
-    base URL, worker pid, log path)."""
+def _tp2_cli(tmp_path, width=("--tp", "2")):
+    """`--tp 2 --device cpu` (or another two-rank `width`) in a
+    subprocess, serving; returns (proc, base URL, worker pid, log
+    path)."""
     port = free_port()
     log = tmp_path / "tp2.log"
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(
         [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--model", "test-tiny",
-         "--device", "cpu", "--tp", "2", "--dtype", "float32", "--no-tui",
+         "--device", "cpu", *width, "--dtype", "float32", "--no-tui",
          "--port", str(port), "--max-slots", "2", "--num-pages", "32",
          "--page-size", "8", "--max-pages-per-seq", "8",
          "--blocklist", str(tmp_path / "blocked.json")],
@@ -481,3 +533,46 @@ def test_tp2_worker_dies_with_a_killed_leader(tmp_path):
     while _alive(worker) and time.monotonic() < deadline:
         time.sleep(0.1)
     assert not _alive(worker), log.read_text()[-3000:]
+
+
+def test_ep2_dense_model_serves_through_the_cli(tmp_path):
+    """`--ep 2 --device cpu` on the dense test-tiny starts one worker
+    rank and streams the greedy ids of the port at ep 1 (the model is
+    replicated over the expert axis); SIGTERM releases the worker."""
+    from ollamamq_tpu_torch.engine.engine import TorchEngine
+    from ollamamq_tpu_torch.ops.sampling import SamplingParams
+
+    proc, base, worker, log = _tp2_cli(tmp_path, width=("--ep", "2"))
+    try:
+        req = urllib.request.Request(
+            base + "/api/generate",
+            data=json.dumps({"model": "test-tiny", "prompt": "expert ranks",
+                             "stream": False,
+                             "options": {"num_predict": 6, "temperature": 0,
+                                         "repeat_penalty": 1.0}}).encode(),
+            headers={"X-User-ID": "ep"})
+        body = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert body["done"] and body["eval_count"] == 6
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert not _alive(worker), log.read_text()[-3000:]
+    eng = TorchEngine(EngineConfig(model="test-tiny", max_slots=2, num_pages=32,
+                                   page_size=8, max_pages_per_seq=8,
+                                   dtype="float32"),
+                      device="cpu", blocklist_path=None)
+    eng.start()
+    try:
+        r = eng.enqueue_request("ep", "", "test-tiny",
+                                prompt_tokens=eng.runtimes["test-tiny"]
+                                .tokenizer.encode("expert ranks"),
+                                sampling=SamplingParams(max_tokens=6,
+                                                        temperature=0.0))
+        while not r.stats.finished_at:
+            time.sleep(0.05)
+        assert r.generated_ids == body["token_ids"]
+    finally:
+        eng.stop()

@@ -466,8 +466,11 @@ def test_mesh_shapes_with_a_data_axis():
     other = replica_submesh(mesh, 0)
     assert other.rank is None and other.tensor is None and other.tp == 4
     assert make_mesh(dp=1, sp=1, tp=4, devices=["cpu"] * 4).shape["seq"] == 1
-    with pytest.raises(NotImplementedError, match="'expert'"):
-        make_mesh(dp=1, ep=2, tp=4, devices=["cpu"] * 8)
+    # The expert axis inside each replica: dp 2 x ep 2 x tp 2, rank 6 is
+    # replica 1's expert shard 1, tensor rank 0.
+    ep = make_mesh(dp=2, ep=2, tp=2, devices=["cpu"] * 8, rank=6)
+    assert ep.ranks.shape == (2, 1, 1, 2, 2) and replica_ranks(ep, 1) == [4, 5, 6, 7]
+    assert replica_submesh(ep, 1).expert.index == 1 and replica_of(ep) == 1
     with pytest.raises(ValueError, match="span every rank"):
         make_mesh(dp=3, tp=2, devices=["cpu"] * 8)
     # pp inside each replica: dp 2 x pp 2 x tp 2, rank 6 is replica 1's

@@ -314,8 +314,11 @@ def test_mesh_shapes():
     assert two.device == torch.device("cuda:1") and two.n_devices == 2
     shared = RankMesh({"tensor": 2}, 0, ["cuda:0", "cuda:0"])
     assert shared.n_devices == 1  # two ranks on one card: one card's peak
-    with pytest.raises(NotImplementedError, match="'expert'"):
-        make_mesh(devices=["cpu"] * 4, ep=2)
+    # The expert axis is ported: ep 2 x tp 2, rank 3 is expert shard 1's
+    # tensor rank 1 (see tests/test_torch_ep.py for its groups).
+    ep = make_mesh(devices=["cpu"] * 4, ep=2, rank=3)
+    assert ep.ranks.shape == (1, 1, 1, 2, 2) and ep.ep == 2 and ep.tp == 2
+    assert ep.expert.index == 1 and ep.tensor.rank == 1
     # The seq axis is ported: sp 2 x tp 2, rank 3 is shard 1's tensor
     # rank 1, its ring ranks 1 and 3.
     seq = make_mesh(sp=2, devices=["cpu"] * 4, rank=3)

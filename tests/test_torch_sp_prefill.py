@@ -16,6 +16,11 @@ every rank loads), while the test process computes the JAX references:
     OP_PREFILL_SP, and their greedy ids equal the JAX TPUEngine(sp=2)'s,
     the port's at sp 1 and, for the 2,048-token prompt, a one-shot JAX
     forward and greedy decode.
+  - the same at sp 2 on test-tiny-moe at capacity factor 0.5, where the
+    reference routes the whole [2, 64] stream as one group whose
+    capacity binds (a shard's own [2, 32] chunk would be a group of its
+    own with half the capacity), and an SPMDEngine's long prompt on it
+    against the JAX TPUEngine(sp=2)'s ids;
   - 8 ranks: forward_prefill_sp at sp 4 x tp 2 and inside the replicas
     of dp 2 x sp 2 x tp 2 on test-tiny-gqa (same bounds), then an
     SPMDEngine at dp 2 x sp 2 x tp 2 serving one long prompt on each
@@ -61,8 +66,12 @@ TEXTS = {"long": "long prompt " * 12, "alpha": "alpha " * 30,
          "omega": "omega " * 30, "mesh": "full mesh " * 15}
 NEW = 6
 
+# The MoE cases' capacity factor: capacity binds.
+MOE_CF = 0.5
+MOE_CAP = "test-tiny-moe-cap"  # test-tiny-moe at MOE_CF, registered by name
 # case -> (model, sp, tp, dp, world)
 FWD_CASES = {"sp2": ("test-tiny", 2, 1, 1, 2),
+             "moe-sp2": (MOE_CAP, 2, 1, 1, 2),
              "sp4xtp2": ("test-tiny-gqa", 4, 2, 1, 8),
              "dp2xsp2xtp2": ("test-tiny-gqa", 2, 2, 2, 8)}
 FWD_T, FWD_LENS = 64, (64, 41)
@@ -86,6 +95,8 @@ with open(plan_file, "rb") as f:
     plan = pickle.load(f)
 MODEL_CONFIGS["test-tiny-long"] = dataclasses.replace(
     MODEL_CONFIGS["test-tiny"], name="test-tiny-long", max_seq_len=4096)
+MODEL_CONFIGS["MOE_CAP"] = dataclasses.replace(
+    MODEL_CONFIGS["test-tiny-moe"], name="MOE_CAP", moe_capacity_factor=MOE_CF)
 distributed.initialize(f"127.0.0.1:{port}", world, rank, devices=["cpu"] * world,
                        timeout_s=60)
 out = {"forward": {}}
@@ -145,7 +156,16 @@ with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(out, f)
 sys.stdout.flush()
 os._exit(0)
-"""
+""".replace("MOE_CAP", MOE_CAP).replace("MOE_CF", repr(MOE_CF))
+
+
+def _moe_cap_configs():
+    """Register test-tiny-moe at MOE_CF under MOE_CAP in both packages'
+    tables (the test's own entry; removed by the fixture)."""
+    JAX_CONFIGS[MOE_CAP] = dataclasses.replace(
+        JAX_CONFIGS["test-tiny-moe"], name=MOE_CAP, moe_capacity_factor=MOE_CF)
+    MODEL_CONFIGS[MOE_CAP] = dataclasses.replace(
+        MODEL_CONFIGS["test-tiny-moe"], name=MOE_CAP, moe_capacity_factor=MOE_CF)
 
 
 def _np_tree(model, seed=0):
@@ -267,20 +287,20 @@ def _port_ids(ckpt, model, runs, **kw):
         eng.stop()
 
 
-def _jax_sp2_ids(runs):
+def _jax_sp2_ids(runs, model="test-tiny"):
     """Greedy ids of the JAX TPUEngine at sp 2 (seed-0 weights, float32)."""
-    eng = TPUEngine(JaxEngineConfig(model="test-tiny", sp=2, max_slots=2,
+    eng = TPUEngine(JaxEngineConfig(model=model, sp=2, max_slots=2,
                                     num_pages=128, page_size=8, max_pages_per_seq=32,
                                     prefill_buckets=(16, 32, 64), max_new_tokens=8,
                                     decode_steps_per_iter=2),
                     blocklist_path=None, dtype=jnp.float32)
     eng.start()
     try:
-        assert eng.runtimes["test-tiny"]._sp
+        assert eng.runtimes[model]._sp
         out = {}
         for name, (prompt, n) in runs.items():
-            rid = eng.core.enqueue("u", "", "test-tiny")
-            req = JaxRequest(rid, "u", "test-tiny", list(prompt), JaxSampling(max_tokens=n))
+            rid = eng.core.enqueue("u", "", model)
+            req = JaxRequest(rid, "u", model, list(prompt), JaxSampling(max_tokens=n))
             eng.submit(req)
             assert collect(req, timeout=300)[-1].kind == "done"
             out[name] = req.generated_ids
@@ -316,7 +336,17 @@ def _oneshot_ids(prompt, gen):
 
 @pytest.fixture(scope="module")
 def sp_runs(tmp_path_factory):
-    ckpt = {m: _checkpoint(tmp_path_factory, m) for m in ("test-tiny", "test-tiny-gqa")}
+    _moe_cap_configs()
+    try:
+        yield _sp_runs(tmp_path_factory)
+    finally:
+        JAX_CONFIGS.pop(MOE_CAP, None)
+        MODEL_CONFIGS.pop(MOE_CAP, None)
+
+
+def _sp_runs(tmp_path_factory):
+    ckpt = {m: _checkpoint(tmp_path_factory, m)
+            for m in ("test-tiny", "test-tiny-gqa", MOE_CAP)}
     tok = _tok()
     prompts = {k: tok.encode(t) for k, t in TEXTS.items()}
     assert all(len(p) > 64 for p in prompts.values())
@@ -327,12 +357,14 @@ def sp_runs(tmp_path_factory):
     sp2_runs = {"long": ("test-tiny", prompts["long"], NEW, 1),
                 "alpha": ("test-tiny", prompts["alpha"], NEW, 1),
                 "omega": ("test-tiny", prompts["omega"], NEW, 1),
-                "2k": ("test-tiny-long", long_prompt, GEN_LONG, 1)}
+                "2k": ("test-tiny-long", long_prompt, GEN_LONG, 1),
+                "moe": (MOE_CAP, prompts["long"], NEW, 1)}
     plans = {
         2: {"forward": {k: v for k, v in fwd.items() if FWD_CASES[k][4] == 2},
             "engine": {"settings": dict(SETTINGS, model="test-tiny", sp=2),
                        "models": {"test-tiny": ckpt["test-tiny"],
-                                  "test-tiny-long": ckpt["test-tiny"]},
+                                  "test-tiny-long": ckpt["test-tiny"],
+                                  MOE_CAP: ckpt[MOE_CAP]},
                        "runs": sp2_runs}},
         8: {"forward": {k: v for k, v in fwd.items() if FWD_CASES[k][4] == 8},
             "engine": {"settings": dict(SETTINGS, model="test-tiny-gqa", dp=2, sp=2,
@@ -346,6 +378,8 @@ def sp_runs(tmp_path_factory):
                         for key, (m, sp, tp, dp, _) in FWD_CASES.items()},
             "jax_sp2": _jax_sp2_ids({k: (prompts[k], NEW) for k in ("long", "alpha",
                                                                     "omega")}),
+            "jax_sp2_moe": _jax_sp2_ids({"moe": (prompts["long"], NEW)},
+                                        model=MOE_CAP)["moe"],
             "oneshot": _oneshot_ids(long_prompt, GEN_LONG),
             "port_sp1": _port_ids(ckpt["test-tiny"], "test-tiny",
                                   {k: (prompts[k], NEW) for k in ("long", "alpha",
@@ -398,10 +432,11 @@ def test_sp2_engine_matches_jax_engine_and_sp1(sp_runs):
         assert ids == refs["jax_sp2"][name] == refs["port_sp1"][name], name
     assert leader["stats"]["test-tiny"][0]["sp_prefill"] == 3
     (w,) = leader["workers"]
-    assert w["ops"]["sp_prefill"] == leader["me"]["ops"]["sp_prefill"] == 4
+    # Four test-tiny / test-tiny-long prompts and the MoE case's one.
+    assert w["ops"]["sp_prefill"] == leader["me"]["ops"]["sp_prefill"] == 5
     assert w["digest"] == leader["me"]["digest"]
-    # The ring is the rank's (both models' runtimes share it).
-    assert w["runtimes"]["test-tiny"]["seq"]["prefills"] == 4
+    # The ring is the rank's (every model's runtime shares it).
+    assert w["runtimes"]["test-tiny"]["seq"]["prefills"] == 5
 
 
 def test_sp2_decode_reads_the_prefilled_pages(sp_runs):
@@ -437,3 +472,17 @@ def test_dp2_sp2_tp2_serves_one_ranks_ids(sp_runs):
     assert sorted(reports) == list(range(1, 8))
     for r in range(1, 8):
         assert reports[r]["ops"]["sp_prefill"] == 1, reports[r]["ops"]
+
+
+def test_sp2_moe_routes_the_whole_stream(sp_runs):
+    """test-tiny-moe at capacity factor 0.5 under sp 2: the forward's
+    logits and pools match the JAX forward_prefill_sp, which routes the
+    whole [B, T] stream (test_forward_prefill_sp_matches_jax[moe-sp2]),
+    and a long prompt through an SPMDEngine at sp 2 streams the JAX
+    TPUEngine(sp=2)'s greedy ids after one OP_PREFILL_SP."""
+    refs, outs = sp_runs
+    leader = outs[2][0]
+    (kind, ids), = leader["runs"]["moe"]
+    assert kind == "done" and len(ids) == NEW
+    assert ids == refs["jax_sp2_moe"]
+    assert leader["stats"][MOE_CAP][0]["sp_prefill"] == 1

@@ -13,6 +13,9 @@ mirror of tests/test_spmd_sp.py.
     (os._exit) in the middle of the next long prompt's ring: the request
     errors within the heartbeat bound, the runtime is failed, /health's
     worker_stale alert fires, and nothing hangs.
+  - Four processes at sp 2 x ep 2 on test-tiny-moe (its JAX seed-0
+    tree): a long prompt's OP_PREFILL_SP gives the one-rank port
+    engine's greedy ids.
 """
 
 import datetime
@@ -260,3 +263,106 @@ def test_worker_killed_mid_ring_fails_the_request_loudly(sp_world):
     assert "sp prefill failed" in kill["error"] or "stale" in kill["error"], kill
     assert kill["failed"] is True
     assert "worker_stale" in kill["alerts"]
+
+
+MOE = "test-tiny-moe"
+# argv: rank, port, checkpoint dir
+SP_EP_CHILD = r"""
+import json, os, sys, time
+rank, port, ckpt = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import torch
+torch.set_num_threads(1)
+from ollamamq_tpu_torch.config import EngineConfig
+from ollamamq_tpu_torch.engine import spmd
+from ollamamq_tpu_torch.ops.sampling import SamplingParams
+from ollamamq_tpu_torch.parallel import distributed
+from ollamamq_tpu_torch.parallel.mesh import make_mesh
+
+distributed.initialize(f"127.0.0.1:{port}", 4, rank, devices=["cpu"] * 4,
+                       timeout_s=60)
+mesh = make_mesh(sp=2, ep=2, tp=1)
+ecfg = EngineConfig(**dict(SETTINGS, model="MOE"), sp=2, ep=2)
+MODELS = {"MOE": ckpt}
+if rank == 0:
+    eng = spmd.SPMDEngine(ecfg, mesh=mesh, blocklist_path=None, models=MODELS)
+    rt = eng.runtimes["MOE"]
+    eng.start()
+    req = eng.enqueue_request("u", "", "MOE",
+                              prompt_tokens=rt.tokenizer.encode(PROMPT),
+                              sampling=SamplingParams(max_tokens=NEW, temperature=0.0))
+    deadline, item = time.monotonic() + 120, None
+    while time.monotonic() < deadline:
+        item = req.stream.get(timeout=0.5)
+        if item and item.kind in ("done", "error"):
+            break
+    eng.stop(report_timeout_s=30)
+    print("RESULT " + json.dumps({"kind": item.kind if item else "timeout",
+                                  "ids": req.generated_ids,
+                                  "sp_prefills": rt.sp_prefill_dispatches,
+                                  "workers": eng.worker_reports,
+                                  "me": eng.spmd_report()}), flush=True)
+else:
+    print("RESULT " + json.dumps({"steps": spmd.run_worker(MODELS, ecfg, mesh)}),
+          flush=True)
+sys.stdout.flush()
+os._exit(0)
+""".replace("SETTINGS", repr(SETTINGS)).replace("PROMPT", repr(PROMPT)).replace(
+    "NEW", str(NEW)).replace("MOE", MOE)
+
+
+def test_sp2_ep2_prefill_gives_one_ranks_ids(tmp_path):
+    """sp 2 x ep 2 over four processes: a long prompt takes one
+    OP_PREFILL_SP (the ring over seq, the experts over expert) and its
+    greedy ids are the one-rank port engine's."""
+    import jax
+    import jax.numpy as jnp
+
+    from ollamamq_tpu.config import MODEL_CONFIGS as JAX_CONFIGS
+    from ollamamq_tpu.models import weights as jweights
+    from ollamamq_tpu_torch.models.weights import from_jax_numpy, save_safetensors
+
+    jp = jweights.load_params(JAX_CONFIGS[MOE], None, seed=0, dtype=jnp.float32)
+    ckpt = str(tmp_path / "ckpt")
+    save_safetensors(from_jax_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                    MODEL_CONFIGS[MOE]), MODEL_CONFIGS[MOE], ckpt)
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    paths = [tmp_path / f"rank{r}.log" for r in range(4)]
+    logs = [open(p, "w") for p in paths]
+    procs = [subprocess.Popen([sys.executable, "-c", SP_EP_CHILD, str(r), str(port),
+                               ckpt], cwd=REPO, env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(4)]
+    try:
+        eng = TorchEngine(EngineConfig(**dict(SETTINGS, model=MOE)), device="cpu",
+                          blocklist_path=None, models={MOE: ckpt})
+        eng.start()
+        try:
+            tok = eng.runtimes[MOE].tokenizer
+            req = eng.enqueue_request("u", "", MOE, prompt_tokens=tok.encode(PROMPT),
+                                      sampling=SamplingParams(max_tokens=NEW,
+                                                              temperature=0.0))
+            assert collect(req)[-1].kind == "done"
+            one_rank = req.generated_ids
+        finally:
+            eng.stop()
+        deadline = time.monotonic() + 240
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    texts = [p.read_text() for p in paths]
+    for p, text in zip(procs, texts):
+        assert p.returncode == 0, text[-3000:]
+    leader = json.loads([ln for ln in texts[0].splitlines()
+                         if ln.startswith("RESULT ")][-1][7:])
+    assert leader["kind"] == "done" and leader["sp_prefills"] == 1
+    assert leader["ids"] == one_rank and len(one_rank) == NEW
+    for w in leader["workers"]:
+        assert w["ops"]["sp_prefill"] == 1
+        assert w["digest"] == leader["me"]["digest"]

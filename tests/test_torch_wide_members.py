@@ -25,6 +25,8 @@ router's process starts and reaps. Through the CLI's own build_fleet
     reaps its ranks; `--pp 2 --replicas 2` serves a stream; under `--sp
     2 --replicas 2` each member's prompts past the largest prefill
     bucket take the sequence-parallel prefill and give TPUEngine's ids;
+    `--ep 2 --replicas 2` on test-tiny-moe starts both members' worlds
+    at ep 2 (half the experts a rank), both giving TPUEngine's ids;
     `--dp 2
     --tp 2 --replicas 2` validates; a host short of the cards a fleet
     needs exits 2 naming them.
@@ -496,6 +498,67 @@ def test_sp2_members_serve_long_prompts(reference):
             assert _ids(items) == reference[1][p]
         assert sum(rt.sp_prefill_dispatches for rt in rts) == len(PROMPTS)
         assert all(rt.sp_prefill_dispatches > 0 for rt in rts)
+    finally:
+        router.stop()
+
+
+def test_ep2_members_serve_moe(tmp_path_factory):
+    """`--ep 2 --replicas 2` on test-tiny-moe: each member leads a world
+    of two expert ranks (half of every layer's experts a rank), and a
+    stream on each member gives TPUEngine's greedy ids."""
+    import jax
+    import jax.numpy as jnp
+
+    from ollamamq_tpu.config import EngineConfig as JaxEngineConfig
+    from ollamamq_tpu.engine.engine import TPUEngine
+    from ollamamq_tpu.ops.sampling import SamplingParams as JaxSampling
+    from ollamamq_tpu_torch.models.weights import (from_jax_numpy,
+                                                   save_safetensors)
+
+    moe = "test-tiny-moe"
+    eng = TPUEngine(JaxEngineConfig(model=moe, max_slots=4, num_pages=64,
+                                    page_size=8, max_pages_per_seq=8,
+                                    decode_steps_per_iter=2),
+                    models={moe: None}, blocklist_path=None, dtype=jnp.float32)
+    eng.start()
+    try:
+        tok = eng.runtimes[moe].tokenizer
+        r = eng.enqueue_request("j", "", moe, prompt_tokens=tok.encode(PROMPTS[1]),
+                                sampling=JaxSampling(max_tokens=NEW,
+                                                     temperature=0.0))
+        assert collect(r, timeout=240)[-1].kind == "done"
+        want = list(r.generated_ids)
+        pnp = jax.tree_util.tree_map(np.asarray, eng.runtimes[moe].params)
+    finally:
+        eng.stop()
+    ckpt = str(tmp_path_factory.mktemp("moe"))
+    save_safetensors(from_jax_numpy(pnp, MODEL_CONFIGS[moe]), MODEL_CONFIGS[moe],
+                     ckpt)
+    args = cli.build_parser().parse_args(
+        TINY + ["--model", moe, "--checkpoints", f"{moe}={ckpt}",
+                "--replicas", "2", "--ep", "2"])
+    assert cli.validate(args) == ""
+    router = cli.build_fleet(args, cli.engine_config(args), None)
+    router.start()
+    try:
+        rts = [m.engine.runtimes[moe] for m in router.members]
+        assert [(rt.mesh.ep, rt._ep) for rt in rts] == [(2, 2), (2, 2)]
+        E = MODEL_CONFIGS[moe].num_experts
+        assert [rt.params["layers"][0]["we_gate"].shape[0] for rt in rts] \
+            == [E // 2] * 2
+        assert [len(_pids(m)) for m in router.members] == [1, 1]
+        tok = router.resolve_runtime(moe).tokenizer
+        reqs = [router.enqueue_request(f"ep{i}", "", moe,
+                                       prompt_tokens=tok.encode(PROMPTS[1]),
+                                       sampling=SamplingParams(max_tokens=NEW,
+                                                               temperature=0.0),
+                                       raw_prompt=PROMPTS[1])
+                for i in range(2)]
+        for r in reqs:
+            items = collect(r, timeout=120)
+            assert items[-1].kind == "done"
+            assert _ids(items) == want
+        assert all(rt.tokens_generated > 0 for rt in rts)
     finally:
         router.stop()
 
