@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (ollamamq_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py            # one card, about twelve minutes
+    python3 chip_smoke.py            # one card, about 15 to 20 minutes
     python3 chip_smoke.py --profile  # also torch.profiler windows of serving
     python3 chip_smoke.py --only serve-dp  # the build and one phase (a
                                            # partial run: no ok line)
@@ -11,6 +11,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
   build    nvcc builds both CUDA sources from ollamamq_tpu_torch/csrc, in
            parallel, and all four entry points load: ragged and decode
            attention over a pool in q's dtype and over an int8 pool.
+           Then the Python this process imported is compiled into a
+           bytecode cache under ollamamq_tpu_torch/_build/pycache that
+           every process the script starts reads (share_bytecode).
   decode-plan
            each decode entry point, called directly with q in bf16,
            refuses a launch plan that differs from decode_launch_plan in
@@ -355,21 +358,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
            vocabulary rows and half the KV pool. Four windows in one
            world of the two processes, each window a session of its
            wire (its own engine on rank 0, its own run_worker on rank 1),
-           the kill last: (1) llama3:8b at full width (32 layers,
+           the kill last: (1) llama3:8b at full width (16 of 32 layers,
            d 4096, 32 heads over 8 KV heads, hd 128, f 14,336, vocab
            128,256, untied; seeded bf16 weights, 8 slots, 136 pages of
            32): 4 greedy /api/chat streams of 64 tokens from 3 users
            (prompts of 100 to 300 tokens), then one prompt twice alone;
            gates: every reply stop/length, the repeat identical, both
            ranks' digests of every dispatch output equal, each rank
-           exactly 32 ragged launches per ragged dispatch and 32 decode
+           exactly 16 ragged launches per ragged dispatch and 16 decode
            launches per decode step and no int8 launch, param_bytes
-           8,030,527,488 and kv_bytes 285,212,672 on each rank, every
+           4,540,604,416 and kv_bytes 142,606,336 on each rank, every
            attention call of rank 0 (its slice alone, 16 heads over 4)
            within 2e-2 x max |plain|; records tokens/s, TTFT, init
            seconds, each rank's peak memory, rank 0's all_reduce ms per
            forward and the wire's ms per dispatch over one more burst,
-           and with --profile a profiled burst. (2) llama3.2:1b in
+           and with --profile a profiled burst; metrics_federated: rank
+           0's /metrics, scraped once rank 1's posted snapshot settled,
+           equals the registry's render with that snapshot merged and
+           counts rank 1's probe series once. (2) llama3.2:1b in
            float32 (TF32 off): 4 greedy 32-token streams at tp 2 and at
            tp 1 on the same seed, queued before the loop starts: ids
            identical, the first forward's logits within 1e-4 x max
@@ -447,7 +453,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
            sharing the card over gloo, float32: the two prompts, one a
            replica, give the one-replica ids; every rank launched both
            f32 kernels (each worker posts its counts after a replay);
-           then 4 streams of 96 tokens, 2 a replica, and kill -9 of rank
+           metrics_federated: rank 0's /metrics, scraped once the three
+           other ranks' posted snapshots settled, equals the registry's
+           render with them merged and counts their probe series 3; then
+           4 streams of 96 tokens, 2 a replica, and kill -9 of rank
            3 (replica 1) once each holds 16 tokens: replica 1's requests
            error within 18 s, replica 0's finish, only replica 1 is
            failed, worker_stale fires. Rank logs go to
@@ -489,15 +498,15 @@ Phases, each printing JSON lines; any failure exits non-zero:
            replicated), ranks (processes of this script, --tp-rank)
            sharing cuda:0 over gloo, each registering the cut configs
            itself. One world of two ranks serves three windows, a world
-           of four one more: (1) bf16, cut to 16 of 32 layers, seeded
+           of four one more: (1) bf16, cut to 8 of 32 layers, seeded
            weights at ep 2 through the HTTP server, serve-moe's traffic
            (4 greedy /api/chat streams of 64 tokens from 3 users, then
            one prompt twice alone); gates: every reply stop/length, the
            repeat's ids identical, both ranks' output digests equal, both
            ranks' digests of layer 0's capacity-slot tensor over every
-           forward equal, exactly 16 ragged launches per ragged dispatch
-           and 16 decode per decode step on each rank and no int8
-           launch, 24,416,362,496 weight bytes a rank (from the config's
+           forward equal, exactly 8 ragged launches per ragged dispatch
+           and 8 decode per decode step on each rank and no int8
+           launch, 12,470,329,344 weight bytes a rank (from the config's
            shapes), both ranks' whole K and V pools sha256-equal, every
            attention call of one prefill and one decode step on rank 0's
            shard within 2e-2 x max |plain|. Records tokens/s, TTFT p50,
@@ -515,7 +524,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
            mixtral:8x7b. Rank logs go to
            chiprun_out/chip_smoke/serve_ep_*.log.
 
-Then the card as nvidia-smi names it, the kernels line (launches: the
+Then a timings line (each phase's seconds, and the run's since the
+build began), the card as nvidia-smi names it, the kernels line (launches: the
 serve window of the row's pool format plus serve-moe's, serve-durable's,
 serve-fleet's, serve-tiers' (both windows, and the wide members'
 worker ranks over their runs), serve-autoscale's, serve-ha's,
@@ -1656,6 +1666,58 @@ def _parse_prometheus(text):
     return out
 
 
+# Each worker rank of a serve-* world counts itself once under this
+# journal kind before it serves (tp_rank_main): a worker's own series
+# repeat rank 0's gauges and count nothing else, so without it the merge
+# would not show in rank 0's scrape.
+FEDERATION_PROBE = "federation_probe"
+
+
+def _federated_scrape(eng, port, every_s=0.5, budget_s=60.0) -> dict:
+    """metrics_federated: rank 0's /metrics once every other rank's
+    posted snapshot (`ollamamq/metrics/<rank>`, read off the world's
+    store, not through the engine) is there and two reads `every_s`
+    apart agree, against the registry's render of exactly those
+    snapshots (rendered again if a gauge moved between the two). ok: one
+    snapshot a worker rank and none of rank 0's, the scrape equal to
+    that render, and the probe counted once a worker rank. The workers'
+    step-phase samples are recorded beside: a worker records no steps
+    (the leader's profiler counts each step of the world once)."""
+    from ollamamq_tpu_torch.engine import spmd
+    from ollamamq_tpu_torch.telemetry.metrics import REGISTRY
+
+    client, size = eng._plane.client(), eng._plane.size
+
+    def read():
+        return [spmd._try_get(client, f"ollamamq/metrics/{p}") for p in range(size)]
+
+    deadline = time.monotonic() + budget_s
+    posts = read()
+    while time.monotonic() < deadline:
+        time.sleep(every_s)
+        again = read()
+        if again == posts and all(again[1:]):
+            break
+        posts = again
+    snaps = [json.loads(v) for v in posts[1:] if v]
+    for renders in range(1, 4):
+        text = _get(port, "/metrics").decode()
+        want = REGISTRY.render(extra_snapshots=snaps)
+        if text == want:
+            break
+    probe = _parse_prometheus(text).get(
+        ("ollamamq_journal_events_total", f'kind="{FEDERATION_PROBE}"'), 0)
+    worker_steps = sum(v[2] for snap in snaps
+                       for _, v in snap["ollamamq_step_phase_ms"]["series"])
+    line = {"worker_ranks": size - 1, "snapshots": len(snaps),
+            "rank0_posted": posts[0] is not None, "scrape_equals_merge": text == want,
+            "renders": renders, "probe": probe, "worker_step_samples": worker_steps,
+            "scrape_lines": len(text.splitlines())}
+    line["ok"] = (line["snapshots"] == size - 1 and not line["rank0_posted"]
+                  and line["scrape_equals_merge"] and probe == size - 1)
+    return line
+
+
 def _delta_quantiles(child, before, qs):
     """Quantiles of what a histogram child observed since `before` (its
     bucket counts then), by the registry's own interpolation."""
@@ -2197,6 +2259,76 @@ def _free_port() -> int:
     return port
 
 
+def share_bytecode(here: str) -> dict:
+    """Compile every Python module this process has imported (torch's,
+    numpy's, the port's) into a bytecode cache inside the checkout and
+    point every process the script starts at it (PYTHONPYCACHEPREFIX).
+    Where the environment sets PYTHONDONTWRITEBYTECODE and the installed
+    packages ship no bytecode, each new process otherwise compiles all
+    of torch's Python again: ~6-10 s of every rank's and server's
+    start-up on the card's host. A cached file is used only while its
+    source's size and mtime match."""
+    import importlib.util
+    import py_compile
+
+    t0 = time.monotonic()
+    # What the rank and server processes import besides torch itself.
+    import torch.distributed  # noqa: F401
+    import ollamamq_tpu_torch.cli  # noqa: F401
+    import ollamamq_tpu_torch.engine.spmd  # noqa: F401
+    import ollamamq_tpu_torch.fleet.wide  # noqa: F401
+    import ollamamq_tpu_torch.server.app  # noqa: F401
+
+    prefix = os.path.join(here, "ollamamq_tpu_torch", "_build", "pycache")
+    sys.pycache_prefix = prefix
+    done = failed = 0
+    for mod in list(sys.modules.values()):
+        src = getattr(mod, "__file__", None)
+        if not src or not src.endswith(".py"):
+            continue
+        try:
+            py_compile.compile(src, cfile=importlib.util.cache_from_source(src),
+                               doraise=True,
+                               invalidation_mode=py_compile.PycInvalidationMode.TIMESTAMP)
+            done += 1
+        except (OSError, py_compile.PyCompileError, ValueError):
+            failed += 1
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    return {"modules": done, "failed": failed, "seconds": time.monotonic() - t0}
+
+
+def _log_tail(path: str, n: int = 2000) -> str:
+    with open(path, "rb") as f:
+        f.seek(max(0, os.path.getsize(path) - n))
+        return f.read().decode(errors="replace")
+
+
+def _bound_port(proc, log_path: str, start: int, who: str,
+                budget: float = 300.0) -> int:
+    """The port a CLI process started with `--port 0` bound, read off the
+    "serving ... on HOST:PORT" line it logs past byte `start` of its log.
+    A port picked here and bound by the process seconds later can be
+    taken meanwhile: this script's own client connections leave their
+    ports in TIME_WAIT, and a listener's bind to such a port fails."""
+    import re
+
+    pat = re.compile(rb"serving .* on \S+:(\d+) \(device")
+    deadline = time.monotonic() + budget
+    while True:
+        done = proc.poll() is not None
+        with open(log_path, "rb") as f:
+            f.seek(start)
+            m = pat.search(f.read())
+        if m:
+            return int(m.group(1))
+        if done:
+            raise SystemExit(f"{who} exited {proc.returncode} before serving "
+                             f"(log {log_path}):\n{_log_tail(log_path)}")
+        if time.monotonic() > deadline:
+            raise SystemExit(f"{who} never logged its port (log {log_path})")
+        time.sleep(0.05)
+
+
 def _durable_prompt(user: str) -> str:
     return (f"{user}: a long answer about fair queues, KV pages and crash "
             f"recovery on a shared card, please.")
@@ -2235,15 +2367,24 @@ class _Server:
     output in the phase's log file."""
 
     def __init__(self, name: str, dtype: str, wal_dir: str):
-        self.port = _free_port()
-        self.log = open(os.path.join(OUT_DIR, f"serve-durable-{name}.log"), "ab")
+        path = os.path.join(OUT_DIR, f"serve-durable-{name}.log")
+        self._start = os.path.getsize(path) if os.path.exists(path) else 0
+        self._port = None
+        self.log = open(path, "ab")
         self.t_spawn = time.monotonic()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "ollamamq_tpu_torch.cli", *DURABLE_ARGS,
-             "--model", DURABLE_MODEL, "--dtype", dtype, "--port", str(self.port),
+             "--model", DURABLE_MODEL, "--dtype", dtype, "--port", "0",
              "--wal-dir", wal_dir, "--blocklist", os.path.join(OUT_DIR, f"blocked-{name}.json")],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
             stderr=subprocess.STDOUT)
+
+    @property
+    def port(self) -> int:
+        if self._port is None:
+            self._port = _bound_port(self.proc, self.log.name, self._start,
+                                     "serve-durable: server")
+        return self._port
 
     def health(self, budget=300.0) -> dict:
         """/health once the server answers and its recovery pass is done."""
@@ -2251,7 +2392,7 @@ class _Server:
         while time.monotonic() < deadline:
             if self.proc.poll() is not None:
                 raise SystemExit(f"serve-durable: server exited {self.proc.returncode}"
-                                 f" (log {self.log.name})")
+                                 f" (log {self.log.name}):\n{_log_tail(self.log.name)}")
             try:
                 h = json.loads(_get(self.port, "/health"))
                 if h.get("status") != "recovering":
@@ -3174,11 +3315,12 @@ def _fleet_wire(card, params):
     from ollamamq_tpu_torch.tools.journal import check_no_dropped_streams
 
     os.makedirs(OUT_DIR, exist_ok=True)
-    port = _free_port()
-    log = open(os.path.join(OUT_DIR, "serve-fleet-h0.log"), "ab")
+    log_path = os.path.join(OUT_DIR, "serve-fleet-h0.log")
+    start = os.path.getsize(log_path) if os.path.exists(log_path) else 0
+    log = open(log_path, "ab")
     proc = subprocess.Popen(
         [sys.executable, "-m", "ollamamq_tpu_torch.cli", *FLEET_ARGS,
-         *FLEET_DEVICE_ARGS, "--model", FLEET_MODEL, "--port", str(port),
+         *FLEET_DEVICE_ARGS, "--model", FLEET_MODEL, "--port", "0",
          "--no-tui", "--timeout-s", "600", "--stop-grace-s", "60",
          "--blocklist", os.path.join(OUT_DIR, "blocked-fleet.json")],
         cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
@@ -3186,11 +3328,12 @@ def _fleet_wire(card, params):
     router = None
     t0 = time.monotonic()
     try:
+        port = _bound_port(proc, log_path, start, "serve-fleet: member")
         deadline = time.monotonic() + 300
         while True:
             if proc.poll() is not None:
                 raise SystemExit(f"serve-fleet: member exited {proc.returncode} "
-                                 f"(log {log.name})")
+                                 f"(log {log.name}):\n{_log_tail(log.name)}")
             try:
                 _get(port, "/health")
                 break
@@ -4067,25 +4210,35 @@ OWN_F32 = ("ragged_paged_attention", "paged_decode_attention")
 
 
 class _Proc:
-    """`python -m ollamamq_tpu_torch.cli ARGS` in a subprocess, its output
-    in the phase's log file."""
+    """`python -m ollamamq_tpu_torch.cli ARGS` in a subprocess on a port
+    of its own choosing (`port` reads it off its log), its output in the
+    phase's log file."""
 
-    def __init__(self, name: str, args: list, port: int):
-        self.name, self.port = name, port
-        self.log = open(os.path.join(OUT_DIR, f"serve-ha-{name}.log"), "ab")
+    def __init__(self, name: str, args: list):
+        self.name, self._port = name, None
+        path = os.path.join(OUT_DIR, f"serve-ha-{name}.log")
+        self._start = os.path.getsize(path) if os.path.exists(path) else 0
+        self.log = open(path, "ab")
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "ollamamq_tpu_torch.cli", "--no-tui",
-             "--port", str(port), "--timeout-s", "600",
+             "--port", "0", "--timeout-s", "600",
              "--blocklist", os.path.join(OUT_DIR, f"blocked-ha-{name}.json"), *args],
             cwd=os.path.dirname(os.path.abspath(__file__)), stdout=self.log,
             stderr=subprocess.STDOUT)
+
+    @property
+    def port(self) -> int:
+        if self._port is None:
+            self._port = _bound_port(self.proc, self.log.name, self._start,
+                                     f"serve-ha: {self.name}")
+        return self._port
 
     def health(self, ok=lambda h: h.get("status") != "recovering", budget=300.0):
         deadline = time.monotonic() + budget
         while time.monotonic() < deadline:
             if self.proc.poll() is not None:
                 raise SystemExit(f"serve-ha: {self.name} exited {self.proc.returncode} "
-                                 f"(log {self.log.name})")
+                                 f"(log {self.log.name}):\n{_log_tail(self.log.name)}")
             try:
                 h = json.loads(_get(self.port, "/health"))
                 if ok(h):
@@ -4220,33 +4373,34 @@ def serve_ha_phase(report) -> None:
 
     member_args = [*FLEET_ARGS, *FLEET_DEVICE_ARGS, "--model", FLEET_MODEL,
                    "--dtype", "float32", "--stop-grace-s", "60"]
-    members = {m: _Proc(f"member-{m}", member_args + ["--journal-file", path(f"m{m}.jsonl")],
-                        _free_port()) for m in ("a", "b")}
-    urls = ",".join(f"http://127.0.0.1:{p.port}" for p in members.values())
-    router_args = ["--model", FLEET_MODEL, "--replicas", "0", "--replica-urls", urls,
-                   "--max-new-tokens", str(HA_NEW), "--wal-fsync-ms", "2",
-                   "--takeover-grace-s", HA_GRACE_S, "--stop-grace-s", "60"]
-    ports = {k: _free_port() for k in ("p", "s1", "s2")}
-
-    def primary(tag=""):
-        return _Proc(f"primary{tag}", router_args + [
-            "--ha", "--wal-dir", path("wal-p"), "--journal-file", path(f"primary{tag}.jsonl")],
-            ports["p"])
-
-    def standby(name, of):
-        return _Proc(name, router_args + [
-            "--standby-of", f"http://127.0.0.1:{ports[of]}", "--wal-dir", path(f"wal-{name}"),
-            "--journal-file", path(f"{name}.jsonl")], ports[name])
-
+    members = {m: _Proc(f"member-{m}", member_args + ["--journal-file", path(f"m{m}.jsonl")])
+               for m in ("a", "b")}
+    t0 = time.monotonic()
     procs = list(members.values())
+    ports = {}  # router -> the port it bound
     try:
-        t0 = time.monotonic()
+        urls = ",".join(f"http://127.0.0.1:{p.port}" for p in members.values())
+        router_args = ["--model", FLEET_MODEL, "--replicas", "0", "--replica-urls", urls,
+                       "--max-new-tokens", str(HA_NEW), "--wal-fsync-ms", "2",
+                       "--takeover-grace-s", HA_GRACE_S, "--stop-grace-s", "60"]
+
+        def primary(tag=""):
+            return _Proc(f"primary{tag}", router_args + [
+                "--ha", "--wal-dir", path("wal-p"),
+                "--journal-file", path(f"primary{tag}.jsonl")])
+
+        def standby(name, of):
+            return _Proc(name, router_args + [
+                "--standby-of", f"http://127.0.0.1:{ports[of]}",
+                "--wal-dir", path(f"wal-{name}"), "--journal-file", path(f"{name}.jsonl")])
+
         for m in members.values():
             m.health()
         members_up_s = time.monotonic() - t0
         k0 = {m: _member_launches(p.port) for m, p in members.items()}
         p = primary()
         procs.append(p)
+        ports["p"] = p.port
         p.health(lambda h: h.get("role") == "primary")
         # 1. The reference: one uninterrupted greedy stream, before the
         # standby exists (its catch-up then goes through the snapshot).
@@ -4257,6 +4411,7 @@ def serve_ha_phase(report) -> None:
         s1 = standby("s1", "p")
         procs.append(s1)
         t_s1 = time.monotonic()
+        ports["s1"] = s1.port
         h_s1 = s1.health(lambda h: h.get("sync_lag_records") == 0)
         catchup_s = time.monotonic() - t_s1
         replica = load_wal_records(os.path.join(path("wal-s1"), "wal.jsonl"))[0]
@@ -4348,6 +4503,7 @@ def serve_ha_phase(report) -> None:
         # the promoted router: it hands over and exits 0.
         s2 = standby("s2", "s1")
         procs.append(s2)
+        ports["s2"] = s2.port
         s2.health(lambda h: h.get("sync_lag_records") == 0)
         health_s1_end = json.loads(_get(ports["s1"], "/health"))
         t_term = time.monotonic()
@@ -4753,11 +4909,14 @@ def _serve_moe_traffic(rt, port) -> dict:
 
 
 # -- serve-tp: tensor parallelism over two ranks --------------------------------
-TP_MODEL = "llama3:8b"
+# The bf16 window's model: llama3:8b at full width, 16 of its 32 layers,
+# so that the whole script stays well inside its time limit.
+TP_MODEL = "llama3:8b-16l"
+TP_LAYERS = 16
 TP_SMALL = "llama3.2:1b"
 TP_DEVICE = "cuda"
-TP_PARAM_BYTES = 8_030_527_488  # each rank's bf16 slice of llama3:8b
-TP_KV_BYTES = 285_212_672  # each rank's pool: 32 layers x 4352 slots x 4 heads
+TP_PARAM_BYTES = 4_540_604_416  # each rank's bf16 slice of TP_MODEL
+TP_KV_BYTES = 142_606_336  # each rank's pool: 16 layers x 4352 slots x 4 heads
 TP_NEW = 64
 TP_STREAMS = (("tp-ada", 100), ("tp-bob", 180), ("tp-cyd", 240), ("tp-ada", 300))
 TP_TEXT = ("Tensor parallelism splits each layer's heads and feed-forward "
@@ -4953,6 +5112,7 @@ def _tp_leader_bf16(spec, mesh, profile):
     line["tp_layer"] = _tp_layer_ms(rt, port, model)
     if profile:
         line["profile"] = profile_window(port, model, TP_TEXT * 3, rt)
+    line["metrics_federated"] = _federated_scrape(eng, port)
     stop_server(srv)
     line.update(init_s=init_s, param_bytes=rt.param_bytes, kv_bytes=rt.kv_bytes,
                 max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -5174,7 +5334,11 @@ def tp_rank_main(args) -> int:
         mesh = make_mesh(dp=first.get("dp", 1), tp=first.get("tp", 2),
                          pp=first.get("pp", 1), sp=first.get("sp", 1),
                          ep=first.get("ep", 1))
-        _moe_cuts()  # serve-ep's cut models, by name, on every rank
+        _model_cuts()  # serve-tp's and serve-ep's cut models, on every rank
+        if rank != 0:  # metrics_federated's probe (_federated_scrape)
+            from ollamamq_tpu_torch.telemetry import schema as tm
+
+            tm.JOURNAL_EVENTS_TOTAL.labels(kind=FEDERATION_PROBE).inc()
         if rank != 0 and first.get("dp", 1) > 1:
             # serve-dp reads every rank's launches before its kill -9.
             from ollamamq_tpu_torch.ops.cuda import launch_counts
@@ -5300,7 +5464,8 @@ def _tp_nccl_check() -> dict:
 
 def serve_tp_phase(report, profile: bool) -> None:
     """Tensor parallelism over two ranks sharing the card (gloo; NCCL
-    refuses two ranks on one GPU): llama3:8b at full width in bf16, then
+    refuses two ranks on one GPU): llama3:8b at full width (16 of 32
+    layers) in bf16, then
     llama3.2:1b in float32 against one rank, in int8, and under a kill -9
     of the worker; see the module docstring."""
     import torch
@@ -5326,7 +5491,7 @@ def serve_tp_phase(report, profile: bool) -> None:
     world_s = time.monotonic() - t_world
     bf16, f32, int8, kill = (windows[w] for w in ("bf16", "f32", "int8", "kill"))
     (w_bf16,), (w_f32,), (w_int8,) = bf16["workers"], f32["workers"], int8["workers"]
-    cfg_layers = {"bf16": 32, "small": 16}
+    cfg_layers = {"bf16": TP_LAYERS, "small": 16}
     worker_exact = {
         "bf16": _tp_exact(w_bf16["launches"], w_bf16["ops"], cfg_layers["bf16"], "")[0],
         "int8": _tp_exact(w_int8["launches"], w_int8["ops"], cfg_layers["small"], "_int8")[0]}
@@ -5336,7 +5501,8 @@ def serve_tp_phase(report, profile: bool) -> None:
         for k, v in counts.items():
             launches[k] += v
     line = {"phase": "serve-tp", "model": TP_MODEL, "tp": 2, "backend": "gloo",
-            "ranks_on": "cuda:0 (both)", "layers": 32,
+            "ranks_on": "cuda:0 (both)", "layers": TP_LAYERS,
+            "reduced": {"num_layers": [32, TP_LAYERS]},
             "width": {"hidden": 4096, "heads": 32, "kv_heads": 8, "head_dim": 128,
                       "intermediate": 14336, "vocab": 128256,
                       "per_rank": {"heads": 16, "kv_heads": 4}},
@@ -5369,6 +5535,7 @@ def serve_tp_phase(report, profile: bool) -> None:
                                   "tp1_serve_int8": report["serve_int8"]["kv_bytes"]},
                      "digests_equal": int8["trace"]["digest"] == w_int8["digest"],
                      "per_call": int8["per_call"]},
+            "metrics_federated": bf16["metrics_federated"],
             "kill": kill, "nccl_ws1": nccl,
             "cli_tp2_exit": refusal.returncode,
             "cli_tp2_message": next((ln.split(": ", 1)[-1] for ln in refusal_text.splitlines()
@@ -5403,6 +5570,7 @@ def serve_tp_phase(report, profile: bool) -> None:
         "int8_kv_half": (line["int8"]["kv_bytes"]["rank0"] == half
                          and line["int8"]["kv_bytes"]["rank1"] == half),
         "nccl_ws1": nccl["ok"],
+        "metrics_federated": line["metrics_federated"]["ok"],
         "cli_tp2_exit_2": refusal.returncode == 2 and "cuda:1" in refusal_text,
         "kill_errors": kill["kinds"] == ["error"] * 4,
         "kill_within_bound": max(kill["seconds_to_error"]) <= TP_KILL_BOUND_S,
@@ -6154,6 +6322,8 @@ def _dp_world_leader(spec, mesh, profile):
     f32 = {"ids": [list(r.generated_ids) for r in reqs], "replicas": placed,
            "done": all(it is not None and it.kind == "done" for it in items),
            "per_replica_tokens": [rt.tokens_generated for rt in rs.replicas]}
+    port = srv.server_address[1]
+    metrics = _federated_scrape(eng, port)
     client = distributed.store()
     launches = {0: launch_counts()}
     for r in range(1, mesh.size):  # each worker posts its own after a replay
@@ -6184,12 +6354,13 @@ def _dp_world_leader(spec, mesh, profile):
         t.join(timeout=200)
     time.sleep(3.5)  # past the heartbeat's staleness
     eng.health.check_once()
-    with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/health",
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
                                 timeout=30) as resp:
         health = json.loads(resp.read())
     stop_server(srv)
     eng.stop(report_timeout_s=5)
     return {"f32": f32, "launches": launches,
+            "metrics_federated": metrics,
             "kill": {"replicas": kill_on, "tokens_at_kill": at_kill, "ends": ends,
                      "bound_s": TP_KILL_BOUND_S,
                      "failed_replicas": [rt._failed for rt in rs.replicas],
@@ -6247,6 +6418,7 @@ def serve_dp_phase(report) -> None:
             "world": {"ranks": 4, "grid": "dp 2 x tp 2", "backend": "gloo",
                       "ranks_on": "cuda:0 (all)", "seconds": world_s,
                       "f32": world["f32"], "launches": world["launches"],
+                      "metrics_federated": world["metrics_federated"],
                       "kill": kill, "return_codes": rcs},
             "launches": launches}
     line["phase_s"] = time.monotonic() - t_phase
@@ -6276,6 +6448,7 @@ def serve_dp_phase(report) -> None:
         "world_ids_equal_one_rank": world["f32"]["ids"] == f32_one["ids"],
         "world_every_rank_kernels": all(c[k] > 0 for c in world["launches"].values()
                                         for k in f32_kernels),
+        "metrics_federated": world["metrics_federated"]["ok"],
         "kill_replica1_errors": (len(by_rep[1]) == 2 and all(
             e[0] == "error" and e[2] <= TP_KILL_BOUND_S for e in by_rep[1])),
         "kill_replica0_finishes": (len(by_rep[0]) == 2 and all(
@@ -6775,23 +6948,30 @@ def serve_sp_phase(report) -> None:
 
 
 # -- serve-ep: expert parallelism over two ranks --------------------------------
+# The bf16 window's model: 8 of 32 layers, so that the whole script
+# stays well inside its time limit on a slow host.
+EP_MODEL = "mixtral:8x7b-8l"
+EP_LAYERS = 8
 EP_F32_MODEL = "mixtral:8x7b-2l"  # 2 of 32 layers: the f32 and kill windows
-EP_PARAM_BYTES = 24_416_362_496  # each ep-2 rank's bf16 slice of MOE_MODEL
+EP_PARAM_BYTES = 12_470_329_344  # each ep-2 rank's bf16 slice of EP_MODEL
 EP_ROUTE_KEY = "chip_smoke/ep_route/{window}/{rank}"
 EP_RANK_KEY = "chip_smoke/ep_rank/{window}/{rank}"
 EP_GO_KEY = "chip_smoke/ep_go/{window}"
 
 
-def _moe_cuts() -> None:
-    """Register mixtral:8x7b cut to 16 layers (MOE_MODEL) and to 2
-    (EP_F32_MODEL) in this process's config table (idempotent): a rank
-    of a serve-ep world builds them by name."""
+def _model_cuts() -> None:
+    """Register the cut configs in this process's config table
+    (idempotent): mixtral:8x7b at 16 layers (MOE_MODEL), 8 (EP_MODEL)
+    and 2 (EP_F32_MODEL), llama3:8b at 16 (TP_MODEL). A rank of a
+    serve-tp or serve-ep world builds them by name."""
     from ollamamq_tpu_torch.config import MODEL_CONFIGS
 
-    full = MODEL_CONFIGS["mixtral:8x7b"]
-    for name, layers in ((MOE_MODEL, MOE_LAYERS), (EP_F32_MODEL, 2)):
+    for base, name, layers in (("mixtral:8x7b", MOE_MODEL, MOE_LAYERS),
+                               ("mixtral:8x7b", EP_MODEL, EP_LAYERS),
+                               ("mixtral:8x7b", EP_F32_MODEL, 2),
+                               ("llama3:8b", TP_MODEL, TP_LAYERS)):
         MODEL_CONFIGS.setdefault(name, dataclasses.replace(
-            full, name=name, num_layers=layers))
+            MODEL_CONFIGS[base], name=name, num_layers=layers))
 
 
 def _ep_param_bytes(cfg, layers: int, ep: int, tp: int, nbytes: int) -> int:
@@ -6958,7 +7138,7 @@ EP_WINDOWS = {"ep-bf16": _ep_leader_bf16, "ep-f32": _tp_leader_f32,
 
 def serve_ep_phase(report) -> None:
     """Expert parallelism: mixtral:8x7b at full width over two expert
-    shards sharing the card (gloo): 16 layers in bf16 through the HTTP
+    shards sharing the card (gloo): 8 layers in bf16 through the HTTP
     server, float32 identity with one rank at ep 2 and ep 2 x tp 2 (2
     layers), and a kill -9; see the module docstring."""
     import torch
@@ -6980,7 +7160,7 @@ def serve_ep_phase(report) -> None:
     t_world = time.monotonic()
     # One world of two ranks serves three windows, the kill last.
     windows, rcs, _ = _tp_world("ep", [
-        ("ep-bf16", {**base, "model": MOE_MODEL, "dtype": "bfloat16",
+        ("ep-bf16", {**base, "model": EP_MODEL, "dtype": "bfloat16",
                      "ep_checks": True}),
         ("ep-f32", {**base, "model": EP_F32_MODEL, "dtype": "float32"}),
         ("ep-kill", {**base, "model": EP_F32_MODEL, "dtype": "bfloat16"})])
@@ -6993,7 +7173,7 @@ def serve_ep_phase(report) -> None:
     bf16, f32, kill, f32tp = (windows["ep-bf16"], windows["ep-f32"],
                               windows["ep-kill"], wide["ep-tp-f32"])
     (w_bf16,), (w_f32,) = bf16["workers"], f32["workers"]
-    layers = MOE_LAYERS
+    layers = EP_LAYERS
     w_exact, w_own = _tp_exact(w_bf16["launches"], w_bf16["ops"], layers, "")
     launches = {k: 0 for k in KERNEL_ROWS}
     for counts in ([bf16["launches"], w_bf16["launches"], f32["launches"],
@@ -7016,7 +7196,7 @@ def serve_ep_phase(report) -> None:
     step = {int(k): v for k, v in bf16["decode_step"].items()}
     rank_bytes = {int(k): v for k, v in bf16["rank_param_bytes"].items()}
     fa = bf16["ffn_allreduce"]
-    line = {"phase": "serve-ep", "model": MOE_MODEL, "ep": 2, "backend": "gloo",
+    line = {"phase": "serve-ep", "model": EP_MODEL, "ep": 2, "backend": "gloo",
             "ranks_on": "cuda:0 (both)", "layers": layers,
             "reduced": {"num_layers": [32, layers]},
             "width": {"hidden": full.hidden_size,
@@ -7275,8 +7455,9 @@ def main(argv=None) -> int:
     built = build.build()
     for name in build.KERNELS:  # every entry point loads from its library
         build.kernel_fn(name)
+    bytecode = share_bytecode(here)
     line = {"phase": "build", "seconds": time.monotonic() - t0,
-            "entry_points": list(build.KERNELS),
+            "bytecode": bytecode, "entry_points": list(build.KERNELS),
             "sources": {src: {"seconds": b["seconds"], "cached": b["cached"],
                               "entry_points": b["entry_points"],
                               "ptxas": [ln.strip() for ln in b["log"].splitlines()
@@ -7284,8 +7465,16 @@ def main(argv=None) -> int:
                         for src, b in built.items()}}
     emit(line)
     report["build"] = line
+    phase_s = {}
     for name in [args.only] if args.only else PHASES:
+        t = time.monotonic()
         PHASES[name](report, args.profile)
+        phase_s[name] = time.monotonic() - t
+    # Where the run's time went, phase by phase (the contract bounds the
+    # whole script, the build included).
+    report["phase_seconds"] = phase_s
+    emit({"phase": "timings", "seconds": phase_s,
+          "since_build_start_s": time.monotonic() - t0})
     if args.only:
         print(card_line(), flush=True)
         print(f"chip_smoke: ran phase {args.only} only; the full run "

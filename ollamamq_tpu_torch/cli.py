@@ -146,7 +146,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the engine's default. Empty: --model alone")
     p.add_argument("--checkpoints", default=os.environ.get("CHECKPOINTS", ""),
                    help="comma-separated name=path pairs: an HF safetensors "
-                        "directory per model; the others use seeded weights")
+                        "directory per model (scripts/orbax_to_safetensors.py "
+                        "converts the JAX package's orbax checkpoints); the "
+                        "others use seeded weights")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=11434)
     p.add_argument("--device", default="cuda",
@@ -1066,7 +1068,7 @@ def main(argv=None) -> int:
                      "expert-parallel" if args.ep > 1 else "tensor-parallel",
                      distributed.rank(), ",".join(model_table(args)))
             spmd.run_worker(model_table(args), ecfg, mesh)
-            return 0
+            distributed.exit_process(0)  # past torch's teardown of the groups
 
     def build_engine(cfg, blocklist, device=None):
         if args.fake_engine:

@@ -4094,6 +4094,11 @@ class TorchEngine:
                 else list(dict.fromkeys(self.mesh.devices)))
         return [row for d in devs for row in chip_stats(d)]
 
+    def worker_metric_snapshots(self) -> List[dict]:
+        """Other ranks' registry snapshots for /metrics to merge: none in
+        one process (the SPMD engine reads its world's)."""
+        return []
+
     def stats(self) -> dict:
         runtime_stats = [rt.stats() for rt in list(self.runtimes.values())]
         chips = self.chip_stats()

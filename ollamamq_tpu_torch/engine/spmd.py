@@ -80,6 +80,13 @@ router leads one plane per member wider than one rank
 and its workers' run_worker each start a session of their world's wire
 (`_Plane.reset`), whose keys are its own, so one world can serve one
 engine after another.
+
+Metrics: every rank but rank 0 posts its registry's snapshot under
+`ollamamq/metrics/<rank>` on every heartbeat, and once more when its op
+stream goes idle (`_recv_op`). Rank 0's /metrics merges the other ranks'
+snapshots (`SPMDEngine.worker_metric_snapshots`), so one scrape covers
+the world. A worker records no steps of its own: the leader's step
+profiler counts each step of the world once.
 """
 
 from __future__ import annotations
@@ -108,6 +115,7 @@ from ollamamq_tpu_torch.models import weights
 from ollamamq_tpu_torch.ops.quant import nbytes
 from ollamamq_tpu_torch.parallel import distributed
 from ollamamq_tpu_torch.parallel.mesh import replica_of, replica_ranks
+from ollamamq_tpu_torch.telemetry.metrics import REGISTRY
 
 log = logging.getLogger("ollamamq.torch.spmd")
 
@@ -123,6 +131,9 @@ OP_EVICT = 8
 OP_EMBED = 9  # a=B, b=bucket: embed batch on a GENERATIVE runtime
 OP_RAGGED = 10  # a=T_pad: ragged mixed batch (prefill spans + decode rows)
 OP_SPEC = 11  # a=T_pad, b=k_cap: ragged mixed batch + speculative spans
+
+# A worker posts its metrics once its op stream has been quiet this long.
+IDLE_PUBLISH_S = 0.2
 
 NAME_LEN = 128  # utf-8 bytes, zero-padded, for OP_LOAD/OP_EVICT names
 PATH_LEN = 256  # utf-8 bytes for checkpoint paths ("" = None)
@@ -341,6 +352,7 @@ class _Plane:
         self.world = world  # None: this process's default world
         self.hb = _HeartbeatMonitor(self)
         self._hb_stop = threading.Event()
+        self._publish_lock = threading.Lock()
         self.session = 0
         self._sessions = 0  # resets so far in the world `_counted`
         self._counted = None
@@ -404,8 +416,9 @@ class _Plane:
 
     def start_heartbeat(self) -> None:
         """Advertise this rank's liveness (`ollamamq/hb/<rank>`, bumped
-        every _hb_every() seconds) and its device rows
-        (`ollamamq/chips/<rank>`), so peers stop waiting on us within
+        every _hb_every() seconds), its device rows
+        (`ollamamq/chips/<rank>`) and, on ranks other than 0, its
+        metrics (`publish_metrics`), so peers stop waiting on us within
         ~_hb_stale() s of our death instead of the full status-sync
         timeout."""
         pid, stop = self.rank, self._hb_stop
@@ -422,12 +435,22 @@ class _Plane:
                     for row in rows:
                         row["process"] = pid
                     client.set(f"ollamamq/chips/{pid}", json.dumps(rows))
+                    if pid != 0:  # rank 0's registry is the one scraped
+                        self.publish_metrics(client)
                 except Exception:  # noqa: BLE001 — coordinator gone: exiting
                     return
                 n += 1
                 stop.wait(_hb_every())
 
         threading.Thread(target=run, daemon=True, name="spmd-heartbeat").start()
+
+    def publish_metrics(self, client=None) -> None:
+        """Post this process's registry snapshot under
+        `ollamamq/metrics/<rank>` for rank 0's /metrics. One post at a
+        time, so a later post never carries an older snapshot."""
+        client = client or self.client()
+        with self._publish_lock:
+            client.set(f"ollamamq/metrics/{self.rank}", REGISTRY.snapshot_json())
 
     def stop_heartbeat(self) -> None:
         self._hb_stop.set()
@@ -549,20 +572,26 @@ def _recv_op(seq: int, timeout_s: float = 10.0):
     payload bytes). Retries on poll timeout (an idle engine sends nothing
     for arbitrarily long), but a primary whose heartbeat went stale will
     never send again: exit loudly instead of idling forever. A store
-    that is gone (the primary exited) raises at once."""
+    that is gone (the primary exited) raises at once. When the op has
+    not come within IDLE_PUBLISH_S, this rank's metrics are posted once
+    (`publish_metrics`), so a scrape of an idle world is current."""
     client = _plane.client()
+    wait_s = min(IDLE_PUBLISH_S, timeout_s)
     while True:
         try:
-            blob = _wait_get(client, _plane.key(f"op/{seq}"), timeout_s)
+            blob = _wait_get(client, _plane.key(f"op/{seq}"), wait_s)
             break
         except Exception as e:
-            if _is_deadline(e):
-                if _plane.hb.stale_peers([0]):
-                    raise PeerDeadError(
-                        "primary rank heartbeat went stale; worker "
-                        "exiting") from None
+            if not _is_deadline(e):
+                raise
+            if wait_s < timeout_s:  # the stream went idle
+                _plane.publish_metrics(client)
+                wait_s = timeout_s
                 continue
-            raise
+            if _plane.hb.stale_peers([0]):
+                raise PeerDeadError(
+                    "primary rank heartbeat went stale; worker "
+                    "exiting") from None
     header = np.frombuffer(blob[:_HDR], np.int32)
     return header, blob[_HDR:]
 
@@ -1264,6 +1293,25 @@ class SPMDEngine(TorchEngine):
                 except Exception:  # noqa: BLE001 — not publishing yet (or dead)
                     pass
         return chips
+
+    def worker_metric_snapshots(self):
+        """The registry snapshot of every other rank of this engine's
+        world (`ollamamq/metrics/<rank>`), the ranks of remote replicas
+        included, for /metrics to merge: each rank keeps its own
+        registry in its own process. A rank not publishing yet (or dead) is
+        skipped; none once the ranks are released."""
+        if not self._multi() or self._released:
+            return []
+        client = self._plane.client()
+        out = []
+        for p in range(1, self._plane.size):
+            try:
+                v = _try_get(client, f"ollamamq/metrics/{p}")
+                if v:
+                    out.append(json.loads(v))
+            except Exception:  # noqa: BLE001 — not publishing yet (or dead)
+                pass
+        return out
 
     def stale_worker_hosts(self):
         """Worker ranks whose heartbeat value stopped advancing (the same

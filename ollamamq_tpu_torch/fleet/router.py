@@ -456,7 +456,19 @@ class FleetRouter:
         return locals_[0].engine.chip_stats() if locals_ else []
 
     def worker_metric_snapshots(self) -> List[dict]:
-        return []  # members share this process's registry
+        """The worker ranks' snapshots of every member wider than one
+        rank. In-process members, and the rank 0 of each wide member's
+        world, record into this process's registry already; the other
+        ranks of a wide member's world run in processes of their own
+        (fleet/wide.py). A member that cannot answer is skipped."""
+        out: List[dict] = []
+        for mem in self.local_members:
+            try:
+                out.extend(mem.engine.worker_metric_snapshots())
+            except Exception:  # noqa: BLE001 — a rebuilding or dead member
+                log.exception("member %s: worker metric snapshots failed",
+                              mem.name)
+        return out
 
     def stale_worker_hosts(self) -> List[int]:
         return []

@@ -12,7 +12,10 @@ SPMDEngine.stop releases the ranks, reaps them and closes the world, so
 a member rebuilt at another width (a tier regroup) or retired (a
 scale-down) leaves no rank behind. The engine, its journal, its page
 allocator and in-process migration stay in the router's process, as
-for a one-rank member (fleet/members.py LocalMember).
+for a one-rank member (fleet/members.py LocalMember). Rank 0 records
+into the router's registry; the other ranks post their own snapshots
+on the world's store, which the router's /metrics merges
+(FleetRouter.worker_metric_snapshots), so each rank's steps count once.
 
 Cards (`CardPlan`): on a host with cards, every member holds cards of
 its own, disjoint from the other members' (a wide member one per rank,
@@ -355,4 +358,6 @@ def worker_main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(worker_main())
+    from ollamamq_tpu_torch.parallel import distributed
+
+    distributed.exit_process(worker_main())

@@ -11,7 +11,8 @@ tensor names, and Mixtral's block_sparse_moe router and experts), read
 and written with the standard library and numpy:
 the format is an 8-byte little-endian header length, a JSON header of
 {name: {dtype, shape, data_offsets}} and the raw bytes. An orbax
-checkpoint (the JAX package's own format) needs JAX to read it.
+checkpoint (the JAX package's own format) needs JAX to read it:
+scripts/orbax_to_safetensors.py converts one into such a directory.
 """
 
 from __future__ import annotations
@@ -294,7 +295,10 @@ def load_params(cfg: ModelConfig, checkpoint_path: Optional[str] = None,
             raise ValueError(
                 f"{checkpoint_path} holds no .safetensors file; an orbax "
                 "checkpoint needs the JAX package (ollamamq_tpu) to read it: "
-                "convert it to HF safetensors first")
+                "convert it to HF safetensors first with "
+                f"`python scripts/orbax_to_safetensors.py --model {cfg.name} "
+                f"{checkpoint_path} DST` (where both packages are installed) "
+                "and serve DST")
         if not cut:
             params = load_safetensors(cfg, checkpoint_path, dtype=dtype,
                                       device=device, layers=span)
@@ -511,14 +515,19 @@ def from_jax_numpy(params_np: dict, cfg: ModelConfig, dtype=None,
                    device="cpu", layers: Optional[tuple] = None) -> dict:
     """JAX params (as numpy arrays: layers stacked on axis 0, wq as
     [D, H*hd], embed / lm_head as [V, D]) -> this package's params.
-    `dtype` None keeps each array's own dtype; it never applies to int8
+    `dtype` None keeps each array's own dtype (bfloat16 arrays, numpy's
+    ml_dtypes kind, cross bit for bit); it never applies to int8
     payloads and f32 scales. Quantized leaves ((q, s) pairs with layer
     scales [L, e]) become per-layer QuantTensors with scales [e].
     `layers` (lo, hi) converts only those layers (a pipeline stage's
     slice of the stack)."""
 
     def tensor(a, cast=True):
-        t = torch.from_numpy(np.array(a))  # a private, writable copy
+        a = np.array(a)  # a private, writable copy
+        if a.dtype.name == "bfloat16":  # torch takes no numpy bf16: its bits
+            t = torch.from_numpy(a.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
         return t.to(device=device, dtype=(dtype if cast and dtype else t.dtype))
 
     def conv(a, i=None):

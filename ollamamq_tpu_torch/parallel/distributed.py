@@ -271,6 +271,24 @@ def reap(procs, timeout_s: float = 15.0) -> None:
             p.wait(timeout=10)
 
 
+def exit_process(code: int = 0) -> None:
+    """End a rank's process once its world is done, past the
+    interpreter's teardown: flush the logs and stdio, then os._exit.
+    Torch's C++ teardown of a process's live gloo groups at exit can
+    abort it after a clean run (std::terminate: "terminate called
+    without an active exception", exit -6), about one rank process in a
+    hundred of two-rank worlds on a loaded host."""
+    import sys
+
+    logging.shutdown()
+    for f in (sys.stdout, sys.stderr):
+        try:
+            f.flush()
+        except (OSError, ValueError):  # closed or gone: nothing to flush
+            pass
+    os._exit(code)
+
+
 def shutdown() -> None:
     """Leave this process's world: drop its groups and store clients (a
     process may bring up another world afterwards)."""

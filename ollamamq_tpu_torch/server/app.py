@@ -1401,7 +1401,8 @@ def render_prometheus(engine) -> str:
     """The registry as Prometheus text after refreshing the scrape-time
     gauges: uptime, queue depth per user (rebuilt so departed users'
     series go), the card's HBM (omitted on the CPU, never a fake 0) and
-    the firing alerts (rebuilt so resolved ones go)."""
+    the firing alerts (rebuilt so resolved ones go), with the other
+    ranks' snapshots merged in and a fleet's HTTP members federated."""
     tm.UPTIME_SECONDS.set(time.time() - engine.started_at)
     tm.QUEUE_DEPTH.clear()
     for user, row in engine.core.snapshot().get("users", {}).items():
@@ -1416,6 +1417,13 @@ def render_prometheus(engine) -> str:
     tm.SLO_ALERTS_FIRING.clear()
     for a in engine.alerts.active():
         tm.SLO_ALERTS_FIRING.labels(alert=a.name, severity=a.severity).set(1)
+    # The other ranks of this engine's rank worlds merge into its series
+    # (counters and histograms sum): one scrape covers every rank.
+    extra = []
+    try:
+        extra = engine.worker_metric_snapshots()
+    except Exception:  # noqa: BLE001 — the local series still render
+        log.exception("worker metric snapshot fetch failed")
     # A fleet router re-exports every HTTP member's scraped snapshot with
     # a `replica` label: one scrape sees the fleet.
     federated = []
@@ -1425,7 +1433,7 @@ def render_prometheus(engine) -> str:
             federated = fed_fn()
         except Exception:  # noqa: BLE001 — the local series still render
             log.exception("member metric federation failed")
-    return REGISTRY.render(federated=federated)
+    return REGISTRY.render(extra_snapshots=extra, federated=federated)
 
 
 def capture_profile(out_dir: str, seconds: float, device) -> str:

@@ -294,7 +294,7 @@ for key, c in cases.items():
     out[key] = res
 with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(out, f)
-distributed.shutdown()
+distributed.exit_process(0)  # never through torch's teardown of live groups
 """
 
 

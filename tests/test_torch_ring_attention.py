@@ -74,7 +74,7 @@ for key, c in cases.items():
                 "stats": {n: seq.stats[n] - before[n] for n in seq.stats}}
 with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(out, f)
-distributed.shutdown()
+distributed.exit_process(0)  # never through torch's teardown of live groups
 """
 
 

@@ -120,7 +120,7 @@ for key, c in cases.items():
     out[key] = {"logits": logits, "k": host(kc), "v": host(vc)}
 with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(out, f)
-distributed.shutdown()
+distributed.exit_process(0)  # never through torch's teardown of live groups
 """
 
 

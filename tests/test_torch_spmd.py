@@ -13,7 +13,9 @@ way out and every wait is bounded.
     as a safetensors checkpoint that both ranks load and cut); the
     worker's digest of every dispatch output equals the leader's, and so
     do their op counts; an embed on test-tiny-embed runs on both ranks
-    and matches the port at tp 1;
+    and matches the port at tp 1; rank 0's /metrics, scraped once the
+    worker's posted snapshot has settled, is the registry's render of
+    that snapshot merged in, and counts the worker's probe series once;
   - the heartbeat monitor's staleness logic;
   - a worker killed mid-stream (os._exit, no report): the request ends
     with an error within the heartbeat bound, /health still answers and
@@ -37,6 +39,7 @@ behaviour those tests describe.
 import datetime
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,15 +133,20 @@ if rank == 0:
                 "proposed": eng.runtimes["test-tiny"].spec_proposed,
                 "me": eng.spmd_report(), "workers": eng.worker_reports})
     elif scenario == "serve":
+        sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+        from test_torch_spmd import federated_scrape
+
         eng.start()
         req, item, _ = generate(6)
         ok, emb = embed("test-tiny-embed")
+        metrics = federated_scrape(eng, [eng._plane])
         eng.stop()
         result({"tokens": req.generated_ids, "done": item.kind == "done",
                 "embed_ok": ok, "embedding": emb, "me": eng.spmd_report(),
                 "workers": eng.worker_reports, "n_chips": eng.runtimes["test-tiny"].n_chips,
                 "param_bytes": eng.runtimes["test-tiny"].param_bytes,
-                "kv_bytes": eng.runtimes["test-tiny"].kv_bytes})
+                "kv_bytes": eng.runtimes["test-tiny"].kv_bytes,
+                "metrics": metrics})
     elif scenario == "dead":
         from ollamamq_tpu_torch.server.app import serve_in_thread, stop_server
         import urllib.request
@@ -196,8 +204,14 @@ else:
         return out
 
     spmd._replay = replay
+    if scenario == "serve":
+        sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+        from test_torch_spmd import probe_worker_metrics
+
+        probe_worker_metrics()
     steps = spmd.run_worker(MODELS, ecfg, mesh)
     result({"steps": steps, "tripped": state["tripped"]})
+distributed.exit_process(0)  # never through torch's teardown of live groups
 """.replace("SETTINGS", repr(SETTINGS)).replace("SPEC_PROMPTS", repr(SPEC_PROMPTS)).replace(
     "SPEC", repr(SPEC)).replace("PROMPT", repr(PROMPT))
 
@@ -236,6 +250,74 @@ def _run_ranks(tmp_path, scenario, ckpt="", timeout=240):
         outs.append((p.returncode, json.loads(lines[-1][7:]) if lines else None,
                      path.read_text()))
     return outs
+
+
+# A series rank 0 never records, which each worker rank of a federation
+# test counts once before it serves: a worker's own series repeat rank
+# 0's gauges and count nothing else, so without it the merge would not
+# show in the scrape.
+PROBE_KIND = "federation_probe"
+
+
+def probe_worker_metrics():
+    """Count this worker rank once under PROBE_KIND in its registry."""
+    from ollamamq_tpu_torch.telemetry import schema as tm
+
+    tm.JOURNAL_EVENTS_TOTAL.labels(kind=PROBE_KIND).inc()
+
+
+def federated_scrape(engine, planes, every_s=0.5, budget_s=30.0):
+    """`engine`'s /metrics text once every worker rank of `planes` (the
+    SPMD planes of its rank worlds) has posted its snapshot and two reads
+    `every_s` apart agree, with the registry's render of exactly those
+    snapshots (read off each world's store, not through the engine)
+    beside it. Rendered again if a gauge moved between the two."""
+    from ollamamq_tpu_torch.server.app import render_prometheus
+    from ollamamq_tpu_torch.telemetry.metrics import REGISTRY
+
+    def read():
+        posts = []
+        for plane in planes:
+            client = plane.client()
+            posts += [spmd._try_get(client, f"ollamamq/metrics/{p}")
+                      for p in range(plane.size)]
+        return posts
+
+    # Rank 0 of each world posts nothing: its registry is the scraped one.
+    firsts = {sum(pl.size for pl in planes[:i]) for i in range(len(planes))}
+    deadline = time.monotonic() + budget_s
+    posts = read()
+    while time.monotonic() < deadline:
+        time.sleep(every_s)
+        again = read()
+        if again == posts and all(v for i, v in enumerate(again) if i not in firsts):
+            break
+        posts = again
+    snaps = [json.loads(v) for i, v in enumerate(posts) if v and i not in firsts]
+    for _ in range(3):
+        scrape = render_prometheus(engine)
+        want = REGISTRY.render(extra_snapshots=snaps)
+        if scrape == want:
+            break
+    return {"snapshots": len(snaps), "rank0_posted": any(posts[i] for i in firsts),
+            "scrape": scrape, "want": want}
+
+
+def probe_count(text):
+    """The PROBE_KIND count of a Prometheus scrape (0 if absent)."""
+    m = re.search(r'^ollamamq_journal_events_total\{kind="%s"\} (\S+)$'
+                  % PROBE_KIND, text, re.M)
+    return int(float(m.group(1))) if m else 0
+
+
+def assert_federated(metrics, n_workers):
+    """The scrape merged every worker rank's posted snapshot once and
+    nothing else: it equals the registry's render of those snapshots,
+    counts the probe once a worker rank, and no rank 0 posted.
+    tests/test_torch_spmd_dp.py and _wide_members.py use it too."""
+    assert metrics["snapshots"] == n_workers and not metrics["rank0_posted"]
+    assert metrics["scrape"] == metrics["want"]
+    assert probe_count(metrics["scrape"]) == n_workers
 
 
 def _wait(req, budget=120):
@@ -306,6 +388,8 @@ def test_spmd_two_rank_serving_matches_jax_tp2_and_tp1(tmp_path, jax_checkpoint)
     assert report["ops"]["encode"] == 1
     assert worker["steps"] == sum(v for k, v in report["ops"].items()
                                   if k != "decode_steps")
+    # Rank 0's /metrics merges the worker's posted snapshot once.
+    assert_federated(leader["metrics"], 1)
     # Two ranks on one host CPU: one device for MFU; each holds half the
     # KV pool of a one-rank engine.
     assert leader["n_chips"] == 1

@@ -17,7 +17,10 @@ dp 2 x tp 2 over four ranks (replica 0 = ranks 0, 1; replica 1 = ranks
   - a failed replay on rank 3 (after its dispatch ran): the request on
     replica 1 errors loudly, OP_RELOAD rebuilds model 0's replica 1 on
     ranks 2 and 3 only, the request on replica 0 finishes, and after the
-    reload both replicas serve the prompt's ids again.
+    reload both replicas serve the prompt's ids again;
+  - rank 0's /metrics, scraped once every rank's posted snapshot has
+    settled, merges the three other ranks' snapshots (replica 1's ranks
+    keep registries of their own) once each.
 
 dp 2 over two ranks (one rank a replica): the same prompt on both
 replicas; a sampled request on replica 1, whose generator state comes
@@ -40,6 +43,7 @@ import pytest
 from ollamamq_tpu_torch.config import MODEL_CONFIGS, EngineConfig
 from ollamamq_tpu_torch.engine.engine import TorchEngine
 from ollamamq_tpu_torch.ops.sampling import SamplingParams
+from test_torch_spmd import assert_federated
 from testutil import collect, free_port, single_device_greedy_tokens
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,6 +146,11 @@ if rank == 0:
         out["recovered"] = not any(rt._failed for rt in rs.replicas)
         out["rebuilds"] = len(eng.journal.tail(kind="rebuild"))
         out["after"] = pair()
+        # Rank 0's scrape once every rank's posted snapshot has settled.
+        sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+        from test_torch_spmd import federated_scrape
+
+        out["metrics"] = federated_scrape(eng, [eng._plane])
     else:
         # Sampled requests on both replicas: replica 1's generator state
         # comes back to rank 0 after every op.
@@ -197,6 +206,11 @@ else:
         orig_post(seq, ok, rt, out)
 
     spmd._replay, spmd._post_result = replay, post
+    if world == 4:
+        sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+        from test_torch_spmd import probe_worker_metrics
+
+        probe_worker_metrics()
     steps = spmd.run_worker(MODELS, ecfg, mesh)
     result({"rank": rank, "steps": steps, "tripped": state["tripped"]})
 sys.stdout.flush()
@@ -325,6 +339,13 @@ def test_dp_tp_workers_replay_their_own_replica_only(dp_tp_world):
     assert reports[1]["digest"] == leader["me"]["digest"]
     # Rank 0's own ops are replica 0's: those rank 1 replayed.
     assert leader["me"]["ops"] == reports[1]["ops"]
+
+
+def test_dp_tp_leader_metrics_sum_every_rank(dp_tp_world):
+    """Rank 0's /metrics merges every other rank's posted snapshot once,
+    the ranks of replica 1 (which keep their own registries) included."""
+    (leader, *_), _ = dp_tp_world
+    assert_federated(leader["metrics"], 3)
 
 
 def test_dp_tp_failed_replay_in_replica_1_is_loud_then_reloads(dp_tp_world,

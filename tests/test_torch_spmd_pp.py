@@ -140,6 +140,7 @@ else:
     spmd._replay = replay
     steps = spmd.run_worker(MODELS, ecfg, mesh)
     result({"steps": steps})
+distributed.exit_process(0)  # never through torch's teardown of live groups
 """.replace("SETTINGS", repr(SETTINGS)).replace("PROMPTS", repr(PROMPTS)).replace(
     "HOSTS", repr(HOSTS))
 

@@ -4,7 +4,8 @@ code; the port keeps its own copy):
 - the process registries declare the same series: names, types, labels,
   help text and buckets, and no name of the port's own;
 - the same operation sequence over those series renders byte-identical
-  Prometheus text and equal snapshots;
+  Prometheus text and equal snapshots, also with other ranks' snapshots
+  merged in and a fleet member federated (a rank world's /metrics);
 - flops_per_token / active_param_count agree for every model config the
   packages share, and the peak table is keyed on CUDA card names;
 - the step profiler has the JAX package's phases, modes, sample, brief
@@ -14,6 +15,7 @@ code; the port keeps its own copy):
   the same alerts with the same summaries.
 """
 
+import json
 import random
 import time
 import types
@@ -83,6 +85,44 @@ def test_same_ops_render_byte_identical_text():
     assert text == ref.render()
     assert "ollamamq_ttft_ms_bucket" in text and "\\n" in text
     assert port.snapshot() == ref.snapshot()
+
+
+def _drifted(snap):
+    """A worker snapshot with the drift a merge must skip alike: a
+    histogram on another ladder, a series under another type, another
+    metric's labels, a malformed record, and one name the scraping
+    process does not declare (merged in as is)."""
+    out = json.loads(json.dumps(snap))
+    out["ollamamq_ttft_ms"]["buckets"] = [1.0, 2.0]
+    out["ollamamq_requests_total"]["type"] = "gauge"
+    out["ollamamq_step_phase_ms"]["labels"] = ["mode", "phase"]
+    out["ollamamq_queue_depth"] = {"type": "gauge"}
+    out["ollamamq_worker_only_total"] = {
+        "type": "counter", "help": "a series only a worker declares",
+        "labels": ["rank"], "series": [[["1"], 3.0]]}
+    return out
+
+
+def test_worker_snapshots_render_byte_identical_text():
+    """The rank world's /metrics: the same local series, the same worker
+    snapshots (as they cross the store, JSON) and a fleet's federated
+    member render byte-identical text through the JAX package's registry
+    and the port's, with the drift cases skipped alike."""
+    port = _apply_ops(_mirror(REGISTRY, MetricsRegistry), 11)
+    ref = _apply_ops(_mirror(JAX_REGISTRY, JaxRegistry), 11)
+    workers = [json.loads(_apply_ops(_mirror(REGISTRY, MetricsRegistry), seed)
+                          .snapshot_json()) for seed in (12, 13)]
+    assert workers == [json.loads(_apply_ops(_mirror(JAX_REGISTRY, JaxRegistry),
+                                             seed).snapshot_json())
+                       for seed in (12, 13)]
+    fed = [("h0", workers[1])]
+    for extra, federated in (([], []), (workers, []), (workers, fed),
+                             ([_drifted(workers[0])], []),
+                             (workers + [_drifted(workers[1])], fed)):
+        text = port.render(extra_snapshots=extra, federated=federated)
+        assert text == ref.render(extra_snapshots=extra, federated=federated)
+    assert port.render(extra_snapshots=workers) != port.render()
+    assert "ollamamq_worker_only_total" in text and 'replica="h0"' in text
 
 
 def test_flops_per_token_agrees_on_shared_configs():

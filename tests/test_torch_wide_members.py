@@ -8,8 +8,10 @@ router's process starts and reaps. Through the CLI's own build_fleet
 (test-tiny, float32, the JAX engine's seed-0 weights as a checkpoint):
 
   - `--replicas 2 --tp 2`: both members serve, each one's greedy ids
-    equal TPUEngine's, and a kill -9 of one rank of r0 errors r0's
-    streams within the heartbeat bound while r1's finish;
+    equal TPUEngine's, the router's /metrics merges each member's rank 1
+    snapshot once beside its own registry (rank 0 posts none), and a kill -9
+    of one rank of r0 errors r0's streams within the heartbeat bound
+    while r1's finish;
   - `--tiers "interactive@tp2=r0;bulk@tp1=r1,r2"`: r0 starts at tp 2 and
     takes the interactive class; a live regroup of r1 to tp 2 migrates
     its streams first, journals start/done with tp_from 1 / tp_to 2,
@@ -50,6 +52,7 @@ from ollamamq_tpu_torch.fleet import wide
 from ollamamq_tpu_torch.ops.sampling import SamplingParams
 from ollamamq_tpu_torch.tools.journal import (check_no_dropped_streams,
                                               check_regroup_pairing)
+from test_torch_spmd import PROBE_KIND, assert_federated, federated_scrape
 from testutil import collect
 
 TINY = ["--model", "test-tiny", "--device", "cpu", "--dtype", "float32",
@@ -189,11 +192,25 @@ def _pids(member):
 
 
 # ------------------------------------------------------ --replicas 2 --tp 2
+# A member's rank 1 that counts itself once under the federation probe
+# (test_torch_spmd.PROBE_KIND) before it runs as a rank.
+PROBED_RANK = [wide.sys.executable, "-c",
+               "from ollamamq_tpu_torch.telemetry import schema as tm\n"
+               f"tm.JOURNAL_EVENTS_TOTAL.labels(kind={PROBE_KIND!r}).inc()\n"
+               "import runpy\n"
+               "runpy.run_module('ollamamq_tpu_torch.fleet.wide', "
+               "run_name='__main__')\n"]
+
+
 @pytest.fixture(scope="module")
 def tp2_fleet(reference):
-    router = _fleet(["--replicas", "2", "--tp", "2"], reference[0])
-    yield router
-    router.stop()
+    argv, wide.WORKER_ARGV = wide.WORKER_ARGV, PROBED_RANK
+    try:
+        router = _fleet(["--replicas", "2", "--tp", "2"], reference[0])
+        yield router
+        router.stop()
+    finally:
+        wide.WORKER_ARGV = argv
 
 
 def test_tp2_members_serve_the_reference_ids(tp2_fleet, reference):
@@ -215,6 +232,12 @@ def test_tp2_members_serve_the_reference_ids(tp2_fleet, reference):
     for m in router.members:
         assert _direct(m.engine, PROMPTS[0]) == reference[1][PROMPTS[0]]
     assert check_no_dropped_streams(router.journal.tail(None)) == []
+    # One scrape of the router merges each member's rank 1 once: rank 0
+    # of each world records into the router's own registry and posts
+    # nothing.
+    assert len(router.worker_metric_snapshots()) == 2
+    assert_federated(federated_scrape(
+        router, [m.engine._plane for m in router.members]), 2)
 
 
 def test_killed_rank_fails_only_its_members_streams(tp2_fleet):
